@@ -1,0 +1,162 @@
+"""Fourier position/time embeddings and learnable instance codes.
+
+Port of lab4d_tpu/nnutils/embedding.py (eval side: no instance-code swap).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from lab4d_tpu_torch.nnutils.linear import TorchDense
+
+
+class FrameInfo:
+    """Static per-dataset frame metadata (host-side numpy).
+
+    Args:
+        frame_offset: (V+1,) cumulative counts of filtered frames per video
+        frame_offset_raw: (V+1,) cumulative counts of raw frames per video
+        frame_mapping: (M,) absolute raw frame id of each filtered frame
+    """
+
+    def __init__(self, frame_offset, frame_offset_raw, frame_mapping):
+        self.frame_offset = np.asarray(frame_offset, dtype=np.int64)
+        self.frame_offset_raw = np.asarray(frame_offset_raw, dtype=np.int64)
+        self.frame_mapping = np.asarray(frame_mapping, dtype=np.int64)
+        self.num_frames = int(self.frame_offset[-1])
+        self.num_frames_raw = int(self.frame_offset_raw[-1])
+        self.num_vids = len(self.frame_offset) - 1
+        raw_fid = np.arange(self.num_frames_raw)
+        self.raw_fid_to_vid = (
+            np.searchsorted(self.frame_offset_raw, raw_fid, side="right") - 1
+        ).astype(np.int64)
+        self.raw_fid_to_vstart = self.frame_offset_raw[self.raw_fid_to_vid]
+        self.raw_fid_to_vidlen = (
+            self.frame_offset_raw[self.raw_fid_to_vid + 1] - self.raw_fid_to_vstart
+        )
+        self.max_ts = int((self.frame_offset_raw[1:] - self.frame_offset_raw[:-1]).max())
+        self.frame_to_vid = self.raw_fid_to_vid[self.frame_mapping]
+
+    @classmethod
+    def single_video(cls, num_frames: int) -> "FrameInfo":
+        return cls([0, num_frames], [0, num_frames], list(range(num_frames)))
+
+
+def fourier_embed_dim(in_channels: int, n_freqs: int) -> int:
+    if n_freqs == -1:
+        return 0
+    return in_channels * (2 * n_freqs + 1)
+
+
+def fourier_embed(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """Fourier features in the layout [x, sin blocks (F x C), cos blocks
+    (F x C)]: the layout every module on BaseMLP's pe_freqs path
+    consumes. (The coarse-to-fine window is a training schedule and is
+    not ported yet.)"""
+    ang = x[..., None, :] * freqs[:, None]  # (..., F, C)
+    sin_b, cos_b = torch.sin(ang), torch.cos(ang)
+    flat_shape = x.shape[:-1] + (freqs.shape[0] * x.shape[-1],)
+    return torch.cat([x, sin_b.reshape(flat_shape), cos_b.reshape(flat_shape)], dim=-1)
+
+
+class PosEmbedding(nn.Module):
+    """Fourier features, full bands. Called directly it returns [x, then
+    per-frequency (sin, cos) blocks]; through `pe_spec` it hands BaseMLP
+    its frequencies for the [x, sin blocks, cos blocks] layout."""
+
+    def __init__(self, in_channels: int, n_freqs: int, logscale: bool = True):
+        super().__init__()
+        self.in_channels = in_channels
+        self.n_freqs = n_freqs
+        self.out_channels = fourier_embed_dim(in_channels, n_freqs)
+        bands = np.zeros((0,), np.float32)
+        if n_freqs > 0:
+            if logscale:
+                bands = 2.0 ** np.linspace(0, n_freqs - 1, n_freqs)
+            else:
+                bands = np.linspace(1, 2 ** (n_freqs - 1), n_freqs)
+        self.freq_bands = np.asarray(bands, np.float32)
+        self.register_buffer("freqs", torch.as_tensor(self.freq_bands), persistent=False)
+
+    def pe_spec(self):
+        """The (F,) frequencies for BaseMLP's pe_freqs path, or None when
+        this embedding is an identity/empty map."""
+        return self.freqs if self.n_freqs > 0 else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.n_freqs == -1:
+            return x[..., :0]
+        if self.n_freqs == 0:
+            return x
+        ang = x[..., None, :] * self.freqs[:, None]  # (..., F, C)
+        bands = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-2)  # (..., F, 2, C)
+        flat = bands.reshape(x.shape[:-1] + (2 * self.n_freqs * self.in_channels,))
+        return torch.cat([x, flat], dim=-1)
+
+
+class InstEmbedding(nn.Module):
+    """Learnable per-video instance code."""
+
+    def __init__(self, num_inst: int, inst_channels: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_inst = num_inst
+        self.inst_channels = inst_channels
+        if inst_channels > 0:
+            self.mapping = nn.Embedding(num_inst, inst_channels)
+            with torch.no_grad():
+                self.mapping.weight.normal_(0.0, 1.0 / np.sqrt(num_inst), generator=generator)
+
+    def forward(self, inst_id: torch.Tensor) -> torch.Tensor:
+        if self.inst_channels == 0:
+            return torch.zeros(inst_id.shape + (0,), device=inst_id.device)
+        if self.num_inst == 1:
+            return self.mapping(torch.zeros_like(inst_id))
+        return self.mapping(inst_id)
+
+    def mean(self) -> torch.Tensor:
+        return self.mapping.weight.mean(dim=0)
+
+
+class TimeEmbedding(nn.Module):
+    """Fourier-time + instance-code embedding per frame. `frame_id`
+    indexes raw frame ids; time is normalized to [-1, 1] within each
+    video and scaled by the longest video."""
+
+    def __init__(self, num_freq_t: int, frame_info: FrameInfo, out_channels: int = 128,
+                 time_scale: float = 1.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.frame_info = frame_info
+        self.out_channels = out_channels
+        self.time_scale = time_scale
+        self.fourier = PosEmbedding(1, num_freq_t)
+        self.inst_embedding = InstEmbedding(frame_info.num_vids, out_channels, generator)
+        self.mapping1 = TorchDense(self.fourier.out_channels, out_channels, generator)
+        self.mapping2 = TorchDense(2 * out_channels, out_channels, generator)
+        fi = frame_info
+        for name in ("raw_fid_to_vid", "raw_fid_to_vstart", "raw_fid_to_vidlen", "frame_mapping"):
+            self.register_buffer(name, torch.as_tensor(getattr(fi, name)), persistent=False)
+
+    def frame_to_tid(self, frame_id: torch.Tensor) -> torch.Tensor:
+        vidlen = self.raw_fid_to_vidlen[frame_id]
+        tid_sub = frame_id - self.raw_fid_to_vstart[frame_id]
+        tid = (tid_sub - vidlen / 2.0) / self.frame_info.max_ts * 2.0
+        return (tid * self.time_scale).float()
+
+    def forward(self, frame_id: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(...,) raw frame ids, or None for all filtered frames ->
+        (..., out_channels)."""
+        if frame_id is None:
+            frame_id = self.frame_mapping
+        inst_id = self.raw_fid_to_vid[frame_id]
+        coeff = self.mapping1(self.fourier(self.frame_to_tid(frame_id)[..., None]))
+        inst_code = self.inst_embedding(inst_id)
+        return self.mapping2(torch.cat([coeff, inst_code], dim=-1))
+
+    def mean_embedding(self) -> torch.Tensor:
+        """Mean embedding over all filtered frames, (1, out_channels)."""
+        return self.forward(None).mean(dim=0, keepdim=True)
