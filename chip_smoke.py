@@ -8,19 +8,33 @@ synchronise; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN;
-2. build: compiles the CUDA kernels from lab4d_tpu_torch/csrc/ (nvcc,
-   sm_90a) into build/lab4d_tpu_torch/ and prints the compiler's report;
-3. kernel: K3f (fused_relu_mlp forward) against its plain PyTorch version
-   at the shapes the render path gives it: max error, tolerance, and
-   median times from CUDA events, both as device time (calls replayed
-   from a CUDA graph) and per eager call (host work included);
+2. build: compiles every CUDA kernel source in lab4d_tpu_torch/csrc/ (one
+   nvcc per source, all at once, sm_90a) into build/lab4d_tpu_torch/ and
+   prints the compiler's report;
+3. kernel: each kernel against its plain PyTorch version on the same
+   inputs, at the shapes the render and training paths give it: K3f
+   (fused_relu_mlp forward), K3b (its backward), K4f / K4b (fused_pe_mlp
+   and its backward) at the bg field's base, colour and visibility MLPs
+   on 262,144 points and at the 512 visibility-decay points. Max error,
+   tolerance, median device time from CUDA-graph replay for kernel and
+   plain version, and the bound (the larger of FLOPs over the fp32 peak
+   and bytes over the memory rate);
 4. model: the flagship fg / skel-quad DVRModel at full width (field heads
    D=5 W=128, TimeMLP backbones D=5 W=256, 25 bones) from a seeded
    generator, on a scene built in-process (one orbit video);
 5. reference: evaluate_rays on 256 rays on the GPU (through the kernel)
    against the same model on the CPU (plain versions);
 6. render: 2 frames at 512^2 through the render CLI's own functions,
-   with the kernel's launch count over exactly that run.
+   with the kernel's launch count over exactly that run;
+7. train-reference: one bg training step (128 rays of 64 samples) on the
+   GPU (kernels) against the same weights, batch and random draws on the
+   CPU (plain versions): every loss term and every gradient;
+8. train: `lab4d_tpu_torch.train --field_type bg` at full width (128
+   images x 2 frames x 16 pixels x 64 samples = 262,144 points per step,
+   bg field D=5 W=128, TimeMLPs D=5 W=256) on a synthetic scene written by
+   lab4d_tpu_torch.tools.synthetic_scene: prior fits, one round of 25
+   steps, a checkpoint. Prints ms/step, peak memory, first and last total
+   loss, grad norms and the launches of every kernel.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel; the last line is
@@ -33,6 +47,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,7 +56,14 @@ RES = 512
 N_FRAMES = 2
 SEED = 0
 
-KERNEL_TOL = 1e-4  # fp32 FMA vs cuBLAS fp32: summation order only
+KERNEL_TOL = 1e-4  # fp32 FMA vs cuBLAS fp32: summation order only; for
+# gradients, which sum over the rows, relative to each array's largest entry
+PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3 (NVIDIA data sheet)
+TRAIN_STEPS = 25
+# one training step, GPU (kernels) vs CPU (plain versions), fp32: loss terms
+# relative; gradients per parameter, max|d| <= abs + rel * max|g_cpu|
+TRAIN_REF_TOL = {"loss_rtol": 1e-4, "grad_abs": 1e-5, "grad_rel": 1e-3}
 REF_TOL = {  # GPU (kernel) vs CPU (plain versions), fp32
     "rgb": ("abs", 1e-4), "mask": ("abs", 1e-4), "vis": ("abs", 1e-4),
     "feature": ("abs", 1e-4), "depth": ("rel", 1e-4), "normal": ("abs", 1e-3),
@@ -52,6 +74,15 @@ K3_SHAPES = [
     ("articulation t+rest D5 W256", 2, 256, 5, 256),
     ("7 frames D5 W256", 7, 256, 5, 256),
     ("appearance D2 W64", 1, 64, 2, 64),
+]
+# the training path: camera / intrinsics TimeMLPs on the 256 frames of a batch
+K3_TRAIN = ("camera/intrinsics train D5 W256", 256, 256, 5, 256)
+# (label, rows, n_freqs, widths, skips, final_act, window) of the bg field
+K4_SHAPES = [
+    ("base F6 D5 W128", 262144, 6, (128,) * 6, (4,), True, True),
+    ("colour F8 D2 W128", 262144, 8, (128,) * 3, (), True, True),
+    ("vis F10 D2 W64", 262144, 10, (64, 64, 1), (), False, False),
+    ("vis-decay F10 D2 W64", 512, 10, (64, 64, 1), (), False, False),
 ]
 
 
@@ -84,25 +115,31 @@ def phase_env():
 
 
 def phase_build():
-    from lab4d_tpu_torch.ops.build import build_log, load_library
+    from lab4d_tpu_torch.ops.build import KERNELS, build_all, build_log, load_library
 
     t = time.time()
-    load_library("fused_relu_mlp")
-    print(f"[build] fused_relu_mlp.cu -> sm_90a in {time.time() - t:.1f} s")
-    for line in build_log("fused_relu_mlp").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}")
+    build_all()
+    for name in KERNELS:
+        load_library(name)
+    print(f"[build] {', '.join(n + '.cu' for n in KERNELS)} -> sm_90a in {time.time() - t:.1f} s")
+    for name in KERNELS:
+        for line in build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {name}: {line.strip()}")
 
 
-def _mlp_params(C_in, D, W, gen, device):
+def _mlp_params(C_in, D, W, gen, device, widths=None, skips=()):
+    """torch.nn.Linear-style weights: D hidden layers of W (or `widths`)."""
     import torch
 
-    weights, biases, fan_in = [], [], C_in
-    for _ in range(D + 1):
+    widths = widths or [W] * (D + 1)
+    weights, biases, prev = [], [], C_in
+    for i, w in enumerate(widths):
+        fan_in = prev + (C_in if i in skips else 0)
         bound = 1.0 / np.sqrt(fan_in)
-        weights.append((torch.rand(W, fan_in, generator=gen) * 2 - 1).mul_(bound).to(device))
-        biases.append((torch.rand(W, generator=gen) * 2 - 1).mul_(bound).to(device))
-        fan_in = W
+        weights.append((torch.rand(w, fan_in, generator=gen) * 2 - 1).mul_(bound).to(device))
+        biases.append((torch.rand(w, generator=gen) * 2 - 1).mul_(bound).to(device))
+        prev = w
     return weights, biases
 
 
@@ -121,10 +158,10 @@ def _timed(run, reps=7):
     return float(np.median(times))
 
 
-def call_ms(fn, inner=100):
-    """Per-call time of back-to-back eager calls, host work included (what
-    the render loop pays), ms."""
-    for _ in range(10):
+def eager_ms(fn, inner=100):
+    """Per-call time of back-to-back eager calls between CUDA events, host
+    launch work included, ms."""
+    for _ in range(3):
         fn()
 
     def run():
@@ -150,38 +187,118 @@ def device_ms(fn, inner=100):
         for _ in range(inner):
             fn()
     graph.replay()
-    return _timed(graph.replay) / inner
+    ms = _timed(graph.replay) / inner
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def mlp_macs(in_dims, out_dims):
+    return sum(i * o for i, o in zip(in_dims, out_dims))
+
+
+def bound_ms(flops, nbytes):
+    """The least time the card could take: the larger of FLOPs over the
+    fp32 non-tensor peak and bytes over the memory rate, ms; and which."""
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _rel_err(got, want):
+    """max|got - want| over max(1, max|want|), for sums over rows."""
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
 
 
 def phase_kernel():
     import torch
 
-    from lab4d_tpu_torch.ops.mlp_kernel import fused_relu_mlp, mlp_reference
+    from lab4d_tpu_torch.ops import mlp_kernel as K
 
     gen = torch.Generator().manual_seed(SEED)
-    results = []
-    for label, rows, C_in, D, W in K3_SHAPES:
+    results = {"K3f": [], "K3b": [], "K4f": [], "K4b": []}
+
+    def report(name, label, rows, err, kernel, plain, flops, nbytes, inner):
+        # the plain backward runs autograd, which a CUDA graph does not
+        # capture reliably: it is timed as back-to-back eager calls
+        backward = name.endswith("b")
+        r = {"label": label, "rows": rows, "max_abs_err": err, "ms": device_ms(kernel, inner),
+             "plain_ms": eager_ms(plain, inner) if backward else device_ms(plain, inner)}
+        r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes)
+        sync()
+        print(f"[kernel] {name} {label}: rows={rows} err={err:.3e} (tol {KERNEL_TOL:g}) "
+              f"device kernel {r['ms'] * 1e3:.2f} us / plain {r['plain_ms'] * 1e3:.2f} us"
+              f"{' (eager)' if backward else ''} / bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']})")
+        results[name].append(r)
+
+    for label, rows, C_in, D, W in K3_SHAPES + [K3_TRAIN]:
         weights, biases = _mlp_params(C_in, D, W, gen, "cuda")
         x = torch.randn(rows, C_in, generator=gen).cuda()
-        got = fused_relu_mlp(x, weights, biases, (), True)
-        want = mlp_reference(x, weights, biases, (), True)
+        got = K.fused_relu_mlp(x, weights, biases, (), True)
+        want = K.mlp_reference(x, weights, biases, (), True)
         sync()
         if not got.is_cuda or got.shape != want.shape:
             fail(f"K3f {label}: output {got.shape} on {got.device}")
         err = float((got - want).abs().max())
         if not err <= KERNEL_TOL:
             fail(f"K3f {label} disagrees with its plain version: {err} > {KERNEL_TOL}")
-        kernel = lambda: fused_relu_mlp(x, weights, biases, (), True)  # noqa: E731
-        plain = lambda: mlp_reference(x, weights, biases, (), True)  # noqa: E731
-        r = {"label": label, "max_abs_err": err, "ms": device_ms(kernel),
-             "plain_ms": device_ms(plain), "call_ms": call_ms(kernel),
-             "plain_call_ms": call_ms(plain)}
+        in_dims, out_dims = [C_in] + [W] * D, [W] * (D + 1)
+        macs = mlp_macs(in_dims, out_dims)
+        report("K3f", label, rows, err,
+               lambda: K.fused_relu_mlp(x, weights, biases, (), True),
+               lambda: K.mlp_reference(x, weights, biases, (), True),
+               2 * rows * macs, 4 * (rows * (C_in + W) + macs + sum(out_dims)), 100)
+        if (label, rows) != K3_TRAIN[:2]:
+            continue
+        g = torch.randn(rows, W, generator=gen).cuda()
+        got = K.fused_relu_mlp_backward(x, g, weights, biases)
+        want = K.mlp_backward_reference(x, g, weights, biases)
         sync()
-        print(f"[kernel] K3f {label}: rows={rows} max_abs_err={err:.3e} (tol {KERNEL_TOL:g}) "
-              f"device kernel {r['ms'] * 1e3:.2f} us / plain {r['plain_ms'] * 1e3:.2f} us; "
-              f"eager call kernel {r['call_ms'] * 1e3:.2f} us / plain "
-              f"{r['plain_call_ms'] * 1e3:.2f} us")
-        results.append(r)
+        err = max(_rel_err(a, b) for a, b in zip([got[0]] + got[1] + got[2],
+                                                  [want[0]] + want[1] + want[2]))
+        if not err <= KERNEL_TOL:
+            fail(f"K3b {label} disagrees with its plain version: {err} > {KERNEL_TOL}")
+        # recompute of the hidden layers, dIn of every layer, dW of every layer
+        flops = 2 * rows * (mlp_macs(in_dims[:-1], out_dims[:-1]) + 2 * macs)
+        nbytes = 4 * (2 * rows * C_in + 2 * rows * W + 2 * (macs + sum(out_dims)))
+        report("K3b", label, rows, err,
+               lambda: K.fused_relu_mlp_backward(x, g, weights, biases),
+               lambda: K.mlp_backward_reference(x, g, weights, biases),
+               flops, nbytes, 20)
+
+    for label, rows, n_freqs, widths, skips, final_act, window in K4_SHAPES:
+        freqs = tuple(float(2.0**i) for i in range(n_freqs))
+        c_x = 3 * (2 * n_freqs + 1)
+        weights, biases = _mlp_params(c_x, 0, 0, gen, "cuda", widths=list(widths), skips=skips)
+        x = ((torch.rand(rows, 3, generator=gen) * 2 - 1) * 0.5).cuda()
+        win = torch.linspace(0.3, 1.0, n_freqs).cuda() if window else None
+        got = K.fused_pe_mlp(x, win, weights, biases, freqs, skips, final_act)
+        want = K.pe_mlp_reference(x, win, weights, biases, freqs, skips, final_act)
+        sync()
+        err = float((got - want).abs().max())
+        if not got.is_cuda or got.shape != want.shape or not err <= KERNEL_TOL:
+            fail(f"K4f {label} disagrees with its plain version: {err} > {KERNEL_TOL}")
+        in_dims = [w.shape[1] for w in weights]
+        macs = mlp_macs(in_dims, widths)
+        inner = 5 if rows > 4096 else 100
+        report("K4f", label, rows, err,
+               lambda: K.fused_pe_mlp(x, win, weights, biases, freqs, skips, final_act),
+               lambda: K.pe_mlp_reference(x, win, weights, biases, freqs, skips, final_act),
+               2 * rows * macs, 4 * (rows * (3 + widths[-1]) + macs + sum(widths)), inner)
+        g = torch.randn(rows, widths[-1], generator=gen).cuda()
+        got = K.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips)
+        want = K.pe_mlp_backward_reference(x, g, win, weights, biases, freqs, skips)
+        sync()
+        err = max(_rel_err(a, b) for a, b in zip([got[0]] + got[1] + got[2],
+                                                  [want[0]] + want[1] + want[2]))
+        if not err <= KERNEL_TOL:
+            fail(f"K4b {label} disagrees with its plain version: {err} > {KERNEL_TOL}")
+        flops = 2 * rows * (mlp_macs(in_dims[:-1], widths[:-1]) + 2 * macs)
+        nbytes = 4 * (2 * rows * 3 + 2 * rows * widths[-1] + 2 * (macs + sum(widths)))
+        report("K4b", label, rows, err,
+               lambda: K.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips),
+               lambda: K.pe_mlp_backward_reference(x, g, win, weights, biases, freqs, skips),
+               flops, nbytes, inner)
     return results
 
 
@@ -356,6 +473,176 @@ def phase_render(model, geo_state, data_info):
     return launches
 
 
+TRAIN_OPTS = ["--field_type", "bg", "--seqname", "smoke", "--logname", "bg", "--train_res", "64",
+              "--num_workers", "4"]
+
+
+def write_scene(root):
+    """A synthetic scene (one orbit video of 32 frames at 64^2) written by
+    the port's own writer; returns the database root."""
+    from lab4d_tpu_torch.tools.synthetic_scene import make_synthetic_dataset
+
+    t = time.time()
+    db = os.path.join(root, "database")
+    make_synthetic_dataset(db, seqname="smoke", num_frames=32, res=64)
+    print(f"[scene] synthetic orbit scene, 32 frames at 64^2, in {time.time() - t:.1f} s")
+    return db
+
+
+def _step_grads(model, batch, draws, step=0):
+    """Loss terms and parameter gradients of one training step."""
+    from lab4d_tpu_torch.engine.schedules import compute_sched
+
+    model.zero_grad(set_to_none=True)
+    loss_dict = model(batch, compute_sched(step), draws=draws)
+    sum(loss_dict[k] for k in sorted(loss_dict)).backward()
+    return ({k: float(v.detach()) for k, v in loss_dict.items()},
+            {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()
+             if p.grad is not None})
+
+
+def phase_train_reference(db, root):
+    """One bg training step on the GPU (kernels) against the same weights,
+    batch and random draws on the CPU (plain versions), after the prior
+    fits of a small trainer."""
+    import torch
+
+    from lab4d_tpu_torch.engine.trainer import Trainer
+    from lab4d_tpu_torch.train import get_parser
+
+    opts = vars(get_parser().parse_args(TRAIN_OPTS + [
+        "--imgs_per_gpu", "4", "--geo_init_steps", "20", "--num_rounds", "1",
+        "--iters_per_round", "1", "--database_root", db, "--logroot", os.path.join(root, "ref"),
+    ]))
+    trainer = Trainer(opts)
+    batch_np = trainer.trainloader.next_batch()
+    trainer.close()
+    rng = np.random.default_rng(SEED)
+    rays = batch_np["hxy"].shape[0] * 2 * batch_np["hxy"].shape[2]
+    draws_np = {"eikonal_idx": rng.permutation(rays)[: rays // 16],
+                "vis_u": rng.random((512, 3)).astype(np.float32),
+                "vis_inst": np.zeros(512, np.int64)}
+    got, want = {}, {}
+    for dev, out in ((trainer.device, got), (torch.device("cpu"), want)):
+        model = trainer.model if dev == trainer.device else copy.deepcopy(trainer.model).cpu()
+        geo = {c: {k: v.to(dev) for k, v in g.items()} for c, g in trainer.geo_for_batch().items()}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        batch["geo"] = geo
+        draws = {"bg": {k: torch.as_tensor(v, device=dev) for k, v in draws_np.items()}}
+        out["loss"], out["grads"] = _step_grads(model, batch, draws)
+    sync()
+    worst_loss = 0.0
+    for k, v in want["loss"].items():
+        err = abs(got["loss"][k] - v) / max(abs(v), 1e-12)
+        if not (np.isfinite(got["loss"][k]) and (err <= TRAIN_REF_TOL["loss_rtol"] or v == 0 == got["loss"][k])):
+            fail(f"train-reference: loss {k} GPU {got['loss'][k]} vs CPU {v}")
+        worst_loss = max(worst_loss, err if v != 0 else 0.0)
+    if sorted(got["grads"]) != sorted(want["grads"]):
+        fail("train-reference: GPU and CPU steps differ in which parameters get a gradient")
+    worst = (0.0, "")
+    for n, g in want["grads"].items():
+        d = float((got["grads"][n] - g).abs().max())
+        bound = TRAIN_REF_TOL["grad_abs"] + TRAIN_REF_TOL["grad_rel"] * float(g.abs().max())
+        if not d <= bound:
+            fail(f"train-reference: gradient of {n} differs by {d} > {bound}")
+        worst = max(worst, (d / bound, n))
+    print(f"[train-reference] {rays} rays x 64 samples, GPU vs CPU: {len(want['loss'])} loss terms "
+          f"within rtol {TRAIN_REF_TOL['loss_rtol']:g} (worst {worst_loss:.2e}), "
+          f"{len(want['grads'])} gradients within {TRAIN_REF_TOL['grad_abs']:g} + "
+          f"{TRAIN_REF_TOL['grad_rel']:g} max|g| (worst {worst[0]:.3f} of the bound, {worst[1]})")
+
+
+def _kernel_counts():
+    from lab4d_tpu_torch.ops import mlp_kernel as K
+
+    return {"K3f": K.fused_relu_mlp.launches, "K3b": K.fused_relu_mlp_backward.launches,
+            "K4f": K.fused_pe_mlp.launches, "K4b": K.fused_pe_mlp_backward.launches}
+
+
+def _reset_kernel_counts():
+    from lab4d_tpu_torch.ops import mlp_kernel as K
+
+    for fn in (K.fused_relu_mlp, K.fused_relu_mlp_backward, K.fused_pe_mlp,
+               K.fused_pe_mlp_backward):
+        fn.launches = 0
+
+
+def phase_train(db, root):
+    """The training entry at full width; returns the launch counts of the
+    whole run."""
+    import torch
+
+    from lab4d_tpu_torch import train as train_cli
+    from lab4d_tpu_torch.engine.trainer import Trainer
+
+    steps = {}
+    orig = Trainer.train_one_round
+
+    def counted_round(self, round_count):  # the launches of the training steps alone
+        before = _kernel_counts()
+        orig(self, round_count)
+        steps.update({k: v - before[k] for k, v in _kernel_counts().items()})
+
+    argv = TRAIN_OPTS + ["--num_rounds", "1", "--iters_per_round", str(TRAIN_STEPS),
+                         "--save_freq", "1", "--database_root", db,
+                         "--logroot", os.path.join(root, "logdir")]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_counts()
+    Trainer.train_one_round = counted_round
+    t = time.time()
+    try:
+        trainer = train_cli.main(argv)
+    finally:
+        Trainer.train_one_round = orig
+    sync()
+    elapsed = time.time() - t
+    launches = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if trainer.current_steps != TRAIN_STEPS or len(trainer.step_ms) != TRAIN_STEPS:
+        fail(f"train: {trainer.current_steps} steps, {len(trainer.step_ms)} timed")
+    if not all(p.is_cuda for p in trainer.model.parameters()):
+        fail("train: model parameters are not all on cuda")
+    totals = [ld["total"] for ld in trainer.losses]
+    if not np.all(np.isfinite(totals)) or not np.all(np.isfinite(trainer.grad_norms)):
+        fail(f"train: non-finite loss or grad norm: {totals} {trainer.grad_norms}")
+    first, last = float(np.mean(totals[:5])), float(np.mean(totals[-5:]))
+    if not last < first:
+        fail(f"train: the total loss did not decrease: mean of the first 5 steps {first}, "
+             f"of the last 5 {last}")
+    for name, n in steps.items():
+        if n <= 0:
+            fail(f"train: the training steps launched no {name} kernel")
+    ckpt = os.path.join(root, "logdir", "smoke-bg", "ckpt_latest.flax")
+    if not os.path.exists(ckpt):
+        fail("train: no checkpoint written")
+    ms = float(np.median(trainer.step_ms[1:]))
+    print(f"[train] bg field, 128 images x 2 frames x 16 px x 64 samples = 262144 points/step, "
+          f"{TRAIN_STEPS} steps in {elapsed:.1f} s total (prior fits, geometry, checkpoint "
+          f"included): {ms:.2f} ms/step (median after the first; first {trainer.step_ms[0]:.1f} ms), "
+          f"peak memory {peak:.2f} GiB")
+    print(f"[train] total loss {totals[0]:.5f} -> {totals[-1]:.5f} (mean of first/last 5: "
+          f"{first:.5f} -> {last:.5f}); grad norm {trainer.grad_norms[0]:.4f} -> "
+          f"{trainer.grad_norms[-1]:.4f} (max {max(trainer.grad_norms):.4f}); "
+          f"geometry init loss {trainer.geo_init_losses[0]:.4f} -> {trainer.geo_init_losses[1]:.4f}")
+    print("[train] launches in the training steps: "
+          + " ".join(f"{k}={v}" for k, v in steps.items())
+          + "; in the whole run: " + " ".join(f"{k}={v}" for k, v in launches.items())
+          + f"; checkpoint {os.path.getsize(ckpt)} bytes")
+    return launches, steps, ms
+
+
+KERNEL_INFO = {  # JSON name, source, the TPU kernel it replaces
+    "K3f": ("fused_relu_mlp_fwd", "lab4d_tpu_torch/csrc/fused_relu_mlp.cu",
+            "lab4d_tpu/ops/mlp_kernel.py:127"),
+    "K3b": ("fused_relu_mlp_bwd", "lab4d_tpu_torch/csrc/fused_relu_mlp_bwd.cu",
+            "lab4d_tpu/ops/mlp_kernel.py:227"),
+    "K4f": ("fused_pe_mlp_fwd", "lab4d_tpu_torch/csrc/fused_pe_mlp.cu",
+            "lab4d_tpu/ops/mlp_kernel.py:488"),
+    "K4b": ("fused_pe_mlp_bwd", "lab4d_tpu_torch/csrc/fused_pe_mlp.cu",
+            "lab4d_tpu/ops/mlp_kernel.py:514"),
+}
+
+
 def main():
     try:
         import torch
@@ -373,28 +660,38 @@ def main():
     card = phase_env()
     phase_build()
     sync()
-    k3 = phase_kernel()
+    kernels = phase_kernel()
     data_info = make_scene()
     model, geo_state = phase_model(data_info)
     phase_reference(model, geo_state, data_info)
-    launches = phase_render(model, geo_state, data_info)
+    _reset_kernel_counts()
+    render_launches = phase_render(model, geo_state, data_info)
+    del model
+    with tempfile.TemporaryDirectory() as root:
+        db = write_scene(root)
+        phase_train_reference(db, root)
+        launches, step_launches, _ = phase_train(db, root)
     sync()
     jax_loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "lab4d_tpu"))
     if jax_loaded:
         fail(f"the smoke run loaded JAX or the JAX package: {jax_loaded[:5]}")
     print(f"[done] total {time.time() - t0:.1f} s")
 
-    main_shape = k3[0]
-    print(json.dumps({"kernels": [{
-        "name": "fused_relu_mlp_fwd",
-        "route": "cuda",
-        "source": "lab4d_tpu_torch/csrc/fused_relu_mlp.cu",
-        "replaces": "lab4d_tpu/ops/mlp_kernel.py:111",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k3),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-    }]}))
+    rows = []
+    for key, (name, source, replaces) in KERNEL_INFO.items():
+        # the shape the training step gives each kernel most work at
+        main_shape = max(kernels[key], key=lambda r: (r["rows"], r["bound_ms"]))
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[key],
+            "launches_by_path": {"render": render_launches if key == "K3f" else 0,
+                                 "train": launches[key], "train_steps": step_launches[key]},
+            "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),
+            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+            "library_ms": None, "shape": main_shape["label"],
+        })
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@
   torch.nn.Linear weights are (out, in).
 - `load_flax_checkpoint` reads a `ckpt_*.flax` file with a small msgpack
   decoder, so a model fitted by the JAX trainer loads where neither flax
-  nor msgpack is installed.
+  nor msgpack is installed; `msgpack_dumps` is the matching encoder, with
+  which the port's trainer writes its checkpoints in the same format.
 
 Name mapping, flax -> torch:
   module list entry  `head_0`          -> `head.0`
@@ -211,6 +212,84 @@ def msgpack_restore(data: bytes):
     if reader.pos != len(reader.data):
         raise ValueError("trailing bytes after the msgpack object")
     return out
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        head = struct.pack(">B", fixed[n])
+    elif n < 1 << 8:
+        head = struct.pack(">BB", 0xC7, n)
+    elif n < 1 << 16:
+        head = struct.pack(">BH", 0xC8, n)
+    else:
+        head = struct.pack(">BI", 0xC9, n)
+    return head + struct.pack(">b", code) + payload
+
+
+def _pack(obj, out: list):
+    if obj is None:
+        out.append(b"\xc0")
+    elif isinstance(obj, (bool, np.bool_)):
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, np.ndarray):
+        arr = np.ascontiguousarray(obj)
+        out.append(_pack_ext(_EXT_NDARRAY, msgpack_dumps(
+            [list(arr.shape), arr.dtype.name, arr.tobytes()])))
+    elif isinstance(obj, np.generic):
+        arr = np.asarray(obj)
+        out.append(_pack_ext(_EXT_NPSCALAR, msgpack_dumps([[], arr.dtype.name, arr.tobytes()])))
+    elif isinstance(obj, int):
+        if 0 <= obj <= 0x7F or -32 <= obj < 0:
+            out.append(struct.pack(">b" if obj < 0 else ">B", obj))
+        elif obj >= 0:
+            out.append(struct.pack(">BQ", 0xCF, obj))
+        else:
+            out.append(struct.pack(">Bq", 0xD3, obj))
+    elif isinstance(obj, float):
+        out.append(struct.pack(">Bd", 0xCB, obj))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        n = len(data)
+        if n < 32:
+            out.append(struct.pack(">B", 0xA0 | n))
+        elif n < 1 << 8:
+            out.append(struct.pack(">BB", 0xD9, n))
+        elif n < 1 << 16:
+            out.append(struct.pack(">BH", 0xDA, n))
+        else:
+            out.append(struct.pack(">BI", 0xDB, n))
+        out.append(data)
+    elif isinstance(obj, (bytes, bytearray)):
+        n = len(obj)
+        out.append(struct.pack(">BB", 0xC4, n) if n < 1 << 8 else
+                   struct.pack(">BH", 0xC5, n) if n < 1 << 16 else struct.pack(">BI", 0xC6, n))
+        out.append(bytes(obj))
+    elif isinstance(obj, (list, tuple)):
+        n = len(obj)
+        out.append(struct.pack(">B", 0x90 | n) if n < 16 else
+                   struct.pack(">BH", 0xDC, n) if n < 1 << 16 else struct.pack(">BI", 0xDD, n))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        n = len(obj)
+        out.append(struct.pack(">B", 0x80 | n) if n < 16 else
+                   struct.pack(">BH", 0xDE, n) if n < 1 << 16 else struct.pack(">BI", 0xDF, n))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    else:
+        raise TypeError(f"cannot msgpack a {type(obj).__name__}")
+
+
+def msgpack_dumps(obj) -> bytes:
+    """Encode nested dicts / lists of numbers, strings, bytes and numpy
+    arrays the way flax.serialization.msgpack_serialize does (arrays as
+    ext type 1 holding [shape, dtype name, C-order bytes])."""
+    out: list = []
+    _pack(obj, out)
+    return b"".join(out)
 
 
 def load_flax_checkpoint(path: str):

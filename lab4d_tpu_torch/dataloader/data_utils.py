@@ -1,24 +1,25 @@
-"""Sequence-level dataset assembly and metadata, eval side.
+"""Sequence-level dataset assembly, metadata and the threaded training
+batch pipeline.
 
 Port of lab4d_tpu/dataloader/data_utils.py: the same INI config
-(database/configs/<seqname>.config) and get_data_info contract. The
-per-video reader (VidData) is the JAX package's own numpy module,
-imported where it is used, so that rendering from in-memory metadata
-never loads the JAX package.
+(database/configs/<seqname>.config), get_data_info contract and
+TrainBatchLoader, which prefetches fixed-shape (M, 2, N, ...) numpy
+batches of frame pairs in worker threads.
 """
 
 from __future__ import annotations
 
 import configparser
 import glob
-from typing import TYPE_CHECKING, Dict, List
+import queue
+import threading
+from typing import Dict, List
 
 import numpy as np
 
+from lab4d_tpu_torch.dataloader.vidloader import VidData
 from lab4d_tpu_torch.nnutils.embedding import FrameInfo
-
-if TYPE_CHECKING:
-    from lab4d_tpu.dataloader.vidloader import VidData
+from lab4d_tpu_torch.utils.numpy_utils import pca_numpy
 
 
 def load_sequence_config(seqname: str, database_root: str = "database"):
@@ -46,11 +47,10 @@ def load_sequence_config(seqname: str, database_root: str = "database"):
     return [section_dict(f"data_{i}", base) for i in range(numvid)]
 
 
-def config_to_datasets(opts: Dict) -> List[VidData]:
-    """One eval VidData per video of the sequence (full frames, no flow
-    pairs beyond delta 1)."""
-    from lab4d_tpu.dataloader.vidloader import VidData
-
+def config_to_datasets(opts: Dict, is_eval: bool = True) -> List[VidData]:
+    """One VidData per video of the sequence: full frames without flow
+    pairs beyond delta 1 for eval, `pixels_per_image` pixels of pairs at
+    deltas {1, 2, 4, 8} for training."""
     sections = load_sequence_config(opts["seqname"], opts.get("database_root", "database"))
     prefix = "%s-%d" % (opts["data_prefix"], opts["train_res"])
     datasets = []
@@ -63,7 +63,8 @@ def config_to_datasets(opts: Dict) -> List[VidData]:
         datasets.append(
             VidData(
                 rgblist, dataid=vidid, ks=sec["ks"], raw_size=sec["shape"], prefix=prefix,
-                feature_type=opts["feature_type"], delta_list=[], pixels_per_image=-1,
+                feature_type=opts["feature_type"], delta_list=[] if is_eval else [2, 4, 8],
+                pixels_per_image=-1 if is_eval else opts["pixels_per_image"],
             )
         )
     return datasets
@@ -71,9 +72,7 @@ def config_to_datasets(opts: Dict) -> List[VidData]:
 
 def get_data_info(datasets: List[VidData]):
     """Aggregate per-video metadata: frame tables, intrinsics, raw sizes,
-    feature PCA, camera priors."""
-    from lab4d_tpu.utils.numpy_utils import pca_numpy
-
+    feature PCA, camera priors and the initial meshes."""
     frame_offset, frame_offset_raw, frame_mapping = [0], [0], []
     intrinsics, raw_size, feature_pxs = [], [], []
     acc_raw = 0
@@ -100,6 +99,7 @@ def get_data_info(datasets: List[VidData]):
     rtmat_fg = np.concatenate(
         [np.load(ds.dict_list["camfg"]).astype(np.float32) for ds in datasets], 0
     )
+    camera_prefix = datasets[0].dict_list["cambg"].rsplit("/", 1)[0]
     return {
         "frame_info": frame_info,
         "total_frames": frame_info.num_frames,
@@ -108,9 +108,75 @@ def get_data_info(datasets: List[VidData]):
         "apply_pca_fn": pca_numpy(feature_pxs, n_components=3),
         "vis_info": {"bg": 0, "fg": 1},
         "rtmat": np.stack([rtmat_bg, rtmat_fg], 0),
+        "geom_path": [f"{camera_prefix}/mesh-00-centered.obj",
+                      f"{camera_prefix}/mesh-01-centered.obj"],
     }
 
 
 def get_vid_length(inst_id, data_info):
     off = data_info["frame_info"].frame_offset_raw
     return int(off[inst_id + 1] - off[inst_id])
+
+
+class TrainBatchLoader:
+    """Threaded prefetching sampler of fixed-shape (M, 2, N, ...) training
+    batches: each batch samples `imgs_per_batch` frame pairs uniformly over
+    all videos, with the datasets' `pixels_per_image` pixels each."""
+
+    def __init__(self, datasets: List[VidData], imgs_per_batch: int, num_workers: int = 2,
+                 prefetch: int = 4, seed: int = 0):
+        self.datasets = datasets
+        self.imgs_per_batch = imgs_per_batch
+        pool = []
+        for di, ds in enumerate(datasets):
+            pool += [(di, fi) for fi in range(len(ds))]
+        self.pool = np.asarray(pool, dtype=np.int64)
+        self.rng = np.random.default_rng(seed)
+        self.num_workers = max(1, num_workers)
+        self.queue: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._threads = []
+
+    def _make_batch(self, rng) -> Dict[str, np.ndarray]:
+        ordered = self.pool[rng.integers(0, len(self.pool), size=self.imgs_per_batch)]
+        # one load per video, rows scattered back to the drawn order
+        by_vid: Dict[int, list] = {}
+        order: Dict[int, list] = {}
+        for row, (di, fi) in enumerate(ordered):
+            by_vid.setdefault(int(di), []).append(int(fi))
+            order.setdefault(int(di), []).append(row)
+        chunks = [(self.datasets[di].load_pairs_batch(fis, rng), order[di])
+                  for di, fis in by_vid.items()]
+        inv = np.argsort(np.concatenate([np.asarray(r) for _, r in chunks]))
+        return {k: np.concatenate([c[k] for c, _ in chunks], axis=0)[inv] for k in chunks[0][0]}
+
+    def _worker(self, wid: int):
+        rng = np.random.default_rng(self.rng.integers(0, 2**31) + wid)
+        while not self._stop.is_set():
+            batch = self._make_batch(rng)
+            while not self._stop.is_set():
+                try:
+                    self.queue.put(batch, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+
+    def start(self):
+        if self._threads:
+            return
+        self._stop.clear()
+        for w in range(self.num_workers):
+            t = threading.Thread(target=self._worker, args=(w,), daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        if not self._threads:
+            self.start()
+        return self.queue.get()
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=2.0)
+        self._threads = []

@@ -1,14 +1,18 @@
-"""Top-level DVR model, eval side. Port of lab4d_tpu/engine/model.py.
+"""Top-level DVR model: fields container + intrinsics, the training
+forward with its losses, and the eval entry. Port of
+lab4d_tpu/engine/model.py.
 
-Geometry state (aabb, proxy corners) arrives in batch["geo"], as in the
-JAX package. Losses and the training forward are not ported yet
-(ROADMAP.md, slice 2).
+Geometry state (aabb, per-frame near-far, proxy corners) arrives in
+batch["geo"], as in the JAX package. The training forward takes the
+schedule values of the step (`sched`, engine/schedules.py) and, for tests,
+the random draws of the regularizers (`draws`).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -17,25 +21,51 @@ from lab4d_tpu_torch.nnutils.intrinsics import IntrinsicsMLP
 from lab4d_tpu_torch.nnutils.multifields import MultiFields
 from lab4d_tpu_torch.ops.renderer import render_pixel
 from lab4d_tpu_torch.utils.geom import K2inv, K2mat
+from lab4d_tpu_torch.utils.loss import nonzero_mean
+
+# loss weights read from the config (flag names)
+LOSS_WEIGHT_NAMES = (
+    "mask_wt", "rgb_wt", "depth_wt", "flow_wt", "vis_wt", "feature_wt",
+    "feat_reproj_wt", "reg_visibility_wt", "reg_eikonal_wt",
+    "reg_deform_cyc_wt", "reg_delta_skin_wt", "reg_skin_entropy_wt",
+    "reg_gauss_skin_wt", "reg_cam_prior_wt", "reg_skel_prior_wt",
+    "reg_gauss_mask_wt", "reg_soft_deform_wt",
+)
+
+
+def _safe_norm(d, eps=1e-12):
+    """L2 norm over the last axis, differentiable at zero."""
+    return torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True) + eps)
 
 
 class DVRModel(nn.Module):
-    """Differentiable volume rendering model over the foreground field.
+    """Differentiable volume rendering model over one field.
 
     The module is built from `generator` on the CPU and then moved to
-    `device`.
+    `device` (the card unless the caller asks for the CPU). Training needs
+    the priors: intrinsics_init (M, 4) and rtmat_fg / rtmat_bg (M, 4, 4),
+    and takes train_res (the flow threshold, in pixels) and loss_weights
+    ((flag name, value) pairs).
     """
 
     def __init__(self, frame_info: FrameInfo, field_type: str = "fg",
-                 fg_motion: str = "skel-quad", num_inst: int = 1, device="cpu",
-                 generator: Optional[torch.Generator] = None):
+                 fg_motion: str = "skel-quad", num_inst: int = 1, device="cuda",
+                 generator: Optional[torch.Generator] = None,
+                 intrinsics_init: Optional[np.ndarray] = None,
+                 rtmat_fg: Optional[np.ndarray] = None, rtmat_bg: Optional[np.ndarray] = None,
+                 train_res: int = 256, loss_weights=()):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.frame_info = frame_info
+        self.field_type = field_type
+        self.train_res = train_res
+        self.loss_weights = dict(loss_weights)
         self.fields = MultiFields(frame_info, field_type=field_type, fg_motion=fg_motion,
-                                  num_inst=num_inst, generator=generator)
-        self.intrinsics = IntrinsicsMLP(frame_info, num_freq_t=0, generator=generator)
+                                  num_inst=num_inst, rtmat_fg=rtmat_fg, rtmat_bg=rtmat_bg,
+                                  generator=generator)
+        self.intrinsics = IntrinsicsMLP(frame_info, num_freq_t=0, intrinsics_init=intrinsics_init,
+                                        generator=generator)
         self.register_buffer("frame_offset_raw", torch.as_tensor(frame_info.frame_offset_raw),
                              persistent=False)
         self.to(device)
@@ -44,17 +74,153 @@ class DVRModel(nn.Module):
         batch["frameid"] = batch["frameid_sub"] + self.frame_offset_raw[batch["dataid"]]
         return batch
 
-    def get_samples(self, batch):
+    @staticmethod
+    def reshape_batch(batch):
+        """Merge the (M, 2, ...) pair dim into the batch dim -> (2M, ...)."""
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, dict):
+                out[k] = DVRModel.reshape_batch(v)
+            elif torch.is_tensor(v) and v.ndim >= 2:
+                out[k] = v.reshape((-1,) + tuple(v.shape[2:]))
+            else:
+                out[k] = v
+        return out
+
+    def get_samples(self, batch, train: bool = False):
         if "Kinv" in batch:
             Kinv = batch["Kinv"]
         else:
             Kmat = self.intrinsics.get_vals(batch["frameid"])
             Kinv = K2inv(Kmat) @ K2mat(batch["crop2raw"])
-        return self.fields.get_samples(Kinv, batch)
+        return self.fields.get_samples(Kinv, batch, train=train)
 
     def render_samples(self, samples_dict):
         multifields_dict, deltas_dict, _ = self.fields.query_multifields(samples_dict)
         return render_pixel(*self.fields.compose_fields(multifields_dict, deltas_dict))
+
+    # -------------------------------------------------------------- training
+
+    def forward(self, batch, sched, draws=None):
+        """Training forward of one batch of (M, 2, N, ...) frame pairs:
+        returns the weighted, reduced loss terms {name: scalar}.
+
+        sched: the step's schedule values; draws: optional injected random
+        draws per field ({cate: {"eikonal_idx", "vis_u", "vis_inst"}})."""
+        batch = dict(batch)
+        geo = batch.pop("geo")
+        batch = self.reshape_batch(self.process_frameid(batch))
+        batch["geo"] = geo
+        samples_dict = self.get_samples(batch, train=True)
+        multifields_dict, deltas_dict, aux_dict = self.fields.query_multifields(
+            samples_dict, alpha=sched["alpha"], train=True, flow_thresh=self.train_res,
+            draws=draws,
+        )
+        rendered = render_pixel(*self.fields.compose_fields(multifields_dict, deltas_dict))
+        # one field: its own render is the composed one
+        aux_dict[next(iter(multifields_dict))].update(rendered)
+        loss_dict = {}
+        self._recon_loss(loss_dict, rendered, aux_dict, batch)
+        self._mask_losses(loss_dict, batch)
+        self._reg_loss(loss_dict, rendered, aux_dict, batch, draws)
+        return self._apply_loss_weights(loss_dict, sched)
+
+    @staticmethod
+    def get_mask_balance_wt(mask, vis2d, is_detected):
+        """Weights that balance positive and negative mask pixels."""
+        mask = mask.float()
+        vis2d = vis2d.float() * is_detected.float()[:, None, None]
+        in_vis = (vis2d > 0).float()
+        pos = torch.sum(mask * in_vis)
+        neg = torch.sum((1 - mask) * in_vis)
+        total = torch.sum(vis2d)
+        pos_wt = total / torch.clamp(pos, min=1e-6)
+        neg_wt = total / torch.clamp(neg, min=1e-6)
+        balanced = 0.5 * pos_wt * mask + 0.5 * neg_wt * (1 - mask)
+        usable = (pos > 0) & (neg > 0)
+        return torch.where(usable, balanced, torch.ones_like(balanced))
+
+    def _recon_loss(self, loss_dict, rendered, aux_dict, batch):
+        ft = self.field_type
+        gt_mask = batch["mask"].float()
+        if ft == "bg":
+            loss_dict["mask"] = (rendered["mask"] - 1.0) ** 2
+        else:
+            wt = self.get_mask_balance_wt(batch["mask"], batch["vis2d"], batch["is_detected"])
+            loss_dict["mask"] = (rendered["mask"] - gt_mask) ** 2 * wt
+        loss_dict["rgb"] = (rendered["rgb"] - batch["rgb"]) ** 2
+        loss_dict["depth"] = _safe_norm(rendered["depth"] - batch["depth"])
+        if "flow" in rendered:
+            loss_dict["flow"] = _safe_norm(rendered["flow"] - batch["flow"])
+            loss_dict["flow"] = loss_dict["flow"] * (batch["flow_uct"] > 0).float()
+        # visibility, bg down-weighted 100x
+        vis_loss = 0.0
+        for cate in aux_dict:
+            v = aux_dict[cate]["vis"]
+            vis_loss = vis_loss + (v * 0.01 if cate == "bg" else v)
+        loss_dict["vis"] = vis_loss
+
+    def _reg_loss(self, loss_dict, rendered, aux_dict, batch, draws):
+        aabbs = {cate: batch["geo"][cate]["aabb"] for cate in batch["geo"]}
+        zero = rendered["mask"].new_zeros(())
+        loss_dict["reg_visibility"] = self.fields.visibility_decay_loss(aabbs, draws)
+        loss_dict["reg_eikonal"] = rendered["eikonal"]
+        # a rigid field has no soft-deformation, skinning or skeleton terms
+        loss_dict["reg_soft_deform"] = zero
+        loss_dict["reg_gauss_skin"] = zero
+        loss_dict["reg_cam_prior"] = self.fields.cam_prior_loss()
+        loss_dict["reg_skel_prior"] = zero
+
+    def _mask_losses(self, loss_dict, batch):
+        """Restrict the dense losses to the pixels each term applies to."""
+        keys_allpix = ("mask",)
+        keys_fg = ("feature", "feat_reproj")
+        keys_type_specific = ("rgb", "depth", "flow", "vis")
+        vis2d = batch["vis2d"].float()
+        maskfg = batch["mask"].float()
+        if self.field_type == "bg":
+            mask = (1 - maskfg) * vis2d
+        elif self.field_type == "fg":
+            mask = maskfg * vis2d
+        else:
+            mask = vis2d
+        for k, v in loss_dict.items():
+            if k in keys_allpix:
+                loss_dict[k] = v * vis2d
+            elif k in keys_fg:
+                loss_dict[k] = v * maskfg
+            elif k in keys_type_specific:
+                loss_dict[k] = v * mask
+            else:
+                raise ValueError(f"loss {k} not defined")
+        is_det = batch["is_detected"].float()[:, None, None]
+        for k in ("mask", "feature", "feat_reproj"):
+            if k in loss_dict:
+                loss_dict[k] = loss_dict[k] * is_det
+
+    def _apply_loss_weights(self, loss_dict, sched):
+        """Nonzero-mean reduce, then the flag weights and the scheduled
+        factors."""
+        px_unit_keys = ("flow", "feat_reproj")
+        sched_factors = {
+            "reg_cam_prior": sched["reg_cam_prior_factor"],
+            "reg_eikonal": sched["reg_eikonal_factor"],
+            "reg_skel_prior": sched["reg_skel_prior_factor"],
+            "reg_gauss_mask": sched["reg_gauss_mask_factor"],
+        }
+        out = {}
+        for k, v in loss_dict.items():
+            v = nonzero_mean(v)
+            if k in px_unit_keys:
+                v = v / self.train_res
+            if k + "_wt" in self.loss_weights:
+                v = v * self.loss_weights[k + "_wt"]
+            if k in sched_factors:
+                v = v * sched_factors[k]
+            out[k] = v
+        return out
+
+    # ------------------------------------------------------------------ eval
 
     def prepare_eval_samples(self, batch):
         """Per-frame half of eval: frame ids, camera/intrinsics MLPs, FK

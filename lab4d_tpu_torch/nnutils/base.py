@@ -3,10 +3,12 @@
 BaseMLP is a skip-connection MLP. Conditioning codes never become a
 (P, C) concat: a code constant across points folds into the biases, and a
 per-row code (constant within each leading row of x) becomes a low-rank
-add. First-order evaluations of CUDA tensors route through the fused
-kernel (ops/mlp_kernel.py) when no per-row add is present; paths that
-need an input gradient or carry per-row adds pass `fused=False` or fall
-to the plain chain.
+add. A CUDA tensor with `fused` not False and no per-row add routes
+through the fused kernels (ops/mlp_kernel.py): fused_pe_mlp (K4f, whose
+gradient is K4b) when Fourier frequencies are given, else fused_relu_mlp
+(K3f / K3b). Their gradients are first order only, so the eikonal term,
+which differentiates the SDF twice, passes `fused=False` and takes the
+plain chain, as do paths with per-row adds.
 """
 
 from __future__ import annotations
@@ -82,34 +84,33 @@ class BaseMLP(nn.Module):
         return folded_w, folded_b, row_adds
 
     def forward(self, x: torch.Tensor, fused: Optional[bool] = None, const_code=None,
-                pe_freqs=None, row_code: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: (M, ..., C) features, or raw coordinates when the (F,)
-        frequencies pe_freqs are given (the params then consume the
-        embedded width); const_code: (C,) constant code; row_code: (M, Cr)
-        per-row code."""
+                pe_spec=None, row_code: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (M, ..., C) features, or raw coordinates when pe_spec =
+        (frequencies, window or None) is given (the params then consume
+        the embedded width); const_code: (C,) constant code; row_code:
+        (M, Cr) per-row code."""
         if x.shape[-1] == 0 and const_code is None and row_code is None:
             return x
         feat_ch = x.shape[-1]
-        if pe_freqs is not None:
-            feat_ch *= 2 * pe_freqs.shape[0] + 1
+        if pe_spec is not None:
+            pe_freqs, pe_window = pe_spec
+            feat_ch *= 2 * len(pe_freqs) + 1
         weights, biases, row_adds = self.folded_params(feat_ch, const_code, row_code)
 
         if fused is not False and x.is_cuda and not row_adds:
-            if pe_freqs is not None:
-                raise NotImplementedError(
-                    "fused_pe_mlp (K4f) is not ported yet (ROADMAP.md, queue 2)"
-                )
-            from lab4d_tpu_torch.ops.mlp_kernel import fused_relu_mlp
+            from lab4d_tpu_torch.ops.mlp_kernel import fused_pe_mlp, fused_relu_mlp
 
-            out = fused_relu_mlp(
-                x.reshape(-1, x.shape[-1]).contiguous(),
-                [w.contiguous() for w in weights],
-                [b.contiguous() for b in biases],
-                self.skips, self.final_act,
-            )
+            flat = x.reshape(-1, x.shape[-1]).contiguous()
+            weights = [w.contiguous() for w in weights]
+            biases = [b.contiguous() for b in biases]
+            if pe_spec is not None:
+                out = fused_pe_mlp(flat, pe_window, weights, biases, pe_freqs, self.skips,
+                                   self.final_act)
+            else:
+                out = fused_relu_mlp(flat, weights, biases, self.skips, self.final_act)
             return out.reshape(x.shape[:-1] + (self.out_channels,))
 
-        h0 = x if pe_freqs is None else fourier_embed(x, pe_freqs)
+        h0 = x if pe_spec is None else fourier_embed(x, pe_freqs, pe_window)
 
         def row_add(i, h):
             if i not in row_adds:
@@ -156,13 +157,13 @@ class CondMLP(nn.Module):
         return None
 
     def forward(self, feat: torch.Tensor, inst_id: Optional[torch.Tensor], fused=None,
-                pe_freqs=None, row_code: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """feat: (M, ..., C), raw coordinates when pe_freqs is given;
+                pe_spec=None, row_code: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """feat: (M, ..., C), raw coordinates when pe_spec is given;
         inst_id: (M,) or None (mean instance); row_code: (M, Cr)."""
         if self.inst_channels == 0:
             if feat.shape[-1] == 0:
                 return feat
-            return self.backbone(feat, fused=fused, pe_freqs=pe_freqs, row_code=row_code)
+            return self.backbone(feat, fused=fused, pe_spec=pe_spec, row_code=row_code)
         code = self._const_code(inst_id)
         if code is not None:
             if feat.shape[-1] == 0:
@@ -171,11 +172,11 @@ class CondMLP(nn.Module):
                 return out.reshape((1,) * (feat.ndim - 1) + out.shape[-1:]).expand(
                     feat.shape[:-1] + out.shape[-1:]
                 )
-            return self.backbone(feat, fused=fused, const_code=code, pe_freqs=pe_freqs,
+            return self.backbone(feat, fused=fused, const_code=code, pe_spec=pe_spec,
                                  row_code=row_code)
         inst_rows = self.inst_embedding(inst_id).reshape(inst_id.shape[0], -1)
         rows = inst_rows if row_code is None else torch.cat([row_code, inst_rows], dim=-1)
-        return self.backbone(feat, fused=fused, pe_freqs=pe_freqs, row_code=rows)
+        return self.backbone(feat, fused=fused, pe_spec=pe_spec, row_code=rows)
 
     def folded_params(self, feat_ch: int, inst_id, row_code=None):
         """(weights, biases, row_adds) of the backbone with the instance
@@ -187,10 +188,11 @@ class CondMLP(nn.Module):
         return self.backbone.folded_params(feat_ch, const_code=code, row_code=row_code)
 
 
-def embed_cond_mlp(cond_mlp, pos_embedding, x, inst_id=None, fused=None):
-    """PosEmbedding + CondMLP, handing the embedding to BaseMLP's pe_freqs
-    path when the embedding is a real Fourier map."""
-    freqs = pos_embedding.pe_spec()
-    if freqs is None:
+def embed_cond_mlp(cond_mlp, pos_embedding, x, alpha=None, inst_id=None, fused=None):
+    """PosEmbedding + CondMLP, handing the embedding (and its annealing
+    window at progress alpha) to BaseMLP's pe_spec path when the embedding
+    is a real Fourier map."""
+    spec = pos_embedding.pe_spec(alpha)
+    if spec is None:
         return cond_mlp(pos_embedding(x), inst_id, fused=fused)
-    return cond_mlp(x, inst_id, fused=fused, pe_freqs=freqs)
+    return cond_mlp(x, inst_id, fused=fused, pe_spec=spec)

@@ -52,21 +52,30 @@ def fourier_embed_dim(in_channels: int, n_freqs: int) -> int:
     return in_channels * (2 * n_freqs + 1)
 
 
-def fourier_embed(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+def fourier_embed(x: torch.Tensor, freqs, window: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fourier features in the layout [x, sin blocks (F x C), cos blocks
-    (F x C)]: the layout every module on BaseMLP's pe_freqs path
-    consumes. (The coarse-to-fine window is a training schedule and is
-    not ported yet.)"""
-    ang = x[..., None, :] * freqs[:, None]  # (..., F, C)
+    (F x C)], with an optional (F,) coarse-to-fine window: the layout every
+    module on BaseMLP's pe_spec path consumes (it differs from
+    PosEmbedding.forward's interleaved order; the two are never mixed).
+    freqs: (F,) tensor or F Python floats; each angle is x * freq,
+    elementwise."""
+    if torch.is_tensor(freqs):
+        ang = x[..., None, :] * freqs[:, None]  # (..., F, C)
+    else:
+        ang = torch.stack([x * f for f in freqs], dim=-2)
     sin_b, cos_b = torch.sin(ang), torch.cos(ang)
-    flat_shape = x.shape[:-1] + (freqs.shape[0] * x.shape[-1],)
+    if window is not None:
+        sin_b = sin_b * window[:, None]
+        cos_b = cos_b * window[:, None]
+    flat_shape = x.shape[:-1] + (ang.shape[-2] * x.shape[-1],)
     return torch.cat([x, sin_b.reshape(flat_shape), cos_b.reshape(flat_shape)], dim=-1)
 
 
 class PosEmbedding(nn.Module):
-    """Fourier features, full bands. Called directly it returns [x, then
-    per-frequency (sin, cos) blocks]; through `pe_spec` it hands BaseMLP
-    its frequencies for the [x, sin blocks, cos blocks] layout."""
+    """Fourier features. Called directly it returns [x, then per-frequency
+    (sin, cos) blocks] over full bands; through `pe_spec(alpha)` it hands
+    BaseMLP its frequencies and annealing window for the
+    [x, sin blocks, cos blocks] layout."""
 
     def __init__(self, in_channels: int, n_freqs: int, logscale: bool = True):
         super().__init__()
@@ -82,10 +91,22 @@ class PosEmbedding(nn.Module):
         self.freq_bands = np.asarray(bands, np.float32)
         self.register_buffer("freqs", torch.as_tensor(self.freq_bands), persistent=False)
 
-    def pe_spec(self):
-        """The (F,) frequencies for BaseMLP's pe_freqs path, or None when
-        this embedding is an identity/empty map."""
-        return self.freqs if self.n_freqs > 0 else None
+    def get_window(self, alpha: Optional[float]) -> Optional[torch.Tensor]:
+        """(F,) coarse-to-fine weights of the frequency bands at annealing
+        progress alpha in [0, 1], or None (full bands) when alpha is None."""
+        if alpha is None or self.n_freqs <= 0:
+            return None
+        bands = torch.arange(self.n_freqs, dtype=torch.float32, device=self.freqs.device)
+        window = torch.clamp(torch.tensor(alpha, dtype=torch.float32) * self.n_freqs - bands,
+                             0.0, 1.0)
+        return 0.5 * (1 + torch.cos(np.pi * window + np.pi))
+
+    def pe_spec(self, alpha: Optional[float] = None):
+        """(frequencies as Python floats, window or None) for BaseMLP's
+        pe_spec path, or None when this embedding is an identity/empty map."""
+        if self.n_freqs <= 0:
+            return None
+        return tuple(float(f) for f in self.freq_bands), self.get_window(alpha)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.n_freqs == -1:

@@ -33,5 +33,5 @@ class FeatureNeRF(NeRF):
         if freqs is None:
             feat = self.feature_field(self.feat_pos_embedding(xyz), fused=fused)
         else:
-            feat = self.feature_field(xyz, pe_freqs=freqs, fused=fused)
+            feat = self.feature_field(xyz, pe_spec=freqs, fused=fused)
         return {"feature": feat / torch.clamp(safe_norm(feat), min=1e-6)}

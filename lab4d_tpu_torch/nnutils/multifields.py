@@ -1,45 +1,71 @@
 """Container of neural fields. Port of lab4d_tpu/nnutils/multifields.py
-for the foreground-only configuration (field_type "fg"); "bg" and "comp"
-are ROADMAP.md P9."""
+for one field: "fg" (Deformable; eval only so far) or "bg" (a rigid
+NeRF; eval and training). "comp", both fields composed along rays, is
+ROADMAP.md P9."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from lab4d_tpu_torch.nnutils.deformable import Deformable
 from lab4d_tpu_torch.nnutils.embedding import FrameInfo
+from lab4d_tpu_torch.nnutils.nerf import NeRF
 from lab4d_tpu_torch.utils.quat import quaternion_translation_to_se3
+
+INIT_SCALE = {"fg": 0.2, "bg": 0.1}  # object units per field unit at init
 
 
 class MultiFields(nn.Module):
-    """Dict of fields ("fg" -> Deformable): no directional encoding,
-    appearance codes, init_scale=0.2, D=5 W=128."""
+    """Dict of fields. "fg" -> Deformable: no directional encoding,
+    appearance codes, init_scale 0.2, D=5 W=128. "bg" -> NeRF:
+    num_freq_xyz 6, no directional encoding or appearance code, init_scale
+    0.1, D=5 W=128.
+
+    rtmat_fg / rtmat_bg: (M, 4, 4) camera priors in object units, scaled
+    here to field units for the camera MLP's prior loss."""
 
     def __init__(self, frame_info: FrameInfo, field_type: str = "fg",
                  fg_motion: str = "skel-quad", num_inst: int = 1,
+                 rtmat_fg: Optional[np.ndarray] = None, rtmat_bg: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if field_type != "fg":
+        if field_type not in ("fg", "bg"):
             raise NotImplementedError(
                 f"field_type {field_type!r} is not ported yet (ROADMAP.md, P9 other families)"
             )
         self.field_type = field_type
-        self.field_params = nn.ModuleDict({
-            "fg": Deformable(
+
+        def prior(rtmat, cate):
+            if rtmat is None:
+                return None
+            rtmat = np.array(rtmat, dtype=np.float32)
+            rtmat[..., :3, 3] *= INIT_SCALE[cate]
+            return rtmat
+
+        if field_type == "fg":
+            field = Deformable(
                 "fg", fg_motion=fg_motion, frame_info=frame_info, num_inst=num_inst, D=5,
-                W=128, num_freq_dir=-1, appr_channels=32, init_scale=0.2, generator=generator,
+                W=128, num_freq_dir=-1, appr_channels=32, init_scale=INIT_SCALE["fg"],
+                rtmat_init=prior(rtmat_fg, "fg"), generator=generator,
             )
-        })
+        else:
+            field = NeRF(
+                "bg", frame_info=frame_info, num_inst=1, D=5, W=128, num_freq_xyz=6,
+                num_freq_dir=0, appr_channels=0, init_scale=INIT_SCALE["bg"],
+                rtmat_init=prior(rtmat_bg, "bg"), generator=generator,
+            )
+        self.field_params = nn.ModuleDict({field_type: field})
 
     @property
     def categories(self):
         return (self.field_type,)
 
-    def get_samples(self, Kinv, batch):
-        """Per-field camera/articulation samples for eval."""
+    def get_samples(self, Kinv, batch, train: bool = False):
+        """Per-field camera/articulation samples."""
         samples_dict = {}
         for cate in self.categories:
             batch_sub = dict(batch)
@@ -47,15 +73,28 @@ class MultiFields(nn.Module):
                 batch_sub["field2cam"] = batch["field2cam"][cate]
             if "geo" in batch:
                 batch_sub.update(batch_sub.pop("geo")[cate])
-            samples_dict[cate] = self.field_params[cate].get_samples(Kinv, batch_sub)
+            field = self.field_params[cate]
+            if train:
+                samples_dict[cate] = field.get_samples(Kinv, batch_sub, train=True)
+            else:
+                samples_dict[cate] = field.get_samples(Kinv, batch_sub)
         return samples_dict
 
-    def query_multifields(self, samples_dict):
+    def query_multifields(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
+                          draws=None):
         multifields_dict, deltas_dict, aux_dict = {}, {}, {}
         for cate in self.categories:
-            multifields_dict[cate], deltas_dict[cate], aux_dict[cate] = (
-                self.field_params[cate].query_field(samples_dict[cate])
-            )
+            field = self.field_params[cate]
+            if train:
+                out = field.query_field(samples_dict[cate], alpha=alpha, train=True,
+                                        flow_thresh=flow_thresh,
+                                        draws=None if draws is None else draws.get(cate))
+                # no training loss reads the integrated xyz / xyz_cam channels
+                out[0].pop("xyz", None)
+                out[0].pop("xyz_cam", None)
+            else:
+                out = field.query_field(samples_dict[cate])
+            multifields_dict[cate], deltas_dict[cate], aux_dict[cate] = out
         return multifields_dict, deltas_dict, aux_dict
 
     @staticmethod
@@ -63,6 +102,25 @@ class MultiFields(nn.Module):
         """One field: composition is the identity."""
         (cate,) = multifields_dict.keys()
         return multifields_dict[cate], deltas_dict[cate]
+
+    # ------------------------------------------------------------- reg terms
+
+    def visibility_decay_loss(self, aabbs, draws=None):
+        """draws: optional {cate: {"vis_u": (n, 3), "vis_inst": (n,)}}."""
+        loss = 0.0
+        for cate in self.categories:
+            d = {} if draws is None else draws.get(cate, {})
+            loss = loss + self.field_params[cate].visibility_decay_loss(
+                aabbs[cate], u=d.get("vis_u"), inst_id=d.get("vis_inst"))
+        return loss
+
+    def cam_prior_loss(self):
+        loss = 0.0
+        for cate in self.categories:
+            loss = loss + self.field_params[cate].cam_prior_loss()
+        return loss
+
+    # ---------------------------------------------------------------- misc
 
     def get_cameras(self, frame_id=None):
         """World-unit object-to-camera matrices per field."""

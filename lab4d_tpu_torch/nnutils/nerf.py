@@ -1,11 +1,16 @@
-"""Static VolSDF neural field: the eval path.
+"""Static VolSDF neural field.
 
-Port of lab4d_tpu/nnutils/nerf.py for rendering: sample assembly, the
-exact merged two-pass eval (`query_field_eval`, every sample evaluated,
-both halves merged by depth sort), camera-space normals from the SDF
-input gradient, and the canonical-aabb validity mask. Training branches
-(eikonal subsample, flow, regularizers) and the top-k eval are not ported
-yet (ROADMAP.md).
+Port of lab4d_tpu/nnutils/nerf.py. Eval: sample assembly, the exact
+merged two-pass eval (`query_field_eval`, every sample evaluated, both
+halves merged by depth sort), camera-space normals from the SDF input
+gradient, and the canonical-aabb validity mask. Training
+(`query_field(train=True)`): 64 deterministic samples per ray, the field
+heads through the fused kernels, the flow to the paired frame, the
+subsampled eikonal term (a double backward through the plain MLP chain),
+and the visibility-decay and camera-prior regularizers. The two random
+draws of training (the eikonal ray subsample, the visibility-decay points
+and instance ids) accept injected values, so that a test can hand both
+packages the same draw. The top-k eval is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lab4d_tpu_torch.nnutils.appearance import AppearanceEmbedding
@@ -24,10 +30,12 @@ from lab4d_tpu_torch.nnutils.pose import CameraMLP
 from lab4d_tpu_torch.nnutils.visibility import VisField
 from lab4d_tpu_torch.ops.renderer import compute_weights, sample_cam_rays, sample_pdf
 from lab4d_tpu_torch.utils.geom import (
+    Kmatinv,
     apply_se3mat,
     check_inside_aabb,
     extend_aabb,
     get_near_far,
+    pinhole_projection,
     safe_norm,
 )
 from lab4d_tpu_torch.utils.quat import (
@@ -35,6 +43,18 @@ from lab4d_tpu_torch.utils.quat import (
     quaternion_translation_inverse,
     quaternion_translation_to_se3,
 )
+
+
+def flip_pair(x):
+    """Swap consecutive entries along the leading axis:
+    [x0, x1, x2, x3, ...] -> [x1, x0, x3, x2, ...]."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(flip_pair(v) for v in x)
+    if isinstance(x, dict):
+        return {k: flip_pair(v) for k, v in x.items()}
+    if x.shape[0] < 2:
+        return x
+    return x.reshape((x.shape[0] // 2, 2) + x.shape[1:]).flip(1).reshape(x.shape)
 
 
 class NeRF(nn.Module):
@@ -45,6 +65,7 @@ class NeRF(nn.Module):
                  appr_channels: int = 32, appr_num_freq_t: int = 6, inst_channels: int = 32,
                  skips: tuple = (4,), init_beta: float = 0.1, init_scale: float = 0.1,
                  color_act: bool = True, feature_channels: int = 16,
+                 rtmat_init: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.category = category
@@ -75,17 +96,18 @@ class NeRF(nn.Module):
         self.rgb_head = nn.ModuleList([TorchDense(rgb_in, W // 2, g), TorchDense(W // 2, 3, g)])
         self.logibeta = nn.Parameter(torch.full((1,), float(-np.log(init_beta))))
         self.logscale = nn.Parameter(torch.full((1,), float(np.log(init_scale))))
-        self.camera_mlp = CameraMLP(frame_info, generator=g)
+        self.camera_mlp = CameraMLP(frame_info, rtmat_init=rtmat_init, generator=g)
         self.vis_mlp = VisField(num_inst, generator=g)
 
     # ------------------------------------------------------------------ core
 
     def forward(self, xyz, dir=None, frame_id=None, inst_id=None, get_density: bool = True,
-                fused: Optional[bool] = None):
+                alpha: Optional[float] = None, fused: Optional[bool] = None):
         """Field at canonical points: VolSDF density (or raw SDF), plus rgb
-        when `dir` is given."""
-        xyz_feat = embed_cond_mlp(self.basefield, self.pos_embedding, xyz, inst_id=inst_id,
-                                  fused=fused)
+        when `dir` is given. alpha: coarse-to-fine annealing progress of the
+        positional encodings (None: full bands)."""
+        xyz_feat = embed_cond_mlp(self.basefield, self.pos_embedding, xyz, alpha=alpha,
+                                  inst_id=inst_id, fused=fused)
         sdf = self.sdf_head(xyz_feat)
         if get_density:
             ibeta = torch.exp(self.logibeta)
@@ -103,7 +125,7 @@ class NeRF(nn.Module):
         else:
             appr_embed = dir_embed
         xyz_feat = xyz_feat + embed_cond_mlp(self.colorfield, self.pos_embedding_color, xyz,
-                                             inst_id=inst_id, fused=fused)
+                                             alpha=alpha, inst_id=inst_id, fused=fused)
         rgb = self.rgb_head[1](torch.relu(self.rgb_head[0](torch.cat([xyz_feat, appr_embed], -1))))
         if self.color_act:
             rgb = torch.sigmoid(rgb)
@@ -111,32 +133,64 @@ class NeRF(nn.Module):
 
     # ----------------------------------------------------------- ray queries
 
-    def get_samples(self, Kinv, batch):
-        """Per-ray eval metadata: camera pose (from the camera MLP unless
-        batch["field2cam"] (N,7) overrides it) and near-far from the proxy
-        corners."""
+    def get_samples(self, Kinv, batch, train: bool = False):
+        """Per-ray metadata: camera pose (from the camera MLP unless
+        batch["field2cam"] (N,7) overrides it) and near-far, from the
+        per-frame table batch["near_far_table"] in training and from the
+        proxy corners at eval."""
         frame_id = batch["frameid"]
         if "field2cam" in batch:
             f2c = batch["field2cam"]
             field2cam = (f2c[..., :4], f2c[..., 4:] * torch.exp(self.logscale))
         else:
             field2cam = self.camera_mlp.get_vals(frame_id)
-        field2cam_mat = quaternion_translation_to_se3(field2cam[0], field2cam[1])
+        if train:
+            near_far = batch["near_far_table"][frame_id]
+        else:
+            field2cam_mat = quaternion_translation_to_se3(field2cam[0], field2cam[1])
+            near_far = get_near_far(batch["proxy_corners"], field2cam_mat, tol_fac=1.5)
         samples_dict = {
             "Kinv": Kinv,
             "field2cam": field2cam,
             "frame_id": frame_id,
             "inst_id": batch["dataid"],
-            "near_far": get_near_far(batch["proxy_corners"], field2cam_mat, tol_fac=1.5),
+            "near_far": near_far,
             "hxy": batch["hxy"],
         }
         if "aabb" in batch:
             samples_dict["aabb"] = batch["aabb"]
         return samples_dict
 
-    def query_field(self, samples_dict):
-        """Eval query: the exact merged two-pass path."""
-        return self.query_field_eval(samples_dict)
+    def query_field(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
+                    draws=None):
+        """Per-ray field channels: the exact merged two-pass path at eval;
+        in training, 64 samples per ray -> backward warp -> field heads
+        (fused kernels) -> flow, cycle and eikonal channels. draws: optional
+        {"eikonal_idx": (S,) ray ids} (see compute_eikonal)."""
+        if not train:
+            return self.query_field_eval(samples_dict)
+        Kinv = samples_dict["Kinv"]
+        field2cam = samples_dict["field2cam"]
+        frame_id = samples_dict["frame_id"]
+        inst_id = samples_dict["inst_id"]
+        hxy = samples_dict["hxy"]
+        xyz_cam, dir_cam, deltas, depth = sample_cam_rays(hxy, Kinv, samples_dict["near_far"])
+        backwarp_dict = self.backward_warp(xyz_cam, dir_cam, field2cam, frame_id, inst_id,
+                                           samples_dict=samples_dict)
+        xyz, dir, xyz_t = backwarp_dict["xyz"], backwarp_dict["dir"], backwarp_dict["xyz_t"]
+        feat_dict = self.query_nerf(xyz, dir, frame_id, inst_id, alpha=alpha)
+        feat_dict["vis"] = self.vis_mlp(xyz, inst_id=inst_id)
+        flow_dict, cyc_dict = self.compute_flow_cycle(hxy, xyz, xyz_t, frame_id, inst_id,
+                                                      field2cam, Kinv, samples_dict, flow_thresh)
+        feat_dict.update(flow_dict)
+        for k in cyc_dict:
+            feat_dict[k] = (cyc_dict[k] + backwarp_dict[k]) / 2 if k in backwarp_dict else cyc_dict[k]
+        idx = None if draws is None else draws.get("eikonal_idx")
+        feat_dict["eikonal"] = self.compute_eikonal(xyz, inst_id=inst_id, alpha=alpha, idx=idx)
+        feat_dict["xyz"] = xyz
+        feat_dict["xyz_cam"] = xyz_cam
+        feat_dict["depth"] = depth / torch.exp(self.logscale)  # world units
+        return feat_dict, deltas, {}
 
     def eval_extra_heads(self, xyz):
         """Per-sample channels subclasses add at eval."""
@@ -242,8 +296,9 @@ class NeRF(nn.Module):
 
     def get_valid_mask(self, xyz, xyz_t, samples_dict):
         """(M,N,D) float mask of samples inside the extended canonical aabb;
-        for articulated fields also time-t points inside the bone aabb."""
-        if "aabb" not in samples_dict:
+        for articulated fields also time-t points inside the bone aabb.
+        Background fields are unmasked."""
+        if self.category == "bg" or "aabb" not in samples_dict:
             return None
         valid = check_inside_aabb(xyz, extend_aabb(samples_dict["aabb"]))
         if "t_articulation" in samples_dict:
@@ -267,13 +322,13 @@ class NeRF(nn.Module):
         depth_all = torch.sort(torch.cat([depth, depth_fine], dim=2), dim=2).values
         return sample_cam_rays(hxy, Kinv, near_far, depth=depth_all)
 
-    def query_nerf(self, xyz, dir, frame_id, inst_id, fused=None):
+    def query_nerf(self, xyz, dir, frame_id, inst_id, alpha=None, fused=None):
         """Dense field evaluation on points flattened to (M, N*D, 3)."""
         lead = xyz.shape[:-1]
         M = xyz.shape[0]
         rgb, density = self.forward(
             xyz.reshape(M, -1, 3), dir=dir.reshape(M, -1, 3), frame_id=frame_id,
-            inst_id=inst_id, fused=fused,
+            inst_id=inst_id, alpha=alpha, fused=fused,
         )
         rgb = rgb.reshape(lead + rgb.shape[-1:])
         density = density.reshape(lead + density.shape[-1:])
@@ -301,7 +356,71 @@ class NeRF(nn.Module):
         return self.field_to_cam(xyz, field2cam)
 
     def cycle_loss(self, xyz):
-        """Eval-time cycle channels: zeros (the cycle warp runs only in
-        training)."""
+        """Cycle channels of a rigid field: zeros."""
         zeros = torch.zeros_like(xyz[..., :1])
         return {"cyc_dist": zeros, "delta_skin": zeros, "skin_entropy": zeros}
+
+    # ------------------------------------------------------------ training
+
+    def compute_flow(self, hxy, xyz, frame_id, inst_id, field2cam, Kinv, samples_dict,
+                     flow_thresh=None):
+        """Flow proposal: canonical points re-posed into the paired frame's
+        camera and projected; (M,N,D,3) = (flow xy, valid)."""
+        frame_id_next = flip_pair(frame_id)
+        field2cam_next = flip_pair(field2cam)
+        samples_next = flip_pair({k: v for k, v in samples_dict.items()
+                                  if k in ("t_articulation", "rest_articulation")})
+        xyz_cam_next = self.forward_warp(xyz, field2cam_next, frame_id_next, inst_id,
+                                         samples_dict=samples_next)
+        hxy_next = pinhole_projection(Kmatinv(flip_pair(Kinv)), xyz_cam_next)
+        flow = (hxy_next - hxy[:, :, None])[..., :2]
+        valid = xyz_cam_next[..., -1:] > 1e-6
+        if flow_thresh is not None:
+            valid = valid & (torch.linalg.norm(flow, dim=-1, keepdim=True) < float(flow_thresh))
+        return {"flow": torch.cat([flow, valid.to(flow.dtype)], dim=-1)}
+
+    def compute_flow_cycle(self, hxy, xyz, xyz_t, frame_id, inst_id, field2cam, Kinv,
+                           samples_dict, flow_thresh=None):
+        """Training-time flow proposal and cycle channels."""
+        flow_dict = self.compute_flow(hxy, xyz, frame_id, inst_id, field2cam, Kinv, samples_dict,
+                                      flow_thresh=flow_thresh)
+        return flow_dict, self.cycle_loss(xyz)
+
+    def compute_eikonal(self, xyz, inst_id=None, sample_ratio: int = 16, alpha=None, idx=None):
+        """Eikonal term (|grad sdf| - 1)^2 at the samples of a random
+        1/sample_ratio of the rays, in canonical space: (S, D, 1).
+
+        idx: (S,) ray ids, drawn without replacement when not given. The
+        SDF goes through the plain MLP chain (fused=False) because the loss
+        differentiates its gradient once more."""
+        M, N, Dd, _ = xyz.shape
+        sample_size = max(1, (M * N) // sample_ratio)
+        if idx is None:
+            idx = torch.randperm(M * N, device=xyz.device)[:sample_size]
+        xyz_s = xyz.reshape(M * N, Dd, 3)[idx].detach().requires_grad_(True)
+        inst_s = None if inst_id is None else inst_id[:, None].expand(M, N).reshape(-1)[idx]
+        with torch.enable_grad():
+            sdf = self.forward(xyz_s, inst_id=inst_s, get_density=False, alpha=alpha,
+                               fused=False)
+            (g,) = torch.autograd.grad(sdf.sum(), xyz_s, create_graph=True)
+        return ((safe_norm(g, keepdim=False) - 1.0) ** 2)[..., None]
+
+    @staticmethod
+    def sample_points_aabb(u, aabb, extend_factor=1.0):
+        """Points at unit-cube coordinates u (n, 3) in the extended aabb."""
+        aabb = extend_aabb(aabb, factor=extend_factor)
+        return aabb[0] + u * (aabb[1] - aabb[0])
+
+    def visibility_decay_loss(self, aabb, nsample: int = 512, u=None, inst_id=None):
+        """Push visibility down at random points of the aabb. u: (nsample, 3)
+        uniform draws and inst_id: (nsample,) instance ids, drawn here when
+        not given."""
+        if u is None:
+            u = torch.rand(nsample, 3, device=aabb.device)
+        if inst_id is None:
+            inst_id = torch.randint(0, self.num_inst, (nsample,), device=aabb.device)
+        vis = self.vis_mlp(self.sample_points_aabb(u, aabb), inst_id=inst_id)
+        return -F.logsigmoid(-vis).mean()
+
+    def cam_prior_loss(self):
+        return self.camera_mlp.compute_distance_to_prior()

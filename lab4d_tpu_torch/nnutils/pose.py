@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -14,7 +15,11 @@ from lab4d_tpu_torch.nnutils.base import CondMLP
 from lab4d_tpu_torch.nnutils.embedding import FrameInfo
 from lab4d_tpu_torch.nnutils.linear import TorchDense
 from lab4d_tpu_torch.nnutils.time_mlp import TimeMLP
-from lab4d_tpu_torch.utils.quat import quaternion_mul
+from lab4d_tpu_torch.utils.quat import (
+    matrix_to_quaternion,
+    quaternion_mul,
+    quaternion_translation_to_se3,
+)
 from lab4d_tpu_torch.utils.skel import (
     fk_se3,
     get_predefined_skeleton,
@@ -29,10 +34,16 @@ def _normalize(v, dim=-1, eps=1e-12):
 
 class CameraMLP(TimeMLP):
     """Time-varying object-to-camera SE(3) as (quat, trans), with
-    per-video base rotations."""
+    per-video base rotations. `rtmat_init` (M, 4, 4), one per filtered
+    frame in field units, is the camera prior that
+    compute_distance_to_prior fits to."""
 
-    def __init__(self, frame_info: FrameInfo, generator: Optional[torch.Generator] = None):
+    def __init__(self, frame_info: FrameInfo, rtmat_init: Optional[np.ndarray] = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__(frame_info, generator=generator)
+        if rtmat_init is not None:
+            self.register_buffer("rtmat_init", torch.as_tensor(np.asarray(rtmat_init, np.float32)),
+                                 persistent=False)
         W = self.W
         self.trans_head = nn.ModuleList([TorchDense(W, W // 2, generator), TorchDense(W // 2, 3, generator)])
         self.quat_head = nn.ModuleList([TorchDense(W, W // 2, generator), TorchDense(W // 2, 4, generator)])
@@ -50,6 +61,17 @@ class CameraMLP(TimeMLP):
         quat, trans = self._heads(self.forward_feat(self.time_embedding(frame_id)))
         base_quat = _normalize(self.base_quat[self.frame_ids_to_vid(frame_id)])
         return quaternion_mul(quat, base_quat), trans
+
+    def compute_distance_to_prior(self):
+        """MSE between the SE(3) of every filtered frame and the prior."""
+        quat, trans = self.get_vals(None)
+        return torch.mean((quaternion_translation_to_se3(quat, trans) - self.rtmat_init) ** 2)
+
+
+def camera_base_quat_init(rtmat: np.ndarray, frame_info: FrameInfo) -> np.ndarray:
+    """Per-video base rotations from the first frame of each video's prior."""
+    first = frame_info.frame_offset[:-1]
+    return matrix_to_quaternion(torch.as_tensor(rtmat[first, :3, :3])).numpy()
 
 
 class ArticulationSkelMLP(TimeMLP):

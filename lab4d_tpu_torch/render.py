@@ -27,6 +27,7 @@ from lab4d_tpu_torch.dataloader import data_utils
 from lab4d_tpu_torch.engine.model import DVRModel
 from lab4d_tpu_torch.utils import cam_traj as C
 from lab4d_tpu_torch.utils.geom import K2inv, K2mat, mat2K
+from lab4d_tpu_torch.utils.io import make_save_dir, save_rendered
 
 # rays per evaluate_rays call at 512^2: sized so the activations of the
 # normal-gradient pass (both halves of 64 samples per ray) stay a few GB
@@ -44,7 +45,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_prefix", default="crop", help="prefix of the data entries")
     p.add_argument("--train_res", type=int, default=256, help="size of training images")
     p.add_argument("--feature_type", default="dinov2", help="{dinov2, cse}")
-    p.add_argument("--field_type", default="fg", help="{bg, fg, comp}; only fg is ported")
+    p.add_argument("--field_type", default="fg", help="{bg, fg, comp}; fg and bg are ported")
     p.add_argument("--fg_motion", default="rigid",
                    help="{rigid, dense, bob, skel-human, skel-quad}; only skel-quad is ported")
     p.add_argument("--inst_id", type=int, default=0, help="video/instance id")
@@ -78,7 +79,7 @@ def construct_test_model(opts: Dict, device):
     Returns (model, geo_state, data_info)."""
     data_info = data_utils.get_data_info(data_utils.config_to_datasets(opts))
     model = DVRModel(data_info["frame_info"], field_type=opts["field_type"],
-                     fg_motion=opts["fg_motion"], num_inst=1)
+                     fg_motion=opts["fg_motion"], num_inst=1, device=device)
     path = "%s/%s-%s/ckpt_%s.flax" % (
         opts["logroot"], opts["seqname"], opts["logname"], opts["load_suffix"]
     )
@@ -190,8 +191,6 @@ def render_batch(model: DVRModel, batch, geo_state, chunk: int = DEFAULT_CHUNK):
 
 
 def render(opts: Dict):
-    from lab4d_tpu.utils.io import make_save_dir, save_rendered
-
     check_opts(opts)
     device = torch.device(opts["device"])
     model, geo_state, data_info = construct_test_model(opts, device)

@@ -1,1 +1,2 @@
-"""Measurement scripts for the port; each runs on a CUDA device."""
+"""Tools of the port: measurement scripts, which run on a CUDA device, and
+the synthetic scene writer."""

@@ -1,0 +1,157 @@
+"""Where the time of a bg training step goes, on one CUDA device.
+
+    python3 -m lab4d_tpu_torch.tools.profile_train [--steps N] [--out FILE]
+
+Run from the root of a checkout. It writes the synthetic scene of
+chip_smoke.py (one orbit video, 32 frames at 64^2), builds the trainer of
+`python -m lab4d_tpu_torch.train --field_type bg` at full width (128
+images x 2 frames x 16 pixels x 64 samples = 262,144 points per step; the
+prior fits are cut to 50 geometry steps) and then:
+
+1. times `--steps` training steps on batches drawn beforehand, so that no
+   data loading overlaps them: ms/step from CUDA events (median), and
+   the same steps' host time;
+2. times `--steps` steps of `train_one_round`, with the threaded batch
+   loader running as in training;
+3. times one batch of the loader on its own, in this process;
+4. traces `--trace` steps (pre-drawn batches) with torch.profiler and
+   prints, per op, the device time of the kernels it launched itself and
+   their share of the summed kernel time, the kernels K3f/K3b/K4f/K4b by
+   name, then that sum, the steps' wall time and the device's idle share.
+
+`--out` also writes the profiler's full table to FILE.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+import time
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--trace", type=int, default=3)
+    parser.add_argument("--top", type=int, default=18)
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_train: no CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    import chip_smoke
+
+    card = chip_smoke.phase_env()
+    with tempfile.TemporaryDirectory() as root:
+        _profile(args, card, chip_smoke.write_scene(root), root)
+
+
+def _profile(args, card, db, root):
+    import torch
+
+    import chip_smoke
+    from lab4d_tpu_torch.engine.trainer import Trainer
+    from lab4d_tpu_torch.train import get_parser
+
+    opts = vars(get_parser().parse_args(chip_smoke.TRAIN_OPTS + [
+        "--geo_init_steps", "50", "--num_rounds", "1", "--iters_per_round", str(args.steps),
+        "--database_root", db, "--logroot", os.path.join(root, "logdir")]))
+    trainer = Trainer(opts)
+    geo = trainer.geo_for_batch()
+    batches = []
+    for _ in range(args.steps + args.trace):
+        b = trainer.batch_to_device(trainer.trainloader.next_batch())
+        b["geo"] = geo
+        batches.append(b)
+    trainer.trainloader.stop()
+    torch.cuda.synchronize()
+    try:
+        _measure(args, card, trainer, batches, opts)
+    finally:
+        trainer.close()
+
+
+def _measure(args, card, trainer, batches, opts):
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # 1. pre-drawn batches
+    step = 0
+    for b in batches[:2]:  # warm-up: allocator pools, cuBLAS handles
+        trainer.train_step(b, step)
+        step += 1
+    torch.cuda.synchronize()
+    events, host = [], []
+    for b in batches[2 : args.steps]:
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        s.record()
+        trainer.train_step(b, step)
+        e.record()
+        host.append((time.perf_counter() - t) * 1e3)
+        events.append((s, e))
+        step += 1
+    torch.cuda.synchronize()
+    dev = [s.elapsed_time(e) for s, e in events]
+    print(f"[steps] pre-drawn batches: {np.median(dev):.2f} ms/step (median of {len(dev)}; "
+          f"min {min(dev):.2f}, max {max(dev):.2f}); host issue time {np.median(host):.2f} ms/step")
+
+    # 2. the training loop with the threaded loader
+    trainer.trainloader.start()
+    trainer.step_ms = []
+    t = time.perf_counter()
+    trainer.train_one_round(0)
+    wall = (time.perf_counter() - t) * 1e3 / args.steps
+    trainer.trainloader.stop()
+    print(f"[steps] train_one_round with the loader: {np.median(trainer.step_ms[1:]):.2f} ms/step "
+          f"(median after the first), {wall:.2f} ms/step wall")
+
+    # 3. the loader alone
+    rng = np.random.default_rng(0)
+    t = time.perf_counter()
+    for _ in range(3):
+        trainer.trainloader._make_batch(rng)
+    print(f"[loader] one batch of {opts['imgs_per_gpu']} pairs: "
+          f"{(time.perf_counter() - t) / 3 * 1e3:.1f} ms in this process (one thread)")
+
+    # 4. trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches[args.steps : args.steps + args.trace]:
+            trainer.train_step(b, step)
+            step += 1
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.device_time for e in kernels) / 1e3
+    print(f"[trace] {args.trace} steps: device time {device_ms:.2f} ms of {traced:.2f} ms wall "
+          f"(traced), idle share {1 - device_ms / traced:.3f}")
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    for e in ops[: args.top]:
+        ms = e.self_device_time_total / 1e3
+        print(f"[op] {e.key}: {ms / args.trace:.2f} ms/step device, "
+              f"{100 * ms / device_ms:.1f}%, {e.count // args.trace} calls/step")
+    for name in ("fused_relu_mlp_fwd_kernel", "tile_mlp_fwd_kernel", "tile_mlp_bwd_kernel",
+                 "tile_mlp_reduce_kernel"):
+        ks = [e.device_time for e in kernels if name in e.name]
+        print(f"[kernel] {name}: {sum(ks) / 1e3 / args.trace:.2f} ms/step device, "
+              f"{100 * sum(ks) / 1e3 / device_ms:.1f}%, {len(ks) // args.trace} calls/step")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=120))
+    print(card)
+
+
+if __name__ == "__main__":
+    main()

@@ -67,6 +67,11 @@ def mat2K(Kmat: torch.Tensor) -> torch.Tensor:
     )
 
 
+def Kmatinv(Kmat: torch.Tensor) -> torch.Tensor:
+    """Inverse of a 3x3 intrinsics matrix (either way round)."""
+    return K2inv(mat2K(Kmat))
+
+
 def apply_se3mat(se3, pts: torch.Tensor) -> torch.Tensor:
     """Apply a (quat, trans) SE(3) to points (broadcasting)."""
     quat, trans = se3

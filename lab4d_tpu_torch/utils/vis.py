@@ -1,0 +1,80 @@
+"""Visualization helpers: tag-aware colorization and image grids. The
+port's copy of the parts of lab4d_tpu/utils/vis.py that rendering uses."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def flow_to_color(flow: np.ndarray, max_mag=None) -> np.ndarray:
+    """HSV flow wheel: hue = direction, saturation = magnitude."""
+    u, v = flow[..., 0], flow[..., 1]
+    mag = np.sqrt(u**2 + v**2)
+    ang = np.arctan2(v, u)  # [-pi, pi]
+    if max_mag is None:
+        max_mag = max(np.percentile(mag, 99), 1e-6)
+    h = (ang + np.pi) / (2 * np.pi)
+    s = np.clip(mag / max_mag, 0, 1)
+    hsv = np.stack([h, s, np.ones_like(h)], axis=-1)
+    # vectorized hsv->rgb
+    i = np.floor(hsv[..., 0] * 6).astype(int) % 6
+    f = hsv[..., 0] * 6 - np.floor(hsv[..., 0] * 6)
+    p = hsv[..., 2] * (1 - hsv[..., 1])
+    q = hsv[..., 2] * (1 - f * hsv[..., 1])
+    t = hsv[..., 2] * (1 - (1 - f) * hsv[..., 1])
+    vv = hsv[..., 2]
+    rgb = np.select(
+        [i == 0, i == 1, i == 2, i == 3, i == 4, i == 5],
+        [
+            np.stack([vv, t, p], -1), np.stack([q, vv, p], -1),
+            np.stack([p, vv, t], -1), np.stack([p, q, vv], -1),
+            np.stack([t, p, vv], -1), np.stack([vv, p, q], -1),
+        ],
+    )
+    return rgb
+
+
+def depth_to_color(depth: np.ndarray) -> np.ndarray:
+    """Plasma colormap over normalized inverse depth."""
+    import matplotlib.cm as cm
+
+    d = depth[..., 0] if depth.ndim == 3 else depth
+    valid = d > 0
+    if valid.any():
+        lo, hi = np.percentile(d[valid], [2, 98])
+        d = np.clip((d - lo) / max(hi - lo, 1e-6), 0, 1)
+    return cm.plasma(d)[..., :3]
+
+
+def img2color(tag: str, img: np.ndarray, pca_fn=None) -> np.ndarray:
+    """Map a rendered buffer to an RGB image by tag (vis_utils.py:19-49)."""
+    img = np.asarray(img, dtype=np.float32)
+    if "depth" in tag:
+        return depth_to_color(img)
+    if "flow" in tag:
+        return flow_to_color(img[..., :2])
+    if "feature" in tag:
+        if pca_fn is not None:
+            return np.clip(pca_fn(img, normalize=True), 0, 1)
+        return np.clip(img[..., :3] * 0.5 + 0.5, 0, 1)
+    if "normal" in tag:
+        return np.clip(img * 0.5 + 0.5, 0, 1)
+    if "xyz" in tag:
+        rng = img.max() - img.min()
+        return (img - img.min()) / max(rng, 1e-6)
+    if img.shape[-1] == 1:
+        return np.clip(np.repeat(img, 3, axis=-1), 0, 1)
+    return np.clip(img[..., :3], 0, 1)
+
+
+def make_image_grid(imgs: np.ndarray) -> np.ndarray:
+    """(M, H, W, C) -> tiled grid image (~square layout)."""
+    M = imgs.shape[0]
+    cols = int(np.ceil(np.sqrt(M)))
+    rows = int(np.ceil(M / cols))
+    H, W, C = imgs.shape[1:]
+    grid = np.zeros((rows * H, cols * W, C), imgs.dtype)
+    for i in range(M):
+        r, c = divmod(i, cols)
+        grid[r * H : (r + 1) * H, c * W : (c + 1) * W] = imgs[i]
+    return grid

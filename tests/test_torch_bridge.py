@@ -1,10 +1,12 @@
 """Weights and checkpoints from the JAX package into lab4d_tpu_torch.
 
-- the flagship (fg / skel-quad) flax param tree maps onto the port's
-  DVRModel state_dict leaf for leaf, and back, exactly;
+- the flagship (fg / skel-quad) and the bg flax param trees map onto the
+  port's DVRModel state_dict leaf for leaf, and back, exactly;
 - a checkpoint in the JAX trainer's layout, written with
   flax.serialization.msgpack_serialize, decodes through the port's own
-  msgpack reader to the same arrays flax's msgpack_restore gives.
+  msgpack reader to the same arrays flax's msgpack_restore gives;
+- the port's msgpack encoder (its trainer's checkpoints) writes what
+  msgpack and flax read back unchanged.
 """
 
 import numpy as np
@@ -21,10 +23,9 @@ from lab4d_tpu_torch.nnutils.embedding import FrameInfo
 from tests.test_model import RNGS, make_model_and_batch
 
 
-@pytest.fixture(scope="module")
-def flagship():
+def _both_models(field_type, fg_motion):
     """(flax param tree with seeded random values, port model)."""
-    model, batch = make_model_and_batch("fg", "skel-quad", M=2, N=4)
+    model, batch = make_model_and_batch(field_type, fg_motion, M=2, N=4)
     shapes = jax.eval_shape(
         lambda b: model.init(RNGS, b, compute_sched(100), train=True), batch
     )["params"]
@@ -32,8 +33,18 @@ def flagship():
     params = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
     fi = model.frame_info
     tmodel = DVRModel(FrameInfo(fi.frame_offset, fi.frame_offset_raw, fi.frame_mapping),
-                      fg_motion="skel-quad")
+                      field_type=field_type, fg_motion=fg_motion, device="cpu")
     return jax.tree.map(np.asarray, dict(params)), tmodel
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    return _both_models("fg", "skel-quad")
+
+
+@pytest.fixture(scope="module")
+def bg_models():
+    return _both_models("bg", "rigid")
 
 
 def test_every_leaf_maps_once(flagship):
@@ -72,6 +83,48 @@ def test_dense_layout_is_transposed(flagship):
     np.testing.assert_array_equal(
         torch_cam.time_embedding.inst_embedding.mapping.weight.detach().numpy(),
         cam["time_embedding"]["inst_embedding"]["mapping"]["embedding"])
+
+
+def test_bg_every_leaf_maps_once(bg_models):
+    """The bg field, the intrinsics and the camera MLP, leaf for leaf."""
+    params, tmodel = bg_models
+    flat = flatten_dict(params)
+    state = bridge.params_from_flax(params)
+    assert len(state) == len(flat)
+    assert set(state) == set(tmodel.state_dict())
+    assert {p[:2] for p in flat} == {("fields", "field_params_bg"), ("intrinsics", "backbone"),
+                                    ("intrinsics", "focal_head_0"), ("intrinsics", "focal_head_1"),
+                                    ("intrinsics", "time_embedding"),
+                                    ("intrinsics", "base_logfocal"), ("intrinsics", "base_ppoint")}
+    tmodel.load_state_dict(state, strict=True)
+    back = flatten_dict(bridge.params_to_flax(tmodel.state_dict()))
+    assert set(back) == set(flat)
+    for k, v in flat.items():
+        np.testing.assert_array_equal(back[k], v, err_msg="/".join(k))
+    bg = params["fields"]["field_params_bg"]
+    field = tmodel.fields.field_params["bg"]
+    np.testing.assert_array_equal(field.basefield.backbone.linear_5.weight.detach().numpy(),
+                                  bg["basefield"]["backbone"]["linear_5"].T)
+    np.testing.assert_array_equal(field.camera_mlp.base_quat.detach().numpy(),
+                                  bg["camera_mlp"]["base_quat"])
+    np.testing.assert_array_equal(field.vis_mlp.basefield.backbone.linear_final.bias.detach().numpy(),
+                                  bg["vis_mlp"]["basefield"]["backbone"]["bias_final"])
+
+
+@pytest.mark.parametrize(
+    "obj",
+    [
+        {"a": np.arange(6, dtype=np.float32).reshape(2, 3), "b": np.zeros((0, 3), np.int32)},
+        {"s": np.float32(2.5), "i": np.int32(-4), "m": {"n": [1, 300, -1000, 2**40, 0.5, "x" * 40]}},
+        {"t": True, "f": False, "z": None, "b": b"\x00" * 300, "l": list(range(20))},
+    ],
+    ids=["arrays", "scalars", "containers"],
+)
+def test_msgpack_encoder_reads_back(obj):
+    """bridge.msgpack_dumps against flax's reader and the port's own."""
+    data = bridge.msgpack_dumps(obj)
+    _assert_same_tree(serialization.msgpack_restore(data), obj)
+    _assert_same_tree(bridge.msgpack_restore(data), obj)
 
 
 def _trainer_payload(params):

@@ -1,0 +1,78 @@
+"""The port stands alone: nothing under lab4d_tpu_torch/, and not
+chip_smoke.py, imports jax, flax or the JAX package (lab4d_tpu), not even
+a module of it that has no JAX in it; the card that runs the port has
+none of them.
+
+- an AST scan of every import statement;
+- a fresh interpreter in which those modules cannot be imported trains
+  the bg field for two steps on the CPU (synthetic scene, prior fits,
+  checkpoint) and renders it, and then holds none of them in sys.modules.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "lab4d_tpu")
+SOURCES = sorted((REPO / "lab4d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import(path):
+    bad = [(line, name) for line, name in _imported_roots(path)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_scan_sees_every_module():
+    assert len(SOURCES) > 30
+    assert any(p.name == "trainer.py" for p in SOURCES)
+
+
+_PROGRAM = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in {forbidden!r}:
+            raise ImportError('blocked: ' + name)
+sys.meta_path.insert(0, Block())
+from lab4d_tpu_torch import render, train
+from lab4d_tpu_torch.tools.synthetic_scene import make_synthetic_dataset
+root = sys.argv[1]
+make_synthetic_dataset(root + '/database', seqname='iso', num_frames=8, res=16)
+common = ['--seqname', 'iso', '--logname', 'r', '--train_res', '16', '--field_type', 'bg',
+          '--device', 'cpu', '--database_root', root + '/database', '--logroot', root + '/logdir']
+trainer = train.main(common + ['--num_rounds', '1', '--iters_per_round', '2',
+                               '--imgs_per_gpu', '4', '--pixels_per_image', '4',
+                               '--geo_init_steps', '2', '--save_freq', '1'])
+assert trainer.current_steps == 2
+out = render.main(common + ['--load_suffix', 'latest', '--render_res', '4', '--freeze_id', '0',
+                            '--num_frames', '1'])
+assert out['rgb'].shape == (1, 4, 4, 3)
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})
+assert not loaded, loaded
+print('isolated ok')
+"""
+
+
+def test_train_and_render_without_jax(tmp_path):
+    code = _PROGRAM.format(forbidden=FORBIDDEN)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "isolated ok" in res.stdout

@@ -63,7 +63,7 @@ def monkeypatch_module():
 def port_model(jmodel, params):
     fi = jmodel.frame_info
     model = DVRModel(FrameInfo(fi.frame_offset, fi.frame_offset_raw, fi.frame_mapping),
-                     fg_motion="skel-quad")
+                     fg_motion="skel-quad", device="cpu")
     model.load_state_dict(params_from_flax(params), strict=True)
     return model.eval().requires_grad_(False)
 
