@@ -265,23 +265,32 @@ def test_compute_sched(step):
 # -------------------------------------------------------------------- CLI
 
 
-def test_train_cli_writes_a_checkpoint(tmp_path):
-    from flax import serialization
-
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """`python -m lab4d_tpu_torch.train --field_type bg` on the CPU: a tiny
+    synthetic scene, 1 round of 2 steps; returns (trainer, log root)."""
     from lab4d_tpu_torch import train as train_cli
     from lab4d_tpu_torch.tools.synthetic_scene import make_synthetic_dataset
 
-    make_synthetic_dataset(str(tmp_path / "database"), seqname="sbg", num_frames=8, res=16)
+    root = tmp_path_factory.mktemp("train_cli")
+    make_synthetic_dataset(str(root / "database"), seqname="sbg", num_frames=8, res=16)
     trainer = train_cli.main([
         "--field_type", "bg", "--seqname", "sbg", "--logname", "t", "--train_res", "16",
         "--num_rounds", "1", "--iters_per_round", "2", "--imgs_per_gpu", "4",
         "--pixels_per_image", "4", "--geo_init_steps", "3", "--save_freq", "1",
-        "--device", "cpu", "--database_root", str(tmp_path / "database"),
-        "--logroot", str(tmp_path / "logdir"),
+        "--device", "cpu", "--database_root", str(root / "database"),
+        "--logroot", str(root / "logdir"),
     ])
+    return trainer, root / "logdir"
+
+
+def test_train_cli_writes_a_checkpoint(cli_run):
+    from flax import serialization
+
+    trainer, logdir = cli_run
     assert trainer.current_steps == 2 and len(trainer.losses) == 2
     assert all(np.isfinite(ld["total"]) for ld in trainer.losses)
-    path = tmp_path / "logdir" / "sbg-t" / "ckpt_latest.flax"
+    path = logdir / "sbg-t" / "ckpt_latest.flax"
     ckpt = bridge.load_flax_checkpoint(str(path))
     assert ckpt["current_steps"] == 2 and ckpt["current_round"] == 1
     assert ckpt["opt_state"]["layout"] == "lab4d_tpu_torch.AdamW"
@@ -293,6 +302,25 @@ def test_train_cli_writes_a_checkpoint(tmp_path):
     # flax reads the same file, and the JAX package's model tree matches its shapes
     restored = serialization.msgpack_restore(path.read_bytes())
     assert _flax_leaves(restored["model"]).keys() == _flax_leaves(ckpt["model"]).keys()
+
+
+@pytest.mark.parametrize("norm", [5.5, float("nan")])
+def test_check_grad_rolls_back_two_rounds(cli_run, norm):
+    """A spiking or non-finite grad norm restores the model and optimizer
+    cached two checkpoints back (here: before the first step); a norm at
+    the threshold does not."""
+    trainer, _ = cli_run
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    trainer.check_grad(5.0)
+    for k, v in trainer.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    trainer.check_grad(norm)
+    cached = trainer.model_cache[0]
+    assert any(not torch.equal(before[k], cached[k]) for k in before)  # the steps moved them
+    for k, v in trainer.model.state_dict().items():
+        assert torch.equal(v, cached[k]), k
+    assert trainer.optimizer.state_dict()["state"] == {}  # no step had been taken then
+    trainer.model.load_state_dict(before)
 
 
 def test_train_cli_refuses_fields_without_kernels():
