@@ -330,3 +330,30 @@ def test_train_cli_refuses_fields_without_kernels():
         opts = vars(train_cli.get_parser().parse_args(["--field_type", ft]))
         with pytest.raises(NotImplementedError, match="K1/K2"):
             train_cli.check_opts(opts)
+
+
+def test_synthetic_scene_writer_matches_tests_synthetic(tmp_path):
+    """The port's scene writer (no JAX package) writes the same .npy
+    arrays, meshes and config as tests/synthetic.py for the same
+    arguments; only the preview JPEGs' encoder differs."""
+    from lab4d_tpu_torch.tools.synthetic_scene import make_synthetic_dataset as port_writer
+    from tests.synthetic import make_synthetic_dataset as jax_writer
+
+    kw = dict(seqname="cmp", num_vids=2, num_frames=9, res=16)
+    port_writer(str(tmp_path / "port"), **kw)
+    jax_writer(str(tmp_path / "jax"), **kw)
+    files = sorted(p.relative_to(tmp_path / "jax") for p in (tmp_path / "jax").rglob("*")
+                   if p.is_file())
+    assert files == sorted(p.relative_to(tmp_path / "port") for p in (tmp_path / "port").rglob("*")
+                           if p.is_file())
+    npys = [f for f in files if f.suffix == ".npy"]
+    assert len(npys) == 2 * 16  # per video: rgb, masks (3), depth, features, cameras (2), flow (8)
+    for f in npys:
+        a, b = np.load(tmp_path / "port" / f), np.load(tmp_path / "jax" / f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        np.testing.assert_array_equal(a, b, err_msg=str(f))
+    for f in files:
+        if f.suffix in (".obj", ".config"):
+            want = (tmp_path / "jax" / f).read_text().replace(str(tmp_path / "jax"), "<root>")
+            got = (tmp_path / "port" / f).read_text().replace(str(tmp_path / "port"), "<root>")
+            assert got == want, f
