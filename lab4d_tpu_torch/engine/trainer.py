@@ -270,7 +270,7 @@ class Trainer:
         scalars with "total", grad norm)."""
         loss_dict = self.model(batch, compute_sched(step), draws=draws)
         total = sum(loss_dict[k] for k in sorted(loss_dict))
-        self.optimizer.zero_grad(set_to_none=False)
+        self.optimizer.zero_grad(set_to_none=True)
         total.backward()
         for p in self.params:
             if p.grad is None:  # untouched: a zero gradient, so weight decay still applies
