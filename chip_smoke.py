@@ -25,7 +25,7 @@ synchronise; any failure exits non-zero:
 5. reference: evaluate_rays on 256 rays on the GPU (through the kernel)
    against the same model on the CPU (plain versions);
 6. render: 2 frames at 512^2 through the render CLI's own functions,
-   with the kernel's launch count over exactly that run;
+   with every kernel's launch count over exactly that run;
 7. train-reference: one bg training step (128 rays of 64 samples) on the
    GPU (kernels) against the same weights, batch and random draws on the
    CPU (plain versions): every loss term and every gradient;
@@ -56,8 +56,9 @@ RES = 512
 N_FRAMES = 2
 SEED = 0
 
-KERNEL_TOL = 1e-4  # fp32 FMA vs cuBLAS fp32: summation order only; for
-# gradients, which sum over the rows, relative to each array's largest entry
+KERNEL_TOL = 1e-4  # fp32 FMA vs cuBLAS fp32: summation order only; on the
+# forward's max abs error, and on the backward's max rel error (_rel_err),
+# since the weight gradients sum over the rows
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3 (NVIDIA data sheet)
 TRAIN_STEPS = 25
@@ -204,9 +205,14 @@ def bound_ms(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _rel_err(got, want):
-    """max|got - want| over max(1, max|want|), for sums over rows."""
-    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+def _bwd_errs(got, want):
+    """(max abs error, max rel error) of a backward's (dx, dWs, dbs) over
+    every array; the rel error of an array is max|got - want| over
+    max(1, max|want|), for sums over rows."""
+    pairs = list(zip([got[0]] + got[1] + got[2], [want[0]] + want[1] + want[2]))
+    diffs = [float((a - b).abs().max()) for a, b in pairs]
+    rels = [d / max(1.0, float(b.abs().max())) for d, (_, b) in zip(diffs, pairs)]
+    return max(diffs), max(rels)
 
 
 def phase_kernel():
@@ -217,15 +223,19 @@ def phase_kernel():
     gen = torch.Generator().manual_seed(SEED)
     results = {"K3f": [], "K3b": [], "K4f": [], "K4b": []}
 
-    def report(name, label, rows, err, kernel, plain, flops, nbytes, inner):
+    def report(name, label, rows, err, kernel, plain, flops, nbytes, inner, rel_err=None):
         # the plain backward runs autograd, which a CUDA graph does not
         # capture reliably: it is timed as back-to-back eager calls
         backward = name.endswith("b")
         r = {"label": label, "rows": rows, "max_abs_err": err, "ms": device_ms(kernel, inner),
              "plain_ms": eager_ms(plain, inner) if backward else device_ms(plain, inner)}
+        if rel_err is not None:
+            r["max_rel_err"] = rel_err
         r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes)
         sync()
-        print(f"[kernel] {name} {label}: rows={rows} err={err:.3e} (tol {KERNEL_TOL:g}) "
+        checked = f"err={err:.3e} (tol {KERNEL_TOL:g})" if rel_err is None else \
+            f"abs err={err:.3e} rel err={rel_err:.3e} (tol {KERNEL_TOL:g})"
+        print(f"[kernel] {name} {label}: rows={rows} {checked} "
               f"device kernel {r['ms'] * 1e3:.2f} us / plain {r['plain_ms'] * 1e3:.2f} us"
               f"{' (eager)' if backward else ''} / bound {r['bound_ms'] * 1e3:.2f} us "
               f"({r['bound_by']})")
@@ -254,17 +264,16 @@ def phase_kernel():
         got = K.fused_relu_mlp_backward(x, g, weights, biases)
         want = K.mlp_backward_reference(x, g, weights, biases)
         sync()
-        err = max(_rel_err(a, b) for a, b in zip([got[0]] + got[1] + got[2],
-                                                  [want[0]] + want[1] + want[2]))
+        abs_err, err = _bwd_errs(got, want)
         if not err <= KERNEL_TOL:
-            fail(f"K3b {label} disagrees with its plain version: {err} > {KERNEL_TOL}")
+            fail(f"K3b {label} disagrees with its plain version: rel err {err} > {KERNEL_TOL}")
         # recompute of the hidden layers, dIn of every layer, dW of every layer
         flops = 2 * rows * (mlp_macs(in_dims[:-1], out_dims[:-1]) + 2 * macs)
         nbytes = 4 * (2 * rows * C_in + 2 * rows * W + 2 * (macs + sum(out_dims)))
-        report("K3b", label, rows, err,
+        report("K3b", label, rows, abs_err,
                lambda: K.fused_relu_mlp_backward(x, g, weights, biases),
                lambda: K.mlp_backward_reference(x, g, weights, biases),
-               flops, nbytes, 20)
+               flops, nbytes, 20, rel_err=err)
 
     for label, rows, n_freqs, widths, skips, final_act, window in K4_SHAPES:
         freqs = tuple(float(2.0**i) for i in range(n_freqs))
@@ -289,16 +298,15 @@ def phase_kernel():
         got = K.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips)
         want = K.pe_mlp_backward_reference(x, g, win, weights, biases, freqs, skips)
         sync()
-        err = max(_rel_err(a, b) for a, b in zip([got[0]] + got[1] + got[2],
-                                                  [want[0]] + want[1] + want[2]))
+        abs_err, err = _bwd_errs(got, want)
         if not err <= KERNEL_TOL:
-            fail(f"K4b {label} disagrees with its plain version: {err} > {KERNEL_TOL}")
+            fail(f"K4b {label} disagrees with its plain version: rel err {err} > {KERNEL_TOL}")
         flops = 2 * rows * (mlp_macs(in_dims[:-1], widths[:-1]) + 2 * macs)
         nbytes = 4 * (2 * rows * 3 + 2 * rows * widths[-1] + 2 * (macs + sum(widths)))
-        report("K4b", label, rows, err,
+        report("K4b", label, rows, abs_err,
                lambda: K.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips),
                lambda: K.pe_mlp_backward_reference(x, g, win, weights, biases, freqs, skips),
-               flops, nbytes, inner)
+               flops, nbytes, inner, rel_err=err)
     return results
 
 
@@ -435,7 +443,6 @@ def phase_reference(model, geo_state, data_info):
 def phase_render(model, geo_state, data_info):
     import torch
 
-    from lab4d_tpu_torch.ops.mlp_kernel import fused_relu_mlp
     from lab4d_tpu_torch.render import construct_batch_from_opts, render_batch
 
     opts = {"inst_id": 0, "render_res": RES, "viewpoint": "ref", "freeze_id": 0,
@@ -447,15 +454,15 @@ def phase_render(model, geo_state, data_info):
     sync()
     torch.cuda.reset_peak_memory_stats()
 
-    fused_relu_mlp.launches = 0
+    _reset_kernel_counts()
     t = time.time()
     batch, _ = construct_batch_from_opts(opts, model, geo_state, data_info, "cuda")
     rendered = render_batch(model, batch, geo_state)
     sync()
     elapsed = time.time() - t
-    launches = fused_relu_mlp.launches
+    launches = _kernel_counts()
 
-    if launches <= 0:
+    if launches["K3f"] <= 0:
         fail("the render ran no fused_relu_mlp kernel")
     if not all(v.is_cuda for v in batch.values() if torch.is_tensor(v)):
         fail("render batch is not on cuda")
@@ -468,7 +475,7 @@ def phase_render(model, geo_state, data_info):
     ms_frame = elapsed / N_FRAMES * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[render] {N_FRAMES} frames at {RES}^2: {ms_frame:.1f} ms/frame, "
-          f"K3f launches {launches}, peak memory {peak:.2f} GiB, "
+          f"launches {' '.join(f'{k}={v}' for k, v in launches.items())}, peak memory {peak:.2f} GiB, "
           f"channels {sorted(rendered)}, mask mean {mask.mean():.4f}")
     return launches
 
@@ -634,7 +641,7 @@ def phase_train(db, root):
 KERNEL_INFO = {  # JSON name, source, the TPU kernel it replaces
     "K3f": ("fused_relu_mlp_fwd", "lab4d_tpu_torch/csrc/fused_relu_mlp.cu",
             "lab4d_tpu/ops/mlp_kernel.py:127"),
-    "K3b": ("fused_relu_mlp_bwd", "lab4d_tpu_torch/csrc/fused_relu_mlp_bwd.cu",
+    "K3b": ("fused_relu_mlp_bwd", "lab4d_tpu_torch/csrc/fused_pe_mlp.cu",
             "lab4d_tpu/ops/mlp_kernel.py:227"),
     "K4f": ("fused_pe_mlp_fwd", "lab4d_tpu_torch/csrc/fused_pe_mlp.cu",
             "lab4d_tpu/ops/mlp_kernel.py:488"),
@@ -664,7 +671,6 @@ def main():
     data_info = make_scene()
     model, geo_state = phase_model(data_info)
     phase_reference(model, geo_state, data_info)
-    _reset_kernel_counts()
     render_launches = phase_render(model, geo_state, data_info)
     del model
     with tempfile.TemporaryDirectory() as root:
@@ -684,9 +690,11 @@ def main():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[key],
-            "launches_by_path": {"render": render_launches if key == "K3f" else 0,
+            "launches_by_path": {"render": render_launches[key],
                                  "train": launches[key], "train_steps": step_launches[key]},
             "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),
+            **({"max_rel_err": max(r["max_rel_err"] for r in kernels[key])}
+               if key.endswith("b") else {}),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
             "library_ms": None, "shape": main_shape["label"],

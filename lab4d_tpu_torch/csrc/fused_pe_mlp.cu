@@ -4,7 +4,10 @@
 // K4f replaces lab4d_tpu/ops/mlp_kernel.py:_pe_fwd (Pallas kernel
 // _pe_fwd_kernel); K4b replaces _pe_bwd_call (_pe_bwd_kernel). The field
 // MLPs of the training step (base, colour and visibility fields, and the
-// visibility-decay points) run through them. The embedding, the layers and
+// visibility-decay points) run through them. The backward entry with
+// n_freqs = 0 is also K3b, which replaces _bwd (_bwd_kernel), the VJP of
+// fused_relu_mlp (K3f, fused_relu_mlp.cu): the camera and intrinsics
+// TimeMLP backbones of the training step. The embedding, the layers and
 // the backward's recompute never leave shared memory; the design, its bound
 // and the deterministic weight-gradient reduction are described in
 // mlp_tiles.cuh.

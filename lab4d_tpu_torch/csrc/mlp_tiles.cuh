@@ -1,6 +1,6 @@
 // Row-tiled fused ReLU MLP, forward and backward, for large point batches
-// on Hopper (sm_90a). Shared by K4f / K4b (fused_pe_mlp.cu) and K3b
-// (fused_relu_mlp_bwd.cu).
+// on Hopper (sm_90a). Its entry points are in fused_pe_mlp.cu: K4f / K4b,
+// and K3b, which is K4b's entry with n_freqs = 0.
 //
 // Replaces the Pallas kernels of lab4d_tpu/ops/mlp_kernel.py: _pe_fwd_kernel
 // (K4f), _pe_bwd_kernel (K4b) and _bwd_kernel (K3b). Semantics are theirs:

@@ -133,7 +133,7 @@ class Trainer:
         self.model = DVRModel(
             fi, field_type=opts["field_type"], fg_motion=opts["fg_motion"],
             num_inst=1 if opts["single_inst"] else fi.num_vids, device=self.device,
-            generator=torch.Generator().manual_seed(opts.get("seed", 0)),
+            generator=torch.Generator().manual_seed(0),
             intrinsics_init=info["intrinsics"], rtmat_fg=info["rtmat"][info["vis_info"]["fg"]],
             rtmat_bg=info["rtmat"][info["vis_info"]["bg"]], train_res=opts["train_res"],
             loss_weights=tuple((k, opts[k]) for k in LOSS_WEIGHT_NAMES if k in opts),

@@ -7,7 +7,8 @@ the JAX package stores the transpose.
 
 - K3f `fused_relu_mlp` forward (csrc/fused_relu_mlp.cu): few rows, the
   TimeMLP backbones.
-- K3b `fused_relu_mlp_backward` (csrc/fused_relu_mlp_bwd.cu): its VJP.
+- K3b `fused_relu_mlp_backward` (csrc/fused_pe_mlp.cu, the K4b entry
+  with no frequencies): its VJP.
 - K4f `fused_pe_mlp` (csrc/fused_pe_mlp.cu): Fourier embedding + MLP over
   the points of a training step.
 - K4b `fused_pe_mlp_backward` (csrc/fused_pe_mlp.cu): its VJP.
@@ -173,11 +174,6 @@ def _kernel_lib(name: str):
             vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, i32, i32, vp,
         ]
         lib.lab4d_fused_relu_mlp_fwd.restype = i32
-    elif name == "fused_relu_mlp_bwd":
-        lib.lab4d_fused_relu_mlp_bwd.argtypes = [
-            vp, vp, vp, vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, i32, i32, i32, vp,
-        ]
-        lib.lab4d_fused_relu_mlp_bwd.restype = i32
     elif name == "fused_pe_mlp":
         lib.lab4d_fused_pe_mlp_fwd.argtypes = [
             vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, pf32, vp, i32, i32, i32, i32, i32, vp,
@@ -271,9 +267,9 @@ def _split_grads(flat, weights):
     return dws, dbs
 
 
-def _launch_tile_bwd(lib, fn, x, g, weights, biases, skip_idx, n_sm, stream, pe=None):
-    """Run a row-tiled backward entry (K3b or K4b). pe: (n_freqs, freq
-    array, window) or None."""
+def _launch_tile_bwd(lib, fn, x, g, weights, biases, skip_idx, n_sm, stream, pe):
+    """Run the row-tiled backward entry (K4b, or K3b with no frequencies).
+    pe: (n_freqs, freq array, window) from _freq_args."""
     layers, skip_mask = _layer_args(weights, biases, skip_idx)
     c_x = weights[0].shape[1]
     plan = tile_plan(c_x, [w.shape[1] for w in weights], [w.shape[0] for w in weights],
@@ -281,14 +277,10 @@ def _launch_tile_bwd(lib, fn, x, g, weights, biases, skip_idx, n_sm, stream, pe=
     dx = torch.empty_like(x)
     ws = torch.empty(plan.grid * plan.n_params, device=x.device, dtype=x.dtype)
     flat = torch.empty(plan.n_params, device=x.device, dtype=x.dtype)
-    head = (x.data_ptr(), g.data_ptr(), dx.data_ptr(), ws.data_ptr(), flat.data_ptr(), *layers)
-    if pe is None:
-        err = fn(*head, x.shape[1], x.shape[0], plan.tile_rows, skip_mask, plan.grid, stream)
-    else:
-        n_freqs, freq_arr, window = pe
-        err = fn(*head, x.shape[1], n_freqs, freq_arr,
-                 None if window is None else window.data_ptr(),
-                 x.shape[0], plan.tile_rows, skip_mask, plan.grid, stream)
+    n_freqs, freq_arr, window = pe
+    err = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), ws.data_ptr(), flat.data_ptr(), *layers,
+             x.shape[1], n_freqs, freq_arr, None if window is None else window.data_ptr(),
+             x.shape[0], plan.tile_rows, skip_mask, plan.grid, stream)
     _raise_on(lib, err, fn.__name__)
     dws, dbs = _split_grads(flat, weights)
     return dx, dws, dbs
@@ -372,9 +364,9 @@ def fused_relu_mlp_backward(x, g, weights, biases, skip_idx=()):
     _check_args(x, weights, biases, skip_idx)
     if g.shape != (x.shape[0], weights[-1].shape[0]) or not g.is_contiguous() or g.dtype != x.dtype:
         raise ValueError(f"g must be a contiguous ({x.shape[0]}, {weights[-1].shape[0]}) float32 tensor")
-    lib = _kernel_lib("fused_relu_mlp_bwd")
-    out = _launch_tile_bwd(lib, lib.lab4d_fused_relu_mlp_bwd, x, g, weights, biases, skip_idx,
-                           _n_sm(x.device), _stream(x.device))
+    lib = _kernel_lib("fused_pe_mlp")
+    out = _launch_tile_bwd(lib, lib.lab4d_fused_pe_mlp_bwd, x, g, weights, biases, skip_idx,
+                           _n_sm(x.device), _stream(x.device), pe=_freq_args((), None, x))
     fused_relu_mlp_backward.launches += 1
     return out
 

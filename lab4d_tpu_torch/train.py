@@ -70,7 +70,6 @@ def get_parser() -> argparse.ArgumentParser:
                    help="SDF-distillation steps for geometry init")
     p.add_argument("--database_root", default="database",
                    help="root of preprocessed dataset + configs")
-    p.add_argument("--seed", type=int, default=0, help="seed of the weight initialization")
     p.add_argument("--device", default="cuda", help="torch device to train on")
     return p
 
