@@ -15,7 +15,9 @@ synchronise; any failure exits non-zero:
    inputs, at the shapes the render and training paths give it: K3f
    (fused_relu_mlp forward), K3b (its backward), K4f / K4b (fused_pe_mlp
    and its backward) at the bg field's base, colour and visibility MLPs
-   on 262,144 points and at the 512 visibility-decay points. Max error,
+   on 262,144 points and at the 512 visibility-decay points, K1 / K2
+   (fused_nerf_heads and its backward) at the flagship fg field's step
+   (262,144 points, 1024 per pair, 256 appearance rows). Max error,
    tolerance, median device time from CUDA-graph replay for kernel and
    plain version, and the bound (the larger of FLOPs over the fp32 peak
    and bytes over the memory rate);
@@ -34,7 +36,13 @@ synchronise; any failure exits non-zero:
    bg field D=5 W=128, TimeMLPs D=5 W=256) on a synthetic scene written by
    lab4d_tpu_torch.tools.synthetic_scene: prior fits, one round of 25
    steps, a checkpoint. Prints ms/step, peak memory, first and last total
-   loss, grad norms and the launches of every kernel.
+   loss, grad norms and the launches of every kernel;
+9. train-reference-fg: as 7 for the flagship fg / skel-quad model, whose
+   field heads run through K1 / K2 on the GPU: all 17 loss terms and
+   every gradient;
+10. train-fg: as 8 with `--field_type fg --fg_motion skel-quad` (field
+   heads D=5 W=128, 25 bones) at full width, plus the round's eval render
+   and its eval/psnr in metrics.jsonl.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel; the last line is
@@ -42,6 +50,7 @@ before it a JSON summary of every kernel; the last line is
 prints no result.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -62,6 +71,7 @@ KERNEL_TOL = 1e-4  # fp32 FMA vs cuBLAS fp32: summation order only; on the
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3 (NVIDIA data sheet)
 TRAIN_STEPS = 25
+FG_PAIRS, FG_SPP = 256, 1024  # the flagship step: 128 images x 2 frames; 16 px x 64 samples
 # one training step, GPU (kernels) vs CPU (plain versions), fp32: loss terms
 # relative; gradients per parameter, max|d| <= abs + rel * max|g_cpu|
 TRAIN_REF_TOL = {"loss_rtol": 1e-4, "grad_abs": 1e-5, "grad_rel": 1e-3}
@@ -307,7 +317,94 @@ def phase_kernel():
                lambda: K.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips),
                lambda: K.pe_mlp_backward_reference(x, g, win, weights, biases, freqs, skips),
                flops, nbytes, inner, rel_err=err)
+    results.update(_heads_kernels(gen))
     return results
+
+
+def _flagship_heads(gen):
+    """Random flagship-width field heads (FeatureNeRF, D=5 W=128) and the
+    inputs of one training step: 262,144 points, live annealing windows."""
+    import torch
+
+    from lab4d_tpu_torch.nnutils.embedding import PosEmbedding
+    from lab4d_tpu_torch.ops.field_kernel import FieldCfg
+
+    def mlp(c_x, widths, skips=()):
+        ws, bs = _mlp_params(c_x, 0, 0, gen, "cuda", widths=widths, skips=skips)
+        return [t for wb in zip(ws, bs) for t in wb]
+
+    nets = dict(base=mlp(63, [128] * 6, (4,)), sdf=mlp(128, [1]), color=mlp(75, [128] * 3),
+                rgb1=mlp(160, [64]), rgb2=mlp(64, [3]), vis=mlp(63, [64, 64, 1]),
+                feat=mlp(39, [128] * 5 + [16], (4,)))
+    cfg = FieldCfg(tuple(float(2.0**i) for i in range(12)), 10, 12, 10, 6, (4,), (4,), (4,), (4,))
+    P = FG_PAIRS * FG_SPP
+    x = ((torch.rand(P, 3, generator=gen) * 2 - 1) * 0.5).cuda()
+    appr = (torch.randn(FG_PAIRS, 32, generator=gen) * 0.3).cuda()
+    win_b = PosEmbedding(3, 10).get_window(0.7).cuda()
+    win_c = PosEmbedding(3, 12).get_window(0.7).cuda()
+    ibeta = torch.tensor([10.0], device="cuda")
+    g = [torch.randn(P, c, generator=gen).cuda() for c in (1, 3, 1, 16)]
+    return (x, appr, win_b, win_c, nets, ibeta, cfg, FG_SPP), g
+
+
+def _heads_kernels(gen):
+    """K1 and K2 against their plain versions at the flagship step, every
+    output and every gradient."""
+    import torch
+
+    from lab4d_tpu_torch.ops import field_kernel as FK
+
+    args, g = _flagship_heads(gen)
+    x, nets, P = args[0], args[4], args[0].shape[0]
+    got = FK.fused_nerf_heads(*args)
+    want = FK.nerf_heads_reference(*args)
+    sync()
+    errs = {n: float((a - b).abs().max()) for n, a, b in zip(("density", "rgb", "vis", "feat"), got, want)}
+    print("[kernel] K1 outputs, max abs err (tol %g): " % KERNEL_TOL
+          + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+    if not all(o.is_cuda for o in got) or not max(errs.values()) <= KERNEL_TOL:
+        fail(f"K1 disagrees with its plain version: {errs}")
+    got_b = FK.fused_nerf_heads_backward(x, g, *args[1:])
+    want_b = FK.nerf_heads_backward_reference(x, g, *args[1:])
+    sync()
+    names = ["dx", "dappr", "dibeta"] + [f"{n}.{i}" for n, i in FK.flatten_nets(nets)[1]]
+    pairs = zip(names, [got_b[0], got_b[1], got_b[3]] + FK.flatten_nets(got_b[2])[0],
+                [want_b[0], want_b[1], want_b[3].reshape(-1)] + FK.flatten_nets(want_b[2])[0])
+    abs_b, rel_b = {}, {}
+    for n, a, b in pairs:
+        abs_b[n] = float((a.reshape(b.shape) - b).abs().max())
+        rel_b[n] = abs_b[n] / max(1.0, float(b.abs().max()))
+    print("[kernel] K2 gradients, max rel err (tol %g; abs err / max(1, max|g|)): " % KERNEL_TOL
+          + " ".join(f"{k}={v:.1e}" for k, v in rel_b.items()))
+    if not max(rel_b.values()) <= KERNEL_TOL:
+        fail(f"K2 disagrees with its plain version: {max(rel_b.items(), key=lambda t: t[1])}")
+
+    # 234,688 multiply-adds per point at the flagship widths (PERF.md)
+    macs = sum(w.numel() for w in FK.flatten_nets(nets)[0][0::2]) - 64 * 32
+    weights = sum(t.numel() for t in FK.flatten_nets(nets)[0])
+    label = f"flagship heads D5 W128, {FG_PAIRS} pairs x {FG_SPP}"
+    out = {}
+    for key, kernel, plain, flops, nbytes, rel in (
+        ("K1", lambda: FK.fused_nerf_heads(*args), lambda: FK.nerf_heads_reference(*args),
+         2 * P * macs, 4 * (P * (3 + 21) + FG_PAIRS * 32 + weights), None),
+        ("K2", lambda: FK.fused_nerf_heads_backward(x, g, *args[1:]),
+         lambda: FK.nerf_heads_backward_reference(x, g, *args[1:]),
+         3 * 2 * P * macs, 4 * (P * (3 + 21 + 3) + 2 * FG_PAIRS * 32 + 2 * weights),
+         max(rel_b.values())),
+    ):
+        backward = key == "K2"
+        r = {"label": label, "rows": P, "macs_per_point": macs,
+             "max_abs_err": max(abs_b.values()) if backward else max(errs.values()),
+             "ms": device_ms(kernel, 3), "plain_ms": eager_ms(plain, 2) if backward else device_ms(plain, 2)}
+        if rel is not None:
+            r["max_rel_err"] = rel
+        r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes)
+        sync()
+        print(f"[kernel] {key} {label}: {macs} MAC/point, device kernel {r['ms']:.3f} ms / plain "
+              f"{r['plain_ms']:.3f} ms{' (eager)' if backward else ''} / bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']})")
+        out[key] = [r]
+    return out
 
 
 def make_scene(num_frames=8, res=RES):
@@ -480,8 +577,12 @@ def phase_render(model, geo_state, data_info):
     return launches
 
 
-TRAIN_OPTS = ["--field_type", "bg", "--seqname", "smoke", "--logname", "bg", "--train_res", "64",
-              "--num_workers", "4"]
+TRAIN_OPTS = {
+    "bg": ["--field_type", "bg", "--seqname", "smoke", "--logname", "bg", "--train_res", "64",
+           "--num_workers", "4"],
+    "fg": ["--field_type", "fg", "--fg_motion", "skel-quad", "--seqname", "smoke", "--logname", "fg",
+           "--train_res", "64", "--num_workers", "4"],
+}
 
 
 def write_scene(root):
@@ -508,18 +609,80 @@ def _step_grads(model, batch, draws, step=0):
              if p.grad is not None})
 
 
-def phase_train_reference(db, root):
-    """One bg training step on the GPU (kernels) against the same weights,
-    batch and random draws on the CPU (plain versions), after the prior
-    fits of a small trainer."""
+def _compare_steps(got, want, tol, what):
+    """Two steps' loss terms (rtol) and gradients (per parameter, max|d| <=
+    abs + rel * max|g_want|): (summary with the worst loss term's relative
+    error and the worst gradient's share of its bound, list of failures)."""
+    failures = []
+    if sorted(got["grads"]) != sorted(want["grads"]):
+        failures.append("the steps differ in which parameters get a gradient")
+    loss_errs = []
+    for k, v in want["loss"].items():
+        err = abs(got["loss"][k] - v) / max(abs(v), 1e-12)
+        if not (np.isfinite(got["loss"][k]) and err <= tol["loss_rtol"]):
+            failures.append(f"loss {k} {got['loss'][k]} vs {v}")
+        loss_errs.append((err, k))
+    grad_errs = []
+    for n, g in want["grads"].items():
+        if n in got["grads"]:
+            d = float((got["grads"][n] - g).abs().max())
+            bound = tol["grad_abs"] + tol["grad_rel"] * float(g.abs().max())
+            if not d <= bound:
+                failures.append(f"gradient of {n} differs by {d} > {bound}")
+            grad_errs.append((d / bound, n))
+    loss_errs.sort(reverse=True)
+    grad_errs.sort(reverse=True)
+    print(f"[{what}] worst loss terms (relative error): "
+          + ", ".join(f"{k}={e:.2e}" for e, k in loss_errs[:4])
+          + "; worst gradients (share of the bound): "
+          + ", ".join(f"{n}={e:.3f}" for e, n in grad_errs[:4]))
+    summary = (f"{len(loss_errs)} loss terms within rtol {tol['loss_rtol']:g} (worst "
+               f"{loss_errs[0][0]:.2e}, {loss_errs[0][1]}), {len(grad_errs)} gradients within "
+               f"{tol['grad_abs']:g} + {tol['grad_rel']:g} max|g| (worst {grad_errs[0][0]:.3f} of "
+               f"the bound, {grad_errs[0][1]})")
+    return summary, failures
+
+
+def _check_steps(got, want, what):
+    summary, failures = _compare_steps(got, want, TRAIN_REF_TOL, what)
+    if failures:
+        fail(f"{what}: " + "; ".join(failures[:4]))
+    return summary
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper of the training step (K1/K2, K3f/K3b, K4f/K4b)
+    replaced by its plain version, on whatever device: separates the
+    kernels' error from the rest of the GPU's arithmetic."""
+    from lab4d_tpu_torch.nnutils import feature
+    from lab4d_tpu_torch.ops import field_kernel as FK
+    from lab4d_tpu_torch.ops import mlp_kernel as K
+
+    kept = K.fused_relu_mlp, K.fused_pe_mlp, feature.fused_nerf_heads
+    K.fused_relu_mlp, K.fused_pe_mlp = K.mlp_reference, K.pe_mlp_reference
+    feature.fused_nerf_heads = FK.nerf_heads_reference
+    try:
+        yield
+    finally:
+        K.fused_relu_mlp, K.fused_pe_mlp, feature.fused_nerf_heads = kept
+
+
+def reference_steps(db, root, cate, geo_init_steps):
+    """A small trainer of the `cate` field ("bg", or the fg / skel-quad
+    model) after its prior fits with `geo_init_steps` geometry steps, one
+    batch of 128 rays of 64 samples and seeded random draws; returns
+    step(device): that training step's loss terms and gradients on the
+    device, from the trainer's weights."""
     import torch
 
     from lab4d_tpu_torch.engine.trainer import Trainer
     from lab4d_tpu_torch.train import get_parser
 
-    opts = vars(get_parser().parse_args(TRAIN_OPTS + [
-        "--imgs_per_gpu", "4", "--geo_init_steps", "20", "--num_rounds", "1",
-        "--iters_per_round", "1", "--database_root", db, "--logroot", os.path.join(root, "ref"),
+    opts = vars(get_parser().parse_args(TRAIN_OPTS[cate] + [
+        "--imgs_per_gpu", "4", "--geo_init_steps", str(geo_init_steps),
+        "--num_rounds", "1", "--iters_per_round", "1", "--database_root", db,
+        "--logroot", os.path.join(root, f"ref-{cate}-{geo_init_steps}"),
     ]))
     trainer = Trainer(opts)
     batch_np = trainer.trainloader.next_batch()
@@ -529,54 +692,72 @@ def phase_train_reference(db, root):
     draws_np = {"eikonal_idx": rng.permutation(rays)[: rays // 16],
                 "vis_u": rng.random((512, 3)).astype(np.float32),
                 "vis_inst": np.zeros(512, np.int64)}
-    got, want = {}, {}
-    for dev, out in ((trainer.device, got), (torch.device("cpu"), want)):
-        model = trainer.model if dev == trainer.device else copy.deepcopy(trainer.model).cpu()
+    if cate == "fg":  # the global-match candidates, the gauss-skin points
+        draws_np["match_idx"] = rng.integers(0, rays * 64, 1024)
+        draws_np["gauss_u"] = rng.random((2048, 3)).astype(np.float32)
+
+    def step(dev):
+        dev = torch.device(dev)
+        model = trainer.model if dev == trainer.device else copy.deepcopy(trainer.model).to(dev)
         geo = {c: {k: v.to(dev) for k, v in g.items()} for c, g in trainer.geo_for_batch().items()}
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
         batch["geo"] = geo
-        draws = {"bg": {k: torch.as_tensor(v, device=dev) for k, v in draws_np.items()}}
-        out["loss"], out["grads"] = _step_grads(model, batch, draws)
-    sync()
-    worst_loss = 0.0
-    for k, v in want["loss"].items():
-        err = abs(got["loss"][k] - v) / max(abs(v), 1e-12)
-        if not (np.isfinite(got["loss"][k]) and (err <= TRAIN_REF_TOL["loss_rtol"] or v == 0 == got["loss"][k])):
-            fail(f"train-reference: loss {k} GPU {got['loss'][k]} vs CPU {v}")
-        worst_loss = max(worst_loss, err if v != 0 else 0.0)
-    if sorted(got["grads"]) != sorted(want["grads"]):
-        fail("train-reference: GPU and CPU steps differ in which parameters get a gradient")
-    worst = (0.0, "")
-    for n, g in want["grads"].items():
-        d = float((got["grads"][n] - g).abs().max())
-        bound = TRAIN_REF_TOL["grad_abs"] + TRAIN_REF_TOL["grad_rel"] * float(g.abs().max())
-        if not d <= bound:
-            fail(f"train-reference: gradient of {n} differs by {d} > {bound}")
-        worst = max(worst, (d / bound, n))
-    print(f"[train-reference] {rays} rays x 64 samples, GPU vs CPU: {len(want['loss'])} loss terms "
-          f"within rtol {TRAIN_REF_TOL['loss_rtol']:g} (worst {worst_loss:.2e}), "
-          f"{len(want['grads'])} gradients within {TRAIN_REF_TOL['grad_abs']:g} + "
-          f"{TRAIN_REF_TOL['grad_rel']:g} max|g| (worst {worst[0]:.3f} of the bound, {worst[1]})")
+        draws = {cate: {k: torch.as_tensor(v, device=dev) for k, v in draws_np.items()}}
+        loss, grads = _step_grads(model, batch, draws)
+        sync()
+        return {"loss": loss, "grads": grads}
+
+    step.rays = rays
+    return step
+
+
+# geometry-init steps of the reference trainer. fg: a short fit; further
+# fitted states (20-500 steps) make the fg step's GPU and CPU results
+# differ beyond the bound with every kernel plain on the GPU as well
+# (PERF.md §6; tools/compare_fg_step.py)
+REF_GEO_STEPS = {"bg": 20, "fg": 5}
+
+
+def phase_train_reference(db, root, cate):
+    """One training step of the `cate` field on the GPU (kernels) against
+    the same weights, batch and random draws on the CPU (plain versions).
+    For fg also against the same step on the GPU with every kernel's plain
+    version, which isolates the kernels from the rest of the GPU's
+    arithmetic."""
+    step = reference_steps(db, root, cate, REF_GEO_STEPS[cate])
+    got, want = step("cuda"), step("cpu")
+    tag = "train-reference" + ("-fg" if cate == "fg" else "")
+    if cate == "fg":
+        with plain_kernels():
+            plain = step("cuda")
+        print(f"[{tag}] {step.rays} rays x 64 samples, GPU through the kernels vs GPU through "
+              "their plain versions: " + _check_steps(got, plain, f"{tag}, kernels vs plain"))
+    print(f"[{tag}] {step.rays} rays x 64 samples, GPU vs CPU: "
+          + _check_steps(got, want, f"{tag}, GPU vs CPU"))
+
+
+def _counted():
+    from lab4d_tpu_torch.ops import field_kernel as FK
+    from lab4d_tpu_torch.ops import mlp_kernel as K
+
+    return {"K3f": K.fused_relu_mlp, "K3b": K.fused_relu_mlp_backward, "K4f": K.fused_pe_mlp,
+            "K4b": K.fused_pe_mlp_backward, "K1": FK.fused_nerf_heads,
+            "K2": FK.fused_nerf_heads_backward}
 
 
 def _kernel_counts():
-    from lab4d_tpu_torch.ops import mlp_kernel as K
-
-    return {"K3f": K.fused_relu_mlp.launches, "K3b": K.fused_relu_mlp_backward.launches,
-            "K4f": K.fused_pe_mlp.launches, "K4b": K.fused_pe_mlp_backward.launches}
+    return {k: fn.launches for k, fn in _counted().items()}
 
 
 def _reset_kernel_counts():
-    from lab4d_tpu_torch.ops import mlp_kernel as K
-
-    for fn in (K.fused_relu_mlp, K.fused_relu_mlp_backward, K.fused_pe_mlp,
-               K.fused_pe_mlp_backward):
+    for fn in _counted().values():
         fn.launches = 0
 
 
-def phase_train(db, root):
-    """The training entry at full width; returns the launch counts of the
-    whole run."""
+def phase_train(db, root, cate):
+    """The training entry at full width for the `cate` field; returns the
+    launch counts of the whole run and of the training steps, and the
+    median ms/step."""
     import torch
 
     from lab4d_tpu_torch import train as train_cli
@@ -590,7 +771,7 @@ def phase_train(db, root):
         orig(self, round_count)
         steps.update({k: v - before[k] for k, v in _kernel_counts().items()})
 
-    argv = TRAIN_OPTS + ["--num_rounds", "1", "--iters_per_round", str(TRAIN_STEPS),
+    argv = TRAIN_OPTS[cate] + ["--num_rounds", "1", "--iters_per_round", str(TRAIN_STEPS),
                          "--save_freq", "1", "--database_root", db,
                          "--logroot", os.path.join(root, "logdir")]
     torch.cuda.reset_peak_memory_stats()
@@ -606,32 +787,42 @@ def phase_train(db, root):
     launches = _kernel_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     if trainer.current_steps != TRAIN_STEPS or len(trainer.step_ms) != TRAIN_STEPS:
-        fail(f"train: {trainer.current_steps} steps, {len(trainer.step_ms)} timed")
+        fail(f"{cate} train: {trainer.current_steps} steps, {len(trainer.step_ms)} timed")
     if not all(p.is_cuda for p in trainer.model.parameters()):
-        fail("train: model parameters are not all on cuda")
+        fail(f"{cate} train: model parameters are not all on cuda")
     totals = [ld["total"] for ld in trainer.losses]
     if not np.all(np.isfinite(totals)) or not np.all(np.isfinite(trainer.grad_norms)):
-        fail(f"train: non-finite loss or grad norm: {totals} {trainer.grad_norms}")
+        fail(f"{cate} train: non-finite loss or grad norm: {totals} {trainer.grad_norms}")
     first, last = float(np.mean(totals[:5])), float(np.mean(totals[-5:]))
     if not last < first:
-        fail(f"train: the total loss did not decrease: mean of the first 5 steps {first}, "
+        fail(f"{cate} train: the total loss did not decrease: mean of the first 5 steps {first}, "
              f"of the last 5 {last}")
+    tag = "train" + ("-fg" if cate == "fg" else "")
     for name, n in steps.items():
-        if n <= 0:
-            fail(f"train: the training steps launched no {name} kernel")
-    ckpt = os.path.join(root, "logdir", "smoke-bg", "ckpt_latest.flax")
+        if n <= 0 and (cate == "fg" or name not in ("K1", "K2")):
+            fail(f"{tag}: the training steps launched no {name} kernel")
+    run_dir = os.path.join(root, "logdir", "smoke-" + cate)
+    ckpt = os.path.join(run_dir, "ckpt_latest.flax")
     if not os.path.exists(ckpt):
-        fail("train: no checkpoint written")
+        fail(f"{tag}: no checkpoint written")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if "eval/psnr" in r]
+    if cate == "fg" and not (evals and np.isfinite(evals[-1]["eval/psnr"])):
+        fail(f"{tag}: the round's eval wrote no finite eval/psnr: {evals}")
     ms = float(np.median(trainer.step_ms[1:]))
-    print(f"[train] bg field, 128 images x 2 frames x 16 px x 64 samples = 262144 points/step, "
+    field = "fg / skel-quad field" if cate == "fg" else "bg field"
+    print(f"[{tag}] {field}, 128 images x 2 frames x 16 px x 64 samples = 262144 points/step, "
           f"{TRAIN_STEPS} steps in {elapsed:.1f} s total (prior fits, geometry, checkpoint "
           f"included): {ms:.2f} ms/step (median after the first; first {trainer.step_ms[0]:.1f} ms), "
           f"peak memory {peak:.2f} GiB")
-    print(f"[train] total loss {totals[0]:.5f} -> {totals[-1]:.5f} (mean of first/last 5: "
+    if evals:
+        print(f"[{tag}] eval at the round's start: " + " ".join(
+            f"{k}={v:.4f}" for k, v in evals[-1].items() if k.startswith("eval/")))
+    print(f"[{tag}] total loss {totals[0]:.5f} -> {totals[-1]:.5f} (mean of first/last 5: "
           f"{first:.5f} -> {last:.5f}); grad norm {trainer.grad_norms[0]:.4f} -> "
           f"{trainer.grad_norms[-1]:.4f} (max {max(trainer.grad_norms):.4f}); "
           f"geometry init loss {trainer.geo_init_losses[0]:.4f} -> {trainer.geo_init_losses[1]:.4f}")
-    print("[train] launches in the training steps: "
+    print(f"[{tag}] launches in the training steps: "
           + " ".join(f"{k}={v}" for k, v in steps.items())
           + "; in the whole run: " + " ".join(f"{k}={v}" for k, v in launches.items())
           + f"; checkpoint {os.path.getsize(ckpt)} bytes")
@@ -639,6 +830,10 @@ def phase_train(db, root):
 
 
 KERNEL_INFO = {  # JSON name, source, the TPU kernel it replaces
+    "K1": ("nerf_heads_fwd", "lab4d_tpu_torch/csrc/nerf_heads.cu",
+           "lab4d_tpu/ops/field_kernel.py:544"),
+    "K2": ("nerf_heads_bwd", "lab4d_tpu_torch/csrc/nerf_heads.cu",
+           "lab4d_tpu/ops/field_kernel.py:626"),
     "K3f": ("fused_relu_mlp_fwd", "lab4d_tpu_torch/csrc/fused_relu_mlp.cu",
             "lab4d_tpu/ops/mlp_kernel.py:127"),
     "K3b": ("fused_relu_mlp_bwd", "lab4d_tpu_torch/csrc/fused_pe_mlp.cu",
@@ -675,8 +870,10 @@ def main():
     del model
     with tempfile.TemporaryDirectory() as root:
         db = write_scene(root)
-        phase_train_reference(db, root)
-        launches, step_launches, _ = phase_train(db, root)
+        phase_train_reference(db, root, "bg")
+        bg_launches, bg_steps, _ = phase_train(db, root, "bg")
+        phase_train_reference(db, root, "fg")
+        fg_launches, fg_steps, _ = phase_train(db, root, "fg")
     sync()
     jax_loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "lab4d_tpu"))
     if jax_loaded:
@@ -687,14 +884,16 @@ def main():
     for key, (name, source, replaces) in KERNEL_INFO.items():
         # the shape the training step gives each kernel most work at
         main_shape = max(kernels[key], key=lambda r: (r["rows"], r["bound_ms"]))
+        by_path = {"render": render_launches[key], "train": bg_launches[key],
+                   "train_fg": fg_launches[key]}
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[key],
-            "launches_by_path": {"render": render_launches[key],
-                                 "train": launches[key], "train_steps": step_launches[key]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": {**by_path, "train_steps": bg_steps[key],
+                                 "train_fg_steps": fg_steps[key]},
             "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),
             **({"max_rel_err": max(r["max_rel_err"] for r in kernels[key])}
-               if key.endswith("b") else {}),
+               if "max_rel_err" in kernels[key][0] else {}),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
             "library_ms": None, "shape": main_shape["label"],

@@ -8,8 +8,10 @@ jax or flax: checkpoints written by the JAX trainer load through
 `lab4d_tpu_torch.bridge`.
 
 Ported so far: the rendering path of the flagship model
-(`field_type=fg`, `fg_motion=skel-quad`, exact merged two-pass eval) and
-the forward of the fused ReLU-MLP kernel.
+(`field_type=fg`, `fg_motion=skel-quad`, exact merged two-pass eval), the
+training of that model and of the background field (`field_type=bg`),
+and every kernel those paths run: the field heads (K1 / K2), the fused
+ReLU MLP (K3f / K3b) and the Fourier-embedding MLP (K4f / K4b).
 """
 
 __version__ = "0.1.0"

@@ -87,6 +87,32 @@ struct KSegs {
 
 __host__ __device__ __forceinline__ int tm_round4(int n) { return (n + 3) & ~3; }
 
+// A layer weight stored as two column blocks [w1 (n_out, k1) | w2 (n_out, in - k1)],
+// as the skip layers of the field heads keep it (csrc/nerf_heads.cu): the first
+// k1 inputs are the embedded X, the rest the hidden h. w2 is unused when k1
+// covers every input.
+struct WSegs {
+  const float* w1;
+  int k1;
+  const float* w2;
+};
+
+// A(o, k) of a staged k-chunk. kFwd: W(o, k) of an (n_o, K) weight; otherwise
+// W(k, o) of a (K, n_o) weight (its transpose, for dIn = g . W).
+template <bool kFwd>
+__device__ __forceinline__ float tm_wload(const float* __restrict__ W, int n_o, int K, int o, int k) {
+  return kFwd ? __ldg(W + (size_t)o * K + k) : __ldg(W + (size_t)k * n_o + o);
+}
+
+template <bool kFwd>
+__device__ __forceinline__ float tm_wload(const WSegs& W, int n_o, int K, int o, int k) {
+  if (kFwd)
+    return k < W.k1 ? __ldg(W.w1 + (size_t)o * W.k1 + k)
+                    : __ldg(W.w2 + (size_t)o * (K - W.k1) + (k - W.k1));
+  return o < W.k1 ? __ldg(W.w1 + (size_t)k * W.k1 + o)
+                  : __ldg(W.w2 + (size_t)k * (n_o - W.k1) + (o - W.k1));
+}
+
 // The weights of one k-chunk, A(o, k0 + kk) for kk < TM_KC and o < n_o, in
 // registers until they are stored to as[kk * ld + o] (zero outside).
 // kFwd: A(o, k) = W[o * K + k] (a layer's weight, output o); otherwise
@@ -120,14 +146,13 @@ struct TmStager {
     }
   }
 
-  __device__ __forceinline__ void load(const float* __restrict__ W, int n_o, int K, int k0) {
+  template <typename WT>
+  __device__ __forceinline__ void load(const WT& W, int n_o, int K, int k0) {
     int kk = kk0, o = o0;
 #pragma unroll
     for (int s = 0; s < TM_STAGE_REGS; ++s) {
       const int k = k0 + kk;
-      v[s] = (kk < TM_KC && o < n_o && k < K)
-                 ? (kFwd ? __ldg(W + (size_t)o * K + k) : __ldg(W + (size_t)k * n_o + o))
-                 : 0.f;
+      v[s] = (kk < TM_KC && o < n_o && k < K) ? tm_wload<kFwd>(W, n_o, K, o, k) : 0.f;
       next(kk, o);
     }
   }
@@ -146,9 +171,10 @@ struct TmStager {
 // epi(o, r, value) for every o < n_o. Must be called by the whole block.
 // Tiles are numbered with r fastest, so a warp reads few weight vectors
 // (broadcast) and contiguous activations.
-template <bool kFwd, typename Epi>
-__device__ void tm_gemm(const float* __restrict__ W, int n_o, int K, KSegs in, int tr,
-                        float* as, int ld, Epi epi) {
+// W: a const float* or a WSegs.
+template <bool kFwd, typename WT, typename Epi>
+__device__ void tm_gemm(const WT& W, int n_o, int K, KSegs in, int tr, float* as, int ld,
+                        Epi epi) {
   const int n_rt = tr / 4;
   const int n_mt = ((n_o + 3) / 4) * n_rt;
   for (int m0 = 0; m0 < n_mt; m0 += TM_MT * TM_THREADS) {
@@ -308,8 +334,8 @@ struct TmEpiDin {
   }
 };
 
-// dW[j][k] (+)= sum_r G[j][r] In(k)[r] and db[j] (+)= sum_r G[j][r] into this
-// block's workspace slice. A warp owns 4 rows j and 128 columns k, lane l
+// dW[j][k] (+)= sum_r G[j][r] In(k)[r] and, unless db is null, db[j] (+)=
+// sum_r G[j][r] into this block's workspace slice. A warp owns 4 rows j and 128 columns k, lane l
 // the columns k0 + l + 32 q: its activation reads hit distinct banks and
 // its workspace updates are coalesced.
 __device__ void tm_weight_grads(float* __restrict__ dw, float* __restrict__ db, const float* g,
@@ -366,6 +392,7 @@ __device__ void tm_weight_grads(float* __restrict__ dw, float* __restrict__ db, 
         if (j < n_o && k < K) dw[(size_t)j * K + k] = acc[i][q];
       }
   }
+  if (db == nullptr) return;
   for (int j = threadIdx.x; j < n_o; j += TM_THREADS) {
     const float* gj = g + (size_t)j * ts;
     float s = 0.f;

@@ -113,6 +113,15 @@ def get_data_info(datasets: List[VidData]):
     }
 
 
+def load_eval_frame(datasets: List[VidData], global_fid: int, data_info):
+    """One full-resolution eval frame pair by global filtered-frame index:
+    reference images and batch metadata, (2, ...) arrays."""
+    offset = data_info["frame_info"].frame_offset
+    di = int(np.searchsorted(offset, global_fid, side="right") - 1)
+    ds = datasets[di]
+    return ds.load_pair(min(int(global_fid - offset[di]), len(ds) - 1))
+
+
 def get_vid_length(inst_id, data_info):
     off = data_info["frame_info"].frame_offset_raw
     return int(off[inst_id + 1] - off[inst_id])

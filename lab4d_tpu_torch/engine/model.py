@@ -106,7 +106,8 @@ class DVRModel(nn.Module):
         returns the weighted, reduced loss terms {name: scalar}.
 
         sched: the step's schedule values; draws: optional injected random
-        draws per field ({cate: {"eikonal_idx", "vis_u", "vis_inst"}})."""
+        draws per field ({cate: {"eikonal_idx", "vis_u", "vis_inst",
+        "match_idx", "gauss_u"}})."""
         batch = dict(batch)
         geo = batch.pop("geo")
         batch = self.reshape_batch(self.process_frameid(batch))
@@ -119,10 +120,13 @@ class DVRModel(nn.Module):
         rendered = render_pixel(*self.fields.compose_fields(multifields_dict, deltas_dict))
         # one field: its own render is the composed one
         aux_dict[next(iter(multifields_dict))].update(rendered)
+        if "xyz_matches" in aux_dict.get("fg", {}):
+            rendered["xyz_matches"] = aux_dict["fg"]["xyz_matches"]
+            rendered["xyz_reproj"] = aux_dict["fg"]["xyz_reproj"]
         loss_dict = {}
         self._recon_loss(loss_dict, rendered, aux_dict, batch)
         self._mask_losses(loss_dict, batch)
-        self._reg_loss(loss_dict, rendered, aux_dict, batch, draws)
+        self._reg_loss(loss_dict, rendered, aux_dict, batch, sched, draws)
         return self._apply_loss_weights(loss_dict, sched)
 
     @staticmethod
@@ -148,6 +152,11 @@ class DVRModel(nn.Module):
         else:
             wt = self.get_mask_balance_wt(batch["mask"], batch["vis2d"], batch["is_detected"])
             loss_dict["mask"] = (rendered["mask"] - gt_mask) ** 2 * wt
+        fg = aux_dict.get("fg", {})
+        if "feature" in fg:
+            loss_dict["feature"] = _safe_norm(fg["feature"] - batch["feature"])
+        if "xy_reproj" in fg:
+            loss_dict["feat_reproj"] = _safe_norm(fg["xy_reproj"] - batch["hxy"][..., :2])
         loss_dict["rgb"] = (rendered["rgb"] - batch["rgb"]) ** 2
         loss_dict["depth"] = _safe_norm(rendered["depth"] - batch["depth"])
         if "flow" in rendered:
@@ -159,20 +168,29 @@ class DVRModel(nn.Module):
             v = aux_dict[cate]["vis"]
             vis_loss = vis_loss + (v * 0.01 if cate == "bg" else v)
         loss_dict["vis"] = vis_loss
+        if "gauss_mask" in fg:
+            loss_dict["reg_gauss_mask"] = (fg["gauss_mask"] - rendered["mask"].detach()) ** 2
 
-    def _reg_loss(self, loss_dict, rendered, aux_dict, batch, draws):
+    def _reg_loss(self, loss_dict, rendered, aux_dict, batch, sched, draws):
         aabbs = {cate: batch["geo"][cate]["aabb"] for cate in batch["geo"]}
-        zero = rendered["mask"].new_zeros(())
         loss_dict["reg_visibility"] = self.fields.visibility_decay_loss(aabbs, draws)
         loss_dict["reg_eikonal"] = rendered["eikonal"]
-        # a rigid field has no soft-deformation, skinning or skeleton terms
-        loss_dict["reg_soft_deform"] = zero
-        loss_dict["reg_gauss_skin"] = zero
+        if "fg" in aux_dict:
+            fg = aux_dict["fg"]
+            loss_dict["reg_deform_cyc"] = fg["cyc_dist"]
+            if "delta_skin" in fg:
+                loss_dict["reg_delta_skin"] = fg["delta_skin"]
+            loss_dict["reg_skin_entropy"] = fg["skin_entropy"]
+        loss_dict["reg_soft_deform"] = self.fields.soft_deform_loss(aabbs)
+        loss_dict["reg_gauss_skin"] = self.fields.gauss_skin_consistency_loss(
+            aabbs, alpha=sched["alpha"], draws=draws)
         loss_dict["reg_cam_prior"] = self.fields.cam_prior_loss()
-        loss_dict["reg_skel_prior"] = zero
+        loss_dict["reg_skel_prior"] = self.fields.skel_prior_loss()
 
     def _mask_losses(self, loss_dict, batch):
-        """Restrict the dense losses to the pixels each term applies to."""
+        """Restrict the dense losses to the pixels each term applies to;
+        reg_gauss_mask is left unmasked."""
+        keys_ignore = ("reg_gauss_mask",)
         keys_allpix = ("mask",)
         keys_fg = ("feature", "feat_reproj")
         keys_type_specific = ("rgb", "depth", "flow", "vis")
@@ -185,6 +203,8 @@ class DVRModel(nn.Module):
         else:
             mask = vis2d
         for k, v in loss_dict.items():
+            if k in keys_ignore:
+                continue
             if k in keys_allpix:
                 loss_dict[k] = v * vis2d
             elif k in keys_fg:

@@ -1,10 +1,12 @@
 """Round-based trainer: AdamW with a one-cycle schedule, skip-not-clip
 of spiking steps with a two-round rollback, prior-fit initialization,
-host-maintained geometry state and checkpoints in the JAX trainer's
-layout. Port of lab4d_tpu/engine/trainer.py for one card.
+host-maintained geometry state, a per-round eval render with its metrics
+and checkpoints in the JAX trainer's layout. Port of
+lab4d_tpu/engine/trainer.py for one card.
 
-The per-round eval render and its metrics (`model_eval`) and resuming from
-a checkpoint are not ported yet (ROADMAP.md).
+Resuming from a checkpoint and the skeleton joint-angle prior fit (which
+needs "joint_angles" in the dataset metadata) are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import json
 import os
 import shutil
 import time
+import traceback
 from typing import Dict, List
 
 import numpy as np
@@ -30,6 +33,8 @@ from lab4d_tpu_torch.meshlib.sdf import MeshSDF
 from lab4d_tpu_torch.nnutils.intrinsics import intrinsics_base_init
 from lab4d_tpu_torch.nnutils.multifields import INIT_SCALE
 from lab4d_tpu_torch.nnutils.pose import camera_base_quat_init
+from lab4d_tpu_torch.render import render_batch
+from lab4d_tpu_torch.utils import metrics
 from lab4d_tpu_torch.utils.geom import get_near_far
 from lab4d_tpu_torch.utils.quat import quaternion_translation_to_se3
 
@@ -101,8 +106,8 @@ class Trainer:
     def define_dataset(self):
         opts = self.opts
         self.datasets = data_utils.config_to_datasets(opts, is_eval=False)
-        self.data_info = data_utils.get_data_info(
-            data_utils.config_to_datasets(opts, is_eval=True))
+        self.eval_datasets = data_utils.config_to_datasets(opts, is_eval=True)
+        self.data_info = data_utils.get_data_info(self.eval_datasets)
         self.trainloader = data_utils.TrainBatchLoader(
             self.datasets, imgs_per_batch=opts["imgs_per_gpu"],
             num_workers=opts.get("num_workers", 2),
@@ -119,15 +124,12 @@ class Trainer:
         self.step_ms: List[float] = []
         self.grad_norms: List[float] = []
         self.losses: List[Dict[str, float]] = []
+        total_eval = max(self.data_info["frame_info"].num_frames - 1, 1)
+        self.eval_fid = np.linspace(0, total_eval - 1, 9).astype(int)
 
     def define_model(self):
         opts = self.opts
         info = self.data_info
-        if opts["field_type"] != "bg":
-            raise NotImplementedError(
-                f"training field_type {opts['field_type']!r} needs the field kernels K1/K2 "
-                "(FeatureNeRF), which are not ported yet (ROADMAP.md, slice 2b)"
-            )
         fi = info["frame_info"]
         self.categories = (opts["field_type"],)
         self.model = DVRModel(
@@ -220,7 +222,9 @@ class Trainer:
             model, self._build_geometry_pools(num_steps=steps), num_steps=steps)
 
     def _build_geometry_pools(self, num_steps=500, nsample=256):
-        """Host-side sample pools for the SDF distillation."""
+        """Host-side sample pools for the SDF distillation: the proxy mesh's
+        SDF for bg, the rest-pose bone spheres' (get_gauss_sdf) for the
+        skeleton-warped fg."""
         rng = np.random.default_rng(0)
         num_inst = self.model.fields.field_params[self.categories[0]].num_inst
         pools = {}
@@ -230,7 +234,14 @@ class Trainer:
             size = bounds[1] - bounds[0]
             pts = rng.uniform(bounds[0] - size * 0.25, bounds[1] + size * 0.25,
                               size=(num_steps, nsample, 3)).astype(np.float32)
-            sdf_gt = MeshSDF(mesh)(pts.reshape(-1, 3)).reshape(num_steps, nsample, 1)
+            if cate == "bg":
+                sdf_gt = MeshSDF(mesh)(pts.reshape(-1, 3))
+            else:
+                with torch.no_grad():
+                    warp = self.model.fields.field_params[cate].warp
+                    sdf_gt = warp.get_gauss_sdf(torch.as_tensor(pts.reshape(-1, 3),
+                                                                device=self.device)).cpu().numpy()
+            sdf_gt = sdf_gt.reshape(num_steps, nsample, 1)
             inst_id = rng.integers(0, num_inst, size=(num_steps, nsample))
             pools[cate] = {
                 "pts": torch.as_tensor(pts, device=self.device),
@@ -307,6 +318,10 @@ class Trainer:
             fn()
             times[name] = time.time() - t0
 
+        try:
+            timed("eval", self.model_eval)
+        except Exception:  # a failed eval must not end the training run
+            print("[warn] eval failed:\n" + traceback.format_exc(), flush=True)
         timed("geo", self.update_geometry_aux)
         timed("export", lambda: self.export_geometry_aux("%s/%03d" % (self.save_dir, round_count)))
         timed("train", lambda: self.train_one_round(round_count))
@@ -373,6 +388,70 @@ class Trainer:
             print(f"large grad: {grad_norm:.2f}, resume from cached weights", flush=True)
             self.model.load_state_dict(self.model_cache[0])
             self.optimizer.load_state_dict(copy.deepcopy(self.opt_cache[0]))
+
+    # ----------------------------------------------------------------- eval
+
+    def model_eval(self):
+        """Render the eval frames and write their metrics to metrics.jsonl
+        (step: the round)."""
+        rendered, ref = self.render_frames(self.eval_fid)
+        record = {"step": self.current_round, **self.compute_eval_metrics(rendered, ref)}
+        self.metrics.write(json.dumps(record) + "\n")
+        self.metrics.flush()
+
+    @staticmethod
+    def compute_eval_metrics(rendered, ref):
+        """eval/psnr (inside the reference mask), eval/ssim, eval/depth_err of
+        (frames, res, res, C) renders against the references."""
+        out = {}
+        mask = ref.get("mask")
+        mask = None if mask is None else mask[..., 0] > 0.5
+        if "rgb" in rendered and "rgb" in ref:
+            out["eval/psnr"] = metrics.psnr(rendered["rgb"], ref["rgb"], mask=mask)
+            out["eval/ssim"] = float(np.mean([metrics.ssim(p, t)
+                                              for p, t in zip(rendered["rgb"], ref["rgb"])]))
+        if "depth" in rendered and "depth" in ref:
+            out["eval/depth_err"] = metrics.depth_error(rendered["depth"], ref["depth"], mask=mask)
+        return out
+
+    def render_frames(self, fids):
+        """Render the filtered frames `fids` at eval_res in the reference
+        view, 8192 rays per evaluate_rays call. Returns ({channel: (frames,
+        res, res, C)}, the frames' rgb, depth and mask resized to it)."""
+        import cv2
+
+        res = self.opts["eval_res"]
+        pairs = [data_utils.load_eval_frame(self.eval_datasets, int(fid), self.data_info)
+                 for fid in fids]
+        crop2raw = np.stack([p["crop2raw"][0] for p in pairs]).astype(np.float32)
+        crop2raw[:, :2] *= self.opts["train_res"] / res
+        x, y = np.meshgrid(np.arange(res), np.arange(res), indexing="xy")
+        hxy = np.stack([x.reshape(-1), y.reshape(-1), np.ones(res * res)], -1).astype(np.float32)
+        batch = {
+            "dataid": torch.as_tensor(np.array([p["dataid"][0] for p in pairs], np.int64)),
+            "frameid_sub": torch.as_tensor(np.array([p["frameid_sub"][0] for p in pairs], np.int64)),
+            "crop2raw": torch.as_tensor(crop2raw),
+            "hxy": torch.as_tensor(np.tile(hxy[None], (len(pairs), 1, 1))),
+        }
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        rendered = render_batch(self.model, batch, self.geo_state, chunk=min(res * res, 8192))
+        refs = {}
+        for k in ("rgb", "depth", "mask"):
+            imgs = []
+            for p in pairs:
+                if k not in p:
+                    break
+                img = np.asarray(p[k][0], np.float32)
+                if img.ndim == 2:  # flattened (N, C) full image
+                    side = int(np.sqrt(img.shape[0]))
+                    img = img.reshape(side, side, -1)
+                if img.shape[0] != res:
+                    interp = cv2.INTER_NEAREST if k == "mask" else cv2.INTER_LINEAR
+                    img = cv2.resize(img, (res, res), interpolation=interp).reshape(res, res, -1)
+                imgs.append(img)
+            if imgs:
+                refs[k] = np.stack(imgs)
+        return rendered, refs
 
     # ------------------------------------------------------ geometry upkeep
 

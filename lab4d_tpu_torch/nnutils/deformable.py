@@ -1,6 +1,10 @@
 """Deformable (dynamic) field = FeatureNeRF + warp field.
 
-Port of lab4d_tpu/nnutils/deformable.py, eval side.
+Port of lab4d_tpu/nnutils/deformable.py: the skeleton warp's backward and
+forward warps, the articulations of a batch (one batched FK), and the
+training terms: the flow and cycle warps sharing one skinning pass, the
+gauss-skin consistency loss and the skeleton prior. The random draw of
+training (the gauss-skin points) accepts an injected value.
 """
 
 from __future__ import annotations
@@ -8,7 +12,15 @@ from __future__ import annotations
 import torch
 
 from lab4d_tpu_torch.nnutils.feature import FeatureNeRF
-from lab4d_tpu_torch.nnutils.warping import parse_warp_type
+from lab4d_tpu_torch.nnutils.nerf import flip_pair
+from lab4d_tpu_torch.nnutils.warping import cross_entropy_skin_loss, parse_warp_type
+from lab4d_tpu_torch.utils.geom import (
+    Kmatinv,
+    dual_quaternion_skinning_pair,
+    pinhole_projection,
+    safe_norm,
+)
+from lab4d_tpu_torch.utils.quat import dual_quaternion_inverse, dual_quaternion_mul
 
 
 class Deformable(FeatureNeRF):
@@ -21,6 +33,8 @@ class Deformable(FeatureNeRF):
         spec = parse_warp_type(fg_motion)
         self.warp = spec["cls"](self.frame_info, generator=kwargs.get("generator"),
                                 **spec["kwargs"])
+
+    # ------------------------------------------------------------- warping
 
     def backward_warp(self, xyz_cam, dir_cam, field2cam, frame_id, inst_id, samples_dict=None):
         """Camera -> time-t object space -> canonical."""
@@ -35,17 +49,100 @@ class Deformable(FeatureNeRF):
                                 samples_dict=samples_dict)
         return self.field_to_cam(xyz_next, field2cam)
 
-    def get_samples(self, Kinv, batch):
+    def prepare_forward_warp(self, xyz, inst_id, samples_dict):
+        """The forward skin weights of the canonical samples, once for the
+        flow and cycle warps: they depend on the points, the rest
+        articulation, the mean time embedding and the instance only."""
+        skin = self.warp.skinning_model(xyz, samples_dict["rest_articulation"], None, inst_id)
+        return dict(samples_dict, fwd_skin=skin)
+
+    # --------------------------------------------------------------- losses
+
+    def cycle_loss(self, xyz, xyz_t=None, frame_id=None, inst_id=None, samples_dict=None,
+                   train=False):
+        """In training: canonical points warped forward to time t against
+        the time-t points, and the forward warp's skinning terms; zeros at
+        eval."""
+        cyc_dict = super().cycle_loss(xyz)
+        if not train:
+            return cyc_dict
+        xyz_cycled, warp_dict = self.warp(xyz, frame_id, inst_id, backward=False,
+                                          samples_dict=samples_dict)
+        cyc_dict["cyc_dist"] = safe_norm(xyz_cycled - xyz_t)
+        cyc_dict.update(warp_dict)
+        return cyc_dict
+
+    def compute_flow_cycle(self, hxy, xyz, xyz_t, frame_id, inst_id, field2cam, Kinv,
+                           samples_dict, flow_thresh=None):
+        """The flow and cycle warps in one pass: both skin the same
+        canonical points with the same cached forward skin weights, under
+        the bones of frame t and of its paired frame
+        (dual_quaternion_skinning_pair). Equal to compute_flow +
+        cycle_loss, which it falls back to without the cache (the tests'
+        reference)."""
+        fwd_skin = samples_dict.get("fwd_skin")
+        if fwd_skin is None:
+            return super().compute_flow_cycle(hxy, xyz, xyz_t, frame_id, inst_id, field2cam, Kinv,
+                                              samples_dict, flow_thresh)
+        skin, delta = fwd_skin
+        rest, t_art = samples_dict["rest_articulation"], samples_dict["t_articulation"]
+        se3_cyc = dual_quaternion_mul(t_art, dual_quaternion_inverse(rest))
+        se3_flow = dual_quaternion_mul(flip_pair(t_art), dual_quaternion_inverse(flip_pair(rest)))
+        xyz_cyc, xyz_next = dual_quaternion_skinning_pair(se3_cyc, se3_flow, xyz,
+                                                          torch.softmax(skin, dim=-1))
+        cyc_dict = {
+            "cyc_dist": safe_norm(xyz_cyc - xyz_t),
+            "skin_entropy": cross_entropy_skin_loss(skin)[..., None],
+        }
+        if delta is not None:
+            cyc_dict["delta_skin"] = torch.mean(delta**2, dim=-1, keepdim=True)
+        else:
+            cyc_dict["delta_skin"] = torch.zeros_like(cyc_dict["cyc_dist"])
+
+        xyz_cam_next = self.field_to_cam(xyz_next, flip_pair(field2cam))
+        hxy_next = pinhole_projection(Kmatinv(flip_pair(Kinv)), xyz_cam_next)
+        flow = (hxy_next - hxy[:, :, None])[..., :2]
+        valid = xyz_cam_next[..., -1:] > 1e-6
+        if flow_thresh is not None:
+            valid = valid & (torch.linalg.norm(flow, dim=-1, keepdim=True) < float(flow_thresh))
+        return {"flow": torch.cat([flow, valid.to(flow.dtype)], dim=-1)}, cyc_dict
+
+    def gauss_skin_consistency_loss(self, aabb, alpha=None, u=None, nsample: int = 2048):
+        """BCE between the rest-pose bone-Gaussian density and the field's
+        own (detached, clipped) density at points of the aabb, balanced
+        between inside and outside. u: (nsample, 3) uniform draws, drawn
+        here when not given."""
+        if u is None:
+            u = torch.rand(nsample, 3, device=aabb.device)
+        pts = self.sample_points_aabb(u, aabb, extend_factor=0.25)
+        density_gauss = self.warp.get_gauss_density(pts)
+        density = self.forward(pts, inst_id=None, get_density=True, alpha=alpha)
+        density = torch.clamp((density / torch.exp(self.logibeta)).detach(), 0.0, 1.0)
+        weight_pos = 0.5 / (1e-6 + density.mean())
+        weight_neg = 0.5 / (1e-6 + (1 - density).mean())
+        weight = density * weight_pos + (1 - density) * weight_neg
+        dg = torch.clamp(density_gauss, 1e-6, 1 - 1e-6)
+        bce = -(density * torch.log(dg) + (1 - density) * torch.log(1 - dg))
+        return torch.mean(bce * weight)
+
+    def skel_prior_loss(self):
+        return self.warp.articulation.skel_prior_loss()
+
+    # --------------------------------------------------------------- queries
+
+    def get_samples(self, Kinv, batch, train: bool = False):
         """Adds the time-t and rest articulations (one batched FK)."""
-        samples_dict = super().get_samples(Kinv, batch)
+        samples_dict = super().get_samples(Kinv, batch, train=train)
         (
             samples_dict["t_articulation"],
             samples_dict["rest_articulation"],
         ) = self.warp.articulation.get_vals_and_mean(samples_dict["frame_id"])
         return samples_dict
 
-    def query_field(self, samples_dict):
-        feat_dict, deltas, aux_dict = super().query_field(samples_dict)
+    def query_field(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
+                    draws=None):
+        feat_dict, deltas, aux_dict = super().query_field(
+            samples_dict, alpha=alpha, train=train, flow_thresh=flow_thresh, draws=draws)
         feat_dict.update(self.compute_gauss_density(feat_dict["xyz"], samples_dict))
         return feat_dict, deltas, aux_dict
 

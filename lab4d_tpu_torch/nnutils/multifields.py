@@ -1,7 +1,6 @@
 """Container of neural fields. Port of lab4d_tpu/nnutils/multifields.py
-for one field: "fg" (Deformable; eval only so far) or "bg" (a rigid
-NeRF; eval and training). "comp", both fields composed along rays, is
-ROADMAP.md P9."""
+for one field: "fg" (Deformable) or "bg" (a rigid NeRF), each for eval
+and training. "comp", both fields composed along rays, is ROADMAP.md P9."""
 
 from __future__ import annotations
 
@@ -74,10 +73,7 @@ class MultiFields(nn.Module):
             if "geo" in batch:
                 batch_sub.update(batch_sub.pop("geo")[cate])
             field = self.field_params[cate]
-            if train:
-                samples_dict[cate] = field.get_samples(Kinv, batch_sub, train=True)
-            else:
-                samples_dict[cate] = field.get_samples(Kinv, batch_sub)
+            samples_dict[cate] = field.get_samples(Kinv, batch_sub, train=train)
         return samples_dict
 
     def query_multifields(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
@@ -118,6 +114,27 @@ class MultiFields(nn.Module):
         loss = 0.0
         for cate in self.categories:
             loss = loss + self.field_params[cate].cam_prior_loss()
+        return loss
+
+    def gauss_skin_consistency_loss(self, aabbs, alpha=None, draws=None):
+        """draws: optional {cate: {"gauss_u": (2048, 3)}}."""
+        loss = 0.0
+        for cate in self.categories:
+            d = {} if draws is None else draws.get(cate, {})
+            loss = loss + self.field_params[cate].gauss_skin_consistency_loss(
+                aabbs[cate], alpha=alpha, u=d.get("gauss_u"))
+        return loss
+
+    def soft_deform_loss(self, aabbs):
+        loss = 0.0
+        for cate in self.categories:
+            loss = loss + self.field_params[cate].soft_deform_loss(aabbs[cate])
+        return loss
+
+    def skel_prior_loss(self):
+        loss = 0.0
+        for cate in self.categories:
+            loss = loss + self.field_params[cate].skel_prior_loss()
         return loss
 
     # ---------------------------------------------------------------- misc

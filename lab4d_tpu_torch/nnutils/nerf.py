@@ -5,11 +5,12 @@ merged two-pass eval (`query_field_eval`, every sample evaluated, both
 halves merged by depth sort), camera-space normals from the SDF input
 gradient, and the canonical-aabb validity mask. Training
 (`query_field(train=True)`): 64 deterministic samples per ray, the field
-heads through the fused kernels, the flow to the paired frame, the
+heads through the fused kernels (all heads in one kernel where a subclass's
+`query_all_heads` takes them), the flow to the paired frame, the
 subsampled eikonal term (a double backward through the plain MLP chain),
-and the visibility-decay and camera-prior regularizers. The two random
-draws of training (the eikonal ray subsample, the visibility-decay points
-and instance ids) accept injected values, so that a test can hand both
+and the visibility-decay and camera-prior regularizers. The random draws
+of training (the eikonal ray subsample, the visibility-decay points and
+instance ids) accept injected values, so that a test can hand both
 packages the same draw. The top-k eval is not ported yet (ROADMAP.md).
 """
 
@@ -157,6 +158,8 @@ class NeRF(nn.Module):
             "near_far": near_far,
             "hxy": batch["hxy"],
         }
+        if "feature" in batch:
+            samples_dict["feature"] = batch["feature"]
         if "aabb" in batch:
             samples_dict["aabb"] = batch["aabb"]
         return samples_dict
@@ -178,8 +181,11 @@ class NeRF(nn.Module):
         backwarp_dict = self.backward_warp(xyz_cam, dir_cam, field2cam, frame_id, inst_id,
                                            samples_dict=samples_dict)
         xyz, dir, xyz_t = backwarp_dict["xyz"], backwarp_dict["dir"], backwarp_dict["xyz_t"]
-        feat_dict = self.query_nerf(xyz, dir, frame_id, inst_id, alpha=alpha)
-        feat_dict["vis"] = self.vis_mlp(xyz, inst_id=inst_id)
+        feat_dict = self.query_all_heads(xyz, frame_id, inst_id, alpha)
+        if feat_dict is None:
+            feat_dict = self.query_nerf(xyz, dir, frame_id, inst_id, alpha=alpha)
+            feat_dict["vis"] = self.vis_mlp(xyz, inst_id=inst_id)
+        samples_dict = self.prepare_forward_warp(xyz, inst_id, samples_dict)
         flow_dict, cyc_dict = self.compute_flow_cycle(hxy, xyz, xyz_t, frame_id, inst_id,
                                                       field2cam, Kinv, samples_dict, flow_thresh)
         feat_dict.update(flow_dict)
@@ -191,6 +197,11 @@ class NeRF(nn.Module):
         feat_dict["xyz_cam"] = xyz_cam
         feat_dict["depth"] = depth / torch.exp(self.logscale)  # world units
         return feat_dict, deltas, {}
+
+    def query_all_heads(self, xyz, frame_id, inst_id, alpha):
+        """Hook for the fused field-heads kernel (FeatureNeRF); None: the
+        per-module path."""
+        return None
 
     def eval_extra_heads(self, xyz):
         """Per-sample channels subclasses add at eval."""
@@ -352,10 +363,16 @@ class NeRF(nn.Module):
         xyz, dir = self.cam_to_field(xyz_cam, dir_cam, field2cam)
         return {"xyz": xyz, "dir": dir, "xyz_t": xyz}
 
+    def prepare_forward_warp(self, xyz, inst_id, samples_dict):
+        """Hook: state the flow and cycle warps share (none for a rigid
+        field)."""
+        return samples_dict
+
     def forward_warp(self, xyz, field2cam, frame_id, inst_id, samples_dict=None):
         return self.field_to_cam(xyz, field2cam)
 
-    def cycle_loss(self, xyz):
+    def cycle_loss(self, xyz, xyz_t=None, frame_id=None, inst_id=None, samples_dict=None,
+                   train=False):
         """Cycle channels of a rigid field: zeros."""
         zeros = torch.zeros_like(xyz[..., :1])
         return {"cyc_dist": zeros, "delta_skin": zeros, "skin_entropy": zeros}
@@ -384,7 +401,7 @@ class NeRF(nn.Module):
         """Training-time flow proposal and cycle channels."""
         flow_dict = self.compute_flow(hxy, xyz, frame_id, inst_id, field2cam, Kinv, samples_dict,
                                       flow_thresh=flow_thresh)
-        return flow_dict, self.cycle_loss(xyz)
+        return flow_dict, self.cycle_loss(xyz, xyz_t, frame_id, inst_id, samples_dict, train=True)
 
     def compute_eikonal(self, xyz, inst_id=None, sample_ratio: int = 16, alpha=None, idx=None):
         """Eikonal term (|grad sdf| - 1)^2 at the samples of a random
@@ -424,3 +441,14 @@ class NeRF(nn.Module):
 
     def cam_prior_loss(self):
         return self.camera_mlp.compute_distance_to_prior()
+
+    # a rigid field has no skinning, soft-deformation or skeleton terms; the
+    # skeleton warps (Deformable) have no soft post-warp either
+    def gauss_skin_consistency_loss(self, aabb, alpha=None, u=None):
+        return self.logscale.new_zeros(())
+
+    def soft_deform_loss(self, aabb):
+        return self.logscale.new_zeros(())
+
+    def skel_prior_loss(self):
+        return self.logscale.new_zeros(())

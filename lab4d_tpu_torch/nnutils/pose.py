@@ -131,3 +131,15 @@ class ArticulationSkelMLP(TimeMLP):
         dq = self.forward_arti(t_all, None,
                                override_local_rest_joints=torch.cat([rel_i, rel_c], dim=0))
         return (dq[0][:bs], dq[1][:bs]), (dq[0][bs:], dq[1][bs:])
+
+    def get_mean_vals(self):
+        """Rest-pose bones: the articulation at the mean time embedding,
+        with the mean instance's bone lengths; batch (1,)."""
+        return self.forward_arti(self.time_embedding.mean_embedding(), None)
+
+    def skel_prior_loss(self):
+        """L2 prior on the rest pose's joint angles and the bone-length
+        increments."""
+        so3 = self.compute_so3(self.time_embedding.mean_embedding())
+        log_inc = self.log_bone_len(so3.new_zeros(so3.shape[:-2] + (0,)), None)
+        return torch.mean(so3**2) + 0.02 * torch.mean(log_inc**2)

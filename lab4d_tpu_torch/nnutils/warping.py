@@ -66,11 +66,18 @@ class SkinningWarp(nn.Module):
             warp_dict["delta_skin"] = torch.mean(delta_skin**2, dim=-1, keepdim=True)
         return out, warp_dict
 
-    def get_gauss_density(self, xyz, bone2obj):
+    def get_gauss_density(self, xyz, bone2obj=None):
         """Bone-sphere density: hard max over per-bone Gaussian scores of
-        radius 0.01."""
+        radius 0.01; bone2obj defaults to the rest pose."""
+        if bone2obj is None:
+            bone2obj = self.articulation.get_mean_vals()
         dist2 = get_xyz_bone_distance(xyz, bone2obj) / (0.01**2)
         return torch.exp(-0.5 * dist2).max(dim=-1).values[..., None]
+
+    def get_gauss_sdf(self, xyz):
+        """SDF-like field of the rest-pose bone spheres: -logit(density)."""
+        density = torch.clamp(self.get_gauss_density(xyz), 1e-6, 1 - 1e-6)
+        return -torch.logit(density)
 
 
 def parse_warp_type(fg_motion: str) -> Dict:

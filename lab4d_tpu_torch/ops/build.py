@@ -39,7 +39,7 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-KERNELS = ("fused_relu_mlp", "fused_pe_mlp")
+KERNELS = ("fused_relu_mlp", "fused_pe_mlp", "nerf_heads")
 
 
 def library_path(name: str) -> Path:

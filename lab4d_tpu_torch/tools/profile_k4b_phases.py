@@ -1,4 +1,5 @@
-"""Where the time of K4b goes on the bg base field, on one CUDA device.
+"""Where the time of K4b goes on the bg base field, and how much of K2's
+time its workspace updates take, on one CUDA device.
 
     python3 -m lab4d_tpu_torch.tools.profile_k4b_phases [--reps N]
 
@@ -7,7 +8,11 @@ csrc/fused_pe_mlp.cu, each with one phase of the row-tiled backward in
 csrc/mlp_tiles.cuh switched off, into build/lab4d_tpu_torch/k4b_phases/
 (one nvcc each, all at once), and times each copy's K4b at the base
 field's shape of a training step: 262,144 points, 6 frequencies with a
-window, D5 W128, a skip at layer 4. The copies:
+window, D5 W128, a skip at layer 4. It also compiles csrc/nerf_heads.cu
+against the `full` and `no_rmw` headers and times their K2 at the
+flagship fg step's shape (chip_smoke.py's: 262,144 points, 1024 per pair;
+K2 shares tm_weight_grads and its workspace update with K4b). The
+copies:
 
 - full: the kernel as it is;
 - no_recompute: without the forward recompute of the hidden layers;
@@ -59,12 +64,16 @@ PATCHES = {
 }
 
 
+K2_COPIES = ("full", "no_rmw")
+
+
 def build_copies(out_dir):
-    """Compile every copy of PATCHES; returns {name: ctypes library}."""
+    """Compile fused_pe_mlp.cu against every copy of PATCHES and
+    nerf_heads.cu against the K2_COPIES; returns {(source, name): ctypes
+    library}."""
     from lab4d_tpu_torch.ops.build import CSRC_DIR, NVCC_FLAGS, find_nvcc
 
     header = (CSRC_DIR / "mlp_tiles.cuh").read_text()
-    source = (CSRC_DIR / "fused_pe_mlp.cu").read_text()
     procs = {}
     for name, patches in PATCHES.items():
         d = os.path.join(out_dir, name)
@@ -76,18 +85,42 @@ def build_copies(out_dir):
             text = text.replace(anchor, repl)
         with open(os.path.join(d, "mlp_tiles.cuh"), "w") as f:
             f.write(text)
-        with open(os.path.join(d, "fused_pe_mlp.cu"), "w") as f:
-            f.write(source)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", os.path.join(d, "lib.so"),
-               os.path.join(d, "fused_pe_mlp.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for source in ("fused_pe_mlp", "nerf_heads"):
+            if source == "nerf_heads" and name not in K2_COPIES:
+                continue
+            with open(os.path.join(d, f"{source}.cu"), "w") as f:
+                f.write((CSRC_DIR / f"{source}.cu").read_text())
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", os.path.join(d, f"lib{source}.so"),
+                   os.path.join(d, f"{source}.cu")]
+            procs[(source, name)] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.PIPE, text=True)
     libs = {}
-    for name, proc in procs.items():
+    for (source, name), proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name} copy:\n{err}")
-        libs[name] = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
+            raise RuntimeError(f"nvcc failed on the {name} copy of {source}.cu:\n{err}")
+        libs[(source, name)] = ctypes.CDLL(os.path.join(out_dir, name, f"lib{source}.so"))
     return libs
+
+
+def _time_rounds(runs, reps):
+    """{name: median ms per call} of each run() in turns: per round one
+    warm-up call, then CUDA events around 5 back-to-back calls."""
+    import numpy as np
+    import torch
+
+    times = {name: [] for name in runs}
+    for _ in range(reps):
+        for name, run in runs.items():
+            run()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                run()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / 5)
+    return {name: float(np.median(ts)) for name, ts in times.items()}
 
 
 def main(argv=None):
@@ -95,7 +128,6 @@ def main(argv=None):
     parser.add_argument("--reps", type=int, default=3)
     args = parser.parse_args(argv)
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -103,13 +135,17 @@ def main(argv=None):
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, root)
     import chip_smoke
+    from lab4d_tpu_torch.ops import field_kernel as FK
     from lab4d_tpu_torch.ops import mlp_kernel as K
     from lab4d_tpu_torch.ops.build import BUILD_DIR
 
     card = chip_smoke.phase_env()
     libs = build_copies(str(BUILD_DIR / "k4b_phases"))
     ref = K._kernel_lib("fused_pe_mlp")
-    for lib in libs.values():
+    for (source, _), lib in libs.items():
+        if source == "nerf_heads":
+            FK.bind_signatures(lib)
+            continue
         lib.lab4d_fused_pe_mlp_bwd.argtypes = ref.lab4d_fused_pe_mlp_bwd.argtypes
         lib.lab4d_fused_pe_mlp_bwd.restype = ctypes.c_int
         lib.lab4d_cuda_error_string.argtypes = [ctypes.c_int]
@@ -125,26 +161,25 @@ def main(argv=None):
     pe = K._freq_args(freqs, torch.linspace(0.3, 1.0, n_freqs).cuda(), x)
     n_sm, stream = K._n_sm(x.device), K._stream(x.device)
 
-    times = {name: [] for name in libs}
-    for _ in range(args.reps):
-        for name, lib in libs.items():
-            def run():
-                K._launch_tile_bwd(lib, lib.lab4d_fused_pe_mlp_bwd, x, g, weights, biases, skips,
-                                   n_sm, stream, pe)
+    def k4b(lib):
+        return lambda: K._launch_tile_bwd(lib, lib.lab4d_fused_pe_mlp_bwd, x, g, weights, biases,
+                                          skips, n_sm, stream, pe)
 
-            run()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(5):
-                run()
-            end.record()
-            end.synchronize()
-            times[name].append(start.elapsed_time(end) / 5)
-    full = float(np.median(times["full"]))
+    times = _time_rounds({name: k4b(libs[("fused_pe_mlp", name)]) for name in PATCHES}, args.reps)
     print(f"[k4b] {label}, {rows} rows; median of {args.reps} rounds, ms per call:")
-    for name, ts in times.items():
-        ms = float(np.median(ts))
-        print(f"[k4b] {name}: {ms:.3f} ms (full - this: {full - ms:.3f} ms)")
+    for name, ms in times.items():
+        print(f"[k4b] {name}: {ms:.3f} ms (full - this: {times['full'] - ms:.3f} ms)")
+
+    heads, g_heads = chip_smoke._flagship_heads(gen)
+
+    def k2(lib):
+        return lambda: FK._launch_bwd(lib, heads[0], g_heads, *heads[1:], n_sm, stream)
+
+    times = _time_rounds({name: k2(libs[("nerf_heads", name)]) for name in K2_COPIES}, args.reps)
+    print(f"[k2] flagship heads, {heads[0].shape[0]} points; median of {args.reps} rounds, "
+          "ms per call:")
+    for name, ms in times.items():
+        print(f"[k2] {name}: {ms:.3f} ms (full - this: {times['full'] - ms:.3f} ms)")
     print(card)
 
 

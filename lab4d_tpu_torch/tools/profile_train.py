@@ -1,12 +1,13 @@
-"""Where the time of a bg training step goes, on one CUDA device.
+"""Where the time of a training step goes, on one CUDA device.
 
-    python3 -m lab4d_tpu_torch.tools.profile_train [--steps N] [--out FILE]
+    python3 -m lab4d_tpu_torch.tools.profile_train [--field_type {bg,fg}] [--steps N] [--out FILE]
 
 Run from the root of a checkout. It writes the synthetic scene of
 chip_smoke.py (one orbit video, 32 frames at 64^2), builds the trainer of
-`python -m lab4d_tpu_torch.train --field_type bg` at full width (128
-images x 2 frames x 16 pixels x 64 samples = 262,144 points per step; the
-prior fits are cut to 50 geometry steps) and then:
+`python -m lab4d_tpu_torch.train --field_type bg` (or, with --field_type
+fg, the flagship `--field_type fg --fg_motion skel-quad`) at full width
+(128 images x 2 frames x 16 pixels x 64 samples = 262,144 points per step;
+the prior fits are cut to 50 geometry steps) and then:
 
 1. times `--steps` training steps on batches drawn beforehand, so that no
    data loading overlaps them: ms/step from CUDA events (median), and
@@ -16,8 +17,8 @@ prior fits are cut to 50 geometry steps) and then:
 3. times one batch of the loader on its own, in this process;
 4. traces `--trace` steps (pre-drawn batches) with torch.profiler and
    prints, per op, the device time of the kernels it launched itself and
-   their share of the summed kernel time, the kernels K3f/K3b/K4f/K4b by
-   name, then that sum, the steps' wall time and the device's idle share.
+   their share of the summed kernel time, the kernels K1/K2/K3f/K3b/K4f/K4b
+   by name, then that sum, the steps' wall time and the device's idle share.
 
 `--out` also writes the profiler's full table to FILE.
 """
@@ -33,6 +34,7 @@ import time
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--field_type", choices=("bg", "fg"), default="bg")
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--trace", type=int, default=3)
     parser.add_argument("--top", type=int, default=18)
@@ -58,7 +60,7 @@ def _profile(args, card, db, root):
     from lab4d_tpu_torch.engine.trainer import Trainer
     from lab4d_tpu_torch.train import get_parser
 
-    opts = vars(get_parser().parse_args(chip_smoke.TRAIN_OPTS + [
+    opts = vars(get_parser().parse_args(chip_smoke.TRAIN_OPTS[args.field_type] + [
         "--geo_init_steps", "50", "--num_rounds", "1", "--iters_per_round", str(args.steps),
         "--database_root", db, "--logroot", os.path.join(root, "logdir")]))
     trainer = Trainer(opts)
@@ -132,7 +134,7 @@ def _measure(args, card, trainer, batches, opts):
         traced = (time.perf_counter() - t) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.device_time for e in kernels) / 1e3
-    print(f"[trace] {args.trace} steps: device time {device_ms:.2f} ms of {traced:.2f} ms wall "
+    print(f"[trace] {opts['field_type']} field, {args.trace} steps: device time {device_ms:.2f} ms of {traced:.2f} ms wall "
           f"(traced), idle share {1 - device_ms / traced:.3f}")
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
@@ -141,7 +143,8 @@ def _measure(args, card, trainer, batches, opts):
         ms = e.self_device_time_total / 1e3
         print(f"[op] {e.key}: {ms / args.trace:.2f} ms/step device, "
               f"{100 * ms / device_ms:.1f}%, {e.count // args.trace} calls/step")
-    for name in ("fused_relu_mlp_fwd_kernel", "tile_mlp_fwd_kernel", "tile_mlp_bwd_kernel",
+    for name in ("nerf_heads_fwd_kernel", "nerf_heads_bwd_kernel", "nerf_heads_appr_kernel",
+                 "fused_relu_mlp_fwd_kernel", "tile_mlp_fwd_kernel", "tile_mlp_bwd_kernel",
                  "tile_mlp_reduce_kernel"):
         ks = [e.device_time for e in kernels if name in e.name]
         print(f"[kernel] {name}: {sum(ks) / 1e3 / args.trace:.2f} ms/step device, "

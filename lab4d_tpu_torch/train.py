@@ -7,9 +7,11 @@ card, writing `<logroot>/<seqname>-<logname>/` (opts.log, metrics.jsonl,
 proxy meshes and ckpt_*.flax checkpoints in the JAX trainer's layout).
 
     python -m lab4d_tpu_torch.train --seqname cat --logname bg --field_type bg
+    python -m lab4d_tpu_torch.train --seqname cat --logname fg --field_type fg \
+        --fg_motion skel-quad
 
-Only --field_type bg is ported: fg and comp need the FeatureNeRF field
-kernels K1/K2 (ROADMAP.md).
+--field_type bg and --field_type fg with --fg_motion skel-quad are ported;
+the other motions and comp are not yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,8 +48,9 @@ def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     for name, (default, help_) in LOSS_WEIGHTS.items():
         p.add_argument(f"--{name}", type=float, default=default, help=help_)
-    p.add_argument("--field_type", default="fg", help="{bg, fg, comp}; only bg is ported")
-    p.add_argument("--fg_motion", default="rigid", help="{rigid, dense, bob, skel-human, skel-quad}")
+    p.add_argument("--field_type", default="fg", help="{bg, fg, comp}; bg and fg are ported")
+    p.add_argument("--fg_motion", default="rigid",
+                   help="{rigid, dense, bob, skel-human, skel-quad}; skel-quad is ported")
     p.add_argument("--single_inst", action=argparse.BooleanOptionalAction, default=True,
                    help="assume the same morphology over objs")
     p.add_argument("--seqname", default="cat", help="name of the sequence")
@@ -66,6 +69,7 @@ def get_parser() -> argparse.ArgumentParser:
                    help="do not change bone length of skeleton")
     p.add_argument("--num_workers", type=int, default=2, help="number of data-loading threads")
     p.add_argument("--save_freq", type=int, default=10, help="params saving frequency")
+    p.add_argument("--eval_res", type=int, default=64, help="size used for eval visualizations")
     p.add_argument("--geo_init_steps", type=int, default=500,
                    help="SDF-distillation steps for geometry init")
     p.add_argument("--database_root", default="database",
@@ -75,11 +79,14 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def check_opts(opts: Dict):
-    if opts["field_type"] != "bg":
+    if opts["field_type"] not in ("bg", "fg"):
         raise NotImplementedError(
-            f"--field_type {opts['field_type']} needs the field kernels K1/K2 (FeatureNeRF), "
-            "which are not ported yet (ROADMAP.md, slice 2b); only --field_type bg trains"
-        )
+            f"--field_type {opts['field_type']} (fg and bg composed) is not ported yet "
+            "(ROADMAP.md, P9); --field_type bg and fg train")
+    if opts["field_type"] == "fg" and opts["fg_motion"] != "skel-quad":
+        raise NotImplementedError(
+            f"--fg_motion {opts['fg_motion']} is not ported yet (ROADMAP.md, P9); "
+            "--field_type fg trains with --fg_motion skel-quad")
     if opts["load_path"]:
         raise NotImplementedError("--load_path (resuming) is not ported yet (ROADMAP.md)")
 

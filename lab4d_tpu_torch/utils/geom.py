@@ -1,8 +1,8 @@
 """Geometry utilities in torch: intrinsics ops, pinhole projection,
 dual-quaternion blend skinning, near-far estimation, aabb ops.
 
-Port of the parts of lab4d_tpu/utils/geom.py that the rendering path
-uses. Functions broadcast over leading batch dims.
+Port of the parts of lab4d_tpu/utils/geom.py that the rendering and
+training paths use. Functions broadcast over leading batch dims.
 """
 
 from __future__ import annotations
@@ -121,6 +121,18 @@ def dual_quaternion_skinning(
     ty = 2 * (-dw * y + dx * z + dy * w - dz * x)
     tz = 2 * (-dw * z - dx * y + dy * x + dz * w)
     return torch.stack([rx + tx, ry + ty, rz + tz], -1).reshape(shape)
+
+
+def dual_quaternion_skinning_pair(dq_a: DualQuaternion, dq_b: DualQuaternion, pts: torch.Tensor,
+                                  skin: torch.Tensor):
+    """The same points and weights skinned under two bone sets, in one
+    pass over the pair-stacked arrays (the flow and cycle warps of a
+    training step): (dual_quaternion_skinning(dq_a, pts, skin),
+    dual_quaternion_skinning(dq_b, pts, skin))."""
+    M = dq_a[0].shape[0]
+    dq = (torch.cat([dq_a[0], dq_b[0]], 0), torch.cat([dq_a[1], dq_b[1]], 0))
+    out = dual_quaternion_skinning(dq, torch.cat([pts, pts], 0), torch.cat([skin, skin], 0))
+    return out[:M], out[M:]
 
 
 def obj_to_cam(pts: torch.Tensor, rtmat: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,7 @@ none of them.
 - an AST scan of every import statement;
 - a fresh interpreter in which those modules cannot be imported trains
   the bg field for two steps on the CPU (synthetic scene, prior fits,
-  checkpoint) and renders it, and then holds none of them in sys.modules.
+  the round's eval render, checkpoint) and renders it, and then holds none of them in sys.modules.
 """
 
 import ast
@@ -58,7 +58,7 @@ common = ['--seqname', 'iso', '--logname', 'r', '--train_res', '16', '--field_ty
           '--device', 'cpu', '--database_root', root + '/database', '--logroot', root + '/logdir']
 trainer = train.main(common + ['--num_rounds', '1', '--iters_per_round', '2',
                                '--imgs_per_gpu', '4', '--pixels_per_image', '4',
-                               '--geo_init_steps', '2', '--save_freq', '1'])
+                               '--geo_init_steps', '2', '--save_freq', '1', '--eval_res', '4'])
 assert trainer.current_steps == 2
 out = render.main(common + ['--load_suffix', 'latest', '--render_res', '4', '--freeze_id', '0',
                             '--num_frames', '1'])

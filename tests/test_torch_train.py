@@ -278,7 +278,7 @@ def cli_run(tmp_path_factory):
         "--field_type", "bg", "--seqname", "sbg", "--logname", "t", "--train_res", "16",
         "--num_rounds", "1", "--iters_per_round", "2", "--imgs_per_gpu", "4",
         "--pixels_per_image", "4", "--geo_init_steps", "3", "--save_freq", "1",
-        "--device", "cpu", "--database_root", str(root / "database"),
+        "--eval_res", "8", "--device", "cpu", "--database_root", str(root / "database"),
         "--logroot", str(root / "logdir"),
     ])
     return trainer, root / "logdir"
@@ -324,12 +324,14 @@ def test_check_grad_rolls_back_two_rounds(cli_run, norm):
 
 
 def test_train_cli_refuses_fields_without_kernels():
+    """comp (fg and bg composed) is not ported; fg / skel-quad and bg are."""
     from lab4d_tpu_torch import train as train_cli
 
-    for ft in ("fg", "comp"):
-        opts = vars(train_cli.get_parser().parse_args(["--field_type", ft]))
-        with pytest.raises(NotImplementedError, match="K1/K2"):
-            train_cli.check_opts(opts)
+    opts = vars(train_cli.get_parser().parse_args(["--field_type", "comp"]))
+    with pytest.raises(NotImplementedError, match="comp"):
+        train_cli.check_opts(opts)
+    for argv in (["--field_type", "bg"], ["--field_type", "fg", "--fg_motion", "skel-quad"]):
+        train_cli.check_opts(vars(train_cli.get_parser().parse_args(argv)))
 
 
 def test_synthetic_scene_writer_matches_tests_synthetic(tmp_path):
