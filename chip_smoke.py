@@ -8,19 +8,25 @@ synchronise; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN;
-2. build: compiles every CUDA kernel source in lab4d_tpu_torch/csrc/ (one
-   nvcc per source, all at once, sm_90a) into build/lab4d_tpu_torch/ and
-   prints the compiler's report;
+2. build: compiles every CUDA kernel source in lab4d_tpu_torch/csrc/ and
+   the K1 anatomy copies (one nvcc per source, all at once, sm_90a) into
+   build/lab4d_tpu_torch/ and prints the compiler's report;
 3. kernel: each kernel against its plain PyTorch version on the same
    inputs, at the shapes the render and training paths give it: K3f
    (fused_relu_mlp forward), K3b (its backward), K4f / K4b (fused_pe_mlp
    and its backward) at the bg field's base, colour and visibility MLPs
    on 262,144 points and at the 512 visibility-decay points, K1 / K2
    (fused_nerf_heads and its backward) at the flagship fg field's step
-   (262,144 points, 1024 per pair, 256 appearance rows). Max error,
+   (262,144 points, 1024 per pair, 256 appearance rows; K1 as training
+   runs it, saving its layer outputs, and K2 from those; K1 + K2 also
+   against autograd outside the ReLU ties). Max error,
    tolerance, median device time from CUDA-graph replay for kernel and
-   plain version, and the bound (the larger of FLOPs over the fp32 peak
-   and bytes over the memory rate);
+   plain version, CUDA launches per call, and the bound (the larger of
+   FLOPs over the fp32 peak and bytes over the memory rate; for K1 / K2
+   also over the 3xTF32 tensor-core rate);
+3b. heads-anatomy: one round of K1's anatomy copies
+   (tools/profile_heads_phases.py, built beside the kernels): `full`
+   against its plain version, the stripped copies timed;
 4. model: the flagship fg / skel-quad DVRModel at full width (field heads
    D=5 W=128, TimeMLP backbones D=5 W=256, 25 bones) from a seeded
    generator, on a scene built in-process (one orbit video);
@@ -30,7 +36,10 @@ synchronise; any failure exits non-zero:
    with every kernel's launch count over exactly that run;
 7. train-reference: one bg training step (128 rays of 64 samples) on the
    GPU (kernels) against the same weights, batch and random draws on the
-   CPU (plain versions): every loss term and every gradient;
+   CPU (plain versions): every loss term and every gradient; reg_eikonal
+   without the points where a ReLU input of its SDF chain lies on other
+   sides of zero in the two steps (those inputs must agree within 1e-4,
+   so only inputs within rounding of zero can flip; _eikonal_ties);
 8. train: `lab4d_tpu_torch.train --field_type bg` at full width (128
    images x 2 frames x 16 pixels x 64 samples = 262,144 points per step,
    bg field D=5 W=128, TimeMLPs D=5 W=256) on a synthetic scene written by
@@ -70,11 +79,16 @@ KERNEL_TOL = 1e-4  # fp32 FMA vs cuBLAS fp32: summation order only; on the
 # since the weight gradients sum over the rows
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_TF32 = 495e12  # FLOP/s, H100 SXM dense TF32 tensor cores (NVIDIA data sheet); 3xTF32 takes 3 products
 TRAIN_STEPS = 25
 FG_PAIRS, FG_SPP = 256, 1024  # the flagship step: 128 images x 2 frames; 16 px x 64 samples
 # one training step, GPU (kernels) vs CPU (plain versions), fp32: loss terms
 # relative; gradients per parameter, max|d| <= abs + rel * max|g_cpu|
-TRAIN_REF_TOL = {"loss_rtol": 1e-4, "grad_abs": 1e-5, "grad_rel": 1e-3}
+TRAIN_REF_TOL = {"loss_rtol": 1e-4, "grad_abs": 1e-5, "grad_rel": 1e-3, "tie_z": 1e-4}
+# tie_z: the ReLU inputs of the eikonal term's SDF chain agree within it
+# (max|d| / max(1, max|z|)); a ReLU input that lies on other sides of zero
+# in the two steps is a tie, and the eikonal term is compared without the
+# points that hold one (_eikonal_ties)
 REF_TOL = {  # GPU (kernel) vs CPU (plain versions), fp32
     "rgb": ("abs", 1e-4), "mask": ("abs", 1e-4), "vis": ("abs", 1e-4),
     "feature": ("abs", 1e-4), "depth": ("rel", 1e-4), "normal": ("abs", 1e-3),
@@ -126,17 +140,29 @@ def phase_env():
 
 
 def phase_build():
-    from lab4d_tpu_torch.ops.build import KERNELS, build_all, build_log, load_library
+    """Every kernel source, and the K1 anatomy copies of
+    tools/profile_heads_phases.py, one nvcc each, all started at once;
+    returns the anatomy copies' libraries."""
+    from lab4d_tpu_torch.ops import field_kernel as FK
+    from lab4d_tpu_torch.ops.build import BUILD_DIR, CSRC_DIR, KERNELS, build_all, build_log, load_library
+    from lab4d_tpu_torch.tools import profile_heads_phases as PH
 
     t = time.time()
+    anatomy_dir = str(BUILD_DIR / "heads_phases" / "smoke")
+    procs = PH.start_copies(CSRC_DIR, PH.MMA_K1, anatomy_dir)
     build_all()
     for name in KERNELS:
         load_library(name)
-    print(f"[build] {', '.join(n + '.cu' for n in KERNELS)} -> sm_90a in {time.time() - t:.1f} s")
+    anatomy = PH.finish_copies(procs, anatomy_dir)
+    for lib in anatomy.values():
+        FK.bind_signatures(lib)
+    print(f"[build] {', '.join(n + '.cu' for n in KERNELS)} and {len(anatomy)} anatomy copies of "
+          f"nerf_heads.cu -> sm_90a in {time.time() - t:.1f} s")
     for name in KERNELS:
         for line in build_log(name).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {name}: {line.strip()}")
+    return anatomy
 
 
 def _mlp_params(C_in, D, W, gen, device, widths=None, skips=()):
@@ -208,10 +234,11 @@ def mlp_macs(in_dims, out_dims):
     return sum(i * o for i, o in zip(in_dims, out_dims))
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, nbytes, peak=PEAK_FP32):
     """The least time the card could take: the larger of FLOPs over the
-    fp32 non-tensor peak and bytes over the memory rate, ms; and which."""
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    peak (by default the fp32 non-tensor one) and bytes over the memory
+    rate, ms; and which."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -347,64 +374,161 @@ def _flagship_heads(gen):
     return (x, appr, win_b, win_c, nets, ibeta, cfg, FG_SPP), g
 
 
+def _relu_ties(FK, args, acts):
+    """The (row, unit) pairs where K1's saved output of a ReLU and the plain
+    forward's input to it lie on opposite sides of zero, so that the two
+    backward passes take other sides of the kink: (rows holding one, number
+    of pairs, largest |input| among them)."""
+    import torch
+
+    nets, P = args[4], args[0].shape[0]
+    _, z = FK.nerf_heads_forward_saved_reference(*args, pre_activations=True)
+    rows = torch.zeros(P, dtype=torch.bool, device=acts.device)
+    n, z_max = 0, 0.0
+    for key, off in FK.act_layout(nets)[0].items():
+        if key == "rgb_h":
+            w = nets["rgb1"][0].shape[0]
+        else:
+            name, i = key
+            w = nets[name][2 * i].shape[0]
+            if name in ("vis", "feat") and i == len(nets[name]) // 2 - 1:
+                continue  # the visibility logit and the feature have no ReLU
+        a, zz = (t[off * P: (off + w) * P].view(P, w) for t in (acts, z))
+        flip = (a > 0) != (zz > 0)
+        rows |= flip.any(1)
+        n += int(flip.sum())
+        z_max = max(z_max, float(zz.abs().masked_fill(~flip, 0).max()))
+    return rows, n, z_max
+
+
+def _grad_rel_errs(FK, names, got, want):
+    """{array: max abs difference / max(1, max|want|)} over (dx, dappr,
+    dnets, dibeta) results."""
+    out = {}
+    for n, a, b in zip(names, [got[0], got[1], got[3]] + FK.flatten_nets(got[2])[0],
+                       [want[0], want[1], want[3]] + FK.flatten_nets(want[2])[0]):
+        out[n] = float((a.reshape(b.shape) - b).abs().max()) / max(1.0, float(b.abs().max()))
+    return out
+
+
 def _heads_kernels(gen):
     """K1 and K2 against their plain versions at the flagship step, every
-    output and every gradient."""
+    output, every saved layer output and every gradient. K1 runs as the
+    training step runs it, saving its layer outputs; K2 takes those, and
+    its plain version (nerf_heads_backward_saved_reference) the same ones.
+    K1 + K2 are also held against autograd through a recomputed plain
+    forward, which differs where a ReLU input lies within rounding of zero
+    and the two forwards take other sides of the kink: every such input
+    must lie within 10x K1's saved-output error of zero, and with the
+    cotangents of the rows that hold one set to zero, every gradient must
+    agree within KERNEL_TOL."""
     import torch
 
     from lab4d_tpu_torch.ops import field_kernel as FK
 
     args, g = _flagship_heads(gen)
     x, nets, P = args[0], args[4], args[0].shape[0]
-    got = FK.fused_nerf_heads(*args)
-    want = FK.nerf_heads_reference(*args)
+    got, acts = FK.nerf_heads_forward_saved(*args)
+    want, want_acts = FK.nerf_heads_forward_saved_reference(*args)
     sync()
     errs = {n: float((a - b).abs().max()) for n, a, b in zip(("density", "rgb", "vis", "feat"), got, want)}
-    print("[kernel] K1 outputs, max abs err (tol %g): " % KERNEL_TOL
+    errs["saved"] = float((acts - want_acts).abs().max())
+    print("[kernel] K1 outputs and saved layer outputs, max abs err (tol %g): " % KERNEL_TOL
           + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
     if not all(o.is_cuda for o in got) or not max(errs.values()) <= KERNEL_TOL:
         fail(f"K1 disagrees with its plain version: {errs}")
-    got_b = FK.fused_nerf_heads_backward(x, g, *args[1:])
-    want_b = FK.nerf_heads_backward_reference(x, g, *args[1:])
+    saved = (acts, got[1])
+    got_b = FK.fused_nerf_heads_backward(x, g, *args[1:], saved=saved)
+    want_b = FK.nerf_heads_backward_saved_reference(x, g, *args[1:], *saved)
+    auto_b = FK.nerf_heads_backward_reference(x, g, *args[1:])
     sync()
     names = ["dx", "dappr", "dibeta"] + [f"{n}.{i}" for n, i in FK.flatten_nets(nets)[1]]
-    pairs = zip(names, [got_b[0], got_b[1], got_b[3]] + FK.flatten_nets(got_b[2])[0],
-                [want_b[0], want_b[1], want_b[3].reshape(-1)] + FK.flatten_nets(want_b[2])[0])
-    abs_b, rel_b = {}, {}
-    for n, a, b in pairs:
-        abs_b[n] = float((a.reshape(b.shape) - b).abs().max())
-        rel_b[n] = abs_b[n] / max(1.0, float(b.abs().max()))
+    flat = [got_b[0], got_b[1], got_b[3]] + FK.flatten_nets(got_b[2])[0]
+    abs_b = {n: float((a.reshape(b.shape) - b).abs().max()) for n, a, b in zip(
+        names, flat, [want_b[0], want_b[1], want_b[3]] + FK.flatten_nets(want_b[2])[0])}
+    rel_b = _grad_rel_errs(FK, names, got_b, want_b)
+    rel_auto = _grad_rel_errs(FK, names, got_b, auto_b)
     print("[kernel] K2 gradients, max rel err (tol %g; abs err / max(1, max|g|)): " % KERNEL_TOL
           + " ".join(f"{k}={v:.1e}" for k, v in rel_b.items()))
     if not max(rel_b.values()) <= KERNEL_TOL:
         fail(f"K2 disagrees with its plain version: {max(rel_b.items(), key=lambda t: t[1])}")
+    tie_rows, n_ties, z_tie = _relu_ties(FK, args, acts)
+    keep = (~tie_rows).to(x.dtype)[:, None]
+    g_kept = [t * keep for t in g]
+    rel_kept = _grad_rel_errs(FK, names, FK.fused_nerf_heads_backward(x, g_kept, *args[1:], saved=saved),
+                              FK.nerf_heads_backward_reference(x, g_kept, *args[1:]))
+    sync()
+    dx_ties = float((got_b[0] - auto_b[0]).abs()[tie_rows].max()) if n_ties else 0.0
+    worst = sorted(rel_auto.items(), key=lambda t: -t[1])[:6]
+    print(f"[kernel] K1 + K2 against autograd through the plain forward, all rows, worst of "
+          f"max|d| / max(1, max|g|): " + " ".join(f"{k}={v:.1e}" for k, v in worst))
+    print(f"[kernel] ReLU ties (K1's saved output and the plain input on other sides of zero): "
+          f"{n_ties} (row, unit) pairs in {int(tie_rows.sum())} of {P} rows, largest |input| "
+          f"{z_tie:.2e} (tol {10 * errs['saved']:.2e}, 10x K1's saved error); max|d dx| on those "
+          f"rows {dx_ties:.2e}; the other rows alone, worst: {max(rel_kept.values()):.1e} "
+          f"({max(rel_kept, key=rel_kept.get)}; tol {KERNEL_TOL:g})")
+    if not z_tie <= 10 * errs["saved"]:
+        fail(f"a ReLU input of {z_tie} flips between K1 and the plain forward")
+    if not max(rel_kept.values()) <= KERNEL_TOL:
+        fail(f"K1 + K2 disagree with autograd outside the ReLU ties: {max(rel_kept.items(), key=lambda t: t[1])}")
+    k2_launches = FK.fused_nerf_heads_backward.cuda_launches
 
     # 234,688 multiply-adds per point at the flagship widths (PERF.md)
     macs = sum(w.numel() for w in FK.flatten_nets(nets)[0][0::2]) - 64 * 32
     weights = sum(t.numel() for t in FK.flatten_nets(nets)[0])
+    n_saved = FK.act_layout(nets)[1]
     label = f"flagship heads D5 W128, {FG_PAIRS} pairs x {FG_SPP}"
     out = {}
-    for key, kernel, plain, flops, nbytes, rel in (
-        ("K1", lambda: FK.fused_nerf_heads(*args), lambda: FK.nerf_heads_reference(*args),
-         2 * P * macs, 4 * (P * (3 + 21) + FG_PAIRS * 32 + weights), None),
-        ("K2", lambda: FK.fused_nerf_heads_backward(x, g, *args[1:]),
-         lambda: FK.nerf_heads_backward_reference(x, g, *args[1:]),
-         3 * 2 * P * macs, 4 * (P * (3 + 21 + 3) + 2 * FG_PAIRS * 32 + 2 * weights),
-         max(rel_b.values())),
+    for key, kernel, plain, flops, nbytes, rel, launches in (
+        ("K1", lambda: FK.nerf_heads_forward_saved(*args), lambda: FK.nerf_heads_reference(*args),
+         2 * P * macs, 4 * (P * (3 + 21 + n_saved) + FG_PAIRS * 32 + weights), None, 2),
+        ("K2", lambda: FK.fused_nerf_heads_backward(x, g, *args[1:], saved=saved),
+         lambda: FK.nerf_heads_backward_saved_reference(x, g, *args[1:], *saved),
+         2 * 2 * P * macs, 4 * (P * (3 + 21 + 3 + n_saved + 3) + 2 * FG_PAIRS * 32 + 2 * weights),
+         max(rel_b.values()), k2_launches),
     ):
         backward = key == "K2"
         r = {"label": label, "rows": P, "macs_per_point": macs,
              "max_abs_err": max(abs_b.values()) if backward else max(errs.values()),
-             "ms": device_ms(kernel, 3), "plain_ms": eager_ms(plain, 2) if backward else device_ms(plain, 2)}
+             "ms": device_ms(kernel, 3), "plain_ms": eager_ms(plain, 2) if backward else device_ms(plain, 2),
+             "cuda_launches_per_call": launches}
         if rel is not None:
             r["max_rel_err"] = rel
+            r["relu_tie_pairs"], r["relu_tie_rows"] = n_ties, int(tie_rows.sum())
+            r["max_rel_err_autograd_all_rows"] = max(rel_auto.values())
+            r["max_rel_err_autograd_untied_rows"] = max(rel_kept.values())
         r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes)
+        r["bound_3xtf32_ms"], _ = bound_ms(3 * flops, nbytes, PEAK_TF32)
         sync()
-        print(f"[kernel] {key} {label}: {macs} MAC/point, device kernel {r['ms']:.3f} ms / plain "
-              f"{r['plain_ms']:.3f} ms{' (eager)' if backward else ''} / bound {r['bound_ms']:.3f} ms "
-              f"({r['bound_by']})")
+        print(f"[kernel] {key} {label}: {macs} MAC/point, {launches} CUDA launches per call, device "
+              f"kernel {r['ms']:.3f} ms / plain {r['plain_ms']:.3f} ms{' (eager)' if backward else ''} "
+              f"/ bound {r['bound_ms']:.3f} ms ({r['bound_by']}, fp32 FMA) / "
+              f"{r['bound_3xtf32_ms']:.3f} ms (3xTF32 tensor cores)")
         out[key] = [r]
     return out
+
+
+def phase_heads_anatomy(anatomy, kernels):
+    """One round of K1's anatomy copies (tools/profile_heads_phases.py) at
+    the flagship step: `full` against nerf_heads_reference, the others
+    timed. Returns its row for the kernels line."""
+    import torch
+
+    from lab4d_tpu_torch.ops import field_kernel as FK
+    from lab4d_tpu_torch.ops.mlp_kernel import _stream
+    from lab4d_tpu_torch.tools import profile_heads_phases as PH
+
+    heads, _ = _flagship_heads(torch.Generator().manual_seed(SEED))
+    err, times = PH.anatomy_round(FK, anatomy, heads, _stream(heads[0].device), 1)
+    sync()
+    print(f"[heads-anatomy] full vs plain: max abs err {err:.3e} (tol {KERNEL_TOL:g}); one round, ms: "
+          + " ".join(f"{k}={v:.3f}" for k, v in times.items()))
+    if not err <= KERNEL_TOL:
+        fail(f"the anatomy copy `full` of K1 disagrees with its plain version: {err}")
+    k1 = kernels["K1"][0]
+    return {"label": k1["label"], "rows": k1["rows"], "max_abs_err": err, "ms": times["full"],
+            "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+            "copies_ms": times}
 
 
 def make_scene(num_frames=8, res=RES):
@@ -609,18 +733,101 @@ def _step_grads(model, batch, draws, step=0):
              if p.grad is not None})
 
 
+def _relu_inputs(rec):
+    """A TorchFunctionMode that appends to `rec` the input of every
+    torch.relu called while it is on (nothing is patched)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class Mode(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.relu:
+                rec.append(args[0].detach())
+            return func(*args, **(kwargs or {}))
+
+    return Mode()
+
+
+@contextlib.contextmanager
+def eikonal_records(out):
+    """Every NeRF.compute_eikonal call inside appends to `out` its
+    per-point eikonal values (n,) and the inputs of its SDF chain's ReLUs
+    (n, units), both fp64 on the CPU."""
+    import torch
+
+    from lab4d_tpu_torch.nnutils.nerf import NeRF
+
+    orig = NeRF.compute_eikonal
+
+    def recorded(self, *args, **kwargs):
+        rec = []
+        with _relu_inputs(rec):
+            eik = orig(self, *args, **kwargs)
+        z = torch.cat([t.reshape(-1, t.shape[-1]) for t in rec], 1)
+        out.append({"eikonal": eik.detach().reshape(-1).double().cpu(), "z": z.double().cpu()})
+        return eik
+
+    NeRF.compute_eikonal = recorded
+    try:
+        yield out
+    finally:
+        NeRF.compute_eikonal = orig
+
+
+def _eikonal_ties(got, want, tol):
+    """The eikonal term differentiates the SDF chain, whose ReLU masks it
+    takes from the forward: where a ReLU input lies within rounding of
+    zero the two steps may take other sides of the kink, and that point's
+    eikonal value jumps (PERF.md §7). Returns (the two steps' reg_eikonal
+    with the points that hold such a tie left out, a report, failures); the
+    ReLU inputs must agree within tol["tie_z"] so that only inputs that
+    close to zero can flip."""
+    if len(got["eikonal"]) != 1 or len(want["eikonal"]) != 1 or \
+            got["eikonal"][0]["z"].shape != want["eikonal"][0]["z"].shape:
+        return None, "", ["the steps differ in their eikonal points or take more than one field's"]
+    (eg, zg), (ew, zw) = ((r["eikonal"], r["z"]) for r in (got["eikonal"][0], want["eikonal"][0]))
+    failures = []
+    dz = float((zg - zw).abs().max()) / max(1.0, float(zw.abs().max()))
+    if not dz <= tol["tie_z"]:
+        failures.append(f"the eikonal term's ReLU inputs differ by {dz} > {tol['tie_z']} of max|z|")
+    flip = (zg > 0) != (zw > 0)
+    rows = flip.any(1)
+    keep = (~rows).double()
+    # reg_eikonal is a scheduled factor times the mean over the points
+    adj = [s["loss"]["reg_eikonal"] * float((e * keep).sum() / keep.sum()) / float(e.mean())
+           for s, e in ((got, eg), (want, ew))]
+    jump = float((eg - ew).abs()[rows].max()) if rows.any() else 0.0
+    z_tie = float(zw.abs()[flip].max()) if rows.any() else 0.0
+    report = (f"eikonal: {int(flip.sum())} ReLU ties in {int(rows.sum())} of {rows.numel()} points "
+              f"(largest |z| {z_tie:.2e}; ReLU inputs within {dz:.2e} of max|z|, tol {tol['tie_z']:g}), "
+              f"max|d eikonal| {jump:.2e} on them; reg_eikonal relative error with them "
+              f"{abs(got['loss']['reg_eikonal'] - want['loss']['reg_eikonal']) / abs(want['loss']['reg_eikonal']):.2e}, "
+              f"without {abs(adj[0] - adj[1]) / abs(adj[1]):.2e}")
+    return adj, report, failures
+
+
 def _compare_steps(got, want, tol, what):
     """Two steps' loss terms (rtol) and gradients (per parameter, max|d| <=
     abs + rel * max|g_want|): (summary with the worst loss term's relative
-    error and the worst gradient's share of its bound, list of failures)."""
+    error and the worst gradient's share of its bound, list of failures).
+    reg_eikonal is compared without the points whose ReLU masks differ
+    between the steps (_eikonal_ties), where both steps carry the records
+    of eikonal_records."""
     failures = []
     if sorted(got["grads"]) != sorted(want["grads"]):
         failures.append("the steps differ in which parameters get a gradient")
+    loss_g, loss_w = dict(got["loss"]), dict(want["loss"])
+    if "reg_eikonal" in loss_w and got.get("eikonal") and want.get("eikonal"):
+        adj, report, tie_failures = _eikonal_ties(got, want, tol)
+        failures += tie_failures
+        if adj is not None:
+            loss_g["reg_eikonal"], loss_w["reg_eikonal"] = adj
+            print(f"[{what}] {report}")
     loss_errs = []
-    for k, v in want["loss"].items():
-        err = abs(got["loss"][k] - v) / max(abs(v), 1e-12)
-        if not (np.isfinite(got["loss"][k]) and err <= tol["loss_rtol"]):
-            failures.append(f"loss {k} {got['loss'][k]} vs {v}")
+    for k, v in loss_w.items():
+        err = abs(loss_g[k] - v) / max(abs(v), 1e-12)
+        if not (np.isfinite(loss_g[k]) and err <= tol["loss_rtol"]):
+            failures.append(f"loss {k} {loss_g[k]} vs {v}")
         loss_errs.append((err, k))
     grad_errs = []
     for n, g in want["grads"].items():
@@ -668,12 +875,14 @@ def plain_kernels():
         K.fused_relu_mlp, K.fused_pe_mlp, feature.fused_nerf_heads = kept
 
 
-def reference_steps(db, root, cate, geo_init_steps):
+def reference_steps(db, root, cate, geo_init_steps, eikonal_all_rays=False):
     """A small trainer of the `cate` field ("bg", or the fg / skel-quad
     model) after its prior fits with `geo_init_steps` geometry steps, one
     batch of 128 rays of 64 samples and seeded random draws; returns
-    step(device): that training step's loss terms and gradients on the
-    device, from the trainer's weights."""
+    step(device): that training step's loss terms, gradients and eikonal
+    records (eikonal_records) on the device, from the trainer's weights.
+    eikonal_all_rays: the eikonal term at every ray instead of a drawn
+    sixteenth."""
     import torch
 
     from lab4d_tpu_torch.engine.trainer import Trainer
@@ -689,7 +898,7 @@ def reference_steps(db, root, cate, geo_init_steps):
     trainer.close()
     rng = np.random.default_rng(SEED)
     rays = batch_np["hxy"].shape[0] * 2 * batch_np["hxy"].shape[2]
-    draws_np = {"eikonal_idx": rng.permutation(rays)[: rays // 16],
+    draws_np = {"eikonal_idx": rng.permutation(rays)[: rays if eikonal_all_rays else rays // 16],
                 "vis_u": rng.random((512, 3)).astype(np.float32),
                 "vis_inst": np.zeros(512, np.int64)}
     if cate == "fg":  # the global-match candidates, the gauss-skin points
@@ -703,9 +912,10 @@ def reference_steps(db, root, cate, geo_init_steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
         batch["geo"] = geo
         draws = {cate: {k: torch.as_tensor(v, device=dev) for k, v in draws_np.items()}}
-        loss, grads = _step_grads(model, batch, draws)
+        with eikonal_records([]) as eik:
+            loss, grads = _step_grads(model, batch, draws)
         sync()
-        return {"loss": loss, "grads": grads}
+        return {"loss": loss, "grads": grads, "eikonal": eik}
 
     step.rays = rays
     return step
@@ -834,6 +1044,8 @@ KERNEL_INFO = {  # JSON name, source, the TPU kernel it replaces
            "lab4d_tpu/ops/field_kernel.py:544"),
     "K2": ("nerf_heads_bwd", "lab4d_tpu_torch/csrc/nerf_heads.cu",
            "lab4d_tpu/ops/field_kernel.py:626"),
+    "anatomy": ("heads_anatomy", "lab4d_tpu_torch/tools/profile_heads_phases.py",
+                "scripts/perf/bench_kernel_anatomy.py:174"),
     "K3f": ("fused_relu_mlp_fwd", "lab4d_tpu_torch/csrc/fused_relu_mlp.cu",
             "lab4d_tpu/ops/mlp_kernel.py:127"),
     "K3b": ("fused_relu_mlp_bwd", "lab4d_tpu_torch/csrc/fused_pe_mlp.cu",
@@ -860,9 +1072,10 @@ def main():
 
     t0 = time.time()
     card = phase_env()
-    phase_build()
+    anatomy = phase_build()
     sync()
     kernels = phase_kernel()
+    kernels["anatomy"] = [phase_heads_anatomy(anatomy, kernels)]
     data_info = make_scene()
     model, geo_state = phase_model(data_info)
     phase_reference(model, geo_state, data_info)
@@ -884,19 +1097,22 @@ def main():
     for key, (name, source, replaces) in KERNEL_INFO.items():
         # the shape the training step gives each kernel most work at
         main_shape = max(kernels[key], key=lambda r: (r["rows"], r["bound_ms"]))
-        by_path = {"render": render_launches[key], "train": bg_launches[key],
-                   "train_fg": fg_launches[key]}
+        # the anatomy copies are a profiler's, on no path
+        by_path = {path: counts.get(key, 0) for path, counts in (
+            ("render", render_launches), ("train", bg_launches), ("train_fg", fg_launches))}
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),
-            "launches_by_path": {**by_path, "train_steps": bg_steps[key],
-                                 "train_fg_steps": fg_steps[key]},
+            "launches_by_path": {**by_path, "train_steps": bg_steps.get(key, 0),
+                                 "train_fg_steps": fg_steps.get(key, 0)},
             "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),
             **({"max_rel_err": max(r["max_rel_err"] for r in kernels[key])}
                if "max_rel_err" in kernels[key][0] else {}),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
             "library_ms": None, "shape": main_shape["label"],
+            **{k: main_shape[k] for k in ("bound_3xtf32_ms", "cuda_launches_per_call", "copies_ms")
+               if k in main_shape},
         })
     print(json.dumps({"kernels": rows}))
     print(card)

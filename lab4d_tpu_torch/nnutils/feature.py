@@ -18,7 +18,7 @@ from torch import nn
 from lab4d_tpu_torch.nnutils.base import BaseMLP
 from lab4d_tpu_torch.nnutils.embedding import PosEmbedding
 from lab4d_tpu_torch.nnutils.nerf import NeRF
-from lab4d_tpu_torch.ops.field_kernel import FieldCfg, fused_nerf_heads
+from lab4d_tpu_torch.ops.field_kernel import TILE_ROWS, FieldCfg, fused_nerf_heads
 from lab4d_tpu_torch.utils.geom import Kmatinv, pinhole_projection, safe_norm
 
 
@@ -59,8 +59,10 @@ class FeatureNeRF(NeRF):
         """Whether the fused heads compute this field: one instance (its code
         folds into the biases), appearance rows as the only per-pair input,
         no direction encoding, sigmoid rgb, every xyz frequency ladder a
-        prefix of the colour ladder, whole tiles of samples per pair; and a
-        device with the kernel (CUDA) or its plain twin (the CPU)."""
+        prefix of the colour ladder, whole tiles of samples per pair (K1's
+        TILE_ROWS on the card, 8 on the CPU); and a device with the kernel
+        (CUDA) or its plain twin (the CPU)."""
+        tile = TILE_ROWS if xyz.device.type == "cuda" else 8
         if not (
             xyz.device.type in ("cuda", "cpu")
             and self.num_inst == 1
@@ -68,7 +70,7 @@ class FeatureNeRF(NeRF):
             and self.dir_embedding.n_freqs == -1
             and self.color_act
             and xyz.ndim == 4
-            and (xyz.shape[1] * xyz.shape[2]) % 8 == 0
+            and (xyz.shape[1] * xyz.shape[2]) % tile == 0
         ):
             return False
         fb_c = self.pos_embedding_color.freq_bands

@@ -10,10 +10,14 @@ MLPs over the Fourier embedding of the points (skip layers re-read it),
 
 - K1 `fused_nerf_heads` (csrc/nerf_heads.cu): density (VolSDF of the sdf),
   sigmoid rgb, visibility logit and the L2-normalised feature of every
-  point, with one appearance row per pair of `spp` points.
-- K2 `fused_nerf_heads_backward` (csrc/nerf_heads.cu): its VJP: dx, the
-  appearance rows' gradient, every weight and bias gradient, d ibeta; the
-  annealing windows get zeros, as in the JAX VJP.
+  point, with one appearance row per pair of `spp` points. When autograd
+  needs a gradient it also saves every layer output (`act_layout`,
+  `nerf_heads_forward_saved`).
+- K2 `fused_nerf_heads_backward` (csrc/nerf_heads.cu): its VJP from those
+  saved outputs: dx, the appearance rows' gradient, every weight and bias
+  gradient, d ibeta; the annealing windows get zeros, as in the JAX VJP.
+  Its plain version on the same saved outputs is
+  `nerf_heads_backward_saved_reference`.
 
 Each public function launches its kernel for a CUDA tensor (counted in
 `<function>.launches`) and uses its plain version for a CPU tensor; on any
@@ -40,15 +44,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from lab4d_tpu_torch.nnutils.embedding import fourier_embed
-from lab4d_tpu_torch.ops.mlp_kernel import (
-    SMEM_PER_SM,
-    TILE_KC,
-    _n_sm,
-    _raise_on,
-    _stream,
-    _vjp,
-    mlp_reference,
-)
+from lab4d_tpu_torch.ops.mlp_kernel import SMEM_PER_SM, _raise_on, _stream, _vjp, mlp_reference
 
 OUT_DIMS = (1, 3, 1, 16)  # density, rgb, vis, feat
 NET_ORDER = ("base", "sdf", "color", "rgb1", "rgb2", "vis", "feat")
@@ -62,9 +58,7 @@ _NET_SKIPS = dict(base="skips_base", color="skips_color", vis="skips_vis", feat=
 _NET_FREQS = dict(base="nf_base", color="nf_color", vis="nf_vis", feat="nf_feat")
 
 MAX_LAYERS = 8  # NH_MAX_LAYERS in csrc/nerf_heads.cu
-MAX_FREQS = 16  # TM_MAX_FREQS in csrc/mlp_tiles.cuh
-FWD_TILES = (64, 32, 16, 8)
-BWD_TILES = (32, 16, 8)
+MAX_FREQS = 16  # NH_MAX_FREQS in csrc/nerf_heads.cu
 
 
 # ------------------------------------------------------------- net layouts
@@ -183,71 +177,213 @@ def nerf_heads_backward_reference(x, g, appr_rows, win_b, win_c, nets, ibeta, cf
     return grads[0], grads[1], unflatten_nets(grads[3:], order), grads[2]
 
 
+def act_layout(nets):
+    """The layout of the layer outputs K1 saves for K2: {(head, layer):
+    floats per point before that layer's block}, the same for rgb_h, and
+    the floats per point in all. Each block is a row-major (P, out) array
+    at offset * P; the order is base, colour, rgb_h, visibility, feature."""
+    offs, n = {}, 0
+    for name in ("base", "color", "rgb_h", "vis", "feat"):
+        if name == "rgb_h":
+            offs[name] = n
+            n += nets["rgb1"][0].shape[0]
+            continue
+        for i, w in enumerate(nets[name][0::2]):
+            offs[(name, i)] = n
+            n += w.shape[0]
+    return offs, n
+
+
+def pack_layout(nets, cfg):
+    """Where K1's pre-split weights go (nh_pack_kernel): {(head, layer),
+    "rgb1", "rgb2": offset}, and the floats in all. A layer of N outputs and
+    K inputs takes 2 N kp floats (hi, then lo), kp = K rounded up to 32."""
+    offs, n = {}, 0
+    layers = [((name, i), w.shape) for name in HEADS for i, w in enumerate(nets[name][0::2])]
+    hc = nets["base"][-2].shape[0]
+    layers += [("rgb1", (nets["rgb1"][0].shape[0], hc)), ("rgb2", nets["rgb2"][0].shape)]
+    for key, (N, K) in layers:
+        offs[key] = n
+        n += 2 * N * (-(-K // 32) * 32)
+    return offs, n
+
+
+def _head_layers(x, window, wb, skips, freqs):
+    """Every layer output of one head before its ReLU (ReLU between the
+    layers, none after the last)."""
+    X = fourier_embed(x, freqs, window)
+    h, outs = X, []
+    for i in range(len(wb) // 2):
+        if i in skips:
+            h = torch.cat([X, h], dim=-1)
+        z = F.linear(h, wb[2 * i], wb[2 * i + 1])
+        outs.append(z)
+        h = torch.relu(z)
+    return outs
+
+
+def nerf_heads_forward_saved_reference(x, appr_rows, win_b, win_c, nets, ibeta, cfg, spp,
+                                       pre_activations=False):
+    """Plain version of K1 with its saved layer outputs: ((density, rgb,
+    vis, feat), acts), acts the flat (P * floats per point,) buffer in
+    act_layout's order, as K1 writes it when autograd needs it. With
+    pre_activations, acts holds each layer's output before its ReLU
+    instead (the inputs whose sign decides each ReLU's gradient)."""
+    freqs = cfg.freqs
+    zs = {}
+    for name, win in (("base", win_b), ("color", win_c), ("vis", None), ("feat", None)):
+        nf = getattr(cfg, _NET_FREQS[name])
+        zs[name] = _head_layers(x, win, nets[name], getattr(cfg, _NET_SKIPS[name]), freqs[:nf])
+    hs = {name: [torch.relu(z) for z in zl] for name, zl in zs.items()}
+    feat = hs["base"][-1]
+    hc = feat + hs["color"][-1]
+    rep = appr_rows.repeat_interleave(spp, dim=0)
+    z_rgbh = F.linear(torch.cat([hc, rep], dim=-1), *nets["rgb1"])
+    rgb_h = torch.relu(z_rgbh)
+    rgb = torch.sigmoid(F.linear(rgb_h, *nets["rgb2"]))
+    sdf = F.linear(feat, *nets["sdf"])
+    ib = ibeta.reshape(())
+    density = (0.5 + 0.5 * torch.sign(sdf) * torch.expm1(-torch.abs(sdf) * ib)) * ib
+    vis, f16 = zs["vis"][-1], zs["feat"][-1]
+    feat_n = f16 / torch.clamp(torch.sqrt(torch.sum(f16 * f16, -1, keepdim=True) + 1e-12), min=1e-6)
+    if pre_activations:
+        blocks = zs["base"] + zs["color"] + [z_rgbh] + zs["vis"] + zs["feat"]
+    else:
+        blocks = (hs["base"] + hs["color"] + [rgb_h] + hs["vis"][:-1] + [vis] + hs["feat"][:-1]
+                  + [f16])
+    acts = torch.cat([b.reshape(-1) for b in blocks])
+    return (density, rgb, vis, feat_n), acts
+
+
+def nerf_heads_backward_saved_reference(x, g, appr_rows, win_b, win_c, nets, ibeta, cfg, spp,
+                                        acts, rgb):
+    """Plain version of K2's dataflow: (dx, dappr, dnets, dibeta) of
+    nerf_heads_reference from the saved layer outputs `acts` (act_layout)
+    and the forward's rgb, layer by layer in reverse, as K2 runs it."""
+    P = x.shape[0]
+    offs, _ = act_layout(nets)
+    gd, grgb, gvis, gfeat = g
+
+    def saved(key, width):
+        return acts[offs[key] * P: (offs[key] + width) * P].view(P, width)
+
+    def last(name):
+        n = len(nets[name]) // 2 - 1
+        return saved((name, n), nets[name][2 * n].shape[0])
+
+    dn = {name: [None] * len(arrs) for name, arrs in nets.items()}
+    feat, col, f16 = last("base"), last("color"), last("feat")
+    rh = nets["rgb1"][0].shape[0]
+    rgb_h = saved("rgb_h", rh)
+    ib = ibeta.reshape(())
+    s = F.linear(feat, *nets["sdf"])
+    e = torch.exp(-torch.abs(s) * ib)
+    g_sdf = gd * (-0.5 * ib * ib * e)
+    dibeta = (gd * (0.5 + 0.5 * torch.sign(s) * torch.expm1(-torch.abs(s) * ib) - 0.5 * ib * s * e)).sum()
+    dn["sdf"] = [g_sdf.T @ feat, g_sdf.sum(0)]
+    g_rgb = grgb * rgb * (1 - rgb)
+    dn["rgb2"] = [g_rgb.T @ rgb_h, g_rgb.sum(0)]
+    g_rgbh = (g_rgb @ nets["rgb2"][0]) * (rgb_h > 0)
+    hc = feat + col
+    w_hc = nets["rgb1"][0][:, : hc.shape[1]]
+    w_appr = nets["rgb1"][0][:, hc.shape[1]:]
+    gpair = g_rgbh.view(-1, spp, rh).sum(1)
+    dappr = gpair @ w_appr
+    dn["rgb1"] = [torch.cat([g_rgbh.T @ hc, gpair.T @ appr_rows], dim=1), gpair.sum(0)]
+    dhc = g_rgbh @ w_hc
+    nrm = torch.clamp(torch.sqrt(torch.sum(f16 * f16, -1, keepdim=True) + 1e-12), min=1e-6)
+    fv = f16 / nrm
+    g_f16 = (gfeat - fv * (fv * gfeat).sum(-1, keepdim=True)) / nrm
+    g_start = {"base": (dhc + g_sdf * nets["sdf"][0]) * (feat > 0), "color": dhc * (col > 0),
+               "vis": gvis, "feat": g_f16}
+    dx = torch.zeros_like(x)
+    for name, win in (("base", win_b), ("color", win_c), ("vis", None), ("feat", None)):
+        nf = getattr(cfg, _NET_FREQS[name])
+        skips = getattr(cfg, _NET_SKIPS[name])
+        with torch.enable_grad():
+            xl = x.detach().requires_grad_(True)
+            X = fourier_embed(xl, cfg.freqs[:nf], win)
+        Xd = X.detach()
+        dX = torch.zeros_like(Xd)
+        gcur = g_start[name]
+        wb = nets[name]
+        for i in range(len(wb) // 2 - 1, -1, -1):
+            hprev = saved((name, i - 1), wb[2 * i - 2].shape[0]) if i > 0 else None
+            A = Xd if i == 0 else (torch.cat([Xd, hprev], dim=-1) if i in skips else hprev)
+            dn[name][2 * i] = gcur.T @ A
+            dn[name][2 * i + 1] = gcur.sum(0)
+            din = gcur @ wb[2 * i]
+            if i == 0 or i in skips:
+                dX = dX + din[:, : Xd.shape[1]]
+                din = din[:, Xd.shape[1]:]
+            if i > 0:
+                gcur = din * (hprev > 0)
+        dx = dx + torch.autograd.grad(X, xl, dX)[0]
+    return dx, dappr, dn, dibeta.reshape(1)
+
+
 # ---------------------------------------------------------- launch planning
 
 
+TILE_ROWS = 64  # NH_TR: points per K1 block
+MAX_WIDTH = 128  # NH_NMAX: widest layer output
+SLAB_LD = 36  # NH_LDS: row stride of a staged weight slab
+MAX_CHUNKS = 128  # K2's split of the points for dW / db
+CHUNK_ALIGN = 32  # HM_KS: points per k-slab of K2's dW products
+
+
 class HeadsPlan(NamedTuple):
-    tile_rows: int
-    smem_bytes: int
-    grid: int
+    tile_rows: int  # K1: points per block
+    smem_bytes: int  # K1's shared memory per block
+    grid: int  # K1's blocks
+    n_chunks: int  # K2: chunks of the points, one workspace slice each
 
 
 class HeadsDims(NamedTuple):
-    """Widths that size the kernels' shared memory (NhArgs in
-    csrc/nerf_heads.cu)."""
+    """Widths that size the kernels' buffers (NhArgs in csrc/nerf_heads.cu)."""
     width: int  # output width of base and colour (hc)
     rgb_hidden: int
     max_cx: int  # widest embedding
     g_width: int  # widest layer output
-    h_total: int  # most floats per row of one head's layer outputs
-    stage_ld: int
 
 
 def heads_dims(nets, cfg) -> HeadsDims:
     c_x = {n: 3 * (2 * getattr(cfg, _NET_FREQS[n]) + 1) for n in HEADS}
-    outs = {n: [w.shape[0] for w in nets[n][0::2]] for n in HEADS}
-    ins = [w.shape[1] for n in HEADS for w in nets[n][0::2]]
+    outs = [w.shape[0] for n in HEADS for w in nets[n][0::2]]
     width, rgb_hidden = nets["base"][-2].shape[0], nets["rgb1"][0].shape[0]
-    max_w = max(width, rgb_hidden, *ins, *(o for n in HEADS for o in outs[n]))
-    return HeadsDims(
-        width=width, rgb_hidden=rgb_hidden, max_cx=max(c_x.values()),
-        g_width=max(rgb_hidden, *(o for n in HEADS for o in outs[n])),
-        h_total=max(sum(outs[n]) for n in HEADS), stage_ld=(max_w + 31) // 32 * 32 + 4,
-    )
+    return HeadsDims(width=width, rgb_hidden=rgb_hidden, max_cx=max(c_x.values()),
+                     g_width=max(rgb_hidden, *outs))
 
 
-def heads_smem(d: HeadsDims, tile_rows: int, backward: bool) -> int:
-    """Shared memory of K1 / K2 (nh_fwd_smem / nh_bwd_smem), bytes."""
-    ts = tile_rows + 4
-    if backward:
-        per_row = 2 * d.max_cx + 4 + d.h_total + 2 * d.g_width + d.width + 4
-    else:
-        per_row = d.max_cx + 2 * d.g_width + d.width
-    return 4 * (ts * per_row + (d.rgb_hidden + 3) // 4 * 4 + TILE_KC * d.stage_ld)
+def _ld(n: int) -> int:
+    """hm_ld in csrc/heads_mma.cuh: a row stride of 4 mod 8 floats."""
+    return (n + 3) // 8 * 8 + 4
 
 
-def heads_plan(d: HeadsDims, spp: int, rows: int, backward: bool, n_sm: int) -> HeadsPlan:
-    """Tile height (a divisor of the samples of a pair), shared memory and
-    grid of a K1 / K2 launch. K1: the tallest tile that leaves room for two
-    blocks per SM, one block per tile. K2: the tallest tile that fits; a
-    grid-stride launch of at most one block per SM per slot, since the
-    workspace holds a slice of every weight gradient per block."""
+def heads_smem(d: HeadsDims) -> int:
+    """Shared memory of a K1 block (nh_fwd_smem), bytes: the 64 points'
+    embedding and three layer buffers, two stages of hi / lo weight slabs,
+    the rgb1 bias row."""
+    return 4 * (TILE_ROWS * (_ld(d.max_cx) + 3 * _ld(d.g_width)) + 4 * MAX_WIDTH * SLAB_LD
+                + (d.rgb_hidden + 3) // 4 * 4)
+
+
+def heads_plan(d: HeadsDims, spp: int, rows: int) -> HeadsPlan:
+    """K1: one block per 64 points (a divisor of the samples of a pair);
+    K2: the most chunks (at most 128) that split the points into whole
+    k-slabs, for its dW / db partial sums."""
     if rows % spp:
         raise ValueError(f"{rows} points are not whole pairs of {spp}")
-    cands = [t for t in (BWD_TILES if backward else FWD_TILES) if spp % t == 0]
-    fits = [t for t in cands if heads_smem(d, t, backward) <= SMEM_PER_SM]
-    if not backward:
-        fits = [t for t in fits if heads_smem(d, t, False) <= SMEM_PER_SM // 2] or fits
-    if not fits:
-        raise ValueError(f"no tile of {cands} fits the heads' shared memory for {spp} samples per pair")
-    tr = fits[0]
-    smem = heads_smem(d, tr, backward)
-    ntiles = rows // tr
-    if backward:
-        grid = min(ntiles, n_sm * max(1, min(2, SMEM_PER_SM // smem)))
-    else:
-        grid = ntiles
-    return HeadsPlan(tr, smem, grid)
+    if spp % TILE_ROWS:
+        raise ValueError(f"{spp} samples per pair are not whole tiles of {TILE_ROWS} points")
+    if d.g_width > MAX_WIDTH:
+        raise ValueError(f"layers wider than {MAX_WIDTH} are not supported")
+    smem = heads_smem(d)
+    if smem > SMEM_PER_SM:
+        raise ValueError(f"K1 needs {smem} bytes of shared memory, more than {SMEM_PER_SM}")
+    n_chunks = next(c for c in range(min(MAX_CHUNKS, rows // CHUNK_ALIGN), 0, -1)
+                    if rows % c == 0 and (rows // c) % CHUNK_ALIGN == 0)
+    return HeadsPlan(TILE_ROWS, smem, rows // TILE_ROWS, n_chunks)
 
 
 # ------------------------------------------------------------- the library
@@ -255,15 +391,16 @@ def heads_plan(d: HeadsDims, spp: int, rows: int, backward: bool, n_sm: int) -> 
 
 class _NhHead(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in ("n_layers", "skip_mask", "n_freqs", "c_x")] + [
-        (n, ctypes.c_int * MAX_LAYERS) for n in ("in_dim", "out_dim", "k1", "off_w1", "off_w2", "off_b")
+        (n, ctypes.c_int * MAX_LAYERS)
+        for n in ("in_dim", "out_dim", "k1", "off_w1", "off_w2", "off_b", "act_off", "pk_off")
     ] + [("window", ctypes.c_void_p)] + [
         (n, ctypes.c_void_p * MAX_LAYERS) for n in ("w1", "w2", "b")
     ]
 
 
-_ARG_INTS = ("rows", "spp", "tr", "ts", "stage_ld", "width", "rgb_hidden", "appr_dim", "feat_dim",
-             "max_cx", "g_width", "h_total", "off_w_sdf", "off_b_sdf", "off_w_hc", "off_w_rgb2",
-             "off_b_rgb2", "off_dibeta", "n_slice")
+_ARG_INTS = ("rows", "spp", "tr", "n_chunks", "width", "rgb_hidden", "appr_dim", "feat_dim",
+             "max_cx", "g_width", "off_w_sdf", "off_b_sdf", "off_w_hc", "off_w_rgb2", "off_b_rgb2",
+             "off_dibeta", "n_slice", "act_rgbh", "act_total", "pk_hc", "pk_rgb2", "pk_total")
 _ARG_PTRS = ("w_sdf", "b_sdf", "w_hc", "w_appr", "b_rgb1", "w_rgb2", "b_rgb2", "ibeta")
 
 
@@ -285,10 +422,12 @@ def bind_signatures(lib):
     """Declare the C signatures of a nerf_heads library and check its
     NhArgs layout against _NhArgs; returns lib."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lab4d_nerf_heads_fwd.argtypes = [vp] * 7 + [i32, vp]
+    lib.lab4d_nerf_heads_fwd.argtypes = [vp] * 10
     lib.lab4d_nerf_heads_fwd.restype = i32
-    lib.lab4d_nerf_heads_bwd.argtypes = [vp] * 13 + [i32, vp]
+    lib.lab4d_nerf_heads_bwd.argtypes = [vp] * 15 + [i32, vp, vp]
     lib.lab4d_nerf_heads_bwd.restype = i32
+    lib.lab4d_nerf_heads_bwd_scratch.argtypes = [vp]
+    lib.lab4d_nerf_heads_bwd_scratch.restype = ctypes.c_size_t
     lib.lab4d_nerf_heads_args_size.argtypes = []
     lib.lab4d_nerf_heads_args_size.restype = i32
     lib.lab4d_cuda_error_string.argtypes = [i32]
@@ -346,9 +485,12 @@ def _check_inputs(x, appr, win_b, win_c, nets, ibeta, cfg, spp):
 
 def _build_args(x, appr, win_b, win_c, nets, snets, ibeta, cfg, spp, plan, dims, offs, n_slice):
     """The NhArgs of a launch: every pointer of the split nets, the heads'
-    layer tables and the gradients' workspace offsets."""
+    layer tables, the gradients' workspace offsets and the saved outputs'
+    layout."""
     a = _NhArgs()
     windows = {"base": win_b, "color": win_c}
+    acts, act_total = act_layout(nets)
+    pk, pk_total = pack_layout(nets, cfg)
     for hi, name in enumerate(HEADS):
         h = a.head[hi]
         skips = getattr(cfg, _NET_SKIPS[name])
@@ -361,22 +503,23 @@ def _build_args(x, appr, win_b, win_c, nets, snets, ibeta, cfg, spp, plan, dims,
         for i in range(n):
             w1 = snets[name][pos]
             h.w1[i], h.off_w1[i], h.k1[i] = w1.data_ptr(), offs[(name, pos)], w1.shape[1]
-            h.out_dim[i] = w1.shape[0]
+            h.out_dim[i], h.act_off[i], h.pk_off[i] = w1.shape[0], acts[(name, i)], pk[(name, i)]
             if i in skips:
                 w2 = snets[name][pos + 1]
                 h.w2[i], h.off_w2[i] = w2.data_ptr(), offs[(name, pos + 1)]
                 h.in_dim[i] = w1.shape[1] + w2.shape[1]
                 pos += 1
             else:
-                h.w2[i], h.in_dim[i] = None, w1.shape[1]
+                h.w2[i], h.in_dim[i], h.off_w2[i] = None, w1.shape[1], offs[(name, pos)]
             h.b[i], h.off_b[i] = snets[name][pos + 1].data_ptr(), offs[(name, pos + 1)]
             pos += 2
-    ints = dict(rows=x.shape[0], spp=spp, tr=plan.tile_rows, ts=plan.tile_rows + 4,
-                stage_ld=dims.stage_ld, width=dims.width, rgb_hidden=dims.rgb_hidden,
-                appr_dim=appr.shape[1], feat_dim=nets["feat"][-2].shape[0], max_cx=dims.max_cx,
-                g_width=dims.g_width, h_total=dims.h_total, off_w_sdf=offs[("sdf", 0)],
-                off_b_sdf=offs[("sdf", 1)], off_w_hc=offs[("rgb1", 0)], off_w_rgb2=offs[("rgb2", 0)],
-                off_b_rgb2=offs[("rgb2", 1)], off_dibeta=offs["dibeta"], n_slice=n_slice)
+    ints = dict(rows=x.shape[0], spp=spp, tr=plan.tile_rows, n_chunks=plan.n_chunks,
+                width=dims.width, rgb_hidden=dims.rgb_hidden, appr_dim=appr.shape[1],
+                feat_dim=nets["feat"][-2].shape[0], max_cx=dims.max_cx, g_width=dims.g_width,
+                off_w_sdf=offs[("sdf", 0)], off_b_sdf=offs[("sdf", 1)], off_w_hc=offs[("rgb1", 0)],
+                off_w_rgb2=offs[("rgb2", 0)], off_b_rgb2=offs[("rgb2", 1)],
+                off_dibeta=offs["dibeta"], n_slice=n_slice, act_rgbh=acts["rgb_h"],
+                act_total=act_total, pk_hc=pk["rgb1"], pk_rgb2=pk["rgb2"], pk_total=pk_total)
     for k, v in ints.items():
         setattr(a, k, v)
     for f, v in enumerate(cfg.freqs):
@@ -389,80 +532,115 @@ def _build_args(x, appr, win_b, win_c, nets, snets, ibeta, cfg, spp, plan, dims,
     return a
 
 
-def _prepare(x, appr, win_b, win_c, nets, ibeta, cfg, spp, backward, n_sm):
+def _prepare(x, appr, win_b, win_c, nets, ibeta, cfg, spp):
     _check_inputs(x, appr, win_b, win_c, nets, ibeta, cfg, spp)
     ibeta = ibeta.reshape(1).contiguous()
     snets = split_nets(nets, cfg, appr.shape[1])
     dims = heads_dims(nets, cfg)
-    plan = heads_plan(dims, spp, x.shape[0], backward, n_sm)
+    plan = heads_plan(dims, spp, x.shape[0])
     offs, n_slice, n_grads = _grad_offsets(snets, dims.rgb_hidden, appr.shape[1])
     args = _build_args(x, appr, win_b, win_c, nets, snets, ibeta, cfg, spp, plan, dims, offs, n_slice)
     # snets and ibeta hold the memory that args points to
-    return args, plan, snets, offs, n_slice, n_grads, ibeta
+    return args, snets, offs, n_slice, n_grads, ibeta
 
 
-def _launch_fwd(lib, x, appr, win_b, win_c, nets, ibeta, cfg, spp, stream):
-    """Run K1; returns (density, rgb, vis, feat)."""
-    args, plan, _snets, _, _, _, _ibeta = _prepare(x, appr, win_b, win_c, nets, ibeta, cfg, spp,
-                                                   backward=False, n_sm=1)
+def _launch_fwd(lib, x, appr, win_b, win_c, nets, ibeta, cfg, spp, stream, save=False):
+    """Run K1; returns (density, rgb, vis, feat), and the saved layer
+    outputs (act_layout) as a last element when save."""
+    args, _snets, _, _, _, _ibeta = _prepare(x, appr, win_b, win_c, nets, ibeta, cfg, spp)
     P = x.shape[0]
     outs = [torch.empty((P, c), device=x.device, dtype=x.dtype) for c in OUT_DIMS[:3]]
     outs.append(torch.empty((P, nets["feat"][-2].shape[0]), device=x.device, dtype=x.dtype))
+    acts = torch.empty(P * args.act_total, device=x.device, dtype=x.dtype) if save else None
+    wpk = torch.empty(args.pk_total, device=x.device, dtype=x.dtype)
     err = lib.lab4d_nerf_heads_fwd(ctypes.addressof(args), x.data_ptr(), appr.data_ptr(),
-                                   *[o.data_ptr() for o in outs], plan.grid, stream)
+                                   wpk.data_ptr(), *[o.data_ptr() for o in outs], _ptr(acts), stream)
     _raise_on(lib, err, "nerf_heads_fwd")
-    return tuple(outs)
+    return tuple(outs) + ((acts,) if save else ())
 
 
-def _launch_bwd(lib, x, g, appr, win_b, win_c, nets, ibeta, cfg, spp, n_sm, stream):
-    """Run K2 and its reductions; returns (dx, dappr, dnets, dibeta)."""
+def _launch_bwd(lib, x, g, appr, win_b, win_c, nets, ibeta, cfg, spp, acts, rgb, stream,
+                events=None):
+    """Run K2 (its sequence of launches) from K1's saved outputs acts and
+    rgb; returns (dx, dappr, dnets, dibeta, kinds): kinds lists each CUDA
+    launch's kind (csrc/nerf_heads.cu:lab4d_nerf_heads_bwd). events: CUDA
+    events (created, as torch.cuda.Event after one record) recorded before
+    the first launch and after each launch."""
     P = x.shape[0]
     feat_dim = nets["feat"][-2].shape[0]
     for gi, c in zip(g, OUT_DIMS[:3] + (feat_dim,)):
         if gi.shape != (P, c) or gi.dtype != x.dtype or gi.device != x.device or not gi.is_contiguous():
             raise ValueError(f"each cotangent must be a contiguous ({P}, {c}) float32 tensor")
-    args, plan, snets, offs, n_slice, n_grads, _ibeta = _prepare(
-        x, appr, win_b, win_c, nets, ibeta, cfg, spp, backward=True, n_sm=n_sm)
-    dev, rh = x.device, args.rgb_hidden
+    args, snets, offs, n_slice, n_grads, _ibeta = _prepare(x, appr, win_b, win_c, nets, ibeta, cfg, spp)
+    if acts.shape != (P * args.act_total,) or rgb.shape != (P, 3) or acts.device != x.device:
+        raise ValueError(f"acts must hold {args.act_total} floats per point and rgb be ({P}, 3)")
+    dev = x.device
     dx = torch.empty_like(x)
     dappr = torch.empty_like(appr)
     grads = torch.empty(n_grads, device=dev, dtype=x.dtype)
-    ws = torch.empty(plan.grid * n_slice, device=dev, dtype=x.dtype)
-    gsum_ws = torch.empty((P // plan.tile_rows) * rh, device=dev, dtype=x.dtype)
-    gpair = torch.empty((P // spp) * rh, device=dev, dtype=x.dtype)
+    scratch = torch.empty(lib.lab4d_nerf_heads_bwd_scratch(ctypes.addressof(args)), device=dev,
+                          dtype=x.dtype)
+    n_ev = 64 if events is None else len(events)
+    kinds = (ctypes.c_int * n_ev)()
+    handles = None if events is None else (ctypes.c_void_p * n_ev)(*[e.cuda_event for e in events])
+    n_launches = ctypes.c_int(0)
     err = lib.lab4d_nerf_heads_bwd(
-        ctypes.addressof(args), x.data_ptr(), appr.data_ptr(), *[t.data_ptr() for t in g],
-        dx.data_ptr(), ws.data_ptr(), gsum_ws.data_ptr(), gpair.data_ptr(), grads.data_ptr(),
-        dappr.data_ptr(), plan.grid, stream)
+        ctypes.addressof(args), x.data_ptr(), appr.data_ptr(), acts.data_ptr(), rgb.data_ptr(),
+        *[t.data_ptr() for t in g], dx.data_ptr(), grads.data_ptr(), dappr.data_ptr(),
+        scratch.data_ptr(), handles, kinds, n_ev, ctypes.byref(n_launches), stream)
     _raise_on(lib, err, "nerf_heads_bwd")
     dsplit = {name: [grads[offs[(name, i)]: offs[(name, i)] + a.numel()].view(a.shape)
                      for i, a in enumerate(arrs)] for name, arrs in snets.items()}
     dibeta = grads[offs["dibeta"]: offs["dibeta"] + 1]
-    return dx, dappr, merge_net_grads(dsplit, nets, cfg), dibeta
+    kinds = list(kinds[: min(n_launches.value, n_ev - 1)])
+    return dx, dappr, merge_net_grads(dsplit, nets, cfg), dibeta, kinds
 
 
 # ------------------------------------------------------------------ K1, K2
 
 
+def nerf_heads_forward_saved(x, appr_rows, win_b, win_c, nets, ibeta, cfg, spp):
+    """K1 with its saved layer outputs: ((density, rgb, vis, feat), acts).
+    A CUDA tensor runs K1 (counted in `fused_nerf_heads.launches`); a CPU
+    tensor nerf_heads_forward_saved_reference."""
+    if x.device.type == "cpu":
+        return nerf_heads_forward_saved_reference(x, appr_rows, win_b, win_c, nets, ibeta, cfg, spp)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"nerf_heads_forward_saved has no kernel for device {x.device}")
+    *outs, acts = _launch_fwd(_kernel_lib(), x, appr_rows, win_b, win_c, nets, ibeta, cfg, spp,
+                              _stream(x.device), save=True)
+    fused_nerf_heads.launches += 1
+    return tuple(outs), acts
+
+
 class _FusedNerfHeads(torch.autograd.Function):
-    """Forward through K1, backward through K2; zeros for the windows."""
+    """Forward through K1, saving every layer output when a gradient is
+    needed; backward through K2 from them; zeros for the windows. On CPU
+    tensors (the tests) both run their plain versions of that dataflow."""
 
     @staticmethod
     def forward(ctx, x, appr, win_b, win_c, ibeta, cfg, spp, order, *flat):
-        outs = _launch_fwd(_kernel_lib(), x, appr, win_b, win_c, unflatten_nets(flat, order), ibeta,
-                           cfg, spp, _stream(x.device))
-        fused_nerf_heads.launches += 1
+        nets = unflatten_nets(flat, order)
+        if any(ctx.needs_input_grad):
+            outs, acts = nerf_heads_forward_saved(x, appr, win_b, win_c, nets, ibeta, cfg, spp)
+        elif x.device.type == "cuda":
+            outs, acts = _launch_fwd(_kernel_lib(), x, appr, win_b, win_c, nets, ibeta, cfg, spp,
+                                     _stream(x.device)), None
+            fused_nerf_heads.launches += 1
+        else:
+            outs, acts = nerf_heads_reference(x, appr, win_b, win_c, nets, ibeta, cfg, spp), None
         ctx.cfg, ctx.spp, ctx.order = cfg, spp, order
-        ctx.save_for_backward(x, appr, win_b, win_c, ibeta, *flat)
+        ctx.save_for_backward(x, appr, win_b, win_c, ibeta, acts, outs[1], *flat)
         return outs
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *g):
-        x, appr, win_b, win_c, ibeta, *flat = ctx.saved_tensors
+        x, appr, win_b, win_c, ibeta, acts, rgb, *flat = ctx.saved_tensors
         nets = unflatten_nets(flat, ctx.order)
         dx, dappr, dnets, dibeta = fused_nerf_heads_backward(
-            x, [t.contiguous() for t in g], appr, win_b, win_c, nets, ibeta, ctx.cfg, ctx.spp)
+            x, [t.contiguous() for t in g], appr, win_b, win_c, nets, ibeta, ctx.cfg, ctx.spp,
+            saved=(acts, rgb))
         zeros = [None if w is None else torch.zeros_like(w) for w in (win_b, win_c)]
         return (dx, dappr, *zeros, dibeta.reshape(ibeta.shape), None, None, None,
                 *flatten_nets(dnets)[0])
@@ -476,7 +654,7 @@ def fused_nerf_heads(x, appr_rows, win_b, win_c, nets, ibeta, cfg, spp):
         appr_rows: (P / spp, Ca) appearance code of each pair of spp points
         win_b / win_c: (nf_base,) / (nf_color,) annealing windows or None
         nets: {head: [W0, b0, ...]} in the (out, in) layout; ibeta: (1,)
-        cfg: FieldCfg; spp: samples per pair
+        cfg: FieldCfg; spp: samples per pair, a multiple of 64 on the card
     Returns:
         density (P,1), sigmoid rgb (P,3), visibility logit (P,1),
         normalised feature (P,16)
@@ -495,19 +673,30 @@ def fused_nerf_heads(x, appr_rows, win_b, win_c, nets, ibeta, cfg, spp):
 fused_nerf_heads.launches = 0
 
 
-def fused_nerf_heads_backward(x, g, appr_rows, win_b, win_c, nets, ibeta, cfg, spp):
+def fused_nerf_heads_backward(x, g, appr_rows, win_b, win_c, nets, ibeta, cfg, spp, saved=None):
     """VJP of fused_nerf_heads for the cotangents g = (g_density, g_rgb,
     g_vis, g_feat): (dx, dappr, dnets, dibeta), dnets in the shapes of nets.
-    K2 on a CUDA tensor (counted in `fused_nerf_heads_backward.launches`),
-    nerf_heads_backward_reference on a CPU tensor."""
-    if x.device.type == "cpu":
-        return nerf_heads_backward_reference(x, g, appr_rows, win_b, win_c, nets, ibeta, cfg, spp)
-    if x.device.type != "cuda":
+    saved: (acts, rgb) of nerf_heads_forward_saved, which K2 needs.
+    A CUDA tensor runs K2 (one count in `fused_nerf_heads_backward.launches`
+    for its sequence of CUDA launches, whose number is left in
+    `fused_nerf_heads_backward.cuda_launches`); a CPU tensor
+    nerf_heads_backward_saved_reference, or nerf_heads_backward_reference
+    when saved is None."""
+    if x.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"fused_nerf_heads_backward has no kernel for device {x.device}")
-    out = _launch_bwd(_kernel_lib(), x, g, appr_rows, win_b, win_c, nets, ibeta, cfg, spp,
-                      _n_sm(x.device), _stream(x.device))
+    if saved is None:
+        if x.device.type == "cuda":
+            raise ValueError("K2 needs the layer outputs of nerf_heads_forward_saved (saved=)")
+        return nerf_heads_backward_reference(x, g, appr_rows, win_b, win_c, nets, ibeta, cfg, spp)
+    if x.device.type == "cpu":
+        return nerf_heads_backward_saved_reference(x, g, appr_rows, win_b, win_c, nets, ibeta, cfg,
+                                                   spp, *saved)
+    *out, kinds = _launch_bwd(_kernel_lib(), x, g, appr_rows, win_b, win_c, nets, ibeta, cfg, spp,
+                              *saved, _stream(x.device))
     fused_nerf_heads_backward.launches += 1
-    return out
+    fused_nerf_heads_backward.cuda_launches = len(kinds)
+    return tuple(out)
 
 
 fused_nerf_heads_backward.launches = 0
+fused_nerf_heads_backward.cuda_launches = 0

@@ -1,7 +1,7 @@
 """How far one fg / skel-quad training step on the GPU lies from the same
 step on the CPU, at several fitted states, on one CUDA device.
 
-    python3 -m lab4d_tpu_torch.tools.compare_fg_step [--geo_init_steps N ...]
+    python3 -m lab4d_tpu_torch.tools.compare_fg_step [--geo_init_steps N ...] [--eikonal_all_rays]
 
 Run from the root of a checkout. For each N it builds chip_smoke.py's
 reference trainer (the synthetic scene, prior fits with N geometry-init
@@ -11,7 +11,12 @@ every kernel replaced by its plain version, and on the CPU. It prints
 each pair's worst loss term (relative error) and worst gradient (share
 of chip_smoke.py's bound, 1e-5 + 1e-3 max|g|): kernels vs plain on the
 GPU isolates the kernels; plain GPU vs CPU is the rest of the step's
-arithmetic.
+arithmetic. Each pair also prints the eikonal term's ReLU ties (points
+whose SDF chain takes another side of a ReLU's kink in the two steps) and
+reg_eikonal with and without them; --eikonal_all_rays takes the term at
+all 128 rays (8,192 points) instead of 8, to count ties at a state.
+The prior fits on the GPU are not bitwise repeatable, so a state N
+differs from run to run.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import tempfile
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--geo_init_steps", type=int, nargs="+", default=[5, 20, 100, 500])
+    parser.add_argument("--eikonal_all_rays", action="store_true",
+                        help="the eikonal term at every ray, not a drawn sixteenth")
     args = parser.parse_args(argv)
 
     import torch
@@ -38,7 +45,7 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as root:
         db = chip_smoke.write_scene(root)
         for n in args.geo_init_steps:
-            step = chip_smoke.reference_steps(db, root, "fg", n)
+            step = chip_smoke.reference_steps(db, root, "fg", n, args.eikonal_all_rays)
             kernels = step("cuda")
             with chip_smoke.plain_kernels():
                 plain = step("cuda")

@@ -1,5 +1,4 @@
-"""Where the time of K4b goes on the bg base field, and how much of K2's
-time its workspace updates take, on one CUDA device.
+"""Where the time of K4b goes on the bg base field, on one CUDA device.
 
     python3 -m lab4d_tpu_torch.tools.profile_k4b_phases [--reps N]
 
@@ -8,10 +7,8 @@ csrc/fused_pe_mlp.cu, each with one phase of the row-tiled backward in
 csrc/mlp_tiles.cuh switched off, into build/lab4d_tpu_torch/k4b_phases/
 (one nvcc each, all at once), and times each copy's K4b at the base
 field's shape of a training step: 262,144 points, 6 frequencies with a
-window, D5 W128, a skip at layer 4. It also compiles csrc/nerf_heads.cu
-against the `full` and `no_rmw` headers and times their K2 at the
-flagship fg step's shape (chip_smoke.py's: 262,144 points, 1024 per pair;
-K2 shares tm_weight_grads and its workspace update with K4b). The
+window, D5 W128, a skip at layer 4. (K1 and K2, which no longer share
+this code, have their own profiler: tools/profile_heads_phases.py.) The
 copies:
 
 - full: the kernel as it is;
@@ -64,13 +61,9 @@ PATCHES = {
 }
 
 
-K2_COPIES = ("full", "no_rmw")
-
-
 def build_copies(out_dir):
-    """Compile fused_pe_mlp.cu against every copy of PATCHES and
-    nerf_heads.cu against the K2_COPIES; returns {(source, name): ctypes
-    library}."""
+    """Compile fused_pe_mlp.cu against every copy of PATCHES; returns
+    {name: ctypes library}."""
     from lab4d_tpu_torch.ops.build import CSRC_DIR, NVCC_FLAGS, find_nvcc
 
     header = (CSRC_DIR / "mlp_tiles.cuh").read_text()
@@ -85,21 +78,17 @@ def build_copies(out_dir):
             text = text.replace(anchor, repl)
         with open(os.path.join(d, "mlp_tiles.cuh"), "w") as f:
             f.write(text)
-        for source in ("fused_pe_mlp", "nerf_heads"):
-            if source == "nerf_heads" and name not in K2_COPIES:
-                continue
-            with open(os.path.join(d, f"{source}.cu"), "w") as f:
-                f.write((CSRC_DIR / f"{source}.cu").read_text())
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", os.path.join(d, f"lib{source}.so"),
-                   os.path.join(d, f"{source}.cu")]
-            procs[(source, name)] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                     stderr=subprocess.PIPE, text=True)
+        with open(os.path.join(d, "fused_pe_mlp.cu"), "w") as f:
+            f.write((CSRC_DIR / "fused_pe_mlp.cu").read_text())
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", os.path.join(d, "libfused_pe_mlp.so"),
+               os.path.join(d, "fused_pe_mlp.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     libs = {}
-    for (source, name), proc in procs.items():
+    for name, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name} copy of {source}.cu:\n{err}")
-        libs[(source, name)] = ctypes.CDLL(os.path.join(out_dir, name, f"lib{source}.so"))
+            raise RuntimeError(f"nvcc failed on the {name} copy of fused_pe_mlp.cu:\n{err}")
+        libs[name] = ctypes.CDLL(os.path.join(out_dir, name, "libfused_pe_mlp.so"))
     return libs
 
 
@@ -135,17 +124,13 @@ def main(argv=None):
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, root)
     import chip_smoke
-    from lab4d_tpu_torch.ops import field_kernel as FK
     from lab4d_tpu_torch.ops import mlp_kernel as K
     from lab4d_tpu_torch.ops.build import BUILD_DIR
 
     card = chip_smoke.phase_env()
     libs = build_copies(str(BUILD_DIR / "k4b_phases"))
     ref = K._kernel_lib("fused_pe_mlp")
-    for (source, _), lib in libs.items():
-        if source == "nerf_heads":
-            FK.bind_signatures(lib)
-            continue
+    for lib in libs.values():
         lib.lab4d_fused_pe_mlp_bwd.argtypes = ref.lab4d_fused_pe_mlp_bwd.argtypes
         lib.lab4d_fused_pe_mlp_bwd.restype = ctypes.c_int
         lib.lab4d_cuda_error_string.argtypes = [ctypes.c_int]
@@ -165,21 +150,10 @@ def main(argv=None):
         return lambda: K._launch_tile_bwd(lib, lib.lab4d_fused_pe_mlp_bwd, x, g, weights, biases,
                                           skips, n_sm, stream, pe)
 
-    times = _time_rounds({name: k4b(libs[("fused_pe_mlp", name)]) for name in PATCHES}, args.reps)
+    times = _time_rounds({name: k4b(libs[name]) for name in PATCHES}, args.reps)
     print(f"[k4b] {label}, {rows} rows; median of {args.reps} rounds, ms per call:")
     for name, ms in times.items():
         print(f"[k4b] {name}: {ms:.3f} ms (full - this: {times['full'] - ms:.3f} ms)")
-
-    heads, g_heads = chip_smoke._flagship_heads(gen)
-
-    def k2(lib):
-        return lambda: FK._launch_bwd(lib, heads[0], g_heads, *heads[1:], n_sm, stream)
-
-    times = _time_rounds({name: k2(libs[("nerf_heads", name)]) for name in K2_COPIES}, args.reps)
-    print(f"[k2] flagship heads, {heads[0].shape[0]} points; median of {args.reps} rounds, "
-          "ms per call:")
-    for name, ms in times.items():
-        print(f"[k2] {name}: {ms:.3f} ms (full - this: {times['full'] - ms:.3f} ms)")
     print(card)
 
 

@@ -18,7 +18,8 @@ the prior fits are cut to 50 geometry steps) and then:
 4. traces `--trace` steps (pre-drawn batches) with torch.profiler and
    prints, per op, the device time of the kernels it launched itself and
    their share of the summed kernel time, the kernels K1/K2/K3f/K3b/K4f/K4b
-   by name, then that sum, the steps' wall time and the device's idle share.
+   by name (K1 and K2 by each of their kernels), then that sum, the
+   steps' wall time and the device's idle share.
 
 `--out` also writes the profiler's full table to FILE.
 """
@@ -143,9 +144,10 @@ def _measure(args, card, trainer, batches, opts):
         ms = e.self_device_time_total / 1e3
         print(f"[op] {e.key}: {ms / args.trace:.2f} ms/step device, "
               f"{100 * ms / device_ms:.1f}%, {e.count // args.trace} calls/step")
-    for name in ("nerf_heads_fwd_kernel", "nerf_heads_bwd_kernel", "nerf_heads_appr_kernel",
-                 "fused_relu_mlp_fwd_kernel", "tile_mlp_fwd_kernel", "tile_mlp_bwd_kernel",
-                 "tile_mlp_reduce_kernel"):
+    for name in ("nh_pack_kernel", "nerf_heads_fwd_kernel", "nh_bwd_out_kernel", "nh_embed_kernel",
+                 "nh_dw_kernel", "nh_din_kernel", "nh_fold_kernel", "nh_pair_sum_kernel",
+                 "nh_appr_kernel", "nh_reduce_kernel", "fused_relu_mlp_fwd_kernel",
+                 "tile_mlp_fwd_kernel", "tile_mlp_bwd_kernel", "tile_mlp_reduce_kernel"):
         ks = [e.device_time for e in kernels if name in e.name]
         print(f"[kernel] {name}: {sum(ks) / 1e3 / args.trace:.2f} ms/step device, "
               f"{100 * sum(ks) / 1e3 / device_ms:.1f}%, {len(ks) // args.trace} calls/step")

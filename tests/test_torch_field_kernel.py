@@ -19,8 +19,8 @@ runs there without jax:
 
 Tolerance: fp32 with sums in another order. Outputs atol 2e-4 (that file's
 own kernel-vs-oracle bound); gradients, which sum over the points, within
-2e-4 of each array's largest entry. On the card the kernels' fp32 FMA sums
-meet the plain version's at 1e-4 (outputs absolute, gradients relative to
+2e-4 of each array's largest entry. On the card the kernels' 3xTF32
+products with fp32 sums meet the plain version's at 1e-4 (outputs absolute, gradients relative to
 each array's largest entry).
 """
 
@@ -260,21 +260,30 @@ def test_pack_field_nets_matches_jax(flagship_fields):
 
 
 def test_flagship_launch_plan(flagship_fields):
-    """K1 at the flagship step: 32-point tiles, two blocks per SM; K2: 32
-    points, one block per SM, within the 227 KB a block may use."""
+    """K1 at the flagship step: 64-point tiles, one block per tile within the
+    227 KB a block may use; K2: 128 chunks of the points for its split-K
+    weight gradients; K1 saves 2,001 floats per point for K2."""
     _, _, pmodel = flagship_fields
     field = pmodel.fields.field_params["fg"]
     nets = field.pack_field_nets(torch.tensor([1, 2]), None, None, 2)[0]
     cfg = field.pack_field_nets(torch.tensor([1, 2]), None, None, 2)[1]
     dims = FK.heads_dims(nets, cfg)
-    assert dims == FK.HeadsDims(width=128, rgb_hidden=64, max_cx=75, g_width=128, h_total=768,
-                                stage_ld=196)
-    fwd = FK.heads_plan(dims, 1024, 262144, False, 132)
-    bwd = FK.heads_plan(dims, 1024, 262144, True, 132)
-    assert (fwd.tile_rows, fwd.grid) == (32, 8192) and fwd.smem_bytes <= FK.SMEM_PER_SM // 2
-    assert (bwd.tile_rows, bwd.grid) == (32, 132) and bwd.smem_bytes <= FK.SMEM_PER_SM
+    assert dims == FK.HeadsDims(width=128, rgb_hidden=64, max_cx=75, g_width=128)
+    plan = FK.heads_plan(dims, 1024, 262144)
+    assert (plan.tile_rows, plan.grid, plan.n_chunks) == (64, 4096, 128)
+    assert plan.smem_bytes == FK.heads_smem(dims) <= FK.SMEM_PER_SM
+    offs, per_point = FK.act_layout(nets)
+    assert per_point == 768 + 384 + 64 + 129 + 656 == 2001
+    assert offs[("color", 0)] == 768 and offs["rgb_h"] == 1152 and offs[("feat", 0)] == 1345
+    # K1's pre-split weights: hi and lo of every layer, k padded to 32
+    pk, pk_total = FK.pack_layout(nets, cfg)
+    shapes = [w.shape for n in FK.HEADS for w in nets[n][0::2]] + [(64, 128), (3, 64)]
+    assert pk_total == sum(2 * n * -(-k // 32) * 32 for n, k in shapes) == 487936
+    assert list(pk.values()) == sorted(pk.values()) and pk[("base", 0)] == 0
     with pytest.raises(ValueError, match="pairs"):
-        FK.heads_plan(dims, 1024, 1000, False, 132)
+        FK.heads_plan(dims, 1024, 1000)
+    with pytest.raises(ValueError, match="tiles"):
+        FK.heads_plan(dims, 96, 96 * 4)
 
 
 def test_wrappers_refuse_other_devices():
@@ -289,6 +298,34 @@ def test_wrappers_refuse_other_devices():
                          to_port(nets), torch.ones(1), cfg_of(), SPP)
 
 
+def flagship_case(seed=1, n_pairs=2, spp=1024):
+    """The flagship fg field's head widths (D=5 W=128, 10 / 12 / 10 / 6
+    frequencies, appearance codes of 32) with torch.nn.Linear-style random
+    weights, on n_pairs pairs of spp points: (x, appr, win_b, win_c) as
+    numpy, the nets (torch, (out, in)), cfg, spp and the cotangents."""
+    gen = torch.Generator().manual_seed(seed)
+    cfg = FK.FieldCfg(tuple(float(2.0**i) for i in range(12)), 10, 12, 10, 6, (4,), (4,), (4,), (4,))
+
+    def mlp(dims, c_x):
+        out, ch = [], c_x
+        for i, w in enumerate(dims):
+            ch += c_x if i == 4 else 0
+            out += [(torch.rand(w, ch, generator=gen) * 2 - 1) / ch**0.5,
+                    (torch.rand(w, generator=gen) * 2 - 1) / ch**0.5]
+            ch = w
+        return out
+
+    pn = dict(base=mlp([128] * 6, 63), sdf=mlp([1], 128), color=mlp([128] * 3, 75),
+              rgb1=mlp([64], 160), rgb2=mlp([3], 64), vis=mlp([64, 64, 1], 63),
+              feat=mlp([128] * 5 + [16], 39))
+    x = ((torch.rand(n_pairs * spp, 3, generator=gen) * 2 - 1) * 0.5).numpy()
+    appr = torch.randn(n_pairs, 32, generator=gen).numpy()
+    win_b = np.linspace(1.0, 0.2, 10).astype(np.float32)
+    win_c = np.linspace(1.0, 0.2, 12).astype(np.float32)
+    g = [torch.randn(n_pairs * spp, c, generator=gen).numpy() for c in FK.OUT_DIMS]
+    return x, appr, win_b, win_c, pn, cfg, spp, g
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("flagship", [False, True])
 def test_cuda_kernels_match_plain(flagship):
@@ -299,30 +336,13 @@ def test_cuda_kernels_match_plain(flagship):
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     x, appr, win_b, win_c, nets, g = jax_layout_case()
-    cfg, spp = cfg_of(), SPP
+    cfg, spp = cfg_of(), 64  # K1's tiles are 64 points, within one pair
     pn = to_port(nets)
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal((M * spp, 3)) * 0.4).astype(np.float32)
+    g = [rng.standard_normal((M * spp, c)).astype(np.float32) for c in FK.OUT_DIMS]
     if flagship:  # the flagship widths on 2 pairs of 1024 samples
-        gen = torch.Generator().manual_seed(1)
-        cfg = FK.FieldCfg(tuple(float(2.0**i) for i in range(12)), 10, 12, 10, 6, (4,), (4,), (4,), (4,))
-        spp = 1024
-
-        def mlp(dims, c_x):
-            out, ch = [], c_x
-            for i, w in enumerate(dims):
-                ch += c_x if i == 4 else 0
-                out += [(torch.rand(w, ch, generator=gen) * 2 - 1) / ch**0.5,
-                        (torch.rand(w, generator=gen) * 2 - 1) / ch**0.5]
-                ch = w
-            return out
-
-        pn = dict(base=mlp([128] * 6, 63), sdf=mlp([1], 128), color=mlp([128] * 3, 75),
-                  rgb1=mlp([64], 160), rgb2=mlp([3], 64), vis=mlp([64, 64, 1], 63),
-                  feat=mlp([128] * 5 + [16], 39))
-        x = ((torch.rand(2 * spp, 3, generator=gen) * 2 - 1) * 0.5).numpy()
-        appr = torch.randn(2, 32, generator=gen).numpy()
-        win_b = np.linspace(1.0, 0.2, 10).astype(np.float32)
-        win_c = np.linspace(1.0, 0.2, 12).astype(np.float32)
-        g = [torch.randn(2 * spp, c, generator=gen).numpy() for c in FK.OUT_DIMS]
+        x, appr, win_b, win_c, pn, cfg, spp, g = flagship_case()
     dev = "cuda"
     pn = {k: [t.to(dev) for t in v] for k, v in pn.items()}
     args = (torch.tensor(x, device=dev), torch.tensor(appr, device=dev),
@@ -330,16 +350,265 @@ def test_cuda_kernels_match_plain(flagship):
             torch.tensor([IBETA], device=dev), cfg, spp)
     tg = [torch.tensor(t, device=dev) for t in g]
     n1, n2 = FK.fused_nerf_heads.launches, FK.fused_nerf_heads_backward.launches
-    got = FK.fused_nerf_heads(*args)
-    got_b = FK.fused_nerf_heads_backward(args[0], tg, *args[1:])
-    want = FK.nerf_heads_reference(*args)
+    with pytest.raises(ValueError, match="saved"):  # K2 runs only from K1's saved outputs
+        FK.fused_nerf_heads_backward(args[0], tg, *args[1:])
+    got, acts = FK.nerf_heads_forward_saved(*args)
+    got_b = FK.fused_nerf_heads_backward(args[0], tg, *args[1:], saved=(acts, got[1]))
+    want, want_acts = FK.nerf_heads_forward_saved_reference(*args)
     want_b = FK.nerf_heads_backward_reference(args[0], tg, *args[1:])
     torch.cuda.synchronize()
     assert (FK.fused_nerf_heads.launches, FK.fused_nerf_heads_backward.launches) == (n1 + 1, n2 + 1)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    torch.testing.assert_close(acts, want_acts, atol=1e-4, rtol=0)  # every saved layer output
     flat = [got_b[0], got_b[1], got_b[3]] + FK.flatten_nets(got_b[2])[0]
     flat_w = [want_b[0], want_b[1], want_b[3]] + FK.flatten_nets(want_b[2])[0]
     for a, b in zip(flat, flat_w):
         bound = 1e-4 * max(1.0, float(b.abs().max()))
         assert float((a.reshape(b.shape) - b).abs().max()) <= bound
+
+
+# ------------------------------------------------------- 3xTF32 error budget
+
+
+def _tf32(t):
+    """Round fp32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as cvt.rna.tf32.f32 does."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b from TF32 operands, fp32 sums: 3 passes hi.hi + hi.lo + lo.hi
+    (csrc/heads_mma.cuh), 1 pass hi.hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if passes == 3:
+        out = out + (_tf32(a - ah) @ bh + ah @ _tf32(b - bh))
+    return out
+
+
+def _tf32_linear(passes):
+    """F.linear with every product (forward, dIn, dW) in TF32 arithmetic."""
+
+    class Linear(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, b=None):
+            ctx.save_for_backward(x, w)
+            ctx.has_b = b is not None
+            lead = x.shape[:-1]
+            y = _mm_tf32(x.reshape(-1, x.shape[-1]), w.T.contiguous(), passes).reshape(*lead, -1)
+            return y if b is None else y + b
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w = ctx.saved_tensors
+            g2, x2 = g.reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1])
+            dx = _mm_tf32(g2, w, passes).reshape(x.shape)
+            dw = _mm_tf32(g2.T.contiguous(), x2, passes)
+            return dx, dw, (g2.sum(0) if ctx.has_b else None)
+
+    return lambda x, w, b=None: Linear.apply(x, w, b)
+
+
+def _heads_errors(args, tg, ref_f, ref_b):
+    """(forward max abs error, backward max rel error per array) against
+    the fp64 results ref_f / ref_b."""
+    f = FK.nerf_heads_reference(*args)
+    b = FK.nerf_heads_backward_reference(args[0], tg, *args[1:])
+    fwd = max(float((a.double() - r).abs().max()) for a, r in zip(f, ref_f))
+    got = [b[0], b[1], b[3].reshape(-1)] + FK.flatten_nets(b[2])[0]
+    want = [ref_b[0], ref_b[1], ref_b[3].reshape(-1)] + FK.flatten_nets(ref_b[2])[0]
+    bwd = max(float((a.double().reshape(r.shape) - r).abs().max()) / max(1.0, float(r.abs().max()))
+              for a, r in zip(got, want))
+    return fwd, bwd
+
+
+def test_3xtf32_error_budget(monkeypatch):
+    """The kernels' arithmetic, emulated on the CPU: every product of the
+    heads' forward and backward at the flagship widths (2,048 points) in
+    3xTF32 stays within chip_smoke.KERNEL_TOL (1e-4) of fp64: the forward's
+    max abs error, the backward's max error over each gradient array's
+    largest entry. 1xTF32 is reported, not asserted."""
+    x, appr, win_b, win_c, pn, cfg, spp, g = flagship_case()
+    args = (torch.tensor(x), torch.tensor(appr), torch.tensor(win_b), torch.tensor(win_c), pn,
+            torch.tensor([10.0]), cfg, spp)
+    tg = [torch.tensor(t) for t in g]
+    a64 = tuple(a.double() if torch.is_tensor(a) else a for a in args[:4]) + (
+        {k: [t.double() for t in v] for k, v in pn.items()}, args[5].double(), cfg, spp)
+    ref_f = FK.nerf_heads_reference(*a64)
+    ref_b = FK.nerf_heads_backward_reference(a64[0], [t.double() for t in tg], *a64[1:])
+    errs = {}
+    for passes in (3, 1):
+        with monkeypatch.context() as m:
+            m.setattr(torch.nn.functional, "linear", _tf32_linear(passes))
+            errs[passes] = _heads_errors(args, tg, ref_f, ref_b)
+    print(f"against fp64: 3xTF32 forward {errs[3][0]:.2e}, backward {errs[3][1]:.2e}; "
+          f"1xTF32 forward {errs[1][0]:.2e}, backward {errs[1][1]:.2e}")
+    assert errs[3][0] <= 1e-4 and errs[3][1] <= 1e-4, errs
+    assert errs[1][0] > errs[3][0]  # the emulation does round
+
+
+# ------------------------------------------------------- the profiler's copies
+
+
+def _anchor_cases():
+    from lab4d_tpu_torch.tools import profile_heads_phases as PH
+    from lab4d_tpu_torch.tools import profile_k4b_phases as PK
+
+    cases = [("heads", name, patches) for name, patches in PH.MMA_K1.items()]
+    cases += [("k4b", name, [("mlp_tiles.cuh", a, r) for a, r in patches])
+              for name, patches in PK.PATCHES.items()]
+    return cases
+
+
+@pytest.mark.parametrize("tool,copy,patches", _anchor_cases(), ids=lambda v: v if isinstance(v, str) else "")
+def test_profiler_anchors_found_once(tool, copy, patches):
+    """Every anchor that profile_heads_phases (K1's anatomy copies) and
+    profile_k4b_phases replace occurs exactly once in the committed source
+    it patches, so an edit that drops one fails here and not on the card."""
+    from lab4d_tpu_torch.ops.build import CSRC_DIR
+    from lab4d_tpu_torch.tools import profile_heads_phases as PH
+
+    for fname, anchor, _ in patches:
+        assert (CSRC_DIR / fname).read_text().count(anchor) == 1, (tool, copy, anchor[:60])
+    texts = PH.patched_sources(CSRC_DIR, patches)
+    assert set(texts) >= {"nerf_heads.cu", "heads_mma.cuh", "mlp_tiles.cuh"}
+
+
+# ------------------------------------------------------- the saved outputs
+
+
+def test_saved_layer_outputs_layout():
+    """nerf_heads_forward_saved_reference: the outputs of
+    nerf_heads_reference, and in act_layout's blocks the layer outputs that
+    make them (the visibility logit, the feature before its normalisation,
+    feat + colour = hc)."""
+    x, appr, win_b, win_c, nets, _ = jax_layout_case(seed=2)
+    pn = to_port(nets)
+    args = (torch.tensor(x), torch.tensor(appr), torch.tensor(win_b), torch.tensor(win_c), pn,
+            torch.tensor([IBETA]), cfg_of(), SPP)
+    outs, acts = FK.nerf_heads_forward_saved_reference(*args)
+    want = FK.nerf_heads_reference(*args)
+    for a, b in zip(outs, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    offs, per_point = FK.act_layout(pn)
+    P = x.shape[0]
+    assert acts.shape == (P * per_point,)
+
+    def block(key, width):
+        return acts[offs[key] * P: (offs[key] + width) * P].view(P, width)
+
+    torch.testing.assert_close(block(("vis", 2), 1), outs[2], rtol=0, atol=0)
+    f16 = block(("feat", 5), 16)
+    torch.testing.assert_close(f16 / f16.norm(dim=-1, keepdim=True), outs[3], rtol=1e-6, atol=1e-6)
+    assert (block(("base", 0), 32) >= 0).all() and (block("rgb_h", 16) >= 0).all()
+
+
+def test_pre_activations_give_the_saved_outputs():
+    """nerf_heads_forward_saved_reference(pre_activations=True): the same
+    outputs, and in every block the layer's input to its ReLU, which the
+    ReLU takes to the saved output (the visibility logit and the feature,
+    which have none, as saved)."""
+    x, appr, win_b, win_c, nets, _ = jax_layout_case(seed=4)
+    pn = to_port(nets)
+    args = (torch.tensor(x), torch.tensor(appr), torch.tensor(win_b), torch.tensor(win_c), pn,
+            torch.tensor([IBETA]), cfg_of(), SPP)
+    outs, acts = FK.nerf_heads_forward_saved_reference(*args)
+    outs_z, z = FK.nerf_heads_forward_saved_reference(*args, pre_activations=True)
+    for a, b in zip(outs, outs_z):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    offs, _ = FK.act_layout(pn)
+    P = x.shape[0]
+    no_relu = {offs[("vis", 2)], offs[("feat", 5)]}
+    ends = sorted(offs.values()) + [acts.numel() // P]
+    for lo, hi in zip(ends[:-1], ends[1:]):
+        a, zz = acts[lo * P: hi * P], z[lo * P: hi * P]
+        torch.testing.assert_close(a, zz if lo in no_relu else torch.relu(zz), rtol=0, atol=0)
+    assert (z < 0).any()
+
+
+def test_relu_tie_count():
+    """chip_smoke's K1 + K2 gate against autograd: _relu_ties finds no tie
+    where the saved outputs are the plain ones, and exactly the (row, unit)
+    pairs where a saved output sits on the other side of zero from the
+    plain ReLU input, with that input's size."""
+    import chip_smoke
+
+    x, appr, win_b, win_c, nets, _ = jax_layout_case(seed=5)
+    pn = to_port(nets)
+    args = (torch.tensor(x), torch.tensor(appr), torch.tensor(win_b), torch.tensor(win_c), pn,
+            torch.tensor([IBETA]), cfg_of(), SPP)
+    _, acts = FK.nerf_heads_forward_saved_reference(*args)
+    _, z = FK.nerf_heads_forward_saved_reference(*args, pre_activations=True)
+    rows, n, z_max = chip_smoke._relu_ties(FK, args, acts)
+    assert (int(rows.sum()), n, z_max) == (0, 0, 0.0)
+    P = x.shape[0]
+    offs, _ = FK.act_layout(pn)
+    flipped = acts.clone()
+    i = offs[("base", 2)] * P + 5 * 32  # row 5 of a 32-wide block
+    j = int(torch.nonzero(z[i: i + 32] <= 0)[0]) + i  # a unit the plain ReLU shuts
+    flipped[j] = 1e-7
+    k = offs["rgb_h"] * P + 9 * 16  # row 9 of the 16-wide rgb_h block
+    k = int(torch.nonzero(z[k: k + 16] > 0)[0]) + k  # a unit the plain ReLU passes
+    flipped[k] = 0.0
+    # the vis head's last layer has no ReLU: a sign change there is no tie
+    flipped[offs[("vis", 2)] * P] = -z[offs[("vis", 2)] * P]
+    rows, n, z_max = chip_smoke._relu_ties(FK, args, flipped)
+    assert n == 2 and torch.nonzero(rows).flatten().tolist() == [5, 9]
+    assert z_max == max(float(z[j].abs()), float(z[k].abs()))
+
+
+def test_field_kernel_ok_needs_whole_tiles(flagship_fields):
+    """FeatureNeRF.field_kernel_ok routes a field to K1 / K2 on the card only
+    for whole 64-point tiles (FK.TILE_ROWS) of samples per pair, which the
+    kernels require; on the CPU, whose plain versions take any count, for
+    multiples of 8, as the JAX package."""
+    from types import SimpleNamespace
+
+    field = flagship_fields[2].fields.field_params["fg"]
+    cuda = torch.device("cuda")  # a device name only; nothing runs on it
+    assert field.field_kernel_ok(torch.zeros(2, 4, 8, 3))
+    assert not field.field_kernel_ok(torch.zeros(2, 3, 6, 3))
+    assert field.field_kernel_ok(SimpleNamespace(device=cuda, ndim=4, shape=(2, 16, 64, 3)))
+    assert field.field_kernel_ok(SimpleNamespace(device=cuda, ndim=4, shape=(2, 4, 16, 3)))
+    assert not field.field_kernel_ok(SimpleNamespace(device=cuda, ndim=4, shape=(2, 4, 8, 3)))
+    assert FK.TILE_ROWS == 64
+
+
+def test_autograd_backward_receives_the_saved_outputs(monkeypatch):
+    """_FusedNerfHeads on CPU tensors runs the plain versions of K1 and K2's
+    dataflow: its forward saves the layer outputs, its backward gets exactly
+    those (and the forward's rgb), and the gradients equal the plain VJP."""
+    x, appr, win_b, win_c, nets, g = jax_layout_case(seed=3)
+    pn = to_port(nets)
+    seen = {}
+    fwd, bwd = FK.nerf_heads_forward_saved_reference, FK.nerf_heads_backward_saved_reference
+
+    def fwd_spy(*a):
+        seen["fwd"] = fwd(*a)
+        return seen["fwd"]
+
+    def bwd_spy(*a):
+        seen["bwd"] = a[-2:]
+        return bwd(*a)
+
+    monkeypatch.setattr(FK, "nerf_heads_forward_saved_reference", fwd_spy)
+    monkeypatch.setattr(FK, "nerf_heads_backward_saved_reference", bwd_spy)
+    leaves = [torch.tensor(x).requires_grad_(), torch.tensor(appr).requires_grad_(),
+              torch.tensor([IBETA]).requires_grad_()]
+    flat, order = FK.flatten_nets(pn)
+    flat = [t.clone().requires_grad_() for t in flat]
+    cfg = cfg_of()
+    y = FK._FusedNerfHeads.apply(leaves[0], leaves[1], torch.tensor(win_b), torch.tensor(win_c),
+                                 leaves[2], cfg, SPP, order, *flat)
+    tg = [torch.tensor(t) for t in g]
+    grads = torch.autograd.grad(y, leaves + flat, tg)
+    (outs, acts), (got_acts, got_rgb) = seen["fwd"], seen["bwd"]
+    assert got_acts.data_ptr() == acts.data_ptr() and torch.equal(got_acts, acts)
+    assert torch.equal(got_rgb, outs[1])
+    dx, dappr, dnets, dib = FK.nerf_heads_backward_reference(
+        torch.tensor(x), tg, torch.tensor(appr), torch.tensor(win_b), torch.tensor(win_c), pn,
+        torch.tensor([IBETA]), cfg, SPP)
+    for a, b in zip(grads, [dx, dappr, dib] + FK.flatten_nets(dnets)[0]):
+        bound = 1e-5 * max(1.0, float(b.abs().max()))
+        assert float((a - b.reshape(a.shape)).abs().max()) <= bound

@@ -350,3 +350,68 @@ def test_fg_geometry_pools_are_the_bone_spheres(fg_cli_run):
     with torch.no_grad():
         want = warp.get_gauss_sdf(pools["pts"].reshape(-1, 3)).reshape(2, 8, 1)
     torch.testing.assert_close(pools["sdf_gt"], want)
+
+
+def test_eikonal_records_hold_the_sdf_chains_relu_inputs(fg_cli_run):
+    """chip_smoke.eikonal_records, which the GPU-vs-CPU step check reads:
+    per point the eikonal value that compute_eikonal returned, and the
+    inputs of the SDF chain's ReLUs (D hidden layers and the final
+    activation of the base field), the last of which through the ReLU is
+    the base field's output."""
+    import chip_smoke
+    from lab4d_tpu_torch.nnutils.base import embed_cond_mlp
+
+    trainer, _ = fg_cli_run
+    field = trainer.model.fields.field_params["fg"]
+    gen = torch.Generator().manual_seed(0)
+    xyz = (torch.rand(2, 4, 8, 3, generator=gen) - 0.5) * 0.2
+    idx, inst = torch.tensor([1, 6]), torch.zeros(2, dtype=torch.long)
+    with chip_smoke.eikonal_records([]) as rec:
+        eik = field.compute_eikonal(xyz, inst_id=inst, idx=idx)
+    (r,) = rec
+    assert torch.equal(r["eikonal"], eik.detach().reshape(-1).double())
+    mlp = field.basefield.backbone
+    assert r["z"].shape == (16, (mlp.D + 1) * mlp.W)
+    xyz_s = xyz.reshape(8, 8, 3)[idx]
+    with torch.no_grad():
+        feat = embed_cond_mlp(field.basefield, field.pos_embedding, xyz_s,
+                              inst_id=inst[:, None].expand(2, 4).reshape(-1)[idx], fused=False)
+    torch.testing.assert_close(torch.relu(r["z"][:, -mlp.W:]), feat.reshape(16, -1).double())
+
+
+@pytest.mark.parametrize("case", ["tie", "jump_elsewhere", "inputs_apart"])
+def test_eikonal_ties_are_left_out_of_reg_eikonal(case):
+    """chip_smoke._compare_steps: a point whose ReLU input lies within
+    rounding of zero and flips between the two steps may change its
+    eikonal value by any amount (the term differentiates the ReLU chain);
+    reg_eikonal is compared without it at the same rtol. A jump on a point
+    without a flip, or ReLU inputs further apart than TRAIN_REF_TOL's
+    tie_z, still fails."""
+    import chip_smoke
+
+    rng = np.random.default_rng(0)
+    z = torch.tensor(rng.normal(size=(64, 24)))
+    e = torch.tensor(rng.random(64)) + 0.1
+    z[5, 3] = 2e-8
+
+    def step(z, e):
+        return {"loss": {"reg_eikonal": 1e-3 * float(e.mean()), "rgb": 0.5},
+                "grads": {"w": torch.ones(3)}, "eikonal": [{"eikonal": e, "z": z}]}
+
+    z_got, e_got = z.clone(), e.clone()
+    z_got[5, 3] = -3e-8  # the tie: point 5 takes the other side of the kink
+    e_got[5] += 0.3
+    if case == "jump_elsewhere":
+        e_got[9] += 0.05
+    if case == "inputs_apart":
+        z_got[20] += 1e-3
+    got, want = step(z_got, e_got), step(z, e)
+    raw = abs(got["loss"]["reg_eikonal"] - want["loss"]["reg_eikonal"]) / want["loss"]["reg_eikonal"]
+    assert raw > 10 * chip_smoke.TRAIN_REF_TOL["loss_rtol"]
+    _, failures = chip_smoke._compare_steps(got, want, chip_smoke.TRAIN_REF_TOL, "test")
+    if case == "tie":
+        assert failures == []
+    elif case == "jump_elsewhere":
+        assert len(failures) == 1 and failures[0].startswith("loss reg_eikonal")
+    else:
+        assert len(failures) == 1 and "ReLU inputs differ" in failures[0]
