@@ -15,7 +15,9 @@ synchronise; any failure exits non-zero:
    inputs, at the shapes the render and training paths give it: K3f
    (fused_relu_mlp forward), K3b (its backward), K4f / K4b (fused_pe_mlp
    and its backward) at the bg field's base, colour and visibility MLPs
-   on 262,144 points and at the 512 visibility-decay points, K1 / K2
+   on 262,144 points and at the 512 visibility-decay points (K4f with and
+   without saving its hidden outputs, K4b from the saved ones; K4f + K4b
+   also against autograd outside the ReLU ties), K1 / K2
    (fused_nerf_heads and its backward) at the flagship fg field's step
    (262,144 points, 1024 per pair, 256 appearance rows; K1 as training
    runs it, saving its layer outputs, and K2 from those; K1 + K2 also
@@ -23,7 +25,9 @@ synchronise; any failure exits non-zero:
    tolerance, median device time from CUDA-graph replay for kernel and
    plain version, CUDA launches per call, and the bound (the larger of
    FLOPs over the fp32 peak and bytes over the memory rate; for K1 / K2
-   also over the 3xTF32 tensor-core rate);
+   and K4f / K4b also over the 3xTF32 tensor-core rate; K2's and K4b's
+   work is dIn and dW from the saved layer outputs, and K4b's row also
+   gives the bound of the VJP from x with the forward recomputed);
 3b. heads-anatomy: one round of K1's anatomy copies
    (tools/profile_heads_phases.py, built beside the kernels): `full`
    against its plain version, the stripped copies timed;
@@ -45,7 +49,8 @@ synchronise; any failure exits non-zero:
    bg field D=5 W=128, TimeMLPs D=5 W=256) on a synthetic scene written by
    lab4d_tpu_torch.tools.synthetic_scene: prior fits, one round of 25
    steps, a checkpoint. Prints ms/step, peak memory, first and last total
-   loss, grad norms and the launches of every kernel;
+   loss, grad norms and the launches of every kernel (K4f and K4b 4 each
+   per step: base, colour, visibility, visibility decay);
 9. train-reference-fg: as 7 for the flagship fg / skel-quad model, whose
    field heads run through K1 / K2 on the GPU: all 17 loss terms and
    every gradient;
@@ -260,7 +265,8 @@ def phase_kernel():
     gen = torch.Generator().manual_seed(SEED)
     results = {"K3f": [], "K3b": [], "K4f": [], "K4b": []}
 
-    def report(name, label, rows, err, kernel, plain, flops, nbytes, inner, rel_err=None):
+    def report(name, label, rows, err, kernel, plain, flops, nbytes, inner, rel_err=None,
+               extra=None):
         # the plain backward runs autograd, which a CUDA graph does not
         # capture reliably: it is timed as back-to-back eager calls
         backward = name.endswith("b")
@@ -269,13 +275,19 @@ def phase_kernel():
         if rel_err is not None:
             r["max_rel_err"] = rel_err
         r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes)
+        r.update(extra or {})
         sync()
         checked = f"err={err:.3e} (tol {KERNEL_TOL:g})" if rel_err is None else \
             f"abs err={err:.3e} rel err={rel_err:.3e} (tol {KERNEL_TOL:g})"
         print(f"[kernel] {name} {label}: rows={rows} {checked} "
               f"device kernel {r['ms'] * 1e3:.2f} us / plain {r['plain_ms'] * 1e3:.2f} us"
               f"{' (eager)' if backward else ''} / bound {r['bound_ms'] * 1e3:.2f} us "
-              f"({r['bound_by']})")
+              f"({r['bound_by']}, fp32 FMA)"
+              + "".join(f" / {k} {r[k] * 1e3:.2f} us" for k in (
+                  "bound_3xtf32_ms", "bound_vjp_from_x_ms", "bound_vjp_from_x_3xtf32_ms",
+                  "ms_no_save") if k in r)
+              + (f"; {r['cuda_launches_per_call']} CUDA launches per call"
+                 if "cuda_launches_per_call" in r else ""))
         results[name].append(r)
 
     for label, rows, C_in, D, W in K3_SHAPES + [K3_TRAIN]:
@@ -312,40 +324,117 @@ def phase_kernel():
                lambda: K.mlp_backward_reference(x, g, weights, biases),
                flops, nbytes, 20, rel_err=err)
 
-    for label, rows, n_freqs, widths, skips, final_act, window in K4_SHAPES:
-        freqs = tuple(float(2.0**i) for i in range(n_freqs))
-        c_x = 3 * (2 * n_freqs + 1)
-        weights, biases = _mlp_params(c_x, 0, 0, gen, "cuda", widths=list(widths), skips=skips)
-        x = ((torch.rand(rows, 3, generator=gen) * 2 - 1) * 0.5).cuda()
-        win = torch.linspace(0.3, 1.0, n_freqs).cuda() if window else None
-        got = K.fused_pe_mlp(x, win, weights, biases, freqs, skips, final_act)
-        want = K.pe_mlp_reference(x, win, weights, biases, freqs, skips, final_act)
-        sync()
-        err = float((got - want).abs().max())
-        if not got.is_cuda or got.shape != want.shape or not err <= KERNEL_TOL:
-            fail(f"K4f {label} disagrees with its plain version: {err} > {KERNEL_TOL}")
-        in_dims = [w.shape[1] for w in weights]
-        macs = mlp_macs(in_dims, widths)
-        inner = 5 if rows > 4096 else 100
-        report("K4f", label, rows, err,
-               lambda: K.fused_pe_mlp(x, win, weights, biases, freqs, skips, final_act),
-               lambda: K.pe_mlp_reference(x, win, weights, biases, freqs, skips, final_act),
-               2 * rows * macs, 4 * (rows * (3 + widths[-1]) + macs + sum(widths)), inner)
-        g = torch.randn(rows, widths[-1], generator=gen).cuda()
-        got = K.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips)
-        want = K.pe_mlp_backward_reference(x, g, win, weights, biases, freqs, skips)
-        sync()
-        abs_err, err = _bwd_errs(got, want)
-        if not err <= KERNEL_TOL:
-            fail(f"K4b {label} disagrees with its plain version: rel err {err} > {KERNEL_TOL}")
-        flops = 2 * rows * (mlp_macs(in_dims[:-1], widths[:-1]) + 2 * macs)
-        nbytes = 4 * (2 * rows * 3 + 2 * rows * widths[-1] + 2 * (macs + sum(widths)))
-        report("K4b", label, rows, abs_err,
-               lambda: K.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips),
-               lambda: K.pe_mlp_backward_reference(x, g, win, weights, biases, freqs, skips),
-               flops, nbytes, inner, rel_err=err)
+    for shape in K4_SHAPES:
+        _pe_kernels(K, gen, shape, report)
     results.update(_heads_kernels(gen))
     return results
+
+
+def _pe_relu_ties(K, args, acts):
+    """The (row, unit) pairs where K4f's saved hidden output and the plain
+    forward's input to that ReLU lie on opposite sides of zero, so that the
+    two backward passes take other sides of the kink: (rows holding one,
+    number of pairs, largest |input| among them). args: fused_pe_mlp's."""
+    import torch
+
+    x, weights = args[0], args[2]
+    _, z = K.pe_mlp_forward_saved_reference(*args, pre_activations=True)
+    P = x.shape[0]
+    rows = torch.zeros(P, dtype=torch.bool, device=acts.device)
+    n, z_max = 0, 0.0
+    for off, w in zip(K.pe_act_layout(weights)[0], [w.shape[0] for w in weights[:-1]]):
+        a, zz = (t[off * P: (off + w) * P].view(P, w) for t in (acts, z))
+        flip = (a > 0) != (zz > 0)
+        rows |= flip.any(1)
+        n += int(flip.sum())
+        z_max = max(z_max, float(zz.abs().masked_fill(~flip, 0).max()))
+    return rows, n, z_max
+
+
+def _pe_kernels(K, gen, shape, report):
+    """K4f and K4b at one of K4_SHAPES against their plain versions: K4f's
+    output with and without saving and its saved hidden outputs against
+    pe_mlp_forward_saved_reference; K4b from K4f's own saved outputs
+    against pe_mlp_backward_saved_reference on the same ones; and K4f + K4b
+    against autograd through a recomputed plain forward, which differs
+    where a hidden ReLU input lies within rounding of zero (_pe_relu_ties):
+    every such input must lie within 10x K4f's saved-output error of zero,
+    and with the cotangents of the rows that hold one set to zero, every
+    gradient must agree within KERNEL_TOL. Then both timed."""
+    import torch
+
+    label, rows, n_freqs, widths, skips, final_act, window = shape
+    freqs = tuple(float(2.0**i) for i in range(n_freqs))
+    c_x = 3 * (2 * n_freqs + 1)
+    weights, biases = _mlp_params(c_x, 0, 0, gen, "cuda", widths=list(widths), skips=skips)
+    x = ((torch.rand(rows, 3, generator=gen) * 2 - 1) * 0.5).cuda()
+    win = torch.linspace(0.3, 1.0, n_freqs).cuda() if window else None
+    args = (x, win, weights, biases, freqs, skips, final_act)
+    got, acts = K.pe_mlp_forward_saved(*args)
+    launches_f = K.fused_pe_mlp.cuda_launches
+    got_ns = K.fused_pe_mlp(*args)  # nothing requires a gradient: K4f without saving
+    want, want_acts = K.pe_mlp_forward_saved_reference(*args)
+    sync()
+    err = max(float((got - want).abs().max()), float((got_ns - want).abs().max()))
+    err_saved = float((acts - want_acts).abs().max())
+    if not got.is_cuda or got.shape != want.shape or not max(err, err_saved) <= KERNEL_TOL:
+        fail(f"K4f {label} disagrees with its plain version: output {err}, saved outputs "
+             f"{err_saved} > {KERNEL_TOL}")
+    g = torch.randn(rows, widths[-1], generator=gen).cuda()
+    bwd_args = (x, g, win, weights, biases, freqs, skips)
+    got_b = K.fused_pe_mlp_backward(*bwd_args, saved=acts)
+    launches_b = K.fused_pe_mlp_backward.cuda_launches
+    want_b = K.pe_mlp_backward_saved_reference(*bwd_args, acts)
+    sync()
+    abs_err, rel_err = _bwd_errs(got_b, want_b)
+    if not rel_err <= KERNEL_TOL:
+        fail(f"K4b {label} disagrees with its plain version: rel err {rel_err} > {KERNEL_TOL}")
+    tie_rows, n_ties, z_tie = _pe_relu_ties(K, args, acts)
+    _, rel_auto = _bwd_errs(got_b, K.pe_mlp_backward_reference(*bwd_args))
+    g_kept = g * (~tie_rows).to(g.dtype)[:, None]
+    _, rel_kept = _bwd_errs(K.fused_pe_mlp_backward(x, g_kept, *bwd_args[2:], saved=acts),
+                            K.pe_mlp_backward_reference(x, g_kept, *bwd_args[2:]))
+    sync()
+    print(f"[kernel] K4f + K4b {label} against autograd through the plain forward: all rows "
+          f"{rel_auto:.1e}; ReLU ties (K4f's saved output and the plain input on other sides of "
+          f"zero): {n_ties} (row, unit) pairs in {int(tie_rows.sum())} of {rows} rows, largest "
+          f"|input| {z_tie:.2e} (tol {10 * err_saved:.2e}, 10x K4f's saved error {err_saved:.2e}); "
+          f"the other rows {rel_kept:.1e} (tol {KERNEL_TOL:g})")
+    if not z_tie <= 10 * err_saved:
+        fail(f"K4f {label}: a ReLU input of {z_tie} flips between K4f and the plain forward")
+    if not rel_kept <= KERNEL_TOL:
+        fail(f"K4f + K4b {label} disagree with autograd outside the ReLU ties: {rel_kept}")
+
+    in_dims = [w.shape[1] for w in weights]
+    macs = mlp_macs(in_dims, widths)
+    n_params = macs + sum(widths)
+    saved_bytes = 4 * rows * sum(widths[:-1])
+    inner = 5 if rows > 4096 else 100
+    flops_f = 2 * rows * macs
+    nbytes_f = 4 * (rows * (3 + widths[-1]) + n_params) + saved_bytes
+    report("K4f", label, rows, max(err, err_saved),
+           lambda: K.pe_mlp_forward_saved(*args), lambda: K.pe_mlp_forward_saved_reference(*args),
+           flops_f, nbytes_f, inner, extra={
+               "ms_no_save": device_ms(lambda: K.fused_pe_mlp(*args), inner),
+               "bound_3xtf32_ms": bound_ms(3 * flops_f, nbytes_f, PEAK_TF32)[0],
+               "cuda_launches_per_call": launches_f, "saved_floats_per_point": sum(widths[:-1])})
+    # K4b's work: dIn and dW of every layer from x, g and K4f's saved
+    # outputs, which it reads once; beside it, the VJP from x and g alone,
+    # which also recomputes the hidden layers (the row-tiled design's work)
+    flops_b = 4 * rows * macs
+    nbytes_vjp = 4 * (2 * rows * 3 + 2 * rows * widths[-1] + 2 * n_params)
+    nbytes_b = nbytes_vjp + saved_bytes
+    flops_vjp = 2 * rows * (mlp_macs(in_dims[:-1], widths[:-1]) + 2 * macs)
+    report("K4b", label, rows, abs_err,
+           lambda: K.fused_pe_mlp_backward(*bwd_args, saved=acts),
+           lambda: K.pe_mlp_backward_saved_reference(*bwd_args, acts),
+           flops_b, nbytes_b, inner, rel_err=rel_err, extra={
+               "bound_3xtf32_ms": bound_ms(3 * flops_b, nbytes_b, PEAK_TF32)[0],
+               "bound_vjp_from_x_ms": bound_ms(flops_vjp, nbytes_vjp)[0],
+               "bound_vjp_from_x_3xtf32_ms": bound_ms(3 * flops_vjp, nbytes_vjp, PEAK_TF32)[0],
+               "cuda_launches_per_call": launches_b, "relu_tie_pairs": n_ties,
+               "relu_tie_rows": int(tie_rows.sum()), "max_rel_err_autograd_all_rows": rel_auto,
+               "max_rel_err_autograd_untied_rows": rel_kept})
 
 
 def _flagship_heads(gen):
@@ -429,6 +518,7 @@ def _heads_kernels(gen):
     args, g = _flagship_heads(gen)
     x, nets, P = args[0], args[4], args[0].shape[0]
     got, acts = FK.nerf_heads_forward_saved(*args)
+    k1_launches = FK.fused_nerf_heads.cuda_launches
     want, want_acts = FK.nerf_heads_forward_saved_reference(*args)
     sync()
     errs = {n: float((a - b).abs().max()) for n, a, b in zip(("density", "rgb", "vis", "feat"), got, want)}
@@ -481,7 +571,7 @@ def _heads_kernels(gen):
     out = {}
     for key, kernel, plain, flops, nbytes, rel, launches in (
         ("K1", lambda: FK.nerf_heads_forward_saved(*args), lambda: FK.nerf_heads_reference(*args),
-         2 * P * macs, 4 * (P * (3 + 21 + n_saved) + FG_PAIRS * 32 + weights), None, 2),
+         2 * P * macs, 4 * (P * (3 + 21 + n_saved) + FG_PAIRS * 32 + weights), None, k1_launches),
         ("K2", lambda: FK.fused_nerf_heads_backward(x, g, *args[1:], saved=saved),
          lambda: FK.nerf_heads_backward_saved_reference(x, g, *args[1:], *saved),
          2 * 2 * P * macs, 4 * (P * (3 + 21 + 3 + n_saved + 3) + 2 * FG_PAIRS * 32 + 2 * weights),
@@ -1011,6 +1101,9 @@ def phase_train(db, root, cate):
     for name, n in steps.items():
         if n <= 0 and (cate == "fg" or name not in ("K1", "K2")):
             fail(f"{tag}: the training steps launched no {name} kernel")
+    if cate == "bg" and not steps["K4f"] == steps["K4b"] == 4 * TRAIN_STEPS:
+        fail(f"{tag}: K4f / K4b ran {steps['K4f']} / {steps['K4b']} times in {TRAIN_STEPS} steps, "
+             "not 4 each per step (base, colour, visibility, visibility decay)")
     run_dir = os.path.join(root, "logdir", "smoke-" + cate)
     ckpt = os.path.join(run_dir, "ckpt_latest.flax")
     if not os.path.exists(ckpt):
@@ -1048,7 +1141,7 @@ KERNEL_INFO = {  # JSON name, source, the TPU kernel it replaces
                 "scripts/perf/bench_kernel_anatomy.py:174"),
     "K3f": ("fused_relu_mlp_fwd", "lab4d_tpu_torch/csrc/fused_relu_mlp.cu",
             "lab4d_tpu/ops/mlp_kernel.py:127"),
-    "K3b": ("fused_relu_mlp_bwd", "lab4d_tpu_torch/csrc/fused_pe_mlp.cu",
+    "K3b": ("fused_relu_mlp_bwd", "lab4d_tpu_torch/csrc/fused_relu_mlp.cu",
             "lab4d_tpu/ops/mlp_kernel.py:227"),
     "K4f": ("fused_pe_mlp_fwd", "lab4d_tpu_torch/csrc/fused_pe_mlp.cu",
             "lab4d_tpu/ops/mlp_kernel.py:488"),
@@ -1111,8 +1204,9 @@ def main():
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
             "library_ms": None, "shape": main_shape["label"],
-            **{k: main_shape[k] for k in ("bound_3xtf32_ms", "cuda_launches_per_call", "copies_ms")
-               if k in main_shape},
+            **{k: main_shape[k] for k in (
+                "bound_3xtf32_ms", "bound_vjp_from_x_ms", "bound_vjp_from_x_3xtf32_ms",
+                "ms_no_save", "cuda_launches_per_call", "copies_ms") if k in main_shape},
         })
     print(json.dumps({"kernels": rows}))
     print(card)

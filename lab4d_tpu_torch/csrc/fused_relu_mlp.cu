@@ -32,10 +32,16 @@
 // leading columns of both ping-pong buffers, so a skip layer reads [x, h]
 // as one contiguous row. Layers whose widths or pointers are not 16-byte
 // aligned take the same path with scalar loads.
+//
+// This library also holds K3b, the VJP of this MLP on the training path
+// (lab4d_relu_mlp_tile_bwd): the row-tiled fp32 backward of mlp_tiles.cuh,
+// whose design and bound are described there.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mlp_tiles.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -232,6 +238,19 @@ int lab4d_fused_relu_mlp_fwd(const float* x, float* y, const void* const* w,
   fused_relu_mlp_fwd_kernel<<<tiles * MLP_CLUSTER, MLP_THREADS, smem,
                               static_cast<cudaStream_t>(stream)>>>(x, y, a);
   return (int)cudaGetLastError();
+}
+
+// K3b: dx (rows, c_in) and grads (every dW_l, then every db_l) of the MLP
+// for the output gradient g (rows, out_last), already masked by the final
+// ReLU. ws: grid * n_params floats of scratch, grid <= ceil(rows / tr).
+int lab4d_relu_mlp_tile_bwd(const float* x, const float* g, float* dx, float* ws, float* grads,
+                            const void* const* w, const void* const* b, const int* in_dim,
+                            const int* out_dim, int n_layers, int c_in, int rows, int tr,
+                            int skip_mask, int grid, void* stream) {
+  TileMlpArgs a;
+  int err = tm_fill_args(a, w, b, in_dim, out_dim, n_layers, c_in, rows, tr, skip_mask);
+  if (err) return err;
+  return tm_launch_bwd(x, g, dx, ws, grads, a, grid, stream);
 }
 
 const char* lab4d_cuda_error_string(int code) {

@@ -1,5 +1,7 @@
 // Tensor-core tile products in 3xTF32 for Hopper (sm_90a): the core of K1
-// and K2 (csrc/nerf_heads.cu).
+// and K2 (csrc/nerf_heads.cu) and of K4f and K4b (csrc/fused_pe_mlp.cu),
+// with the split-K weight gradients that K2 and K4b share and the ordered
+// reduction of their workspace slices (K3b's too, csrc/mlp_tiles.cuh).
 //
 // What bounds it: the field heads are fp32 products at 234,688
 // multiply-adds per point; on fp32 FMA the flagship step's K1 needs at
@@ -205,4 +207,116 @@ __device__ __forceinline__ float hm_warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// ------------------------------------------- split-K weight gradients
+
+// A row-major operand over the points whose column k is s1[p][k] for
+// k < k1 and s2[p][k - k1] after
+struct HmSrc {
+  const float* s1;
+  int ld1, k1;
+  const float* s2;
+  int ld2;
+  __device__ __forceinline__ const float* at(size_t p, int k) const {
+    return k < k1 ? s1 + p * ld1 + k : s2 + p * ld2 + (k - k1);
+  }
+};
+
+// Four consecutive floats of a row to shared memory: one 16-byte copy
+// where all four lie in the run of n valid floats at src and src is
+// 16-byte aligned, else four 4-byte copies, zero past n (base: any valid
+// address)
+__device__ __forceinline__ void hm_cp4x4(float* dst, const float* src, int n, const float* base) {
+  if (n >= 4 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    hm_cp16(dst, src);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) hm_cp4(dst + i, i < n ? src + i : base, i < n);
+}
+
+// dW = G^T . A (N x K) and db = sum G (unless off_b < 0) over the chunk
+// blockIdx.y of pc points (cut at rows), into that chunk's workspace slice
+// of n_slice floats: columns k < kw at off_w1 ((N, kw) row-major), the
+// rest at off_w2 ((N, K - kw)); kw = K for one (N, K) array. Block: 64
+// outputs x 64 inputs; a k-slab is 32 points of both operands, k-major,
+// staged in runs of four columns (16-byte copies where they can), zero
+// past the chunk's last point.
+__global__ void __launch_bounds__(HM_THREADS)
+hm_dw_kernel(const float* __restrict__ g, int N, HmSrc src, int K, int rows, int pc, int n_ktiles,
+             float* __restrict__ ws, int n_slice, int kw, int off_w1, int off_w2, int off_b) {
+  __shared__ __align__(16) float sm[2][2][HM_KS * HM_LDT];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int nb = (blockIdx.x / n_ktiles) * 64, kt = blockIdx.x % n_ktiles, kb = kt * 64;
+  const size_t p0 = (size_t)blockIdx.y * pc;
+  const int np = min(pc, rows - (int)p0);  // points of this chunk
+  auto stage = [&](int s) {
+    const size_t p = p0 + (size_t)s * HM_KS;
+    for (int e = tid; e < HM_KS * 16 * 2; e += HM_THREADS) {
+      const int op = e >= HM_KS * 16, e2 = e - op * HM_KS * 16;
+      const int kk = e2 >> 4, m = (e2 & 15) * 4;
+      const bool in = s * HM_KS + kk < np;
+      float* dst = &sm[s & 1][op][kk * HM_LDT + m];
+      if (op == 0) {  // 32 points x 64 columns of G
+        const int n = nb + m;
+        hm_cp4x4(dst, g + (p + kk) * N + n, in ? N - n : 0, g);
+      } else {  // and of A; a run that crosses from s1 into s2 takes four 4-byte copies
+        const int k = kb + m;
+        const int run = !in ? 0 : k < src.k1 ? min(K, src.k1) - k : K - k;
+        if (run >= 4 && (reinterpret_cast<uintptr_t>(src.at(p + kk, k)) & 15) == 0) {
+          hm_cp16(dst, src.at(p + kk, k));
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const bool ok = in && k + i < K;
+            hm_cp4(dst + i, ok ? src.at(p + kk, k + i) : src.s1, ok);
+          }
+        }
+      }
+    }
+    hm_cp_commit();
+  };
+  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
+  const int nv = nb + m0 < N ? hm_nv(K - kb, n0) : 0;
+  const bool do_b = off_b >= 0 && kt == 0 && tid < 64;
+  float c[4][4];
+  hm_zero(c);
+  float db = 0.f;
+  const int n_slab = (np + HM_KS - 1) / HM_KS;
+  stage(0);
+  for (int s = 0; s < n_slab; ++s) {
+    hm_cp_wait();
+    __syncthreads();
+    if (s + 1 < n_slab) stage(s + 1);
+    const HmKM A{sm[s & 1][0], HM_LDT};  // A(m, kk) = G[kk][m]
+    const HmMK B{sm[s & 1][1], HM_LDT};  // B(kk, n) = A_l[kk][n]
+    if (nv > 0) {
+#pragma unroll
+      for (int k8 = 0; k8 < HM_KS; k8 += 8) hm_step(c, A, k8, B, k8, m0, n0, nv);
+    }
+    if (do_b) {
+      for (int kk = 0; kk < HM_KS; ++kk) db += sm[s & 1][0][kk * HM_LDT + tid];
+    }
+  }
+  float* out = ws + (size_t)blockIdx.y * n_slice;
+  if (nv > 0)
+    hm_store(c, m0, n0, nv, K - kb, [&](int m, int n, float v) {
+      const int o = nb + m, k = kb + n;
+      if (o >= N) return;
+      if (k < kw) out[off_w1 + (size_t)o * kw + k] = v;
+      else out[off_w2 + (size_t)o * (K - kw) + (k - kw)] = v;
+    });
+  if (do_b && nb + tid < N) out[off_b + nb + tid] = db;
+}
+
+// out[e] = sum over the slices b (in order) of ws[b * n + e]: the same
+// order on every run, with no float atomics
+__global__ void __launch_bounds__(HM_THREADS)
+hm_reduce_kernel(const float* __restrict__ ws, int n_slices, int n, float* __restrict__ out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int b = 0; b < n_slices; ++b) s += ws[(size_t)b * n + e];
+  out[e] = s;
 }

@@ -1,25 +1,19 @@
-// Row-tiled fused ReLU MLP, forward and backward, for large point batches
-// on Hopper (sm_90a). Its entry points are in fused_pe_mlp.cu: K4f / K4b,
-// and K3b, which is K4b's entry with n_freqs = 0.
+// Row-tiled fused ReLU MLP backward for Hopper (sm_90a): K3b, the VJP of
+// the TimeMLP backbones' fused MLP. Its entry point is in
+// fused_relu_mlp.cu, beside K3f.
 //
-// Replaces the Pallas kernels of lab4d_tpu/ops/mlp_kernel.py: _pe_fwd_kernel
-// (K4f), _pe_bwd_kernel (K4b) and _bwd_kernel (K3b). Semantics are theirs:
-// D+1 dense fp32 layers, ReLU between them, the (embedded) input
-// re-concatenated before each skip layer as [X, h]; the backward recomputes
-// the forward per row tile and returns dx, every dW and every db. The
-// optional final ReLU is applied by the forward here; its mask on the
-// incoming gradient is applied by the caller (as the JAX VJP does outside
-// its kernel). With n_freqs > 0 the input is Fourier-embedded in the kernel
-// in fourier_embed's block layout [x (C), sin (F x C), cos (F x C)], each
-// angle computed elementwise as x * freq with precise sinf / cosf (angles
-// reach 2^11 |x|), times an optional per-frequency annealing window.
+// Replaces the Pallas kernel lab4d_tpu/ops/mlp_kernel.py:_bwd_kernel.
+// Semantics are its: D+1 dense fp32 layers, ReLU between them, the input
+// re-concatenated before each skip layer as [x, h]; the backward
+// recomputes the forward per row tile and returns dx, every dW and every
+// db. The final ReLU's mask on the incoming gradient is applied by the
+// caller (as the JAX VJP does outside its kernel).
 //
-// What bounds it on the card: the training step calls it on 262,144 points
-// with W = 128 (base field: ~92 KMAC per point forward, three times that in
-// the backward), so it is bound by fp32 FMA throughput (about 0.7 ms
-// forward at the H100's 67 TFLOP/s), not by memory: only x, the output, g
-// and dx cross device memory. What the design does about it: one block of
-// 256 threads owns a tile of TR rows and keeps every activation of the tile
+// What bounds it on the card: the training step calls it on the 256 frames
+// of a batch at W = 256 (camera and intrinsics TimeMLPs, D5), about 3x the
+// forward's 0.4 MFLOP per row: fp32 FMA throughput, with only x, g and dx
+// crossing device memory. What the design does about it: one block of 256
+// threads owns a tile of TR rows and keeps every activation of the tile
 // in shared memory, transposed (k-major, one row of TR floats, padded to
 // TR + 4 against bank conflicts, per feature), so a layer is a small GEMM
 // O^T = W . In^T whose operands come from shared memory. Each thread
@@ -34,18 +28,19 @@
 // The weight gradients sum over all rows. Pallas summed them over its
 // sequential grid; CUDA blocks run in parallel, so each block of a
 // grid-stride launch accumulates its own tiles into its own slice of a
-// workspace (first tile stores, later tiles add), and a second kernel sums
-// the slices in block order. No float atomics: the result is the same from
-// run to run. fp32 FMA throughout, no tensor cores (TF32 would cost the
-// precision the CPU parity check holds it to).
+// workspace (first tile stores, later tiles add), and a second kernel
+// (hm_reduce_kernel of heads_mma.cuh, shared with K2 and K4b) sums the
+// slices in block order. No float atomics: the result is the same from run
+// to run. fp32 FMA throughout, no tensor cores.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "heads_mma.cuh"
+
 #define TM_MAX_LAYERS 16
-#define TM_MAX_FREQS 16
 #define TM_THREADS 256
 #define TM_KC 16
 #define TM_STAGE_REGS 16  // staged weights per thread: TM_KC * width <= 16 * TM_THREADS
@@ -57,16 +52,11 @@ struct TileMlpArgs {
   int in_dim[TM_MAX_LAYERS];
   int out_dim[TM_MAX_LAYERS];
   int n_layers;
-  int c_raw;       // columns of x
-  int n_freqs;     // 0: the kernel input is x itself
-  float freq[TM_MAX_FREQS];
-  const float* window;  // (n_freqs,) or nullptr
-  int c_x;         // kernel input width: c_raw * (2 n_freqs + 1)
+  int c_x;         // columns of x
   int rows;
   int tr;          // rows per tile, a multiple of 4
   int ts;          // shared-memory row stride of the k-major buffers: tr + 4
   int skip_mask;   // bit l set: layer l reads [X, h]
-  int final_act;
   int max_out;     // widest layer output
   int stage_ld;    // row stride of the weight staging buffer
   int n_params;    // floats of one workspace slice: every dW then db
@@ -87,30 +77,11 @@ struct KSegs {
 
 __host__ __device__ __forceinline__ int tm_round4(int n) { return (n + 3) & ~3; }
 
-// A layer weight stored as two column blocks [w1 (n_out, k1) | w2 (n_out, in - k1)],
-// as the skip layers of the field heads keep it (csrc/nerf_heads.cu): the first
-// k1 inputs are the embedded X, the rest the hidden h. w2 is unused when k1
-// covers every input.
-struct WSegs {
-  const float* w1;
-  int k1;
-  const float* w2;
-};
-
 // A(o, k) of a staged k-chunk. kFwd: W(o, k) of an (n_o, K) weight; otherwise
 // W(k, o) of a (K, n_o) weight (its transpose, for dIn = g . W).
 template <bool kFwd>
 __device__ __forceinline__ float tm_wload(const float* __restrict__ W, int n_o, int K, int o, int k) {
   return kFwd ? __ldg(W + (size_t)o * K + k) : __ldg(W + (size_t)k * n_o + o);
-}
-
-template <bool kFwd>
-__device__ __forceinline__ float tm_wload(const WSegs& W, int n_o, int K, int o, int k) {
-  if (kFwd)
-    return k < W.k1 ? __ldg(W.w1 + (size_t)o * W.k1 + k)
-                    : __ldg(W.w2 + (size_t)o * (K - W.k1) + (k - W.k1));
-  return o < W.k1 ? __ldg(W.w1 + (size_t)k * W.k1 + o)
-                  : __ldg(W.w2 + (size_t)k * (n_o - W.k1) + (o - W.k1));
 }
 
 // The weights of one k-chunk, A(o, k0 + kk) for kk < TM_KC and o < n_o, in
@@ -171,7 +142,6 @@ struct TmStager {
 // epi(o, r, value) for every o < n_o. Must be called by the whole block.
 // Tiles are numbered with r fastest, so a warp reads few weight vectors
 // (broadcast) and contiguous activations.
-// W: a const float* or a WSegs.
 template <bool kFwd, typename WT, typename Epi>
 __device__ void tm_gemm(const WT& W, int n_o, int K, KSegs in, int tr, float* as, int ld,
                         Epi epi) {
@@ -238,19 +208,10 @@ __device__ void tm_gemm(const WT& W, int n_o, int K, KSegs in, int tr, float* as
 // rows past nr read x = 0.
 __device__ void tm_build_input(float* xs, const float* __restrict__ x, int row0, int nr,
                                const TileMlpArgs& a) {
-  const int tr = a.tr, C = a.c_raw, FC = a.n_freqs * a.c_raw;
+  const int tr = a.tr;
   for (int idx = threadIdx.x; idx < a.c_x * tr; idx += blockDim.x) {
     const int k = idx / tr, r = idx - k * tr;
-    const int c = k < C ? k : (k - C) % C;
-    const float xv = r < nr ? __ldg(x + (size_t)(row0 + r) * C + c) : 0.f;
-    float v = xv;
-    if (k >= C) {
-      const int f = ((k - C) % FC) / C;
-      const float ang = xv * a.freq[f];
-      v = k < C + FC ? sinf(ang) : cosf(ang);
-      if (a.window != nullptr) v *= __ldg(a.window + f);
-    }
-    xs[k * a.ts + r] = v;
+    xs[k * a.ts + r] = r < nr ? __ldg(x + (size_t)(row0 + r) * a.c_x + k) : 0.f;
   }
 }
 
@@ -263,8 +224,6 @@ __device__ __forceinline__ KSegs tm_layer_input(const TileMlpArgs& a, int l, con
   return KSegs{h, a.in_dim[l], h, 0, a.ts};
 }
 
-// ------------------------------------------------------------------ forward
-
 struct TmEpiHidden {  // h[o][r] = relu(v + b[o])
   float* h;
   const float* b;
@@ -273,47 +232,6 @@ struct TmEpiHidden {  // h[o][r] = relu(v + b[o])
     h[o * ts + r] = fmaxf(v + __ldg(b + o), 0.f);
   }
 };
-
-struct TmEpiOut {  // y[row0 + r][o] = v + b[o], ReLU'd if final_act
-  float* y;
-  const float* b;
-  int row0, nr, n_o, relu;
-  __device__ __forceinline__ void operator()(int o, int r, float v) const {
-    if (r >= nr) return;
-    float out = v + __ldg(b + o);
-    if (relu) out = fmaxf(out, 0.f);
-    y[(size_t)(row0 + r) * n_o + o] = out;
-  }
-};
-
-// smem: X^T (c_x x TR), two hidden buffers (max_out x TR), the staging
-// buffer (TM_KC x stage_ld).
-__global__ void __launch_bounds__(TM_THREADS, 2)
-tile_mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ y, TileMlpArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  const int tr = a.tr, ts = a.ts;
-  float* xs = smem;
-  float* hbuf[2] = {xs + a.c_x * ts, xs + (a.c_x + a.max_out) * ts};
-  float* as = xs + (a.c_x + 2 * a.max_out) * ts;
-  const int ntiles = (a.rows + tr - 1) / tr;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int row0 = tile * tr;
-    const int nr = min(tr, a.rows - row0);
-    __syncthreads();  // the previous tile is done with every buffer
-    tm_build_input(xs, x, row0, nr, a);
-    for (int l = 0; l < a.n_layers; ++l) {
-      const KSegs in = tm_layer_input(a, l, xs, hbuf[(l + 1) & 1]);
-      const int n_o = a.out_dim[l];
-      if (l < a.n_layers - 1) {
-        tm_gemm<true>(a.w[l], n_o, a.in_dim[l], in, tr, as, a.stage_ld,
-                      TmEpiHidden{hbuf[l & 1], a.b[l], ts});
-      } else {
-        tm_gemm<true>(a.w[l], n_o, a.in_dim[l], in, tr, as, a.stage_ld,
-                      TmEpiOut{y, a.b[l], row0, nr, n_o, a.final_act});
-      }
-    }
-  }
-}
 
 // ----------------------------------------------------------------- backward
 
@@ -462,56 +380,27 @@ tile_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
                      TmEpiDin{dxs, gbuf[cur ^ 1], hprev, has_x ? a.c_x : 0, ts});
       cur ^= 1;
     }
-    // dx: the X columns of dX, plus the chain rule through sin / cos
-    const int C = a.c_raw, FC = a.n_freqs * a.c_raw;
-    for (int idx = threadIdx.x; idx < nr * C; idx += blockDim.x) {
-      const int r = idx / C, c = idx - r * C;
-      float s = dxs[c * ts + r];
-      if (a.n_freqs > 0) {
-        const float xv = __ldg(x + (size_t)(row0 + r) * C + c);
-        for (int f = 0; f < a.n_freqs; ++f) {
-          const float ang = xv * a.freq[f];
-          const float win = a.window != nullptr ? __ldg(a.window + f) : 1.f;
-          const float gs = dxs[(C + f * C + c) * ts + r] * win;
-          const float gc = dxs[(C + FC + f * C + c) * ts + r] * win;
-          s += (cosf(ang) * gs - sinf(ang) * gc) * a.freq[f];
-        }
-      }
-      dx[(size_t)(row0 + r) * C + c] = s;
+    for (int idx = threadIdx.x; idx < nr * a.c_x; idx += blockDim.x) {
+      const int r = idx / a.c_x, c = idx - r * a.c_x;
+      dx[(size_t)(row0 + r) * a.c_x + c] = dxs[c * ts + r];
     }
   }
-}
-
-// out[e] = sum over slices b (in order) of ws[b * n + e]
-__global__ void __launch_bounds__(TM_THREADS)
-tile_mlp_reduce_kernel(const float* __restrict__ ws, int n_slices, int n, float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float s = 0.f;
-  for (int b = 0; b < n_slices; ++b) s += ws[(size_t)b * n + e];
-  out[e] = s;
 }
 
 // ------------------------------------------------------------------ launch
 
 static int tm_fill_args(TileMlpArgs& a, const void* const* w, const void* const* b,
-                        const int* in_dim, const int* out_dim, int n_layers, int c_raw,
-                        int n_freqs, const float* freqs, const float* window, int rows, int tr,
-                        int skip_mask, int final_act) {
-  if (n_layers < 1 || n_layers > TM_MAX_LAYERS || n_freqs < 0 || n_freqs > TM_MAX_FREQS ||
-      rows < 1 || c_raw < 1 || tr < 4 || tr % 4 != 0 || (skip_mask & 1))
+                        const int* in_dim, const int* out_dim, int n_layers, int c_x, int rows,
+                        int tr, int skip_mask) {
+  if (n_layers < 1 || n_layers > TM_MAX_LAYERS || rows < 1 || c_x < 1 || tr < 4 || tr % 4 != 0 ||
+      (skip_mask & 1))
     return (int)cudaErrorInvalidValue;
   a.n_layers = n_layers;
-  a.c_raw = c_raw;
-  a.n_freqs = n_freqs;
-  for (int f = 0; f < TM_MAX_FREQS; ++f) a.freq[f] = f < n_freqs ? freqs[f] : 0.f;
-  a.window = window;
-  a.c_x = c_raw * (2 * n_freqs + 1);
+  a.c_x = c_x;
   a.rows = rows;
   a.tr = tr;
   a.ts = tr + 4;
   a.skip_mask = skip_mask;
-  a.final_act = final_act;
   int max_out = 0, max_w = 0, n_params = 0;
   for (int l = 0; l < n_layers; ++l) {
     a.w[l] = static_cast<const float*>(w[l]);
@@ -532,10 +421,6 @@ static int tm_fill_args(TileMlpArgs& a, const void* const* w, const void* const*
   return 0;
 }
 
-static size_t tm_fwd_smem(const TileMlpArgs& a) {
-  return sizeof(float) * ((size_t)a.ts * (a.c_x + 2 * a.max_out) + (size_t)TM_KC * a.stage_ld);
-}
-
 static size_t tm_bwd_smem(const TileMlpArgs& a) {
   size_t hidden = 0;
   for (int l = 0; l < a.n_layers - 1; ++l) hidden += a.out_dim[l];
@@ -553,15 +438,6 @@ static int tm_set_smem(const void* kernel, size_t smem) {
   return 0;
 }
 
-static int tm_launch_fwd(const float* x, float* y, const TileMlpArgs& a, int grid, void* stream) {
-  if (grid < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = tm_fwd_smem(a);
-  int err = tm_set_smem((const void*)tile_mlp_fwd_kernel, smem);
-  if (err) return err;
-  tile_mlp_fwd_kernel<<<grid, TM_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(x, y, a);
-  return (int)cudaGetLastError();
-}
-
 // grads: n_params floats, every dW_l (out_l, in_l) then every db_l
 static int tm_launch_bwd(const float* x, const float* g, float* dx, float* ws, float* grads,
                          const TileMlpArgs& a, int grid, void* stream) {
@@ -574,7 +450,7 @@ static int tm_launch_bwd(const float* x, const float* g, float* dx, float* ws, f
   tile_mlp_bwd_kernel<<<grid, TM_THREADS, smem, s>>>(x, g, dx, ws, a);
   err = (int)cudaGetLastError();
   if (err) return err;
-  const int blocks = (a.n_params + TM_THREADS - 1) / TM_THREADS;
-  tile_mlp_reduce_kernel<<<blocks, TM_THREADS, 0, s>>>(ws, grid, a.n_params, grads);
+  const int blocks = (a.n_params + HM_THREADS - 1) / HM_THREADS;
+  hm_reduce_kernel<<<blocks, HM_THREADS, 0, s>>>(ws, grid, a.n_params, grads);
   return (int)cudaGetLastError();
 }

@@ -480,74 +480,6 @@ nh_bwd_out_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ ac
   }
 }
 
-// A row-major operand over the points whose column k is s1[p][k] for
-// k < k1 and s2[p][k - k1] after
-struct NhSrc {
-  const float* s1;
-  int ld1, k1;
-  const float* s2;
-  int ld2;
-  __device__ __forceinline__ const float* at(size_t p, int k) const {
-    return k < k1 ? s1 + p * ld1 + k : s2 + p * ld2 + (k - k1);
-  }
-};
-
-// dW = G^T . A (N x K) and db = sum G (unless off_b < 0) over the chunk
-// blockIdx.y of pc points, into that chunk's workspace slice: columns
-// k < k1 at off_w1 ((N, k1) row-major), the rest at off_w2 ((N, K - k1)).
-// Block: 64 outputs x 64 inputs; a k-slab is 32 points of both operands,
-// k-major.
-__global__ void __launch_bounds__(HM_THREADS)
-nh_dw_kernel(const float* __restrict__ g, int N, NhSrc src, int K, int pc, int n_ktiles,
-             float* __restrict__ ws, int n_slice, int off_w1, int off_w2, int off_b) {
-  __shared__ __align__(16) float sm[2][2][HM_KS * HM_LDT];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int nb = (blockIdx.x / n_ktiles) * 64, kt = blockIdx.x % n_ktiles, kb = kt * 64;
-  const size_t p0 = (size_t)blockIdx.y * pc;
-  auto stage = [&](int s) {
-    const size_t p = p0 + (size_t)s * HM_KS;
-    for (int e = tid; e < HM_KS * 64; e += HM_THREADS) {
-      const int kk = e >> 6, m = e & 63;
-      const int n = nb + m, k = kb + m;
-      hm_cp4(&sm[s & 1][0][kk * HM_LDT + m], n < N ? g + (p + kk) * N + n : g, n < N);
-      hm_cp4(&sm[s & 1][1][kk * HM_LDT + m], k < K ? src.at(p + kk, k) : src.s1, k < K);
-    }
-    hm_cp_commit();
-  };
-  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
-  const int nv = nb + m0 < N ? hm_nv(K - kb, n0) : 0;
-  const bool do_b = off_b >= 0 && kt == 0 && tid < 64;
-  float c[4][4];
-  hm_zero(c);
-  float db = 0.f;
-  const int n_slab = pc / HM_KS;
-  stage(0);
-  for (int s = 0; s < n_slab; ++s) {
-    hm_cp_wait();
-    __syncthreads();
-    if (s + 1 < n_slab) stage(s + 1);
-    const HmKM A{sm[s & 1][0], HM_LDT};  // A(m, kk) = G[kk][m]
-    const HmMK B{sm[s & 1][1], HM_LDT};  // B(kk, n) = A_l[kk][n]
-    if (nv > 0) {
-#pragma unroll
-      for (int k8 = 0; k8 < HM_KS; k8 += 8) hm_step(c, A, k8, B, k8, m0, n0, nv);
-    }
-    if (do_b) {
-      for (int kk = 0; kk < HM_KS; ++kk) db += sm[s & 1][0][kk * HM_LDT + tid];
-    }
-  }
-  float* out = ws + (size_t)blockIdx.y * n_slice;
-  const int k1 = src.k1;
-  if (nv > 0)
-    hm_store(c, m0, n0, nv, K - kb, [&](int m, int n, float v) {
-      const int o = nb + m, k = kb + n;
-      if (o >= N) return;
-      if (k < k1) out[off_w1 + (size_t)o * k1 + k] = v;
-      else out[off_w2 + (size_t)o * (K - k1) + (k - k1)] = v;
-    });
-  if (do_b && nb + tid < N) out[off_b + nb + tid] = db;
-}
-
 // Where dIn = G . W goes. mode 0: columns k < x_cols into dX (stored or
 // added), the rest, masked by the saved input hprev > 0, into gn (the
 // gradient of the previous layer's output). mode 1 (rgb1): d hc into the
@@ -711,16 +643,6 @@ nh_appr_kernel(const float* __restrict__ gpair, int n_pairs, int RH, int CA,
   }
 }
 
-// out[e] = sum over the chunks' slices c (in order) of ws[c * n + e]
-__global__ void __launch_bounds__(HM_THREADS)
-nh_reduce_kernel(const float* __restrict__ ws, int n_slices, int n, float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float s = 0.f;
-  for (int b = 0; b < n_slices; ++b) s += ws[(size_t)b * n + e];
-  out[e] = s;
-}
-
 // ------------------------------------------------------------------ launch
 
 static size_t nh_fwd_smem(const NhArgs& a) {
@@ -786,10 +708,11 @@ extern "C" {
 // the points x (rows, 3); appr: (rows / spp, appr_dim) appearance rows.
 // wpk: pk_total floats of scratch for the pre-split weights. acts: null,
 // or (act_total * rows) floats for every layer output (K2's input). Two
-// launches: the weights' split, then the heads.
+// launches: the weights' split, then the heads. Returns the error, or 0;
+// *n_launches: the launches made.
 int lab4d_nerf_heads_fwd(const NhArgs* args, const float* x, const float* appr, float* wpk,
                          float* density, float* rgb, float* vis, float* feat, float* acts,
-                         void* stream) {
+                         int* n_launches, void* stream) {
   const NhArgs& a = *args;
   int err = nh_check(a);
   if (err) return err;
@@ -799,12 +722,18 @@ int lab4d_nerf_heads_fwd(const NhArgs* args, const float* x, const float* appr, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int n_layers = 2;
   for (int i = 0; i < NH_HEADS; ++i) n_layers += a.head[i].n_layers;
+  int n = 0;
   nh_pack_kernel<<<dim3(8, n_layers), HM_THREADS, 0, st>>>(a, wpk);
   err = (int)cudaGetLastError();
   if (err) return err;
+  ++n;
   nerf_heads_fwd_kernel<<<a.rows / NH_TR, NH_K1_THREADS, smem, st>>>(a, x, appr, wpk, density, rgb,
                                                                      vis, feat, acts);
-  return (int)cudaGetLastError();
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  ++n;
+  if (n_launches != nullptr) *n_launches = n;
+  return 0;
 }
 
 size_t lab4d_nerf_heads_bwd_scratch(const NhArgs* args) { return nh_bwd_scratch(*args); }
@@ -861,10 +790,10 @@ int lab4d_nerf_heads_bwd(const NhArgs* args, const float* x, const float* appr, 
     return 0;
   };
   auto act = [&](int off) { return acts + (size_t)off * P; };
-  auto dw = [&](const float* g, int N, NhSrc src, int K, int ow1, int ow2, int ob) {
+  auto dw = [&](const float* g, int N, HmSrc src, int K, int ow1, int ow2, int ob) {
     const int nkt = (K + 63) / 64;
-    nh_dw_kernel<<<dim3(((N + 63) / 64) * nkt, a.n_chunks), HM_THREADS, 0, st>>>(
-        g, N, src, K, pc, nkt, ws, a.n_slice, ow1, ow2, ob);
+    hm_dw_kernel<<<dim3(((N + 63) / 64) * nkt, a.n_chunks), HM_THREADS, 0, st>>>(
+        g, N, src, K, a.rows, pc, nkt, ws, a.n_slice, src.k1, ow1, ow2, ob);
     return done(2);
   };
   auto din = [&](const float* g, int N, NhPk w, int K, const NhDinOut& o) {
@@ -887,8 +816,8 @@ int lab4d_nerf_heads_bwd(const NhArgs* args, const float* x, const float* appr, 
   nh_bwd_out_kernel<<<a.n_chunks, NH_OUT_THREADS, 0, st>>>(a, acts, rgb, gd, grgb, gfeat, hc, g_sdf,
                                                        g_rgb, g_rgbh, g_f16, ws);
   if ((err = done(0))) return err;
-  if ((err = dw(g_sdf, 1, NhSrc{featb, W, W, featb, W}, W, a.off_w_sdf, a.off_w_sdf, a.off_b_sdf))) return err;
-  if ((err = dw(g_rgb, NH_RGB, NhSrc{rgbh, RH, RH, rgbh, RH}, RH, a.off_w_rgb2, a.off_w_rgb2,
+  if ((err = dw(g_sdf, 1, HmSrc{featb, W, W, featb, W}, W, a.off_w_sdf, a.off_w_sdf, a.off_b_sdf))) return err;
+  if ((err = dw(g_rgb, NH_RGB, HmSrc{rgbh, RH, RH, rgbh, RH}, RH, a.off_w_rgb2, a.off_w_rgb2,
                 a.off_b_rgb2)))
     return err;
   nh_pair_sum_kernel<<<n_pairs, HM_THREADS, 0, st>>>(g_rgbh, a.spp, RH, gpair);
@@ -897,7 +826,7 @@ int lab4d_nerf_heads_bwd(const NhArgs* args, const float* x, const float* appr, 
   nh_appr_kernel<<<8, HM_THREADS, 0, st>>>(gpair, n_pairs, RH, a.appr_dim, appr, a.w_appr, dappr,
                                            dw_appr, dw_appr + (size_t)RH * a.appr_dim);
   if ((err = done(5))) return err;
-  if ((err = dw(g_rgbh, RH, NhSrc{hc, W, W, hc, W}, W, a.off_w_hc, a.off_w_hc, -1))) return err;
+  if ((err = dw(g_rgbh, RH, HmSrc{hc, W, W, hc, W}, W, a.off_w_hc, a.off_w_hc, -1))) return err;
   {
     NhDinOut o{};
     o.mode = 1;
@@ -927,9 +856,9 @@ int lab4d_nerf_heads_bwd(const NhArgs* args, const float* x, const float* appr, 
       const bool has_x = l == 0 || skip;
       const float* hprev = l > 0 ? act(h.act_off[l - 1]) : nullptr;
       const int kh = l > 0 ? h.out_dim[l - 1] : 0;
-      const NhSrc src = l == 0 ? NhSrc{X, h.c_x, h.c_x, X, h.c_x}
-                        : skip ? NhSrc{X, h.c_x, h.c_x, hprev, kh}
-                               : NhSrc{hprev, kh, kh, hprev, kh};
+      const HmSrc src = l == 0 ? HmSrc{X, h.c_x, h.c_x, X, h.c_x}
+                        : skip ? HmSrc{X, h.c_x, h.c_x, hprev, kh}
+                               : HmSrc{hprev, kh, kh, hprev, kh};
       if ((err = dw(g, N, src, K, h.off_w1[l], h.off_w2[l], h.off_b[l]))) return err;
       NhDinOut o{};
       o.mode = 0;
@@ -947,7 +876,7 @@ int lab4d_nerf_heads_bwd(const NhArgs* args, const float* x, const float* appr, 
     nh_fold_kernel<<<grid_e, HM_THREADS, 0, st>>>(a, hi, x, dX, dx, hi == 0 ? 1 : 0);
     if ((err = done(4))) return err;
   }
-  nh_reduce_kernel<<<(a.n_slice + HM_THREADS - 1) / HM_THREADS, HM_THREADS, 0, st>>>(
+  hm_reduce_kernel<<<(a.n_slice + HM_THREADS - 1) / HM_THREADS, HM_THREADS, 0, st>>>(
       ws, a.n_chunks, a.n_slice, grads);
   if ((err = done(6))) return err;
   if (n_launches != nullptr) *n_launches = n;

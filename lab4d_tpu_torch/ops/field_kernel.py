@@ -422,7 +422,7 @@ def bind_signatures(lib):
     """Declare the C signatures of a nerf_heads library and check its
     NhArgs layout against _NhArgs; returns lib."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lab4d_nerf_heads_fwd.argtypes = [vp] * 10
+    lib.lab4d_nerf_heads_fwd.argtypes = [vp] * 11
     lib.lab4d_nerf_heads_fwd.restype = i32
     lib.lab4d_nerf_heads_bwd.argtypes = [vp] * 15 + [i32, vp, vp]
     lib.lab4d_nerf_heads_bwd.restype = i32
@@ -546,16 +546,20 @@ def _prepare(x, appr, win_b, win_c, nets, ibeta, cfg, spp):
 
 def _launch_fwd(lib, x, appr, win_b, win_c, nets, ibeta, cfg, spp, stream, save=False):
     """Run K1; returns (density, rgb, vis, feat), and the saved layer
-    outputs (act_layout) as a last element when save."""
+    outputs (act_layout) as a last element when save. The CUDA launches
+    made are left in `fused_nerf_heads.cuda_launches`."""
     args, _snets, _, _, _, _ibeta = _prepare(x, appr, win_b, win_c, nets, ibeta, cfg, spp)
     P = x.shape[0]
     outs = [torch.empty((P, c), device=x.device, dtype=x.dtype) for c in OUT_DIMS[:3]]
     outs.append(torch.empty((P, nets["feat"][-2].shape[0]), device=x.device, dtype=x.dtype))
     acts = torch.empty(P * args.act_total, device=x.device, dtype=x.dtype) if save else None
     wpk = torch.empty(args.pk_total, device=x.device, dtype=x.dtype)
+    n_launches = ctypes.c_int(0)
     err = lib.lab4d_nerf_heads_fwd(ctypes.addressof(args), x.data_ptr(), appr.data_ptr(),
-                                   wpk.data_ptr(), *[o.data_ptr() for o in outs], _ptr(acts), stream)
+                                   wpk.data_ptr(), *[o.data_ptr() for o in outs], _ptr(acts),
+                                   ctypes.byref(n_launches), stream)
     _raise_on(lib, err, "nerf_heads_fwd")
+    fused_nerf_heads.cuda_launches = n_launches.value
     return tuple(outs) + ((acts,) if save else ())
 
 
@@ -659,8 +663,10 @@ def fused_nerf_heads(x, appr_rows, win_b, win_c, nets, ibeta, cfg, spp):
         density (P,1), sigmoid rgb (P,3), visibility logit (P,1),
         normalised feature (P,16)
 
-    A CUDA tensor goes through K1 (counted in `fused_nerf_heads.launches`)
-    and its gradient through K2; a CPU tensor through nerf_heads_reference.
+    A CUDA tensor goes through K1 (one count in `fused_nerf_heads.launches`
+    for its CUDA launches, whose number is left in
+    `fused_nerf_heads.cuda_launches`) and its gradient through K2; a CPU
+    tensor through nerf_heads_reference.
     """
     if x.device.type == "cuda":
         flat, order = flatten_nets(nets)
@@ -671,6 +677,7 @@ def fused_nerf_heads(x, appr_rows, win_b, win_c, nets, ibeta, cfg, spp):
 
 
 fused_nerf_heads.launches = 0
+fused_nerf_heads.cuda_launches = 0
 
 
 def fused_nerf_heads_backward(x, g, appr_rows, win_b, win_c, nets, ibeta, cfg, spp, saved=None):

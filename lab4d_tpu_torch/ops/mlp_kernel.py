@@ -7,11 +7,15 @@ the JAX package stores the transpose.
 
 - K3f `fused_relu_mlp` forward (csrc/fused_relu_mlp.cu): few rows, the
   TimeMLP backbones.
-- K3b `fused_relu_mlp_backward` (csrc/fused_pe_mlp.cu, the K4b entry
-  with no frequencies): its VJP.
+- K3b `fused_relu_mlp_backward` (csrc/fused_relu_mlp.cu on the row-tiled
+  backward of csrc/mlp_tiles.cuh): its VJP.
 - K4f `fused_pe_mlp` (csrc/fused_pe_mlp.cu): Fourier embedding + MLP over
-  the points of a training step.
-- K4b `fused_pe_mlp_backward` (csrc/fused_pe_mlp.cu): its VJP.
+  the points of a training step, on 3xTF32 tensor cores. When autograd
+  needs a gradient it also saves every hidden layer output
+  (`pe_act_layout`, `pe_mlp_forward_saved`).
+- K4b `fused_pe_mlp_backward` (csrc/fused_pe_mlp.cu): its VJP from those
+  saved outputs, layer by layer over all points; its plain version on the
+  same saved outputs is `pe_mlp_backward_saved_reference`.
 
 Each public function launches its kernel for a CUDA tensor (counted in
 `<function>.launches`) and uses its plain version for a CPU tensor; on any
@@ -21,10 +25,12 @@ differentiable: on the card their backward is K3b / K4b, first order only
 mask on the incoming gradient is applied here, outside the kernels, as the
 JAX VJPs do.
 
-The backward kernels work on tiles of rows and reduce the weight
-gradients over the tiles through a workspace of one slice per block;
-`tile_plan` picks the tile height and the grid from the layer widths, and
-is plain Python so that the CPU tests reach it.
+K3b works on tiles of rows and reduces the weight gradients over the tiles
+through a workspace of one slice per block; `tile_plan` picks its tile
+height and grid, in plain Python so that the CPU tests reach it. K4f /
+K4b's launch plan is the library's own (`pe_mlp_plan` reads it from
+csrc/fused_pe_mlp.cu); only their width limit (`check_pe_widths`) and the
+saved outputs' layout (`pe_act_layout`) are kept here.
 """
 
 from __future__ import annotations
@@ -39,12 +45,13 @@ from torch.autograd.function import once_differentiable
 
 from lab4d_tpu_torch.nnutils.embedding import fourier_embed
 
-MAX_LAYERS = 16  # MLP_MAX_LAYERS in csrc/fused_relu_mlp.cu, TM_MAX_LAYERS in csrc/mlp_tiles.cuh
-MAX_FREQS = 16  # TM_MAX_FREQS
-TILE_KC = 16  # TM_KC: k-chunk of the staged weights
+MAX_LAYERS = 16  # MLP_MAX_LAYERS in csrc/fused_relu_mlp.cu, TM_ / PM_MAX_LAYERS in the others
+MAX_FREQS = 16  # PM_MAX_FREQS in csrc/fused_pe_mlp.cu
+TILE_KC = 16  # TM_KC: k-chunk of K3b's staged weights
 TILE_STAGE = 16 * 256  # TM_STAGE_REGS * TM_THREADS: staged weights per k-chunk
 SMEM_PER_SM = 227 * 1024  # bytes of shared memory a block may use on sm_90
-TILE_ROWS = (64, 48, 32, 16, 8)
+TILE_ROWS = (64, 48, 32, 16, 8)  # K3b's tile heights
+PE_MAX_WIDTH = 128  # PM_NMAX: widest layer output and embedding of K4f / K4b
 
 
 # ------------------------------------------------------------ plain versions
@@ -89,12 +96,82 @@ def pe_mlp_reference(x, window, weights, biases, freqs, skip_idx=(), final_act: 
 
 
 def pe_mlp_backward_reference(x, g, window, weights, biases, freqs, skip_idx=()):
-    """Plain version of K4b: (dx, dWs, dbs) of pe_mlp_reference (no final
-    ReLU); no gradient reaches the window."""
+    """Autograd of pe_mlp_reference (no final ReLU): (dx, dWs, dbs) for the
+    output gradient g; no gradient reaches the window."""
     n = len(weights)
     grads = _vjp(lambda x_, *p: pe_mlp_reference(x_, window, p[:n], p[n:], freqs, skip_idx),
                  (x, *weights, *biases), g)
     return grads[0], list(grads[1 : 1 + n]), list(grads[1 + n :])
+
+
+def pe_act_layout(weights):
+    """The layout of the hidden layer outputs K4f saves for K4b: the floats
+    per point before each hidden layer's block, and the floats per point in
+    all. Layer l's block is a row-major (rows, out_l) array at
+    offset * rows of the flat buffer; the last layer's output is not saved."""
+    offs, n = [], 0
+    for w in weights[:-1]:
+        offs.append(n)
+        n += w.shape[0]
+    return offs, n
+
+
+def pe_mlp_forward_saved_reference(x, window, weights, biases, freqs, skip_idx=(),
+                                   final_act: bool = False, pre_activations: bool = False):
+    """Plain version of K4f with its saved layer outputs: (out, acts), out
+    as pe_mlp_reference computes it and acts the flat (rows * floats per
+    point,) buffer of every hidden layer's output after its ReLU, in
+    pe_act_layout's order, as K4f writes it when autograd needs it. With
+    pre_activations, acts holds each hidden layer's output before its ReLU
+    instead (the inputs whose sign decides each ReLU's gradient)."""
+    X = fourier_embed(x, tuple(freqs), window)
+    h, zs = X, []
+    n = len(weights)
+    for i in range(n):
+        if i in skip_idx:
+            h = torch.cat([X, h], dim=-1)
+        z = F.linear(h, weights[i], biases[i])
+        zs.append(z)
+        h = torch.relu(z) if i < n - 1 or final_act else z
+    blocks = zs[:-1] if pre_activations else [torch.relu(z) for z in zs[:-1]]
+    acts = torch.cat([b.reshape(-1) for b in blocks]) if blocks else x.new_zeros(0)
+    return h, acts
+
+
+def pe_mlp_backward_saved_reference(x, g, window, weights, biases, freqs, skip_idx, acts):
+    """Plain version of K4b's dataflow: (dx, dWs, dbs) for the output
+    gradient g (already masked by the final ReLU) from the saved hidden
+    outputs acts (pe_act_layout), layer by layer in reverse as K4b runs it:
+    dW = G^T A, db = sum G, dIn = G W with the ReLU mask of the saved input,
+    the X columns summed into dX, then dx through sin / cos and the window."""
+    rows = x.shape[0]
+    offs, _ = pe_act_layout(weights)
+
+    def saved(i):
+        w = weights[i].shape[0]
+        return acts[offs[i] * rows: (offs[i] + w) * rows].view(rows, w)
+
+    with torch.enable_grad():
+        xl = x.detach().requires_grad_(True)
+        X = fourier_embed(xl, tuple(freqs), window)
+    Xd = X.detach()
+    c_x = Xd.shape[1]
+    dX = torch.zeros_like(Xd)
+    n = len(weights)
+    dws, dbs = [None] * n, [None] * n
+    gcur = g
+    for i in range(n - 1, -1, -1):
+        hprev = saved(i - 1) if i > 0 else None
+        A = Xd if i == 0 else (torch.cat([Xd, hprev], dim=-1) if i in skip_idx else hprev)
+        dws[i] = gcur.T @ A
+        dbs[i] = gcur.sum(0)
+        din = gcur @ weights[i]
+        if i == 0 or i in skip_idx:
+            dX = dX + din[:, :c_x]
+            din = din[:, c_x:]
+        if i > 0:
+            gcur = din * (hprev > 0)
+    return torch.autograd.grad(X, xl, dX)[0], dws, dbs
 
 
 # ---------------------------------------------------------- launch planning
@@ -112,50 +189,42 @@ def _stage_ld(in_dims, out_dims):
     return (max_w + 31) // 32 * 32 + 4
 
 
-def tile_smem(c_x, in_dims, out_dims, tile_rows, backward):
-    """Shared memory of the row-tiled kernels (tm_fwd_smem / tm_bwd_smem
-    in csrc/mlp_tiles.cuh), bytes: k-major buffers of tile_rows + 4 floats
-    per feature, and the weight staging buffer."""
+def tile_smem(c_x, in_dims, out_dims, tile_rows):
+    """Shared memory of K3b's row-tiled backward (tm_bwd_smem in
+    csrc/mlp_tiles.cuh), bytes: k-major buffers of tile_rows + 4 floats per
+    feature, and the weight staging buffer."""
     stage = TILE_KC * _stage_ld(in_dims, out_dims)
-    max_out = max(out_dims)
-    if backward:
-        per_row = 2 * c_x + sum(out_dims[:-1]) + 2 * max_out
-    else:
-        per_row = c_x + 2 * max_out
+    per_row = 2 * c_x + sum(out_dims[:-1]) + 2 * max(out_dims)
     return 4 * ((tile_rows + 4) * per_row + stage)
 
 
-def tile_plan(c_x, in_dims, out_dims, rows, backward, n_sm):
-    """Tile height, shared memory and grid of a row-tiled launch.
-
-    Forward: the tallest tile that leaves room for two blocks per SM, one
-    block per tile. Backward: the tallest tile that fits (the weight
-    gradients are added to the block's workspace slice once per tile, so
-    taller tiles move fewer bytes), halved while the tiles cannot fill the
-    SMs; a grid-stride launch of at most one block per SM per slot, since
-    the workspace holds one slice of every weight gradient per block.
-    """
+def tile_plan(c_x, in_dims, out_dims, rows, n_sm):
+    """Tile height, shared memory and grid of K3b: the tallest tile that
+    fits (the weight gradients are added to the block's workspace slice
+    once per tile, so taller tiles move fewer bytes), halved while the
+    tiles cannot fill the SMs; a grid-stride launch of at most one block
+    per SM per slot, since the workspace holds one slice of every weight
+    gradient per block."""
     n_params = sum(o * (i + 1) for i, o in zip(in_dims, out_dims))
     if TILE_KC * (-(-max(*in_dims, *out_dims) // 4) * 4) > TILE_STAGE:
         raise ValueError(f"layers wider than {TILE_STAGE // TILE_KC} are not supported")
-    budget = SMEM_PER_SM if backward else SMEM_PER_SM // 2
-    fits = [t for t in TILE_ROWS if tile_smem(c_x, in_dims, out_dims, t, backward) <= budget]
-    if not fits and not backward:
-        fits = [t for t in TILE_ROWS if tile_smem(c_x, in_dims, out_dims, t, False) <= SMEM_PER_SM]
+    fits = [t for t in TILE_ROWS if tile_smem(c_x, in_dims, out_dims, t) <= SMEM_PER_SM]
     if not fits:
         raise ValueError(f"an MLP of widths {list(out_dims)} does not fit in shared memory")
     tr = fits[0]
-    if backward:
-        while tr > TILE_ROWS[-1] and -(-rows // tr) < n_sm and tr // 2 in fits:
-            tr //= 2
-    smem = tile_smem(c_x, in_dims, out_dims, tr, backward)
-    ntiles = -(-rows // tr)
-    if backward:
-        per_sm = max(1, min(2, SMEM_PER_SM // smem))
-        grid = min(ntiles, n_sm * per_sm)
-    else:
-        grid = ntiles
-    return TilePlan(tr, smem, grid, n_params)
+    while tr > TILE_ROWS[-1] and -(-rows // tr) < n_sm and tr // 2 in fits:
+        tr //= 2
+    smem = tile_smem(c_x, in_dims, out_dims, tr)
+    per_sm = max(1, min(2, SMEM_PER_SM // smem))
+    return TilePlan(tr, smem, min(-(-rows // tr), n_sm * per_sm), n_params)
+
+
+def check_pe_widths(c_x, out_dims):
+    """K4f / K4b hold every output column of a warp's rows (PM_NMAX): an
+    embedding or a layer wider than PE_MAX_WIDTH columns raises."""
+    if c_x > PE_MAX_WIDTH or max(out_dims) > PE_MAX_WIDTH:
+        raise ValueError(f"K4f / K4b take embeddings and layers of at most {PE_MAX_WIDTH} "
+                         f"columns, got {c_x} and {max(out_dims)}")
 
 
 # ------------------------------------------------------------ the libraries
@@ -166,7 +235,12 @@ def _kernel_lib(name: str):
     """A kernel library, built on first use, with its C signatures."""
     from lab4d_tpu_torch.ops.build import load_library
 
-    lib = load_library(name)
+    return bind_signatures(name, load_library(name))
+
+
+def bind_signatures(name, lib):
+    """Declare the C signatures of the library `name` (fused_relu_mlp or
+    fused_pe_mlp); returns lib."""
     vp, i32, pvp, pi32 = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
     pf32 = ctypes.POINTER(ctypes.c_float)
     if name == "fused_relu_mlp":
@@ -174,15 +248,23 @@ def _kernel_lib(name: str):
             vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, i32, i32, vp,
         ]
         lib.lab4d_fused_relu_mlp_fwd.restype = i32
+        lib.lab4d_relu_mlp_tile_bwd.argtypes = [
+            vp, vp, vp, vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, i32, i32, i32, vp,
+        ]
+        lib.lab4d_relu_mlp_tile_bwd.restype = i32
     elif name == "fused_pe_mlp":
-        lib.lab4d_fused_pe_mlp_fwd.argtypes = [
-            vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, pf32, vp, i32, i32, i32, i32, i32, vp,
+        lib.lab4d_pe_mlp_plan.argtypes = [pi32, pi32, i32, i32, i32, i32, i32,
+                                          ctypes.POINTER(ctypes.c_longlong)]
+        lib.lab4d_pe_mlp_plan.restype = i32
+        lib.lab4d_pe_mlp_fwd.argtypes = [
+            vp, vp, vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, pf32, vp, i32, i32, i32, vp, vp,
         ]
-        lib.lab4d_fused_pe_mlp_fwd.restype = i32
-        lib.lab4d_fused_pe_mlp_bwd.argtypes = [
-            vp, vp, vp, vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, pf32, vp, i32, i32, i32, i32, vp,
+        lib.lab4d_pe_mlp_fwd.restype = i32
+        lib.lab4d_pe_mlp_bwd.argtypes = [
+            vp, vp, vp, vp, vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, pf32, vp, i32, i32,
+            vp, vp, i32, vp, vp,
         ]
-        lib.lab4d_fused_pe_mlp_bwd.restype = i32
+        lib.lab4d_pe_mlp_bwd.restype = i32
     else:
         raise ValueError(name)
     lib.lab4d_cuda_error_string.argtypes = [i32]
@@ -267,23 +349,110 @@ def _split_grads(flat, weights):
     return dws, dbs
 
 
-def _launch_tile_bwd(lib, fn, x, g, weights, biases, skip_idx, n_sm, stream, pe):
-    """Run the row-tiled backward entry (K4b, or K3b with no frequencies).
-    pe: (n_freqs, freq array, window) from _freq_args."""
+def _launch_tile_bwd(lib, x, g, weights, biases, skip_idx, n_sm, stream):
+    """Run K3b, the row-tiled backward."""
     layers, skip_mask = _layer_args(weights, biases, skip_idx)
-    c_x = weights[0].shape[1]
-    plan = tile_plan(c_x, [w.shape[1] for w in weights], [w.shape[0] for w in weights],
-                     x.shape[0], True, n_sm)
+    plan = tile_plan(x.shape[1], [w.shape[1] for w in weights], [w.shape[0] for w in weights],
+                     x.shape[0], n_sm)
     dx = torch.empty_like(x)
     ws = torch.empty(plan.grid * plan.n_params, device=x.device, dtype=x.dtype)
     flat = torch.empty(plan.n_params, device=x.device, dtype=x.dtype)
-    n_freqs, freq_arr, window = pe
-    err = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), ws.data_ptr(), flat.data_ptr(), *layers,
-             x.shape[1], n_freqs, freq_arr, None if window is None else window.data_ptr(),
-             x.shape[0], plan.tile_rows, skip_mask, plan.grid, stream)
-    _raise_on(lib, err, fn.__name__)
+    err = lib.lab4d_relu_mlp_tile_bwd(x.data_ptr(), g.data_ptr(), dx.data_ptr(), ws.data_ptr(),
+                                      flat.data_ptr(), *layers, x.shape[1], x.shape[0],
+                                      plan.tile_rows, skip_mask, plan.grid, stream)
+    _raise_on(lib, err, "relu_mlp_tile_bwd")
     dws, dbs = _split_grads(flat, weights)
     return dx, dws, dbs
+
+
+class PeMlpPlan(NamedTuple):
+    """K4f / K4b's launch plan for one shape, as lab4d_pe_mlp_plan
+    (csrc/fused_pe_mlp.cu) returns it."""
+    pk_floats: int  # K4f's pre-split weights (hi and lo)
+    act_floats: int  # saved floats per point (pe_act_layout)
+    n_params: int  # floats of the gradients: every dW, then every db
+    n_chunks: int  # K4b: chunks of the points, one workspace slice each
+    chunk_rows: int  # points per chunk, whole k-slabs
+    scratch_floats: int  # K4b's scratch
+    smem_bytes: int  # K4f's shared memory per block
+    tile_rows: int  # K4f: points per tile
+    n_tiles: int  # K4f's tiles (a persistent block per SM takes them in turn)
+    bwd_launches: int  # CUDA launches of one K4b call
+
+
+def pe_mlp_plan(lib, c_raw, n_freqs, in_dims, out_dims, rows, skip_mask=0):
+    """K4f / K4b's launch plan (PeMlpPlan) from the library lib."""
+    return _plan_of(lib, c_raw, n_freqs, tuple(in_dims), tuple(out_dims), rows, skip_mask)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_of(lib, c_raw, n_freqs, in_dims, out_dims, rows, skip_mask):
+    n = len(in_dims)
+    sizes = (ctypes.c_longlong * len(PeMlpPlan._fields))()
+    err = lib.lab4d_pe_mlp_plan((ctypes.c_int * n)(*in_dims), (ctypes.c_int * n)(*out_dims), n,
+                                c_raw, n_freqs, rows, skip_mask, sizes)
+    _raise_on(lib, err, "pe_mlp_plan")
+    return PeMlpPlan(*sizes)
+
+
+def _pe_plan(lib, x, weights, n_freqs, skip_mask):
+    return pe_mlp_plan(lib, x.shape[1], n_freqs, [w.shape[1] for w in weights],
+                       [w.shape[0] for w in weights], x.shape[0], skip_mask)
+
+
+def _launch_pe_fwd(lib, x, window, weights, biases, freqs, skip_idx, final_act, stream, save):
+    """Run K4f; returns (out, acts, n), acts the saved hidden outputs
+    (pe_act_layout) when save, else None, and n the CUDA launches made."""
+    layers, skip_mask = _layer_args(weights, biases, skip_idx)
+    n_freqs, freq_arr, window = _freq_args(freqs, window, x)
+    plan = _pe_plan(lib, x, weights, n_freqs, skip_mask)
+    out = torch.empty((x.shape[0], weights[-1].shape[0]), device=x.device, dtype=x.dtype)
+    acts = torch.empty(x.shape[0] * plan.act_floats, device=x.device, dtype=x.dtype) if save else None
+    wpk = torch.empty(plan.pk_floats, device=x.device, dtype=x.dtype)
+    n_launches = ctypes.c_int(0)
+    err = lib.lab4d_pe_mlp_fwd(
+        x.data_ptr(), out.data_ptr(), None if acts is None else acts.data_ptr(), wpk.data_ptr(),
+        *layers, x.shape[1], n_freqs, freq_arr, None if window is None else window.data_ptr(),
+        x.shape[0], skip_mask, int(final_act), ctypes.byref(n_launches), stream)
+    _raise_on(lib, err, "pe_mlp_fwd")
+    return out, acts, n_launches.value
+
+
+def _launch_pe_bwd(lib, x, g, window, weights, biases, freqs, skip_idx, acts, stream, events=None):
+    """Run K4b (its sequence of launches) from K4f's saved outputs acts;
+    returns (dx, dWs, dbs, kinds): kinds lists each CUDA launch's kind
+    (csrc/fused_pe_mlp.cu:lab4d_pe_mlp_bwd). events: CUDA events (created,
+    as torch.cuda.Event after one record) recorded before the first launch
+    and after each launch."""
+    layers, skip_mask = _layer_args(weights, biases, skip_idx)
+    n_freqs, freq_arr, window = _freq_args(freqs, window, x)
+    plan = _pe_plan(lib, x, weights, n_freqs, skip_mask)
+    if acts.shape != (x.shape[0] * plan.act_floats,) or acts.device != x.device or \
+            acts.dtype != x.dtype or not acts.is_contiguous():
+        raise ValueError(f"acts must hold {plan.act_floats} floats per point (pe_act_layout)")
+    dx = torch.empty_like(x)
+    flat = torch.empty(plan.n_params, device=x.device, dtype=x.dtype)
+    scratch = torch.empty(plan.scratch_floats, device=x.device, dtype=x.dtype)
+    n_ev = 64 if events is None else len(events)
+    kinds = (ctypes.c_int * n_ev)()
+    handles = None if events is None else (ctypes.c_void_p * n_ev)(*[e.cuda_event for e in events])
+    n_launches = ctypes.c_int(0)
+    err = lib.lab4d_pe_mlp_bwd(
+        x.data_ptr(), g.data_ptr(), acts.data_ptr(), dx.data_ptr(), flat.data_ptr(),
+        scratch.data_ptr(), *layers, x.shape[1], n_freqs, freq_arr,
+        None if window is None else window.data_ptr(), x.shape[0], skip_mask, handles, kinds, n_ev,
+        ctypes.byref(n_launches), stream)
+    _raise_on(lib, err, "pe_mlp_bwd")
+    dws, dbs = _split_grads(flat, weights)
+    return dx, dws, dbs, list(kinds[: min(n_launches.value, n_ev - 1)])
+
+
+def needs_saved(*tensors):
+    """Whether autograd may call a backward of a function of these inputs:
+    grad mode is on and one of them requires a gradient. (Inside an
+    autograd.Function's forward grad mode is off and needs_input_grad does
+    not see it, so the caller decides.)"""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 # ------------------------------------------------------------------ K3f, K3b
@@ -364,9 +533,8 @@ def fused_relu_mlp_backward(x, g, weights, biases, skip_idx=()):
     _check_args(x, weights, biases, skip_idx)
     if g.shape != (x.shape[0], weights[-1].shape[0]) or not g.is_contiguous() or g.dtype != x.dtype:
         raise ValueError(f"g must be a contiguous ({x.shape[0]}, {weights[-1].shape[0]}) float32 tensor")
-    lib = _kernel_lib("fused_pe_mlp")
-    out = _launch_tile_bwd(lib, lib.lab4d_fused_pe_mlp_bwd, x, g, weights, biases, skip_idx,
-                           _n_sm(x.device), _stream(x.device), pe=_freq_args((), None, x))
+    lib = _kernel_lib("fused_relu_mlp")
+    out = _launch_tile_bwd(lib, x, g, weights, biases, skip_idx, _n_sm(x.device), _stream(x.device))
     fused_relu_mlp_backward.launches += 1
     return out
 
@@ -377,43 +545,65 @@ fused_relu_mlp_backward.launches = 0
 # ------------------------------------------------------------------ K4f, K4b
 
 
+def pe_mlp_forward_saved(x, window, weights, biases, freqs, skip_idx=(), final_act: bool = False):
+    """K4f with its saved hidden outputs: (out, acts), acts in
+    pe_act_layout. A CUDA tensor runs K4f (counted in
+    `fused_pe_mlp.launches`); a CPU tensor pe_mlp_forward_saved_reference."""
+    freqs, skip_idx = tuple(float(f) for f in freqs), tuple(skip_idx)
+    if x.device.type == "cpu":
+        return pe_mlp_forward_saved_reference(x, window, weights, biases, freqs, skip_idx, final_act)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"pe_mlp_forward_saved has no kernel for device {x.device}")
+    return _pe_forward_cuda(x, window, weights, biases, freqs, skip_idx, final_act, save=True)
+
+
+def _check_pe_args(x, weights, biases, skip_idx, n_freqs):
+    _check_args(x, weights, biases, skip_idx, n_freqs)
+    check_pe_widths(x.shape[1] * (2 * n_freqs + 1), [w.shape[0] for w in weights])
+
+
+def _pe_forward_cuda(x, window, weights, biases, freqs, skip_idx, final_act, save):
+    _check_pe_args(x, weights, biases, skip_idx, len(freqs))
+    *out, n = _launch_pe_fwd(_kernel_lib("fused_pe_mlp"), x, window, weights, biases, freqs,
+                             skip_idx, final_act, _stream(x.device), save)
+    fused_pe_mlp.launches += 1
+    fused_pe_mlp.cuda_launches = n
+    return tuple(out)
+
+
 class _FusedPEMLP(torch.autograd.Function):
-    """Forward through K4f, backward through K4b; no gradient reaches the
-    window (the JAX VJP returns zeros for it)."""
+    """Forward through K4f, saving every hidden layer output when `save`
+    (the caller's needs_saved); backward through K4b from them; no gradient
+    reaches the window (the JAX VJP returns zeros for it). On CPU tensors
+    (the tests) both run their plain versions of that dataflow."""
 
     @staticmethod
-    def forward(ctx, x, window, freqs, skip_idx, final_act, *params):
+    def forward(ctx, x, window, freqs, skip_idx, final_act, save, *params):
         n = len(params) // 2
         weights, biases = params[:n], params[n:]
-        _check_args(x, weights, biases, skip_idx, len(freqs))
-        n_freqs, freq_arr, window = _freq_args(freqs, window, x)
-        lib = _kernel_lib("fused_pe_mlp")
-        layers, skip_mask = _layer_args(weights, biases, skip_idx)
-        plan = tile_plan(weights[0].shape[1], [w.shape[1] for w in weights],
-                         [w.shape[0] for w in weights], x.shape[0], False, 1)
-        out = torch.empty((x.shape[0], weights[-1].shape[0]), device=x.device, dtype=x.dtype)
-        err = lib.lab4d_fused_pe_mlp_fwd(
-            x.data_ptr(), out.data_ptr(), *layers, x.shape[1], n_freqs, freq_arr,
-            None if window is None else window.data_ptr(), x.shape[0], plan.tile_rows,
-            skip_mask, int(final_act), plan.grid, _stream(x.device),
-        )
-        _raise_on(lib, err, "fused_pe_mlp")
-        fused_pe_mlp.launches += 1
+        if save:
+            out, acts = pe_mlp_forward_saved(x, window, weights, biases, freqs, skip_idx, final_act)
+        elif x.device.type == "cuda":
+            out, acts = _pe_forward_cuda(x, window, weights, biases, freqs, skip_idx, final_act,
+                                         save=False)
+        else:
+            out, acts = pe_mlp_reference(x, window, weights, biases, freqs, skip_idx, final_act), None
         ctx.freqs, ctx.skip_idx, ctx.final_act = freqs, skip_idx, final_act
-        ctx.has_window = window is not None
-        ctx.save_for_backward(x, out, *([window] if window is not None else []), *params)
+        ctx.save_for_backward(x, out, window, acts, *params)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        x, out, *rest = ctx.saved_tensors
-        window = rest.pop(0) if ctx.has_window else None
-        n = len(rest) // 2
+        x, out, window, acts, *params = ctx.saved_tensors
+        if acts is None:
+            raise RuntimeError("fused_pe_mlp ran without saving its layer outputs (no input "
+                               "required a gradient, or grad mode was off)")
+        n = len(params) // 2
         g = grad_out * (out > 0.0) if ctx.final_act else grad_out
-        dx, dws, dbs = fused_pe_mlp_backward(x, g.contiguous(), window, rest[:n], rest[n:],
-                                             ctx.freqs, ctx.skip_idx)
-        return (dx, None, None, None, None, *dws, *dbs)
+        dx, dws, dbs = fused_pe_mlp_backward(x, g.contiguous(), window, params[:n], params[n:],
+                                             ctx.freqs, ctx.skip_idx, saved=acts)
+        return (dx, None, None, None, None, None, *dws, *dbs)
 
 
 def fused_pe_mlp(x, window, weights, biases, freqs, skip_idx=(), final_act: bool = False):
@@ -421,44 +611,60 @@ def fused_pe_mlp(x, window, weights, biases, freqs, skip_idx=(), final_act: bool
 
     Args:
         x: (rows, C) raw coordinates; window: (F,) annealing weights or None
-        weights/biases: MLP params consuming C * (2F + 1) inputs, (out, in)
+        weights/biases: MLP params consuming C * (2F + 1) inputs, (out, in),
+            at most 128 columns each on the card (and the embedding too)
         freqs: the F frequency bands (Python floats)
     Returns:
         (rows, out_last)
 
-    A CUDA tensor goes through K4f (counted in `fused_pe_mlp.launches`) and
-    its gradient through K4b; a CPU tensor through `pe_mlp_reference`.
+    A CUDA tensor goes through K4f (one count in `fused_pe_mlp.launches`
+    for its CUDA launches, whose number is left in
+    `fused_pe_mlp.cuda_launches`), which saves its hidden outputs when
+    autograd needs a gradient
+    (needs_saved), and its gradient through K4b; a CPU tensor through
+    `pe_mlp_reference`.
     """
     freqs, skip_idx = tuple(float(f) for f in freqs), tuple(skip_idx)
     if x.device.type == "cuda":
-        return _FusedPEMLP.apply(x, window, freqs, skip_idx, bool(final_act), *weights, *biases)
+        save = needs_saved(x, *weights, *biases)
+        return _FusedPEMLP.apply(x, window, freqs, skip_idx, bool(final_act), save, *weights,
+                                 *biases)
     if x.device.type == "cpu":
         return pe_mlp_reference(x, window, weights, biases, freqs, skip_idx, final_act)
     raise NotImplementedError(f"fused_pe_mlp has no kernel for device {x.device}")
 
 
 fused_pe_mlp.launches = 0
+fused_pe_mlp.cuda_launches = 0
 
 
-def fused_pe_mlp_backward(x, g, window, weights, biases, freqs, skip_idx=()):
+def fused_pe_mlp_backward(x, g, window, weights, biases, freqs, skip_idx=(), saved=None):
     """VJP of fused_pe_mlp without the final ReLU (the caller masks g):
-    (dx, dWs, dbs). K4b on a CUDA tensor (counted in
-    `fused_pe_mlp_backward.launches`), `pe_mlp_backward_reference` on a CPU
-    tensor."""
+    (dx, dWs, dbs). saved: the hidden outputs of pe_mlp_forward_saved, which
+    K4b needs. A CUDA tensor runs K4b (one count in
+    `fused_pe_mlp_backward.launches` for its sequence of CUDA launches,
+    whose number is left in `fused_pe_mlp_backward.cuda_launches`); a CPU
+    tensor pe_mlp_backward_saved_reference, or pe_mlp_backward_reference
+    when saved is None."""
     freqs, skip_idx = tuple(float(f) for f in freqs), tuple(skip_idx)
-    if x.device.type == "cpu":
-        return pe_mlp_backward_reference(x, g, window, weights, biases, freqs, skip_idx)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"fused_pe_mlp_backward has no kernel for device {x.device}")
-    _check_args(x, weights, biases, skip_idx, len(freqs))
+    if saved is None:
+        if x.device.type == "cuda":
+            raise ValueError("K4b needs the layer outputs of pe_mlp_forward_saved (saved=)")
+        return pe_mlp_backward_reference(x, g, window, weights, biases, freqs, skip_idx)
+    if x.device.type == "cpu":
+        return pe_mlp_backward_saved_reference(x, g, window, weights, biases, freqs, skip_idx,
+                                               saved)
+    _check_pe_args(x, weights, biases, skip_idx, len(freqs))
     if g.shape != (x.shape[0], weights[-1].shape[0]) or not g.is_contiguous() or g.dtype != x.dtype:
         raise ValueError(f"g must be a contiguous ({x.shape[0]}, {weights[-1].shape[0]}) float32 tensor")
-    pe = _freq_args(freqs, window, x)
-    lib = _kernel_lib("fused_pe_mlp")
-    out = _launch_tile_bwd(lib, lib.lab4d_fused_pe_mlp_bwd, x, g, weights, biases, skip_idx,
-                           _n_sm(x.device), _stream(x.device), pe=pe)
+    *out, kinds = _launch_pe_bwd(_kernel_lib("fused_pe_mlp"), x, g, window, weights, biases, freqs,
+                                 skip_idx, saved, _stream(x.device))
     fused_pe_mlp_backward.launches += 1
-    return out
+    fused_pe_mlp_backward.cuda_launches = len(kinds)
+    return tuple(out)
 
 
 fused_pe_mlp_backward.launches = 0
+fused_pe_mlp_backward.cuda_launches = 0

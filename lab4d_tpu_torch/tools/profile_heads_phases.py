@@ -166,11 +166,11 @@ K2_KINDS = ("output cotangents", "embedding", "dW", "dIn", "dx fold", "appearanc
             "weight split")
 
 
-def patched_sources(csrc, patches):
-    """{file name: text} of csrc's nerf_heads.cu and headers with the
+def patched_sources(csrc, patches, main="nerf_heads.cu"):
+    """{file name: text} of csrc's `main` source and headers with the
     patches applied; each anchor must occur exactly once."""
     texts = {p.name: p.read_text() for p in sorted(csrc.glob("*.cuh"))}
-    texts["nerf_heads.cu"] = (csrc / "nerf_heads.cu").read_text()
+    texts[main] = (csrc / main).read_text()
     for fname, anchor, repl in patches:
         if texts[fname].count(anchor) != 1:
             raise RuntimeError(f"the anchor {anchor[:50]!r}... is not in {fname} exactly once")
@@ -178,40 +178,42 @@ def patched_sources(csrc, patches):
     return texts
 
 
-def start_copies(csrc, copies, out_dir):
-    """Write csrc's nerf_heads.cu and headers once per copy ({name:
+def start_copies(csrc, copies, out_dir, main="nerf_heads.cu"):
+    """Write csrc's `main` source and headers once per copy ({name:
     patches}) into out_dir/<name>/ and start one nvcc on each; returns
     {name: process}."""
     from lab4d_tpu_torch.ops.build import NVCC_FLAGS, find_nvcc
 
+    stem = main.rsplit(".", 1)[0]
     procs = {}
     for name, patches in copies.items():
         d = os.path.join(out_dir, name)
         os.makedirs(d, exist_ok=True)
-        for fname, text in patched_sources(csrc, patches).items():
+        for fname, text in patched_sources(csrc, patches, main).items():
             with open(os.path.join(d, fname), "w") as f:
                 f.write(text)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", os.path.join(d, "libnerf_heads.so"),
-               os.path.join(d, "nerf_heads.cu")]
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", os.path.join(d, f"lib{stem}.so"),
+               os.path.join(d, main)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return procs
 
 
-def finish_copies(procs, out_dir):
+def finish_copies(procs, out_dir, main="nerf_heads.cu"):
     """Wait for start_copies' compilers; returns {name: CDLL}."""
+    stem = main.rsplit(".", 1)[0]
     libs = {}
     for name, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name} copy of nerf_heads.cu:\n{err}")
-        libs[name] = ctypes.CDLL(os.path.join(out_dir, name, "libnerf_heads.so"))
+            raise RuntimeError(f"nvcc failed on the {name} copy of {main}:\n{err}")
+        libs[name] = ctypes.CDLL(os.path.join(out_dir, name, f"lib{stem}.so"))
     return libs
 
 
-def build_copies(csrc, copies, out_dir):
-    """Compile nerf_heads.cu of csrc once per copy, all at once; returns
-    {name: CDLL}."""
-    return finish_copies(start_copies(csrc, copies, out_dir), out_dir)
+def build_copies(csrc, copies, out_dir, main="nerf_heads.cu"):
+    """Compile `main` of csrc once per copy, all at once; returns {name:
+    CDLL}."""
+    return finish_copies(start_copies(csrc, copies, out_dir, main), out_dir, main)
 
 
 def anatomy_round(FK, libs, heads, stream, reps):

@@ -1,106 +1,95 @@
-"""Where the time of K4b goes on the bg base field, on one CUDA device.
+"""Where the time of K4f and K4b goes on the bg field's MLPs, on one CUDA
+device.
 
-    python3 -m lab4d_tpu_torch.tools.profile_k4b_phases [--reps N]
+    python3 -m lab4d_tpu_torch.tools.profile_k4b_phases [--reps N] [--parent DIR]
 
-Run from the root of a checkout. It compiles copies of
-csrc/fused_pe_mlp.cu, each with one phase of the row-tiled backward in
-csrc/mlp_tiles.cuh switched off, into build/lab4d_tpu_torch/k4b_phases/
-(one nvcc each, all at once), and times each copy's K4b at the base
-field's shape of a training step: 262,144 points, 6 frequencies with a
-window, D5 W128, a skip at layer 4. (K1 and K2, which no longer share
-this code, have their own profiler: tools/profile_heads_phases.py.) The
-copies:
+Run from the root of a checkout. At the three 262,144-point shapes of
+chip_smoke.K4_SHAPES (the base, colour and visibility MLPs of a bg
+training step):
 
-- full: the kernel as it is;
-- no_recompute: without the forward recompute of the hidden layers;
-- no_din: without dIn = g . W, the backprop through each layer;
-- no_wgrad: without the weight-gradient products and their workspace
-  updates;
-- no_rmw: with the weight-gradient products but without the workspace
-  read-modify-write (the stores stay behind a test that never holds, so
-  the products are not dropped as dead code).
+- K4f by anatomy copies: patched copies of csrc/fused_pe_mlp.cu (one nvcc
+  each, all at once, into build/lab4d_tpu_torch/k4_phases/), timed in
+  turns:
+  - full: the kernel as it is, saving its hidden outputs as training runs
+    it (checked against pe_mlp_forward_saved_reference);
+  - no-save: the same library, without saving;
+  - no-wstage: without the weight staging (the slabs keep stale values):
+    what streaming the weights from L2 costs;
+  - mm-only: without saving, and the embedding without sin / cos (the
+    angle itself): the layer chain;
+  - mm-tf32: as mm-only, in plain 1xTF32 (one product per k-step instead
+    of three), which prices the 3xTF32 split; timed only, it misses the
+    kernels' tolerance.
+- K4b by kind of launch: a CUDA event after each of its launches gives
+  each kind its share (the weights' split, the embedding, dW, dIn, the dx
+  fold, the reduction).
 
-A copy with a phase off computes wrong gradients; only its time is read.
-Each round times every copy in turn (CUDA events around 5 back-to-back
-calls, after one warm-up call); the median over `--reps` rounds is
-printed with its difference from `full`, then the card's name and power
-limit.
+A copy with a phase off computes other outputs; only `full` is checked.
+
+--parent DIR: the root of a checkout whose K4f / K4b are the row-tiled
+fp32 FMA design (csrc/fused_pe_mlp.cu on csrc/mlp_tiles.cuh, as at commit
+450f66c). Its fused_pe_mlp.cu is built from DIR, its wrapper
+DIR/lab4d_tpu_torch/ops/mlp_kernel.py loaded under another name, checked
+against its plain version, and its K4f / K4b timed in turns with this
+checkout's: parent, new, new, parent in every round, at all four shapes
+of K4_SHAPES (the fourth: the 512 visibility-decay points of a step,
+which get the turns only).
+
+Each round times every run in turn: at 262,144 points, CUDA events around
+5 back-to-back calls after one warm-up call; at 512 points, where the
+host's launches would outlast the kernels, 100 calls captured into one
+CUDA graph and replayed (chip_smoke.device_ms). The median over `--reps`
+rounds is printed, then the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
+import importlib.util
 import os
-import subprocess
 import sys
 
-# (anchor in mlp_tiles.cuh, its replacement) per copy
-PATCHES = {
+# K4f's anatomy copies: (file, anchor, replacement) per copy
+_MM_ONLY = [(
+    "fused_pe_mlp.cu",
+    "    sincosf(__ldg(x + p * C + c) * a.freq[f], &sv, &cv);",
+    "    sv = cv = __ldg(x + p * C + c) * a.freq[f];",
+)]
+K4F_COPIES = {
     "full": [],
-    "no_recompute": [(
-        "      tm_gemm<true>(a.w[l], a.out_dim[l], a.in_dim[l], in, tr, as, a.stage_ld,\n"
-        "                    TmEpiHidden{hs[l], a.b[l], ts});",
-        "      if (0) tm_gemm<true>(a.w[l], a.out_dim[l], a.in_dim[l], in, tr, as, a.stage_ld,\n"
-        "                    TmEpiHidden{hs[l], a.b[l], ts});",
+    "no-wstage": [(
+        "fused_pe_mlp.cu",
+        "      hm_cp16(dst + half * PM_NMAX * PM_LDS + n * PM_LDS + q,\n"
+        "              (half ? wlo : whi) + (size_t)n * kp + k0 + q);",
+        "      if (0) hm_cp16(dst + half * PM_NMAX * PM_LDS + n * PM_LDS + q,\n"
+        "              (half ? wlo : whi) + (size_t)n * kp + k0 + q);",
     )],
-    "no_din": [(
-        "      tm_gemm<false>(a.w[l], a.in_dim[l], a.out_dim[l],",
-        "      if (0) tm_gemm<false>(a.w[l], a.in_dim[l], a.out_dim[l],",
+    "mm-only": _MM_ONLY,
+    "mm-tf32": _MM_ONLY + [(
+        "heads_mma.cuh",
+        "  hm_mma0(t, al, bh0, bh1);\n  hm_mma(t, ah, bl0, bl1);\n  hm_mma(t, ah, bh0, bh1);\n",
+        "  hm_mma0(t, ah, bh0, bh1);\n",
     )],
-    "no_wgrad": [(
-        "      tm_weight_grads(dwl, dbl,",
-        "      if (0) tm_weight_grads(dwl, dbl,",
-    )],
-    "no_rmw": [
-        ("    if (!first) {\n#pragma unroll\n      for (int i = 0; i < 4; ++i)",
-         "    if (0) {\n#pragma unroll\n      for (int i = 0; i < 4; ++i)"),
-        ("        if (j < n_o && k < K) dw[(size_t)j * K + k] = acc[i][q];",
-         "        if (j < n_o && k < K && acc[i][q] == 12345.f) dw[(size_t)j * K + k] = acc[i][q];"),
-    ],
 }
+# the copies timed without saving the hidden outputs
+_NO_SAVE = ("no-save", "mm-only", "mm-tf32")
+# what each kind of K4b launch is (csrc/fused_pe_mlp.cu:lab4d_pe_mlp_bwd)
+K4B_KINDS = ("weight split", "embedding", "dW", "dIn", "dx fold", "reduction")
 
 
-def build_copies(out_dir):
-    """Compile fused_pe_mlp.cu against every copy of PATCHES; returns
-    {name: ctypes library}."""
-    from lab4d_tpu_torch.ops.build import CSRC_DIR, NVCC_FLAGS, find_nvcc
-
-    header = (CSRC_DIR / "mlp_tiles.cuh").read_text()
-    procs = {}
-    for name, patches in PATCHES.items():
-        d = os.path.join(out_dir, name)
-        os.makedirs(d, exist_ok=True)
-        text = header
-        for anchor, repl in patches:
-            if text.count(anchor) != 1:
-                raise RuntimeError(f"{name}: the anchor {anchor[:40]!r}... is not in mlp_tiles.cuh once")
-            text = text.replace(anchor, repl)
-        with open(os.path.join(d, "mlp_tiles.cuh"), "w") as f:
-            f.write(text)
-        with open(os.path.join(d, "fused_pe_mlp.cu"), "w") as f:
-            f.write((CSRC_DIR / "fused_pe_mlp.cu").read_text())
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", os.path.join(d, "libfused_pe_mlp.so"),
-               os.path.join(d, "fused_pe_mlp.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name} copy of fused_pe_mlp.cu:\n{err}")
-        libs[name] = ctypes.CDLL(os.path.join(out_dir, name, "libfused_pe_mlp.so"))
-    return libs
-
-
-def _time_rounds(runs, reps):
+def _time_rounds(runs, reps, graph_ms=None):
     """{name: median ms per call} of each run() in turns: per round one
-    warm-up call, then CUDA events around 5 back-to-back calls."""
+    warm-up call, then CUDA events around 5 back-to-back calls; or, given
+    graph_ms (chip_smoke.device_ms), graph_ms(run)."""
     import numpy as np
     import torch
 
     times = {name: [] for name in runs}
     for _ in range(reps):
         for name, run in runs.items():
+            if graph_ms is not None:
+                times[name].append(graph_ms(run))
+                continue
             run()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -112,9 +101,87 @@ def _time_rounds(runs, reps):
     return {name: float(np.median(ts)) for name, ts in times.items()}
 
 
+def k4b_phases(K, lib, args, g, acts, stream, reps):
+    """{kind: median ms per K4b call} from CUDA events between its launches
+    (after one warm-up call), and the launches of one call, as 'launches'.
+    args: fused_pe_mlp's (x, window, weights, biases, freqs, skips, ...)."""
+    import numpy as np
+    import torch
+
+    x, win, weights, biases, freqs, skips = args[:6]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(64)]
+    for e in events:  # creates each event
+        e.record()
+    per = []
+    for _ in range(reps + 1):
+        kinds = K._launch_pe_bwd(lib, x, g, win, weights, biases, freqs, skips, acts, stream,
+                                 events=events)[-1]
+        torch.cuda.synchronize()
+        t = {k: 0.0 for k in K4B_KINDS}
+        for i, kind in enumerate(kinds):
+            t[K4B_KINDS[kind]] += events[i].elapsed_time(events[i + 1])
+        t["total"] = events[0].elapsed_time(events[len(kinds)])
+        per.append(t)
+    out = {k: float(np.median([t[k] for t in per[1:]])) for k in per[0]}
+    out["launches"] = len(kinds)
+    return out
+
+
+def _anatomy(K, libs, fargs, g, acts, stream, reps, label):
+    """Print K4f's anatomy copies' times and K4b's by kind of launch at
+    one shape."""
+    runs = {"full": lambda: K._launch_pe_fwd(libs["full"], *fargs, stream, True)}
+    runs["no-save"] = lambda: K._launch_pe_fwd(libs["full"], *fargs, stream, False)
+    for name in K4F_COPIES:
+        if name != "full":
+            runs[name] = (lambda lib=libs[name], save=name not in _NO_SAVE:
+                          K._launch_pe_fwd(lib, *fargs, stream, save))
+    times = _time_rounds(runs, reps)
+    for name, ms in times.items():
+        print(f"[k4f] {label} {name}: {ms:.3f} ms (full - this: {times['full'] - ms:.3f} ms)")
+    phases = k4b_phases(K, K._kernel_lib("fused_pe_mlp"), fargs, g, acts, stream, reps)
+    print(f"[k4b] {label}: {phases.pop('launches')} CUDA launches per call; by kind, ms: "
+          + " ".join(f"{k}={v:.3f}" for k, v in phases.items()))
+
+
+def load_parent_mlp_kernel(root, lib):
+    """DIR/lab4d_tpu_torch/ops/mlp_kernel.py as the module
+    parent_mlp_kernel, its kernels bound to lib (the parent's
+    fused_pe_mlp.cu built from DIR) through its own _kernel_lib."""
+    from lab4d_tpu_torch.ops import build
+
+    path = os.path.join(root, "lab4d_tpu_torch", "ops", "mlp_kernel.py")
+    spec = importlib.util.spec_from_file_location("parent_mlp_kernel", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    kept = build.load_library
+    build.load_library = lambda name: lib
+    try:
+        mod._kernel_lib("fused_pe_mlp")
+    finally:
+        build.load_library = kept
+    return mod
+
+
+def _shape_inputs(chip_smoke, gen, shape):
+    """fused_pe_mlp's arguments at one of chip_smoke.K4_SHAPES, and an output
+    gradient, as chip_smoke makes them."""
+    import torch
+
+    label, rows, n_freqs, widths, skips, final_act, window = shape
+    c_x = 3 * (2 * n_freqs + 1)
+    weights, biases = chip_smoke._mlp_params(c_x, 0, 0, gen, "cuda", widths=list(widths), skips=skips)
+    x = ((torch.rand(rows, 3, generator=gen) * 2 - 1) * 0.5).cuda()
+    win = torch.linspace(0.3, 1.0, n_freqs).cuda() if window else None
+    freqs = tuple(float(2.0**i) for i in range(n_freqs))
+    g = torch.randn(rows, widths[-1], generator=gen).cuda()
+    return (x, win, weights, biases, freqs, skips, final_act), g
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=3)
+    parser.add_argument("--parent", default=None, help="root of a checkout of the row-tiled K4f / K4b")
     args = parser.parse_args(argv)
 
     import torch
@@ -123,37 +190,72 @@ def main(argv=None):
         sys.exit("profile_k4b_phases: no CUDA device")
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, root)
+    from pathlib import Path
+
     import chip_smoke
     from lab4d_tpu_torch.ops import mlp_kernel as K
-    from lab4d_tpu_torch.ops.build import BUILD_DIR
+    from lab4d_tpu_torch.ops.build import BUILD_DIR, CSRC_DIR
+    from lab4d_tpu_torch.tools import profile_heads_phases as PH
 
     card = chip_smoke.phase_env()
-    libs = build_copies(str(BUILD_DIR / "k4b_phases"))
-    ref = K._kernel_lib("fused_pe_mlp")
+    out_dir = str(BUILD_DIR / "k4_phases")
+    main_src = "fused_pe_mlp.cu"
+    procs = PH.start_copies(CSRC_DIR, K4F_COPIES, os.path.join(out_dir, "new"), main_src)
+    if args.parent:
+        pprocs = PH.start_copies(Path(args.parent) / "lab4d_tpu_torch" / "csrc", {"parent": []},
+                                 os.path.join(out_dir, "parent"), main_src)
+    libs = PH.finish_copies(procs, os.path.join(out_dir, "new"), main_src)
     for lib in libs.values():
-        lib.lab4d_fused_pe_mlp_bwd.argtypes = ref.lab4d_fused_pe_mlp_bwd.argtypes
-        lib.lab4d_fused_pe_mlp_bwd.restype = ctypes.c_int
-        lib.lab4d_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.lab4d_cuda_error_string.restype = ctypes.c_char_p
-
-    label, rows, n_freqs, widths, skips, _, _ = chip_smoke.K4_SHAPES[0]
+        K.bind_signatures("fused_pe_mlp", lib)
+    pmk = None
+    if args.parent:
+        plib = PH.finish_copies(pprocs, os.path.join(out_dir, "parent"), main_src)["parent"]
+        pmk = load_parent_mlp_kernel(args.parent, plib)
+    stream = K._stream(torch.device("cuda"))
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
-    c_x = 3 * (2 * n_freqs + 1)
-    weights, biases = chip_smoke._mlp_params(c_x, 0, 0, gen, "cuda", widths=list(widths), skips=skips)
-    x = ((torch.rand(rows, 3, generator=gen) * 2 - 1) * 0.5).cuda()
-    g = torch.randn(rows, widths[-1], generator=gen).cuda()
-    freqs = tuple(float(2.0**i) for i in range(n_freqs))
-    pe = K._freq_args(freqs, torch.linspace(0.3, 1.0, n_freqs).cuda(), x)
-    n_sm, stream = K._n_sm(x.device), K._stream(x.device)
+    tol = chip_smoke.KERNEL_TOL
 
-    def k4b(lib):
-        return lambda: K._launch_tile_bwd(lib, lib.lab4d_fused_pe_mlp_bwd, x, g, weights, biases,
-                                          skips, n_sm, stream, pe)
-
-    times = _time_rounds({name: k4b(libs[name]) for name in PATCHES}, args.reps)
-    print(f"[k4b] {label}, {rows} rows; median of {args.reps} rounds, ms per call:")
-    for name, ms in times.items():
-        print(f"[k4b] {name}: {ms:.3f} ms (full - this: {times['full'] - ms:.3f} ms)")
+    for shape in chip_smoke.K4_SHAPES:
+        label, rows = shape[:2]
+        small = rows < 4096
+        if small and pmk is None:
+            continue
+        fargs, g = _shape_inputs(chip_smoke, gen, shape)
+        x, win, weights, biases, freqs, skips, final_act = fargs
+        want, want_acts = K.pe_mlp_forward_saved_reference(*fargs)
+        got, acts, _ = K._launch_pe_fwd(libs["full"], *fargs, stream, True)
+        torch.cuda.synchronize()
+        err = max(float((got - want).abs().max()), float((acts - want_acts).abs().max()))
+        print(f"[k4f] {label}: full vs plain, output and saved outputs: max abs err {err:.3e} "
+              f"(tol {tol:g})")
+        if not err <= tol:
+            sys.exit(f"profile_k4b_phases: K4f {label} disagrees with its plain version")
+        if not small:
+            _anatomy(K, libs, fargs, g, acts, stream, args.reps, label)
+        if pmk is None:
+            continue
+        pwant = K.pe_mlp_backward_reference(x, g, win, weights, biases, freqs, skips)
+        pgot = pmk.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips)
+        perr = max(float((pmk.fused_pe_mlp(*fargs) - want).abs().max()),
+                   chip_smoke._bwd_errs(pgot, pwant)[1])
+        torch.cuda.synchronize()
+        print(f"[parent] {label}: row-tiled K4f abs err / K4b rel err vs plain, worst {perr:.3e} "
+              f"(tol {tol:g})")
+        if not perr <= tol:
+            sys.exit(f"profile_k4b_phases: the parent's K4f / K4b {label} disagree with plain")
+        # the stream is looked up per call, as the wrappers do: under CUDA
+        # graph capture (graph_ms) it is the capturing stream
+        new_f = lambda: K._launch_pe_fwd(libs["full"], *fargs, K._stream(x.device), True)  # noqa: E731
+        new_b = lambda: K._launch_pe_bwd(libs["full"], x, g, win, weights, biases, freqs,  # noqa: E731
+                                         skips, acts, K._stream(x.device))
+        old_f = lambda: pmk.fused_pe_mlp(*fargs)  # noqa: E731
+        old_b = lambda: pmk.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips)  # noqa: E731
+        turns = _time_rounds({"K4f row-tiled 1": old_f, "K4f 1": new_f, "K4f 2": new_f,
+                              "K4f row-tiled 2": old_f, "K4b row-tiled 1": old_b, "K4b 1": new_b,
+                              "K4b 2": new_b, "K4b row-tiled 2": old_b}, args.reps,
+                             chip_smoke.device_ms if small else None)
+        print(f"[turns] {label}, ms (parent, new, new, parent): " + " ".join(
+            f"{k}={v:.4f}" for k, v in turns.items()))
     print(card)
 
 

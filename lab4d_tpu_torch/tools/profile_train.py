@@ -1,6 +1,7 @@
 """Where the time of a training step goes, on one CUDA device.
 
     python3 -m lab4d_tpu_torch.tools.profile_train [--field_type {bg,fg}] [--steps N] [--out FILE]
+        [--turns DIR]
 
 Run from the root of a checkout. It writes the synthetic scene of
 chip_smoke.py (one orbit video, 32 frames at 64^2), builds the trainer of
@@ -22,15 +23,35 @@ the prior fits are cut to 50 geometry steps) and then:
    steps' wall time and the device's idle share.
 
 `--out` also writes the profiler's full table to FILE.
+
+`--turns DIR`: runs this tool (without --turns) from the checkout DIR and
+from this one in turns, each in a process of its own: DIR, this, this,
+DIR. Each run ends with the peak device memory its process allocated
+(torch.cuda.max_memory_allocated), printed by the runner, so that a
+checkout whose tool does not print it is measured the same way.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 import sys
 import tempfile
 import time
+
+# runs profile_train from the checkout argv[1] with the arguments after it,
+# then prints the process's peak device memory
+_RUNNER = """
+import os, runpy, sys
+root = sys.argv[1]
+os.chdir(root)
+sys.path.insert(0, root)
+sys.argv = ["profile_train"] + sys.argv[2:]
+import torch
+runpy.run_module("lab4d_tpu_torch.tools.profile_train", run_name="__main__")
+print(f"[memory] peak device memory of the run: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+"""
 
 
 def main(argv=None):
@@ -40,7 +61,22 @@ def main(argv=None):
     parser.add_argument("--trace", type=int, default=3)
     parser.add_argument("--top", type=int, default=18)
     parser.add_argument("--out", default=None)
+    parser.add_argument("--turns", default=None, help="root of another checkout to run in turns")
     args = parser.parse_args(argv)
+    if args.turns:
+        here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        rest = list(argv if argv is not None else sys.argv[1:])
+        i = rest.index("--turns")
+        rest = rest[:i] + rest[i + 2:]
+        for n, (tag, root) in enumerate((("parent", args.turns), ("this", here), ("this", here),
+                                         ("parent", args.turns))):
+            run = subprocess.run([sys.executable, "-c", _RUNNER, os.path.abspath(root), *rest],
+                                 capture_output=True, text=True)
+            for line in (run.stdout + (run.stderr if run.returncode else "")).splitlines():
+                print(f"[turn {n + 1} {tag}] {line}")
+            if run.returncode:
+                sys.exit(f"profile_train: the {tag} run failed ({run.returncode})")
+        return
 
     import torch
 
@@ -144,10 +180,13 @@ def _measure(args, card, trainer, batches, opts):
         ms = e.self_device_time_total / 1e3
         print(f"[op] {e.key}: {ms / args.trace:.2f} ms/step device, "
               f"{100 * ms / device_ms:.1f}%, {e.count // args.trace} calls/step")
+    # hm_dw_kernel and hm_reduce_kernel (csrc/heads_mma.cuh) serve K2 and
+    # K4b, and the reduction K3b too
     for name in ("nh_pack_kernel", "nerf_heads_fwd_kernel", "nh_bwd_out_kernel", "nh_embed_kernel",
-                 "nh_dw_kernel", "nh_din_kernel", "nh_fold_kernel", "nh_pair_sum_kernel",
-                 "nh_appr_kernel", "nh_reduce_kernel", "fused_relu_mlp_fwd_kernel",
-                 "tile_mlp_fwd_kernel", "tile_mlp_bwd_kernel", "tile_mlp_reduce_kernel"):
+                 "nh_din_kernel", "nh_fold_kernel", "nh_pair_sum_kernel", "nh_appr_kernel",
+                 "fused_relu_mlp_fwd_kernel", "tile_mlp_bwd_kernel", "pm_pack_kernel",
+                 "pe_mlp_fwd_kernel", "pm_embed_kernel", "pm_din_kernel", "pm_fold_kernel",
+                 "hm_dw_kernel", "hm_reduce_kernel"):
         ks = [e.device_time for e in kernels if name in e.name]
         print(f"[kernel] {name}: {sum(ks) / 1e3 / args.trace:.2f} ms/step device, "
               f"{100 * sum(ks) / 1e3 / device_ms:.1f}%, {len(ks) // args.trace} calls/step")

@@ -456,23 +456,24 @@ def _anchor_cases():
     from lab4d_tpu_torch.tools import profile_k4b_phases as PK
 
     cases = [("heads", name, patches) for name, patches in PH.MMA_K1.items()]
-    cases += [("k4b", name, [("mlp_tiles.cuh", a, r) for a, r in patches])
-              for name, patches in PK.PATCHES.items()]
+    cases += [("k4f", name, patches) for name, patches in PK.K4F_COPIES.items()]
     return cases
 
 
 @pytest.mark.parametrize("tool,copy,patches", _anchor_cases(), ids=lambda v: v if isinstance(v, str) else "")
 def test_profiler_anchors_found_once(tool, copy, patches):
     """Every anchor that profile_heads_phases (K1's anatomy copies) and
-    profile_k4b_phases replace occurs exactly once in the committed source
-    it patches, so an edit that drops one fails here and not on the card."""
+    profile_k4b_phases (K4f's) replace occurs exactly once in the committed
+    source it patches, so an edit that drops one fails here and not on the
+    card."""
     from lab4d_tpu_torch.ops.build import CSRC_DIR
     from lab4d_tpu_torch.tools import profile_heads_phases as PH
 
+    main = "nerf_heads.cu" if tool == "heads" else "fused_pe_mlp.cu"
     for fname, anchor, _ in patches:
         assert (CSRC_DIR / fname).read_text().count(anchor) == 1, (tool, copy, anchor[:60])
-    texts = PH.patched_sources(CSRC_DIR, patches)
-    assert set(texts) >= {"nerf_heads.cu", "heads_mma.cuh", "mlp_tiles.cuh"}
+    texts = PH.patched_sources(CSRC_DIR, patches, main)
+    assert set(texts) >= {main, "heads_mma.cuh", "mlp_tiles.cuh"}
 
 
 # ------------------------------------------------------- the saved outputs

@@ -9,7 +9,12 @@ tests/test_mlp_kernel.py runs them) and its jnp oracles.
   against the JAX custom VJP;
 - K4f / K4b (fused_pe_mlp and its backward) against JAX `_pe_fwd` /
   `_pe_bwd_call` and the oracle, with and without skip, final ReLU and
-  annealing window, at the bg field's widths.
+  annealing window, at the bg field's widths; also their saved-output
+  plain versions (pe_mlp_forward_saved_reference, which returns the hidden
+  layer outputs K4f saves, and pe_mlp_backward_saved_reference, K4b's
+  dataflow from them), the autograd wiring that hands K4f's saved outputs
+  to K4b, K4f / K4b's launch plan, and a CPU emulation of their 3xTF32
+  arithmetic against fp64 at the three widths of the bg field.
 
 On the CPU the port's wrappers take their plain versions; the CUDA
 kernels themselves are compared with those by the `cuda`-marked tests,
@@ -22,8 +27,9 @@ tests/test_mlp_kernel.py use N(0, 1/fan_in) weights and O(1) outputs,
 where that file's own kernel-vs-oracle bound is atol 2e-4; gradients,
 which sum over the rows, are held to 2e-4 of each array's largest entry.
 The render shapes use torch's default init and O(0.1) outputs, compared
-at 1e-5. On the card the kernels' fp32 FMA sums meet cuBLAS's at 1e-4 of
-each array's largest entry (forward outputs at atol 1e-4).
+at 1e-5. On the card the kernels (fp32 FMA for K3, 3xTF32 tensor-core
+products with fp32 sums for K4) meet cuBLAS's fp32 at 1e-4 of each
+array's largest entry (forward outputs at atol 1e-4).
 """
 
 import numpy as np
@@ -245,27 +251,308 @@ def test_k4b_matches_jax_pe_bwd(rows, C, n_freqs, hidden, out, skips, final_act,
         assert_close_scaled(a.numpy().T, b)
 
 
+@pytest.mark.parametrize("rows,C,n_freqs,hidden,out,skips,final_act,window", PE_CASES)
+def test_k4f_saved_matches_jax_pe_fwd(rows, C, n_freqs, hidden, out, skips, final_act, window):
+    """pe_mlp_forward_saved_reference, the plain K4f with the hidden outputs
+    it saves: its output is pe_mlp_reference's and JAX `_pe_fwd`'s (Pallas,
+    interpret mode), and its saved blocks (pe_act_layout) are the hidden
+    layers' ReLU outputs, which rebuild the output through the last layer;
+    with pre_activations, the ReLU inputs that give them."""
+    import jax.numpy as jnp
+
+    from lab4d_tpu.ops import mlp_kernel as J
+
+    x, freqs, weights, biases, win, _ = _pe_case(rows, C, n_freqs, hidden, out, skips, window)
+    jw, jb = _jax_lists(weights, biases)
+    jwin = None if win is None else jnp.asarray(win)
+    want = J._pe_fwd(jnp.asarray(x), jwin, jw, jb, freqs, tuple(skips), final_act)
+    tw = [torch.tensor(w.T.copy()) for w in weights]
+    tb = [torch.tensor(b) for b in biases]
+    twin = None if win is None else torch.tensor(win)
+    tx = torch.tensor(x)
+    got, acts = K.pe_mlp_forward_saved_reference(tx, twin, tw, tb, freqs, skips, final_act)
+    np.testing.assert_array_equal(
+        got.numpy(), K.pe_mlp_reference(tx, twin, tw, tb, freqs, skips, final_act).numpy())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
+    offs, per_point = K.pe_act_layout(tw)
+    assert per_point == sum(hidden) and acts.shape == (rows * per_point,)
+    assert offs == [sum(hidden[:i]) for i in range(len(hidden))]
+    h_last = acts[offs[-1] * rows:].view(rows, hidden[-1])
+    assert (acts >= 0).all()
+    last_in = h_last
+    if len(tw) - 1 in skips:
+        from lab4d_tpu_torch.nnutils.embedding import fourier_embed
+
+        last_in = torch.cat([fourier_embed(tx, freqs, twin), h_last], dim=-1)
+    rebuilt = torch.nn.functional.linear(last_in, tw[-1], tb[-1])
+    np.testing.assert_allclose(got.numpy(), (torch.relu(rebuilt) if final_act else rebuilt).numpy(),
+                               rtol=0, atol=1e-6)
+    _, z = K.pe_mlp_forward_saved_reference(tx, twin, tw, tb, freqs, skips, final_act,
+                                            pre_activations=True)
+    torch.testing.assert_close(torch.relu(z), acts, rtol=0, atol=0)
+    assert (z < 0).any()
+
+
+@pytest.mark.parametrize("rows,C,n_freqs,hidden,out,skips,final_act,window", PE_CASES)
+def test_k4b_saved_matches_jax_pe_bwd(rows, C, n_freqs, hidden, out, skips, final_act, window):
+    """pe_mlp_backward_saved_reference, the plain K4b from the saved hidden
+    outputs, against JAX `_pe_bwd_call` (Pallas, interpret mode) and jax.vjp
+    of the oracle; through the plain versions of fused_pe_mlp_backward with
+    saved= on the CPU."""
+    import jax
+    import jax.numpy as jnp
+
+    from lab4d_tpu.ops import mlp_kernel as J
+
+    x, freqs, weights, biases, win, g = _pe_case(rows, C, n_freqs, hidden, out, skips, window)
+    jw, jb = _jax_lists(weights, biases)
+    jwin = None if win is None else jnp.asarray(win)
+    want_kernel = J._pe_bwd_call(jnp.asarray(x), jnp.asarray(g), jwin, jw, jb, freqs,
+                                 tuple(skips))
+    _, vjp = jax.vjp(lambda x_, w_, b_: J.pe_mlp_reference(x_, jwin, w_, b_, freqs,
+                                                           tuple(skips)),
+                     jnp.asarray(x), jw, jb)
+    want_ref = vjp(jnp.asarray(g))
+    tw = [torch.tensor(w.T.copy()) for w in weights]
+    tb = [torch.tensor(b) for b in biases]
+    twin = None if win is None else torch.tensor(win)
+    tx, tg = torch.tensor(x), torch.tensor(g)
+    _, acts = K.pe_mlp_forward_saved_reference(tx, twin, tw, tb, freqs, skips, final_act)
+    launches = K.fused_pe_mlp_backward.launches
+    dx, dws, dbs = K.fused_pe_mlp_backward(tx, tg, twin, tw, tb, freqs, skips, saved=acts)
+    assert K.fused_pe_mlp_backward.launches == launches
+    plain = K.pe_mlp_backward_saved_reference(tx, tg, twin, tw, tb, freqs, skips, acts)
+    for a, b in zip([dx] + dws + dbs, [plain[0]] + plain[1] + plain[2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for want in (want_kernel, want_ref):
+        assert_close_scaled(dx.numpy(), want[0], err_msg="dx")
+        for i, (a, b) in enumerate(zip(dws, want[1])):
+            assert_close_scaled(a.numpy().T, b, err_msg=f"dW{i}")
+        for i, (a, b) in enumerate(zip(dbs, want[2])):
+            assert_close_scaled(a.numpy(), np.asarray(b).reshape(-1), err_msg=f"db{i}")
+
+
+# the bg field's three MLPs (chip_smoke.K4_SHAPES): (n_freqs, widths, skips, final_act)
+K4_WIDTHS = {
+    "base": (6, (128,) * 6, (4,), True),
+    "colour": (8, (128,) * 3, (), True),
+    "vis": (10, (64, 64, 1), (), False),
+}
+
+
+def _tf32(t):
+    """Round fp32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as cvt.rna.tf32.f32 does."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernels compute it: each operand split into TF32 hi and
+    lo, hi.hi + hi.lo + lo.hi with fp32 sums (csrc/heads_mma.cuh)."""
+    a, b = a.contiguous(), b.contiguous()
+    ah, bh = _tf32(a), _tf32(b)
+    return ah @ bh + (_tf32(a - ah) @ bh + ah @ _tf32(b - bh))
+
+
+def _k4_dataflow(x, g, window, weights, biases, freqs, skips, final_act, mm):
+    """K4f then K4b from its saved outputs, with every product of the
+    layers, dW and dIn through mm: (out, dx, dWs, dbs), dtype of x."""
+    from lab4d_tpu_torch.nnutils.embedding import fourier_embed
+
+    xl = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        X = fourier_embed(xl, freqs, window)
+    Xd = X.detach()
+    h, hs = Xd, []
+    n = len(weights)
+    for i in range(n):
+        if i in skips:
+            h = torch.cat([Xd, h], dim=-1)
+        h = mm(h, weights[i].T) + biases[i]
+        if i < n - 1 or final_act:
+            h = torch.relu(h)
+        hs.append(h)
+    out = h
+    gcur = g * (out > 0) if final_act else g
+    dX = torch.zeros_like(Xd)
+    dws, dbs = [None] * n, [None] * n
+    for i in range(n - 1, -1, -1):
+        hprev = hs[i - 1] if i > 0 else None
+        A = Xd if i == 0 else (torch.cat([Xd, hprev], dim=-1) if i in skips else hprev)
+        dws[i] = mm(gcur.T, A)
+        dbs[i] = gcur.sum(0)
+        din = mm(gcur, weights[i])
+        if i == 0 or i in skips:
+            dX = dX + din[:, : Xd.shape[1]]
+            din = din[:, Xd.shape[1]:]
+        if i > 0:
+            gcur = din * (hprev > 0)
+    dx = torch.autograd.grad(X, xl, dX)[0]
+    return out, dx, dws, dbs
+
+
+@pytest.mark.parametrize("field", list(K4_WIDTHS))
+def test_3xtf32_error_budget(field):
+    """K4f / K4b's arithmetic emulated on the CPU at each bg field MLP's
+    widths and frequency ladder (1,024 points, live window): every product
+    of the forward, dW and dIn in 3xTF32 with fp32 sums stays within
+    chip_smoke.KERNEL_TOL (1e-4) of fp64: the output's max abs error, and
+    each gradient's max error over its largest entry. The ReLU masks are
+    the fp64 run's, as a comparison outside ReLU ties takes them."""
+    n_freqs, widths, skips, final_act = K4_WIDTHS[field]
+    rng = np.random.default_rng(7)
+    rows, C = 1024, 3
+    c_x = C * (2 * n_freqs + 1)
+    weights, biases, prev = [], [], c_x
+    for i, w in enumerate(widths):
+        fan = prev + (c_x if i in skips else 0)
+        weights.append(torch.tensor(rng.uniform(-1, 1, (w, fan)) / np.sqrt(fan), dtype=torch.float32))
+        biases.append(torch.tensor(rng.uniform(-1, 1, w) / np.sqrt(fan), dtype=torch.float32))
+        prev = w
+    x = torch.tensor(rng.uniform(-0.5, 0.5, (rows, C)), dtype=torch.float32)
+    g = torch.tensor(rng.standard_normal((rows, widths[-1])), dtype=torch.float32)
+    win = torch.linspace(0.3, 1.0, n_freqs)
+    freqs = tuple(float(2.0**i) for i in range(n_freqs))
+    ref = _k4_dataflow(x.double(), g.double(), win.double(), [w.double() for w in weights],
+                       [b.double() for b in biases], freqs, skips, final_act, torch.matmul)
+    got = _k4_dataflow(x, g, win, weights, biases, freqs, skips, final_act, _mm_3xtf32)
+    fwd = float((got[0].double() - ref[0]).abs().max())
+    bwd = max(float((a.double() - r).abs().max()) / max(1.0, float(r.abs().max()))
+              for a, r in zip([got[1]] + got[2] + got[3], [ref[1]] + ref[2] + ref[3]))
+    one = _k4_dataflow(x, g, win, weights, biases, freqs, skips, final_act,
+                       lambda a, b: _tf32(a.contiguous()) @ _tf32(b.contiguous()))
+    fwd1 = float((one[0].double() - ref[0]).abs().max())
+    print(f"{field}: 3xTF32 forward {fwd:.2e}, backward {bwd:.2e}; 1xTF32 forward {fwd1:.2e}")
+    assert fwd <= 1e-4 and bwd <= 1e-4, (fwd, bwd)
+    assert fwd1 > fwd  # the emulation does round
+
+
 @pytest.mark.parametrize(
-    "c_x,widths,skips,rows,backward,want_rows",
+    "c_x,widths,skips,rows,want_rows",
     [
-        (39, (128,) * 6, (4,), 262144, False, 64),  # base field, K4f
-        (39, (128,) * 6, (4,), 262144, True, 48),  # base field, K4b
-        (63, (64, 64, 1), (), 262144, True, 64),  # vis field, K4b
-        (256, (256,) * 6, (), 256, True, 8),  # camera TimeMLP, K3b: short tiles, more blocks
+        (256, (256,) * 6, (), 256, 8),  # camera TimeMLP, K3b: short tiles, more blocks
     ],
 )
-def test_tile_plan(c_x, widths, skips, rows, backward, want_rows):
-    """Tile heights and grids of the row-tiled kernels fit the card: shared
-    memory within sm_90's 227 KB, a workspace slice per block, and a
-    backward grid no larger than its tiles."""
+def test_tile_plan(c_x, widths, skips, rows, want_rows):
+    """K3b's row-tiled launch plan fits the card: its tile height, shared
+    memory within sm_90's 227 KB, a workspace slice per block and a grid no
+    larger than its tiles. (K4f / K4b's plan is the library's own:
+    test_cuda_k4_plan.)"""
     in_dims = [c_x] + [w + (c_x if i + 1 in skips else 0) for i, w in enumerate(widths[:-1])]
-    plan = K.tile_plan(c_x, in_dims, list(widths), rows, backward, n_sm=132)
+    plan = K.tile_plan(c_x, in_dims, list(widths), rows, n_sm=132)
     assert plan.tile_rows == want_rows
     assert plan.smem_bytes <= K.SMEM_PER_SM
     assert plan.n_params == sum(o * (i + 1) for i, o in zip(in_dims, widths))
-    ntiles = -(-rows // plan.tile_rows)
-    assert plan.grid == (min(ntiles, 132 * max(1, min(2, K.SMEM_PER_SM // plan.smem_bytes)))
-                         if backward else ntiles)
+    assert plan.grid == min(-(-rows // plan.tile_rows),
+                            132 * max(1, min(2, K.SMEM_PER_SM // plan.smem_bytes)))
+
+
+def _torch_mlp(c_x, widths, skips, seed, device="cpu"):
+    """Random (out, in) weights and biases of an MLP on c_x inputs."""
+    g = torch.Generator().manual_seed(seed)
+    ws, bs, prev = [], [], c_x
+    for i, w in enumerate(widths):
+        fan = prev + (c_x if i in skips else 0)
+        ws.append(((torch.rand(w, fan, generator=g) * 2 - 1) / fan**0.5).to(device))
+        bs.append(((torch.rand(w, generator=g) * 2 - 1) / fan**0.5).to(device))
+        prev = w
+    return ws, bs
+
+
+K4_PLAN_CASES = [  # (n_freqs, widths, skips, rows)
+    (6, (128,) * 6, (4,), 262144),  # base field
+    (6, (128,) * 6, (4,), 70000),  # base field, a ragged count
+    (10, (64, 64, 1), (), 257),  # visibility field, a tail tile
+]
+
+
+@pytest.mark.parametrize("n_freqs,widths,skips,rows", K4_PLAN_CASES)
+def test_k4_saved_layout(n_freqs, widths, skips, rows):
+    """What the CPU side of K4f / K4b owns at the bg field's widths: the
+    widths pass the kernels' limit, and pe_act_layout places every hidden
+    output (not the last layer's) one after another, the blocks that
+    pe_mlp_forward_saved_reference fills, each the layer's ReLU output."""
+    c_x = 3 * (2 * n_freqs + 1)
+    K.check_pe_widths(c_x, widths)
+    ws, bs = _torch_mlp(c_x, widths, skips, seed=rows)
+    offs, total = K.pe_act_layout(ws)
+    assert offs == [sum(widths[:i]) for i in range(len(widths) - 1)]
+    assert total == sum(widths[:-1])
+    n = 37  # a few of the rows
+    x = torch.rand(n, 3, generator=torch.Generator().manual_seed(rows)) - 0.5
+    freqs = tuple(float(2.0**i) for i in range(n_freqs))
+    out, acts = K.pe_mlp_forward_saved_reference(x, None, ws, bs, freqs, skips)
+    assert acts.shape == (n * total,)
+    X = torch.cat([x] + [torch.sin(x * f) for f in freqs] + [torch.cos(x * f) for f in freqs], -1)
+    h = X
+    for i, (off, w) in enumerate(zip(offs, widths[:-1])):
+        if i in skips:
+            h = torch.cat([X, h], -1)
+        h = torch.relu(torch.nn.functional.linear(h, ws[i], bs[i]))
+        torch.testing.assert_close(acts[off * n: (off + w) * n].view(n, w), h, atol=1e-5, rtol=0)
+    torch.testing.assert_close(out, K.pe_mlp_reference(x, None, ws, bs, freqs, skips), atol=0, rtol=0)
+
+
+def test_k4_plan_rejects_wide_layers():
+    """K4f / K4b take layers and embeddings of at most 128 columns (a warp
+    holds every output column of its rows); wider ones raise."""
+    with pytest.raises(ValueError, match="at most 128"):
+        K.check_pe_widths(39, [256, 3])
+    with pytest.raises(ValueError, match="at most 128"):
+        K.check_pe_widths(135, [8])
+    K.check_pe_widths(63, [128, 8])
+
+
+def test_needs_saved():
+    """fused_pe_mlp saves K4f's layer outputs only when autograd may call
+    its backward: grad mode on and an input that requires a gradient."""
+    a, b = torch.zeros(2), torch.zeros(2, requires_grad=True)
+    assert K.needs_saved(a, b) and not K.needs_saved(a, None)
+    with torch.no_grad():
+        assert not K.needs_saved(a, b)
+
+
+def test_autograd_backward_receives_the_saved_outputs(monkeypatch):
+    """_FusedPEMLP on CPU tensors runs the plain versions of K4f / K4b's
+    dataflow: with save it keeps the hidden outputs and its backward gets
+    exactly those, with the final ReLU's mask on g, and the gradients equal
+    the plain VJP; without save (an eval call) it keeps none."""
+    x, freqs, weights, biases, win, g = _pe_case(*PE_CASES[0][:6], PE_CASES[0][7])
+    skips, final_act = PE_CASES[0][5], PE_CASES[0][6]
+    tw = [torch.tensor(w.T.copy()).requires_grad_() for w in weights]
+    tb = [torch.tensor(b).requires_grad_() for b in biases]
+    twin = torch.tensor(win)
+    xt = torch.tensor(x).requires_grad_()
+    seen = {}
+    fwd, bwd = K.pe_mlp_forward_saved_reference, K.pe_mlp_backward_saved_reference
+
+    def fwd_spy(*a, **k):
+        seen["fwd"] = fwd(*a, **k)
+        return seen["fwd"]
+
+    def bwd_spy(*a):
+        seen["bwd"] = a
+        return bwd(*a)
+
+    monkeypatch.setattr(K, "pe_mlp_forward_saved_reference", fwd_spy)
+    monkeypatch.setattr(K, "pe_mlp_backward_saved_reference", bwd_spy)
+    y = K._FusedPEMLP.apply(xt, twin, freqs, skips, final_act, True, *tw, *tb)
+    tg = torch.tensor(g)
+    grads = torch.autograd.grad(y, [xt] + tw + tb, tg)
+    out, acts = seen["fwd"]
+    assert seen["bwd"][-1].data_ptr() == acts.data_ptr()
+    torch.testing.assert_close(seen["bwd"][1], tg * (out > 0), rtol=0, atol=0)
+    want = K.pe_mlp_backward_reference(torch.tensor(x), tg * (out > 0).float(), twin,
+                                       [t.detach() for t in tw], [t.detach() for t in tb], freqs,
+                                       skips)
+    for a, b in zip(grads, [want[0]] + want[1] + want[2]):
+        assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
+    seen.clear()
+    with torch.no_grad():
+        y2 = K._FusedPEMLP.apply(xt, twin, freqs, skips, final_act,
+                                 K.needs_saved(xt, *tw, *tb), *tw, *tb)
+    assert "fwd" not in seen
+    torch.testing.assert_close(y2, y.detach(), rtol=0, atol=0)
 
 
 RENDER_SHAPES = [  # (rows, C_in, D, W): TimeMLP backbones on the render path
@@ -348,14 +635,7 @@ def test_cuda_kernel_matches_plain(rows, C_in, D, W):
 
 
 def _cuda_mlp(c_x, widths, skips, seed):
-    g = torch.Generator().manual_seed(seed)
-    ws, bs, prev = [], [], c_x
-    for i, w in enumerate(widths):
-        fan = prev + (c_x if i in skips else 0)
-        ws.append(((torch.rand(w, fan, generator=g) * 2 - 1) / fan**0.5).cuda())
-        bs.append(((torch.rand(w, generator=g) * 2 - 1) / fan**0.5).cuda())
-        prev = w
-    return ws, bs
+    return _torch_mlp(c_x, widths, skips, seed, "cuda")
 
 
 def _assert_close_rel(got, want, rel=1e-4):
@@ -388,10 +668,14 @@ def test_cuda_k3b_matches_plain(rows, C_in, D, W, skips):
     (70000, 8, (128,) * 3, (), True, True),  # colour field
     (70000, 10, (64, 64, 1), (), False, False),  # visibility field
     (512, 10, (64, 64, 1), (), False, False),  # visibility-decay points
+    (3000, 6, (64, 64, 64, 64, 8), (2, 3), False, True),  # two skip layers: dX added to
+    (1000, 10, (128, 128, 8), (), True, True),  # K4f's 128-point tiles
 ])
 def test_cuda_k4_matches_plain(rows, n_freqs, widths, skips, final_act, window):
-    """K4f and K4b against pe_mlp_reference / pe_mlp_backward_reference
-    on the card (TF32 off)."""
+    """K4f against pe_mlp_forward_saved_reference (its output and its saved
+    hidden outputs) and K4b, from those saved outputs, against
+    pe_mlp_backward_saved_reference on the card (TF32 off in cuBLAS; the
+    kernels' 3xTF32 within 1e-4). K4b without saved= raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -400,15 +684,73 @@ def test_cuda_k4_matches_plain(rows, n_freqs, widths, skips, final_act, window):
     x = (torch.rand(rows, 3, device="cuda") * 2 - 1) * 0.5
     win = torch.linspace(0.3, 1.0, n_freqs, device="cuda") if window else None
     counts = (K.fused_pe_mlp.launches, K.fused_pe_mlp_backward.launches)
-    y = K.fused_pe_mlp(x, win, ws, bs, freqs, skips, final_act)
-    torch.testing.assert_close(y, K.pe_mlp_reference(x, win, ws, bs, freqs, skips, final_act),
-                               atol=1e-4, rtol=0)
+    y, acts = K.pe_mlp_forward_saved(x, win, ws, bs, freqs, skips, final_act)
+    want_y, want_acts = K.pe_mlp_forward_saved_reference(x, win, ws, bs, freqs, skips, final_act)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=0)
+    torch.testing.assert_close(acts, want_acts, atol=1e-4, rtol=0)
     g = torch.randn_like(y)
-    got = K.fused_pe_mlp_backward(x, g, win, ws, bs, freqs, skips)
-    want = K.pe_mlp_backward_reference(x, g, win, ws, bs, freqs, skips)
+    got = K.fused_pe_mlp_backward(x, g, win, ws, bs, freqs, skips, saved=acts)
+    want = K.pe_mlp_backward_saved_reference(x, g, win, ws, bs, freqs, skips, acts)
     torch.cuda.synchronize()
     assert (K.fused_pe_mlp.launches, K.fused_pe_mlp_backward.launches) == (counts[0] + 1,
                                                                           counts[1] + 1)
+    assert K.fused_pe_mlp.cuda_launches == 2
+    assert K.fused_pe_mlp_backward.cuda_launches == 2 * len(widths) + 4
     _assert_close_rel(got[0], want[0])
     for a, b in zip(got[1] + got[2], want[1] + want[2]):
         _assert_close_rel(a, b)
+    with pytest.raises(ValueError, match="saved"):
+        K.fused_pe_mlp_backward(x, g, win, ws, bs, freqs, skips)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n_freqs,widths,skips", [
+    (70000, 6, (128,) * 6, (4,)),  # base field, a ragged count
+    (257, 10, (64, 64, 1), ()),  # visibility field, a tail tile
+])
+def test_cuda_k4b_is_deterministic(rows, n_freqs, widths, skips):
+    """Two K4b calls on the same inputs give bitwise-equal gradients: its
+    split-K sums run in a fixed order, without float atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    freqs = tuple(float(2.0**i) for i in range(n_freqs))
+    ws, bs = _cuda_mlp(3 * (2 * n_freqs + 1), widths, skips, seed=rows + 1)
+    x = (torch.rand(rows, 3, device="cuda") * 2 - 1) * 0.5
+    win = torch.linspace(0.3, 1.0, n_freqs, device="cuda")
+    _, acts = K.pe_mlp_forward_saved(x, win, ws, bs, freqs, skips)
+    g = torch.randn(rows, widths[-1], device="cuda")
+    first = K.fused_pe_mlp_backward(x, g, win, ws, bs, freqs, skips, saved=acts)
+    second = K.fused_pe_mlp_backward(x, g, win, ws, bs, freqs, skips, saved=acts)
+    torch.cuda.synchronize()
+    for a, b in zip([first[0]] + first[1] + first[2], [second[0]] + second[1] + second[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_freqs,widths,skips,rows,want", [
+    # (tile rows, tiles, chunks, points per chunk, K4b launches)
+    (*K4_PLAN_CASES[0], (256, 1024, 512, 512, 16)),
+    (*K4_PLAN_CASES[1], (256, 274, 438, 160, 16)),
+    (*K4_PLAN_CASES[2], (256, 2, 9, 32, 10)),
+    (10, (128, 8), (), 1024, (128, 8, 32, 32, 8)),  # a wide embedding: 128-point tiles
+])
+def test_cuda_k4_plan(n_freqs, widths, skips, rows, want):
+    """K4f / K4b's launch plan, as csrc/fused_pe_mlp.cu makes it, fits the
+    card: K4f's tiles within sm_90's 227 KB of shared memory, K4b's chunks
+    (at most 512) whole 32-point slabs that cover the points, the saved
+    floats per point of pe_act_layout, the gradients' floats, K4b's scratch
+    at least its buffers, and 2 launches per layer plus 4 for K4b."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the plan is the kernel library's")
+    c_x = 3 * (2 * n_freqs + 1)
+    in_dims = [c_x] + [w + (c_x if i + 1 in skips else 0) for i, w in enumerate(widths[:-1])]
+    skip_mask = sum(1 << i for i in skips)
+    plan = K.pe_mlp_plan(K._kernel_lib("fused_pe_mlp"), 3, n_freqs, in_dims, widths, rows, skip_mask)
+    assert (plan.tile_rows, plan.n_tiles, plan.n_chunks, plan.chunk_rows, plan.bwd_launches) == want
+    assert plan.smem_bytes <= K.SMEM_PER_SM
+    assert plan.chunk_rows % 32 == 0 and plan.n_chunks <= 512
+    assert (plan.n_chunks - 1) * plan.chunk_rows < rows <= plan.n_chunks * plan.chunk_rows
+    n_params = sum(o * (i + 1) for i, o in zip(in_dims, widths))
+    assert plan.n_params == n_params and plan.act_floats == sum(widths[:-1])
+    w_t = sum(2 * i * -(-o // 32) * 32 for i, o in zip(in_dims, widths))
+    assert plan.scratch_floats >= w_t + 2 * rows * (max(widths) + c_x) + plan.n_chunks * n_params
