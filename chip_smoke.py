@@ -13,7 +13,11 @@ synchronise; any failure exits non-zero:
    build/lab4d_tpu_torch/ and prints the compiler's report;
 3. kernel: each kernel against its plain PyTorch version on the same
    inputs, at the shapes the render and training paths give it: K3f
-   (fused_relu_mlp forward), K3b (its backward), K4f / K4b (fused_pe_mlp
+   (fused_relu_mlp forward, with and without saving its hidden outputs)
+   and K3b (its backward from K3f's saved outputs) at the TimeMLPs' render
+   rows (1, 2, 7; 1 row also with the L2 cache flushed) and training rows
+   (32, 256, 512), a ragged 70,001 rows, and 262,144 rows timed with no target (K3f
+   + K3b also against autograd outside the ReLU ties); K4f / K4b (fused_pe_mlp
    and its backward) at the bg field's base, colour and visibility MLPs
    on 262,144 points and at the 512 visibility-decay points (K4f with and
    without saving its hidden outputs, K4b from the saved ones; K4f + K4b
@@ -56,7 +60,10 @@ synchronise; any failure exits non-zero:
    every gradient;
 10. train-fg: as 8 with `--field_type fg --fg_motion skel-quad` (field
    heads D=5 W=128, 25 bones) at full width, plus the round's eval render
-   and its eval/psnr in metrics.jsonl.
+   and its eval/psnr in metrics.jsonl, and the rows each TimeMLP backbone
+   (K3f / K3b) is called with in the training steps;
+11. k3-paths: every shape K3f launched in phases 6, 8 and 10, and K3f /
+   K3b against their plain versions at any the kernel phase did not check.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel; the last line is
@@ -64,6 +71,7 @@ before it a JSON summary of every kernel; the last line is
 prints no result.
 """
 
+import collections
 import contextlib
 import copy
 import json
@@ -98,15 +106,29 @@ REF_TOL = {  # GPU (kernel) vs CPU (plain versions), fp32
     "rgb": ("abs", 1e-4), "mask": ("abs", 1e-4), "vis": ("abs", 1e-4),
     "feature": ("abs", 1e-4), "depth": ("rel", 1e-4), "normal": ("abs", 1e-3),
 }
-# (label, rows, C_in, hidden layers D, width W) on the render path
+# (label, rows, C_in, hidden layers D, width W) of the TimeMLP backbones
+# (final ReLU): the render path's queries and the training step's frames
+# (the [train-fg] phase prints the rows every TimeMLP is called with, and
+# phase_k3_paths checks any shape K3f launched that these miss)
 K3_SHAPES = [
     ("camera/intrinsics D5 W256", 1, 256, 5, 256),
     ("articulation t+rest D5 W256", 2, 256, 5, 256),
     ("7 frames D5 W256", 7, 256, 5, 256),
     ("appearance D2 W64", 1, 64, 2, 64),
 ]
-# the training path: camera / intrinsics TimeMLPs on the 256 frames of a batch
+# the training path: camera / intrinsics TimeMLPs on the 256 frames of a
+# batch; the fg step also runs the appearance TimeMLP on them, the
+# articulation on 512 rows and the camera on the scene's 32 frames
 K3_TRAIN = ("camera/intrinsics train D5 W256", 256, 256, 5, 256)
+K3_TRAIN_SHAPES = [K3_TRAIN, ("appearance train D2 W64", 256, 64, 2, 64),
+                   ("articulation train D5 W256", 512, 256, 5, 256),
+                   ("camera, all 32 frames D5 W256", 32, 256, 5, 256)]
+# checked at a ragged count of many rows, and timed (no target) at the
+# dense warp's sample count (ROADMAP queue 1, slice 4)
+K3_RAGGED = ("ragged D5 W256", 70001, 256, 5, 256)
+K3_DENSE = ("dense-warp rows D5 W256", 262144, 256, 5, 256)
+# the shapes tools/profile_k4b_phases.py profiles K3f / K3b at
+K3_PROFILE = [("render D5 W256", 1, 256, 5, 256), K3_TRAIN, K3_TRAIN_SHAPES[1]]
 # (label, rows, n_freqs, widths, skips, final_act, window) of the bg field
 K4_SHAPES = [
     ("base F6 D5 W128", 262144, 6, (128,) * 6, (4,), True, True),
@@ -267,9 +289,10 @@ def phase_kernel():
 
     def report(name, label, rows, err, kernel, plain, flops, nbytes, inner, rel_err=None,
                extra=None):
-        # the plain backward runs autograd, which a CUDA graph does not
-        # capture reliably: it is timed as back-to-back eager calls
-        backward = name.endswith("b")
+        # K4b's plain backward runs autograd (dx through sin / cos), which a
+        # CUDA graph does not capture reliably: it is timed as back-to-back
+        # eager calls
+        backward = name == "K4b"
         r = {"label": label, "rows": rows, "max_abs_err": err, "ms": device_ms(kernel, inner),
              "plain_ms": eager_ms(plain, inner) if backward else device_ms(plain, inner)}
         if rel_err is not None:
@@ -285,44 +308,14 @@ def phase_kernel():
               f"({r['bound_by']}, fp32 FMA)"
               + "".join(f" / {k} {r[k] * 1e3:.2f} us" for k in (
                   "bound_3xtf32_ms", "bound_vjp_from_x_ms", "bound_vjp_from_x_3xtf32_ms",
-                  "ms_no_save") if k in r)
+                  "ms_no_save", "plain_ms_no_save", "ms_cold_l2", "plain_ms_cold_l2") if k in r)
+              + (f" ({r['engine']})" if "engine" in r else "")
               + (f"; {r['cuda_launches_per_call']} CUDA launches per call"
                  if "cuda_launches_per_call" in r else ""))
         results[name].append(r)
 
-    for label, rows, C_in, D, W in K3_SHAPES + [K3_TRAIN]:
-        weights, biases = _mlp_params(C_in, D, W, gen, "cuda")
-        x = torch.randn(rows, C_in, generator=gen).cuda()
-        got = K.fused_relu_mlp(x, weights, biases, (), True)
-        want = K.mlp_reference(x, weights, biases, (), True)
-        sync()
-        if not got.is_cuda or got.shape != want.shape:
-            fail(f"K3f {label}: output {got.shape} on {got.device}")
-        err = float((got - want).abs().max())
-        if not err <= KERNEL_TOL:
-            fail(f"K3f {label} disagrees with its plain version: {err} > {KERNEL_TOL}")
-        in_dims, out_dims = [C_in] + [W] * D, [W] * (D + 1)
-        macs = mlp_macs(in_dims, out_dims)
-        report("K3f", label, rows, err,
-               lambda: K.fused_relu_mlp(x, weights, biases, (), True),
-               lambda: K.mlp_reference(x, weights, biases, (), True),
-               2 * rows * macs, 4 * (rows * (C_in + W) + macs + sum(out_dims)), 100)
-        if (label, rows) != K3_TRAIN[:2]:
-            continue
-        g = torch.randn(rows, W, generator=gen).cuda()
-        got = K.fused_relu_mlp_backward(x, g, weights, biases)
-        want = K.mlp_backward_reference(x, g, weights, biases)
-        sync()
-        abs_err, err = _bwd_errs(got, want)
-        if not err <= KERNEL_TOL:
-            fail(f"K3b {label} disagrees with its plain version: rel err {err} > {KERNEL_TOL}")
-        # recompute of the hidden layers, dIn of every layer, dW of every layer
-        flops = 2 * rows * (mlp_macs(in_dims[:-1], out_dims[:-1]) + 2 * macs)
-        nbytes = 4 * (2 * rows * C_in + 2 * rows * W + 2 * (macs + sum(out_dims)))
-        report("K3b", label, rows, abs_err,
-               lambda: K.fused_relu_mlp_backward(x, g, weights, biases),
-               lambda: K.mlp_backward_reference(x, g, weights, biases),
-               flops, nbytes, 20, rel_err=err)
+    for label, rows, C, D, W in K3_SHAPES + K3_TRAIN_SHAPES + [K3_RAGGED, K3_DENSE]:
+        _k3_kernels(K, gen, label, rows, C, [W] * (D + 1), report)
 
     for shape in K4_SHAPES:
         _pe_kernels(K, gen, shape, report)
@@ -335,11 +328,15 @@ def _pe_relu_ties(K, args, acts):
     forward's input to that ReLU lie on opposite sides of zero, so that the
     two backward passes take other sides of the kink: (rows holding one,
     number of pairs, largest |input| among them). args: fused_pe_mlp's."""
+    _, z = K.pe_mlp_forward_saved_reference(*args, pre_activations=True)
+    return _mlp_relu_ties(K, args[2], args[0].shape[0], acts, z)
+
+
+def _mlp_relu_ties(K, weights, P, acts, z):
+    """_pe_relu_ties from the saved outputs acts and the plain forward's
+    ReLU inputs z, both in pe_act_layout (K3f's and K4f's)."""
     import torch
 
-    x, weights = args[0], args[2]
-    _, z = K.pe_mlp_forward_saved_reference(*args, pre_activations=True)
-    P = x.shape[0]
     rows = torch.zeros(P, dtype=torch.bool, device=acts.device)
     n, z_max = 0, 0.0
     for off, w in zip(K.pe_act_layout(weights)[0], [w.shape[0] for w in weights[:-1]]):
@@ -349,6 +346,131 @@ def _pe_relu_ties(K, args, acts):
         n += int(flip.sum())
         z_max = max(z_max, float(zz.abs().masked_fill(~flip, 0).max()))
     return rows, n, z_max
+
+
+K3_FLUSH_BYTES = 200 * 2**20  # written between timed calls: four times the H100's 50 MB L2
+K3_SLEEP_CYCLES = 10_000_000  # the card's sleep before each timed call: ~5 ms at 1.98 GHz
+
+
+def cold_ms(fn, reps=20):
+    """Median device time of one call of fn with the L2 cache flushed
+    before it (K3f at render rows: the field's work evicts the TimeMLP
+    weights between calls), CUDA events around each call, ms. After the
+    flush the card sleeps (torch.cuda._sleep) while the host queues the
+    start event, fn's launches and the end event, so that the window
+    between the events holds fn's device work and none of its host work;
+    it fails if the host took longer than the sleep."""
+    import torch
+
+    junk = torch.empty(K3_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(K3_SLEEP_CYCLES)
+    end.record()
+    end.synchronize()
+    sleep_ms = start.elapsed_time(end)
+    times, host = [], []
+    for _ in range(reps):
+        junk.fill_(1.0)
+        torch.cuda._sleep(K3_SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del junk
+    if not max(host) < sleep_ms:
+        fail(f"cold_ms: the host took {max(host):.3f} ms to queue a call, longer than the "
+             f"card's {sleep_ms:.3f} ms sleep before it")
+    return float(np.median(times))
+
+
+def _k3_kernels(K, gen, label, rows, C, widths, report=None):
+    """K3f and K3b at one MLP shape (final ReLU, as the TimeMLP backbones run)
+    against their plain versions: K3f's output with and without saving
+    and its saved hidden outputs against mlp_forward_saved_reference; K3b
+    from K3f's own saved outputs against mlp_backward_saved_reference on the
+    same ones; K3f + K3b against autograd through a recomputed plain
+    forward outside the ReLU ties (_mlp_relu_ties: every flipped input
+    within 10x K3f's saved error of zero). Then, given report, both timed
+    (the dense-warp shape with no target), with their bounds: fp32 FMA and
+    3xTF32, K3b's from the saved outputs; K3f also without saving, against
+    mlp_reference (a render saves nothing). At 1 row K3f and mlp_reference
+    are also timed with the L2 cache flushed."""
+    import torch
+
+    W = widths[-1]
+    weights, biases = _mlp_params(C, 0, 0, gen, "cuda", widths=list(widths))
+    x = torch.randn(rows, C, generator=gen).cuda()
+    args = (x, weights, biases, (), True)
+    got, acts = K.mlp_forward_saved(*args)
+    launches_f = K.fused_relu_mlp.cuda_launches
+    got_ns = K.fused_relu_mlp(*args)  # nothing requires a gradient: K3f without saving
+    want, want_acts = K.mlp_forward_saved_reference(*args)
+    sync()
+    err = max(float((got - want).abs().max()), float((got_ns - want).abs().max()))
+    err_saved = float((acts - want_acts).abs().max())
+    if not got.is_cuda or got.shape != want.shape or not max(err, err_saved) <= KERNEL_TOL:
+        fail(f"K3f {label} disagrees with its plain version: output {err}, saved outputs "
+             f"{err_saved} > {KERNEL_TOL}")
+    g = torch.randn(rows, W, generator=gen).cuda() * (got > 0)  # the final ReLU's mask, as the caller applies it
+    bwd_args = (x, g, weights, biases, ())
+    got_b = K.fused_relu_mlp_backward(*bwd_args, saved=acts)
+    launches_b = K.fused_relu_mlp_backward.cuda_launches
+    want_b = K.mlp_backward_saved_reference(*bwd_args, acts)
+    sync()
+    abs_err, rel_err = _bwd_errs(got_b, want_b)
+    if not rel_err <= KERNEL_TOL:
+        fail(f"K3b {label} disagrees with its plain version: rel err {rel_err} > {KERNEL_TOL}")
+    _, z = K.mlp_forward_saved_reference(*args, pre_activations=True)
+    tie_rows, n_ties, z_tie = _mlp_relu_ties(K, weights, rows, acts, z)
+    _, rel_auto = _bwd_errs(got_b, K.mlp_backward_reference(*bwd_args))
+    g_kept = g * (~tie_rows).to(g.dtype)[:, None]
+    _, rel_kept = _bwd_errs(K.fused_relu_mlp_backward(x, g_kept, *bwd_args[2:], saved=acts),
+                            K.mlp_backward_reference(x, g_kept, *bwd_args[2:]))
+    sync()
+    print(f"[kernel] K3f + K3b {label} against autograd through the plain forward: all rows "
+          f"{rel_auto:.1e}; ReLU ties: {n_ties} (row, unit) pairs in {int(tie_rows.sum())} of "
+          f"{rows} rows, largest |input| {z_tie:.2e} (tol {10 * err_saved:.2e}, 10x K3f's saved "
+          f"error); the other rows {rel_kept:.1e} (tol {KERNEL_TOL:g})")
+    if not z_tie <= 10 * err_saved:
+        fail(f"K3f {label}: a ReLU input of {z_tie} flips between K3f and the plain forward")
+    if not rel_kept <= KERNEL_TOL:
+        fail(f"K3f + K3b {label} disagree with autograd outside the ReLU ties: {rel_kept}")
+
+    if report is None:
+        return
+    in_dims, out_dims = [C] + list(widths[:-1]), list(widths)
+    macs = mlp_macs(in_dims, out_dims)
+    n_params = macs + sum(out_dims)
+    saved_bytes = 4 * rows * sum(widths[:-1])
+    flops_f = 2 * rows * macs
+    nbytes_f = 4 * (rows * (C + W) + n_params) + saved_bytes
+    flops_b = 4 * rows * macs  # dIn and dW of every layer from the saved outputs
+    nbytes_b = 4 * (2 * rows * C + rows * W + 2 * n_params) + saved_bytes
+    plan = K.relu_mlp_plan(C, in_dims, out_dims, rows)
+    inner = 3 if rows > 4096 else 100
+    main = (label, rows) == K3_TRAIN[:2]
+    extra_f = {"ms_no_save": device_ms(lambda: K.fused_relu_mlp(*args), inner),
+               "plain_ms_no_save": device_ms(lambda: K.mlp_reference(*args), inner),
+               "bound_3xtf32_ms": bound_ms(3 * flops_f, nbytes_f, PEAK_TF32)[0],
+               "cuda_launches_per_call": launches_f, "engine": "fp32 FMA" if plan.fwd_fma else "3xTF32",
+               "main": main}
+    if rows == 1:
+        extra_f["ms_cold_l2"] = cold_ms(lambda: K.fused_relu_mlp(*args))
+        extra_f["plain_ms_cold_l2"] = cold_ms(lambda: K.mlp_reference(*args))
+    report("K3f", label, rows, max(err, err_saved), lambda: K.mlp_forward_saved(*args),
+           lambda: K.mlp_forward_saved_reference(*args), flops_f, nbytes_f, inner, extra=extra_f)
+    report("K3b", label, rows, abs_err, lambda: K.fused_relu_mlp_backward(*bwd_args, saved=acts),
+           lambda: K.mlp_backward_saved_reference(*bwd_args, acts), flops_b, nbytes_b,
+           inner, rel_err=rel_err, extra={
+               "bound_3xtf32_ms": bound_ms(3 * flops_b, nbytes_b, PEAK_TF32)[0],
+               "cuda_launches_per_call": launches_b, "relu_tie_pairs": n_ties,
+               "relu_tie_rows": int(tie_rows.sum()), "max_rel_err_autograd_all_rows": rel_auto,
+               "max_rel_err_autograd_untied_rows": rel_kept, "main": main})
 
 
 def _pe_kernels(K, gen, shape, report):
@@ -751,6 +873,57 @@ def phase_reference(model, geo_state, data_info):
           + " ".join(f"{k}={v:.2e}({REF_TOL[k][0]}<={REF_TOL[k][1]:g})" for k, v in worst.items()))
 
 
+@contextlib.contextmanager
+def k3_records(calls, shapes):
+    """While on, every TimeMLP backbone call counts its rows in
+    calls[class name], and every K3f launch its (rows, C_in, widths) in
+    shapes (both collections.Counter)."""
+    from lab4d_tpu_torch.nnutils.time_mlp import TimeMLP
+    from lab4d_tpu_torch.ops import mlp_kernel as K
+
+    orig_feat, orig_launch = TimeMLP.forward_feat, K._launch_k3f
+
+    def forward_feat(self, t_embed):
+        calls.setdefault(type(self).__name__, collections.Counter())[
+            t_embed.reshape(-1, t_embed.shape[-1]).shape[0]] += 1
+        return orig_feat(self, t_embed)
+
+    def launch(lib, x, weights, *args, **kwargs):
+        shapes[(x.shape[0], x.shape[1], tuple(w.shape[0] for w in weights))] += 1
+        return orig_launch(lib, x, weights, *args, **kwargs)
+
+    TimeMLP.forward_feat, K._launch_k3f = forward_feat, launch
+    try:
+        yield
+    finally:
+        TimeMLP.forward_feat, K._launch_k3f = orig_feat, orig_launch
+
+
+def phase_k3_paths(shapes):
+    """K3f / K3b against their plain versions at every shape K3f launched
+    on the render and training paths that the kernel phase did not check
+    (K3_SHAPES, K3_TRAIN_SHAPES)."""
+    from lab4d_tpu_torch.ops import mlp_kernel as K
+
+    checked = {(rows, C, (W,) * (D + 1)) for _, rows, C, D, W in K3_SHAPES + K3_TRAIN_SHAPES}
+    gen = torch_generator()
+    extra = sorted(set(shapes) - checked)
+    for rows, C, widths in extra:
+        _k3_kernels(K, gen, f"path rows={rows} C={C} widths={list(widths)}", rows, C, widths)
+    sync()
+    print(f"[k3-paths] K3f launched at {len(shapes)} shapes on the render and training paths "
+          f"(rows, C_in, widths: launches): "
+          + "; ".join(f"{r}, {c}, {list(w)}: {n}" for (r, c, w), n in sorted(shapes.items()))
+          + f"; {len(extra)} not in the kernel phase's shapes, checked here against the plain "
+          "versions")
+
+
+def torch_generator():
+    import torch
+
+    return torch.Generator().manual_seed(SEED)
+
+
 def phase_render(model, geo_state, data_info):
     import torch
 
@@ -1054,22 +1227,25 @@ def _reset_kernel_counts():
         fn.launches = 0
 
 
-def phase_train(db, root, cate):
+def phase_train(db, root, cate, calls=None):
     """The training entry at full width for the `cate` field; returns the
     launch counts of the whole run and of the training steps, and the
-    median ms/step."""
+    median ms/step. calls: k3_records' TimeMLP calls, whose share of the
+    training steps is printed."""
     import torch
 
     from lab4d_tpu_torch import train as train_cli
     from lab4d_tpu_torch.engine.trainer import Trainer
 
-    steps = {}
+    steps, step_calls = {}, {}
     orig = Trainer.train_one_round
 
     def counted_round(self, round_count):  # the launches of the training steps alone
-        before = _kernel_counts()
+        before, before_calls = _kernel_counts(), copy.deepcopy(calls or {})
         orig(self, round_count)
         steps.update({k: v - before[k] for k, v in _kernel_counts().items()})
+        step_calls.update({k: v - before_calls.get(k, collections.Counter())
+                           for k, v in (calls or {}).items()})
 
     argv = TRAIN_OPTS[cate] + ["--num_rounds", "1", "--iters_per_round", str(TRAIN_STEPS),
                          "--save_freq", "1", "--database_root", db,
@@ -1125,6 +1301,11 @@ def phase_train(db, root, cate):
           f"{first:.5f} -> {last:.5f}); grad norm {trainer.grad_norms[0]:.4f} -> "
           f"{trainer.grad_norms[-1]:.4f} (max {max(trainer.grad_norms):.4f}); "
           f"geometry init loss {trainer.geo_init_losses[0]:.4f} -> {trainer.geo_init_losses[1]:.4f}")
+    if step_calls:
+        print(f"[{tag}] TimeMLP backbone calls in the {TRAIN_STEPS} training steps (rows x calls; "
+              "K3f forward, K3b backward): " + "; ".join(
+                  f"{name} " + ", ".join(f"{r} x {n}" for r, n in sorted(c.items()))
+                  for name, c in sorted(step_calls.items()) if c))
     print(f"[{tag}] launches in the training steps: "
           + " ".join(f"{k}={v}" for k, v in steps.items())
           + "; in the whole run: " + " ".join(f"{k}={v}" for k, v in launches.items())
@@ -1172,14 +1353,19 @@ def main():
     data_info = make_scene()
     model, geo_state = phase_model(data_info)
     phase_reference(model, geo_state, data_info)
-    render_launches = phase_render(model, geo_state, data_info)
+    k3_shapes, fg_calls = collections.Counter(), {}
+    with k3_records({}, k3_shapes):
+        render_launches = phase_render(model, geo_state, data_info)
     del model
     with tempfile.TemporaryDirectory() as root:
         db = write_scene(root)
         phase_train_reference(db, root, "bg")
-        bg_launches, bg_steps, _ = phase_train(db, root, "bg")
+        with k3_records({}, k3_shapes):
+            bg_launches, bg_steps, _ = phase_train(db, root, "bg")
         phase_train_reference(db, root, "fg")
-        fg_launches, fg_steps, _ = phase_train(db, root, "fg")
+        with k3_records(fg_calls, k3_shapes):
+            fg_launches, fg_steps, _ = phase_train(db, root, "fg", fg_calls)
+    phase_k3_paths(k3_shapes)
     sync()
     jax_loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "lab4d_tpu"))
     if jax_loaded:
@@ -1188,8 +1374,10 @@ def main():
 
     rows = []
     for key, (name, source, replaces) in KERNEL_INFO.items():
-        # the shape the training step gives each kernel most work at
-        main_shape = max(kernels[key], key=lambda r: (r["rows"], r["bound_ms"]))
+        # the training step's shape (K3: the camera / intrinsics TimeMLPs),
+        # else the shape it gives the kernel most work at
+        main_shape = next((r for r in kernels[key] if r.get("main")), None) or \
+            max(kernels[key], key=lambda r: (r["rows"], r["bound_ms"]))
         # the anatomy copies are a profiler's, on no path
         by_path = {path: counts.get(key, 0) for path, counts in (
             ("render", render_launches), ("train", bg_launches), ("train_fg", fg_launches))}
@@ -1206,7 +1394,13 @@ def main():
             "library_ms": None, "shape": main_shape["label"],
             **{k: main_shape[k] for k in (
                 "bound_3xtf32_ms", "bound_vjp_from_x_ms", "bound_vjp_from_x_3xtf32_ms",
-                "ms_no_save", "cuda_launches_per_call", "copies_ms") if k in main_shape},
+                "ms_no_save", "plain_ms_no_save", "cuda_launches_per_call", "copies_ms")
+                if k in main_shape},
+            **({"shapes": [{k: r[k] for k in (
+                "label", "rows", "engine", "ms", "ms_no_save", "ms_cold_l2", "plain_ms",
+                "plain_ms_no_save", "plain_ms_cold_l2", "bound_ms", "bound_3xtf32_ms", "cuda_launches_per_call",
+                "max_abs_err", "max_rel_err") if k in r} for r in kernels[key]]}
+               if key in ("K3f", "K3b") else {}),
         })
     print(json.dumps({"kernels": rows}))
     print(card)

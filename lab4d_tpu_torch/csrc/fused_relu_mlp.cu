@@ -1,256 +1,821 @@
-// K3f: forward of the fused ReLU MLP, hand-written for Hopper (sm_90a).
+// K3f and K3b: the fused ReLU MLP of the TimeMLP backbones, forward and
+// backward, hand-written for Hopper (sm_90a).
 //
-// Replaces the Pallas kernel lab4d_tpu/ops/mlp_kernel.py:_fwd_kernel
-// (entry fused_relu_mlp). It computes D+1 dense fp32 layers with ReLU
-// between them, re-concatenates the input before each skip layer as
-// [x, h], and applies an optional final ReLU.
+// K3f replaces the Pallas kernel lab4d_tpu/ops/mlp_kernel.py:_fwd
+// (_fwd_kernel); K3b replaces _bwd (_bwd_kernel). Semantics are theirs: D+1
+// dense fp32 layers, ReLU between them, the input re-concatenated before
+// each skip layer as [x, h], an optional ReLU on the output; the backward
+// returns dx, every dW and every db. The final ReLU's mask on the incoming
+// gradient is applied by the caller, as the JAX VJP does. Weights stay in
+// the torch.nn.Linear layout (out, in).
 //
-// What bounds it on the card: the rendering path calls it on a handful of
-// rows (1 per rendered frame, 2 for the articulation's batched t/rest
-// pass, the frame count when cameras are queried), at C_in = W = 256 with
-// D = 5 (camera, articulation, intrinsics) and W = 64 with D = 2
-// (appearance). At one to eight rows every weight is used once per row:
-// the kernel streams ~1.5 MB of fp32 weights for a few KFLOP, so it is
-// bound by memory latency and launch count, not by arithmetic, and a
-// tensor-core tile of 64 rows would sit almost empty. A single block per
-// row tile is latency-bound on one SM (a first design measured 191 us
-// against 23 us for six cuBLAS calls on the same H100).
+// What bounds it on the card: the camera, intrinsics and articulation
+// TimeMLPs are D5 W256 (1.57 MB of fp32 weights) on a few rows: 1 or 2
+// when a render queries its frames; 1, 32, 256 (the frames of a training
+// batch) and 512 in a training step. At 256 rows the forward is 201 MFLOP
+// (3.0 us on fp32 FMA, 1.2 us in 3xTF32 on the tensor cores) and the
+// backward from saved layer outputs twice that; at 1 row the weights,
+// read once, bound it (0.47 us). Every layer depends on the one before,
+// so what the card waits on is the latency of each layer's weights, of
+// its short product chain and of the barrier between layers, not
+// arithmetic (PERF.md prices each with the anatomy copies of
+// tools/profile_k4b_phases.py); and a block that streams all 1.57 MB from
+// L2 alone needs ~15 us for it.
 //
-// What the design does about it: a thread-block cluster of 8 blocks on 8
-// SMs works on one tile of 8 rows and runs every layer, so the whole MLP
-// is one launch and the activations never leave shared memory. Each block
-// computes 1/8 of a layer's output columns and stores them into the
-// shared memory of all 8 blocks (distributed shared memory); one cluster
-// barrier per layer orders the layers. Weights stay in the
-// torch.nn.Linear layout (out, in). Each warp owns 4 output columns at a
-// time; every lane first issues all its float4 weight loads for those
-// columns (coalesced 16-byte chunks, up to 8 in flight per lane), then
-// FMAs them against float4 reads of the 8 activation rows in shared
-// memory, and the 4 x 8 partial sums are reduced across the warp with a
-// 31-shuffle reduce-scatter, after which lane l holds column l / 8, row
-// l % 8. fp32 FMA throughout, no TF32. The input tile is staged into the
-// leading columns of both ping-pong buffers, so a skip layer reads [x, h]
-// as one contiguous row. Layers whose widths or pointers are not 16-byte
-// aligned take the same path with scalar loads.
+// What the design does about it:
+// - A cluster of 8 blocks on 8 SMs carries one tile of rows through every
+//   layer, in one launch. Each block owns 1/8 of a layer's output columns
+//   (the forward) or input columns (the backward's dIn), so it reads only
+//   its 1/8 of the weights, and it stores its columns into the shared
+//   memory of all 8 blocks (distributed shared memory); one cluster
+//   barrier per layer orders the layers.
+// - Each block stages its slice of the weights by cp.async into a ring of
+//   slabs in shared memory, as many layers ahead as fit (every layer at
+//   render rows), before layer 0 runs: no layer waits for its weights
+//   after the first.
+// - Up to 8 rows (the render), the forward runs fp32 FMA on a tile of 8
+//   rows: a 16-row tensor-core tile would be almost empty. Each warp takes
+//   4 columns; its lanes split the inputs and a butterfly reduce-scatter
+//   leaves lane l with column l / 8 of row l % 8.
+// - Past 8 rows, both directions run on 32-row tiles (two m16 tiles,
+//   so that 256 rows take 8 clusters: one wave, where 16 clusters of
+//   16-row tiles took two) with 3xTF32 mma.sync products (heads_mma.cuh:
+//   each fp32 operand split into tf32 hi + lo, three products per k-step
+//   summed into an fp32 register); the 16 warps of a block split the
+//   reduction, and their partial sums are added in a fixed order through
+//   shared memory.
+// - K3f saves every hidden layer's output after its ReLU when autograd
+//   needs it (the caller decides), in the layout of K4f's (layer l's block
+//   a row-major (rows, out_l) array at act_off[l] * rows floats). K3b
+//   reads those and recomputes no forward. It is two launches: dIn through
+//   every layer on K3f's cluster tiles (each layer's masked gradient G
+//   stored for dW; dx summed over the cluster in rank order), then every
+//   layer's dW = G^T A and db = sum G at once, straight into the gradient.
+//   Up to 512 rows (the training step's 256 frames) each 32 x 32 output
+//   tile is one block that stages all rows of its operands at once and
+//   splits them over its warps (rm_dw_rows_kernel: one wait for memory,
+//   where the split-K tiles of heads_mma.cuh wait once per 32 rows). More
+//   rows take hm_dw_tile's 64 x 64 tiles over chunks of rows, into
+//   workspace slices summed in chunk order by hm_reduce_kernel (a third
+//   launch) when there is more than one chunk.
 //
-// This library also holds K3b, the VJP of this MLP on the training path
-// (lab4d_relu_mlp_tile_bwd): the row-tiled fp32 backward of mlp_tiles.cuh,
-// whose design and bound are described there.
+// No float atomics: every sum across warps, blocks and chunks runs in a
+// fixed order, and the result is the same from run to run. Layers take at
+// most 512 inputs and outputs (two 32-column units of a block's warps),
+// and the buffers of their widths must fit in shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mlp_tiles.cuh"
+#include <algorithm>
+
+#include "heads_mma.cuh"
 
 namespace cg = cooperative_groups;
 
-#define MLP_MAX_LAYERS 16
-#define MLP_TILE_ROWS 8
-#define MLP_CLUSTER 8
-#define MLP_THREADS 256
-#define MLP_COLS_PER_WARP 4
-static_assert(MLP_COLS_PER_WARP * MLP_TILE_ROWS == 32, "one partial sum per lane");
+#define RM_MAX_LAYERS 16
+#define RM_CLUSTER 8     // blocks of a cluster, each 1/8 of a layer's columns
+#define RM_WARPS 16      // a block of the cluster kernels
+#define RM_THREADS (32 * RM_WARPS)
+#define RM_PART (RM_WARPS * 16 * RM_PLD)  // floats of the warps' partial sums
+#define RM_DW_WARPS 8    // a block of rm_dw_rows_kernel
+#define RM_FMA_ROWS 8    // the forward's fp32 FMA tile: up to this many rows
+#define RM_MMA_ROWS 32   // the 3xTF32 tile of both directions: two m16 tiles
+#define RM_PLD 36        // row stride of a warp's partial sums (32 columns + 4)
+#define RM_MAX_WIDTH 512 // widest layer input or output: 64 columns per block
+#define RM_SMEM (227 * 1024)
+#define RM_DW_ROWS 512   // K3b's dW from every row at once up to this many rows
+#define RM_DW_LD 40      // row stride of its staged operands (8 mod 32: conflict-free fragments)
 
-struct MlpArgs {
-  const float* w[MLP_MAX_LAYERS];  // (out_l, in_l), row-major
-  const float* b[MLP_MAX_LAYERS];  // (out_l,)
-  int in_dim[MLP_MAX_LAYERS];
-  int out_dim[MLP_MAX_LAYERS];
-  int n_layers;
-  int c_in;
-  int rows;
-  int ld;         // shared-memory row stride: c_in + widest hidden layer, rounded up to 4
-  int skip_mask;  // bit l set: layer l reads [x, h]
-  int final_act;
+struct RmArgs {
+  const float* w[RM_MAX_LAYERS];  // (out_l, in_l), row-major
+  const float* b[RM_MAX_LAYERS];  // (out_l,)
+  int in_dim[RM_MAX_LAYERS];
+  int out_dim[RM_MAX_LAYERS];
+  int n_layers, c_in, rows, skip_mask, final_act;
+  int tr;      // rows per tile
+  int stages;  // slabs in the ring: layers whose weights are in flight
+  int lda;     // row stride of the hidden (K3f) or gradient (K3b) buffers
+  int ldx;     // row stride of the x buffer (K3f) or the dx accumulator (K3b)
+  int slab;    // floats per slab
+  int nb[RM_MAX_LAYERS];   // columns a block owns: layer l's outputs (K3f) or inputs (K3b)
+  int ldb[RM_MAX_LAYERS];  // row stride of layer l's slab
+  int act_off[RM_MAX_LAYERS];  // floats per row before layer l's saved block
+  int off_w[RM_MAX_LAYERS];    // layer l's dW (out, in) in the gradients
+  int off_b[RM_MAX_LAYERS];    // and its db, after every dW
+  int dw_tile0[RM_MAX_LAYERS + 1];  // the first dW block of layer l; [n_layers]: all
+  int dw32_tile0[RM_MAX_LAYERS + 1];  // the same for 32 x 32 tiles (rm_dw_rows_kernel)
+  int act_total, n_params, pc, n_chunks;
 };
 
-// v[i] holds a lane's partial sum of value i; afterwards v[0] of lane l is
-// the sum over the warp of value l (butterfly reduce-scatter).
-__device__ __forceinline__ void warp_reduce_scatter(float (&v)[32], int lane) {
-#pragma unroll
-  for (int s = 16; s >= 1; s >>= 1) {
-    const bool upper = lane & s;
-#pragma unroll
-    for (int i = 0; i < s; ++i) {
-      const float send = upper ? v[i] : v[i + s];
-      const float keep = upper ? v[i + s] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, s);
-    }
+__host__ __device__ __forceinline__ int rm_round(int n, int m) { return (n + m - 1) / m * m; }
+
+// Row stride of a k-major slab of n columns: 8 mod 32 floats, so that the
+// B fragment loads (lanes 4 apart along k) hit 32 distinct banks
+__host__ __device__ __forceinline__ int rm_ldk(int n) { return n + ((8 - n) % 32 + 32) % 32; }
+
+__device__ __forceinline__ bool rm_skip(const RmArgs& a, int l) {
+  return l > 0 && ((a.skip_mask >> l) & 1);
+}
+
+template <int N>
+__device__ __forceinline__ void rm_wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Wait until at most n of this thread's cp.async groups are pending
+__device__ __forceinline__ void rm_cp_wait(int n) {
+  switch (n) {
+    case 0: rm_wait_group<0>(); break;
+    case 1: rm_wait_group<1>(); break;
+    case 2: rm_wait_group<2>(); break;
+    case 3: rm_wait_group<3>(); break;
+    case 4: rm_wait_group<4>(); break;
+    case 5: rm_wait_group<5>(); break;
+    case 6: rm_wait_group<6>(); break;
+    case 7: rm_wait_group<7>(); break;
+    default: rm_wait_group<0>(); break;
   }
 }
 
-__device__ __forceinline__ void fma4(float& acc, const float4& h, const float4& w) {
-  acc = fmaf(h.x, w.x, acc);
-  acc = fmaf(h.y, w.y, acc);
-  acc = fmaf(h.z, w.z, acc);
-  acc = fmaf(h.w, w.w, acc);
-}
+// Operands in shared memory, zero at and past K along the reduction.
+// RmIn, a layer input: A(m, k) = s1[m * ld1 + k] for k < k1, then
+// s2[m * ld2 + k - k1] (a skip layer's [x, h]); RmBRows: B(k, n) =
+// s[n * ld + k] (the rows of W a block's outputs take); RmBCols: B(k, n) =
+// s[k * ld + n] (the columns of W a block's inputs take)
+struct RmIn {
+  const float* s1;
+  int ld1, k1;
+  const float* s2;
+  int ld2, K;
+  __device__ __forceinline__ float operator()(int m, int k) const {
+    return k < k1 ? s1[m * ld1 + k] : (k < K ? s2[m * ld2 + (k - k1)] : 0.f);
+  }
+};
+struct RmAT {  // A(m, k) = s[k * ld + m]: G's columns, row after row
+  const float* s;
+  int ld, K;
+  __device__ __forceinline__ float operator()(int m, int k) const {
+    return k < K ? s[k * ld + m] : 0.f;
+  }
+};
+struct RmBRows {
+  const float* s;
+  int ld, K;
+  __device__ __forceinline__ float operator()(int k, int n) const {
+    return k < K ? s[n * ld + k] : 0.f;
+  }
+};
+struct RmBCols {
+  const float* s;
+  int ld, K;
+  __device__ __forceinline__ float operator()(int k, int n) const {
+    return k < K ? s[k * ld + n] : 0.f;
+  }
+};
 
-// Partial sums v[q * 8 + r] of columns jb + q (clamped to the last column)
-// and rows r over this lane's share of the `in` inputs.
-__device__ __forceinline__ void partial_dots(float (&v)[32], const float* __restrict__ W,
-                                             const float* src, int ld, int in, int out,
-                                             int jb, int lane, bool vec) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) v[i] = 0.f;
-  const float* wrow[MLP_COLS_PER_WARP];
-#pragma unroll
-  for (int q = 0; q < MLP_COLS_PER_WARP; ++q) wrow[q] = W + (size_t)min(jb + q, out - 1) * in;
-  if (vec) {
-    // 2 chunks of 128 inputs per pass: all 8 weight loads are issued first
-    for (int k0 = lane * 4; k0 < in; k0 += 256) {
-      float4 w[MLP_COLS_PER_WARP][2];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int k = k0 + c * 128;
-#pragma unroll
-        for (int q = 0; q < MLP_COLS_PER_WARP; ++q)
-          w[q][c] = k < in ? __ldg(reinterpret_cast<const float4*>(wrow[q] + k))
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int k = k0 + c * 128;
-        if (k < in) {
-#pragma unroll
-          for (int r = 0; r < MLP_TILE_ROWS; ++r) {
-            const float4 h = *reinterpret_cast<const float4*>(src + r * ld + k);
-#pragma unroll
-            for (int q = 0; q < MLP_COLS_PER_WARP; ++q) fma4(v[q * MLP_TILE_ROWS + r], h, w[q][c]);
-          }
-        }
-      }
-    }
-  } else {
+// c[j] += the k-steps k8_0, k8_0 + kstep, ... of A (rows m0 .. m0 + 15)
+// . B (columns n0 + 8 j ..) for j < NV, in 3xTF32. NV is a compile-time
+// count, so the NV product chains unroll without branches and interleave.
+template <int NV, class AOp, class BOp>
+__device__ __forceinline__ void rm_mma_steps(float (&c)[4][4], const AOp& A, const BOp& B, int K,
+                                             int k8_0, int kstep, int m0, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll 2
-    for (int k = lane; k < in; k += 32) {
-      float w[MLP_COLS_PER_WARP];
+  for (int k8 = k8_0; k8 < K; k8 += kstep) {
+    uint32_t ah[4], al[4];
+    hm_frag_a(A, k8, m0, ah, al);
 #pragma unroll
-      for (int q = 0; q < MLP_COLS_PER_WARP; ++q) w[q] = __ldg(wrow[q] + k);
-#pragma unroll
-      for (int r = 0; r < MLP_TILE_ROWS; ++r) {
-        const float h = src[r * ld + k];
-#pragma unroll
-        for (int q = 0; q < MLP_COLS_PER_WARP; ++q)
-          v[q * MLP_TILE_ROWS + r] = fmaf(h, w[q], v[q * MLP_TILE_ROWS + r]);
-      }
+    for (int j = 0; j < NV; ++j) {
+      uint32_t bh0, bl0, bh1, bl1;
+      hm_split(B(k8 + t, n0 + 8 * j + g), bh0, bl0);
+      hm_split(B(k8 + t + 4, n0 + 8 * j + g), bh1, bl1);
+      hm_mma3(c[j], ah, al, bh0, bh1, bl0, bl1);
     }
   }
 }
 
-__global__ void __cluster_dims__(MLP_CLUSTER, 1, 1) __launch_bounds__(MLP_THREADS)
-fused_relu_mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ y, MlpArgs a) {
+// out (32 x cnt) = A (32 x K) . B (K x cnt) in 3xTF32 on a block of WARPS
+// warps: each warp takes one 16-row half, one of ceil(nb / 32) units of 32
+// columns and every S-th k-step (S = WARPS / 2 / units); the partial sums
+// meet in `part` (WARPS x 16 x RM_PLD floats, which may alias the
+// operands: it is written after every warp's products) and are added in
+// warp order; emit(m, n, value) for every m < 32, n < cnt.
+template <int WARPS, class AOp, class BOp, class Emit>
+__device__ __forceinline__ void rm_mma_layer(const AOp& A, const BOp& B, int K, int nb, int cnt,
+                                             float* part, const Emit& emit) {
+  const int warp = threadIdx.x >> 5;
+  const int units = (nb + 31) / 32, S = WARPS / 2 / units;
+  const int h = warp & 1, u = (warp >> 1) % units, s = (warp >> 1) / units;
+  const int n0 = 32 * u, nv = hm_nv(cnt, n0);
+  float c[4][4];
+  hm_zero(c);
+  switch (nv) {
+    case 4: rm_mma_steps<4>(c, A, B, K, 8 * s, 8 * S, 16 * h, n0); break;
+    case 3: rm_mma_steps<3>(c, A, B, K, 8 * s, 8 * S, 16 * h, n0); break;
+    case 2: rm_mma_steps<2>(c, A, B, K, 8 * s, 8 * S, 16 * h, n0); break;
+    case 1: rm_mma_steps<1>(c, A, B, K, 8 * s, 8 * S, 16 * h, n0); break;
+    default: break;
+  }
+  __syncthreads();  // every warp is done with the operands
+  if (nv > 0)
+    hm_store(c, 0, 0, nv, 32, [&](int m, int n, float v) {
+      part[(warp * 16 + m) * RM_PLD + n] = v;
+    });
+  __syncthreads();
+  for (int o = threadIdx.x; o < RM_MMA_ROWS * cnt; o += 32 * WARPS) {
+    const int m = o / cnt, n = o - m * cnt, un = n >> 5, hh = m >> 4, ml = m & 15;
+    float v = 0.f;
+    for (int ss = 0; ss < S; ++ss)
+      v += part[((hh + 2 * (un + units * ss)) * 16 + ml) * RM_PLD + n - 32 * un];
+    emit(m, n, v);
+  }
+}
+
+// One butterfly stage of rm_reduce_scatter: lanes with bit S set keep the
+// upper S values, the others the lower, each adding its partner's
+template <int S>
+__device__ __forceinline__ void rm_rs_stage(float (&v)[32], bool upper) {
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const float lo = v[i], hi = v[i + S];
+    v[i] = (upper ? hi : lo) + __shfl_xor_sync(0xffffffffu, upper ? lo : hi, S);
+  }
+}
+
+// v[i] holds a lane's partial sum of value i; afterwards v[0] of lane l is
+// the sum over the warp of value l (butterfly reduce-scatter). The stages
+// are compile-time, so every index is fixed and v stays in registers.
+__device__ __forceinline__ void rm_reduce_scatter(float (&v)[32], int lane) {
+  rm_rs_stage<16>(v, lane & 16);
+  rm_rs_stage<8>(v, lane & 8);
+  rm_rs_stage<4>(v, lane & 4);
+  rm_rs_stage<2>(v, lane & 2);
+  rm_rs_stage<1>(v, lane & 1);
+}
+
+// out (8 x cnt) = A (8 x K) . B (K x cnt) in fp32 FMA, B's rows of W at
+// wsl[n * ldb + k]: each warp takes 4 columns at a time, its lanes every
+// 32nd input; emit(m, n, value) for every m < 8, n < cnt.
+template <class Emit>
+__device__ __forceinline__ void rm_fma_layer(const RmIn& in, const float* wsl, int ldb, int cnt,
+                                             const Emit& emit) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int jb = 4 * warp; jb < cnt; jb += 4 * RM_WARPS) {
+    float v[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) v[i] = 0.f;
+    const float* wr[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wr[q] = wsl + min(jb + q, cnt - 1) * ldb;
+    for (int k = lane; k < in.K; k += 32) {
+      const float* src = k < in.k1 ? in.s1 + k : in.s2 + (k - in.k1);
+      const int ld = k < in.k1 ? in.ld1 : in.ld2;
+      float w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[q] = wr[q][k];
+#pragma unroll
+      for (int r = 0; r < RM_FMA_ROWS; ++r) {
+        const float h = src[r * ld];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q * RM_FMA_ROWS + r] = fmaf(h, w[q], v[q * RM_FMA_ROWS + r]);
+      }
+    }
+    rm_reduce_scatter(v, lane);
+    const int n = jb + lane / RM_FMA_ROWS;
+    if (n < cnt) emit(lane % RM_FMA_ROWS, n, v[0]);
+  }
+}
+
+// ------------------------------------------------------------------ K3f
+
+// One cluster per tile of a.tr rows (FMA: 8, else 32). smem: the block's
+// biases of every layer (RM_MAX_LAYERS x 64, loaded once), x (tr x ldx),
+// two buffers of the hidden layer (tr x ldh), the warps' partial sums
+// (3xTF32 only), the ring of weight slabs (slab l: the block's nb_l rows
+// of W_l, each in_l floats). acts: null, or the saved layout.
+template <bool FMA>
+__global__ void __cluster_dims__(RM_CLUSTER, 1, 1) __launch_bounds__(RM_THREADS, 1)
+rm_fwd_kernel(const __grid_constant__ RmArgs a, const float* __restrict__ x, float* __restrict__ y,
+              float* __restrict__ acts) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int ld = a.ld;
-  const int buf_stride = MLP_TILE_ROWS * ld;  // ping-pong buffers at smem, smem + buf_stride
-  const int row0 = (blockIdx.x / MLP_CLUSTER) * MLP_TILE_ROWS;
-  const int nr = min(MLP_TILE_ROWS, a.rows - row0);
+  const int rank = (int)cluster.block_rank(), tid = threadIdx.x;
+  constexpr int TR = FMA ? RM_FMA_ROWS : RM_MMA_ROWS;
+  const int ldx = a.ldx, ldh = a.lda, L = a.n_layers, S = a.stages, c_in = a.c_in;
+  float* sb = smem + TR * ldx;  // sb[l * 64 + n]: the bias of the block's column n of layer l
+  float* hbuf = sb + RM_MAX_LAYERS * 64;  // two buffers of TR x ldh
+  float* part = hbuf + 2 * TR * ldh;
+  float* slabs = part + (FMA ? 0 : RM_PART);
+  const int row0 = (blockIdx.x / RM_CLUSTER) * TR;
+  const int nr = min(TR, a.rows - row0);
 
-  // every block stages x into columns [0, c_in) of both of its buffers;
-  // rows past the end are 0
-  for (int i = threadIdx.x; i < MLP_TILE_ROWS * a.c_in; i += blockDim.x) {
-    const int r = i / a.c_in, c = i - r * a.c_in;
-    const float v = r < nr ? x[(size_t)(row0 + r) * a.c_in + c] : 0.f;
-    smem[r * ld + c] = v;
-    smem[buf_stride + r * ld + c] = v;
-  }
-  float* peer[MLP_CLUSTER];  // the shared memory of every block of the cluster
-#pragma unroll
-  for (int p = 0; p < MLP_CLUSTER; ++p) peer[p] = cluster.map_shared_rank(smem, p);
-  cluster.sync();  // all blocks staged and running before any remote store
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int my_col = lane / MLP_TILE_ROWS, my_row = lane % MLP_TILE_ROWS;
-  int cur = 0;
-  for (int l = 0; l < a.n_layers; ++l) {
-    const int in = a.in_dim[l], out = a.out_dim[l];
-    const bool last = l == a.n_layers - 1;
-    const bool relu = !last || a.final_act;
-    // layer 0 reads x; a skip layer reads [x, h]; any other layer reads h
-    const int start = (l == 0 || ((a.skip_mask >> l) & 1)) ? 0 : a.c_in;
-    const float* src = smem + cur * buf_stride + start;
-    const int dst_off = (cur ^ 1) * buf_stride + a.c_in;
-    const float* __restrict__ W = a.w[l];
-    const bool vec = (in % 4 == 0) && (start % 4 == 0) &&
-                     (reinterpret_cast<uintptr_t>(W) % 16 == 0);
-    // this block's share of the output columns
-    const int per_block = (out + MLP_CLUSTER - 1) / MLP_CLUSTER;
-    const int c0 = rank * per_block, c1 = min(out, c0 + per_block);
-    for (int jb = c0 + warp * MLP_COLS_PER_WARP; jb < c1; jb += nwarps * MLP_COLS_PER_WARP) {
-      float v[32];
-      partial_dots(v, W, src, ld, in, out, jb, lane, vec);
-      warp_reduce_scatter(v, lane);
-      const int j = jb + my_col;
-      if (j < c1) {
-        float o = v[0] + __ldg(a.b[l] + j);
-        if (relu) o = fmaxf(o, 0.f);
-        if (last) {
-          if (my_row < nr) y[(size_t)(row0 + my_row) * out + j] = o;
-        } else {
-#pragma unroll
-          for (int p = 0; p < MLP_CLUSTER; ++p) peer[p][dst_off + my_row * ld + j] = o;
-        }
+  auto stage = [&](int l) {  // the block's rows of W_l into slab l % S
+    const int N = a.out_dim[l], K = a.in_dim[l], nb = a.nb[l], ldb = a.ldb[l];
+    const int c0 = rank * nb, cnt = min(nb, N - c0);
+    const float* W = a.w[l] + (size_t)max(c0, 0) * K;
+    float* dst = slabs + (l % S) * a.slab;
+    if ((K & 3) == 0 && (reinterpret_cast<uintptr_t>(a.w[l]) & 15) == 0) {
+      const int q = K / 4;
+      for (int e = tid; e < cnt * q; e += RM_THREADS) {
+        const int n = e / q, k = (e - n * q) * 4;
+        hm_cp16(dst + n * ldb + k, W + (size_t)n * K + k);
       }
+    } else {
+      for (int e = tid; e < cnt * K; e += RM_THREADS) {
+        const int n = e / K, k = e - n * K;
+        hm_cp4(dst + n * ldb + k, W + (size_t)n * K + k, true);
+      }
+    }
+    hm_cp_commit();
+  };
+  for (int l = 0; l < S && l < L; ++l) stage(l);
+
+  for (int i = tid; i < TR * c_in; i += RM_THREADS) {  // rows past the end are 0
+    const int r = i / c_in, c = i - r * c_in;
+    smem[r * ldx + c] = r < nr ? __ldg(x + (size_t)(row0 + r) * c_in + c) : 0.f;
+  }
+  for (int i = tid; i < L * 64; i += RM_THREADS) {
+    const int l = i >> 6, j = rank * a.nb[l] + (i & 63);
+    sb[i] = (i & 63) < a.nb[l] && j < a.out_dim[l] ? __ldg(a.b[l] + j) : 0.f;
+  }
+  float* peer[RM_CLUSTER];  // the shared memory of every block of the cluster
+#pragma unroll
+  for (int p = 0; p < RM_CLUSTER; ++p) peer[p] = cluster.map_shared_rank(smem, p);
+  cluster.sync();  // every block staged and running before any remote store
+
+  int cur = 0;
+  for (int l = 0; l < L; ++l) {
+    const int N = a.out_dim[l], K = a.in_dim[l], nb = a.nb[l], ldb = a.ldb[l];
+    const int c0 = rank * nb, cnt = min(nb, N - c0);
+    const bool last = l == L - 1, relu = !last || a.final_act;
+    rm_cp_wait(min(L, l + S) - l - 1);
+    __syncthreads();  // slab l is in
+    // layer 0 reads x, a skip layer [x, h], any other layer h
+    const float* hc = hbuf + cur * TR * ldh;
+    const RmIn in = l == 0 ? RmIn{smem, ldx, c_in, smem, ldx, c_in}
+                  : rm_skip(a, l) ? RmIn{smem, ldx, c_in, hc, ldh, K}
+                                  : RmIn{hc, ldh, K, hc, ldh, K};
+    const float* wsl = slabs + (l % S) * a.slab;
+    const float* bias = sb + l * 64;
+    const size_t nxt = (hbuf - smem) + (size_t)(cur ^ 1) * TR * ldh;
+    float* saved = acts != nullptr && !last ? acts + (size_t)a.act_off[l] * a.rows : nullptr;
+    auto emit = [&](int m, int n, float v) {
+      const int j = c0 + n;
+      v += bias[n];
+      if (relu) v = fmaxf(v, 0.f);
+      if (last) {
+        if (m < nr) y[(size_t)(row0 + m) * N + j] = v;
+        return;
+      }
+      const size_t off = nxt + m * ldh + j;
+#pragma unroll
+      for (int p = 0; p < RM_CLUSTER; ++p) peer[p][off] = v;
+      if (saved != nullptr && m < nr) __stcs(saved + (size_t)(row0 + m) * N + j, v);
+    };
+    if (cnt > 0) {
+      if constexpr (FMA) rm_fma_layer(in, wsl, ldb, cnt, emit);
+      else rm_mma_layer<RM_WARPS>(in, RmBRows{wsl, ldb, K}, K, nb, cnt, part, emit);
     }
     cluster.sync();  // layer l complete in every block before layer l + 1 reads it
     cur ^= 1;
+    if (l + S < L) stage(l + S);  // into the slab every warp of this block is done with
   }
+}
+
+// ------------------------------------------------------------------ K3b
+
+// dIn through every layer, last to first, on 32-row tiles, one cluster
+// each: G (the gradient of a layer's output) in two buffers of 32 rows;
+// each block computes its nb_l input columns of dIn_l = G_l . W_l; the x
+// columns are added to the block's dx accumulator, the h columns masked by
+// the saved output of layer l - 1 (> 0) and stored as G_{l-1} into every
+// block's next buffer and into gsave (the saved layout, for dW). Slab l:
+// the block's columns of W_l (out_l rows), then its columns of the saved
+// h_{l-1} for the tile's rows. At the end each block sums its share of
+// dx's columns over the 8 accumulators, in rank order.
+__global__ void __cluster_dims__(RM_CLUSTER, 1, 1) __launch_bounds__(RM_THREADS, 1)
+rm_din_kernel(const __grid_constant__ RmArgs a, const float* __restrict__ g,
+              const float* __restrict__ acts, float* __restrict__ gsave, float* __restrict__ dx) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), tid = threadIdx.x;
+  constexpr int TR = RM_MMA_ROWS;
+  const int lda = a.lda, ldx = a.ldx, L = a.n_layers, S = a.stages, c_in = a.c_in;
+  float* dxa = smem + 2 * TR * lda;
+  float* part = dxa + TR * ldx;
+  float* slabs = part + RM_PART;
+  const int row0 = (blockIdx.x / RM_CLUSTER) * TR;
+  const int nr = min(TR, a.rows - row0);
+
+  auto stage = [&](int i) {  // step i: layer L - 1 - i
+    const int l = L - 1 - i, N = a.out_dim[l], K = a.in_dim[l], nb = a.nb[l], ldb = a.ldb[l];
+    const int c0 = rank * nb, cnt = min(nb, K - c0);
+    const float* W = a.w[l];
+    float* dst = slabs + (i % S) * a.slab;
+    if (cnt > 0) {
+      if ((K & 3) == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0) {
+        const int q = cnt / 4;  // K, c0 and so cnt are multiples of 4
+        for (int e = tid; e < N * q; e += RM_THREADS) {
+          const int n = e / q, j = (e - n * q) * 4;
+          hm_cp16(dst + n * ldb + j, W + (size_t)n * K + c0 + j);
+        }
+      } else {
+        for (int e = tid; e < N * cnt; e += RM_THREADS) {
+          const int n = e / cnt, j = e - n * cnt;
+          hm_cp4(dst + n * ldb + j, W + (size_t)n * K + c0 + j, true);
+        }
+      }
+      if (l > 0) {  // the saved h_{l-1} of the block's h columns, zero past the last row
+        const int xoff = rm_skip(a, l) ? c_in : 0, kh = a.out_dim[l - 1];
+        const float* hprev = acts + (size_t)a.act_off[l - 1] * a.rows;
+        float* hp = dst + N * ldb;
+        for (int e = tid; e < TR * cnt; e += RM_THREADS) {
+          const int m = e / cnt, j = e - m * cnt, k = c0 + j;
+          if (k < xoff) continue;
+          const bool ok = m < nr;
+          hm_cp4(hp + m * ldb + j, ok ? hprev + (size_t)(row0 + m) * kh + (k - xoff) : hprev, ok);
+        }
+      }
+    }
+    hm_cp_commit();
+  };
+  for (int i = 0; i < S && i < L; ++i) stage(i);
+
+  const int n_last = a.out_dim[L - 1];
+  for (int i = tid; i < TR * n_last; i += RM_THREADS) {
+    const int r = i / n_last, c = i - r * n_last;
+    smem[r * lda + c] = r < nr ? __ldg(g + (size_t)(row0 + r) * n_last + c) : 0.f;
+  }
+  for (int i = tid; i < TR * c_in; i += RM_THREADS) dxa[(i / c_in) * ldx + i % c_in] = 0.f;
+  float* peer[RM_CLUSTER];
+#pragma unroll
+  for (int p = 0; p < RM_CLUSTER; ++p) peer[p] = cluster.map_shared_rank(smem, p);
+  cluster.sync();
+
+  int cur = 0;
+  for (int i = 0; i < L; ++i) {
+    const int l = L - 1 - i, N = a.out_dim[l], K = a.in_dim[l], nb = a.nb[l], ldb = a.ldb[l];
+    const int c0 = rank * nb, cnt = min(nb, K - c0);
+    const int xoff = (l == 0 || rm_skip(a, l)) ? c_in : 0, kh = l > 0 ? a.out_dim[l - 1] : 0;
+    rm_cp_wait(min(L, i + S) - i - 1);
+    __syncthreads();  // slab i is in
+    const float* wsl = slabs + (i % S) * a.slab;
+    const float* hp = wsl + N * ldb;
+    const size_t nxt = (size_t)(cur ^ 1) * TR * lda;
+    float* gs = l > 0 ? gsave + (size_t)a.act_off[l - 1] * a.rows : nullptr;
+    auto emit = [&](int m, int n, float v) {
+      const int k = c0 + n;
+      if (k < xoff) {
+        dxa[m * ldx + k] += v;
+        return;
+      }
+      const int hk = k - xoff;
+      const float gv = hp[m * ldb + n] > 0.f ? v : 0.f;
+#pragma unroll
+      for (int p = 0; p < RM_CLUSTER; ++p) peer[p][nxt + m * lda + hk] = gv;
+      if (m < nr) gs[(size_t)(row0 + m) * kh + hk] = gv;
+    };
+    const float* gc = smem + cur * TR * lda;
+    if (cnt > 0)
+      rm_mma_layer<RM_WARPS>(RmIn{gc, lda, N, gc, lda, N}, RmBCols{wsl, ldb, N}, N, nb, cnt, part,
+                             emit);
+    cluster.sync();  // G_{l-1} complete in every block
+    cur ^= 1;
+    if (i + S < L) stage(i + S);
+  }
+
+  const int cb = (c_in + RM_CLUSTER - 1) / RM_CLUSTER;
+  const size_t dxo = dxa - smem;
+  for (int o = tid; o < TR * cb; o += RM_THREADS) {
+    const int m = o / cb, k = rank * cb + (o - m * cb);
+    if (m >= nr || k >= c_in) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int p = 0; p < RM_CLUSTER; ++p) s += peer[p][dxo + m * ldx + k];
+    dx[(size_t)(row0 + m) * c_in + k] = s;
+  }
+  cluster.sync();  // no block leaves while another reads its accumulator
+}
+
+// Every layer's dW = G^T A and db = sum G over the chunk blockIdx.y of
+// a.pc rows: blockIdx.x is a 64 x 64 tile of one layer's dW (dw_tile0).
+// G_l: g for the last layer, else gsave; A_l: x, [x, h_{l-1}] or h_{l-1}.
+__global__ void __launch_bounds__(HM_THREADS)
+rm_dw_kernel(const __grid_constant__ RmArgs a, const float* __restrict__ x,
+             const float* __restrict__ g, const float* __restrict__ acts,
+             const float* __restrict__ gsave, float* __restrict__ out) {
+  int l = 0;
+  while (l + 1 < a.n_layers && (int)blockIdx.x >= a.dw_tile0[l + 1]) ++l;
+  const int N = a.out_dim[l], K = a.in_dim[l], L = a.n_layers, c = a.c_in;
+  const float* G = l == L - 1 ? g : gsave + (size_t)a.act_off[l] * a.rows;
+  const int kh = l > 0 ? a.out_dim[l - 1] : 0;
+  const float* hprev = l > 0 ? acts + (size_t)a.act_off[l - 1] * a.rows : x;
+  const HmSrc src = l == 0 ? HmSrc{x, c, c, x, c}
+                  : rm_skip(a, l) ? HmSrc{x, c, c, hprev, kh}
+                                  : HmSrc{hprev, kh, kh, hprev, kh};
+  hm_dw_tile(blockIdx.x - a.dw_tile0[l], blockIdx.y, G, N, src, K, a.rows, a.pc, (K + 63) / 64,
+             out, a.n_params, K, a.off_w[l], a.off_w[l], a.off_b[l]);
+}
+
+// Every layer's dW and db from all rows at once (rows <= RM_DW_ROWS, dW
+// straight into the gradient): blockIdx.x is a 32 x 32 tile of one
+// layer's dW (dw32_tile0). G's 32 columns and A's 32 columns of every row
+// are staged by cp.async and waited for once; its 8 warps split the rows
+// (rm_mma_layer), their partial sums added in warp order. The tiles of the
+// first 32 inputs also sum G's columns over the rows for db (each warp
+// every 8th row, then the 8 sums in warp order).
+__global__ void __launch_bounds__(32 * RM_DW_WARPS)
+rm_dw_rows_kernel(const __grid_constant__ RmArgs a, const float* __restrict__ x,
+                  const float* __restrict__ g, const float* __restrict__ acts,
+                  const float* __restrict__ gsave, float* __restrict__ grads) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, L = a.n_layers, c = a.c_in, R = a.rows;
+  int l = 0;
+  while (l + 1 < L && (int)blockIdx.x >= a.dw32_tile0[l + 1]) ++l;
+  const int N = a.out_dim[l], K = a.in_dim[l], nkt = (K + 31) / 32;
+  const int t = blockIdx.x - a.dw32_tile0[l], o0 = (t / nkt) * 32, c0 = (t % nkt) * 32;
+  const float* G = l == L - 1 ? g : gsave + (size_t)a.act_off[l] * R;
+  const int kh = l > 0 ? a.out_dim[l - 1] : 0;
+  const float* hprev = l > 0 ? acts + (size_t)a.act_off[l - 1] * R : x;
+  const HmSrc src = l == 0 ? HmSrc{x, c, c, x, c}
+                  : rm_skip(a, l) ? HmSrc{x, c, c, hprev, kh}
+                                  : HmSrc{hprev, kh, kh, hprev, kh};
+  const int rp = rm_round(R, 8);
+  float* sg = smem;                 // sg[p * RM_DW_LD + o]: G[p][o0 + o]
+  float* sa = smem + rp * RM_DW_LD;  // sa[p * RM_DW_LD + k]: A[p][c0 + k]
+  for (int e = tid; e < rp * 16; e += 32 * RM_DW_WARPS) {  // runs of 4 floats, zero past the ends
+    const int op = e >= rp * 8, e2 = e - op * rp * 8, p = e2 >> 3, q = (e2 & 7) * 4;
+    if (op == 0) {
+      const int n = o0 + q;
+      hm_cp4x4(sg + p * RM_DW_LD + q, G + (size_t)p * N + n, p < R ? N - n : 0, G);
+    } else {  // a run that crosses from x into h takes four 4-byte copies
+      const int k = c0 + q;
+      const int run = p >= R ? 0 : k < src.k1 ? min(K, src.k1) - k : K - k;
+      float* dst = sa + p * RM_DW_LD + q;
+      if (run >= 4 && (reinterpret_cast<uintptr_t>(src.at(p, k)) & 15) == 0) {
+        hm_cp16(dst, src.at(p, k));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool ok = p < R && k + i < K;
+          hm_cp4(dst + i, ok ? src.at(p, k + i) : src.s1, ok);
+        }
+      }
+    }
+  }
+  hm_cp_commit();
+  hm_cp_wait();
+  __syncthreads();
+  // db: warp w sums the rows w, w + 8, ... of the 32 columns (lane:
+  // column), then warp 0 adds the 8 sums in warp order
+  const bool do_b = c0 == 0;
+  const int warp = tid >> 5, lane = tid & 31;
+  float dbp = 0.f;
+  if (do_b)
+    for (int p = warp; p < R; p += RM_DW_WARPS) dbp += sg[p * RM_DW_LD + lane];
+  const int mo = min(32, N - o0), cnt = min(32, K - c0);
+  float* dw = grads + a.off_w[l] + (size_t)o0 * K + c0;
+  rm_mma_layer<RM_DW_WARPS>(RmAT{sg, RM_DW_LD, R}, RmBCols{sa, RM_DW_LD, R}, R, 32, cnt, smem,
+               [&](int m, int n, float v) {
+                 if (m < mo) dw[(size_t)m * K + n] = v;
+               });
+  if (do_b) {
+    __syncthreads();  // every warp is done with the partial sums in smem
+    smem[tid] = dbp;
+    __syncthreads();
+    if (warp == 0 && o0 + lane < N) {
+      float db = 0.f;
+      for (int w = 0; w < RM_DW_WARPS; ++w) db += smem[w * 32 + lane];
+      grads[a.off_b[l] + o0 + lane] = db;
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+
+// The layer table and the layouts of the saved outputs and gradients; w /
+// b may be null (sizes only)
+static int rm_fill_args(RmArgs& a, const void* const* w, const void* const* b, const int* in_dim,
+                        const int* out_dim, int n_layers, int c_in, int rows, int skip_mask,
+                        int final_act) {
+  if (n_layers < 1 || n_layers > RM_MAX_LAYERS || rows < 1 || c_in < 1 || (skip_mask & 1))
+    return (int)cudaErrorInvalidValue;
+  a.n_layers = n_layers;
+  a.c_in = c_in;
+  a.rows = rows;
+  a.skip_mask = skip_mask;
+  a.final_act = final_act;
+  int act = 0, nw = 0, tiles = 0, tiles32 = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const bool has_x = l == 0 || ((skip_mask >> l) & 1);
+    const int want_in = (l == 0 ? 0 : out_dim[l - 1]) + (has_x ? c_in : 0);
+    if (in_dim[l] != want_in || out_dim[l] < 1 || out_dim[l] > RM_MAX_WIDTH ||
+        in_dim[l] > RM_MAX_WIDTH)
+      return (int)cudaErrorInvalidValue;
+    a.w[l] = w != nullptr ? static_cast<const float*>(w[l]) : nullptr;
+    a.b[l] = b != nullptr ? static_cast<const float*>(b[l]) : nullptr;
+    a.in_dim[l] = in_dim[l];
+    a.out_dim[l] = out_dim[l];
+    a.act_off[l] = act;
+    if (l < n_layers - 1) act += out_dim[l];
+    a.off_w[l] = nw;
+    nw += out_dim[l] * in_dim[l];
+    a.dw_tile0[l] = tiles;
+    a.dw32_tile0[l] = tiles32;
+    tiles += ((out_dim[l] + 63) / 64) * ((in_dim[l] + 63) / 64);
+    tiles32 += ((out_dim[l] + 31) / 32) * ((in_dim[l] + 31) / 32);
+  }
+  a.dw_tile0[n_layers] = tiles;
+  a.dw32_tile0[n_layers] = tiles32;
+  for (int l = 0; l < n_layers; ++l) {
+    a.off_b[l] = nw;
+    nw += out_dim[l];
+  }
+  a.act_total = act;
+  a.n_params = nw;
+  return 0;
+}
+
+// K3f's buffers for the FMA (8-row) or 3xTF32 (32-row) tile with `stages`
+// slabs, floats; fills tr, lda, ldx, nb, ldb and slab
+static size_t rm_fwd_floats(RmArgs& a, bool fma, int stages) {
+  int max_h = 0, slab = 0;
+  for (int l = 0; l + 1 < a.n_layers; ++l) max_h = std::max(max_h, a.out_dim[l]);
+  a.tr = fma ? RM_FMA_ROWS : RM_MMA_ROWS;
+  a.ldx = hm_ld(a.c_in);
+  a.lda = hm_ld(max_h);
+  for (int l = 0; l < a.n_layers; ++l) {
+    const int per = (a.out_dim[l] + RM_CLUSTER - 1) / RM_CLUSTER;
+    a.nb[l] = fma ? per : rm_round(per, 8);
+    a.ldb[l] = fma ? rm_round(a.in_dim[l], 4) : hm_ld(a.in_dim[l]);
+    slab = std::max(slab, a.nb[l] * a.ldb[l]);
+  }
+  a.slab = slab;
+  a.stages = stages;
+  return (size_t)a.tr * (a.ldx + 2 * a.lda) + RM_MAX_LAYERS * 64 +
+         (fma ? 0 : RM_PART) + (size_t)stages * slab;
+}
+
+// K3b's dIn buffers with `stages` slabs, floats; fills tr, lda, ldx, nb,
+// ldb and slab
+static size_t rm_bwd_floats(RmArgs& a, int stages) {
+  int max_out = 0, slab = 0;
+  a.tr = RM_MMA_ROWS;
+  for (int l = 0; l < a.n_layers; ++l) max_out = std::max(max_out, a.out_dim[l]);
+  a.lda = hm_ld(max_out);
+  a.ldx = hm_ld(a.c_in);
+  for (int l = 0; l < a.n_layers; ++l) {
+    a.nb[l] = rm_round((a.in_dim[l] + RM_CLUSTER - 1) / RM_CLUSTER, 8);
+    a.ldb[l] = rm_ldk(a.nb[l]);
+    slab = std::max(slab, (a.out_dim[l] + a.tr) * a.ldb[l]);
+  }
+  a.slab = slab;
+  a.stages = stages;
+  return (size_t)2 * a.tr * a.lda + (size_t)a.tr * a.ldx + RM_PART +
+         (size_t)stages * slab;
+}
+
+// The most slabs (layers whose weights are in flight at once, at most
+// every layer) whose buffers fit in a block's shared memory, for K3f
+// (kind 0: its FMA tile, 1: its 3xTF32 tile) or K3b's dIn (2); fills a as
+// rm_fwd_floats / rm_bwd_floats do. Returns the bytes, or 0 when not even
+// one slab fits.
+static size_t rm_layout(RmArgs& a, int kind) {
+  const bool bwd = kind == 2;
+  const long long fixed = (long long)(bwd ? rm_bwd_floats(a, 0) : rm_fwd_floats(a, kind == 0, 0));
+  const long long room = (long long)(RM_SMEM / sizeof(float)) - fixed;
+  const long long stages = std::min<long long>(a.n_layers, room / a.slab);
+  if (stages < 1) return 0;
+  return sizeof(float) * (bwd ? rm_bwd_floats(a, (int)stages)
+                              : rm_fwd_floats(a, kind == 0, (int)stages));
+}
+
+static int rm_set_smem(const void* kernel, size_t smem) {
+  if (smem > RM_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 extern "C" {
 
-// Launches the kernel on `stream`; returns the cudaError_t of the launch.
-// w and b hold n_layers device pointers; shapes are checked by the caller.
-int lab4d_fused_relu_mlp_fwd(const float* x, float* y, const void* const* w,
-                             const void* const* b, const int* in_dim, const int* out_dim,
-                             int n_layers, int c_in, int rows, int skip_mask,
-                             int final_act, void* stream) {
-  if (n_layers < 1 || n_layers > MLP_MAX_LAYERS || rows < 1 || c_in < 1)
-    return (int)cudaErrorInvalidValue;
-  MlpArgs a;
-  int widest = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    a.w[l] = static_cast<const float*>(w[l]);
-    a.b[l] = static_cast<const float*>(b[l]);
-    a.in_dim[l] = in_dim[l];
-    a.out_dim[l] = out_dim[l];
-    if (l < n_layers - 1 && out_dim[l] > widest) widest = out_dim[l];
-  }
-  a.n_layers = n_layers;
-  a.c_in = c_in;
-  a.rows = rows;
-  a.ld = (c_in + widest + 3) / 4 * 4;  // rows start 16-byte aligned
-  a.skip_mask = skip_mask;
-  a.final_act = final_act;
-
-  const size_t smem = 2 * (size_t)MLP_TILE_ROWS * a.ld * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_relu_mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const unsigned tiles = (unsigned)((rows + MLP_TILE_ROWS - 1) / MLP_TILE_ROWS);
-  fused_relu_mlp_fwd_kernel<<<tiles * MLP_CLUSTER, MLP_THREADS, smem,
-                              static_cast<cudaStream_t>(stream)>>>(x, y, a);
-  return (int)cudaGetLastError();
+// K3f's (fma: its 8-row FMA tile, else the 32-row 3xTF32 one) and K3b's
+// dIn layout for an MLP of these widths, as their launches pick it:
+// sizes[0] K3f's stages (layers whose weight slices are in flight at
+// once), [1] its shared memory per block in bytes, [2] and [3] the same
+// for K3b's dIn, [4] floats per row of the saved outputs, [5] floats of
+// the gradients. Returns the error (cudaErrorInvalidValue when the buffers
+// of these widths do not fit in shared memory), or 0.
+int lab4d_relu_mlp_smem(const int* in_dim, const int* out_dim, int n_layers, int c_in,
+                        int skip_mask, int fma, long long* sizes) {
+  RmArgs a;
+  int err = rm_fill_args(a, nullptr, nullptr, in_dim, out_dim, n_layers, c_in, 1, skip_mask, 0);
+  if (err) return err;
+  const size_t fwd = rm_layout(a, fma ? 0 : 1);
+  sizes[0] = a.stages;
+  sizes[1] = (long long)fwd;
+  const size_t bwd = rm_layout(a, 2);
+  sizes[2] = a.stages;
+  sizes[3] = (long long)bwd;
+  sizes[4] = a.act_total;
+  sizes[5] = a.n_params;
+  return fwd == 0 || bwd == 0 ? (int)cudaErrorInvalidValue : 0;
 }
 
-// K3b: dx (rows, c_in) and grads (every dW_l, then every db_l) of the MLP
-// for the output gradient g (rows, out_last), already masked by the final
-// ReLU. ws: grid * n_params floats of scratch, grid <= ceil(rows / tr).
-int lab4d_relu_mlp_tile_bwd(const float* x, const float* g, float* dx, float* ws, float* grads,
-                            const void* const* w, const void* const* b, const int* in_dim,
-                            const int* out_dim, int n_layers, int c_in, int rows, int tr,
-                            int skip_mask, int grid, void* stream) {
-  TileMlpArgs a;
-  int err = tm_fill_args(a, w, b, in_dim, out_dim, n_layers, c_in, rows, tr, skip_mask);
+// The clusters of 8 blocks of K3f (kernel 0: FMA, 1: 3xTF32) or K3b's dIn
+// (2) that the card runs at once with `smem` bytes per block; 0 on error.
+int lab4d_relu_mlp_max_clusters(int kernel, int smem) {
+  const void* k = kernel == 0 ? (const void*)rm_fwd_kernel<true>
+                : kernel == 1 ? (const void*)rm_fwd_kernel<false> : (const void*)rm_din_kernel;
+  if (rm_set_smem(k, (size_t)smem)) return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(RM_CLUSTER * 64);
+  cfg.blockDim = dim3(RM_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, k, &cfg) == cudaSuccess ? n : 0;
+}
+
+// K3f: y (rows, out_last) = MLP(x) for x (rows, c_in). fma: the 8-row FMA
+// tile (else 3xTF32 on 32 rows); as many layers' weight slices in flight
+// as fit in shared memory (rm_layout). acts: null, or rows * sizes[4]
+// floats (lab4d_relu_mlp_smem) for every hidden layer output (K3b's
+// input). Returns the error, or 0; *n_launches: the launches made (1).
+int lab4d_relu_mlp_fwd(const float* x, float* y, float* acts, const void* const* w,
+                       const void* const* b, const int* in_dim, const int* out_dim, int n_layers,
+                       int c_in, int rows, int skip_mask, int final_act, int fma,
+                       int* n_launches, void* stream) {
+  RmArgs a;
+  int err = rm_fill_args(a, w, b, in_dim, out_dim, n_layers, c_in, rows, skip_mask, final_act);
   if (err) return err;
-  return tm_launch_bwd(x, g, dx, ws, grads, a, grid, stream);
+  const size_t smem = rm_layout(a, fma ? 0 : 1);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const void* k = fma ? (const void*)rm_fwd_kernel<true> : (const void*)rm_fwd_kernel<false>;
+  if ((err = rm_set_smem(k, (size_t)smem))) return err;
+  const unsigned tiles = (unsigned)((rows + a.tr - 1) / a.tr);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fma) rm_fwd_kernel<true><<<tiles * RM_CLUSTER, RM_THREADS, smem, st>>>(a, x, y, acts);
+  else rm_fwd_kernel<false><<<tiles * RM_CLUSTER, RM_THREADS, smem, st>>>(a, x, y, acts);
+  if ((err = (int)cudaGetLastError())) return err;
+  if (n_launches != nullptr) *n_launches = 1;
+  return 0;
+}
+
+// K3b: dx (rows, c_in) and grads (sizes[3] floats: every dW_l, then every
+// db_l) for the output gradient g (rows, out_last), already masked by the
+// final ReLU, from K3f's saved hidden outputs acts. dIn stages as many
+// layers' weight slices as fit in shared memory (rm_layout); n_chunks
+// chunks of pc rows (a multiple of 32) for dW, one up to RM_DW_ROWS rows.
+// scratch: rows * sizes[4] floats for the gradients of the hidden layers,
+// then n_chunks * sizes[5] floats of workspace when n_chunks > 1. Returns
+// the error, or 0; *n_launches: the launches made (2, or 3 with chunks).
+int lab4d_relu_mlp_bwd(const float* x, const float* g, const float* acts, float* dx, float* grads,
+                       float* scratch, const void* const* w, const void* const* b,
+                       const int* in_dim, const int* out_dim, int n_layers, int c_in, int rows,
+                       int skip_mask, int n_chunks, int pc, int* n_launches, void* stream) {
+  RmArgs a;
+  int err = rm_fill_args(a, w, b, in_dim, out_dim, n_layers, c_in, rows, skip_mask, 0);
+  if (err) return err;
+  const size_t smem = rm_layout(a, 2);
+  if (smem == 0 || n_chunks < 1 ||
+      pc < 1 || pc % HM_KS || (long long)(n_chunks - 1) * pc >= rows ||
+      (long long)n_chunks * pc < rows || (rows <= RM_DW_ROWS && n_chunks != 1))
+    return (int)cudaErrorInvalidValue;
+  a.pc = pc;
+  a.n_chunks = n_chunks;
+  if ((err = rm_set_smem((const void*)rm_din_kernel, (size_t)smem))) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* gsave = scratch;
+  float* ws = n_chunks > 1 ? scratch + (size_t)rows * a.act_total : grads;
+  int n = 0;
+  const unsigned tiles = (unsigned)((rows + a.tr - 1) / a.tr);
+  rm_din_kernel<<<tiles * RM_CLUSTER, RM_THREADS, smem, st>>>(a, g, acts, gsave, dx);
+  if ((err = (int)cudaGetLastError())) return err;
+  ++n;
+  if (rows <= RM_DW_ROWS) {
+    const size_t dw_smem = sizeof(float) * std::max(2 * rm_round(rows, 8) * RM_DW_LD,
+                                                    RM_DW_WARPS * 16 * RM_PLD);
+    if ((err = rm_set_smem((const void*)rm_dw_rows_kernel, dw_smem))) return err;
+    rm_dw_rows_kernel<<<a.dw32_tile0[n_layers], 32 * RM_DW_WARPS, dw_smem, st>>>(a, x, g, acts, gsave,
+                                                                           grads);
+  } else {
+    rm_dw_kernel<<<dim3(a.dw_tile0[n_layers], n_chunks), HM_THREADS, 0, st>>>(a, x, g, acts,
+                                                                              gsave, ws);
+  }
+  if ((err = (int)cudaGetLastError())) return err;
+  ++n;
+  if (n_chunks > 1) {
+    hm_reduce_kernel<<<(a.n_params + HM_THREADS - 1) / HM_THREADS, HM_THREADS, 0, st>>>(
+        ws, n_chunks, a.n_params, grads);
+    if ((err = (int)cudaGetLastError())) return err;
+    ++n;
+  }
+  if (n_launches != nullptr) *n_launches = n;
+  return 0;
 }
 
 const char* lab4d_cuda_error_string(int code) {

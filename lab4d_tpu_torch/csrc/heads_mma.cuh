@@ -1,7 +1,7 @@
 // Tensor-core tile products in 3xTF32 for Hopper (sm_90a): the core of K1
 // and K2 (csrc/nerf_heads.cu) and of K4f and K4b (csrc/fused_pe_mlp.cu),
-// with the split-K weight gradients that K2 and K4b share and the ordered
-// reduction of their workspace slices (K3b's too, csrc/mlp_tiles.cuh).
+// with the split-K weight gradients that K2, K3b and K4b share and the
+// ordered reduction of their workspace slices.
 //
 // What bounds it: the field heads are fp32 products at 234,688
 // multiply-adds per point; on fp32 FMA the flagship step's K1 needs at
@@ -237,19 +237,20 @@ __device__ __forceinline__ void hm_cp4x4(float* dst, const float* src, int n, co
 }
 
 // dW = G^T . A (N x K) and db = sum G (unless off_b < 0) over the chunk
-// blockIdx.y of pc points (cut at rows), into that chunk's workspace slice
-// of n_slice floats: columns k < kw at off_w1 ((N, kw) row-major), the
-// rest at off_w2 ((N, K - kw)); kw = K for one (N, K) array. Block: 64
-// outputs x 64 inputs; a k-slab is 32 points of both operands, k-major,
-// staged in runs of four columns (16-byte copies where they can), zero
-// past the chunk's last point.
-__global__ void __launch_bounds__(HM_THREADS)
-hm_dw_kernel(const float* __restrict__ g, int N, HmSrc src, int K, int rows, int pc, int n_ktiles,
-             float* __restrict__ ws, int n_slice, int kw, int off_w1, int off_w2, int off_b) {
+// `chunk` of pc points (cut at rows), into that chunk's workspace slice of
+// n_slice floats: columns k < kw at off_w1 ((N, kw) row-major), the rest
+// at off_w2 ((N, K - kw)); kw = K for one (N, K) array. `tile`: the
+// block's 64 outputs x 64 inputs; a k-slab is 32 points of both operands,
+// k-major, staged in runs of four columns (16-byte copies where they can),
+// zero past the chunk's last point. One block of HM_THREADS threads.
+__device__ __forceinline__ void hm_dw_tile(int tile, int chunk, const float* __restrict__ g, int N,
+                                           const HmSrc& src, int K, int rows, int pc,
+                                           int n_ktiles, float* __restrict__ ws, int n_slice,
+                                           int kw, int off_w1, int off_w2, int off_b) {
   __shared__ __align__(16) float sm[2][2][HM_KS * HM_LDT];
   const int tid = threadIdx.x, warp = tid >> 5;
-  const int nb = (blockIdx.x / n_ktiles) * 64, kt = blockIdx.x % n_ktiles, kb = kt * 64;
-  const size_t p0 = (size_t)blockIdx.y * pc;
+  const int nb = (tile / n_ktiles) * 64, kt = tile % n_ktiles, kb = kt * 64;
+  const size_t p0 = (size_t)chunk * pc;
   const int np = min(pc, rows - (int)p0);  // points of this chunk
   auto stage = [&](int s) {
     const size_t p = p0 + (size_t)s * HM_KS;
@@ -299,7 +300,7 @@ hm_dw_kernel(const float* __restrict__ g, int N, HmSrc src, int K, int rows, int
       for (int kk = 0; kk < HM_KS; ++kk) db += sm[s & 1][0][kk * HM_LDT + tid];
     }
   }
-  float* out = ws + (size_t)blockIdx.y * n_slice;
+  float* out = ws + (size_t)chunk * n_slice;
   if (nv > 0)
     hm_store(c, m0, n0, nv, K - kb, [&](int m, int n, float v) {
       const int o = nb + m, k = kb + n;
@@ -308,6 +309,14 @@ hm_dw_kernel(const float* __restrict__ g, int N, HmSrc src, int K, int rows, int
       else out[off_w2 + (size_t)o * (K - kw) + (k - kw)] = v;
     });
   if (do_b && nb + tid < N) out[off_b + nb + tid] = db;
+}
+
+// hm_dw_tile over a grid: blockIdx.x the tile, blockIdx.y the chunk
+__global__ void __launch_bounds__(HM_THREADS)
+hm_dw_kernel(const float* __restrict__ g, int N, HmSrc src, int K, int rows, int pc, int n_ktiles,
+             float* __restrict__ ws, int n_slice, int kw, int off_w1, int off_w2, int off_b) {
+  hm_dw_tile(blockIdx.x, blockIdx.y, g, N, src, K, rows, pc, n_ktiles, ws, n_slice, kw, off_w1,
+             off_w2, off_b);
 }
 
 // out[e] = sum over the slices b (in order) of ws[b * n + e]: the same

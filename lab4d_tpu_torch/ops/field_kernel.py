@@ -44,7 +44,8 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from lab4d_tpu_torch.nnutils.embedding import fourier_embed
-from lab4d_tpu_torch.ops.mlp_kernel import SMEM_PER_SM, _raise_on, _stream, _vjp, mlp_reference
+from lab4d_tpu_torch.ops.mlp_kernel import (SMEM_PER_SM, _raise_on, _stream, _vjp, mlp_reference,
+                                            needs_saved)
 
 OUT_DIMS = (1, 3, 1, 16)  # density, rgb, vis, feat
 NET_ORDER = ("base", "sdf", "color", "rgb1", "rgb2", "vis", "feat")
@@ -618,14 +619,15 @@ def nerf_heads_forward_saved(x, appr_rows, win_b, win_c, nets, ibeta, cfg, spp):
 
 
 class _FusedNerfHeads(torch.autograd.Function):
-    """Forward through K1, saving every layer output when a gradient is
-    needed; backward through K2 from them; zeros for the windows. On CPU
-    tensors (the tests) both run their plain versions of that dataflow."""
+    """Forward through K1, saving every layer output when `save` (the
+    caller's needs_saved); backward through K2 from them; zeros for the
+    windows. On CPU tensors (the tests) both run their plain versions of
+    that dataflow."""
 
     @staticmethod
-    def forward(ctx, x, appr, win_b, win_c, ibeta, cfg, spp, order, *flat):
+    def forward(ctx, x, appr, win_b, win_c, ibeta, cfg, spp, order, save, *flat):
         nets = unflatten_nets(flat, order)
-        if any(ctx.needs_input_grad):
+        if save:
             outs, acts = nerf_heads_forward_saved(x, appr, win_b, win_c, nets, ibeta, cfg, spp)
         elif x.device.type == "cuda":
             outs, acts = _launch_fwd(_kernel_lib(), x, appr, win_b, win_c, nets, ibeta, cfg, spp,
@@ -641,12 +643,15 @@ class _FusedNerfHeads(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, *g):
         x, appr, win_b, win_c, ibeta, acts, rgb, *flat = ctx.saved_tensors
+        if acts is None:
+            raise RuntimeError("fused_nerf_heads ran without saving its layer outputs (no input "
+                               "required a gradient, or grad mode was off)")
         nets = unflatten_nets(flat, ctx.order)
         dx, dappr, dnets, dibeta = fused_nerf_heads_backward(
             x, [t.contiguous() for t in g], appr, win_b, win_c, nets, ibeta, ctx.cfg, ctx.spp,
             saved=(acts, rgb))
         zeros = [None if w is None else torch.zeros_like(w) for w in (win_b, win_c)]
-        return (dx, dappr, *zeros, dibeta.reshape(ibeta.shape), None, None, None,
+        return (dx, dappr, *zeros, dibeta.reshape(ibeta.shape), None, None, None, None,
                 *flatten_nets(dnets)[0])
 
 
@@ -665,12 +670,15 @@ def fused_nerf_heads(x, appr_rows, win_b, win_c, nets, ibeta, cfg, spp):
 
     A CUDA tensor goes through K1 (one count in `fused_nerf_heads.launches`
     for its CUDA launches, whose number is left in
-    `fused_nerf_heads.cuda_launches`) and its gradient through K2; a CPU
-    tensor through nerf_heads_reference.
+    `fused_nerf_heads.cuda_launches`), which saves its layer outputs when
+    autograd needs a gradient (needs_saved), and its gradient through K2;
+    a CPU tensor through nerf_heads_reference.
     """
     if x.device.type == "cuda":
         flat, order = flatten_nets(nets)
-        return _FusedNerfHeads.apply(x, appr_rows, win_b, win_c, ibeta, cfg, spp, order, *flat)
+        save = needs_saved(x, appr_rows, ibeta, *flat)
+        return _FusedNerfHeads.apply(x, appr_rows, win_b, win_c, ibeta, cfg, spp, order, save,
+                                     *flat)
     if x.device.type == "cpu":
         return nerf_heads_reference(x, appr_rows, win_b, win_c, nets, ibeta, cfg, spp)
     raise NotImplementedError(f"fused_nerf_heads has no kernel for device {x.device}")

@@ -5,10 +5,13 @@ Port of lab4d_tpu/ops/mlp_kernel.py. Weights use the torch.nn.Linear
 layout, (out, in), so module parameters go to the kernels without a copy;
 the JAX package stores the transpose.
 
-- K3f `fused_relu_mlp` forward (csrc/fused_relu_mlp.cu): few rows, the
-  TimeMLP backbones.
-- K3b `fused_relu_mlp_backward` (csrc/fused_relu_mlp.cu on the row-tiled
-  backward of csrc/mlp_tiles.cuh): its VJP.
+- K3f `fused_relu_mlp` forward (csrc/fused_relu_mlp.cu): the TimeMLP
+  backbones, 1 to a few hundred rows. When autograd needs a gradient it
+  also saves every hidden layer output (`pe_act_layout`,
+  `mlp_forward_saved`).
+- K3b `fused_relu_mlp_backward` (csrc/fused_relu_mlp.cu): its VJP from
+  those saved outputs; its plain version on the same saved outputs is
+  `mlp_backward_saved_reference`.
 - K4f `fused_pe_mlp` (csrc/fused_pe_mlp.cu): Fourier embedding + MLP over
   the points of a training step, on 3xTF32 tensor cores. When autograd
   needs a gradient it also saves every hidden layer output
@@ -25,12 +28,12 @@ differentiable: on the card their backward is K3b / K4b, first order only
 mask on the incoming gradient is applied here, outside the kernels, as the
 JAX VJPs do.
 
-K3b works on tiles of rows and reduces the weight gradients over the tiles
-through a workspace of one slice per block; `tile_plan` picks its tile
-height and grid, in plain Python so that the CPU tests reach it. K4f /
-K4b's launch plan is the library's own (`pe_mlp_plan` reads it from
-csrc/fused_pe_mlp.cu); only their width limit (`check_pe_widths`) and the
-saved outputs' layout (`pe_act_layout`) are kept here.
+K3f / K3b's row-count decisions (`relu_mlp_plan`: K3f's tile, K3b's
+chunks of rows for dW and its launches) are made here in plain Python, so
+that the CPU tests reach them; the library lays out their shared memory
+itself (as many layers' weight slices in flight as fit). K4f / K4b's launch plan is the library's own (`pe_mlp_plan` reads
+it from csrc/fused_pe_mlp.cu); only their width limit (`check_pe_widths`)
+and the saved outputs' layout (`pe_act_layout`) are kept here.
 """
 
 from __future__ import annotations
@@ -45,13 +48,16 @@ from torch.autograd.function import once_differentiable
 
 from lab4d_tpu_torch.nnutils.embedding import fourier_embed
 
-MAX_LAYERS = 16  # MLP_MAX_LAYERS in csrc/fused_relu_mlp.cu, TM_ / PM_MAX_LAYERS in the others
+MAX_LAYERS = 16  # RM_MAX_LAYERS in csrc/fused_relu_mlp.cu, NH_ / PM_MAX_LAYERS in the others
 MAX_FREQS = 16  # PM_MAX_FREQS in csrc/fused_pe_mlp.cu
-TILE_KC = 16  # TM_KC: k-chunk of K3b's staged weights
-TILE_STAGE = 16 * 256  # TM_STAGE_REGS * TM_THREADS: staged weights per k-chunk
 SMEM_PER_SM = 227 * 1024  # bytes of shared memory a block may use on sm_90
-TILE_ROWS = (64, 48, 32, 16, 8)  # K3b's tile heights
 PE_MAX_WIDTH = 128  # PM_NMAX: widest layer output and embedding of K4f / K4b
+# K3f / K3b (csrc/fused_relu_mlp.cu): K3f's fp32 FMA tile of RM_FMA_ROWS
+# rows takes up to that many rows, else both run 3xTF32
+K3_FMA_ROWS = 8
+K3_MAX_WIDTH = 512  # RM_MAX_WIDTH: widest layer input and output of K3f / K3b
+K3_DW_ROWS = 512  # RM_DW_ROWS: K3b's dW takes every row at once up to this many rows
+K3_CHUNK_ROWS = 1024  # K3b's dW past them: fewest rows per chunk of the split over rows
 
 
 # ------------------------------------------------------------ plain versions
@@ -116,20 +122,19 @@ def pe_act_layout(weights):
     return offs, n
 
 
-def pe_mlp_forward_saved_reference(x, window, weights, biases, freqs, skip_idx=(),
-                                   final_act: bool = False, pre_activations: bool = False):
-    """Plain version of K4f with its saved layer outputs: (out, acts), out
-    as pe_mlp_reference computes it and acts the flat (rows * floats per
-    point,) buffer of every hidden layer's output after its ReLU, in
-    pe_act_layout's order, as K4f writes it when autograd needs it. With
+def mlp_forward_saved_reference(x, weights, biases, skip_idx=(), final_act: bool = False,
+                                pre_activations: bool = False):
+    """Plain version of K3f with its saved layer outputs: (out, acts), out
+    as mlp_reference computes it and acts the flat (rows * floats per row,)
+    buffer of every hidden layer's output after its ReLU, in
+    pe_act_layout's order, as K3f writes it when autograd needs it. With
     pre_activations, acts holds each hidden layer's output before its ReLU
     instead (the inputs whose sign decides each ReLU's gradient)."""
-    X = fourier_embed(x, tuple(freqs), window)
-    h, zs = X, []
+    h, zs = x, []
     n = len(weights)
     for i in range(n):
         if i in skip_idx:
-            h = torch.cat([X, h], dim=-1)
+            h = torch.cat([x, h], dim=-1)
         z = F.linear(h, weights[i], biases[i])
         zs.append(z)
         h = torch.relu(z) if i < n - 1 or final_act else z
@@ -138,12 +143,12 @@ def pe_mlp_forward_saved_reference(x, window, weights, biases, freqs, skip_idx=(
     return h, acts
 
 
-def pe_mlp_backward_saved_reference(x, g, window, weights, biases, freqs, skip_idx, acts):
-    """Plain version of K4b's dataflow: (dx, dWs, dbs) for the output
+def mlp_backward_saved_reference(x, g, weights, biases, skip_idx, acts):
+    """Plain version of K3b's dataflow: (dx, dWs, dbs) for the output
     gradient g (already masked by the final ReLU) from the saved hidden
-    outputs acts (pe_act_layout), layer by layer in reverse as K4b runs it:
+    outputs acts (pe_act_layout), layer by layer in reverse as K3b runs it:
     dW = G^T A, db = sum G, dIn = G W with the ReLU mask of the saved input,
-    the X columns summed into dX, then dx through sin / cos and the window."""
+    the x columns summed into dx."""
     rows = x.shape[0]
     offs, _ = pe_act_layout(weights)
 
@@ -151,72 +156,88 @@ def pe_mlp_backward_saved_reference(x, g, window, weights, biases, freqs, skip_i
         w = weights[i].shape[0]
         return acts[offs[i] * rows: (offs[i] + w) * rows].view(rows, w)
 
-    with torch.enable_grad():
-        xl = x.detach().requires_grad_(True)
-        X = fourier_embed(xl, tuple(freqs), window)
-    Xd = X.detach()
-    c_x = Xd.shape[1]
-    dX = torch.zeros_like(Xd)
+    c_x = x.shape[1]
+    dx = torch.zeros_like(x)
     n = len(weights)
     dws, dbs = [None] * n, [None] * n
     gcur = g
     for i in range(n - 1, -1, -1):
         hprev = saved(i - 1) if i > 0 else None
-        A = Xd if i == 0 else (torch.cat([Xd, hprev], dim=-1) if i in skip_idx else hprev)
+        A = x if i == 0 else (torch.cat([x, hprev], dim=-1) if i in skip_idx else hprev)
         dws[i] = gcur.T @ A
         dbs[i] = gcur.sum(0)
         din = gcur @ weights[i]
         if i == 0 or i in skip_idx:
-            dX = dX + din[:, :c_x]
+            dx = dx + din[:, :c_x]
             din = din[:, c_x:]
         if i > 0:
             gcur = din * (hprev > 0)
+    return dx, dws, dbs
+
+
+def pe_mlp_forward_saved_reference(x, window, weights, biases, freqs, skip_idx=(),
+                                   final_act: bool = False, pre_activations: bool = False):
+    """Plain version of K4f with its saved layer outputs: fourier_embed,
+    then mlp_forward_saved_reference (its (out, acts), acts as K4f writes
+    them)."""
+    return mlp_forward_saved_reference(fourier_embed(x, tuple(freqs), window), weights, biases,
+                                       skip_idx, final_act, pre_activations)
+
+
+def pe_mlp_backward_saved_reference(x, g, window, weights, biases, freqs, skip_idx, acts):
+    """Plain version of K4b's dataflow: mlp_backward_saved_reference on the
+    embedding X (dX), then dx through sin / cos and the window."""
+    with torch.enable_grad():
+        xl = x.detach().requires_grad_(True)
+        X = fourier_embed(xl, tuple(freqs), window)
+    dX, dws, dbs = mlp_backward_saved_reference(X.detach(), g, weights, biases, skip_idx, acts)
     return torch.autograd.grad(X, xl, dX)[0], dws, dbs
 
 
 # ---------------------------------------------------------- launch planning
 
 
-class TilePlan(NamedTuple):
-    tile_rows: int
-    smem_bytes: int
-    grid: int
-    n_params: int  # floats of one workspace slice (every dW, then every db)
+class ReluMlpPlan(NamedTuple):
+    """K3f / K3b's row-count decisions for one shape (relu_mlp_plan)."""
+    fwd_fma: bool  # K3f on its 8-row fp32 FMA tile (few rows), else 3xTF32 on 32 rows
+    n_chunks: int  # K3b's dW: chunks of rows, one workspace slice each when > 1
+    chunk_rows: int  # rows per chunk, whole 32-row slabs
+    n_params: int  # floats of the gradients: every dW, then every db
+    act_floats: int  # saved floats per row (pe_act_layout)
+    scratch_floats: int  # K3b's scratch: the hidden layers' gradients, the workspace
+    bwd_launches: int  # CUDA launches of one K3b call
 
 
-def _stage_ld(in_dims, out_dims):
-    max_w = max(max(in_dims), max(out_dims))
-    return (max_w + 31) // 32 * 32 + 4
+def _cdiv(a, b):
+    return -(-a // b)
 
 
-def tile_smem(c_x, in_dims, out_dims, tile_rows):
-    """Shared memory of K3b's row-tiled backward (tm_bwd_smem in
-    csrc/mlp_tiles.cuh), bytes: k-major buffers of tile_rows + 4 floats per
-    feature, and the weight staging buffer."""
-    stage = TILE_KC * _stage_ld(in_dims, out_dims)
-    per_row = 2 * c_x + sum(out_dims[:-1]) + 2 * max(out_dims)
-    return 4 * ((tile_rows + 4) * per_row + stage)
+def relu_mlp_plan(c_in, in_dims, out_dims, rows, n_sm=132):
+    """K3f / K3b's row-count decisions (ReluMlpPlan, made once per shape):
+    K3f's tile (fp32 FMA on 8 rows up to 8 rows, a render's few frames, else
+    3xTF32 on 32), and K3b's chunks of rows for dW: one (dW straight into
+    the gradient, two launches; up to K3_DW_ROWS rows from every row at
+    once) up to K3_CHUNK_ROWS rows, else about four waves of dW blocks on
+    n_sm SMs, at most 512 chunks (a third launch sums them). The library
+    lays out the shared memory (lab4d_relu_mlp_smem) and raises at launch
+    when a layer's buffers do not fit."""
+    return _relu_plan_of(c_in, tuple(in_dims), tuple(out_dims), rows, n_sm)
 
 
-def tile_plan(c_x, in_dims, out_dims, rows, n_sm):
-    """Tile height, shared memory and grid of K3b: the tallest tile that
-    fits (the weight gradients are added to the block's workspace slice
-    once per tile, so taller tiles move fewer bytes), halved while the
-    tiles cannot fill the SMs; a grid-stride launch of at most one block
-    per SM per slot, since the workspace holds one slice of every weight
-    gradient per block."""
+@functools.lru_cache(maxsize=256)
+def _relu_plan_of(c_in, in_dims, out_dims, rows, n_sm):
+    if max(*in_dims, *out_dims) > K3_MAX_WIDTH:
+        raise ValueError(f"K3f / K3b take layers of at most {K3_MAX_WIDTH} inputs and outputs")
+    tiles = sum(_cdiv(o, 64) * _cdiv(i, 64) for i, o in zip(in_dims, out_dims))
+    n_chunks = 1 if rows <= K3_DW_ROWS else \
+        max(1, min(_cdiv(rows, K3_CHUNK_ROWS), _cdiv(4 * n_sm, tiles), 512))
+    chunk_rows = _cdiv(_cdiv(rows, n_chunks), 32) * 32
+    n_chunks = _cdiv(rows, chunk_rows)
     n_params = sum(o * (i + 1) for i, o in zip(in_dims, out_dims))
-    if TILE_KC * (-(-max(*in_dims, *out_dims) // 4) * 4) > TILE_STAGE:
-        raise ValueError(f"layers wider than {TILE_STAGE // TILE_KC} are not supported")
-    fits = [t for t in TILE_ROWS if tile_smem(c_x, in_dims, out_dims, t) <= SMEM_PER_SM]
-    if not fits:
-        raise ValueError(f"an MLP of widths {list(out_dims)} does not fit in shared memory")
-    tr = fits[0]
-    while tr > TILE_ROWS[-1] and -(-rows // tr) < n_sm and tr // 2 in fits:
-        tr //= 2
-    smem = tile_smem(c_x, in_dims, out_dims, tr)
-    per_sm = max(1, min(2, SMEM_PER_SM // smem))
-    return TilePlan(tr, smem, min(-(-rows // tr), n_sm * per_sm), n_params)
+    act = sum(out_dims[:-1])
+    return ReluMlpPlan(rows <= K3_FMA_ROWS, n_chunks, chunk_rows, n_params, act,
+                       rows * act + (n_chunks * n_params if n_chunks > 1 else 0),
+                       2 + (n_chunks > 1))
 
 
 def check_pe_widths(c_x, out_dims):
@@ -244,14 +265,19 @@ def bind_signatures(name, lib):
     vp, i32, pvp, pi32 = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
     pf32 = ctypes.POINTER(ctypes.c_float)
     if name == "fused_relu_mlp":
-        lib.lab4d_fused_relu_mlp_fwd.argtypes = [
-            vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, i32, i32, vp,
+        lib.lab4d_relu_mlp_smem.argtypes = [pi32, pi32, i32, i32, i32, i32,
+                                            ctypes.POINTER(ctypes.c_longlong)]
+        lib.lab4d_relu_mlp_smem.restype = i32
+        lib.lab4d_relu_mlp_max_clusters.argtypes = [i32, i32]
+        lib.lab4d_relu_mlp_max_clusters.restype = i32
+        lib.lab4d_relu_mlp_fwd.argtypes = [
+            vp, vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, i32, i32, i32, pi32, vp,
         ]
-        lib.lab4d_fused_relu_mlp_fwd.restype = i32
-        lib.lab4d_relu_mlp_tile_bwd.argtypes = [
-            vp, vp, vp, vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, i32, i32, i32, vp,
+        lib.lab4d_relu_mlp_fwd.restype = i32
+        lib.lab4d_relu_mlp_bwd.argtypes = [
+            vp, vp, vp, vp, vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, i32, i32, i32, pi32, vp,
         ]
-        lib.lab4d_relu_mlp_tile_bwd.restype = i32
+        lib.lab4d_relu_mlp_bwd.restype = i32
     elif name == "fused_pe_mlp":
         lib.lab4d_pe_mlp_plan.argtypes = [pi32, pi32, i32, i32, i32, i32, i32,
                                           ctypes.POINTER(ctypes.c_longlong)]
@@ -349,20 +375,46 @@ def _split_grads(flat, weights):
     return dws, dbs
 
 
-def _launch_tile_bwd(lib, x, g, weights, biases, skip_idx, n_sm, stream):
-    """Run K3b, the row-tiled backward."""
+def _k3_plan(x, weights):
+    return relu_mlp_plan(x.shape[1], [w.shape[1] for w in weights], [w.shape[0] for w in weights],
+                         x.shape[0], _n_sm(x.device))
+
+
+def _launch_k3f(lib, x, weights, biases, skip_idx, final_act, stream, save):
+    """Run K3f; returns (out, acts, n), acts the saved hidden outputs
+    (pe_act_layout) when save, else None, and n the CUDA launches made."""
     layers, skip_mask = _layer_args(weights, biases, skip_idx)
-    plan = tile_plan(x.shape[1], [w.shape[1] for w in weights], [w.shape[0] for w in weights],
-                     x.shape[0], n_sm)
+    plan = _k3_plan(x, weights)
+    out = torch.empty((x.shape[0], weights[-1].shape[0]), device=x.device, dtype=x.dtype)
+    acts = torch.empty(x.shape[0] * plan.act_floats, device=x.device, dtype=x.dtype) if save else None
+    n_launches = ctypes.c_int(0)
+    err = lib.lab4d_relu_mlp_fwd(
+        x.data_ptr(), out.data_ptr(), None if acts is None else acts.data_ptr(), *layers,
+        x.shape[1], x.shape[0], skip_mask, int(final_act), int(plan.fwd_fma),
+        ctypes.byref(n_launches), stream)
+    _raise_on(lib, err, "relu_mlp_fwd")
+    return out, acts, n_launches.value
+
+
+def _launch_k3b(lib, x, g, weights, biases, skip_idx, acts, stream):
+    """Run K3b from K3f's saved outputs acts; returns (dx, dWs, dbs, n), n
+    the CUDA launches made."""
+    layers, skip_mask = _layer_args(weights, biases, skip_idx)
+    plan = _k3_plan(x, weights)
+    if acts.shape != (x.shape[0] * plan.act_floats,) or acts.device != x.device or \
+            acts.dtype != x.dtype or not acts.is_contiguous():
+        raise ValueError(f"acts must hold {plan.act_floats} floats per row (pe_act_layout)")
     dx = torch.empty_like(x)
-    ws = torch.empty(plan.grid * plan.n_params, device=x.device, dtype=x.dtype)
     flat = torch.empty(plan.n_params, device=x.device, dtype=x.dtype)
-    err = lib.lab4d_relu_mlp_tile_bwd(x.data_ptr(), g.data_ptr(), dx.data_ptr(), ws.data_ptr(),
-                                      flat.data_ptr(), *layers, x.shape[1], x.shape[0],
-                                      plan.tile_rows, skip_mask, plan.grid, stream)
-    _raise_on(lib, err, "relu_mlp_tile_bwd")
+    scratch = torch.empty(max(plan.scratch_floats, 1), device=x.device, dtype=x.dtype)
+    n_launches = ctypes.c_int(0)
+    err = lib.lab4d_relu_mlp_bwd(
+        x.data_ptr(), g.data_ptr(), acts.data_ptr(), dx.data_ptr(), flat.data_ptr(),
+        scratch.data_ptr(), *layers, x.shape[1], x.shape[0], skip_mask, plan.n_chunks,
+        plan.chunk_rows, ctypes.byref(n_launches), stream)
+    _raise_on(lib, err, "relu_mlp_bwd")
     dws, dbs = _split_grads(flat, weights)
-    return dx, dws, dbs
+    return dx, dws, dbs, n_launches.value
 
 
 class PeMlpPlan(NamedTuple):
@@ -458,36 +510,58 @@ def needs_saved(*tensors):
 # ------------------------------------------------------------------ K3f, K3b
 
 
+def mlp_forward_saved(x, weights, biases, skip_idx=(), final_act: bool = False):
+    """K3f with its saved hidden outputs: (out, acts), acts in
+    pe_act_layout. A CUDA tensor runs K3f (counted in
+    `fused_relu_mlp.launches`); a CPU tensor mlp_forward_saved_reference."""
+    skip_idx = tuple(skip_idx)
+    if x.device.type == "cpu":
+        return mlp_forward_saved_reference(x, weights, biases, skip_idx, final_act)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"mlp_forward_saved has no kernel for device {x.device}")
+    return _k3f_cuda(x, weights, biases, skip_idx, final_act, save=True)
+
+
+def _k3f_cuda(x, weights, biases, skip_idx, final_act, save):
+    _check_args(x, weights, biases, skip_idx)
+    *out, n = _launch_k3f(_kernel_lib("fused_relu_mlp"), x, weights, biases, skip_idx, final_act,
+                          _stream(x.device), save)
+    fused_relu_mlp.launches += 1
+    fused_relu_mlp.cuda_launches = n
+    return tuple(out)
+
+
 class _FusedReluMLP(torch.autograd.Function):
-    """Forward through K3f, backward through K3b."""
+    """Forward through K3f, saving every hidden layer output when `save`
+    (the caller's needs_saved); backward through K3b from them. On CPU
+    tensors (the tests) both run their plain versions of that dataflow."""
 
     @staticmethod
-    def forward(ctx, x, skip_idx, final_act, *params):
+    def forward(ctx, x, skip_idx, final_act, save, *params):
         n = len(params) // 2
         weights, biases = params[:n], params[n:]
-        _check_args(x, weights, biases, skip_idx)
-        lib = _kernel_lib("fused_relu_mlp")
-        out = torch.empty((x.shape[0], weights[-1].shape[0]), device=x.device, dtype=x.dtype)
-        layers, skip_mask = _layer_args(weights, biases, skip_idx)
-        err = lib.lab4d_fused_relu_mlp_fwd(
-            x.data_ptr(), out.data_ptr(), *layers, x.shape[1], x.shape[0], skip_mask,
-            int(final_act), _stream(x.device),
-        )
-        _raise_on(lib, err, "fused_relu_mlp")
-        fused_relu_mlp.launches += 1
+        if save:
+            out, acts = mlp_forward_saved(x, weights, biases, skip_idx, final_act)
+        elif x.device.type == "cuda":
+            out, acts = _k3f_cuda(x, weights, biases, skip_idx, final_act, save=False)
+        else:
+            out, acts = mlp_reference(x, weights, biases, skip_idx, final_act), None
         ctx.skip_idx, ctx.final_act = skip_idx, final_act
-        ctx.save_for_backward(x, out, *params)
+        ctx.save_for_backward(x, out, acts, *params)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        x, out, *params = ctx.saved_tensors
+        x, out, acts, *params = ctx.saved_tensors
+        if acts is None:
+            raise RuntimeError("fused_relu_mlp ran without saving its layer outputs (no input "
+                               "required a gradient, or grad mode was off)")
         n = len(params) // 2
         g = grad_out * (out > 0.0) if ctx.final_act else grad_out
         dx, dws, dbs = fused_relu_mlp_backward(x, g.contiguous(), params[:n], params[n:],
-                                               ctx.skip_idx)
-        return (dx, None, None, *dws, *dbs)
+                                               ctx.skip_idx, saved=acts)
+        return (dx, None, None, None, *dws, *dbs)
 
 
 def fused_relu_mlp(
@@ -502,44 +576,60 @@ def fused_relu_mlp(
 
     Args:
         x: (rows, C_in) float32
-        weights: (out_i, in_i) per layer; biases: (out_i,) per layer
+        weights: (out_i, in_i) per layer, at most 512 inputs and outputs on
+            the card (within shared memory: lab4d_relu_mlp_smem); biases: (out_i,)
     Returns:
         (rows, out_last)
 
-    A CUDA tensor goes through K3f (counted in `fused_relu_mlp.launches`),
-    and its gradient through K3b; a CPU tensor through `mlp_reference`.
+    A CUDA tensor goes through K3f (one count in `fused_relu_mlp.launches`
+    for its CUDA launches, whose number is left in
+    `fused_relu_mlp.cuda_launches`), which saves its hidden outputs when autograd needs a
+    gradient (needs_saved), and its gradient through K3b; a CPU tensor
+    through `mlp_reference`.
     """
     skip_idx = tuple(skip_idx)
     if x.device.type == "cuda":
-        return _FusedReluMLP.apply(x, skip_idx, bool(final_act), *weights, *biases)
+        save = needs_saved(x, *weights, *biases)
+        return _FusedReluMLP.apply(x, skip_idx, bool(final_act), save, *weights, *biases)
     if x.device.type == "cpu":
         return mlp_reference(x, weights, biases, skip_idx, final_act)
     raise NotImplementedError(f"fused_relu_mlp has no kernel for device {x.device}")
 
 
 fused_relu_mlp.launches = 0
+fused_relu_mlp.cuda_launches = 0
 
 
-def fused_relu_mlp_backward(x, g, weights, biases, skip_idx=()):
+def fused_relu_mlp_backward(x, g, weights, biases, skip_idx=(), saved=None):
     """VJP of fused_relu_mlp without the final ReLU (the caller masks g):
-    returns (dx, dWs, dbs) for the output gradient g (rows, out_last).
-    K3b on a CUDA tensor (counted in `fused_relu_mlp_backward.launches`),
-    `mlp_backward_reference` on a CPU tensor."""
+    (dx, dWs, dbs) for the output gradient g (rows, out_last). saved: the
+    hidden outputs of mlp_forward_saved, which K3b needs. A CUDA tensor
+    runs K3b (one count in `fused_relu_mlp_backward.launches` for its CUDA
+    launches, whose number is left in
+    `fused_relu_mlp_backward.cuda_launches`); a CPU tensor
+    mlp_backward_saved_reference, or mlp_backward_reference when saved is
+    None."""
     skip_idx = tuple(skip_idx)
-    if x.device.type == "cpu":
-        return mlp_backward_reference(x, g, weights, biases, skip_idx)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"fused_relu_mlp_backward has no kernel for device {x.device}")
+    if saved is None:
+        if x.device.type == "cuda":
+            raise ValueError("K3b needs the layer outputs of mlp_forward_saved (saved=)")
+        return mlp_backward_reference(x, g, weights, biases, skip_idx)
+    if x.device.type == "cpu":
+        return mlp_backward_saved_reference(x, g, weights, biases, skip_idx, saved)
     _check_args(x, weights, biases, skip_idx)
     if g.shape != (x.shape[0], weights[-1].shape[0]) or not g.is_contiguous() or g.dtype != x.dtype:
         raise ValueError(f"g must be a contiguous ({x.shape[0]}, {weights[-1].shape[0]}) float32 tensor")
-    lib = _kernel_lib("fused_relu_mlp")
-    out = _launch_tile_bwd(lib, x, g, weights, biases, skip_idx, _n_sm(x.device), _stream(x.device))
+    *out, n = _launch_k3b(_kernel_lib("fused_relu_mlp"), x, g, weights, biases, skip_idx, saved,
+                          _stream(x.device))
     fused_relu_mlp_backward.launches += 1
-    return out
+    fused_relu_mlp_backward.cuda_launches = n
+    return tuple(out)
 
 
 fused_relu_mlp_backward.launches = 0
+fused_relu_mlp_backward.cuda_launches = 0
 
 
 # ------------------------------------------------------------------ K4f, K4b

@@ -11,6 +11,7 @@ JAX trainer) and the same outputs under
 
 Rendering uses the exact merged two-pass eval (the JAX CLI's
 `--eval_topk 0`). Top-k eval and channel subsets are not ported yet.
+`--flagfile` reads a run's opts.log (flagfile.py), as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from lab4d_tpu_torch.bridge import load_flax_checkpoint, params_from_flax
 from lab4d_tpu_torch.dataloader import data_utils
 from lab4d_tpu_torch.engine.model import DVRModel
+from lab4d_tpu_torch.flagfile import add_flagfile_option, parse_opts
 from lab4d_tpu_torch.utils import cam_traj as C
 from lab4d_tpu_torch.utils.geom import K2inv, K2mat, mat2K
 from lab4d_tpu_torch.utils.io import make_save_dir, save_rendered
@@ -62,6 +64,7 @@ def get_parser() -> argparse.ArgumentParser:
                    help="per-ray sample budget of the heavy eval channels; only 0 "
                         "(exact every-sample evaluation) is ported")
     p.add_argument("--device", default="cuda", help="torch device to render on")
+    add_flagfile_option(p)
     return p
 
 
@@ -203,7 +206,7 @@ def render(opts: Dict):
 
 
 def main(argv=None):
-    return render(vars(get_parser().parse_args(argv)))
+    return render(parse_opts(get_parser(), argv))
 
 
 if __name__ == "__main__":

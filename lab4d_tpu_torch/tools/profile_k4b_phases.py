@@ -1,7 +1,7 @@
-"""Where the time of K4f and K4b goes on the bg field's MLPs, on one CUDA
-device.
+"""Where the time of K4f and K4b goes on the bg field's MLPs, and of K3f
+and K3b on the TimeMLPs, on one CUDA device.
 
-    python3 -m lab4d_tpu_torch.tools.profile_k4b_phases [--reps N] [--parent DIR]
+    python3 -m lab4d_tpu_torch.tools.profile_k4b_phases [--reps N] [--parent DIR] [--k3_only]
 
 Run from the root of a checkout. At the three 262,144-point shapes of
 chip_smoke.K4_SHAPES (the base, colour and visibility MLPs of a bg
@@ -26,6 +26,21 @@ training step):
 
 A copy with a phase off computes other outputs; only `full` is checked.
 
+K3f and K3b at the TimeMLPs' shapes (chip_smoke.K3_PROFILE: D5 W256 at 1
+and 256 rows, D2 W64 at 256), by anatomy copies of
+csrc/fused_relu_mlp.cu, each timed by CUDA-graph replay
+(chip_smoke.device_ms):
+  - full: the kernels as they are (checked against their plain versions);
+  - empty: K3f returns at its start (a cluster launch with its shared
+    memory); no-wstage: without the weight staging; no-remote: each block
+    stores a layer's outputs into its own shared memory only (no
+    distributed shared memory); no-sync: a block barrier in place of the
+    cluster barrier between layers (the last one kept, so that no block
+    leaves while another stores into it); no-math: without the layers'
+    products and their stores; barriers: neither staging nor math (the
+    launch, x and the barriers);
+  - K3b's dIn launch alone (din-only) and its dW launch alone (dw-only).
+
 --parent DIR: the root of a checkout whose K4f / K4b are the row-tiled
 fp32 FMA design (csrc/fused_pe_mlp.cu on csrc/mlp_tiles.cuh, as at commit
 450f66c). Its fused_pe_mlp.cu is built from DIR, its wrapper
@@ -34,6 +49,12 @@ against its plain version, and its K4f / K4b timed in turns with this
 checkout's: parent, new, new, parent in every round, at all four shapes
 of K4_SHAPES (the fourth: the 512 visibility-decay points of a step,
 which get the turns only).
+
+With --parent, K3f and K3b are timed in turns with DIR's too (parent,
+new, new, parent), at every shape of chip_smoke.K3_PROFILE, by CUDA-graph
+replay: DIR's fused_relu_mlp.cu is built from DIR, its K3b is whatever
+DIR's wrapper runs (the row-tiled parent recomputes the forward), the new
+K3b runs from K3f's saved outputs. --k3_only: only the K3 parts.
 
 Each round times every run in turn: at 262,144 points, CUDA events around
 5 back-to-back calls after one warm-up call; at 512 points, where the
@@ -71,6 +92,54 @@ K4F_COPIES = {
         "  hm_mma0(t, ah, bh0, bh1);\n",
     )],
 }
+# K3f / K3b's anatomy copies of csrc/fused_relu_mlp.cu
+K3_COPIES = {
+    "full": [],
+    "empty": [(
+        "fused_relu_mlp.cu",
+        "  auto stage = [&](int l) {  // the block's rows of W_l into slab l % S\n",
+        "  if (a.rows > 0) return;\n  auto stage = [&](int l) {  // the block's rows of W_l into slab l % S\n",
+    )],
+    "no-wstage": [(
+        "fused_relu_mlp.cu",
+        "        hm_cp16(dst + n * ldb + k, W + (size_t)n * K + k);",
+        "        if (0) hm_cp16(dst + n * ldb + k, W + (size_t)n * K + k);",
+    )],
+    "no-remote": [(
+        "fused_relu_mlp.cu",
+        "#pragma unroll\n      for (int p = 0; p < RM_CLUSTER; ++p) peer[p][off] = v;",
+        "      smem[off] = v;",
+    )],
+    "no-sync": [(
+        "fused_relu_mlp.cu",
+        "    cluster.sync();  // layer l complete in every block before layer l + 1 reads it",
+        "    if (l == L - 1) cluster.sync(); else __syncthreads();",
+    )],
+    "no-math": [(
+        "fused_relu_mlp.cu",
+        "    if (cnt > 0) {\n      if constexpr (FMA)",
+        "    if (cnt < 0) {\n      if constexpr (FMA)",
+    )],
+    "barriers": [
+        ("fused_relu_mlp.cu",
+         "        hm_cp16(dst + n * ldb + k, W + (size_t)n * K + k);",
+         "        if (0) hm_cp16(dst + n * ldb + k, W + (size_t)n * K + k);"),
+        ("fused_relu_mlp.cu",
+         "    if (cnt > 0) {\n      if constexpr (FMA)",
+         "    if (cnt < 0) {\n      if constexpr (FMA)"),
+    ],
+    "din-only": [
+        ("fused_relu_mlp.cu", "    rm_dw_rows_kernel<<<", "    if (0) rm_dw_rows_kernel<<<"),
+        ("fused_relu_mlp.cu", "    rm_dw_kernel<<<", "    if (0) rm_dw_kernel<<<"),
+    ],
+    "dw-only": [(
+        "fused_relu_mlp.cu",
+        "  rm_din_kernel<<<tiles * RM_CLUSTER",
+        "  if (0) rm_din_kernel<<<tiles * RM_CLUSTER",
+    )],
+}
+_K3B_COPIES = ("full", "din-only", "dw-only")
+
 # the copies timed without saving the hidden outputs
 _NO_SAVE = ("no-save", "mm-only", "mm-tf32")
 # what each kind of K4b launch is (csrc/fused_pe_mlp.cu:lab4d_pe_mlp_bwd)
@@ -144,10 +213,10 @@ def _anatomy(K, libs, fargs, g, acts, stream, reps, label):
           + " ".join(f"{k}={v:.3f}" for k, v in phases.items()))
 
 
-def load_parent_mlp_kernel(root, lib):
+def load_parent_mlp_kernel(root, libs):
     """DIR/lab4d_tpu_torch/ops/mlp_kernel.py as the module
-    parent_mlp_kernel, its kernels bound to lib (the parent's
-    fused_pe_mlp.cu built from DIR) through its own _kernel_lib."""
+    parent_mlp_kernel, its kernels bound to libs ({name: the parent's
+    <name>.cu built from DIR}) through its own _kernel_lib."""
     from lab4d_tpu_torch.ops import build
 
     path = os.path.join(root, "lab4d_tpu_torch", "ops", "mlp_kernel.py")
@@ -155,12 +224,67 @@ def load_parent_mlp_kernel(root, lib):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     kept = build.load_library
-    build.load_library = lambda name: lib
+    build.load_library = lambda name: libs[name]
     try:
-        mod._kernel_lib("fused_pe_mlp")
+        for name in libs:
+            mod._kernel_lib(name)
     finally:
         build.load_library = kept
     return mod
+
+
+def k3_profile(chip_smoke, K, libs, pmk, reps):
+    """K3f / K3b's anatomy copies (libs: {copy: library of
+    fused_relu_mlp.cu}) at every shape of chip_smoke.K3_PROFILE, `full`
+    checked against the plain versions; with pmk (the parent's
+    mlp_kernel), K3f and K3b in turns with the parent's."""
+    import torch
+
+    tol = chip_smoke.KERNEL_TOL
+    gen = torch.Generator().manual_seed(chip_smoke.SEED)
+    for label, rows, C, D, W in chip_smoke.K3_PROFILE:
+        ws, bs = chip_smoke._mlp_params(C, D, W, gen, "cuda")
+        x = torch.randn(rows, C, generator=gen).cuda()
+        g = torch.randn(rows, W, generator=gen).cuda()
+        want, want_acts = K.mlp_forward_saved_reference(x, ws, bs, (), True)
+        out, acts, _ = K._launch_k3f(libs["full"], x, ws, bs, (), True, K._stream(x.device), True)
+        got_b = K._launch_k3b(libs["full"], x, g, ws, bs, (), acts, K._stream(x.device))[:3]
+        want_b = K.mlp_backward_saved_reference(x, g, ws, bs, (), acts)
+        torch.cuda.synchronize()
+        err = max(float((out - want).abs().max()), float((acts - want_acts).abs().max()))
+        rel_b = chip_smoke._bwd_errs(list(got_b), list(want_b))[1]
+        print(f"[k3] {label}: full vs plain: K3f abs err {err:.3e}, K3b rel err {rel_b:.3e} "
+              f"(tol {tol:g})")
+        if not max(err, rel_b) <= tol:
+            sys.exit(f"profile_k4b_phases: K3f / K3b {label} disagree with their plain versions")
+        # the stream is looked up per call, as the wrappers do: under CUDA
+        # graph capture it is the capturing stream
+        fwd = {name: (lambda lib=lib: K._launch_k3f(lib, x, ws, bs, (), True,
+                                                    K._stream(x.device), True))
+               for name, lib in libs.items() if name not in _K3B_COPIES[1:]}
+        bwd = {name: (lambda lib=libs[name]: K._launch_k3b(lib, x, g, ws, bs, (), acts,
+                                                           K._stream(x.device)))
+               for name in _K3B_COPIES}
+        times = _time_rounds({**{f"K3f {k}": v for k, v in fwd.items()},
+                              **{f"K3b {k}": v for k, v in bwd.items()}}, reps,
+                             chip_smoke.device_ms)
+        print(f"[k3] {label}, us: " + " ".join(f"{k}={v * 1e3:.2f}" for k, v in times.items()))
+        if pmk is None:
+            continue
+        old_f = lambda: pmk.fused_relu_mlp(x, ws, bs, (), True)  # noqa: E731
+        old_b = lambda: pmk.fused_relu_mlp_backward(x, g, ws, bs)  # noqa: E731
+        perr = max(float((old_f() - want).abs().max()),
+                   chip_smoke._bwd_errs(list(old_b()), list(K.mlp_backward_reference(x, g, ws, bs)))[1])
+        torch.cuda.synchronize()
+        print(f"[parent] {label}: parent K3f abs err / K3b rel err vs plain, worst {perr:.3e}")
+        if not perr <= tol:
+            sys.exit(f"profile_k4b_phases: the parent's K3f / K3b {label} disagree with plain")
+        turns = _time_rounds({"K3f parent 1": old_f, "K3f 1": fwd["full"], "K3f 2": fwd["full"],
+                              "K3f parent 2": old_f, "K3b parent 1": old_b, "K3b 1": bwd["full"],
+                              "K3b 2": bwd["full"], "K3b parent 2": old_b}, reps,
+                             chip_smoke.device_ms)
+        print(f"[turns] {label}, us (parent, new, new, parent): " + " ".join(
+            f"{k}={v * 1e3:.2f}" for k, v in turns.items()))
 
 
 def _shape_inputs(chip_smoke, gen, shape):
@@ -181,7 +305,8 @@ def _shape_inputs(chip_smoke, gen, shape):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=3)
-    parser.add_argument("--parent", default=None, help="root of a checkout of the row-tiled K4f / K4b")
+    parser.add_argument("--parent", default=None, help="root of a checkout to time in turns")
+    parser.add_argument("--k3_only", action="store_true", help="profile K3f / K3b only")
     args = parser.parse_args(argv)
 
     import torch
@@ -200,17 +325,29 @@ def main(argv=None):
     card = chip_smoke.phase_env()
     out_dir = str(BUILD_DIR / "k4_phases")
     main_src = "fused_pe_mlp.cu"
-    procs = PH.start_copies(CSRC_DIR, K4F_COPIES, os.path.join(out_dir, "new"), main_src)
-    if args.parent:
-        pprocs = PH.start_copies(Path(args.parent) / "lab4d_tpu_torch" / "csrc", {"parent": []},
-                                 os.path.join(out_dir, "parent"), main_src)
-    libs = PH.finish_copies(procs, os.path.join(out_dir, "new"), main_src)
+    pdir = Path(args.parent) / "lab4d_tpu_torch" / "csrc" if args.parent else None
+    mains = ("fused_relu_mlp.cu",) + (() if args.k3_only else (main_src,))
+    procs = {"k3": PH.start_copies(CSRC_DIR, K3_COPIES, os.path.join(out_dir, "k3"),
+                                   "fused_relu_mlp.cu")}
+    if not args.k3_only:
+        procs["k4"] = PH.start_copies(CSRC_DIR, K4F_COPIES, os.path.join(out_dir, "new"), main_src)
+    pprocs = {m: PH.start_copies(pdir, {"parent": []}, os.path.join(out_dir, "parent", m), m)
+              for m in mains} if pdir else {}
+    k3_libs = PH.finish_copies(procs["k3"], os.path.join(out_dir, "k3"), "fused_relu_mlp.cu")
+    for lib in k3_libs.values():
+        K.bind_signatures("fused_relu_mlp", lib)
+    pmk = None
+    if pdir:
+        plibs = {m[:-3]: PH.finish_copies(pprocs[m], os.path.join(out_dir, "parent", m), m)["parent"]
+                 for m in mains}
+        pmk = load_parent_mlp_kernel(args.parent, plibs)
+    k3_profile(chip_smoke, K, k3_libs, pmk, args.reps)
+    if args.k3_only:
+        print(card)
+        return
+    libs = PH.finish_copies(procs["k4"], os.path.join(out_dir, "new"), main_src)
     for lib in libs.values():
         K.bind_signatures("fused_pe_mlp", lib)
-    pmk = None
-    if args.parent:
-        plib = PH.finish_copies(pprocs, os.path.join(out_dir, "parent"), main_src)["parent"]
-        pmk = load_parent_mlp_kernel(args.parent, plib)
     stream = K._stream(torch.device("cuda"))
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
     tol = chip_smoke.KERNEL_TOL

@@ -75,14 +75,14 @@ def main(argv=None):
         wall = frame_ms(DEFAULT_CHUNK)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_us = sum(e.device_time for e in kernels)
-    k3 = [e.device_time for e in kernels if "fused_relu_mlp" in e.name]
+    k3 = [e.device_time for e in kernels if "rm_fwd_kernel" in e.name]
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
     ops.sort(key=lambda e: -e.self_device_time_total)
     for e in ops[: args.top]:
         print(f"[op] {e.key}: {e.self_device_time_total / 1e3:.1f} ms device, "
               f"{100 * e.self_device_time_total / device_us:.1f}%, {e.count} calls")
-    print(f"[op] K3f fused_relu_mlp_fwd_kernel: {sum(k3) / 1e3:.2f} ms device, "
+    print(f"[op] K3f rm_fwd_kernel: {sum(k3) / 1e3:.2f} ms device, "
           f"{100 * sum(k3) / device_us:.2f}%, {len(k3)} calls")
     print(f"[profile] device time {device_us / 1e3:.1f} ms of a {wall:.1f} ms frame "
           f"(traced), idle share {1 - device_us / 1e3 / wall:.3f}")

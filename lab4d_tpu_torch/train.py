@@ -11,7 +11,8 @@ proxy meshes and ckpt_*.flax checkpoints in the JAX trainer's layout).
         --fg_motion skel-quad
 
 --field_type bg and --field_type fg with --fg_motion skel-quad are ported;
-the other motions and comp are not yet (ROADMAP.md).
+the other motions and comp are not yet (ROADMAP.md). opts.log is written
+in the JAX package's format (flagfile.py), and `--flagfile` reads one.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import os
 from typing import Dict
 
 import torch
+
+from lab4d_tpu_torch.flagfile import add_flagfile_option, parse_opts, write_opts_log
 
 # flag -> (default, help), as in lab4d_tpu/config.py
 LOSS_WEIGHTS = {
@@ -74,7 +77,9 @@ def get_parser() -> argparse.ArgumentParser:
                    help="SDF-distillation steps for geometry init")
     p.add_argument("--database_root", default="database",
                    help="root of preprocessed dataset + configs")
-    p.add_argument("--device", default="cuda", help="torch device to train on")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on; opts.log writes it as --use_cpu / --nouse_cpu")
+    add_flagfile_option(p)
     return p
 
 
@@ -92,11 +97,11 @@ def check_opts(opts: Dict):
 
 
 def save_opts(opts: Dict):
-    """Snapshot the flags to <logroot>/<seqname>-<logname>/opts.log."""
+    """Snapshot the flags to <logroot>/<seqname>-<logname>/opts.log, as the
+    JAX trainer writes it (every flag of lab4d_tpu/config.py)."""
     save_dir = os.path.join(opts["logroot"], "%s-%s" % (opts["seqname"], opts["logname"]))
     os.makedirs(save_dir, exist_ok=True)
-    with open(os.path.join(save_dir, "opts.log"), "w") as f:
-        f.writelines(f"--{k}={v}\n" for k, v in sorted(opts.items()))
+    write_opts_log(os.path.join(save_dir, "opts.log"), opts)
 
 
 def train(opts: Dict):
@@ -118,7 +123,7 @@ def train(opts: Dict):
 
 
 def main(argv=None):
-    return train(vars(get_parser().parse_args(argv)))
+    return train(parse_opts(get_parser(), argv))
 
 
 if __name__ == "__main__":

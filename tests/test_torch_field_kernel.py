@@ -24,6 +24,8 @@ products with fp32 sums meet the plain version's at 1e-4 (outputs absolute, grad
 each array's largest entry).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -457,23 +459,24 @@ def _anchor_cases():
 
     cases = [("heads", name, patches) for name, patches in PH.MMA_K1.items()]
     cases += [("k4f", name, patches) for name, patches in PK.K4F_COPIES.items()]
+    cases += [("k3", name, patches) for name, patches in PK.K3_COPIES.items()]
     return cases
 
 
 @pytest.mark.parametrize("tool,copy,patches", _anchor_cases(), ids=lambda v: v if isinstance(v, str) else "")
 def test_profiler_anchors_found_once(tool, copy, patches):
     """Every anchor that profile_heads_phases (K1's anatomy copies) and
-    profile_k4b_phases (K4f's) replace occurs exactly once in the committed
-    source it patches, so an edit that drops one fails here and not on the
-    card."""
+    profile_k4b_phases (K4f's, K3f's and K3b's) replace occurs exactly once
+    in the committed source it patches, so an edit that drops one fails
+    here and not on the card."""
     from lab4d_tpu_torch.ops.build import CSRC_DIR
     from lab4d_tpu_torch.tools import profile_heads_phases as PH
 
-    main = "nerf_heads.cu" if tool == "heads" else "fused_pe_mlp.cu"
+    main = {"heads": "nerf_heads.cu", "k4f": "fused_pe_mlp.cu", "k3": "fused_relu_mlp.cu"}[tool]
     for fname, anchor, _ in patches:
         assert (CSRC_DIR / fname).read_text().count(anchor) == 1, (tool, copy, anchor[:60])
     texts = PH.patched_sources(CSRC_DIR, patches, main)
-    assert set(texts) >= {main, "heads_mma.cuh", "mlp_tiles.cuh"}
+    assert set(texts) >= {main, "heads_mma.cuh"}
 
 
 # ------------------------------------------------------- the saved outputs
@@ -601,7 +604,7 @@ def test_autograd_backward_receives_the_saved_outputs(monkeypatch):
     flat = [t.clone().requires_grad_() for t in flat]
     cfg = cfg_of()
     y = FK._FusedNerfHeads.apply(leaves[0], leaves[1], torch.tensor(win_b), torch.tensor(win_c),
-                                 leaves[2], cfg, SPP, order, *flat)
+                                 leaves[2], cfg, SPP, order, True, *flat)
     tg = [torch.tensor(t) for t in g]
     grads = torch.autograd.grad(y, leaves + flat, tg)
     (outs, acts), (got_acts, got_rgb) = seen["fwd"], seen["bwd"]
@@ -613,3 +616,35 @@ def test_autograd_backward_receives_the_saved_outputs(monkeypatch):
     for a, b in zip(grads, [dx, dappr, dib] + FK.flatten_nets(dnets)[0]):
         bound = 1e-5 * max(1.0, float(b.abs().max()))
         assert float((a - b.reshape(a.shape)).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "frozen"])
+def test_k1_saves_nothing_without_a_gradient(monkeypatch, mode):
+    """fused_nerf_heads decides to save K1's layer outputs before apply,
+    with mlp_kernel.needs_saved (grad mode on and an input or parameter
+    that requires a gradient), as K3f and K4f do: under torch.no_grad()
+    with parameters that require gradients, and for a frozen model
+    (requires_grad_(False)), _FusedNerfHeads saves nothing and gives the
+    saving call's outputs."""
+    x, appr, win_b, win_c, nets, _ = jax_layout_case(seed=4)
+    pn = to_port(nets)
+    flat, order = FK.flatten_nets(pn)
+    flat = [t.clone().requires_grad_(mode == "no_grad") for t in flat]
+    args = (torch.tensor(x), torch.tensor(appr), torch.tensor(win_b), torch.tensor(win_c),
+            torch.tensor([IBETA]), cfg_of(), SPP, order)
+    seen = []
+    fwd = FK.nerf_heads_forward_saved_reference
+    monkeypatch.setattr(FK, "nerf_heads_forward_saved_reference",
+                        lambda *a: seen.append(1) or fwd(*a))
+    want = FK._FusedNerfHeads.apply(*args, True, *flat)
+    assert seen == [1]
+    ctx = torch.no_grad() if mode == "no_grad" else contextlib.nullcontext()
+    with ctx:
+        save = FK.needs_saved(args[0], args[1], args[4], *flat)
+        got = FK._FusedNerfHeads.apply(*args, save, *flat)
+    assert save is False and seen == [1]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b.detach(), rtol=0, atol=0)
+    with pytest.raises(RuntimeError, match="without saving"):
+        torch.autograd.grad(FK._FusedNerfHeads.apply(args[0].requires_grad_(), *args[1:], False,
+                                                     *flat)[0].sum(), args[0])

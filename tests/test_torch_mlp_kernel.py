@@ -6,7 +6,11 @@ tests/test_mlp_kernel.py runs them) and its jnp oracles.
   path's shapes;
 - K3b (fused_relu_mlp_backward) against JAX `_bwd` and jax.vjp of the
   oracle, and the autograd of fused_relu_mlp (final ReLU mask included)
-  against the JAX custom VJP;
+  against the JAX custom VJP; their saved-output plain versions
+  (mlp_forward_saved_reference, whose hidden layer outputs K3f saves, and
+  mlp_backward_saved_reference, K3b's dataflow from them) against the
+  Pallas kernels, the autograd wiring that hands K3f's saved outputs to
+  K3b, K3f / K3b's launch plan, and K3's 3xTF32 arithmetic against fp64;
 - K4f / K4b (fused_pe_mlp and its backward) against JAX `_pe_fwd` /
   `_pe_bwd_call` and the oracle, with and without skip, final ReLU and
   annealing window, at the bg field's widths; also their saved-output
@@ -31,6 +35,8 @@ at 1e-5. On the card the kernels (fp32 FMA for K3, 3xTF32 tensor-core
 products with fp32 sums for K4) meet cuBLAS's fp32 at 1e-4 of each
 array's largest entry (forward outputs at atol 1e-4).
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -156,6 +162,190 @@ def test_k3b_matches_jax_bwd(P, dims, skips, final_act):
         assert_close_scaled(grads[0].numpy(), want[0], err_msg="dx")
         for a, b in zip(grads[1 : 1 + len(tw)], want[1]):
             assert_close_scaled(a.numpy().T, b)
+
+
+# (rows, dims, skips, final_act): the TimeMLP backbones' D5 W256 at the
+# training step's 256 rows, D2 W64, a skip layer, final ReLU on and off,
+# a ragged row count
+K3_SAVED_CASES = [
+    (256, (256,) * 7, (), True),
+    (256, (64,) * 4, (), True),
+    (300, (95, 128, 128, 128, 128, 128, 64), (4,), False),
+    (37, (48, 64, 64, 16), (2,), True),
+    (1001, (32, 64, 64, 8), (), False),
+]
+
+
+def _k3_saved_case(P, dims, skips):
+    rng = np.random.default_rng(P + len(dims))
+    x = rng.standard_normal((P, dims[0])).astype(np.float32)
+    g = rng.standard_normal((P, dims[-1])).astype(np.float32)
+    weights, biases = normal_mlp(dims, skips, seed=P)
+    return x, g, weights, biases
+
+
+@pytest.mark.parametrize("P,dims,skips,final_act", K3_SAVED_CASES)
+def test_k3f_saved_matches_jax_fwd(P, dims, skips, final_act):
+    """mlp_forward_saved_reference, the plain K3f with the hidden outputs it
+    saves: its output is mlp_reference's and JAX `_fwd`'s (Pallas,
+    interpret mode) and its oracle's; its saved blocks (pe_act_layout) are
+    the hidden layers' ReLU outputs, which rebuild the output through the
+    last layer; with pre_activations, the ReLU inputs that give them."""
+    import jax.numpy as jnp
+
+    from lab4d_tpu.ops import mlp_kernel as J
+
+    x, _, weights, biases = _k3_saved_case(P, dims, skips)
+    jw, jb = _jax_lists(weights, biases)
+    want_kernel = J._fwd(jnp.asarray(x), jw, jb, tuple(skips), final_act)
+    want_ref = J.mlp_reference(jnp.asarray(x), jw, jb, tuple(skips), final_act)
+    tw = [torch.tensor(w.T.copy()) for w in weights]
+    tb = [torch.tensor(b) for b in biases]
+    tx = torch.tensor(x)
+    got, acts = K.mlp_forward_saved_reference(tx, tw, tb, skips, final_act)
+    np.testing.assert_array_equal(got.numpy(), K.mlp_reference(tx, tw, tb, skips, final_act).numpy())
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
+    offs, per_row = K.pe_act_layout(tw)
+    assert per_row == sum(dims[1:-1]) and acts.shape == (P * per_row,)
+    assert (acts >= 0).all()
+    last_in = acts[offs[-1] * P:].view(P, dims[-2])
+    if len(tw) - 1 in skips:
+        last_in = torch.cat([tx, last_in], dim=-1)
+    rebuilt = torch.nn.functional.linear(last_in, tw[-1], tb[-1])
+    np.testing.assert_allclose(got.numpy(), (torch.relu(rebuilt) if final_act else rebuilt).numpy(),
+                               rtol=0, atol=1e-5)
+    _, z = K.mlp_forward_saved_reference(tx, tw, tb, skips, final_act, pre_activations=True)
+    torch.testing.assert_close(torch.relu(z), acts, rtol=0, atol=0)
+    assert (z < 0).any()
+
+
+@pytest.mark.parametrize("P,dims,skips,final_act", K3_SAVED_CASES)
+def test_k3b_saved_matches_jax_bwd(P, dims, skips, final_act):
+    """mlp_backward_saved_reference, the plain K3b from K3f's saved hidden
+    outputs, against JAX `_bwd` (Pallas, interpret mode) and jax.vjp of
+    the oracle, at the tolerances of test_k3b_matches_jax_bwd; through
+    fused_relu_mlp_backward with saved= on the CPU; with final_act, the
+    Function's gradients (the final ReLU's mask, then the saved-output
+    backward) against the JAX custom VJP."""
+    import jax
+    import jax.numpy as jnp
+
+    from lab4d_tpu.ops import mlp_kernel as J
+
+    x, g, weights, biases = _k3_saved_case(P, dims, skips)
+    jw, jb = _jax_lists(weights, biases)
+    want_kernel = J._bwd(jnp.asarray(x), jnp.asarray(g), jw, jb, tuple(skips))
+    _, vjp = jax.vjp(lambda x_, w_, b_: J.mlp_reference(x_, w_, b_, tuple(skips)),
+                     jnp.asarray(x), jw, jb)
+    want_ref = vjp(jnp.asarray(g))
+    tw = [torch.tensor(w.T.copy()) for w in weights]
+    tb = [torch.tensor(b) for b in biases]
+    tx, tg = torch.tensor(x), torch.tensor(g)
+    _, acts = K.mlp_forward_saved_reference(tx, tw, tb, skips, final_act)
+    launches = K.fused_relu_mlp_backward.launches
+    dx, dws, dbs = K.fused_relu_mlp_backward(tx, tg, tw, tb, skips, saved=acts)
+    assert K.fused_relu_mlp_backward.launches == launches  # a CPU tensor never launches
+    plain = K.mlp_backward_saved_reference(tx, tg, tw, tb, skips, acts)
+    for a, b in zip([dx] + dws + dbs, [plain[0]] + plain[1] + plain[2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for want in (want_kernel, want_ref):
+        assert_close_scaled(dx.numpy(), want[0], err_msg="dx")
+        for i, (a, b) in enumerate(zip(dws, want[1])):
+            assert_close_scaled(a.numpy().T, b, err_msg=f"dW{i}")
+        for i, (a, b) in enumerate(zip(dbs, want[2])):
+            assert_close_scaled(a.numpy(), np.asarray(b).reshape(-1), err_msg=f"db{i}")
+    if final_act:
+        _, vjp_k = jax.vjp(lambda x_, w_, b_: J.fused_relu_mlp(x_, w_, b_, tuple(skips), True),
+                           jnp.asarray(x), jw, jb)
+        want = vjp_k(jnp.asarray(g))
+        xt = tx.clone().requires_grad_(True)
+        params = [t.clone().requires_grad_(True) for t in tw + tb]
+        out = K._FusedReluMLP.apply(xt, tuple(skips), True, True, *params)
+        grads = torch.autograd.grad(out, [xt] + params, tg)
+        assert_close_scaled(grads[0].numpy(), want[0], err_msg="dx")
+        for a, b in zip(grads[1: 1 + len(tw)], want[1]):
+            assert_close_scaled(a.numpy().T, b)
+        for a, b in zip(grads[1 + len(tw):], want[2]):
+            assert_close_scaled(a.numpy(), np.asarray(b).reshape(-1))
+
+
+def test_k3_autograd_backward_receives_the_saved_outputs(monkeypatch):
+    """_FusedReluMLP on CPU tensors runs the plain versions of K3f / K3b's
+    dataflow: with save it keeps the hidden outputs, its backward gets
+    exactly those (with the final ReLU's mask on g) and follows them when
+    they are changed between the forward and the backward; without save
+    (an eval call) it keeps none, and a backward then raises."""
+    P, dims, skips, _ = K3_SAVED_CASES[3]
+    x, g, weights, biases = _k3_saved_case(P, dims, skips)
+    tw = [torch.tensor(w.T.copy()).requires_grad_() for w in weights]
+    tb = [torch.tensor(b).requires_grad_() for b in biases]
+    xt = torch.tensor(x).requires_grad_()
+    tg = torch.tensor(g)
+    seen = {}
+    fwd, bwd = K.mlp_forward_saved_reference, K.mlp_backward_saved_reference
+
+    def fwd_spy(*a, **k):
+        seen["fwd"] = fwd(*a, **k)
+        return seen["fwd"]
+
+    def bwd_spy(*a):
+        seen["bwd"] = a
+        return bwd(*a)
+
+    monkeypatch.setattr(K, "mlp_forward_saved_reference", fwd_spy)
+    monkeypatch.setattr(K, "mlp_backward_saved_reference", bwd_spy)
+    y = K._FusedReluMLP.apply(xt, skips, True, True, *tw, *tb)
+    out, acts = seen["fwd"]
+    grads = torch.autograd.grad(y, [xt] + tw + tb, tg)
+    assert seen["bwd"][-1].data_ptr() == acts.data_ptr()
+    torch.testing.assert_close(seen["bwd"][1], tg * (out > 0), rtol=0, atol=0)
+    want = K.mlp_backward_reference(torch.tensor(x), tg * (out > 0).float(),
+                                    [t.detach() for t in tw], [t.detach() for t in tb], skips)
+    for a, b in zip(grads, [want[0]] + want[1] + want[2]):
+        assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
+    # the backward reads the saved outputs, not a recomputed forward: a
+    # forward that hands over other ones gives their gradients
+    def tamper_spy(*a, **k):
+        out_, acts_ = fwd(*a, **k)
+        seen["tampered"] = acts_ * 2.0
+        return out_, seen["tampered"]
+
+    monkeypatch.setattr(K, "mlp_forward_saved_reference", tamper_spy)
+    tampered = torch.autograd.grad(K._FusedReluMLP.apply(xt, skips, True, True, *tw, *tb),
+                                   [xt] + tw + tb, tg)
+    want_t = bwd(xt.detach(), tg * (out > 0), [t.detach() for t in tw], [t.detach() for t in tb],
+                 skips, seen["tampered"])
+    for a, b in zip(tampered, [want_t[0]] + want_t[1] + want_t[2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert any(not torch.equal(a, b) for a, b in zip(tampered, grads))
+    monkeypatch.setattr(K, "mlp_forward_saved_reference", fwd_spy)
+    seen.clear()
+    with torch.no_grad():
+        y2 = K._FusedReluMLP.apply(xt, skips, True, K.needs_saved(xt, *tw, *tb), *tw, *tb)
+    assert "fwd" not in seen
+    torch.testing.assert_close(y2, y.detach(), rtol=0, atol=0)
+    y3 = K._FusedReluMLP.apply(xt, skips, True, False, *tw, *tb)
+    with pytest.raises(RuntimeError, match="without saving"):
+        torch.autograd.grad(y3.sum(), xt)
+
+
+def test_needs_saved_for_a_time_mlp():
+    """K3f saves its layer outputs only when autograd may call K3b: for a
+    TimeMLP backbone's inputs and parameters, needs_saved is True in grad
+    mode, False under torch.no_grad() and for a frozen model
+    (requires_grad_(False)), as a render runs it."""
+    from lab4d_tpu_torch.nnutils.base import BaseMLP
+
+    mlp = BaseMLP(64, D=2, W=64, out_channels=64, skips=(), final_act=True,
+                  generator=torch.Generator().manual_seed(0))
+    x = torch.randn(3, 64)
+    params = list(mlp.parameters())
+    assert K.needs_saved(x, *params)
+    with torch.no_grad():
+        assert not K.needs_saved(x, *params)
+    mlp.requires_grad_(False)
+    assert not K.needs_saved(x, *params)
 
 
 # (rows, C, n_freqs, hidden widths, out, skips, final_act, window): the bg
@@ -354,14 +544,15 @@ def _mm_3xtf32(a, b):
     return ah @ bh + (_tf32(a - ah) @ bh + ah @ _tf32(b - bh))
 
 
-def _k4_dataflow(x, g, window, weights, biases, freqs, skips, final_act, mm):
-    """K4f then K4b from its saved outputs, with every product of the
-    layers, dW and dIn through mm: (out, dx, dWs, dbs), dtype of x."""
+def _kernel_dataflow(x, g, window, weights, biases, freqs, skips, final_act, mm):
+    """K4f then K4b from its saved outputs (K3f then K3b without
+    frequencies), with every product of the layers, dW and dIn through mm:
+    (out, dx, dWs, dbs), dtype of x."""
     from lab4d_tpu_torch.nnutils.embedding import fourier_embed
 
     xl = x.detach().requires_grad_(True)
     with torch.enable_grad():
-        X = fourier_embed(xl, freqs, window)
+        X = fourier_embed(xl, freqs, window) if freqs else xl * 1.0
     Xd = X.detach()
     h, hs = Xd, []
     n = len(weights)
@@ -391,18 +582,31 @@ def _k4_dataflow(x, g, window, weights, biases, freqs, skips, final_act, mm):
     return out, dx, dws, dbs
 
 
-@pytest.mark.parametrize("field", list(K4_WIDTHS))
+# K3 at the TimeMLP backbones' widths (C_in, widths, skips, final_act)
+K3_WIDTHS = {
+    "k3-D5W256": (256, (256,) * 6, (), True),
+    "k3-D2W64": (64, (64,) * 3, (), True),
+}
+
+
+@pytest.mark.parametrize("field", list(K4_WIDTHS) + list(K3_WIDTHS))
 def test_3xtf32_error_budget(field):
     """K4f / K4b's arithmetic emulated on the CPU at each bg field MLP's
-    widths and frequency ladder (1,024 points, live window): every product
-    of the forward, dW and dIn in 3xTF32 with fp32 sums stays within
-    chip_smoke.KERNEL_TOL (1e-4) of fp64: the output's max abs error, and
-    each gradient's max error over its largest entry. The ReLU masks are
-    the fp64 run's, as a comparison outside ReLU ties takes them."""
-    n_freqs, widths, skips, final_act = K4_WIDTHS[field]
+    widths and frequency ladder (1,024 points, live window), and K3f /
+    K3b's at the TimeMLP backbones' D5 W256 and D2 W64 (256 rows, no
+    embedding): every product of the forward, dW and dIn in 3xTF32 with
+    fp32 sums stays within chip_smoke.KERNEL_TOL (1e-4) of fp64: the
+    output's max abs error, and each gradient's max error over its largest
+    entry. The ReLU masks are the fp64 run's, as a comparison outside ReLU
+    ties takes them."""
     rng = np.random.default_rng(7)
-    rows, C = 1024, 3
-    c_x = C * (2 * n_freqs + 1)
+    if field in K3_WIDTHS:
+        C, widths, skips, final_act = K3_WIDTHS[field]
+        n_freqs, rows, c_x = 0, 256, C
+    else:
+        n_freqs, widths, skips, final_act = K4_WIDTHS[field]
+        rows, C = 1024, 3
+        c_x = C * (2 * n_freqs + 1)
     weights, biases, prev = [], [], c_x
     for i, w in enumerate(widths):
         fan = prev + (c_x if i in skips else 0)
@@ -413,38 +617,67 @@ def test_3xtf32_error_budget(field):
     g = torch.tensor(rng.standard_normal((rows, widths[-1])), dtype=torch.float32)
     win = torch.linspace(0.3, 1.0, n_freqs)
     freqs = tuple(float(2.0**i) for i in range(n_freqs))
-    ref = _k4_dataflow(x.double(), g.double(), win.double(), [w.double() for w in weights],
-                       [b.double() for b in biases], freqs, skips, final_act, torch.matmul)
-    got = _k4_dataflow(x, g, win, weights, biases, freqs, skips, final_act, _mm_3xtf32)
+    ref = _kernel_dataflow(x.double(), g.double(), win.double(), [w.double() for w in weights],
+                           [b.double() for b in biases], freqs, skips, final_act, torch.matmul)
+    got = _kernel_dataflow(x, g, win, weights, biases, freqs, skips, final_act, _mm_3xtf32)
     fwd = float((got[0].double() - ref[0]).abs().max())
     bwd = max(float((a.double() - r).abs().max()) / max(1.0, float(r.abs().max()))
               for a, r in zip([got[1]] + got[2] + got[3], [ref[1]] + ref[2] + ref[3]))
-    one = _k4_dataflow(x, g, win, weights, biases, freqs, skips, final_act,
-                       lambda a, b: _tf32(a.contiguous()) @ _tf32(b.contiguous()))
+    one = _kernel_dataflow(x, g, win, weights, biases, freqs, skips, final_act,
+                           lambda a, b: _tf32(a.contiguous()) @ _tf32(b.contiguous()))
     fwd1 = float((one[0].double() - ref[0]).abs().max())
     print(f"{field}: 3xTF32 forward {fwd:.2e}, backward {bwd:.2e}; 1xTF32 forward {fwd1:.2e}")
     assert fwd <= 1e-4 and bwd <= 1e-4, (fwd, bwd)
     assert fwd1 > fwd  # the emulation does round
 
 
-@pytest.mark.parametrize(
-    "c_x,widths,skips,rows,want_rows",
-    [
-        (256, (256,) * 6, (), 256, 8),  # camera TimeMLP, K3b: short tiles, more blocks
-    ],
-)
-def test_tile_plan(c_x, widths, skips, rows, want_rows):
-    """K3b's row-tiled launch plan fits the card: its tile height, shared
-    memory within sm_90's 227 KB, a workspace slice per block and a grid no
-    larger than its tiles. (K4f / K4b's plan is the library's own:
-    test_cuda_k4_plan.)"""
+# (C_in, widths, skips, rows, want): want = (K3f on its FMA tile, dW
+# chunks, K3b's launches)
+K3_PLAN_CASES = [
+    (256, (256,) * 6, (), 1, (True, 1, 2)),  # a render's camera query
+    (256, (256,) * 6, (), 7, (True, 1, 2)),
+    (256, (256,) * 6, (), 9, (False, 1, 2)),  # past 8 rows: 3xTF32 on 32-row tiles
+    (256, (256,) * 6, (), 256, (False, 1, 2)),  # the training step's TimeMLPs
+    (64, (64,) * 3, (), 256, (False, 1, 2)),  # appearance
+    (95, (128,) * 6, (4,), 300, (False, 1, 2)),  # a skip layer
+    (256, (256,) * 6, (), 70001, (False, 6, 3)),  # many rows: dW in chunks
+    (256, (256,) * 7, (), 262144, (False, 5, 3)),  # the dense warp's D6 W256
+]
+
+
+@pytest.mark.parametrize("c_x,widths,skips,rows,want", K3_PLAN_CASES)
+def test_relu_mlp_plan(c_x, widths, skips, rows, want):
+    """K3f / K3b's row-count decisions: K3f's fp32 FMA tile of 8 rows up
+    to 8 rows, else 3xTF32 on 32-row tiles for both; one chunk of rows for
+    dW up to 1,024 rows (dW straight into the gradient, 2 launches), else
+    chunks of whole 32-row slabs that cover the rows, at most 512, and a
+    third launch; the gradients', saved outputs' and scratch floats; one
+    plan per shape, made once. (test_cuda_k3_plan holds the library's
+    shared-memory layout and its floats against these.)"""
     in_dims = [c_x] + [w + (c_x if i + 1 in skips else 0) for i, w in enumerate(widths[:-1])]
-    plan = K.tile_plan(c_x, in_dims, list(widths), rows, n_sm=132)
-    assert plan.tile_rows == want_rows
-    assert plan.smem_bytes <= K.SMEM_PER_SM
-    assert plan.n_params == sum(o * (i + 1) for i, o in zip(in_dims, widths))
-    assert plan.grid == min(-(-rows // plan.tile_rows),
-                            132 * max(1, min(2, K.SMEM_PER_SM // plan.smem_bytes)))
+    plan = K.relu_mlp_plan(c_x, in_dims, list(widths), rows)
+    assert (plan.fwd_fma, plan.n_chunks, plan.bwd_launches) == want
+    assert plan.chunk_rows % 32 == 0 and plan.n_chunks <= 512
+    assert (plan.n_chunks - 1) * plan.chunk_rows < rows <= plan.n_chunks * plan.chunk_rows
+    n_params = sum(o * (i + 1) for i, o in zip(in_dims, widths))
+    assert plan.n_params == n_params and plan.act_floats == sum(widths[:-1])
+    ws = [torch.zeros(o, i) for i, o in zip(in_dims, widths)]
+    assert K.pe_act_layout(ws)[1] == plan.act_floats
+    assert plan.scratch_floats == rows * plan.act_floats + (
+        plan.n_chunks * n_params if plan.n_chunks > 1 else 0)
+    assert K.relu_mlp_plan(c_x, tuple(in_dims), widths, rows) is plan
+
+
+def test_relu_mlp_plan_rejects_wide_layers():
+    """K3f / K3b take layers of at most 512 inputs and outputs (64 columns
+    of each of a cluster's 8 blocks); wider ones raise. (Where the buffers
+    of narrower layers do not fit in shared memory, the library refuses
+    the launch: test_cuda_k3_plan.)"""
+    with pytest.raises(ValueError, match="at most 512"):
+        K.relu_mlp_plan(256, [256, 640], [640, 8], 16)
+    with pytest.raises(ValueError, match="at most 512"):
+        K.relu_mlp_plan(256, [640, 256], [256, 8], 16)
+    K.relu_mlp_plan(256, [256, 512], [512, 8], 16)
 
 
 def _torch_mlp(c_x, widths, skips, seed, device="cpu"):
@@ -611,29 +844,6 @@ def test_wrapper_rejects_non_contiguous_and_other_devices():
         K.fused_relu_mlp(torch.zeros(3, 8, device="meta"), ws, bs)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,C_in,D,W", RENDER_SHAPES + [(300, 95, 5, 128)])
-def test_cuda_kernel_matches_plain(rows, C_in, D, W):
-    """The CUDA kernel against its plain version on the card (fp32 FMA vs
-    cuBLAS fp32, TF32 off: atol 1e-4)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    weights, biases = torch_init_mlp(C_in, D, W, seed=W)
-    tw = [torch.tensor(w.T.copy()).cuda() for w in weights]
-    tb = [torch.tensor(b).cuda() for b in biases]
-    x = torch.randn(rows, C_in, generator=torch.Generator().manual_seed(0)).cuda()
-    skips = (4,) if D >= 5 and C_in == 95 else ()
-    if skips:
-        tw[4] = torch.randn(W, W + C_in, device="cuda") / np.sqrt(W + C_in)
-    launches = K.fused_relu_mlp.launches
-    got = K.fused_relu_mlp(x, tw, tb, skips, True)
-    want = K.mlp_reference(x, tw, tb, skips, True)
-    torch.cuda.synchronize()
-    assert K.fused_relu_mlp.launches == launches + 1
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
-
-
 def _cuda_mlp(c_x, widths, skips, seed):
     return _torch_mlp(c_x, widths, skips, seed, "cuda")
 
@@ -642,24 +852,110 @@ def _assert_close_rel(got, want, rel=1e-4):
     torch.testing.assert_close(got, want, rtol=0, atol=rel * max(1.0, float(want.abs().max())))
 
 
+# (rows, C_in, D, W, skips): the render and training rows of the TimeMLPs
+# (camera / intrinsics / articulation D5 W256, appearance D2 W64), a skip
+# layer on both of K3f's tiles (C_in 95: the 4-byte weight staging), K3f's
+# FMA tile's edge (8 / 9 rows) and a ragged large count
+K3_CUDA_CASES = RENDER_SHAPES + [
+    (2, 256, 5, 256, ()), (8, 256, 5, 256, ()), (9, 256, 5, 256, ()), (256, 256, 5, 256, ()),
+    (256, 64, 2, 64, ()), (300, 95, 5, 128, (4,)), (5, 95, 5, 128, (4,)), (70001, 256, 5, 256, ()),
+]
+K3_CUDA_CASES = [c if len(c) == 5 else (*c, ()) for c in K3_CUDA_CASES]
+
+
+def _k3_cuda_case(rows, C_in, D, W, skips):
+    ws, bs = _cuda_mlp(C_in, [W] * (D + 1), skips, seed=rows + W)
+    x = torch.randn(rows, C_in, generator=torch.Generator().manual_seed(rows)).cuda()
+    return x, ws, bs
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,C_in,D,W,skips", [(256, 256, 5, 256, ()), (300, 95, 5, 128, (4,))])
-def test_cuda_k3b_matches_plain(rows, C_in, D, W, skips):
-    """K3b against mlp_backward_reference on the card (TF32 off)."""
+@pytest.mark.parametrize("rows,C_in,D,W,skips", K3_CUDA_CASES)
+def test_cuda_kernel_matches_plain(rows, C_in, D, W, skips):
+    """K3f against mlp_forward_saved_reference on the card (fp32 FMA up to
+    8 rows, else 3xTF32, vs cuBLAS fp32 with TF32 off: atol 1e-4): its
+    output with and without saving, and its saved hidden outputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    ws, bs = _cuda_mlp(C_in, [W] * (D + 1), skips, seed=rows)
-    x = torch.randn(rows, C_in, device="cuda")
+    x, ws, bs = _k3_cuda_case(rows, C_in, D, W, skips)
+    launches = K.fused_relu_mlp.launches
+    got = K.fused_relu_mlp(x, ws, bs, skips, True)  # nothing requires a gradient: no saving
+    got_s, acts = K.mlp_forward_saved(x, ws, bs, skips, True)
+    want, want_acts = K.mlp_forward_saved_reference(x, ws, bs, skips, True)
+    torch.cuda.synchronize()
+    assert K.fused_relu_mlp.launches == launches + 2
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got_s, got, atol=0, rtol=0)
+    torch.testing.assert_close(acts, want_acts, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,C_in,D,W,skips", K3_CUDA_CASES)
+def test_cuda_k3b_matches_plain(rows, C_in, D, W, skips):
+    """K3b from K3f's saved outputs against mlp_backward_saved_reference on
+    the same ones, on the card (TF32 off in cuBLAS; 3xTF32 within 1e-4 of
+    each array's largest entry); two calls give bitwise-equal gradients (no
+    float atomics); without saved= it raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, ws, bs = _k3_cuda_case(rows, C_in, D, W, skips)
+    _, acts = K.mlp_forward_saved(x, ws, bs, skips, True)
     g = torch.randn(rows, W, device="cuda")
     launches = K.fused_relu_mlp_backward.launches
-    got = K.fused_relu_mlp_backward(x, g, ws, bs, skips)
-    want = K.mlp_backward_reference(x, g, ws, bs, skips)
+    got = K.fused_relu_mlp_backward(x, g, ws, bs, skips, saved=acts)
+    want = K.mlp_backward_saved_reference(x, g, ws, bs, skips, acts)
+    again = K.fused_relu_mlp_backward(x, g, ws, bs, skips, saved=acts)
     torch.cuda.synchronize()
-    assert K.fused_relu_mlp_backward.launches == launches + 1
+    assert K.fused_relu_mlp_backward.launches == launches + 2
+    plan = K.relu_mlp_plan(C_in, [w.shape[1] for w in ws], [W] * (D + 1), rows)
+    assert K.fused_relu_mlp_backward.cuda_launches == plan.bwd_launches
     _assert_close_rel(got[0], want[0])
     for a, b in zip(got[1] + got[2], want[1] + want[2]):
         _assert_close_rel(a, b)
+    for a, b in zip([got[0]] + got[1] + got[2], [again[0]] + again[1] + again[2]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="saved"):
+        K.fused_relu_mlp_backward(x, g, ws, bs, skips)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,C_in,D,W,skips", K3_CUDA_CASES)
+def test_cuda_k3_plan(rows, C_in, D, W, skips):
+    """The library's shared-memory layout of K3f and K3b's dIn
+    (lab4d_relu_mlp_smem: as many layers' weight slices in flight as fit in
+    sm_90's 227 KB, every layer at render rows) for relu_mlp_plan's tile;
+    its saved floats per row and gradients' floats are the plan's; the card
+    runs at least one cluster of each kernel at once; and widths whose
+    buffers do not fit are refused, at launch too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the sizes are the kernel library's")
+    ws, _ = _torch_mlp(C_in, [W] * (D + 1), skips, seed=0)
+    in_dims, out_dims = [w.shape[1] for w in ws], [W] * (D + 1)
+    plan = K.relu_mlp_plan(C_in, in_dims, out_dims, rows)
+    lib = K._kernel_lib("fused_relu_mlp")
+
+    def layout(in_dims, out_dims, c_in, skip_mask, fma):
+        n, sizes = len(in_dims), (ctypes.c_longlong * 6)()
+        err = lib.lab4d_relu_mlp_smem((ctypes.c_int * n)(*in_dims), (ctypes.c_int * n)(*out_dims),
+                                      n, c_in, skip_mask, int(fma), sizes)
+        return err, list(sizes)
+
+    err, (f_stages, f_smem, b_stages, b_smem, act, n_params) = layout(
+        in_dims, out_dims, C_in, sum(1 << i for i in skips), plan.fwd_fma)
+    assert err == 0
+    assert (act, n_params) == (plan.act_floats, plan.n_params)
+    assert 1 <= f_stages <= D + 1 and 1 <= b_stages <= D + 1
+    assert max(f_smem, b_smem) <= K.SMEM_PER_SM
+    if plan.fwd_fma and W == 256:
+        assert f_stages == D + 1  # a render's query: every layer's weights in flight at launch
+    assert lib.lab4d_relu_mlp_max_clusters(0 if plan.fwd_fma else 1, f_smem) >= 1
+    assert lib.lab4d_relu_mlp_max_clusters(2, b_smem) >= 1
+    assert layout([256, 512], [512, 8], 256, 0, False)[0] != 0
+    wide, wide_b = _torch_mlp(256, [512, 8], (), seed=1, device="cuda")
+    with pytest.raises(RuntimeError, match="relu_mlp_fwd"):
+        K.fused_relu_mlp(torch.zeros(16, 256, device="cuda"), wide, wide_b)
 
 
 @pytest.mark.cuda
