@@ -25,7 +25,9 @@ synchronise; any failure exits non-zero:
    (fused_nerf_heads and its backward) at the flagship fg field's step
    (262,144 points, 1024 per pair, 256 appearance rows; K1 as training
    runs it, saving its layer outputs, and K2 from those; K1 + K2 also
-   against autograd outside the ReLU ties). Max error,
+   against autograd outside the ReLU ties), and K4f alone at export's
+   canonical SDF grid (262,144 points of the fg base field, 10
+   frequencies, widths 128 x 6, skip at 4, no saving). Max error,
    tolerance, median device time from CUDA-graph replay for kernel and
    plain version, CUDA launches per call, and the bound (the larger of
    FLOPs over the fp32 peak and bytes over the memory rate; for K1 / K2
@@ -39,9 +41,14 @@ synchronise; any failure exits non-zero:
    D=5 W=128, TimeMLP backbones D=5 W=256, 25 bones) from a seeded
    generator, on a scene built in-process (one orbit video);
 5. reference: evaluate_rays on 256 rays on the GPU (through the kernel)
-   against the same model on the CPU (plain versions);
-6. render: 2 frames at 512^2 through the render CLI's own functions,
-   with every kernel's launch count over exactly that run;
+   against the same model on the CPU (plain versions); reference-topk: the
+   same with the top-k eval at K = 8 on the rays whose K-th and (K+1)-th
+   union weights are no near tie (at least 95%), the mask on all rays;
+6. render: 2 frames at 512^2 through the render CLI's own functions
+   (exact eval), with every kernel's launch count over exactly that run;
+   render-topk: the same frames with the CLI's default top-k eval (K = 8),
+   the mask against the exact frames' and the rgb PSNR; render-keys: one
+   frame of --render_keys rgb,depth,mask against the full frame;
 7. train-reference: one bg training step (128 rays of 64 samples) on the
    GPU (kernels) against the same weights, batch and random draws on the
    CPU (plain versions): every loss term and every gradient; reg_eikonal
@@ -62,7 +69,13 @@ synchronise; any failure exits non-zero:
    heads D=5 W=128, 25 bones) at full width, plus the round's eval render
    and its eval/psnr in metrics.jsonl, and the rows each TimeMLP backbone
    (K3f / K3b) is called with in the training steps;
-11. k3-paths: every shape K3f launched in phases 6, 8 and 10, and K3f /
+11. export: export.py's functions at --grid_size 128 on the fg checkpoint
+   of phase 10 and the bg one of phase 8 (the canonical SDF grid through
+   K4f, the per-frame motion through K3f; mesh, json and times);
+12. reanimate: reanimate.py's functions on the fg checkpoint with
+   --motion_id 0 (phase 11's fg-motion.json), its frames at 128^2: the
+   batch's articulations against get_vals(override_so3=...) on the CPU;
+13. k3-paths: every shape K3f launched in phases 6, 8 and 10-12, and K3f /
    K3b against their plain versions at any the kernel phase did not check.
 
 The line before the last is the card's name and power limit, the one
@@ -136,6 +149,9 @@ K4_SHAPES = [
     ("vis F10 D2 W64", 262144, 10, (64, 64, 1), (), False, False),
     ("vis-decay F10 D2 W64", 512, 10, (64, 64, 1), (), False, False),
 ]
+# the fg base field of export's canonical SDF grid: one marching-cubes chunk
+# of 64^3 points, instance code folded into the biases, no window, no saving
+K4_EXPORT = ("export fg base F10 D5 W128", 262144, 10, (128,) * 6, (4,), True, False)
 
 
 def fail(msg):
@@ -310,6 +326,7 @@ def phase_kernel():
                   "bound_3xtf32_ms", "bound_vjp_from_x_ms", "bound_vjp_from_x_3xtf32_ms",
                   "ms_no_save", "plain_ms_no_save", "ms_cold_l2", "plain_ms_cold_l2") if k in r)
               + (f" ({r['engine']})" if "engine" in r else "")
+              + (f"; tiles of {r['tile_rows']} points" if "tile_rows" in r else "")
               + (f"; {r['cuda_launches_per_call']} CUDA launches per call"
                  if "cuda_launches_per_call" in r else ""))
         results[name].append(r)
@@ -319,6 +336,7 @@ def phase_kernel():
 
     for shape in K4_SHAPES:
         _pe_kernels(K, gen, shape, report)
+    _pe_forward_kernel(K, gen, K4_EXPORT, report)
     results.update(_heads_kernels(gen))
     return results
 
@@ -534,12 +552,14 @@ def _pe_kernels(K, gen, shape, report):
     inner = 5 if rows > 4096 else 100
     flops_f = 2 * rows * macs
     nbytes_f = 4 * (rows * (3 + widths[-1]) + n_params) + saved_bytes
+    main = label == K4_SHAPES[0][0]  # the bg step's base MLP, the K4 rows' shape in PERF.md
     report("K4f", label, rows, max(err, err_saved),
            lambda: K.pe_mlp_forward_saved(*args), lambda: K.pe_mlp_forward_saved_reference(*args),
            flops_f, nbytes_f, inner, extra={
                "ms_no_save": device_ms(lambda: K.fused_pe_mlp(*args), inner),
                "bound_3xtf32_ms": bound_ms(3 * flops_f, nbytes_f, PEAK_TF32)[0],
-               "cuda_launches_per_call": launches_f, "saved_floats_per_point": sum(widths[:-1])})
+               "cuda_launches_per_call": launches_f, "saved_floats_per_point": sum(widths[:-1]),
+               "tile_rows": _pe_tile_rows(K, rows, n_freqs, weights, skips), "main": main})
     # K4b's work: dIn and dW of every layer from x, g and K4f's saved
     # outputs, which it reads once; beside it, the VJP from x and g alone,
     # which also recomputes the hidden layers (the row-tiled design's work)
@@ -556,7 +576,47 @@ def _pe_kernels(K, gen, shape, report):
                "bound_vjp_from_x_3xtf32_ms": bound_ms(3 * flops_vjp, nbytes_vjp, PEAK_TF32)[0],
                "cuda_launches_per_call": launches_b, "relu_tie_pairs": n_ties,
                "relu_tie_rows": int(tie_rows.sum()), "max_rel_err_autograd_all_rows": rel_auto,
-               "max_rel_err_autograd_untied_rows": rel_kept})
+               "max_rel_err_autograd_untied_rows": rel_kept, "main": main})
+
+
+def _pe_forward_kernel(K, gen, shape, report):
+    """K4f alone at a shape where nothing needs its gradient (export's
+    canonical SDF grid): fused_pe_mlp without saving against
+    pe_mlp_reference on the same inputs, both timed; the bound counts the
+    raw points read and the output written (no saved outputs)."""
+    import torch
+
+    label, rows, n_freqs, widths, skips, final_act, window = shape
+    freqs = tuple(float(2.0**i) for i in range(n_freqs))
+    c_x = 3 * (2 * n_freqs + 1)
+    weights, biases = _mlp_params(c_x, 0, 0, gen, "cuda", widths=list(widths), skips=skips)
+    x = ((torch.rand(rows, 3, generator=gen) * 2 - 1) * 0.5).cuda()
+    win = torch.linspace(0.3, 1.0, n_freqs).cuda() if window else None
+    args = (x, win, weights, biases, freqs, skips, final_act)
+    got = K.fused_pe_mlp(*args)
+    launches_f = K.fused_pe_mlp.cuda_launches
+    want = K.pe_mlp_reference(*args)
+    sync()
+    err = float((got - want).abs().max())
+    if not got.is_cuda or got.shape != want.shape or not err <= KERNEL_TOL:
+        fail(f"K4f {label} disagrees with its plain version: {err} > {KERNEL_TOL}")
+    in_dims = [w.shape[1] for w in weights]
+    macs = mlp_macs(in_dims, widths)
+    flops = 2 * rows * macs
+    nbytes = 4 * (rows * (3 + widths[-1]) + macs + sum(widths))
+    inner = 5 if rows > 4096 else 100
+    report("K4f", label, rows, err, lambda: K.fused_pe_mlp(*args),
+           lambda: K.pe_mlp_reference(*args), flops, nbytes, inner, extra={
+               "bound_3xtf32_ms": bound_ms(3 * flops, nbytes, PEAK_TF32)[0],
+               "cuda_launches_per_call": launches_f, "saved_floats_per_point": 0,
+               "macs_per_row": macs, "tile_rows": _pe_tile_rows(K, rows, n_freqs, weights, skips)})
+
+
+def _pe_tile_rows(K, rows, n_freqs, weights, skips):
+    """Points per tile of K4f's launch plan (the library's) at this shape."""
+    plan = K.pe_mlp_plan(K._kernel_lib("fused_pe_mlp"), 3, n_freqs, [w.shape[1] for w in weights],
+                         [w.shape[0] for w in weights], rows, sum(1 << i for i in skips))
+    return plan.tile_rows
 
 
 def _flagship_heads(gen):
@@ -841,8 +901,33 @@ def phase_model(data_info):
     return model, geo_state
 
 
-def phase_reference(model, geo_state, data_info):
-    """GPU evaluate_rays (kernel) vs the same weights on the CPU (plain)."""
+@contextlib.contextmanager
+def topk_weights(store):
+    """While on, every top-k selection appends the union weights it ranks
+    (rays, samples) to store."""
+    from lab4d_tpu_torch.nnutils import nerf
+
+    orig = nerf.topk_indices
+
+    def record(weights, k):
+        store.append(weights.detach().reshape(-1, weights.shape[-1]).double().cpu())
+        return orig(weights, k)
+
+    nerf.topk_indices = record
+    try:
+        yield
+    finally:
+        nerf.topk_indices = orig
+
+
+def phase_reference(model, geo_state, data_info, topk=None):
+    """GPU evaluate_rays (kernel) vs the same weights on the CPU (plain), 256
+    rays of one frame; exact eval, or the top-k eval at topk. Top-k compares
+    every channel on the rays where both devices select the same samples,
+    which must be at least 95% of them, and the mask on every ray. A ray
+    whose selections differ must be a near tie: its K-th and (K+1)-th
+    union weights lie within twice the two devices' largest weight
+    difference on that ray, so that rounding alone can swap them."""
     import torch
 
     from lab4d_tpu_torch.render import construct_batch_from_opts
@@ -850,27 +935,55 @@ def phase_reference(model, geo_state, data_info):
     opts = {"inst_id": 0, "render_res": 16, "viewpoint": "ref", "freeze_id": 0,
             "num_frames": 1, "noskip": False}
     model_cpu = copy.deepcopy(model).cpu()
-    outs = {}
+    outs, weights = {}, {}
     for name, m, dev in (("cuda", model, "cuda"), ("cpu", model_cpu, "cpu")):
         batch, _ = construct_batch_from_opts(opts, m, geo_state, data_info, dev)
         batch["geo"] = {"fg": {k: torch.as_tensor(v, device=dev)
                                for k, v in (("aabb", geo_state["fg"]["aabb"]),
                                             ("proxy_corners", geo_state["fg"]["corners"]))}}
-        with torch.no_grad():
-            outs[name] = m.evaluate_rays(m.prepare_eval_samples(batch))
+        weights[name] = []
+        with torch.no_grad(), topk_weights(weights[name]):
+            outs[name] = m.evaluate_rays(m.prepare_eval_samples(batch), topk=topk)
     sync()
     for k, v in outs["cuda"].items():
         if not v.is_cuda:
             fail(f"reference: channel {k} is on {v.device}")
+    tag, kept, note = "reference", None, ""
+    if topk is not None:
+        from lab4d_tpu_torch.nnutils.nerf import topk_indices
+
+        tag = "reference-topk"
+        w_gpu, w_cpu = weights["cuda"][0], weights["cpu"][0]
+        kept = (topk_indices(w_gpu, topk) == topk_indices(w_cpu, topk)).all(-1)
+        w_sorted = torch.sort(w_cpu, dim=-1, descending=True).values
+        gap = w_sorted[:, topk - 1] - w_sorted[:, topk]
+        diff = (w_gpu - w_cpu).abs().max(dim=-1).values
+        # equal weights on both devices (all zero on the rays that miss) tie-break alike
+        near_tie = (gap <= 2 * diff) & (diff > 0)
+        n_out = int((~kept).sum())
+        note = (f"; {n_out} of {len(kept)} rays set aside (other samples selected), "
+                f"{int(near_tie.sum())} near ties, {int((diff == 0).sum())} rays with equal "
+                "weights on both devices")
+        if bool((~kept & ~near_tie).any()):
+            fail(f"{tag}: the devices select other samples on a ray that is no near tie")
+        if n_out > 0.05 * len(kept):
+            fail(f"{tag}: {n_out} of {len(kept)} rays select other samples on the two devices")
+        mask_err = float((outs["cuda"]["mask"].cpu() - outs["cpu"]["mask"]).abs().max())
+        if not mask_err <= 1e-4:
+            fail(f"{tag}: mask GPU vs CPU err {mask_err} > 1e-4 over all rays")
+        note += f"; mask over all rays {mask_err:.2e} (<=1e-4)"
     worst = {}
     for k, (kind, tol) in REF_TOL.items():
-        a, b = outs["cuda"][k].cpu().double(), outs["cpu"][k].double()
+        a, b = outs["cuda"][k].cpu().double()[0], outs["cpu"][k].double()[0]
+        if kept is not None:
+            a, b = a[kept], b[kept]
         err = (a - b).abs().max() if kind == "abs" else ((a - b).abs() / b.abs().clamp(min=1e-12)).max()
         worst[k] = float(err)
         if not worst[k] <= tol:
-            fail(f"reference: channel {k} GPU vs CPU {kind} err {worst[k]} > {tol}")
-    print("[reference] 256 rays, GPU vs CPU: "
-          + " ".join(f"{k}={v:.2e}({REF_TOL[k][0]}<={REF_TOL[k][1]:g})" for k, v in worst.items()))
+            fail(f"{tag}: channel {k} GPU vs CPU {kind} err {worst[k]} > {tol}")
+    print(f"[{tag}] 256 rays{'' if topk is None else f', top-{topk} eval'}, GPU vs CPU: "
+          + " ".join(f"{k}={v:.2e}({REF_TOL[k][0]}<={REF_TOL[k][1]:g})" for k, v in worst.items())
+          + note)
 
 
 @contextlib.contextmanager
@@ -924,43 +1037,75 @@ def torch_generator():
     return torch.Generator().manual_seed(SEED)
 
 
-def phase_render(model, geo_state, data_info):
+def phase_render(model, geo_state, data_info, tag="render", topk=None, channels=None,
+                 n_frames=N_FRAMES):
+    """n_frames frames at RES^2 through the render CLI's own functions (eval
+    mode topk / channels, as --eval_topk / --render_keys give them);
+    returns every kernel's launches over exactly that run, the frames and
+    ms/frame."""
     import torch
 
     from lab4d_tpu_torch.render import construct_batch_from_opts, render_batch
 
     opts = {"inst_id": 0, "render_res": RES, "viewpoint": "ref", "freeze_id": 0,
-            "num_frames": N_FRAMES, "noskip": False}
+            "num_frames": n_frames, "noskip": False}
     # warm-up at a small size: cuBLAS handles, allocator pools
     warm = dict(opts, render_res=32, num_frames=1)
     batch, _ = construct_batch_from_opts(warm, model, geo_state, data_info, "cuda")
-    render_batch(model, batch, geo_state)
+    render_batch(model, batch, geo_state, topk=topk, channels=channels)
     sync()
     torch.cuda.reset_peak_memory_stats()
 
     _reset_kernel_counts()
     t = time.time()
     batch, _ = construct_batch_from_opts(opts, model, geo_state, data_info, "cuda")
-    rendered = render_batch(model, batch, geo_state)
+    rendered = render_batch(model, batch, geo_state, topk=topk, channels=channels)
     sync()
     elapsed = time.time() - t
     launches = _kernel_counts()
 
     if launches["K3f"] <= 0:
-        fail("the render ran no fused_relu_mlp kernel")
+        fail(f"{tag}: the render ran no fused_relu_mlp kernel")
     if not all(v.is_cuda for v in batch.values() if torch.is_tensor(v)):
-        fail("render batch is not on cuda")
+        fail(f"{tag}: render batch is not on cuda")
+    if channels is not None and set(rendered) != set(channels):
+        fail(f"{tag}: rendered {sorted(rendered)}, asked for {sorted(channels)}")
     for k, v in rendered.items():
-        if v.shape[:3] != (N_FRAMES, RES, RES) or not np.isfinite(v).all():
-            fail(f"render: channel {k} has shape {v.shape} or non-finite values")
+        if v.shape[:3] != (n_frames, RES, RES) or not np.isfinite(v).all():
+            fail(f"{tag}: channel {k} has shape {v.shape} or non-finite values")
     mask = rendered["mask"]
     if not (mask.min() >= 0.0 and mask.max() <= 1.0 + 1e-6):
-        fail(f"render: mask outside [0, 1]: [{mask.min()}, {mask.max()}]")
-    ms_frame = elapsed / N_FRAMES * 1e3
+        fail(f"{tag}: mask outside [0, 1]: [{mask.min()}, {mask.max()}]")
+    ms_frame = elapsed / n_frames * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[render] {N_FRAMES} frames at {RES}^2: {ms_frame:.1f} ms/frame, "
+    print(f"[{tag}] {n_frames} frames at {RES}^2{'' if topk is None else f', top-{topk} eval'}: "
+          f"{ms_frame:.1f} ms/frame, "
           f"launches {' '.join(f'{k}={v}' for k, v in launches.items())}, peak memory {peak:.2f} GiB, "
           f"channels {sorted(rendered)}, mask mean {mask.mean():.4f}")
+    return launches, rendered, ms_frame
+
+
+def phase_render_topk(model, geo_state, data_info, exact):
+    """[render-topk]: the [render] frames with the render CLI's default
+    top-k eval (K = 8): the mask within 1e-4 of the exact frames' (top-k
+    keeps each ray's total mass), the rgb PSNR against them reported; then
+    [render-keys]: --render_keys rgb,depth,mask on one frame, each channel
+    within 1e-6 of the full top-k frame's."""
+    launches, rendered, _ = phase_render(model, geo_state, data_info, "render-topk", topk=8)
+    mask_err = float(np.abs(rendered["mask"] - exact["mask"]).max())
+    if not mask_err <= 1e-4:
+        fail(f"render-topk: mask differs from the exact eval's by {mask_err} > 1e-4")
+    mse = float(np.mean((rendered["rgb"].astype(np.float64) - exact["rgb"]) ** 2))
+    print(f"[render-topk] against the exact frames: mask max abs diff {mask_err:.2e} (<=1e-4), "
+          f"rgb PSNR {10 * np.log10(1.0 / max(mse, 1e-20)):.2f} dB (reported)")
+    keys = frozenset({"rgb", "depth", "mask"})
+    _, sub, _ = phase_render(model, geo_state, data_info, "render-keys", topk=8, channels=keys,
+                             n_frames=1)
+    errs = {k: float(np.abs(sub[k][0] - rendered[k][0]).max()) for k in sorted(keys)}
+    if not max(errs.values()) <= 1e-6:
+        fail(f"render-keys: channels differ from the full render's: {errs}")
+    print("[render-keys] against the full top-k frame: "
+          + " ".join(f"{k}={v:.1e}" for k, v in errs.items()) + " (<=1e-6)")
     return launches
 
 
@@ -1313,6 +1458,150 @@ def phase_train(db, root, cate, calls=None):
     return launches, steps, ms
 
 
+EXPORT_GRID = 128  # export.py's default --grid_size
+REANIMATE_RES = 128
+
+
+def _app_opts(parser, db, root, cate, extra=()):
+    """Options of an app CLI (export, reanimate) on the checkpoint that
+    phase_train wrote for `cate`."""
+    return vars(parser.parse_args(TRAIN_OPTS[cate][:-2] + [
+        "--load_suffix", "latest", "--database_root", db,
+        "--logroot", os.path.join(root, "logdir"), *extra]))
+
+
+def phase_export(db, root, cate):
+    """export.py's functions at --grid_size 128 on the checkpoint of
+    [train] / [train-fg]: the canonical mesh (SDF grid through K4f,
+    marching cubes), each frame's motion (K3f) and the written files.
+    The SDF grid must be finite, and the mesh non-empty wherever the grid
+    crosses the level (the bg field after 25 steps may hold none inside
+    its aabb). Returns the launches of every kernel over the export."""
+    import torch
+
+    from lab4d_tpu_torch import export as E
+
+    opts = _app_opts(E.get_parser(), db, root, cate, ["--grid_size", str(EXPORT_GRID)])
+    times, sdf_vals = {"sdf": 0.0, "mc": 0.0}, []
+    orig_mc = E.marching_cubes
+
+    def timed_mc(sdf_func, *args, **kwargs):  # marching_cubes, and the SDF grid's share
+        def sdf_timed(pts):
+            t = time.time()
+            out = sdf_func(pts)  # a numpy array: the device work has ended
+            times["sdf"] += time.time() - t
+            sdf_vals.append(out)
+            return out
+        t = time.time()
+        mesh = orig_mc(sdf_timed, *args, **kwargs)
+        times["mc"] += time.time() - t
+        return mesh
+
+    _reset_kernel_counts()
+    E.marching_cubes = timed_mc
+    t = time.time()
+    try:
+        model, geo_state, data_info = E.construct_test_model(opts, torch.device("cuda"))
+        t_mesh = time.time()
+        meshes, motion = E.extract_motion_params(model, geo_state, opts, data_info)
+        t_mesh_end = time.time()
+        save_dir = E.make_save_dir(opts, sub_dir="export_%04d" % opts["inst_id"])
+        E.save_motion_params(meshes, motion, save_dir)
+    finally:
+        E.marching_cubes = orig_mc
+    sync()
+    elapsed = time.time() - t
+    launches = _kernel_counts()
+    tag = f"export-{cate}"
+    mesh = meshes[cate]
+    sdf = np.concatenate([v.reshape(-1) for v in sdf_vals]) - opts["level"]
+    crosses = bool((sdf < 0).any() and (sdf >= 0).any())
+    if sdf.size != EXPORT_GRID**3 or not np.isfinite(sdf).all():
+        fail(f"{tag}: the SDF grid has {sdf.size} values or non-finite ones")
+    if (crosses and mesh.is_empty) or (cate == "fg" and mesh.is_empty) or \
+            not np.isfinite(mesh.vertices).all():
+        fail(f"{tag}: the canonical mesh is empty or not finite ({mesh}; SDF grid in "
+             f"[{sdf.min()}, {sdf.max()}] about the level)")
+    if launches["K4f"] <= 0 or launches["K3f"] <= 0:
+        fail(f"{tag}: the export launched K4f {launches['K4f']} / K3f {launches['K3f']} times")
+    with open(os.path.join(save_dir, f"{cate}-motion.json")) as f:
+        js = json.load(f)
+    shapes = {k: np.asarray(v).shape for k, v in js.items()}
+    if not all(np.isfinite(np.asarray(v)).all() for v in js.values()) or \
+            shapes["field2cam"] != (len(motion[cate]), 4, 4):
+        fail(f"{tag}: {cate}-motion.json has non-finite values or shapes {shapes}")
+    for fid, mp in motion[cate].items():
+        if not np.isfinite(mp.mesh_t.vertices).all():
+            fail(f"{tag}: the mesh of frame {fid} is not finite")
+    print(f"[{tag}] grid {EXPORT_GRID}^3, SDF about the level in [{sdf.min():.4f}, "
+          f"{sdf.max():.4f}]: rest mesh {len(mesh.vertices)} vertices, "
+          f"{len(mesh.faces)} faces; {len(motion[cate])} frames; {cate}-motion.json "
+          + " ".join(f"{k}{list(v)}" for k, v in shapes.items())
+          + f"; {elapsed:.2f} s in all: model load {t_mesh - t:.2f}, canonical mesh "
+          f"{times['mc']:.2f} (SDF grid {times['sdf']:.2f}, marching cubes "
+          f"{times['mc'] - times['sdf']:.2f}), per-frame motion and meshes "
+          f"{t_mesh_end - t_mesh - times['mc']:.2f}, files {elapsed - (t_mesh_end - t):.2f}; "
+          f"launches K3f={launches['K3f']} K4f={launches['K4f']}; "
+          f"{len(os.listdir(save_dir))} files")
+    return launches
+
+
+def phase_reanimate(db, root):
+    """reanimate.py's functions on the fg checkpoint with --motion_id 0
+    (the export_0000/fg-motion.json of [export-fg]), its frames at 128^2
+    with the default top-k eval: the batch's time-t articulation of each
+    frame equals get_vals(override_so3=...) of the json's joint angles on
+    the CPU within 1e-5. Returns the launches of every kernel over the
+    render."""
+    import torch
+
+    from lab4d_tpu_torch import reanimate as RA
+    from lab4d_tpu_torch.render import construct_test_model, eval_mode, render_batch
+
+    opts = _app_opts(RA.get_parser(), db, root, "fg",
+                     ["--motion_id", "0", "--render_res", str(REANIMATE_RES), "--freeze_id", "0"])
+    model, geo_state, data_info = construct_test_model(opts, torch.device("cuda"))
+    batch, _ = RA.construct_batch_from_opts_reanimate(opts, model, geo_state, data_info, "cuda")
+    n = len(batch["frameid_sub"])
+    arti_cpu = copy.deepcopy(model.fields.field_params["fg"].warp.articulation).cpu()
+    geo = {c: {"aabb": torch.tensor(np.asarray(g["aabb"], np.float32), device="cuda"),
+               "proxy_corners": torch.tensor(np.asarray(g["corners"], np.float32),
+                                             device="cuda")} for c, g in geo_state.items()}
+    err = 0.0
+    with torch.no_grad():
+        for i in range(n):
+            sub = {k: ({k2: v2[i:i + 1] for k2, v2 in v.items()} if isinstance(v, dict)
+                       else v[i:i + 1]) for k, v in batch.items()}
+            sub["geo"] = geo
+            got = model.prepare_eval_samples(sub)["fg"]["t_articulation"]
+            fid = sub["frameid_sub"].cpu() + int(data_info["frame_info"].frame_offset_raw[0])
+            want = arti_cpu.get_vals(fid, override_so3=sub["joint_so3"].cpu())
+            err = max(err, *(float((a.cpu() - b).abs().max()) for a, b in zip(got, want)))
+    if not err <= 1e-5:
+        fail(f"reanimate: t_articulation differs from get_vals(override_so3) by {err} > 1e-5")
+    topk, channels = eval_mode(opts)
+    render_batch(model, {k: ({k2: v2[:1] for k2, v2 in v.items()} if isinstance(v, dict)
+                             else v[:1]) for k, v in batch.items()}, geo_state, topk=topk)  # warm-up
+    sync()
+    _reset_kernel_counts()
+    t = time.time()
+    rendered = render_batch(model, batch, geo_state, topk=topk, channels=channels)
+    sync()
+    elapsed = time.time() - t
+    launches = _kernel_counts()
+    for k, v in rendered.items():
+        if v.shape[:3] != (n, REANIMATE_RES, REANIMATE_RES) or not np.isfinite(v).all():
+            fail(f"reanimate: channel {k} has shape {v.shape} or non-finite values")
+    if launches["K3f"] <= 0:
+        fail("reanimate: the render ran no fused_relu_mlp kernel")
+    print(f"[reanimate] motion 0 on the fg model: {n} frames at {REANIMATE_RES}^2, top-{topk} "
+          f"eval, {elapsed / n * 1e3:.1f} ms/frame; t_articulation vs get_vals(override_so3) on "
+          f"the CPU {err:.1e} (<=1e-5); launches "
+          + " ".join(f"{k}={v}" for k, v in launches.items())
+          + f"; mask mean {rendered['mask'].mean():.4f}")
+    return launches
+
+
 KERNEL_INFO = {  # JSON name, source, the TPU kernel it replaces
     "K1": ("nerf_heads_fwd", "lab4d_tpu_torch/csrc/nerf_heads.cu",
            "lab4d_tpu/ops/field_kernel.py:544"),
@@ -1353,10 +1642,12 @@ def main():
     data_info = make_scene()
     model, geo_state = phase_model(data_info)
     phase_reference(model, geo_state, data_info)
+    phase_reference(model, geo_state, data_info, topk=8)
     k3_shapes, fg_calls = collections.Counter(), {}
     with k3_records({}, k3_shapes):
-        render_launches = phase_render(model, geo_state, data_info)
-    del model
+        render_launches, exact_frames, _ = phase_render(model, geo_state, data_info)
+        topk_launches = phase_render_topk(model, geo_state, data_info, exact_frames)
+    del model, exact_frames
     with tempfile.TemporaryDirectory() as root:
         db = write_scene(root)
         phase_train_reference(db, root, "bg")
@@ -1365,6 +1656,9 @@ def main():
         phase_train_reference(db, root, "fg")
         with k3_records(fg_calls, k3_shapes):
             fg_launches, fg_steps, _ = phase_train(db, root, "fg", fg_calls)
+        with k3_records({}, k3_shapes):
+            export_launches = {cate: phase_export(db, root, cate) for cate in ("fg", "bg")}
+            reanimate_launches = phase_reanimate(db, root)
     phase_k3_paths(k3_shapes)
     sync()
     jax_loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "lab4d_tpu"))
@@ -1380,7 +1674,11 @@ def main():
             max(kernels[key], key=lambda r: (r["rows"], r["bound_ms"]))
         # the anatomy copies are a profiler's, on no path
         by_path = {path: counts.get(key, 0) for path, counts in (
-            ("render", render_launches), ("train", bg_launches), ("train_fg", fg_launches))}
+            ("render", render_launches), ("render_topk", topk_launches),
+            ("train", bg_launches), ("train_fg", fg_launches),
+            ("export", {k: export_launches["fg"][k] + export_launches["bg"][k]
+                        for k in export_launches["fg"]}),
+            ("reanimate", reanimate_launches))}
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),
@@ -1400,7 +1698,7 @@ def main():
                 "label", "rows", "engine", "ms", "ms_no_save", "ms_cold_l2", "plain_ms",
                 "plain_ms_no_save", "plain_ms_cold_l2", "bound_ms", "bound_3xtf32_ms", "cuda_launches_per_call",
                 "max_abs_err", "max_rel_err") if k in r} for r in kernels[key]]}
-               if key in ("K3f", "K3b") else {}),
+               if key in ("K3f", "K3b", "K4f", "K4b") else {}),
         })
     print(json.dumps({"kernels": rows}))
     print(card)

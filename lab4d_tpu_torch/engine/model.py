@@ -95,8 +95,9 @@ class DVRModel(nn.Module):
             Kinv = K2inv(Kmat) @ K2mat(batch["crop2raw"])
         return self.fields.get_samples(Kinv, batch, train=train)
 
-    def render_samples(self, samples_dict):
-        multifields_dict, deltas_dict, _ = self.fields.query_multifields(samples_dict)
+    def render_samples(self, samples_dict, topk=None, channels=None):
+        multifields_dict, deltas_dict, _ = self.fields.query_multifields(
+            samples_dict, topk=topk, channels=channels)
         return render_pixel(*self.fields.compose_fields(multifields_dict, deltas_dict))
 
     # -------------------------------------------------------------- training
@@ -252,14 +253,20 @@ class DVRModel(nn.Module):
         batch["geo"] = geo
         return self.get_samples(batch)
 
-    def evaluate_rays(self, samples_dict):
+    def evaluate_rays(self, samples_dict, topk=None, channels=None):
         """Per-chunk half of eval: render the rays in samples_dict[cate]
         ["hxy"]. Every non-mask channel is blended with the rendered mask
-        (render * mask + 0 * (1 - mask))."""
-        rendered = self.render_samples(samples_dict)
+        (render * mask + 0 * (1 - mask)).
+
+        topk: the per-ray sample budget of the heavy channels (None or
+        >= 64: exact every-sample eval; NeRF.query_field_eval_topk);
+        channels: a subset of the channels (None: all), whose producers
+        alone run and which alone are returned."""
+        rendered = self.render_samples(samples_dict, topk=topk, channels=channels)
         mask = rendered["mask"]
 
         def blend(v):
             return v * (mask if v.ndim == mask.ndim else mask[..., 0])
 
-        return {k: v if "mask" in k else blend(v) for k, v in rendered.items()}
+        return {k: v if "mask" in k else blend(v) for k, v in rendered.items()
+                if channels is None or k in channels}

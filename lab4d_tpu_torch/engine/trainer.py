@@ -224,7 +224,7 @@ class Trainer:
     def _build_geometry_pools(self, num_steps=500, nsample=256):
         """Host-side sample pools for the SDF distillation: the proxy mesh's
         SDF for bg, the rest-pose bone spheres' (get_gauss_sdf) for the
-        skeleton-warped fg."""
+        skeleton-warped fg, a sphere of radius 0.1 for the rigid fg."""
         rng = np.random.default_rng(0)
         num_inst = self.model.fields.field_params[self.categories[0]].num_inst
         pools = {}
@@ -236,6 +236,8 @@ class Trainer:
                               size=(num_steps, nsample, 3)).astype(np.float32)
             if cate == "bg":
                 sdf_gt = MeshSDF(mesh)(pts.reshape(-1, 3))
+            elif self.opts["fg_motion"] == "rigid":
+                sdf_gt = (np.linalg.norm(pts, axis=-1, keepdims=True) - 0.1).astype(np.float32)
             else:
                 with torch.no_grad():
                     warp = self.model.fields.field_params[cate].warp

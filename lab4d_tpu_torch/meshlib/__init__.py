@@ -130,23 +130,24 @@ class Mesh:
 
 
 def save_obj(mesh: Mesh, path: str):
-    lines = []
+    """One `v` line per vertex (with its colour in [0, 1] where the mesh
+    has them), one `f` line per face (1-based). Each block is formatted by
+    one %-operation over the whole array: export writes a mesh of a few
+    hundred thousand faces per frame."""
+    verts = np.asarray(mesh.vertices, dtype=np.float64).reshape(-1, 3)
     if mesh.vertex_colors is not None:
         vc = np.asarray(mesh.vertex_colors, dtype=np.float64)
         if vc.max() > 1.0:
             vc = vc / 255.0
-        for v, c in zip(mesh.vertices, vc):
-            lines.append(
-                "v %.6f %.6f %.6f %.4f %.4f %.4f"
-                % (v[0], v[1], v[2], c[0], c[1], c[2])
-            )
+        verts = np.concatenate([verts, vc[:, :3]], axis=1)
+        vfmt = "v %.6f %.6f %.6f %.4f %.4f %.4f\n"
     else:
-        for v in mesh.vertices:
-            lines.append("v %.6f %.6f %.6f" % (v[0], v[1], v[2]))
-    for f in mesh.faces:
-        lines.append("f %d %d %d" % (f[0] + 1, f[1] + 1, f[2] + 1))
+        vfmt = "v %.6f %.6f %.6f\n"
+    faces = np.asarray(mesh.faces, dtype=np.int64).reshape(-1, 3) + 1
+    text = (vfmt * len(verts)) % tuple(verts.ravel().tolist()) + \
+        ("f %d %d %d\n" * len(faces)) % tuple(faces.ravel().tolist())
     with open(path, "w") as fp:
-        fp.write("\n".join(lines) + "\n")
+        fp.write(text if text else "\n")
 
 
 def load_obj(path: str) -> Mesh:
@@ -184,3 +185,30 @@ def uv_sphere(radius: float = 1.0, count=(16, 16)) -> Mesh:
             faces.append([a, b, c])
             faces.append([b, d, c])
     return Mesh(verts, np.asarray(faces))
+
+
+def concatenate(meshes: List[Mesh]) -> Mesh:
+    """One mesh of every non-empty mesh; vertex colours are kept where any
+    mesh has them (grey for those without)."""
+    meshes = [m for m in meshes if not m.is_empty]
+    if not meshes:
+        return Mesh()
+    verts, faces, colors = [], [], []
+    off = 0
+    has_color = any(m.vertex_colors is not None for m in meshes)
+    for m in meshes:
+        verts.append(m.vertices)
+        faces.append(m.faces + off)
+        if has_color:
+            c = (
+                m.vertex_colors
+                if m.vertex_colors is not None
+                else np.full((len(m.vertices), 3), 192.0)
+            )
+            colors.append(np.asarray(c, dtype=np.float64).reshape(len(m.vertices), -1)[:, :3])
+        off += len(m.vertices)
+    return Mesh(
+        np.concatenate(verts),
+        np.concatenate(faces),
+        np.concatenate(colors) if has_color else None,
+    )

@@ -1,10 +1,13 @@
 """Deformable (dynamic) field = FeatureNeRF + warp field.
 
-Port of lab4d_tpu/nnutils/deformable.py: the skeleton warp's backward and
-forward warps, the articulations of a batch (one batched FK), and the
-training terms: the flow and cycle warps sharing one skinning pass, the
-gauss-skin consistency loss and the skeleton prior. The random draw of
-training (the gauss-skin points) accepts an injected value.
+Port of lab4d_tpu/nnutils/deformable.py: the backward and forward warps
+of the identity warp (rigid) and the skeleton warp, the articulations of
+a batch (one batched FK, or the joint angles batch["joint_so3"] that
+reanimation gives), and the training terms: the flow and cycle warps
+sharing one skinning pass, the gauss-skin consistency loss and the
+skeleton prior. A warp without skinning has no articulations, skinning
+terms or bone-Gaussian density. The random draw of training (the
+gauss-skin points) accepts an injected value.
 """
 
 from __future__ import annotations
@@ -12,8 +15,12 @@ from __future__ import annotations
 import torch
 
 from lab4d_tpu_torch.nnutils.feature import FeatureNeRF
-from lab4d_tpu_torch.nnutils.nerf import flip_pair
-from lab4d_tpu_torch.nnutils.warping import cross_entropy_skin_loss, parse_warp_type
+from lab4d_tpu_torch.nnutils.nerf import flip_pair, wants
+from lab4d_tpu_torch.nnutils.warping import (
+    SkinningWarp,
+    cross_entropy_skin_loss,
+    parse_warp_type,
+)
 from lab4d_tpu_torch.utils.geom import (
     Kmatinv,
     dual_quaternion_skinning_pair,
@@ -34,6 +41,10 @@ class Deformable(FeatureNeRF):
         self.warp = spec["cls"](self.frame_info, generator=kwargs.get("generator"),
                                 **spec["kwargs"])
 
+    @property
+    def has_skinning(self) -> bool:
+        return isinstance(self.warp, SkinningWarp)
+
     # ------------------------------------------------------------- warping
 
     def backward_warp(self, xyz_cam, dir_cam, field2cam, frame_id, inst_id, samples_dict=None):
@@ -53,6 +64,8 @@ class Deformable(FeatureNeRF):
         """The forward skin weights of the canonical samples, once for the
         flow and cycle warps: they depend on the points, the rest
         articulation, the mean time embedding and the instance only."""
+        if not self.has_skinning:
+            return samples_dict
         skin = self.warp.skinning_model(xyz, samples_dict["rest_articulation"], None, inst_id)
         return dict(samples_dict, fwd_skin=skin)
 
@@ -111,7 +124,9 @@ class Deformable(FeatureNeRF):
         """BCE between the rest-pose bone-Gaussian density and the field's
         own (detached, clipped) density at points of the aabb, balanced
         between inside and outside. u: (nsample, 3) uniform draws, drawn
-        here when not given."""
+        here when not given. Zero without skinning."""
+        if not self.has_skinning:
+            return self.logscale.new_zeros(())
         if u is None:
             u = torch.rand(nsample, 3, device=aabb.device)
         pts = self.sample_points_aabb(u, aabb, extend_factor=0.25)
@@ -126,28 +141,46 @@ class Deformable(FeatureNeRF):
         return torch.mean(bce * weight)
 
     def skel_prior_loss(self):
+        if not self.has_skinning:
+            return self.logscale.new_zeros(())
         return self.warp.articulation.skel_prior_loss()
 
     # --------------------------------------------------------------- queries
 
     def get_samples(self, Kinv, batch, train: bool = False):
-        """Adds the time-t and rest articulations (one batched FK)."""
+        """Adds the time-t and rest articulations of a skinning warp (one
+        batched FK); with batch["joint_so3"] (M, B, 3) the time-t ones come
+        from those joint angles."""
         samples_dict = super().get_samples(Kinv, batch, train=train)
-        (
-            samples_dict["t_articulation"],
-            samples_dict["rest_articulation"],
-        ) = self.warp.articulation.get_vals_and_mean(samples_dict["frame_id"])
+        if not self.has_skinning:
+            return samples_dict
+        articulation = self.warp.articulation
+        frame_id = samples_dict["frame_id"]
+        if "joint_so3" in batch:
+            samples_dict["rest_articulation"] = articulation.get_mean_vals()
+            samples_dict["t_articulation"] = articulation.get_vals(
+                frame_id, override_so3=batch["joint_so3"])
+        else:
+            (
+                samples_dict["t_articulation"],
+                samples_dict["rest_articulation"],
+            ) = articulation.get_vals_and_mean(frame_id)
         return samples_dict
 
     def query_field(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
-                    draws=None):
+                    draws=None, topk=None, channels=None):
         feat_dict, deltas, aux_dict = super().query_field(
-            samples_dict, alpha=alpha, train=train, flow_thresh=flow_thresh, draws=draws)
-        feat_dict.update(self.compute_gauss_density(feat_dict["xyz"], samples_dict))
+            samples_dict, alpha=alpha, train=train, flow_thresh=flow_thresh, draws=draws,
+            topk=topk, channels=channels)
+        if train or wants(channels, "gauss_mask"):
+            feat_dict.update(self.compute_gauss_density(feat_dict["xyz"], samples_dict))
         return feat_dict, deltas, aux_dict
 
     def compute_gauss_density(self, xyz, samples_dict):
-        """Bone-Gaussian density along rays (gauss_mask channel)."""
+        """Bone-Gaussian density along rays (gauss_mask channel); none
+        without skinning."""
+        if not self.has_skinning:
+            return {}
         shape = xyz.shape[:-1]
         rest = samples_dict["rest_articulation"]
         density = self.warp.get_gauss_density(xyz.reshape(-1, 3), bone2obj=(rest[0][:1], rest[1][:1]))

@@ -1,6 +1,7 @@
 """Container of neural fields. Port of lab4d_tpu/nnutils/multifields.py
 for one field: "fg" (Deformable) or "bg" (a rigid NeRF), each for eval
-and training. "comp", both fields composed along rays, is ROADMAP.md P9."""
+and training. "comp", both fields composed along rays, waits on ROADMAP.md
+queue 1, item 6."""
 
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ class MultiFields(nn.Module):
         super().__init__()
         if field_type not in ("fg", "bg"):
             raise NotImplementedError(
-                f"field_type {field_type!r} is not ported yet (ROADMAP.md, P9 other families)"
+                f"field_type {field_type!r} is not ported yet (ROADMAP.md, queue 1, item 6)"
             )
         self.field_type = field_type
 
@@ -77,7 +78,9 @@ class MultiFields(nn.Module):
         return samples_dict
 
     def query_multifields(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
-                          draws=None):
+                          draws=None, topk=None, channels=None):
+        """Per-field query_field; topk and channels: the eval's (see
+        NeRF.query_field_eval)."""
         multifields_dict, deltas_dict, aux_dict = {}, {}, {}
         for cate in self.categories:
             field = self.field_params[cate]
@@ -89,7 +92,7 @@ class MultiFields(nn.Module):
                 out[0].pop("xyz", None)
                 out[0].pop("xyz_cam", None)
             else:
-                out = field.query_field(samples_dict[cate])
+                out = field.query_field(samples_dict[cate], topk=topk, channels=channels)
             multifields_dict[cate], deltas_dict[cate], aux_dict[cate] = out
         return multifields_dict, deltas_dict, aux_dict
 

@@ -2,8 +2,11 @@
 
 Port of lab4d_tpu/nnutils/nerf.py. Eval: sample assembly, the exact
 merged two-pass eval (`query_field_eval`, every sample evaluated, both
-halves merged by depth sort), camera-space normals from the SDF input
-gradient, and the canonical-aabb validity mask. Training
+halves merged by depth sort), the top-k eval (`query_field_eval_topk`:
+density and weights from all 64 union samples, the heavy channels at the
+k highest-weight samples of each ray), channel subsets (`channels`: the
+producers of unrequested channels are skipped), camera-space normals from
+the SDF input gradient, and the canonical-aabb validity mask. Training
 (`query_field(train=True)`): 64 deterministic samples per ray, the field
 heads through the fused kernels (all heads in one kernel where a subclass's
 `query_all_heads` takes them), the flow to the paired frame, the
@@ -11,7 +14,11 @@ subsampled eikonal term (a double backward through the plain MLP chain),
 and the visibility-decay and camera-prior regularizers. The random draws
 of training (the eikonal ray subsample, the visibility-decay points and
 instance ids) accept injected values, so that a test can hand both
-packages the same draw. The top-k eval is not ported yet (ROADMAP.md).
+packages the same draw.
+
+The top-k eval and the channel subset are explicit arguments (`topk`,
+`channels`) where the JAX package reads LAB4D_EVAL_TOPK and
+LAB4D_EVAL_CHANNELS at trace time.
 """
 
 from __future__ import annotations
@@ -46,6 +53,20 @@ from lab4d_tpu_torch.utils.quat import (
 )
 
 
+def wants(channels, *keys) -> bool:
+    """Whether a channel subset (None: every channel) asks for any of keys."""
+    return channels is None or any(k in channels for k in keys)
+
+
+def topk_indices(weights: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest weights along the last axis, in ascending
+    order. Among equal weights the lower index wins, as in jax.lax.top_k:
+    the rays that miss the object have all-zero weights, and the samples
+    picked there set their depths and so every channel of the ray."""
+    idx = torch.sort(weights, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.sort(idx, dim=-1).values
+
+
 def flip_pair(x):
     """Swap consecutive entries along the leading axis:
     [x0, x1, x2, x3, ...] -> [x1, x0, x3, x2, ...]."""
@@ -56,6 +77,15 @@ def flip_pair(x):
     if x.shape[0] < 2:
         return x
     return x.reshape((x.shape[0] // 2, 2) + x.shape[1:]).flip(1).reshape(x.shape)
+
+
+def _sorted_deltas(hxy, Kinv, depth_s):
+    """Inter-sample distances along the rays of depth-sorted samples
+    (M,N,D,1), as sample_cam_rays measures them."""
+    raydir = torch.einsum("mni,mji->mnj", hxy, Kinv)
+    dir_norm = torch.linalg.norm(raydir, dim=-1, keepdim=True)
+    deltas = depth_s[:, :, 1:] - depth_s[:, :, :-1]
+    return torch.cat([deltas, deltas[:, :, -1:]], dim=2) * dir_norm[:, :, None, :]
 
 
 class NeRF(nn.Module):
@@ -165,13 +195,14 @@ class NeRF(nn.Module):
         return samples_dict
 
     def query_field(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
-                    draws=None):
-        """Per-ray field channels: the exact merged two-pass path at eval;
-        in training, 64 samples per ray -> backward warp -> field heads
-        (fused kernels) -> flow, cycle and eikonal channels. draws: optional
-        {"eikonal_idx": (S,) ray ids} (see compute_eikonal)."""
+                    draws=None, topk: Optional[int] = None, channels=None):
+        """Per-ray field channels: at eval the merged two-pass path, exact
+        or top-k (see query_field_eval); in training, 64 samples per ray ->
+        backward warp -> field heads (fused kernels) -> flow, cycle and
+        eikonal channels. draws: optional {"eikonal_idx": (S,) ray ids}
+        (see compute_eikonal)."""
         if not train:
-            return self.query_field_eval(samples_dict)
+            return self.query_field_eval(samples_dict, topk=topk, channels=channels)
         Kinv = samples_dict["Kinv"]
         field2cam = samples_dict["field2cam"]
         frame_id = samples_dict["frame_id"]
@@ -233,30 +264,43 @@ class NeRF(nn.Module):
                                    samples_dict)
         return self._normal_from_grad(g)
 
-    def eval_pass(self, xyz_cam, dir_cam, field2cam, frame_id, inst_id, samples_dict):
+    def eval_pass(self, xyz_cam, dir_cam, field2cam, frame_id, inst_id, samples_dict,
+                  channels=None):
         """Every per-sample eval channel (heads and camera-space normals) at
-        the given camera points."""
-        g, backwarp_dict = self._warp_sdf_grad(xyz_cam, dir_cam, field2cam, frame_id,
-                                               inst_id, samples_dict)
-        eikonal, normal = self._normal_from_grad(g)
+        the given camera points. channels: a subset (None: all); the
+        producers of the channels it leaves out are skipped (the SDF
+        gradient of normal and eikonal, vis, feature, the cycle channels),
+        and every channel produced is the full pass's."""
+        normal = None
+        if wants(channels, "normal", "eikonal"):
+            g, backwarp_dict = self._warp_sdf_grad(xyz_cam, dir_cam, field2cam, frame_id,
+                                                   inst_id, samples_dict)
+            eikonal, normal = self._normal_from_grad(g)
+        else:
+            backwarp_dict = self.backward_warp(xyz_cam, dir_cam, field2cam, frame_id, inst_id,
+                                               samples_dict=samples_dict)
         xyz, dir, xyz_t = backwarp_dict["xyz"], backwarp_dict["dir"], backwarp_dict["xyz_t"]
         out = self.query_nerf(xyz, dir, frame_id, inst_id, fused=False)
-        out["vis"] = self.vis_mlp(xyz, inst_id=inst_id, fused=False)
-        out.update(self.eval_extra_heads(xyz))
+        if wants(channels, "vis"):
+            out["vis"] = self.vis_mlp(xyz, inst_id=inst_id, fused=False)
+        if wants(channels, "feature"):
+            out.update(self.eval_extra_heads(xyz))
         # the unmasked density drives the importance pdf
         out["density_raw"] = out["density"]
         valid = self.get_valid_mask(xyz, xyz_t, samples_dict)
         if valid is not None:
             for k in ("density", f"density_{self.category}"):
                 out[k] = out[k] * valid[..., None]
-        cyc_dict = self.cycle_loss(xyz)
-        for k in cyc_dict:
-            if k in backwarp_dict:
-                out[k] = (cyc_dict[k] + backwarp_dict[k]) / 2
-            else:
-                out[k] = cyc_dict[k]
-        out["eikonal"] = eikonal
-        out["normal"] = normal
+        if wants(channels, "cyc_dist"):
+            cyc_dict = self.cycle_loss(xyz)
+            for k in cyc_dict:
+                if k in backwarp_dict:
+                    out[k] = (cyc_dict[k] + backwarp_dict[k]) / 2
+                else:
+                    out[k] = cyc_dict[k]
+        if normal is not None:
+            out["eikonal"] = eikonal
+            out["normal"] = normal
         out["xyz"] = xyz
         out["xyz_cam"] = xyz_cam
         return out
@@ -271,10 +315,15 @@ class NeRF(nn.Module):
                                 weights.reshape(R, half)[:, 1:-1], half)
         return depth_fine.detach().reshape(depth.shape)
 
-    def query_field_eval(self, samples_dict, n_depth: int = 64):
+    def query_field_eval(self, samples_dict, n_depth: int = 64, topk: Optional[int] = None,
+                         channels=None):
         """Two-pass importance rendering without recomputation: each pass
         evaluates every channel at its own half of the samples, and the
-        halves are merged by depth sort."""
+        halves are merged by depth sort. topk < n_depth: the top-k eval
+        (query_field_eval_topk) instead. channels: see eval_pass."""
+        if topk is not None and topk < n_depth:
+            return self.query_field_eval_topk(samples_dict, n_depth=n_depth, topk=topk,
+                                              channels=channels)
         Kinv = samples_dict["Kinv"]
         field2cam = samples_dict["field2cam"]
         frame_id = samples_dict["frame_id"]
@@ -284,10 +333,12 @@ class NeRF(nn.Module):
         half = n_depth // 2
 
         xyz_cam1, dir_cam1, deltas1, depth1 = sample_cam_rays(hxy, Kinv, near_far, n_depth=half)
-        out1 = self.eval_pass(xyz_cam1, dir_cam1, field2cam, frame_id, inst_id, samples_dict)
+        out1 = self.eval_pass(xyz_cam1, dir_cam1, field2cam, frame_id, inst_id, samples_dict,
+                              channels)
         depth_fine = self._fine_depth(out1.pop("density_raw"), deltas1, depth1)
         xyz_cam2, dir_cam2, _, depth2 = sample_cam_rays(hxy, Kinv, near_far, depth=depth_fine)
-        out2 = self.eval_pass(xyz_cam2, dir_cam2, field2cam, frame_id, inst_id, samples_dict)
+        out2 = self.eval_pass(xyz_cam2, dir_cam2, field2cam, frame_id, inst_id, samples_dict,
+                              channels)
         out2.pop("density_raw")
 
         depth_all = torch.cat([depth1, depth2], dim=2)  # (M,N,D,1)
@@ -298,12 +349,70 @@ class NeRF(nn.Module):
             feat_dict[k] = torch.gather(v, 2, order.expand(v.shape))
         depth_s = torch.gather(depth_all, 2, order)
 
-        raydir = torch.einsum("mni,mji->mnj", hxy, Kinv)
-        dir_norm = torch.linalg.norm(raydir, dim=-1, keepdim=True)
-        deltas = depth_s[:, :, 1:] - depth_s[:, :, :-1]
-        deltas = torch.cat([deltas, deltas[:, :, -1:]], dim=2) * dir_norm[:, :, None, :]
         feat_dict["depth"] = depth_s / torch.exp(self.logscale)  # world units
-        return feat_dict, deltas, {}
+        return feat_dict, _sorted_deltas(hxy, Kinv, depth_s), {}
+
+    def query_field_eval_topk(self, samples_dict, n_depth: int = 64, topk: int = 16,
+                              channels=None):
+        """Top-k eval: density and integration weights from all n_depth
+        union samples (warp and base field only), every other channel at
+        the topk highest-weight samples of each ray. The selected weights
+        are scaled to each ray's total mass, and the density returned for
+        the selected samples is solved so that compute_weights over them
+        gives those weights: the mask is the exact one, and the channels'
+        values come from the k samples."""
+        Kinv = samples_dict["Kinv"]
+        field2cam = samples_dict["field2cam"]
+        frame_id = samples_dict["frame_id"]
+        inst_id = samples_dict["inst_id"]
+        near_far = samples_dict["near_far"]
+        hxy = samples_dict["hxy"]
+        half = n_depth // 2
+
+        def cheap_density(xyz_cam, dir_cam):
+            bw = self.backward_warp(xyz_cam, dir_cam, field2cam, frame_id, inst_id,
+                                    samples_dict=samples_dict)
+            dens_raw = self.forward(bw["xyz"], inst_id=inst_id, get_density=True, fused=False)
+            valid = self.get_valid_mask(bw["xyz"], bw["xyz_t"], samples_dict)
+            return dens_raw, dens_raw if valid is None else dens_raw * valid[..., None]
+
+        xyz_cam1, dir_cam1, deltas1, depth1 = sample_cam_rays(hxy, Kinv, near_far, n_depth=half)
+        dens1_raw, dens1 = cheap_density(xyz_cam1, dir_cam1)
+        # the fine depths come from the unmasked coarse pdf, as in the exact path
+        depth_fine = self._fine_depth(dens1_raw, deltas1, depth1)
+        xyz_cam2, dir_cam2, _, depth2 = sample_cam_rays(hxy, Kinv, near_far, depth=depth_fine)
+        _, dens2 = cheap_density(xyz_cam2, dir_cam2)
+
+        depth_all = torch.cat([depth1, depth2], dim=2)  # (M,N,D,1)
+        order = torch.argsort(depth_all[..., 0], dim=-1, stable=True)[..., None]
+        depth_s = torch.gather(depth_all, 2, order)
+        dens_s = torch.gather(torch.cat([dens1, dens2], dim=2), 2, order)
+        deltas_s = _sorted_deltas(hxy, Kinv, depth_s)
+        w_all, _ = compute_weights(dens_s, deltas_s)  # (M,N,D)
+
+        idx = topk_indices(w_all, topk)  # (M,N,K), depth order
+        w_sel = torch.gather(w_all, -1, idx)
+        depth_sel = torch.gather(depth_s[..., 0], -1, idx)[..., None]
+        deltas_sel = torch.gather(deltas_s[..., 0], -1, idx)[..., None]
+        mass_all = torch.sum(w_all, dim=-1, keepdim=True)
+        mass_sel = torch.sum(w_sel, dim=-1, keepdim=True)
+        w_sel = (w_sel * (mass_all / torch.clamp(mass_sel, min=1e-6))).detach()
+        depth_sel = depth_sel.detach()
+
+        xyz_cam_sel, dir_cam_sel, _, _ = sample_cam_rays(hxy, Kinv, near_far, depth=depth_sel)
+        out = self.eval_pass(xyz_cam_sel, dir_cam_sel, field2cam, frame_id, inst_id,
+                             samples_dict, channels)
+        out.pop("density_raw")
+
+        # alpha_k solves w_k = alpha_k * prod_{l<k} (1 - alpha_l) over the
+        # selected samples
+        cum_excl = torch.cumsum(w_sel, dim=-1) - w_sel
+        alpha = torch.clamp(w_sel / torch.clamp(1.0 - cum_excl, min=1e-6), 0.0, 1.0 - 1e-6)
+        dens_sel = -torch.log1p(-alpha)[..., None] / torch.clamp(deltas_sel, min=1e-12)
+        for k in ("density", f"density_{self.category}"):
+            out[k] = dens_sel
+        out["depth"] = depth_sel / torch.exp(self.logscale)  # world units
+        return out, deltas_sel, {}
 
     def get_valid_mask(self, xyz, xyz_t, samples_dict):
         """(M,N,D) float mask of samples inside the extended canonical aabb;

@@ -116,8 +116,26 @@ class ArticulationSkelMLP(TimeMLP):
             local_rest = self.compute_rel_rest_joints(inst_id, batch_shape=so3.shape[:-2])
         else:
             local_rest = override_local_rest_joints
+        return self._bones(so3, local_rest)
+
+    def _bones(self, so3, local_rest):
+        """Joint angles and parent-relative rest joints -> bone dual
+        quaternions (FK, then joints shifted to bone centres)."""
         dq = fk_se3(local_rest, so3, self.skeleton)
         return shift_joints_to_bones_dq(dq, self.skeleton, shift=self.shift)
+
+    def get_vals(self, frame_id=None, return_so3: bool = False, override_so3=None):
+        """Time-t bones at raw frame ids (None: all filtered frames). The
+        joint angles (M, B, 3) alone with return_so3; override_so3
+        (M, B, 3): the bones of those joint angles in place of the MLP's."""
+        if override_so3 is None:
+            so3 = self.compute_so3(self.time_embedding(frame_id))
+        else:
+            so3 = override_so3
+        if return_so3:
+            return so3
+        inst_id = self.frame_ids_to_vid(frame_id)
+        return self._bones(so3, self.compute_rel_rest_joints(inst_id, batch_shape=so3.shape[:-2]))
 
     def get_vals_and_mean(self, frame_id=None):
         """Time-t and rest-pose bones in one batched FK pass."""
@@ -132,10 +150,14 @@ class ArticulationSkelMLP(TimeMLP):
                                override_local_rest_joints=torch.cat([rel_i, rel_c], dim=0))
         return (dq[0][:bs], dq[1][:bs]), (dq[0][bs:], dq[1][bs:])
 
-    def get_mean_vals(self):
+    def get_mean_vals(self, inst_id=None):
         """Rest-pose bones: the articulation at the mean time embedding,
-        with the mean instance's bone lengths; batch (1,)."""
-        return self.forward_arti(self.time_embedding.mean_embedding(), None)
+        with the bone lengths of instances inst_id (M,), batch (M,), or of
+        the mean instance, batch (1,)."""
+        t_embed = self.time_embedding.mean_embedding()
+        if inst_id is not None:
+            t_embed = t_embed.expand(inst_id.shape + t_embed.shape[-1:])
+        return self.forward_arti(t_embed, inst_id)
 
     def skel_prior_loss(self):
         """L2 prior on the rest pose's joint angles and the bone-length

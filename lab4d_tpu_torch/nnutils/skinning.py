@@ -112,6 +112,6 @@ class SkinningField(nn.Module):
         """
         if not self._quad_path_ok(xyz, bone2obj):
             raise NotImplementedError(
-                "the bone-coordinate skinning path is not ported yet (ROADMAP.md, P9)"
+                "the bone-coordinate skinning path is not ported yet (ROADMAP.md, queue 1, item 6)"
             )
         return self._quad_call(xyz, bone2obj, frame_id, inst_id)

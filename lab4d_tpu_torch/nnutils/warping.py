@@ -1,6 +1,7 @@
-"""Warp fields. Port of lab4d_tpu/nnutils/warping.py: the skeleton
-warp (neural blend skinning). Interface: warp(xyz, frame_id, inst_id,
-backward=..., samples_dict=...) -> (xyz_out, aux_dict).
+"""Warp fields. Port of lab4d_tpu/nnutils/warping.py: the identity warp
+of a rigid object and the skeleton warp (neural blend skinning).
+Interface: warp(xyz, frame_id, inst_id, backward=..., samples_dict=...)
+-> (xyz_out, aux_dict).
 """
 
 from __future__ import annotations
@@ -22,6 +23,17 @@ def cross_entropy_skin_loss(skin: torch.Tensor) -> torch.Tensor:
     """Cross-entropy of softmax(skin) against its argmax assignment:
     logsumexp(skin) - max(skin)."""
     return torch.logsumexp(skin, dim=-1) - skin.max(dim=-1).values
+
+
+class IdentityWarp(nn.Module):
+    """Rigid: no deformation and no parameters."""
+
+    def __init__(self, frame_info: FrameInfo, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.frame_info = frame_info
+
+    def forward(self, xyz, frame_id, inst_id, backward=False, samples_dict=None):
+        return xyz, {}
 
 
 class SkinningWarp(nn.Module):
@@ -81,10 +93,12 @@ class SkinningWarp(nn.Module):
 
 
 def parse_warp_type(fg_motion: str) -> Dict:
-    """fg_motion string -> warp class + kwargs. Only the skeleton warps are
-    ported; rigid, dense, nvp, bob and comp_* are ROADMAP.md P9."""
+    """fg_motion string -> warp class + kwargs. rigid and the skeleton warps
+    are ported; dense, nvp, bob and comp_* wait on ROADMAP.md queue 1, item 6."""
+    if fg_motion == "rigid":
+        return {"cls": IdentityWarp, "kwargs": {}}
     if fg_motion.startswith("skel-"):
         return {"cls": SkinningWarp, "kwargs": {"skel_type": fg_motion.split("-")[1]}}
     raise NotImplementedError(
-        f"fg_motion {fg_motion!r} is not ported yet (ROADMAP.md, P9 other families)"
+        f"fg_motion {fg_motion!r} is not ported yet (ROADMAP.md, queue 1, item 6)"
     )

@@ -9,16 +9,18 @@ JAX trainer) and the same outputs under
     python -m lab4d_tpu_torch.render --seqname cat --logname run \\
         --fg_motion skel-quad --load_suffix latest --render_res 512
 
-Rendering uses the exact merged two-pass eval (the JAX CLI's
-`--eval_topk 0`). Top-k eval and channel subsets are not ported yet.
-`--flagfile` reads a run's opts.log (flagfile.py), as the JAX CLI does.
+As in the JAX CLI, the heavy channels run at the 8 highest-weight samples
+of each ray by default (`--eval_topk 8`; 0: the exact every-sample eval),
+and `--render_keys` renders a subset of the channels. `--flagfile` reads a
+run's opts.log (flagfile.py), as the JAX CLI does. reanimate.py renders
+through `render` with its own batch.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -31,13 +33,19 @@ from lab4d_tpu_torch.utils import cam_traj as C
 from lab4d_tpu_torch.utils.geom import K2inv, K2mat, mat2K
 from lab4d_tpu_torch.utils.io import make_save_dir, save_rendered
 
-# rays per evaluate_rays call at 512^2: sized so the activations of the
-# normal-gradient pass (both halves of 64 samples per ray) stay a few GB
+# rays per evaluate_rays call at 512^2, by eval mode. Exact: sized so the
+# activations of the normal-gradient pass (both halves of 64 samples per
+# ray) stay a few GB. Top-k: its 64-sample pass keeps no gradient and its
+# heavy pass holds 8 samples per ray (PERF.md: the chunk sweeps of
+# tools/profile_render.py)
 DEFAULT_CHUNK = 16384
+TOPK_CHUNK = 65536
 
 
-def get_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+def common_parser(description: str) -> argparse.ArgumentParser:
+    """The flags the render, export and reanimate CLIs share: the run, its
+    checkpoint, the dataset, the model and the device."""
+    p = argparse.ArgumentParser(description=description)
     p.add_argument("--seqname", default="cat", help="name of the sequence")
     p.add_argument("--logname", default="tmp", help="name of the saved log")
     p.add_argument("--load_suffix", default="", help="suffix of params, {latest, 0, 10, ...}")
@@ -49,8 +57,16 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--feature_type", default="dinov2", help="{dinov2, cse}")
     p.add_argument("--field_type", default="fg", help="{bg, fg, comp}; fg and bg are ported")
     p.add_argument("--fg_motion", default="rigid",
-                   help="{rigid, dense, bob, skel-human, skel-quad}; only skel-quad is ported")
+                   help="{rigid, dense, bob, skel-human, skel-quad}; rigid and skel-quad "
+                        "are ported")
     p.add_argument("--inst_id", type=int, default=0, help="video/instance id")
+    p.add_argument("--device", default="cuda", help="torch device to run on")
+    add_flagfile_option(p)
+    return p
+
+
+def get_parser() -> argparse.ArgumentParser:
+    p = common_parser(__doc__.split("\n")[0])
     p.add_argument("--render_res", type=int, default=128, help="rendering resolution")
     p.add_argument("--viewpoint", default="ref",
                    help="camera viewpoint, {ref, rot-elev-deg, bev-elev}")
@@ -59,22 +75,25 @@ def get_parser() -> argparse.ArgumentParser:
                    help="frames to render if freeze_id used")
     p.add_argument("--noskip", action="store_true", help="render all frames skipped by flow")
     p.add_argument("--render_keys", default="",
-                   help="channel subset to render; only '' (every channel) is ported")
-    p.add_argument("--eval_topk", type=int, default=0,
-                   help="per-ray sample budget of the heavy eval channels; only 0 "
-                        "(exact every-sample evaluation) is ported")
-    p.add_argument("--device", default="cuda", help="torch device to render on")
-    add_flagfile_option(p)
+                   help="comma-separated channel subset to render (e.g. rgb,depth,mask,"
+                        "normal); '' renders every channel. Restricting channels skips "
+                        "their producers (feature/vis MLPs, cycle warp, the normal-gradient "
+                        "pass)")
+    p.add_argument("--eval_topk", type=int, default=8,
+                   help="per-ray sample budget for the heavy eval channels: density and the "
+                        "integration weights still use all 64 union samples, heavy heads "
+                        "(rgb/vis/feature/normal vjp/cycle) run only at the top-k weighted "
+                        "samples. 0 = exact every-sample evaluation (the reference's "
+                        "behavior). Approximation error is bounded by the dropped "
+                        "integration mass")
     return p
 
 
-def check_opts(opts: Dict):
-    if opts["eval_topk"] != 0:
-        raise NotImplementedError(
-            "--eval_topk > 0 (query_field_eval_topk) is not ported yet (ROADMAP.md, P8)"
-        )
-    if opts["render_keys"]:
-        raise NotImplementedError("--render_keys is not ported yet (ROADMAP.md, P8)")
+def eval_mode(opts: Dict):
+    """(topk, channels) of evaluate_rays from --eval_topk and --render_keys."""
+    topk = opts["eval_topk"] if opts["eval_topk"] > 0 else None
+    keys = frozenset(k.strip() for k in opts["render_keys"].split(",") if k.strip())
+    return topk, keys or None
 
 
 def construct_test_model(opts: Dict, device):
@@ -93,8 +112,10 @@ def construct_test_model(opts: Dict, device):
 
 
 def construct_batch_from_opts(opts: Dict, model: DVRModel, geo_state, data_info, device):
-    """Render batch for the selected viewpoint; returns (batch, raw_size)."""
-    video_id = opts["inst_id"]
+    """Render batch for the selected viewpoint; returns (batch, raw_size).
+    The frames are those of video opts["motion_id"] where it is given
+    (reanimation), else of opts["inst_id"]."""
+    video_id = opts.get("motion_id", opts["inst_id"])
     raw_size = data_info["raw_size"][video_id]
     vid_length = data_utils.get_vid_length(video_id, data_info)
     frame_info = data_info["frame_info"]
@@ -138,7 +159,17 @@ def construct_batch_from_opts(opts: Dict, model: DVRModel, geo_state, data_info,
         raw_size = (640, 640)
     elif viewpoint.startswith("bev"):
         elev = int(viewpoint.split("-")[1])
-        field2cam = {"fg": C.get_bev_cam(field2cam_fr["fg"], elev=elev)}
+        if "bg" in field2cam_fr:
+            # above the first frame's camera, looking down at the scene's centre
+            center_to_bev = C.get_object_to_camera_matrix(elev, [1, 0, 0], 0)[None]
+            camt0_to_center = np.eye(4)
+            camt0_to_center[2, 3] = -field2cam_fr["bg"][0, 2, 3]
+            camt0_to_bev = np.linalg.inv(camt0_to_center) @ center_to_bev @ camt0_to_center
+            bg2bev = camt0_to_bev @ field2cam_fr["bg"][:1]
+            bg2bev[..., 2, 3] *= 3
+            field2cam = {"bg": np.tile(bg2bev, (render_length, 1, 1))}
+        else:
+            field2cam = {"fg": C.get_bev_cam(field2cam_fr["fg"], elev=elev)}
         camera_int = np.zeros((render_length, 4))
         camera_int[:, :2] = opts["render_res"] * 2
         camera_int[:, 2:] = opts["render_res"] / 2
@@ -153,10 +184,15 @@ def construct_batch_from_opts(opts: Dict, model: DVRModel, geo_state, data_info,
     return batch, raw_size
 
 
-def render_batch(model: DVRModel, batch, geo_state, chunk: int = DEFAULT_CHUNK):
+def render_batch(model: DVRModel, batch, geo_state, chunk: Optional[int] = None,
+                 topk: Optional[int] = None, channels=None):
     """Render the batch frame by frame, `chunk` rays per evaluate_rays
-    call. Returns {channel: (frames, res, res, C) float32 numpy}; every
-    non-mask channel is already mask-blended by evaluate_rays."""
+    call (None: the eval mode's DEFAULT_CHUNK or TOPK_CHUNK); topk and
+    channels: evaluate_rays'. Returns {channel: (frames, res, res, C)
+    float32 numpy}; every non-mask channel is already mask-blended by
+    evaluate_rays."""
+    if chunk is None:
+        chunk = TOPK_CHUNK if topk is not None else DEFAULT_CHUNK
     device = batch["hxy"].device
     geo = {
         cate: {
@@ -182,7 +218,7 @@ def render_batch(model: DVRModel, batch, geo_state, chunk: int = DEFAULT_CHUNK):
             outs: Dict[str, list] = {}
             for s in range(0, npix, chunk):
                 samples_c = {c: {**samples[c], "hxy": hxy[:, s : s + chunk]} for c in samples}
-                for k, v in model.evaluate_rays(samples_c).items():
+                for k, v in model.evaluate_rays(samples_c, topk=topk, channels=channels).items():
                     if v.ndim >= 3:  # (1, rays, C) image channels
                         outs.setdefault(k, []).append(v[0])
             res = int(round(np.sqrt(npix)))
@@ -193,13 +229,16 @@ def render_batch(model: DVRModel, batch, geo_state, chunk: int = DEFAULT_CHUNK):
     return {k: np.stack(v) for k, v in frames.items()}
 
 
-def render(opts: Dict):
-    check_opts(opts)
+def render(opts: Dict, construct_batch_func=construct_batch_from_opts):
+    """Render the run's checkpoint into renderings_<inst_id>/<viewpoint>/;
+    construct_batch_func(opts, model, geo_state, data_info, device) ->
+    (batch, raw_size) builds the frames' batch."""
     device = torch.device(opts["device"])
     model, geo_state, data_info = construct_test_model(opts, device)
-    batch, raw_size = construct_batch_from_opts(opts, model, geo_state, data_info, device)
+    batch, raw_size = construct_batch_func(opts, model, geo_state, data_info, device)
     save_dir = make_save_dir(opts, sub_dir="renderings_%04d/%s" % (opts["inst_id"], opts["viewpoint"]))
-    rendered = render_batch(model, batch, geo_state)
+    topk, channels = eval_mode(opts)
+    rendered = render_batch(model, batch, geo_state, topk=topk, channels=channels)
     save_rendered(rendered, save_dir, raw_size, data_info["apply_pca_fn"])
     print("Saved to %s" % save_dir)
     return rendered

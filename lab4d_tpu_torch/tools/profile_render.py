@@ -1,13 +1,15 @@
 """Where the time of a 512^2 render frame goes, on one CUDA device.
 
-    python3 -m lab4d_tpu_torch.tools.profile_render [--out FILE]
+    python3 -m lab4d_tpu_torch.tools.profile_render [--eval_topk K] [--out FILE]
 
 Run from the root of a checkout. It builds the smoke model of
 chip_smoke.py (flagship fg / skel-quad at full width, random weights from
-seed 0, one in-process orbit video) and then:
+seed 0, one in-process orbit video) and then, in the eval mode of
+`--eval_topk` (the render CLI's flag and default: 8; 0 is the exact eval):
 
-1. renders one frame `--reps` times at the render CLI's chunk size and
-   prints ms/frame for each (host clock, after a device synchronise);
+1. renders one frame `--reps` times at the render CLI's chunk size for
+   that mode and prints ms/frame for each (host clock, after a device
+   synchronise);
 2. sweeps the ray chunk size, in the given order and then in reverse,
    printing ms/frame and peak device memory for each;
 3. traces one frame with torch.profiler and prints, per op, the device
@@ -29,8 +31,10 @@ import time
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--res", type=int, default=512)
+    parser.add_argument("--eval_topk", type=int, default=8)
     parser.add_argument("--reps", type=int, default=3)
-    parser.add_argument("--chunks", type=int, nargs="*", default=[8192, 16384, 32768, 65536])
+    parser.add_argument("--chunks", type=int, nargs="*",
+                        default=[8192, 16384, 32768, 65536, 131072])
     parser.add_argument("--top", type=int, default=15)
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
@@ -43,7 +47,12 @@ def main(argv=None):
         sys.exit("profile_render: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
     import chip_smoke
-    from lab4d_tpu_torch.render import DEFAULT_CHUNK, construct_batch_from_opts, render_batch
+    from lab4d_tpu_torch.render import (
+        DEFAULT_CHUNK,
+        TOPK_CHUNK,
+        construct_batch_from_opts,
+        render_batch,
+    )
 
     card = chip_smoke.phase_env()
     data_info = chip_smoke.make_scene()
@@ -52,27 +61,30 @@ def main(argv=None):
             "num_frames": 1, "noskip": False}
     batch, _ = construct_batch_from_opts(opts, model, geo, data_info, "cuda")
     warm, _ = construct_batch_from_opts(dict(opts, render_res=32), model, geo, data_info, "cuda")
-    render_batch(model, warm, geo)
+    topk = args.eval_topk if args.eval_topk > 0 else None
+    chunk_cli = TOPK_CHUNK if topk is not None else DEFAULT_CHUNK
+    render_batch(model, warm, geo, topk=topk)
     torch.cuda.synchronize()
 
     def frame_ms(chunk):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        render_batch(model, batch, geo, chunk=chunk)
+        render_batch(model, batch, geo, chunk=chunk, topk=topk)
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3
 
-    print(f"[frame] {args.res}^2, chunk {DEFAULT_CHUNK}: "
-          + " ".join(f"{frame_ms(DEFAULT_CHUNK):.1f}" for _ in range(args.reps)) + f" ms/frame ({card})")
+    mode = "exact eval" if topk is None else f"top-{topk} eval"
+    print(f"[frame] {args.res}^2, {mode}, chunk {chunk_cli}: "
+          + " ".join(f"{frame_ms(chunk_cli):.1f}" for _ in range(args.reps)) + f" ms/frame ({card})")
     for chunk in args.chunks + args.chunks[::-1]:
         torch.cuda.reset_peak_memory_stats()
         ms = frame_ms(chunk)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"[chunk] {chunk}: {ms:.1f} ms/frame, peak {peak:.2f} GiB")
+        print(f"[chunk] {mode}, {chunk}: {ms:.1f} ms/frame, peak {peak:.2f} GiB")
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = frame_ms(DEFAULT_CHUNK)
+        wall = frame_ms(chunk_cli)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_us = sum(e.device_time for e in kernels)
     k3 = [e.device_time for e in kernels if "rm_fwd_kernel" in e.name]

@@ -10,8 +10,8 @@ proxy meshes and ckpt_*.flax checkpoints in the JAX trainer's layout).
     python -m lab4d_tpu_torch.train --seqname cat --logname fg --field_type fg \
         --fg_motion skel-quad
 
---field_type bg and --field_type fg with --fg_motion skel-quad are ported;
-the other motions and comp are not yet (ROADMAP.md). opts.log is written
+--field_type bg and --field_type fg with --fg_motion rigid or skel-quad
+are ported; the other motions and comp are not yet (ROADMAP.md). opts.log is written
 in the JAX package's format (flagfile.py), and `--flagfile` reads one.
 """
 
@@ -53,7 +53,8 @@ def get_parser() -> argparse.ArgumentParser:
         p.add_argument(f"--{name}", type=float, default=default, help=help_)
     p.add_argument("--field_type", default="fg", help="{bg, fg, comp}; bg and fg are ported")
     p.add_argument("--fg_motion", default="rigid",
-                   help="{rigid, dense, bob, skel-human, skel-quad}; skel-quad is ported")
+                   help="{rigid, dense, bob, skel-human, skel-quad}; rigid and skel-quad "
+                        "are ported")
     p.add_argument("--single_inst", action=argparse.BooleanOptionalAction, default=True,
                    help="assume the same morphology over objs")
     p.add_argument("--seqname", default="cat", help="name of the sequence")
@@ -87,11 +88,11 @@ def check_opts(opts: Dict):
     if opts["field_type"] not in ("bg", "fg"):
         raise NotImplementedError(
             f"--field_type {opts['field_type']} (fg and bg composed) is not ported yet "
-            "(ROADMAP.md, P9); --field_type bg and fg train")
-    if opts["field_type"] == "fg" and opts["fg_motion"] != "skel-quad":
+            "(ROADMAP.md, queue 1, item 6); --field_type bg and fg train")
+    if opts["field_type"] == "fg" and opts["fg_motion"] not in ("rigid", "skel-quad"):
         raise NotImplementedError(
-            f"--fg_motion {opts['fg_motion']} is not ported yet (ROADMAP.md, P9); "
-            "--field_type fg trains with --fg_motion skel-quad")
+            f"--fg_motion {opts['fg_motion']} is not ported yet (ROADMAP.md, queue 1, item 6); "
+            "--field_type fg trains with --fg_motion rigid or skel-quad")
     if opts["load_path"]:
         raise NotImplementedError("--load_path (resuming) is not ported yet (ROADMAP.md)")
 

@@ -142,6 +142,11 @@ def dual_quaternion_to_quaternion_translation(dq: DualQuaternion) -> QuaternionT
     return q_r, t
 
 
+def dual_quaternion_to_se3(dq: DualQuaternion) -> torch.Tensor:
+    q, t = dual_quaternion_to_quaternion_translation(dq)
+    return quaternion_translation_to_se3(q, t)
+
+
 def dual_quaternion_mul(dq1: DualQuaternion, dq2: DualQuaternion) -> DualQuaternion:
     r1, d1 = dq1
     r2, d2 = dq2

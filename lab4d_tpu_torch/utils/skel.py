@@ -9,7 +9,7 @@ topological order.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,11 @@ class Skeleton:
     @property
     def rest_joints(self) -> np.ndarray:
         return self.rest_joints_np
+
+    @property
+    def edges(self) -> Dict[int, int]:
+        """1-indexed child -> parent (0 = world), as export draws bones."""
+        return {i + 1: p + 1 for i, p in enumerate(self.parents)}
 
 
 def _topo_sort(parents) -> Tuple[int, ...]:
@@ -176,7 +181,7 @@ def get_predefined_skeleton(skel_type: str) -> Skeleton:
     18-joint human skeleton is not ported yet (ROADMAP, other families)."""
     if skel_type != "quad":
         raise NotImplementedError(
-            f"skeleton {skel_type!r} is not ported yet (ROADMAP.md, P9 other families)"
+            f"skeleton {skel_type!r} is not ported yet (ROADMAP.md, queue 1, item 6)"
         )
     rest = _QUAD_REST_JOINTS.copy()
     rest[:, 1:] *= -1

@@ -1,9 +1,20 @@
-"""Visualization helpers: tag-aware colorization and image grids. The
-port's copy of the parts of lab4d_tpu/utils/vis.py that rendering uses."""
+"""Visualization helpers: tag-aware colorization, image grids and bone
+meshes. The port's copy of the parts of lab4d_tpu/utils/vis.py that
+rendering and export use."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from lab4d_tpu_torch.meshlib import Mesh, concatenate, uv_sphere
+
+# matplotlib's gist_rainbow (its segment data, sampled into 256 entries as
+# matplotlib does), so that bone colours need no matplotlib
+_GIST_RAINBOW = (
+    (0.0, (1.0, 0.0, 0.16)), (0.03, (1.0, 0.0, 0.0)), (0.215, (1.0, 1.0, 0.0)),
+    (0.4, (0.0, 1.0, 0.0)), (0.586, (0.0, 1.0, 1.0)), (0.77, (0.0, 0.0, 1.0)),
+    (0.954, (1.0, 0.0, 1.0)), (1.0, (1.0, 0.0, 0.75)),
+)
 
 
 def flow_to_color(flow: np.ndarray, max_mag=None) -> np.ndarray:
@@ -78,3 +89,51 @@ def make_image_grid(imgs: np.ndarray) -> np.ndarray:
         r, c = divmod(i, cols)
         grid[r * H : (r + 1) * H, c * W : (c + 1) * W] = imgs[i]
     return grid
+
+
+def get_colormap(num: int, repeat: int = 1) -> np.ndarray:
+    """Distinct colors (0-255) for bone visualization: matplotlib's
+    gist_rainbow at num evenly spaced points."""
+    xs = np.array([x for x, _ in _GIST_RAINBOW])
+    rgb = np.array([c for _, c in _GIST_RAINBOW])
+    lut = np.stack([np.interp(np.linspace(0, 1, 256), xs, rgb[:, i]) for i in range(3)], -1)
+    idx = np.clip((np.linspace(0, 1, max(num, 1)) * 256).astype(int), 0, 255)
+    return np.repeat(lut[idx] * 255, repeat, axis=0)
+
+
+def draw_skeleton_bones(centers: np.ndarray, edges=None, radius=5e-3) -> Mesh:
+    """Small spheres at bone centers (+ simple edge struts)."""
+    meshes = []
+    cmap = get_colormap(len(centers))
+    for k, c in enumerate(centers):
+        s = uv_sphere(radius=radius, count=[4, 4])
+        s.vertices = s.vertices + c
+        s.vertex_colors = np.tile(cmap[k], (len(s.vertices), 1))
+        meshes.append(s)
+    if edges is not None:
+        for child, parent in edges.items():
+            if parent <= 0:
+                continue
+            meshes.append(_strut(centers[parent - 1], centers[child - 1], radius * 0.3))
+    return concatenate(meshes)
+
+
+def _strut(a, b, r) -> Mesh:
+    """Triangular prism between two points."""
+    d = b - a
+    n = np.linalg.norm(d)
+    if n < 1e-9:
+        return Mesh()
+    d = d / n
+    u = np.cross(d, [0, 0, 1.0])
+    if np.linalg.norm(u) < 1e-6:
+        u = np.cross(d, [0, 1.0, 0])
+    u = u / np.linalg.norm(u)
+    w = np.cross(d, u)
+    offs = [u * r, (-0.5 * u + 0.866 * w) * r, (-0.5 * u - 0.866 * w) * r]
+    verts = [a + o for o in offs] + [b + o for o in offs]
+    faces = [
+        [0, 1, 2], [3, 5, 4],
+        [0, 3, 1], [1, 3, 4], [1, 4, 2], [2, 4, 5], [2, 5, 0], [0, 5, 3],
+    ]
+    return Mesh(np.asarray(verts), np.asarray(faces))

@@ -6,7 +6,9 @@
   prepare_eval_samples + evaluate_rays (exact merged eval); every
   returned channel is compared;
 - CLI: `python -m lab4d_tpu_torch.render` renders a tests/synthetic.py
-  scene from a .flax checkpoint in the JAX trainer's layout.
+  scene from a .flax checkpoint in the JAX trainer's layout (top-k 8 by
+  default, --render_keys, bev of a bg checkpoint), and
+  `python -m lab4d_tpu_torch.export` / `reanimate` run on it.
 
 Tolerances (fp32 on both sides, sums in other orders): rgb, mask, vis,
 feature and the other bounded channels atol 1e-4; depth rtol 1e-4;
@@ -15,6 +17,7 @@ input gradient, which the Fourier phases of the 10-octave embedding
 amplify (docs/qa.md).
 """
 
+import json
 import os
 
 import numpy as np
@@ -121,13 +124,6 @@ def test_cpu_never_launches_the_kernel(jax_flagship):
     assert torch.isfinite(quat).all() and torch.isfinite(trans).all()
 
 
-@pytest.mark.parametrize("flag,value", [("--eval_topk", "8"), ("--render_keys", "rgb")])
-def test_cli_rejects_unported_options(flag, value):
-    opts = vars(R.get_parser().parse_args([flag, value]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.check_opts(opts)
-
-
 @pytest.fixture(scope="module")
 def cli_scene(jax_flagship, tmp_path_factory):
     """A tests/synthetic.py scene (one video of 8 frames, the same param
@@ -173,6 +169,114 @@ def test_cli_renders_a_jax_checkpoint(cli_scene, viewpoint):
     assert (rendered["mask"] >= 0).all() and (rendered["mask"] <= 1 + 1e-6).all()
     out_dir = cli_scene / "logdir" / "simq-e2e" / "renderings_0000" / viewpoint
     assert any(name.startswith("rgb") for name in os.listdir(out_dir))
+
+
+CLI_COMMON = ["--seqname", "simq", "--logname", "e2e", "--fg_motion", "skel-quad",
+              "--train_res", "16", "--load_suffix", "latest", "--device", "cpu"]
+
+
+def _cli_args(root):
+    return CLI_COMMON + ["--database_root", str(root / "database"),
+                         "--logroot", str(root / "logdir")]
+
+
+def test_cli_defaults_to_topk8_and_renders_key_subsets(cli_scene, jax_flagship):
+    """With no --eval_topk the CLI renders the top-k eval at K = 8 (its
+    frames equal render_batch's with topk=8, and differ from the exact
+    eval's); --render_keys rgb,mask returns those channels alone, equal to
+    the full render's."""
+    args = _cli_args(cli_scene) + ["--render_res", "8", "--freeze_id", "1", "--num_frames", "1"]
+    assert R.get_parser().parse_args([]).eval_topk == 8
+    full = R.main(args)
+    keys = R.main(args + ["--render_keys", "rgb,mask"])
+    exact = R.main(args + ["--eval_topk", "0"])
+    assert sorted(keys) == ["mask", "rgb"]
+    for k, v in keys.items():
+        np.testing.assert_allclose(v, full[k], rtol=1e-5, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(full["mask"], exact["mask"], atol=1e-4)
+
+    opts = vars(R.get_parser().parse_args(args))
+    model, geo_state, data_info = R.construct_test_model(opts, torch.device("cpu"))
+    batch, _ = R.construct_batch_from_opts(opts, model, geo_state, data_info, "cpu")
+    for topk, want in ((8, full), (None, exact)):
+        direct = R.render_batch(model, batch, geo_state, topk=topk)
+        for k in ("rgb", "depth"):
+            np.testing.assert_allclose(want[k], direct[k], atol=1e-6, err_msg=k)
+    assert float(full["mask"].max()) > 0.1
+    assert not np.allclose(full["rgb"], exact["rgb"], atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def cli_scene_bg(cli_scene):
+    """A bg checkpoint of tests/test_model.py's bg model beside cli_scene's
+    fg one (logname e2e-bg)."""
+    jmodel, bbatch = make_model_and_batch("bg", M=2, N=4)
+    params = jax.tree.map(np.asarray, dict(init_params_with_intrinsics_prior(
+        jmodel, bbatch, compute_sched(100))["params"]))
+    from lab4d_tpu.meshlib import uv_sphere
+
+    proxy = uv_sphere(radius=0.5, count=[4, 4])
+    payload = {
+        "manifest": {"format": 1, "current_steps": 0, "current_round": 0},
+        "model": params,
+        "geo_state": {"bg": {
+            "aabb": proxy.bounds.astype(np.float32),
+            "near_far": np.tile(np.array([0.1, 4.0], np.float32), (8, 1)),
+            "corners": proxy.corners().astype(np.float32),
+        }},
+        "proxy": {"bg": {"vertices": np.asarray(proxy.vertices, np.float32),
+                         "faces": np.asarray(proxy.faces, np.int32)}},
+    }
+    logdir = cli_scene / "logdir" / "simq-e2e-bg"
+    logdir.mkdir(parents=True)
+    (logdir / "ckpt_latest.flax").write_bytes(serialization.msgpack_serialize(payload))
+    return cli_scene
+
+
+def test_cli_renders_bev_of_a_bg_checkpoint(cli_scene_bg):
+    args = _cli_args(cli_scene_bg) + ["--field_type", "bg", "--logname", "e2e-bg",
+                                      "--render_res", "8", "--viewpoint", "bev-30",
+                                      "--freeze_id", "0", "--num_frames", "2"]
+    rendered = R.main(args)
+    assert {"rgb", "mask", "depth", "normal", "vis"} <= set(rendered)
+    for k, v in rendered.items():
+        assert v.shape[:3] == (2, 8, 8) and np.isfinite(v).all(), k
+    assert os.listdir(cli_scene_bg / "logdir" / "simq-e2e-bg" / "renderings_0000" / "bev-30")
+
+
+@pytest.mark.parametrize("logname,field_type", [("e2e", "fg"), ("e2e-bg", "bg")])
+def test_cli_exports(cli_scene_bg, logname, field_type):
+    """`python -m lab4d_tpu_torch.export` at --grid_size 16: the rest mesh,
+    a mesh per frame (and bones for the skeleton), <cate>-motion.json."""
+    from lab4d_tpu_torch import export as E
+
+    out = E.main(_cli_args(cli_scene_bg) + ["--logname", logname, "--field_type", field_type,
+                                            "--grid_size", "16"])
+    assert out == str(cli_scene_bg / "logdir" / f"simq-{logname}" / "export_0000")
+    names = set(os.listdir(out))
+    motion = json.load(open(os.path.join(out, f"{field_type}-motion.json")))
+    assert sorted(motion) == ["field2cam", "joint_so3", "t_articulation"]
+    assert np.asarray(motion["field2cam"]).shape == (8, 4, 4)
+    assert {f"{field_type}.obj"} | {f"{field_type}-{i:05d}.obj" for i in range(8)} <= names
+    if field_type == "fg":
+        assert np.asarray(motion["joint_so3"]).shape == (8, 25, 3)
+        assert np.asarray(motion["t_articulation"]).shape == (8, 25, 4, 4)
+    for v in motion.values():
+        assert np.isfinite(np.asarray(v)).all()
+
+
+def test_cli_reanimates(cli_scene_bg):
+    """`python -m lab4d_tpu_torch.reanimate --motion_id 0` renders the fg
+    model under the motion its export wrote."""
+    from lab4d_tpu_torch import export as E
+    from lab4d_tpu_torch import reanimate as RA
+
+    args = _cli_args(cli_scene_bg)
+    E.main(args + ["--grid_size", "16"])
+    rendered = RA.main(args + ["--motion_id", "0", "--render_res", "8", "--freeze_id", "0",
+                               "--render_keys", "rgb,mask"])
+    assert sorted(rendered) == ["mask", "rgb"]
+    assert rendered["rgb"].shape == (8, 8, 8, 3) and np.isfinite(rendered["rgb"]).all()
 
 
 def test_render_batch_chunking(jax_flagship):

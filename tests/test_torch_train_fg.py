@@ -69,10 +69,10 @@ def _draws():
     }
 
 
-def _port_model(jmodel):
+def _port_model(jmodel, fg_motion="skel-quad"):
     fi = jmodel.frame_info
     return DVRModel(FrameInfo(fi.frame_offset, fi.frame_offset_raw, fi.frame_mapping),
-                    field_type="fg", fg_motion="skel-quad", device="cpu",
+                    field_type="fg", fg_motion=fg_motion, device="cpu",
                     intrinsics_init=jmodel.intrinsics_init, rtmat_fg=jmodel.rtmat_fg,
                     rtmat_bg=jmodel.rtmat_bg, train_res=jmodel.train_res,
                     loss_weights=LOSS_WEIGHTS)
@@ -94,10 +94,18 @@ def fg_step(flagship):
     """One training step of both packages: loss terms, grads, and params
     after an AdamW update."""
     jmodel, batch, params = flagship
-    draws = _draws()
+    return run_step(jmodel, batch, params, _draws(), "skel-quad",
+                    {"choice": 1, "uniform": 2, "randint": 2})
+
+
+def run_step(jmodel, batch, params, draws, fg_motion, want_calls):
+    """One training step of the fg model of both packages on the same
+    draws (keyed by the port's names; want_calls: how many times JAX draws
+    from each jax.random function): loss terms, grads, and params after an
+    AdamW update."""
     by_shape = {  # jax.random function -> {shape: the draw}
         "choice": {draws["eikonal_idx"].shape: draws["eikonal_idx"]},
-        "uniform": {(512, 3): draws["vis_u"], (2048, 3): draws["gauss_u"]},
+        "uniform": {draws[k].shape: draws[k] for k in ("vis_u", "gauss_u") if k in draws},
         "randint": {(512,): draws["vis_inst"], (1024,): draws["match_idx"]},
     }
     calls = {k: 0 for k in by_shape}
@@ -127,7 +135,7 @@ def fg_step(flagship):
         (total, jld), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
     finally:
         mp.undo()
-    assert calls == {"choice": 1, "uniform": 2, "randint": 2}
+    assert calls == want_calls
     labels = jtrainer.param_labels(params)
 
     def make_adamw(peak):
@@ -141,7 +149,7 @@ def fg_step(flagship):
     updates, opt_state = tx.update(jgrads, tx.init(params), params)
     jnew = optax.apply_updates(params, updates)
 
-    pmodel = _port_model(jmodel)
+    pmodel = _port_model(jmodel, fg_motion)
     pmodel.load_state_dict(bridge.params_from_flax(jax.tree.map(np.asarray, params)), strict=True)
     tbatch = {k: torch.tensor(np.asarray(v)) for k, v in batch.items() if k != "geo"}
     tbatch["geo"] = {c: {k: torch.tensor(np.asarray(v)) for k, v in g.items()}
@@ -156,7 +164,11 @@ def fg_step(flagship):
            for n, label in T.param_labels(pmodel).items()}
     pld, gnorm = trainer.train_step(tbatch, STEP, draws=tdraws)
     pgrads = {n: p.grad.detach().clone() for n, p in pmodel.named_parameters()}
+    # JAX's optimizer on the port's own gradients
+    pg_tree = jax.tree.map(jnp.asarray, bridge.params_to_flax(pgrads))
+    jnew_port_grads = optax.apply_updates(params, tx.update(pg_tree, tx.init(params), params)[0])
     return {
+        "jax_new_from_port_grads": jax.tree.map(np.asarray, jnew_port_grads),
         "jax_loss": {k: float(v) for k, v in jld.items()}, "jax_total": float(total),
         "port_loss": {k: float(v) for k, v in pld.items()},
         "jax_grads": jax.tree.map(np.asarray, jgrads), "port_grads": pgrads,
@@ -188,8 +200,16 @@ def test_grad_norm_matches_jax(fg_step):
 
 
 def test_every_gradient_matches_jax(fg_step):
-    got = fg_step["port_grads"]
-    leaves = _flax_leaves(fg_step["jax_grads"])
+    check_every_gradient(fg_step, ("basefield", "colorfield", "vis_mlp", "feature_field",
+                                   "rgb_head", "sdf_head", "skinning_model", "articulation",
+                                   "logsigma", "appr_embedding"))
+
+
+def check_every_gradient(step, parts):
+    """Every gradient within 1e-5 + 1e-3 max|g_jax| of JAX's, per leaf, and
+    each of `parts` received one."""
+    got = step["port_grads"]
+    leaves = _flax_leaves(step["jax_grads"])
     assert len(leaves) == len(got)
     for path, g_jax in leaves.items():
         key, transpose = bridge.flax_to_torch_key(path)
@@ -199,21 +219,23 @@ def test_every_gradient_matches_jax(fg_step):
         err = float(np.abs(have - want).max())
         bound = 1e-5 + 1e-3 * float(np.abs(want).max())
         assert err <= bound, (key, err, bound)
-    # every field head, the skinning field and the articulation received a gradient
-    for part in ("basefield", "colorfield", "vis_mlp", "feature_field", "rgb_head", "sdf_head",
-                 "skinning_model", "articulation", "logsigma", "appr_embedding"):
+    for part in parts:
         assert any(np.abs(g.numpy()).max() > 0 for k, g in got.items() if part in k), part
 
 
 def test_params_after_one_adamw_step(fg_step):
+    check_adamw_step(fg_step)
+
+
+def check_adamw_step(step):
     """As tests/test_torch_train.py: elements whose gradient is well above
     its tolerance are held to 1e-6 (scaled by the group's learning rate);
     the others to the largest step an update can take."""
-    got, old = fg_step["port_new"], fg_step["port_old"]
-    lrs = fg_step["port_lrs"]
-    jgrads = _flax_leaves(fg_step["jax_grads"])
+    got, old = step["port_new"], step["port_old"]
+    lrs = step["port_lrs"]
+    jgrads = _flax_leaves(step["jax_grads"])
     n_stable = n_all = 0
-    for path, new in _flax_leaves(fg_step["jax_new"]).items():
+    for path, new in _flax_leaves(step["jax_new"]).items():
         key, transpose = bridge.flax_to_torch_key(path)
         want = (new.T if transpose else new) - old[key].numpy()
         have = got[key].numpy() - old[key].numpy()
