@@ -16,8 +16,8 @@ synchronise; any failure exits non-zero:
    (fused_relu_mlp forward, with and without saving its hidden outputs)
    and K3b (its backward from K3f's saved outputs) at the TimeMLPs' render
    rows (1, 2, 7; 1 row also with the L2 cache flushed) and training rows
-   (32, 256, 512), a ragged 70,001 rows, and 262,144 rows timed with no target (K3f
-   + K3b also against autograd outside the ReLU ties); K4f / K4b (fused_pe_mlp
+   (32, 256, 512) and a ragged 70,001 rows (K3f + K3b also against
+   autograd outside the ReLU ties); K4f / K4b (fused_pe_mlp
    and its backward) at the bg field's base, colour and visibility MLPs
    on 262,144 points and at the 512 visibility-decay points (K4f with and
    without saving its hidden outputs, K4b from the saved ones; K4f + K4b
@@ -27,7 +27,9 @@ synchronise; any failure exits non-zero:
    runs it, saving its layer outputs, and K2 from those; K1 + K2 also
    against autograd outside the ReLU ties), and K4f alone at export's
    canonical SDF grid (262,144 points of the fg base field, 10
-   frequencies, widths 128 x 6, skip at 4, no saving). Max error,
+   frequencies, widths 128 x 6, skip at 4, no saving), and K3f / K3b at
+   the dense warps' shapes (262,144 rows of 167 inputs, skip at 4, no final
+   ReLU: the dense map D6 W256 and the post-warp D2 W256). Max error,
    tolerance, median device time from CUDA-graph replay for kernel and
    plain version, CUDA launches per call, and the bound (the larger of
    FLOPs over the fp32 peak and bytes over the memory rate; for K1 / K2
@@ -75,8 +77,27 @@ synchronise; any failure exits non-zero:
 12. reanimate: reanimate.py's functions on the fg checkpoint with
    --motion_id 0 (phase 11's fg-motion.json), its frames at 128^2: the
    batch's articulations against get_vals(override_so3=...) on the CPU;
-13. k3-paths: every shape K3f launched in phases 6, 8 and 10-12, and K3f /
-   K3b against their plain versions at any the kernel phase did not check.
+13. train-reference-comp: as 9 for the comp model (--field_type comp
+   --fg_motion comp_skel-human_dense: the fg through K1 / K2, the bg
+   through K4f / K4b, the TimeMLPs, the human skeleton's articulation, the
+   dense post-warp and the soft-deformation points through K3f / K3b),
+   every loss term (reg_soft_deform included) and every gradient, both
+   fields' eikonal drawn at the same rays;
+14. train-comp: as 10 for the comp model at full width (262,144 fg +
+   262,144 bg points per step, composed into 128 samples per ray), 25
+   steps: ms/step, peak memory, loss, and K3f's launches per step by
+   shape (rows, inputs);
+15. train-families: bob, skel-human, dense, nvp and comp_skel-quad_dense
+   as the fg field at full width, 5 steps each after 20 geometry-init
+   steps: finite losses, every kernel launched; the dense and comp paths
+   must launch K3f at 262,144 rows of 167 inputs;
+16. render-comp, export-comp, reanimate-comp: the comp checkpoint of 14
+   rendered (2 frames at 512^2 exact and top-k, one bev-30 frame; both
+   fields visible), exported (both categories at grid 128) and reanimated
+   (motion 0, 32 frames at 128^2);
+17. k3-paths: every shape K3f launched in phases 6, 8, 10-12 and 14-16,
+   and K3f / K3b against their plain versions at any the kernel phase did
+   not check.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel; the last line is
@@ -136,10 +157,18 @@ K3_TRAIN = ("camera/intrinsics train D5 W256", 256, 256, 5, 256)
 K3_TRAIN_SHAPES = [K3_TRAIN, ("appearance train D2 W64", 256, 64, 2, 64),
                    ("articulation train D5 W256", 512, 256, 5, 256),
                    ("camera, all 32 frames D5 W256", 32, 256, 5, 256)]
-# checked at a ragged count of many rows, and timed (no target) at the
-# dense warp's sample count (ROADMAP queue 1, slice 4)
+# checked at a ragged count of many rows
 K3_RAGGED = ("ragged D5 W256", 70001, 256, 5, 256)
-K3_DENSE = ("dense-warp rows D5 W256", 262144, 256, 5, 256)
+# (label, rows, C_in, widths, skips, final_act) of the dense warps' CondMLPs
+# at a full-width step's samples: PE(xyz) F6 + the 128-wide time code = 167
+# inputs, the instance code folded into the biases, 3 outputs without a
+# final ReLU. The dense warp's forward / backward maps are D6 W256 with the
+# skip at layer 4, the composed warp's post-warp D2 W256 (its skip at 4
+# lies past its layers)
+K3_WARP_SHAPES = [
+    ("dense map D6 W256", 262144, 167, (256,) * 6 + (3,), (4,), False),
+    ("post-warp D2 W256", 262144, 167, (256,) * 2 + (3,), (), False),
+]
 # the shapes tools/profile_k4b_phases.py profiles K3f / K3b at
 K3_PROFILE = [("render D5 W256", 1, 256, 5, 256), K3_TRAIN, K3_TRAIN_SHAPES[1]]
 # (label, rows, n_freqs, widths, skips, final_act, window) of the bg field
@@ -331,8 +360,10 @@ def phase_kernel():
                  if "cuda_launches_per_call" in r else ""))
         results[name].append(r)
 
-    for label, rows, C, D, W in K3_SHAPES + K3_TRAIN_SHAPES + [K3_RAGGED, K3_DENSE]:
+    for label, rows, C, D, W in K3_SHAPES + K3_TRAIN_SHAPES + [K3_RAGGED]:
         _k3_kernels(K, gen, label, rows, C, [W] * (D + 1), report)
+    for label, rows, C, widths, skips, final_act in K3_WARP_SHAPES:
+        _k3_kernels(K, gen, label, rows, C, widths, report, skips, final_act)
 
     for shape in K4_SHAPES:
         _pe_kernels(K, gen, shape, report)
@@ -406,24 +437,27 @@ def cold_ms(fn, reps=20):
     return float(np.median(times))
 
 
-def _k3_kernels(K, gen, label, rows, C, widths, report=None):
-    """K3f and K3b at one MLP shape (final ReLU, as the TimeMLP backbones run)
-    against their plain versions: K3f's output with and without saving
-    and its saved hidden outputs against mlp_forward_saved_reference; K3b
+def _k3_kernels(K, gen, label, rows, C, widths, report=None, skips=(), final_act=True):
+    """K3f and K3b at one MLP shape (by default with a final ReLU and no
+    skip, as the TimeMLP backbones run; the dense warps' maps take a skip
+    and no final ReLU) against their plain versions: K3f's output with and
+    without saving and its saved hidden outputs against
+    mlp_forward_saved_reference; K3b
     from K3f's own saved outputs against mlp_backward_saved_reference on the
     same ones; K3f + K3b against autograd through a recomputed plain
     forward outside the ReLU ties (_mlp_relu_ties: every flipped input
     within 10x K3f's saved error of zero). Then, given report, both timed
-    (the dense-warp shape with no target), with their bounds: fp32 FMA and
+    with their bounds: fp32 FMA and
     3xTF32, K3b's from the saved outputs; K3f also without saving, against
     mlp_reference (a render saves nothing). At 1 row K3f and mlp_reference
     are also timed with the L2 cache flushed."""
     import torch
 
     W = widths[-1]
-    weights, biases = _mlp_params(C, 0, 0, gen, "cuda", widths=list(widths))
+    skips = tuple(skips)
+    weights, biases = _mlp_params(C, 0, 0, gen, "cuda", widths=list(widths), skips=skips)
     x = torch.randn(rows, C, generator=gen).cuda()
-    args = (x, weights, biases, (), True)
+    args = (x, weights, biases, skips, final_act)
     got, acts = K.mlp_forward_saved(*args)
     launches_f = K.fused_relu_mlp.cuda_launches
     got_ns = K.fused_relu_mlp(*args)  # nothing requires a gradient: K3f without saving
@@ -434,8 +468,10 @@ def _k3_kernels(K, gen, label, rows, C, widths, report=None):
     if not got.is_cuda or got.shape != want.shape or not max(err, err_saved) <= KERNEL_TOL:
         fail(f"K3f {label} disagrees with its plain version: output {err}, saved outputs "
              f"{err_saved} > {KERNEL_TOL}")
-    g = torch.randn(rows, W, generator=gen).cuda() * (got > 0)  # the final ReLU's mask, as the caller applies it
-    bwd_args = (x, g, weights, biases, ())
+    g = torch.randn(rows, W, generator=gen).cuda()
+    if final_act:
+        g = g * (got > 0)  # the final ReLU's mask, as the caller applies it
+    bwd_args = (x, g, weights, biases, skips)
     got_b = K.fused_relu_mlp_backward(*bwd_args, saved=acts)
     launches_b = K.fused_relu_mlp_backward.cuda_launches
     want_b = K.mlp_backward_saved_reference(*bwd_args, acts)
@@ -461,7 +497,8 @@ def _k3_kernels(K, gen, label, rows, C, widths, report=None):
 
     if report is None:
         return
-    in_dims, out_dims = [C] + list(widths[:-1]), list(widths)
+    in_dims = [C] + [w + (C if i + 1 in skips else 0) for i, w in enumerate(widths[:-1])]
+    out_dims = list(widths)
     macs = mlp_macs(in_dims, out_dims)
     n_params = macs + sum(out_dims)
     saved_bytes = 4 * rows * sum(widths[:-1])
@@ -989,8 +1026,8 @@ def phase_reference(model, geo_state, data_info, topk=None):
 @contextlib.contextmanager
 def k3_records(calls, shapes):
     """While on, every TimeMLP backbone call counts its rows in
-    calls[class name], and every K3f launch its (rows, C_in, widths) in
-    shapes (both collections.Counter)."""
+    calls[class name], and every K3f launch its (rows, C_in, widths,
+    skips, final ReLU) in shapes (both collections.Counter)."""
     from lab4d_tpu_torch.nnutils.time_mlp import TimeMLP
     from lab4d_tpu_torch.ops import mlp_kernel as K
 
@@ -1001,9 +1038,11 @@ def k3_records(calls, shapes):
             t_embed.reshape(-1, t_embed.shape[-1]).shape[0]] += 1
         return orig_feat(self, t_embed)
 
-    def launch(lib, x, weights, *args, **kwargs):
-        shapes[(x.shape[0], x.shape[1], tuple(w.shape[0] for w in weights))] += 1
-        return orig_launch(lib, x, weights, *args, **kwargs)
+    def launch(lib, x, weights, biases, skip_idx, final_act, *args, **kwargs):
+        skips = tuple(i for i in skip_idx if i < len(weights))
+        shapes[(x.shape[0], x.shape[1], tuple(w.shape[0] for w in weights), skips,
+                bool(final_act))] += 1
+        return orig_launch(lib, x, weights, biases, skip_idx, final_act, *args, **kwargs)
 
     TimeMLP.forward_feat, K._launch_k3f = forward_feat, launch
     try:
@@ -1018,15 +1057,19 @@ def phase_k3_paths(shapes):
     (K3_SHAPES, K3_TRAIN_SHAPES)."""
     from lab4d_tpu_torch.ops import mlp_kernel as K
 
-    checked = {(rows, C, (W,) * (D + 1)) for _, rows, C, D, W in K3_SHAPES + K3_TRAIN_SHAPES}
+    checked = {(rows, C, (W,) * (D + 1), (), True) for _, rows, C, D, W in K3_SHAPES + K3_TRAIN_SHAPES}
+    checked |= {(rows, C, widths, skips, fa) for _, rows, C, widths, skips, fa in K3_WARP_SHAPES}
     gen = torch_generator()
     extra = sorted(set(shapes) - checked)
-    for rows, C, widths in extra:
-        _k3_kernels(K, gen, f"path rows={rows} C={C} widths={list(widths)}", rows, C, widths)
+    for rows, C, widths, skips, final_act in extra:
+        _k3_kernels(K, gen, f"path rows={rows} C={C} widths={list(widths)} skips={list(skips)}"
+                    f"{'' if final_act else ' no final ReLU'}", rows, C, widths,
+                    skips=skips, final_act=final_act)
     sync()
     print(f"[k3-paths] K3f launched at {len(shapes)} shapes on the render and training paths "
-          f"(rows, C_in, widths: launches): "
-          + "; ".join(f"{r}, {c}, {list(w)}: {n}" for (r, c, w), n in sorted(shapes.items()))
+          f"(rows, C_in, widths, skips, final ReLU: launches): "
+          + "; ".join(f"{r}, {c}, {list(w)}, {list(sk)}, {fa}: {n}"
+                      for (r, c, w, sk, fa), n in sorted(shapes.items()))
           + f"; {len(extra)} not in the kernel phase's shapes, checked here against the plain "
           "versions")
 
@@ -1038,7 +1081,7 @@ def torch_generator():
 
 
 def phase_render(model, geo_state, data_info, tag="render", topk=None, channels=None,
-                 n_frames=N_FRAMES):
+                 n_frames=N_FRAMES, viewpoint="ref"):
     """n_frames frames at RES^2 through the render CLI's own functions (eval
     mode topk / channels, as --eval_topk / --render_keys give them);
     returns every kernel's launches over exactly that run, the frames and
@@ -1047,7 +1090,7 @@ def phase_render(model, geo_state, data_info, tag="render", topk=None, channels=
 
     from lab4d_tpu_torch.render import construct_batch_from_opts, render_batch
 
-    opts = {"inst_id": 0, "render_res": RES, "viewpoint": "ref", "freeze_id": 0,
+    opts = {"inst_id": 0, "render_res": RES, "viewpoint": viewpoint, "freeze_id": 0,
             "num_frames": n_frames, "noskip": False}
     # warm-up at a small size: cuBLAS handles, allocator pools
     warm = dict(opts, render_res=32, num_frames=1)
@@ -1078,7 +1121,8 @@ def phase_render(model, geo_state, data_info, tag="render", topk=None, channels=
         fail(f"{tag}: mask outside [0, 1]: [{mask.min()}, {mask.max()}]")
     ms_frame = elapsed / n_frames * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[{tag}] {n_frames} frames at {RES}^2{'' if topk is None else f', top-{topk} eval'}: "
+    print(f"[{tag}] {n_frames} {viewpoint} frames at {RES}^2"
+          f"{'' if topk is None else f', top-{topk} eval'}: "
           f"{ms_frame:.1f} ms/frame, "
           f"launches {' '.join(f'{k}={v}' for k, v in launches.items())}, peak memory {peak:.2f} GiB, "
           f"channels {sorted(rendered)}, mask mean {mask.mean():.4f}")
@@ -1109,12 +1153,56 @@ def phase_render_topk(model, geo_state, data_info, exact):
     return launches
 
 
+def phase_render_comp(db, root):
+    """[render-comp]: the comp checkpoint of [train-comp] through the
+    render CLI's functions: 2 reference frames at 512^2 exact and with the
+    top-k eval (K = 8; its mask within 1e-4 of the exact one's), and one
+    bev-30 frame (the bg's top view with the fg at its pose relative to
+    the bg). Both fields must show: mask_fg and mask_bg each exceed 0.01
+    somewhere. Returns the launches of the exact and top-k runs."""
+    import torch
+
+    from lab4d_tpu_torch.render import construct_test_model, get_parser
+
+    opts = _app_opts(get_parser(), db, root, "comp")
+    model, geo_state, data_info = construct_test_model(opts, torch.device("cuda"))
+    if sorted(geo_state) != ["bg", "fg"]:
+        fail(f"render-comp: the checkpoint holds {sorted(geo_state)}")
+    launches, exact, _ = phase_render(model, geo_state, data_info, "render-comp")
+    for k in ("mask_fg", "mask_bg"):
+        if not float(exact[k].max()) > 0.01:
+            fail(f"render-comp: {k} is nowhere above 0.01: one field renders nothing")
+    topk_launches, topk, _ = phase_render(model, geo_state, data_info, "render-comp-topk", topk=8)
+    mask_err = float(np.abs(topk["mask"] - exact["mask"]).max())
+    if not mask_err <= 1e-4:
+        fail(f"render-comp-topk: mask differs from the exact eval's by {mask_err} > 1e-4")
+    mse = float(np.mean((topk["rgb"].astype(np.float64) - exact["rgb"]) ** 2))
+    print(f"[render-comp] fg pixels {float((exact['mask_fg'] > 0.5).mean()):.4f}, bg pixels "
+          f"{float((exact['mask_bg'] > 0.5).mean()):.4f}; top-k against exact: mask max abs diff "
+          f"{mask_err:.2e} (<=1e-4), rgb PSNR {10 * np.log10(1.0 / max(mse, 1e-20)):.2f} dB")
+    phase_render(model, geo_state, data_info, "render-comp-bev", topk=8, n_frames=1,
+                 viewpoint="bev-30")
+    return {k: launches[k] + topk_launches[k] for k in launches}
+
+
 TRAIN_OPTS = {
     "bg": ["--field_type", "bg", "--seqname", "smoke", "--logname", "bg", "--train_res", "64",
            "--num_workers", "4"],
     "fg": ["--field_type", "fg", "--fg_motion", "skel-quad", "--seqname", "smoke", "--logname", "fg",
            "--train_res", "64", "--num_workers", "4"],
+    "comp": ["--field_type", "comp", "--fg_motion", "comp_skel-human_dense", "--seqname", "smoke",
+             "--logname", "comp", "--train_res", "64", "--num_workers", "4"],
 }
+# [train-families]: the other single-video warps as the fg field, FAMILY_STEPS
+# full-width steps each after FAMILY_GEO_STEPS geometry-init steps
+FAMILIES = ("bob", "skel-human", "dense", "nvp", "comp_skel-quad_dense")
+FAMILY_STEPS, FAMILY_GEO_STEPS = 5, 20
+for _motion in FAMILIES:
+    TRAIN_OPTS[_motion] = ["--field_type", "fg", "--fg_motion", _motion, "--seqname", "smoke",
+                           "--logname", _motion, "--train_res", "64", "--num_workers", "4",
+                           "--geo_init_steps", str(FAMILY_GEO_STEPS)]
+FIELD_NAMES = {"bg": "bg field", "fg": "fg / skel-quad field",
+               "comp": "comp: fg / comp_skel-human_dense + bg fields"}
 
 
 def write_scene(root):
@@ -1160,19 +1248,23 @@ def _relu_inputs(rec):
 def eikonal_records(out):
     """Every NeRF.compute_eikonal call inside appends to `out` its
     per-point eikonal values (n,) and the inputs of its SDF chain's ReLUs
-    (n, units), both fp64 on the CPU."""
+    (n, units), both fp64 on the CPU. A dense eikonal (comp's fields) is
+    read at its drawn rays (the call's idx)."""
     import torch
 
     from lab4d_tpu_torch.nnutils.nerf import NeRF
 
     orig = NeRF.compute_eikonal
 
-    def recorded(self, *args, **kwargs):
+    def recorded(self, xyz, *args, **kwargs):
         rec = []
         with _relu_inputs(rec):
-            eik = orig(self, *args, **kwargs)
+            eik = orig(self, xyz, *args, **kwargs)
         z = torch.cat([t.reshape(-1, t.shape[-1]) for t in rec], 1)
-        out.append({"eikonal": eik.detach().reshape(-1).double().cpu(), "z": z.double().cpu()})
+        vals = eik.detach()
+        if self.eikonal_dense:
+            vals = vals.reshape(xyz.shape[0] * xyz.shape[1], -1)[kwargs["idx"]]
+        out.append({"eikonal": vals.reshape(-1).double().cpu(), "z": z.double().cpu()})
         return eik
 
     NeRF.compute_eikonal = recorded
@@ -1189,24 +1281,31 @@ def _eikonal_ties(got, want, tol):
     eikonal value jumps (PERF.md §7). Returns (the two steps' reg_eikonal
     with the points that hold such a tie left out, a report, failures); the
     ReLU inputs must agree within tol["tie_z"] so that only inputs that
-    close to zero can flip."""
-    if len(got["eikonal"]) != 1 or len(want["eikonal"]) != 1 or \
-            got["eikonal"][0]["z"].shape != want["eikonal"][0]["z"].shape:
-        return None, "", ["the steps differ in their eikonal points or take more than one field's"]
-    (eg, zg), (ew, zw) = ((r["eikonal"], r["z"]) for r in (got["eikonal"][0], want["eikonal"][0]))
+    close to zero can flip. Several records (comp: one per field, drawn at
+    the same rays, so that reg_eikonal is the mean over all their points)
+    are taken together."""
+    import torch
+
+    rec_g, rec_w = got["eikonal"], want["eikonal"]
+    if len(rec_g) != len(rec_w) or not rec_w or \
+            any(a["z"].shape != b["z"].shape for a, b in zip(rec_g, rec_w)):
+        return None, "", ["the steps differ in their eikonal points"]
+    eg, ew = (torch.cat([r["eikonal"] for r in recs]) for recs in (rec_g, rec_w))
     failures = []
-    dz = float((zg - zw).abs().max()) / max(1.0, float(zw.abs().max()))
+    dz = max(float((a["z"] - b["z"]).abs().max()) / max(1.0, float(b["z"].abs().max()))
+             for a, b in zip(rec_g, rec_w))
     if not dz <= tol["tie_z"]:
         failures.append(f"the eikonal term's ReLU inputs differ by {dz} > {tol['tie_z']} of max|z|")
-    flip = (zg > 0) != (zw > 0)
-    rows = flip.any(1)
+    flips = [(a["z"] > 0) != (b["z"] > 0) for a, b in zip(rec_g, rec_w)]
+    rows = torch.cat([f.any(1) for f in flips])
+    zw = torch.cat([b["z"][f] for b, f in zip(rec_w, flips)])
     keep = (~rows).double()
     # reg_eikonal is a scheduled factor times the mean over the points
     adj = [s["loss"]["reg_eikonal"] * float((e * keep).sum() / keep.sum()) / float(e.mean())
            for s, e in ((got, eg), (want, ew))]
     jump = float((eg - ew).abs()[rows].max()) if rows.any() else 0.0
-    z_tie = float(zw.abs()[flip].max()) if rows.any() else 0.0
-    report = (f"eikonal: {int(flip.sum())} ReLU ties in {int(rows.sum())} of {rows.numel()} points "
+    z_tie = float(zw.abs().max()) if rows.any() else 0.0
+    report = (f"eikonal: {int(zw.numel())} ReLU ties in {int(rows.sum())} of {rows.numel()} points "
               f"(largest |z| {z_tie:.2e}; ReLU inputs within {dz:.2e} of max|z|, tol {tol['tie_z']:g}), "
               f"max|d eikonal| {jump:.2e} on them; reg_eikonal relative error with them "
               f"{abs(got['loss']['reg_eikonal'] - want['loss']['reg_eikonal']) / abs(want['loss']['reg_eikonal']):.2e}, "
@@ -1284,13 +1383,13 @@ def plain_kernels():
 
 
 def reference_steps(db, root, cate, geo_init_steps, eikonal_all_rays=False):
-    """A small trainer of the `cate` field ("bg", or the fg / skel-quad
-    model) after its prior fits with `geo_init_steps` geometry steps, one
-    batch of 128 rays of 64 samples and seeded random draws; returns
-    step(device): that training step's loss terms, gradients and eikonal
-    records (eikonal_records) on the device, from the trainer's weights.
-    eikonal_all_rays: the eikonal term at every ray instead of a drawn
-    sixteenth."""
+    """A small trainer of the `cate` model ("bg", the fg / skel-quad model
+    or the comp model) after its prior fits with `geo_init_steps` geometry
+    steps, one batch of 128 rays of 64 samples and seeded random draws;
+    returns step(device): that training step's loss terms, gradients and
+    eikonal records (eikonal_records) on the device, from the trainer's
+    weights. eikonal_all_rays: the eikonal term at every ray instead of a
+    drawn sixteenth. comp's fields draw their eikonal at the same rays."""
     import torch
 
     from lab4d_tpu_torch.engine.trainer import Trainer
@@ -1309,9 +1408,16 @@ def reference_steps(db, root, cate, geo_init_steps, eikonal_all_rays=False):
     draws_np = {"eikonal_idx": rng.permutation(rays)[: rays if eikonal_all_rays else rays // 16],
                 "vis_u": rng.random((512, 3)).astype(np.float32),
                 "vis_inst": np.zeros(512, np.int64)}
-    if cate == "fg":  # the global-match candidates, the gauss-skin points
-        draws_np["match_idx"] = rng.integers(0, rays * 64, 1024)
-        draws_np["gauss_u"] = rng.random((2048, 3)).astype(np.float32)
+    draws_np = {c: dict(draws_np) for c in trainer.categories}
+    if "fg" in draws_np:  # the global-match candidates, the gauss-skin points
+        draws_np["fg"]["match_idx"] = rng.integers(0, rays * 64, 1024)
+        draws_np["fg"]["gauss_u"] = rng.random((2048, 3)).astype(np.float32)
+    if cate == "comp":  # the bg's visibility points; the soft deformation's draws
+        draws_np["bg"]["vis_u"] = rng.random((512, 3)).astype(np.float32)
+        fi = trainer.data_info["frame_info"]
+        draws_np["fg"].update(soft_u=rng.random((1024, 3)).astype(np.float32),
+                              soft_frame=rng.integers(0, fi.num_frames_raw, 1024),
+                              soft_inst=np.zeros(1024, np.int64))
 
     def step(dev):
         dev = torch.device(dev)
@@ -1319,7 +1425,8 @@ def reference_steps(db, root, cate, geo_init_steps, eikonal_all_rays=False):
         geo = {c: {k: v.to(dev) for k, v in g.items()} for c, g in trainer.geo_for_batch().items()}
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
         batch["geo"] = geo
-        draws = {cate: {k: torch.as_tensor(v, device=dev) for k, v in draws_np.items()}}
+        draws = {c: {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
+                 for c, d in draws_np.items()}
         with eikonal_records([]) as eik:
             loss, grads = _step_grads(model, batch, draws)
         sync()
@@ -1333,7 +1440,7 @@ def reference_steps(db, root, cate, geo_init_steps, eikonal_all_rays=False):
 # fitted states (20-500 steps) make the fg step's GPU and CPU results
 # differ beyond the bound with every kernel plain on the GPU as well
 # (PERF.md §6; tools/compare_fg_step.py)
-REF_GEO_STEPS = {"bg": 20, "fg": 5}
+REF_GEO_STEPS = {"bg": 20, "fg": 5, "comp": 5}
 
 
 def phase_train_reference(db, root, cate):
@@ -1344,8 +1451,15 @@ def phase_train_reference(db, root, cate):
     arithmetic."""
     step = reference_steps(db, root, cate, REF_GEO_STEPS[cate])
     got, want = step("cuda"), step("cpu")
-    tag = "train-reference" + ("-fg" if cate == "fg" else "")
-    if cate == "fg":
+    tag = "train-reference" + ("" if cate == "bg" else f"-{cate}")
+    if cate == "comp":
+        need = {"reg_soft_deform", "reg_eikonal", "reg_gauss_skin", "reg_skel_prior"}
+        if not all(want["loss"].get(k, 0) > 0 for k in need):
+            fail(f"{tag}: a comp term is missing or zero on the CPU: "
+                 + str({k: want["loss"].get(k) for k in sorted(need)}))
+        if len(got["eikonal"]) != 2:
+            fail(f"{tag}: {len(got['eikonal'])} eikonal records, not one per field")
+    if cate != "bg":
         with plain_kernels():
             plain = step("cuda")
         print(f"[{tag}] {step.rays} rays x 64 samples, GPU through the kernels vs GPU through "
@@ -1372,27 +1486,31 @@ def _reset_kernel_counts():
         fn.launches = 0
 
 
-def phase_train(db, root, cate, calls=None):
-    """The training entry at full width for the `cate` field; returns the
-    launch counts of the whole run and of the training steps, and the
-    median ms/step. calls: k3_records' TimeMLP calls, whose share of the
-    training steps is printed."""
+def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, tag=None):
+    """The training entry at full width for the `cate` model (TRAIN_OPTS),
+    n_steps steps; returns the launch counts of the whole run and of the
+    training steps, and the median ms/step. calls: k3_records' TimeMLP
+    calls, whose share of the training steps is printed; shapes:
+    k3_records' K3f shapes, whose launches per training step are printed.
+    The total loss must fall over the run where it has 10 steps or more."""
     import torch
 
     from lab4d_tpu_torch import train as train_cli
     from lab4d_tpu_torch.engine.trainer import Trainer
 
-    steps, step_calls = {}, {}
+    steps, step_calls, step_shapes = {}, {}, collections.Counter()
     orig = Trainer.train_one_round
 
     def counted_round(self, round_count):  # the launches of the training steps alone
         before, before_calls = _kernel_counts(), copy.deepcopy(calls or {})
+        before_shapes = collections.Counter(shapes or {})
         orig(self, round_count)
         steps.update({k: v - before[k] for k, v in _kernel_counts().items()})
         step_calls.update({k: v - before_calls.get(k, collections.Counter())
                            for k, v in (calls or {}).items()})
+        step_shapes.update(collections.Counter(shapes or {}) - before_shapes)
 
-    argv = TRAIN_OPTS[cate] + ["--num_rounds", "1", "--iters_per_round", str(TRAIN_STEPS),
+    argv = TRAIN_OPTS[cate] + ["--num_rounds", "1", "--iters_per_round", str(n_steps),
                          "--save_freq", "1", "--database_root", db,
                          "--logroot", os.path.join(root, "logdir")]
     torch.cuda.reset_peak_memory_stats()
@@ -1407,7 +1525,7 @@ def phase_train(db, root, cate, calls=None):
     elapsed = time.time() - t
     launches = _kernel_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if trainer.current_steps != TRAIN_STEPS or len(trainer.step_ms) != TRAIN_STEPS:
+    if trainer.current_steps != n_steps or len(trainer.step_ms) != n_steps:
         fail(f"{cate} train: {trainer.current_steps} steps, {len(trainer.step_ms)} timed")
     if not all(p.is_cuda for p in trainer.model.parameters()):
         fail(f"{cate} train: model parameters are not all on cuda")
@@ -1415,12 +1533,12 @@ def phase_train(db, root, cate, calls=None):
     if not np.all(np.isfinite(totals)) or not np.all(np.isfinite(trainer.grad_norms)):
         fail(f"{cate} train: non-finite loss or grad norm: {totals} {trainer.grad_norms}")
     first, last = float(np.mean(totals[:5])), float(np.mean(totals[-5:]))
-    if not last < first:
+    if n_steps >= 10 and not last < first:
         fail(f"{cate} train: the total loss did not decrease: mean of the first 5 steps {first}, "
              f"of the last 5 {last}")
-    tag = "train" + ("-fg" if cate == "fg" else "")
+    tag = tag or ("train" + ("" if cate == "bg" else f"-{cate}"))
     for name, n in steps.items():
-        if n <= 0 and (cate == "fg" or name not in ("K1", "K2")):
+        if n <= 0 and (cate != "bg" or name not in ("K1", "K2")):
             fail(f"{tag}: the training steps launched no {name} kernel")
     if cate == "bg" and not steps["K4f"] == steps["K4b"] == 4 * TRAIN_STEPS:
         fail(f"{tag}: K4f / K4b ran {steps['K4f']} / {steps['K4b']} times in {TRAIN_STEPS} steps, "
@@ -1431,12 +1549,13 @@ def phase_train(db, root, cate, calls=None):
         fail(f"{tag}: no checkpoint written")
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         evals = [r for r in map(json.loads, f) if "eval/psnr" in r]
-    if cate == "fg" and not (evals and np.isfinite(evals[-1]["eval/psnr"])):
+    if cate != "bg" and not (evals and np.isfinite(evals[-1]["eval/psnr"])):
         fail(f"{tag}: the round's eval wrote no finite eval/psnr: {evals}")
     ms = float(np.median(trainer.step_ms[1:]))
-    field = "fg / skel-quad field" if cate == "fg" else "bg field"
-    print(f"[{tag}] {field}, 128 images x 2 frames x 16 px x 64 samples = 262144 points/step, "
-          f"{TRAIN_STEPS} steps in {elapsed:.1f} s total (prior fits, geometry, checkpoint "
+    field = FIELD_NAMES.get(cate, f"fg / {cate} field")
+    points = "262144 + 262144 points/step (fg + bg)" if cate == "comp" else "262144 points/step"
+    print(f"[{tag}] {field}, 128 images x 2 frames x 16 px x 64 samples = {points}, "
+          f"{n_steps} steps in {elapsed:.1f} s total (prior fits, geometry, checkpoint "
           f"included): {ms:.2f} ms/step (median after the first; first {trainer.step_ms[0]:.1f} ms), "
           f"peak memory {peak:.2f} GiB")
     if evals:
@@ -1446,8 +1565,13 @@ def phase_train(db, root, cate, calls=None):
           f"{first:.5f} -> {last:.5f}); grad norm {trainer.grad_norms[0]:.4f} -> "
           f"{trainer.grad_norms[-1]:.4f} (max {max(trainer.grad_norms):.4f}); "
           f"geometry init loss {trainer.geo_init_losses[0]:.4f} -> {trainer.geo_init_losses[1]:.4f}")
+    if step_shapes:
+        print(f"[{tag}] K3f launches per training step by shape (rows, C_in, widths, skips: "
+              "launches / step; each has its K3b in the backward): " + "; ".join(
+                  f"{r}, {c}, {w[0]}x{len(w) - 1}+{w[-1]}, {list(sk)}: {n / n_steps:g}"
+                  for (r, c, w, sk, _), n in sorted(step_shapes.items())))
     if step_calls:
-        print(f"[{tag}] TimeMLP backbone calls in the {TRAIN_STEPS} training steps (rows x calls; "
+        print(f"[{tag}] TimeMLP backbone calls in the {n_steps} training steps (rows x calls; "
               "K3f forward, K3b backward): " + "; ".join(
                   f"{name} " + ", ".join(f"{r} x {n}" for r, n in sorted(c.items()))
                   for name, c in sorted(step_calls.items()) if c))
@@ -1455,7 +1579,7 @@ def phase_train(db, root, cate, calls=None):
           + " ".join(f"{k}={v}" for k, v in steps.items())
           + "; in the whole run: " + " ".join(f"{k}={v}" for k, v in launches.items())
           + f"; checkpoint {os.path.getsize(ckpt)} bytes")
-    return launches, steps, ms
+    return launches, steps, ms, step_shapes
 
 
 EXPORT_GRID = 128  # export.py's default --grid_size
@@ -1513,31 +1637,36 @@ def phase_export(db, root, cate):
     elapsed = time.time() - t
     launches = _kernel_counts()
     tag = f"export-{cate}"
-    mesh = meshes[cate]
-    sdf = np.concatenate([v.reshape(-1) for v in sdf_vals]) - opts["level"]
-    crosses = bool((sdf < 0).any() and (sdf >= 0).any())
-    if sdf.size != EXPORT_GRID**3 or not np.isfinite(sdf).all():
-        fail(f"{tag}: the SDF grid has {sdf.size} values or non-finite ones")
-    if (crosses and mesh.is_empty) or (cate == "fg" and mesh.is_empty) or \
-            not np.isfinite(mesh.vertices).all():
-        fail(f"{tag}: the canonical mesh is empty or not finite ({mesh}; SDF grid in "
-             f"[{sdf.min()}, {sdf.max()}] about the level)")
+    if sorted(meshes) != sorted(geo_state) or len(sdf_vals) != len(meshes) * EXPORT_GRID**3 // 262144:
+        fail(f"{tag}: exported {sorted(meshes)} from {len(sdf_vals)} SDF chunks")
+    per_grid = len(sdf_vals) // len(meshes)  # marching cubes queries each field's grid in turn
+    for i, c in enumerate(sorted(meshes, key=list(geo_state).index)):
+        mesh = meshes[c]
+        sdf = np.concatenate([v.reshape(-1) for v in sdf_vals[i * per_grid:(i + 1) * per_grid]])
+        sdf = sdf - opts["level"]
+        crosses = bool((sdf < 0).any() and (sdf >= 0).any())
+        if sdf.size != EXPORT_GRID**3 or not np.isfinite(sdf).all():
+            fail(f"{tag}: the {c} SDF grid has {sdf.size} values or non-finite ones")
+        if (crosses and mesh.is_empty) or (c == "fg" and mesh.is_empty) or \
+                not np.isfinite(mesh.vertices).all():
+            fail(f"{tag}: the {c} canonical mesh is empty or not finite ({mesh}; SDF grid in "
+                 f"[{sdf.min()}, {sdf.max()}] about the level)")
+        with open(os.path.join(save_dir, f"{c}-motion.json")) as f:
+            js = json.load(f)
+        shapes = {k: np.asarray(v).shape for k, v in js.items()}
+        if not all(np.isfinite(np.asarray(v)).all() for v in js.values()) or \
+                shapes["field2cam"] != (len(motion[c]), 4, 4):
+            fail(f"{tag}: {c}-motion.json has non-finite values or shapes {shapes}")
+        for fid, mp in motion[c].items():
+            if not np.isfinite(mp.mesh_t.vertices).all():
+                fail(f"{tag}: the {c} mesh of frame {fid} is not finite")
+        print(f"[{tag}] {c}: grid {EXPORT_GRID}^3, SDF about the level in [{sdf.min():.4f}, "
+              f"{sdf.max():.4f}]: rest mesh {len(mesh.vertices)} vertices, "
+              f"{len(mesh.faces)} faces; {len(motion[c])} frames; {c}-motion.json "
+              + " ".join(f"{k}{list(v)}" for k, v in shapes.items()))
     if launches["K4f"] <= 0 or launches["K3f"] <= 0:
         fail(f"{tag}: the export launched K4f {launches['K4f']} / K3f {launches['K3f']} times")
-    with open(os.path.join(save_dir, f"{cate}-motion.json")) as f:
-        js = json.load(f)
-    shapes = {k: np.asarray(v).shape for k, v in js.items()}
-    if not all(np.isfinite(np.asarray(v)).all() for v in js.values()) or \
-            shapes["field2cam"] != (len(motion[cate]), 4, 4):
-        fail(f"{tag}: {cate}-motion.json has non-finite values or shapes {shapes}")
-    for fid, mp in motion[cate].items():
-        if not np.isfinite(mp.mesh_t.vertices).all():
-            fail(f"{tag}: the mesh of frame {fid} is not finite")
-    print(f"[{tag}] grid {EXPORT_GRID}^3, SDF about the level in [{sdf.min():.4f}, "
-          f"{sdf.max():.4f}]: rest mesh {len(mesh.vertices)} vertices, "
-          f"{len(mesh.faces)} faces; {len(motion[cate])} frames; {cate}-motion.json "
-          + " ".join(f"{k}{list(v)}" for k, v in shapes.items())
-          + f"; {elapsed:.2f} s in all: model load {t_mesh - t:.2f}, canonical mesh "
+    print(f"[{tag}] {elapsed:.2f} s in all: model load {t_mesh - t:.2f}, canonical mesh "
           f"{times['mc']:.2f} (SDF grid {times['sdf']:.2f}, marching cubes "
           f"{times['mc'] - times['sdf']:.2f}), per-frame motion and meshes "
           f"{t_mesh_end - t_mesh - times['mc']:.2f}, files {elapsed - (t_mesh_end - t):.2f}; "
@@ -1546,9 +1675,10 @@ def phase_export(db, root, cate):
     return launches
 
 
-def phase_reanimate(db, root):
-    """reanimate.py's functions on the fg checkpoint with --motion_id 0
-    (the export_0000/fg-motion.json of [export-fg]), its frames at 128^2
+def phase_reanimate(db, root, cate="fg"):
+    """reanimate.py's functions on the `cate` checkpoint (fg, or comp,
+    whose bg keeps its camera MLP) with --motion_id 0 (the
+    export_0000/fg-motion.json of [export-<cate>]), its frames at 128^2
     with the default top-k eval: the batch's time-t articulation of each
     frame equals get_vals(override_so3=...) of the json's joint angles on
     the CPU within 1e-5. Returns the launches of every kernel over the
@@ -1558,7 +1688,8 @@ def phase_reanimate(db, root):
     from lab4d_tpu_torch import reanimate as RA
     from lab4d_tpu_torch.render import construct_test_model, eval_mode, render_batch
 
-    opts = _app_opts(RA.get_parser(), db, root, "fg",
+    tag = "reanimate" + ("" if cate == "fg" else f"-{cate}")
+    opts = _app_opts(RA.get_parser(), db, root, cate,
                      ["--motion_id", "0", "--render_res", str(REANIMATE_RES), "--freeze_id", "0"])
     model, geo_state, data_info = construct_test_model(opts, torch.device("cuda"))
     batch, _ = RA.construct_batch_from_opts_reanimate(opts, model, geo_state, data_info, "cuda")
@@ -1578,7 +1709,7 @@ def phase_reanimate(db, root):
             want = arti_cpu.get_vals(fid, override_so3=sub["joint_so3"].cpu())
             err = max(err, *(float((a.cpu() - b).abs().max()) for a, b in zip(got, want)))
     if not err <= 1e-5:
-        fail(f"reanimate: t_articulation differs from get_vals(override_so3) by {err} > 1e-5")
+        fail(f"{tag}: t_articulation differs from get_vals(override_so3) by {err} > 1e-5")
     topk, channels = eval_mode(opts)
     render_batch(model, {k: ({k2: v2[:1] for k2, v2 in v.items()} if isinstance(v, dict)
                              else v[:1]) for k, v in batch.items()}, geo_state, topk=topk)  # warm-up
@@ -1591,10 +1722,10 @@ def phase_reanimate(db, root):
     launches = _kernel_counts()
     for k, v in rendered.items():
         if v.shape[:3] != (n, REANIMATE_RES, REANIMATE_RES) or not np.isfinite(v).all():
-            fail(f"reanimate: channel {k} has shape {v.shape} or non-finite values")
+            fail(f"{tag}: channel {k} has shape {v.shape} or non-finite values")
     if launches["K3f"] <= 0:
-        fail("reanimate: the render ran no fused_relu_mlp kernel")
-    print(f"[reanimate] motion 0 on the fg model: {n} frames at {REANIMATE_RES}^2, top-{topk} "
+        fail(f"{tag}: the render ran no fused_relu_mlp kernel")
+    print(f"[{tag}] motion 0 on the {cate} model: {n} frames at {REANIMATE_RES}^2, top-{topk} "
           f"eval, {elapsed / n * 1e3:.1f} ms/frame; t_articulation vs get_vals(override_so3) on "
           f"the CPU {err:.1e} (<=1e-5); launches "
           + " ".join(f"{k}={v}" for k, v in launches.items())
@@ -1652,13 +1783,31 @@ def main():
         db = write_scene(root)
         phase_train_reference(db, root, "bg")
         with k3_records({}, k3_shapes):
-            bg_launches, bg_steps, _ = phase_train(db, root, "bg")
+            bg_launches, bg_steps, _, _ = phase_train(db, root, "bg")
         phase_train_reference(db, root, "fg")
         with k3_records(fg_calls, k3_shapes):
-            fg_launches, fg_steps, _ = phase_train(db, root, "fg", fg_calls)
+            fg_launches, fg_steps, _, _ = phase_train(db, root, "fg", fg_calls, k3_shapes)
         with k3_records({}, k3_shapes):
             export_launches = {cate: phase_export(db, root, cate) for cate in ("fg", "bg")}
             reanimate_launches = phase_reanimate(db, root)
+        phase_train_reference(db, root, "comp")
+        comp_calls, family_runs = {}, {}
+        with k3_records(comp_calls, k3_shapes):
+            comp_launches, comp_steps, _, comp_shapes = phase_train(
+                db, root, "comp", comp_calls, k3_shapes)
+            for motion in FAMILIES:
+                family_runs[motion] = phase_train(db, root, motion, shapes=k3_shapes,
+                                                  n_steps=FAMILY_STEPS,
+                                                  tag=f"train-families {motion}")
+            render_comp_launches = phase_render_comp(db, root)
+            export_comp_launches = phase_export(db, root, "comp")
+            reanimate_comp_launches = phase_reanimate(db, root, "comp")
+        for name, shapes in (("train-comp", comp_shapes),
+                             ("train-families dense", family_runs["dense"][3])):
+            rows = {(r, c) for r, c, *_ in shapes}
+            if not {(FG_PAIRS * FG_SPP, 167)} <= rows:
+                fail(f"{name}: no K3f launch at the dense warp's 262144 rows x 167 inputs "
+                     f"({sorted(rows)})")
     phase_k3_paths(k3_shapes)
     sync()
     jax_loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "lab4d_tpu"))
@@ -1678,12 +1827,19 @@ def main():
             ("train", bg_launches), ("train_fg", fg_launches),
             ("export", {k: export_launches["fg"][k] + export_launches["bg"][k]
                         for k in export_launches["fg"]}),
-            ("reanimate", reanimate_launches))}
+            ("reanimate", reanimate_launches), ("train_comp", comp_launches),
+            ("train_families", {k: sum(r[0][k] for r in family_runs.values())
+                                for k in comp_launches}),
+            ("render_comp", render_comp_launches), ("export_comp", export_comp_launches),
+            ("reanimate_comp", reanimate_comp_launches))}
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": {**by_path, "train_steps": bg_steps.get(key, 0),
-                                 "train_fg_steps": fg_steps.get(key, 0)},
+                                 "train_fg_steps": fg_steps.get(key, 0),
+                                 "train_comp_steps": comp_steps.get(key, 0),
+                                 **{f"train_{m.replace('-', '_')}_steps": r[1].get(key, 0)
+                                    for m, r in family_runs.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),
             **({"max_rel_err": max(r["max_rel_err"] for r in kernels[key])}
                if "max_rel_err" in kernels[key][0] else {}),

@@ -39,7 +39,8 @@ def _safe_norm(d, eps=1e-12):
 
 
 class DVRModel(nn.Module):
-    """Differentiable volume rendering model over one field.
+    """Differentiable volume rendering model over one field, or the fg and
+    bg fields composed (field_type "comp").
 
     The module is built from `generator` on the CPU and then moved to
     `device` (the card unless the caller asks for the CPU). Training needs
@@ -108,7 +109,7 @@ class DVRModel(nn.Module):
 
         sched: the step's schedule values; draws: optional injected random
         draws per field ({cate: {"eikonal_idx", "vis_u", "vis_inst",
-        "match_idx", "gauss_u"}})."""
+        "match_idx", "gauss_u", "soft_u", "soft_frame", "soft_inst"}})."""
         batch = dict(batch)
         geo = batch.pop("geo")
         batch = self.reshape_batch(self.process_frameid(batch))
@@ -119,8 +120,11 @@ class DVRModel(nn.Module):
             draws=draws,
         )
         rendered = render_pixel(*self.fields.compose_fields(multifields_dict, deltas_dict))
-        # one field: its own render is the composed one
-        aux_dict[next(iter(multifields_dict))].update(rendered)
+        if len(multifields_dict) == 1:  # one field: its own render is the composed one
+            aux_dict[next(iter(multifields_dict))].update(rendered)
+        else:
+            for cate in multifields_dict:
+                aux_dict[cate].update(render_pixel(multifields_dict[cate], deltas_dict[cate]))
         if "xyz_matches" in aux_dict.get("fg", {}):
             rendered["xyz_matches"] = aux_dict["fg"]["xyz_matches"]
             rendered["xyz_reproj"] = aux_dict["fg"]["xyz_reproj"]
@@ -146,13 +150,18 @@ class DVRModel(nn.Module):
         return torch.where(usable, balanced, torch.ones_like(balanced))
 
     def _recon_loss(self, loss_dict, rendered, aux_dict, batch):
+        """comp: the fg mask (mask_fg, the fg share of the composed weights)
+        against the segmentation and the composed mask against 1."""
         ft = self.field_type
         gt_mask = batch["mask"].float()
+        fg_mask = rendered["mask_fg"] if ft == "comp" else rendered["mask"]
         if ft == "bg":
             loss_dict["mask"] = (rendered["mask"] - 1.0) ** 2
         else:
             wt = self.get_mask_balance_wt(batch["mask"], batch["vis2d"], batch["is_detected"])
-            loss_dict["mask"] = (rendered["mask"] - gt_mask) ** 2 * wt
+            loss_dict["mask"] = (fg_mask - gt_mask) ** 2 * wt
+            if ft == "comp":
+                loss_dict["mask"] = loss_dict["mask"] + (rendered["mask"] - 1.0) ** 2
         fg = aux_dict.get("fg", {})
         if "feature" in fg:
             loss_dict["feature"] = _safe_norm(fg["feature"] - batch["feature"])
@@ -170,7 +179,7 @@ class DVRModel(nn.Module):
             vis_loss = vis_loss + (v * 0.01 if cate == "bg" else v)
         loss_dict["vis"] = vis_loss
         if "gauss_mask" in fg:
-            loss_dict["reg_gauss_mask"] = (fg["gauss_mask"] - rendered["mask"].detach()) ** 2
+            loss_dict["reg_gauss_mask"] = (fg["gauss_mask"] - fg_mask.detach()) ** 2
 
     def _reg_loss(self, loss_dict, rendered, aux_dict, batch, sched, draws):
         aabbs = {cate: batch["geo"][cate]["aabb"] for cate in batch["geo"]}
@@ -182,7 +191,7 @@ class DVRModel(nn.Module):
             if "delta_skin" in fg:
                 loss_dict["reg_delta_skin"] = fg["delta_skin"]
             loss_dict["reg_skin_entropy"] = fg["skin_entropy"]
-        loss_dict["reg_soft_deform"] = self.fields.soft_deform_loss(aabbs)
+        loss_dict["reg_soft_deform"] = self.fields.soft_deform_loss(aabbs, draws)
         loss_dict["reg_gauss_skin"] = self.fields.gauss_skin_consistency_loss(
             aabbs, alpha=sched["alpha"], draws=draws)
         loss_dict["reg_cam_prior"] = self.fields.cam_prior_loss()

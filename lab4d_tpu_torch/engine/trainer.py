@@ -1,8 +1,8 @@
 """Round-based trainer: AdamW with a one-cycle schedule, skip-not-clip
 of spiking steps with a two-round rollback, prior-fit initialization,
-host-maintained geometry state, a per-round eval render with its metrics
-and checkpoints in the JAX trainer's layout. Port of
-lab4d_tpu/engine/trainer.py for one card.
+host-maintained geometry state per field (fg, bg, or both for comp), a
+per-round eval render with its metrics and checkpoints in the JAX
+trainer's layout. Port of lab4d_tpu/engine/trainer.py for one card.
 
 Resuming from a checkpoint and the skeleton joint-angle prior fit (which
 needs "joint_angles" in the dataset metadata) are not ported yet
@@ -131,7 +131,7 @@ class Trainer:
         opts = self.opts
         info = self.data_info
         fi = info["frame_info"]
-        self.categories = (opts["field_type"],)
+        self.categories = ("fg", "bg") if opts["field_type"] == "comp" else (opts["field_type"],)
         self.model = DVRModel(
             fi, field_type=opts["field_type"], fg_motion=opts["fg_motion"],
             num_inst=1 if opts["single_inst"] else fi.num_vids, device=self.device,
@@ -223,8 +223,9 @@ class Trainer:
 
     def _build_geometry_pools(self, num_steps=500, nsample=256):
         """Host-side sample pools for the SDF distillation: the proxy mesh's
-        SDF for bg, the rest-pose bone spheres' (get_gauss_sdf) for the
-        skeleton-warped fg, a sphere of radius 0.1 for the rigid fg."""
+        SDF for bg, the rest-pose bone spheres' (get_gauss_sdf) for the fg of
+        the skeleton and composed warps, a sphere of radius 0.1 for the
+        other fg warps (rigid, dense, nvp, bob)."""
         rng = np.random.default_rng(0)
         num_inst = self.model.fields.field_params[self.categories[0]].num_inst
         pools = {}
@@ -236,7 +237,7 @@ class Trainer:
                               size=(num_steps, nsample, 3)).astype(np.float32)
             if cate == "bg":
                 sdf_gt = MeshSDF(mesh)(pts.reshape(-1, 3))
-            elif self.opts["fg_motion"] == "rigid":
+            elif not self.opts["fg_motion"].startswith(("skel", "comp")):
                 sdf_gt = (np.linalg.norm(pts, axis=-1, keepdims=True) - 0.1).astype(np.float32)
             else:
                 with torch.no_grad():

@@ -4,7 +4,7 @@ meshes and the motion parameters (fg-motion.json) that reanimate.py reads.
 Port of lab4d_tpu/export.py on PyTorch, with the same flags and outputs
 under `<logroot>/<seqname>-<logname>/export_<inst_id>/`: `<cate>.obj`
 (the rest mesh), `<cate>-%05d.obj` (the mesh at each frame),
-`<cate>-%05d-bone.obj` (the bones at each frame, skeleton warps only) and
+`<cate>-%05d-bone.obj` (the bones at each frame, skinning warps only) and
 `<cate>-motion.json` with `field2cam`, `t_articulation` and `joint_so3`.
 
     python -m lab4d_tpu_torch.export --seqname cat --logname run \\
@@ -76,11 +76,15 @@ def extract_canonical_mesh(model: DVRModel, geo_state, cate: str, opts: Dict) ->
 def extract_deformation(model: DVRModel, cate: str, mesh_rest: Mesh, inst_id: int, frame_ids):
     """The rest mesh with the instance's morphology (skinning warps) and,
     for each raw frame id, the motion parameters and the rest mesh warped
-    forward into that frame's camera (MotionParamsExpl)."""
+    forward into that frame's camera (MotionParamsExpl). Joint angles and
+    the bones' edges exist for the skeleton warps only (skel-*, comp_*),
+    not for the bag of bones (bob)."""
     field = model.fields.field_params[cate]
     device = next(model.parameters()).device
     has_skinning = cate == "fg" and field.has_skinning
     articulation = field.warp.articulation if has_skinning else None
+    has_skel = has_skinning and field.warp.skel_type != "flat"
+    edges = articulation.skeleton.edges if has_skel else None
     xyz = torch.as_tensor(np.asarray(mesh_rest.vertices, np.float32), device=device)[None, None]
     inst = torch.tensor([inst_id], device=device)
     logscale = float(torch.exp(field.logscale))
@@ -94,9 +98,10 @@ def extract_deformation(model: DVRModel, cate: str, mesh_rest: Mesh, inst_id: in
             if has_skinning:
                 t_art, rest_art = articulation.get_vals_and_mean(fid)
                 samples_dict = {"t_articulation": t_art, "rest_articulation": rest_art}
-                so3 = _numpy(articulation.get_vals(fid, return_so3=True))[0]
+                if has_skel:
+                    so3 = _numpy(articulation.get_vals(fid, return_so3=True))[0]
                 centers = dual_quaternion_to_quaternion_translation((t_art[0][0], t_art[1][0]))[1]
-                mesh_bones_t = draw_skeleton_bones(_numpy(centers), articulation.skeleton.edges)
+                mesh_bones_t = draw_skeleton_bones(_numpy(centers), edges)
                 mesh_bones_t.apply_transform(_numpy(quaternion_translation_to_se3(*field2cam))[0])
                 t_art = tuple(_numpy(a) for a in t_art)
             xyz_t = field.forward_warp(xyz, field2cam, fid, inst, samples_dict=samples_dict)

@@ -1,13 +1,16 @@
 """Deformable (dynamic) field = FeatureNeRF + warp field.
 
 Port of lab4d_tpu/nnutils/deformable.py: the backward and forward warps
-of the identity warp (rigid) and the skeleton warp, the articulations of
-a batch (one batched FK, or the joint angles batch["joint_so3"] that
+of every warp family (warping.parse_warp_type), the articulations of a
+batch (one batched FK, or the joint angles batch["joint_so3"] that
 reanimation gives), and the training terms: the flow and cycle warps
-sharing one skinning pass, the gauss-skin consistency loss and the
-skeleton prior. A warp without skinning has no articulations, skinning
-terms or bone-Gaussian density. The random draw of training (the
-gauss-skin points) accepts an injected value.
+sharing one skinning pass (plain skinning warps only: the composed warp
+post-warps each frame's points first), the gauss-skin consistency loss,
+the skeleton prior and the soft-deformation loss of the composed warp. A
+warp without skinning has no articulations, skinning terms or
+bone-Gaussian density. The random draws of training (the gauss-skin
+points; the soft-deformation points, frame ids and instance ids) accept
+injected values.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from lab4d_tpu_torch.nnutils.feature import FeatureNeRF
 from lab4d_tpu_torch.nnutils.nerf import flip_pair, wants
 from lab4d_tpu_torch.nnutils.warping import (
+    ComposedWarp,
     SkinningWarp,
     cross_entropy_skin_loss,
     parse_warp_type,
@@ -63,8 +67,9 @@ class Deformable(FeatureNeRF):
     def prepare_forward_warp(self, xyz, inst_id, samples_dict):
         """The forward skin weights of the canonical samples, once for the
         flow and cycle warps: they depend on the points, the rest
-        articulation, the mean time embedding and the instance only."""
-        if not self.has_skinning:
+        articulation, the mean time embedding and the instance only (not so
+        for the composed warp, whose post-warp moves the points per frame)."""
+        if type(self.warp) is not SkinningWarp:
             return samples_dict
         skin = self.warp.skinning_model(xyz, samples_dict["rest_articulation"], None, inst_id)
         return dict(samples_dict, fwd_skin=skin)
@@ -140,6 +145,23 @@ class Deformable(FeatureNeRF):
         bce = -(density * torch.log(dg) + (1 - density) * torch.log(1 - dg))
         return torch.mean(bce * weight)
 
+    def soft_deform_loss(self, aabb, nsample: int = 1024, u=None, frame_id=None, inst_id=None):
+        """The composed warp's post-warp displacement (compute_post_warp_dist2)
+        at points of the aabb, random raw frames and instances. u: (nsample,
+        3) uniform draws, frame_id and inst_id: (nsample,), drawn here when
+        not given. Zero for the other warps."""
+        if not isinstance(self.warp, ComposedWarp):
+            return self.logscale.new_zeros(())
+        dev = aabb.device
+        if u is None:
+            u = torch.rand(nsample, 3, device=dev)
+        if frame_id is None:
+            frame_id = torch.randint(0, self.frame_info.num_frames_raw, (nsample,), device=dev)
+        if inst_id is None:
+            inst_id = torch.randint(0, self.frame_info.num_vids, (nsample,), device=dev)
+        pts = self.sample_points_aabb(u, aabb, extend_factor=1.0)
+        return self.warp.compute_post_warp_dist2(pts[:, None, None], frame_id, inst_id).mean()
+
     def skel_prior_loss(self):
         if not self.has_skinning:
             return self.logscale.new_zeros(())
@@ -150,13 +172,14 @@ class Deformable(FeatureNeRF):
     def get_samples(self, Kinv, batch, train: bool = False):
         """Adds the time-t and rest articulations of a skinning warp (one
         batched FK); with batch["joint_so3"] (M, B, 3) the time-t ones come
-        from those joint angles."""
+        from those joint angles (an empty one, a bag of bones' export, is
+        ignored)."""
         samples_dict = super().get_samples(Kinv, batch, train=train)
         if not self.has_skinning:
             return samples_dict
         articulation = self.warp.articulation
         frame_id = samples_dict["frame_id"]
-        if "joint_so3" in batch:
+        if batch.get("joint_so3") is not None and batch["joint_so3"].numel() > 0:
             samples_dict["rest_articulation"] = articulation.get_mean_vals()
             samples_dict["t_articulation"] = articulation.get_vals(
                 frame_id, override_so3=batch["joint_so3"])

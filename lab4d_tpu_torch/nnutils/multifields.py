@@ -1,7 +1,6 @@
-"""Container of neural fields. Port of lab4d_tpu/nnutils/multifields.py
-for one field: "fg" (Deformable) or "bg" (a rigid NeRF), each for eval
-and training. "comp", both fields composed along rays, waits on ROADMAP.md
-queue 1, item 6."""
+"""Container of neural fields. Port of lab4d_tpu/nnutils/multifields.py:
+"fg" (Deformable), "bg" (a rigid NeRF), or "comp", both composed along
+rays (compose_fields), each for eval and training."""
 
 from __future__ import annotations
 
@@ -33,11 +32,11 @@ class MultiFields(nn.Module):
                  rtmat_fg: Optional[np.ndarray] = None, rtmat_bg: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if field_type not in ("fg", "bg"):
-            raise NotImplementedError(
-                f"field_type {field_type!r} is not ported yet (ROADMAP.md, queue 1, item 6)"
-            )
+        if field_type not in ("fg", "bg", "comp"):
+            raise ValueError(f"field_type {field_type!r}: one of fg, bg, comp")
         self.field_type = field_type
+        # comp packs both fields along one sample axis: dense eikonal tensors
+        eikonal_dense = field_type == "comp"
 
         def prior(rtmat, cate):
             if rtmat is None:
@@ -46,30 +45,36 @@ class MultiFields(nn.Module):
             rtmat[..., :3, 3] *= INIT_SCALE[cate]
             return rtmat
 
-        if field_type == "fg":
-            field = Deformable(
+        fields = {}
+        if field_type in ("fg", "comp"):
+            fields["fg"] = Deformable(
                 "fg", fg_motion=fg_motion, frame_info=frame_info, num_inst=num_inst, D=5,
                 W=128, num_freq_dir=-1, appr_channels=32, init_scale=INIT_SCALE["fg"],
-                rtmat_init=prior(rtmat_fg, "fg"), generator=generator,
+                rtmat_init=prior(rtmat_fg, "fg"), eikonal_dense=eikonal_dense,
+                generator=generator,
             )
-        else:
-            field = NeRF(
+        if field_type in ("bg", "comp"):
+            fields["bg"] = NeRF(
                 "bg", frame_info=frame_info, num_inst=1, D=5, W=128, num_freq_xyz=6,
                 num_freq_dir=0, appr_channels=0, init_scale=INIT_SCALE["bg"],
-                rtmat_init=prior(rtmat_bg, "bg"), generator=generator,
+                rtmat_init=prior(rtmat_bg, "bg"), eikonal_dense=eikonal_dense,
+                generator=generator,
             )
-        self.field_params = nn.ModuleDict({field_type: field})
+        self.field_params = nn.ModuleDict(fields)
 
     @property
     def categories(self):
-        return (self.field_type,)
+        return ("fg", "bg") if self.field_type == "comp" else (self.field_type,)
 
     def get_samples(self, Kinv, batch, train: bool = False):
-        """Per-field camera/articulation samples."""
+        """Per-field camera/articulation samples. batch["field2cam"] (a dict
+        by category) overrides the camera MLP of the fields it names, the
+        fg's alone when reanimate drives a comp model."""
         samples_dict = {}
         for cate in self.categories:
             batch_sub = dict(batch)
-            if "field2cam" in batch:
+            batch_sub.pop("field2cam", None)
+            if cate in batch.get("field2cam", {}):
                 batch_sub["field2cam"] = batch["field2cam"][cate]
             if "geo" in batch:
                 batch_sub.update(batch_sub.pop("geo")[cate])
@@ -98,9 +103,23 @@ class MultiFields(nn.Module):
 
     @staticmethod
     def compose_fields(multifields_dict, deltas_dict):
-        """One field: composition is the identity."""
-        (cate,) = multifields_dict.keys()
-        return multifields_dict[cate], deltas_dict[cate]
+        """Concatenate the fields along the sample axis, a channel that one
+        field lacks as zeros there, and sort every channel and the deltas by
+        depth (a stable sort: equal depths keep the fields' order, as
+        jnp.argsort does). One field: the identity."""
+        cates = list(multifields_dict)
+        if len(cates) == 1:
+            return multifields_dict[cates[0]], deltas_dict[cates[0]]
+        keys = sorted({k for d in multifields_dict.values() for k in d})
+        field_dict = {}
+        for k in keys:
+            ref = next(d[k] for d in multifields_dict.values() if k in d)
+            field_dict[k] = torch.cat([multifields_dict[c].get(k, torch.zeros_like(ref))
+                                       for c in cates], dim=2)
+        deltas = torch.cat([deltas_dict[c] for c in cates], dim=2)
+        order = torch.argsort(field_dict["depth"][..., 0], dim=-1, stable=True)[..., None]
+        field_dict = {k: torch.gather(v, 2, order.expand(v.shape)) for k, v in field_dict.items()}
+        return field_dict, torch.gather(deltas, 2, order.expand(deltas.shape))
 
     # ------------------------------------------------------------- reg terms
 
@@ -128,10 +147,15 @@ class MultiFields(nn.Module):
                 aabbs[cate], alpha=alpha, u=d.get("gauss_u"))
         return loss
 
-    def soft_deform_loss(self, aabbs):
+    def soft_deform_loss(self, aabbs, draws=None):
+        """draws: optional {cate: {"soft_u": (1024, 3), "soft_frame":
+        (1024,), "soft_inst": (1024,)}}."""
         loss = 0.0
         for cate in self.categories:
-            loss = loss + self.field_params[cate].soft_deform_loss(aabbs[cate])
+            d = {} if draws is None else draws.get(cate, {})
+            loss = loss + self.field_params[cate].soft_deform_loss(
+                aabbs[cate], u=d.get("soft_u"), frame_id=d.get("soft_frame"),
+                inst_id=d.get("soft_inst"))
         return loss
 
     def skel_prior_loss(self):

@@ -96,10 +96,14 @@ class NeRF(nn.Module):
                  appr_channels: int = 32, appr_num_freq_t: int = 6, inst_channels: int = 32,
                  skips: tuple = (4,), init_beta: float = 0.1, init_scale: float = 0.1,
                  color_act: bool = True, feature_channels: int = 16,
-                 rtmat_init: Optional[np.ndarray] = None,
+                 rtmat_init: Optional[np.ndarray] = None, eikonal_dense: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.category = category
+        # the training eikonal as a dense (M,N,D,1) tensor, zero off the
+        # subsampled rays: compose_fields packs the fields of comp along one
+        # sample axis. The loss (a nonzero mean) is the compact one's.
+        self.eikonal_dense = eikonal_dense
         self.frame_info = frame_info
         self.num_inst = num_inst
         self.W = W
@@ -514,7 +518,8 @@ class NeRF(nn.Module):
 
     def compute_eikonal(self, xyz, inst_id=None, sample_ratio: int = 16, alpha=None, idx=None):
         """Eikonal term (|grad sdf| - 1)^2 at the samples of a random
-        1/sample_ratio of the rays, in canonical space: (S, D, 1).
+        1/sample_ratio of the rays, in canonical space: (S, D, 1), or
+        (M, N, D, 1) with zeros elsewhere for an eikonal_dense field.
 
         idx: (S,) ray ids, drawn without replacement when not given. The
         SDF goes through the plain MLP chain (fused=False) because the loss
@@ -529,7 +534,10 @@ class NeRF(nn.Module):
             sdf = self.forward(xyz_s, inst_id=inst_s, get_density=False, alpha=alpha,
                                fused=False)
             (g,) = torch.autograd.grad(sdf.sum(), xyz_s, create_graph=True)
-        return ((safe_norm(g, keepdim=False) - 1.0) ** 2)[..., None]
+        eik = (safe_norm(g, keepdim=False) - 1.0) ** 2  # (S, D)
+        if self.eikonal_dense:
+            return eik.new_zeros(M * N, Dd).index_copy(0, idx, eik).reshape(M, N, Dd, 1)
+        return eik[..., None]
 
     @staticmethod
     def sample_points_aabb(u, aabb, extend_factor=1.0):
@@ -551,12 +559,11 @@ class NeRF(nn.Module):
     def cam_prior_loss(self):
         return self.camera_mlp.compute_distance_to_prior()
 
-    # a rigid field has no skinning, soft-deformation or skeleton terms; the
-    # skeleton warps (Deformable) have no soft post-warp either
+    # a rigid field has no skinning, soft-deformation or skeleton terms
     def gauss_skin_consistency_loss(self, aabb, alpha=None, u=None):
         return self.logscale.new_zeros(())
 
-    def soft_deform_loss(self, aabb):
+    def soft_deform_loss(self, aabb, u=None, frame_id=None, inst_id=None):
         return self.logscale.new_zeros(())
 
     def skel_prior_loss(self):

@@ -1,4 +1,5 @@
-"""Camera and skeleton-articulation MLPs. Port of lab4d_tpu/nnutils/pose.py.
+"""Camera and articulation MLPs. Port of lab4d_tpu/nnutils/pose.py: the
+camera, the bag of bones (free SE(3) per bone) and the skeleton.
 
 Articulation outputs are dual quaternions ((M,B,4), (M,B,4)), bone->object.
 """
@@ -16,8 +17,10 @@ from lab4d_tpu_torch.nnutils.embedding import FrameInfo
 from lab4d_tpu_torch.nnutils.linear import TorchDense
 from lab4d_tpu_torch.nnutils.time_mlp import TimeMLP
 from lab4d_tpu_torch.utils.quat import (
+    axis_angle_to_quaternion,
     matrix_to_quaternion,
     quaternion_mul,
+    quaternion_translation_to_dual_quaternion,
     quaternion_translation_to_se3,
 )
 from lab4d_tpu_torch.utils.skel import (
@@ -72,6 +75,43 @@ def camera_base_quat_init(rtmat: np.ndarray, frame_info: FrameInfo) -> np.ndarra
     """Per-video base rotations from the first frame of each video's prior."""
     first = frame_info.frame_offset[:-1]
     return matrix_to_quaternion(torch.as_tensor(rtmat[first, :3, :3])).numpy()
+
+
+class ArticulationFlatMLP(TimeMLP):
+    """Bag of bones: a free SE(3) per bone over time, with no skeleton, no
+    joint-angle prior and a zero skeleton prior."""
+
+    num_se3 = 25
+
+    def __init__(self, frame_info: FrameInfo, generator: Optional[torch.Generator] = None):
+        super().__init__(frame_info, generator=generator)
+        num_se3, W = self.num_se3, self.W
+        self.trans_head = nn.ModuleList(
+            [TorchDense(W, W // 2, generator), TorchDense(W // 2, 3 * num_se3, generator)])
+        self.so3_head = nn.ModuleList(
+            [TorchDense(W, W // 2, generator), TorchDense(W // 2, 3 * num_se3, generator)])
+
+    def forward_arti(self, t_embed, inst_id=None):
+        t_feat = self.forward_feat(t_embed)
+        shape = t_embed.shape[:-1] + (self.num_se3, 3)
+        trans = 0.1 * self.trans_head[1](torch.relu(self.trans_head[0](t_feat))).reshape(shape)
+        so3 = self.so3_head[1](torch.relu(self.so3_head[0](t_feat))).reshape(shape)
+        return quaternion_translation_to_dual_quaternion(axis_angle_to_quaternion(so3), trans)
+
+    def get_vals(self, frame_id=None):
+        return self.forward_arti(self.time_embedding(frame_id))
+
+    def get_mean_vals(self, inst_id=None):
+        """Rest bones: the articulation at the mean time embedding, batch (1,)."""
+        return self.forward_arti(self.time_embedding.mean_embedding())
+
+    def get_vals_and_mean(self, frame_id=None):
+        t = self.get_vals(frame_id)
+        rest = self.get_mean_vals()
+        return t, (rest[0].expand(t[0].shape), rest[1].expand(t[1].shape))
+
+    def skel_prior_loss(self):
+        return self.so3_head[0].bias.new_zeros(())
 
 
 class ArticulationSkelMLP(TimeMLP):

@@ -1,5 +1,6 @@
-"""Gaussian-bone skinning field. Port of lab4d_tpu/nnutils/skinning.py
-(the quadratic-form path, which is the one every skeleton warp takes).
+"""Gaussian-bone skinning field. Port of lab4d_tpu/nnutils/skinning.py:
+the quadratic-form path, which every warp of the training and render paths
+takes, and the bone-coordinate path for the shapes it refuses.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from torch import nn
 
 from lab4d_tpu_torch.nnutils.base import CondMLP
 from lab4d_tpu_torch.nnutils.embedding import FrameInfo, PosEmbedding, TimeEmbedding
+from lab4d_tpu_torch.utils.geom import get_bone_coords
 from lab4d_tpu_torch.utils.quat import (
     dual_quaternion_to_quaternion_translation,
     quaternion_to_matrix,
@@ -107,11 +109,18 @@ class SkinningField(nn.Module):
 
     def forward(self, xyz, bone2obj, frame_id, inst_id):
         """xyz: (M,N,D,3) canonical points; bone2obj: ((M,B,4), (M,B,4))
-        per-pair bones; frame_id: (M,) or None (mean time embedding).
+        per-pair bones (or bones without the pair axis); frame_id: (M,) or
+        None (mean time embedding).
         Returns skin (M,N,D,B) unnormalized log-weights and delta (or None).
         """
-        if not self._quad_path_ok(xyz, bone2obj):
-            raise NotImplementedError(
-                "the bone-coordinate skinning path is not ported yet (ROADMAP.md, queue 1, item 6)"
-            )
-        return self._quad_call(xyz, bone2obj, frame_id, inst_id)
+        if self._quad_path_ok(xyz, bone2obj):
+            return self._quad_call(xyz, bone2obj, frame_id, inst_id)
+        # bone coordinates: bones without a per-pair axis, or too few point dims
+        xyz_bone = get_bone_coords(xyz, bone2obj, scale=self.get_gauss())
+        dist2 = torch.sum(xyz_bone**2, dim=-1)
+        if not self.delta_skin:
+            return -dist2, None
+        xyz_embed = self.pos_embedding(xyz_bone.reshape(xyz.shape[:-1] + (-1,)))
+        t_rows = self._time_rows(frame_id, xyz.shape[0])
+        delta = torch.relu(self.delta_field(xyz_embed, inst_id, row_code=t_rows)) * 0.1
+        return -(dist2 + delta), delta

@@ -1,7 +1,13 @@
 """Warp fields. Port of lab4d_tpu/nnutils/warping.py: the identity warp
-of a rigid object and the skeleton warp (neural blend skinning).
-Interface: warp(xyz, frame_id, inst_id, backward=..., samples_dict=...)
--> (xyz_out, aux_dict).
+of a rigid object, the dense translation fields (separate forward and
+backward maps), the invertible NVP warp, neural blend skinning over a bag
+of bones or a skeleton, and a skeleton warp composed with a soft dense
+post-warp. Interface: warp(xyz, frame_id, inst_id, backward=...,
+samples_dict=...) -> (xyz_out, aux_dict).
+
+The dense maps are CondMLPs whose single instance code folds into the
+biases, so on the card they run through the fused ReLU MLP kernels (K3f /
+K3b) at one row per sample, as the JAX package runs fused_relu_mlp.
 """
 
 from __future__ import annotations
@@ -12,8 +18,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from lab4d_tpu_torch.nnutils.embedding import FrameInfo
-from lab4d_tpu_torch.nnutils.pose import ArticulationSkelMLP
+from lab4d_tpu_torch.nnutils.base import CondMLP
+from lab4d_tpu_torch.nnutils.embedding import FrameInfo, PosEmbedding, TimeEmbedding
+from lab4d_tpu_torch.nnutils.nvp import NVP
+from lab4d_tpu_torch.nnutils.pose import ArticulationFlatMLP, ArticulationSkelMLP
 from lab4d_tpu_torch.nnutils.skinning import SkinningField
 from lab4d_tpu_torch.utils.geom import dual_quaternion_skinning, get_xyz_bone_distance
 from lab4d_tpu_torch.utils.quat import dual_quaternion_inverse, dual_quaternion_mul
@@ -36,8 +44,52 @@ class IdentityWarp(nn.Module):
         return xyz, {}
 
 
+def _per_sample(code, xyz):
+    """Per-pair rows (M, C) -> (M, 1, ..., 1, C) against points (M, ..., 3)."""
+    return code.reshape((-1,) + (1,) * (xyz.ndim - 2) + code.shape[-1:])
+
+
+class DenseWarp(IdentityWarp):
+    """D-NeRF-style translation fields: x + 0.1 * MLP([PE(x), time code]),
+    one map forward and one backward."""
+
+    def __init__(self, frame_info: FrameInfo, D: int = 6, W: int = 256,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(frame_info)
+        self.pos_embedding = PosEmbedding(3, 6)
+        self.time_embedding = TimeEmbedding(6, frame_info, generator=generator)
+        in_ch = self.pos_embedding.out_channels + self.time_embedding.out_channels
+        self.forward_map = CondMLP(frame_info.num_vids, in_ch, D=D, W=W, out_channels=3,
+                                   generator=generator)
+        self.backward_map = CondMLP(frame_info.num_vids, in_ch, D=D, W=W, out_channels=3,
+                                    generator=generator)
+
+    def forward(self, xyz, frame_id, inst_id, backward=False, samples_dict=None):
+        t_embed = _per_sample(self.time_embedding(frame_id), xyz)
+        t_embed = t_embed.expand(xyz.shape[:-1] + t_embed.shape[-1:])
+        embed = torch.cat([self.pos_embedding(xyz), t_embed], dim=-1)
+        mlp = self.backward_map if backward else self.forward_map
+        return xyz + mlp(embed, inst_id) * 0.1, {}
+
+
+class NVPWarp(IdentityWarp):
+    """Invertible warp: one RealNVP map forward, its inverse backward."""
+
+    def __init__(self, frame_info: FrameInfo, generator: Optional[torch.Generator] = None):
+        super().__init__(frame_info)
+        self.time_embedding = TimeEmbedding(6, frame_info, generator=generator)
+        self.map = NVP(self.time_embedding.out_channels, n_layers=2, generator=generator)
+
+    def forward(self, xyz, frame_id, inst_id, backward=False, samples_dict=None):
+        t_embed = _per_sample(self.time_embedding(frame_id), xyz)
+        if backward:
+            return self.map.inverse(t_embed, xyz), {}
+        return self.map(t_embed, xyz), {}
+
+
 class SkinningWarp(nn.Module):
-    """Skeleton articulation + Gaussian skinning + dual-quaternion blend."""
+    """Bag-of-bones ("flat": 25 free bones) or skeleton articulation +
+    Gaussian skinning + dual-quaternion blend."""
 
     def __init__(self, frame_info: FrameInfo, skel_type: str = "quad",
                  init_gauss_scale: float = 0.03, init_beta: float = 0.01,
@@ -45,12 +97,16 @@ class SkinningWarp(nn.Module):
         super().__init__()
         self.frame_info = frame_info
         self.skel_type = skel_type
-        self.articulation = ArticulationSkelMLP(frame_info, skel_type=skel_type,
-                                                generator=generator)
-        skeleton = self.articulation.skeleton
+        if skel_type == "flat":
+            self.articulation = ArticulationFlatMLP(frame_info, generator=generator)
+            symm_idx = None
+        else:
+            self.articulation = ArticulationSkelMLP(frame_info, skel_type=skel_type,
+                                                    generator=generator)
+            symm_idx = self.articulation.skeleton.symm_idx
         self.skinning_model = SkinningField(
-            skeleton.num_joints, frame_info, num_inst=frame_info.num_vids,
-            init_scale=init_gauss_scale, symm_idx=skeleton.symm_idx, generator=generator,
+            self.articulation.num_se3, frame_info, num_inst=frame_info.num_vids, init_scale=init_gauss_scale,
+            symm_idx=symm_idx, generator=generator,
         )
         self.logibeta = nn.Parameter(torch.full((1,), float(-np.log(init_beta))))
 
@@ -92,13 +148,49 @@ class SkinningWarp(nn.Module):
         return -torch.logit(density)
 
 
+class ComposedWarp(SkinningWarp):
+    """Skeleton warp composed with a soft dense post-warp: the post-warp
+    runs before skinning going forward and after it going backward."""
+
+    def __init__(self, frame_info: FrameInfo, skel_type: str = "quad", post_warp_D: int = 2,
+                 post_warp_W: int = 256, generator: Optional[torch.Generator] = None):
+        super().__init__(frame_info, skel_type=skel_type, generator=generator)
+        self.post_warp = DenseWarp(frame_info, D=post_warp_D, W=post_warp_W, generator=generator)
+
+    def forward(self, xyz, frame_id, inst_id, backward=False, samples_dict=None):
+        if not backward and frame_id is not None:
+            xyz, _ = self.post_warp(xyz, frame_id, inst_id, backward=False)
+        out, warp_dict = super().forward(xyz, frame_id, inst_id, backward=backward,
+                                         samples_dict=samples_dict)
+        if backward and frame_id is not None:
+            out, _ = self.post_warp(out, frame_id, inst_id, backward=True)
+        return out, warp_dict
+
+    def compute_post_warp_dist2(self, xyz, frame_id, inst_id):
+        """Soft-deformation magnitude: the mean of |post(x) - x|^2 and the
+        cycle |post(x) - post^-1(post(x))|^2."""
+        xyz_t, _ = self.post_warp(xyz, frame_id, inst_id, backward=False)
+        dist2 = torch.sum((xyz_t - xyz) ** 2, dim=-1)
+        xyz_back, _ = self.post_warp(xyz_t, frame_id, inst_id, backward=True)
+        return (dist2 + torch.sum((xyz_t - xyz_back) ** 2, dim=-1)) * 0.5
+
+
 def parse_warp_type(fg_motion: str) -> Dict:
-    """fg_motion string -> warp class + kwargs. rigid and the skeleton warps
-    are ported; dense, nvp, bob and comp_* wait on ROADMAP.md queue 1, item 6."""
+    """fg_motion string -> warp class + kwargs: rigid, dense, nvp, bob,
+    skel-{human,quad}, comp_skel-{human,quad}_dense."""
     if fg_motion == "rigid":
         return {"cls": IdentityWarp, "kwargs": {}}
-    if fg_motion.startswith("skel-"):
+    if fg_motion == "dense":
+        return {"cls": DenseWarp, "kwargs": {}}
+    if fg_motion == "nvp":
+        return {"cls": NVPWarp, "kwargs": {}}
+    if fg_motion == "bob":
+        return {"cls": SkinningWarp, "kwargs": {"skel_type": "flat"}}
+    if fg_motion in ("skel-human", "skel-quad"):
         return {"cls": SkinningWarp, "kwargs": {"skel_type": fg_motion.split("-")[1]}}
-    raise NotImplementedError(
-        f"fg_motion {fg_motion!r} is not ported yet (ROADMAP.md, queue 1, item 6)"
-    )
+    if fg_motion.startswith("comp"):
+        parts = fg_motion.split("_")[1:]
+        if len(parts) != 2 or parts[0] not in ("skel-human", "skel-quad") or parts[1] != "dense":
+            raise ValueError(f"fg_motion {fg_motion!r}: only comp_skel-{{human,quad}}_dense")
+        return {"cls": ComposedWarp, "kwargs": {"skel_type": parts[0].split("-")[1]}}
+    raise NotImplementedError(fg_motion)

@@ -33,7 +33,8 @@ def get_parser():
 def construct_batch_from_opts_reanimate(opts: Dict, model, geo_state, data_info, device):
     """render.construct_batch_from_opts over the frames of video motion_id,
     with batch["joint_so3"] and batch["field2cam"]["fg"] from its
-    fg-motion.json."""
+    fg-motion.json (no joint angles but for a skeleton: the bag of bones
+    keeps its own articulation); a comp model's bg keeps its camera MLP."""
     motion_path = "%s/%s-%s/export_%04d/fg-motion.json" % (
         opts["logroot"], opts["seqname"], opts["logname"], opts["motion_id"])
     with open(motion_path) as fp:

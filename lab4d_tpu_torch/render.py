@@ -55,10 +55,10 @@ def common_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--data_prefix", default="crop", help="prefix of the data entries")
     p.add_argument("--train_res", type=int, default=256, help="size of training images")
     p.add_argument("--feature_type", default="dinov2", help="{dinov2, cse}")
-    p.add_argument("--field_type", default="fg", help="{bg, fg, comp}; fg and bg are ported")
+    p.add_argument("--field_type", default="fg", help="{bg, fg, comp}")
     p.add_argument("--fg_motion", default="rigid",
-                   help="{rigid, dense, bob, skel-human, skel-quad}; rigid and skel-quad "
-                        "are ported")
+                   help="{rigid, dense, nvp, bob, skel-human, skel-quad, "
+                        "comp_skel-human_dense, comp_skel-quad_dense}")
     p.add_argument("--inst_id", type=int, default=0, help="video/instance id")
     p.add_argument("--device", default="cuda", help="torch device to run on")
     add_flagfile_option(p)
@@ -168,6 +168,9 @@ def construct_batch_from_opts(opts: Dict, model: DVRModel, geo_state, data_info,
             bg2bev = camt0_to_bev @ field2cam_fr["bg"][:1]
             bg2bev[..., 2, 3] *= 3
             field2cam = {"bg": np.tile(bg2bev, (render_length, 1, 1))}
+            if "fg" in field2cam_fr:  # comp: the fg keeps its pose relative to the bg
+                camt2bg = np.linalg.inv(field2cam_fr["bg"])
+                field2cam["fg"] = field2cam["bg"] @ camt2bg @ field2cam_fr["fg"]
         else:
             field2cam = {"fg": C.get_bev_cam(field2cam_fr["fg"], elev=elev)}
         camera_int = np.zeros((render_length, 4))

@@ -1,14 +1,17 @@
 """Where the time of a training step goes, on one CUDA device.
 
-    python3 -m lab4d_tpu_torch.tools.profile_train [--field_type {bg,fg}] [--steps N] [--out FILE]
-        [--turns DIR]
+    python3 -m lab4d_tpu_torch.tools.profile_train [--field_type {bg,fg,comp}]
+        [--fg_motion MOTION] [--steps N] [--out FILE] [--turns DIR]
 
 Run from the root of a checkout. It writes the synthetic scene of
 chip_smoke.py (one orbit video, 32 frames at 64^2), builds the trainer of
-`python -m lab4d_tpu_torch.train --field_type bg` (or, with --field_type
-fg, the flagship `--field_type fg --fg_motion skel-quad`) at full width
-(128 images x 2 frames x 16 pixels x 64 samples = 262,144 points per step;
-the prior fits are cut to 50 geometry steps) and then:
+`python -m lab4d_tpu_torch.train --field_type bg` (with --field_type fg
+the flagship `--field_type fg --fg_motion skel-quad`, with comp
+`--field_type comp --fg_motion comp_skel-human_dense`; --fg_motion picks
+another warp: dense, nvp, bob, skel-human, comp_skel-quad_dense, ...) at
+full width (128 images x 2 frames x 16 pixels x 64 samples = 262,144
+points per field and step; the prior fits are cut to 50 geometry steps)
+and then:
 
 1. times `--steps` training steps on batches drawn beforehand, so that no
    data loading overlaps them: ms/step from CUDA events (median), and
@@ -19,8 +22,9 @@ the prior fits are cut to 50 geometry steps) and then:
 4. traces `--trace` steps (pre-drawn batches) with torch.profiler and
    prints, per op, the device time of the kernels it launched itself and
    their share of the summed kernel time, the kernels K1/K2/K3f/K3b/K4f/K4b
-   by name (K1 and K2 by each of their kernels), then that sum, the
-   steps' wall time and the device's idle share.
+   by name (K1 and K2 by each of their kernels) and K3's share of the
+   step (its rm_* kernels), then that sum, the steps' wall time, the
+   device's idle share and the peak device memory of the steps.
 
 `--out` also writes the profiler's full table to FILE.
 
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -56,7 +61,10 @@ print(f"[memory] peak device memory of the run: {torch.cuda.max_memory_allocated
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--field_type", choices=("bg", "fg"), default="bg")
+    parser.add_argument("--field_type", choices=("bg", "fg", "comp"), default="bg")
+    parser.add_argument("--fg_motion", default=None,
+                        help="the fg warp (default: skel-quad for fg, comp_skel-human_dense "
+                             "for comp)")
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--trace", type=int, default=3)
     parser.add_argument("--top", type=int, default=18)
@@ -97,7 +105,8 @@ def _profile(args, card, db, root):
     from lab4d_tpu_torch.engine.trainer import Trainer
     from lab4d_tpu_torch.train import get_parser
 
-    opts = vars(get_parser().parse_args(chip_smoke.TRAIN_OPTS[args.field_type] + [
+    motion = [] if args.fg_motion is None else ["--fg_motion", args.fg_motion]
+    opts = vars(get_parser().parse_args(chip_smoke.TRAIN_OPTS[args.field_type] + motion + [
         "--geo_init_steps", "50", "--num_rounds", "1", "--iters_per_round", str(args.steps),
         "--database_root", db, "--logroot", os.path.join(root, "logdir")]))
     trainer = Trainer(opts)
@@ -127,6 +136,7 @@ def _measure(args, card, trainer, batches, opts):
         trainer.train_step(b, step)
         step += 1
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     events, host = [], []
     for b in batches[2 : args.steps]:
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -140,7 +150,8 @@ def _measure(args, card, trainer, batches, opts):
     torch.cuda.synchronize()
     dev = [s.elapsed_time(e) for s, e in events]
     print(f"[steps] pre-drawn batches: {np.median(dev):.2f} ms/step (median of {len(dev)}; "
-          f"min {min(dev):.2f}, max {max(dev):.2f}); host issue time {np.median(host):.2f} ms/step")
+          f"min {min(dev):.2f}, max {max(dev):.2f}); host issue time {np.median(host):.2f} ms/step; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     # 2. the training loop with the threaded loader
     trainer.trainloader.start()
@@ -171,8 +182,9 @@ def _measure(args, card, trainer, batches, opts):
         traced = (time.perf_counter() - t) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.device_time for e in kernels) / 1e3
-    print(f"[trace] {opts['field_type']} field, {args.trace} steps: device time {device_ms:.2f} ms of {traced:.2f} ms wall "
-          f"(traced), idle share {1 - device_ms / traced:.3f}")
+    what = opts["field_type"] + ("" if opts["field_type"] == "bg" else f" / {opts['fg_motion']}")
+    print(f"[trace] {what}, {args.trace} steps: device time {device_ms:.2f} ms of {traced:.2f} ms "
+          f"wall (traced), idle share {1 - device_ms / traced:.3f}")
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
     ops.sort(key=lambda e: -e.self_device_time_total)
@@ -191,6 +203,10 @@ def _measure(args, card, trainer, batches, opts):
         ks = [e.device_time for e in kernels if name in e.name]
         print(f"[kernel] {name}: {sum(ks) / 1e3 / args.trace:.2f} ms/step device, "
               f"{100 * sum(ks) / 1e3 / device_ms:.1f}%, {len(ks) // args.trace} calls/step")
+    k3 = sum(e.device_time for e in kernels if re.search(r"(^|[\s:])rm_\w*kernel", e.name))
+    print(f"[kernel] K3f + K3b (rm_*; K3b's chunk sum past 1,024 rows is in hm_reduce_kernel): "
+          f"{k3 / 1e3 / args.trace:.2f} ms/step device, "
+          f"{100 * k3 / 1e3 / device_ms:.1f}% of the step")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

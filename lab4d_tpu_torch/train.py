@@ -10,8 +10,11 @@ proxy meshes and ckpt_*.flax checkpoints in the JAX trainer's layout).
     python -m lab4d_tpu_torch.train --seqname cat --logname fg --field_type fg \
         --fg_motion skel-quad
 
---field_type bg and --field_type fg with --fg_motion rigid or skel-quad
-are ported; the other motions and comp are not yet (ROADMAP.md). opts.log is written
+    python -m lab4d_tpu_torch.train --seqname cat --logname comp --field_type comp \
+        --fg_motion comp_skel-human_dense
+
+Every --field_type (fg, bg, comp) and --fg_motion of the JAX package
+trains. opts.log is written
 in the JAX package's format (flagfile.py), and `--flagfile` reads one.
 """
 
@@ -24,6 +27,7 @@ from typing import Dict
 import torch
 
 from lab4d_tpu_torch.flagfile import add_flagfile_option, parse_opts, write_opts_log
+from lab4d_tpu_torch.nnutils.warping import parse_warp_type
 
 # flag -> (default, help), as in lab4d_tpu/config.py
 LOSS_WEIGHTS = {
@@ -51,10 +55,10 @@ def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     for name, (default, help_) in LOSS_WEIGHTS.items():
         p.add_argument(f"--{name}", type=float, default=default, help=help_)
-    p.add_argument("--field_type", default="fg", help="{bg, fg, comp}; bg and fg are ported")
+    p.add_argument("--field_type", default="fg", help="{bg, fg, comp}")
     p.add_argument("--fg_motion", default="rigid",
-                   help="{rigid, dense, bob, skel-human, skel-quad}; rigid and skel-quad "
-                        "are ported")
+                   help="{rigid, dense, nvp, bob, skel-human, skel-quad, "
+                        "comp_skel-human_dense, comp_skel-quad_dense}")
     p.add_argument("--single_inst", action=argparse.BooleanOptionalAction, default=True,
                    help="assume the same morphology over objs")
     p.add_argument("--seqname", default="cat", help="name of the sequence")
@@ -85,14 +89,10 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def check_opts(opts: Dict):
-    if opts["field_type"] not in ("bg", "fg"):
-        raise NotImplementedError(
-            f"--field_type {opts['field_type']} (fg and bg composed) is not ported yet "
-            "(ROADMAP.md, queue 1, item 6); --field_type bg and fg train")
-    if opts["field_type"] == "fg" and opts["fg_motion"] not in ("rigid", "skel-quad"):
-        raise NotImplementedError(
-            f"--fg_motion {opts['fg_motion']} is not ported yet (ROADMAP.md, queue 1, item 6); "
-            "--field_type fg trains with --fg_motion rigid or skel-quad")
+    if opts["field_type"] not in ("bg", "fg", "comp"):
+        raise ValueError(f"--field_type {opts['field_type']}: one of bg, fg, comp")
+    if opts["field_type"] != "bg":
+        parse_warp_type(opts["fg_motion"])  # raises on an unknown motion
     if opts["load_path"]:
         raise NotImplementedError("--load_path (resuming) is not ported yet (ROADMAP.md)")
 

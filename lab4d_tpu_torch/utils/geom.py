@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from lab4d_tpu_torch.utils.quat import (
     DualQuaternion,
     dual_quaternion_to_quaternion_translation,
+    quaternion_to_matrix,
     quaternion_translation_apply,
 )
 
@@ -158,6 +159,27 @@ def extend_aabb(aabb: torch.Tensor, factor: float = 0.1) -> torch.Tensor:
 def check_inside_aabb(xyz: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
     """Boolean mask of points strictly inside the aabb."""
     return torch.all((xyz > aabb[0]) & (xyz < aabb[1]), dim=-1)
+
+
+def get_bone_coords(xyz: torch.Tensor, bone2obj: DualQuaternion, scale=None) -> torch.Tensor:
+    """Points (..., 3) in each bone's frame, (..., B, 3): R^T (x - t) of
+    the bones ((L..., B, 4), (L..., B, 4)), whose leading dims L are a
+    broadcastable prefix of the points'; scale (B, 3) divides the
+    bone-frame coordinates."""
+    q, t = dual_quaternion_to_quaternion_translation(bone2obj)
+    R = quaternion_to_matrix(q)  # (..., B, 3, 3) bone -> obj
+    if scale is not None:
+        R = R / scale[..., None, :]
+    n_lead = R.ndim - 3
+    lead_shape = torch.broadcast_shapes(xyz.shape[:n_lead], R.shape[:n_lead])
+    xyz = xyz.expand(lead_shape + xyz.shape[n_lead:])
+    R = R.expand(lead_shape + R.shape[n_lead:])
+    t = t.expand(lead_shape + t.shape[n_lead:])
+    lead = "ACEFG"[:n_lead]
+    xr = torch.einsum(f"{lead}...j,{lead}bji->{lead}...bi", xyz, R)
+    tr = torch.einsum(f"{lead}bj,{lead}bji->{lead}bi", t, R)
+    tr = tr.reshape(tr.shape[:n_lead] + (1,) * (xr.ndim - tr.ndim) + tr.shape[n_lead:])
+    return xr - tr
 
 
 def get_xyz_bone_distance(xyz: torch.Tensor, bone2obj: DualQuaternion) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Skeleton definition and forward kinematics in torch.
 
-Port of lab4d_tpu/utils/skel.py for the 25-joint quadruped skeleton: the
-joint table is a data prior shared with the reference, kept numerically
-identical; FK composes (quaternion, translation) pairs in a static
+Port of lab4d_tpu/utils/skel.py for the 18-joint human and the 25-joint
+quadruped skeletons: the joint tables are data priors shared with the
+reference, kept numerically identical; FK composes (quaternion, translation) pairs in a static
 topological order.
 """
 
@@ -130,8 +130,41 @@ def shift_joints_to_bones_dq(dq, skel: Skeleton, shift=None):
     return quaternion_translation_to_dual_quaternion(quat, joints)
 
 
-# the quadruped table is a numeric prior shared with the reference
+# the joint tables are numeric priors shared with the reference
 # (1-indexed, 0 = world), identical to lab4d_tpu/utils/skel.py
+_HUMAN_PARENT_1IDX = {
+    1: 0, 13: 0, 16: 0, 2: 1, 3: 2, 4: 3, 5: 3, 9: 3, 6: 5, 7: 6, 8: 7,
+    10: 9, 11: 10, 12: 11, 14: 13, 15: 14, 17: 16, 18: 17,
+}
+_HUMAN_SYMM_1IDX = {
+    1: 1, 2: 2, 3: 3, 4: 4, 5: 9, 6: 10, 7: 11, 8: 12, 9: 5, 10: 6, 11: 7,
+    12: 8, 13: 16, 14: 17, 15: 18, 16: 13, 17: 14, 18: 15,
+}
+_HUMAN_REST_JOINTS = np.array(
+    [
+        [0.0, 0.0, 0.0],
+        [-3.6278e-05, 3.6903e-03, -7.2475e-04],
+        [-9.3221e-05, 8.0693e-03, -1.1619e-03],
+        [-1.2457e-04, 1.3251e-02, -1.3801e-03],
+        [-6.0306e-05, 1.8105e-02, -7.8039e-04],
+        [2.2711e-03, 1.6784e-02, -8.8300e-04],
+        [7.1616e-03, 1.6918e-02, -1.6573e-03],
+        [1.7433e-02, 1.6934e-02, -1.7350e-03],
+        [2.7266e-02, 1.6963e-02, -1.7920e-03],
+        [-2.4980e-03, 1.6817e-02, -9.5435e-04],
+        [-7.4151e-03, 1.6886e-02, -1.9168e-03],
+        [-1.7819e-02, 1.6867e-02, -1.7721e-03],
+        [-2.7194e-02, 1.6867e-02, -1.6701e-03],
+        [3.4517e-03, -2.5785e-03, 4.9599e-04],
+        [3.3529e-03, -1.8460e-02, 2.0430e-04],
+        [3.3907e-03, -3.4376e-02, -7.4148e-04],
+        [-3.4360e-03, -2.6853e-03, 2.9919e-05],
+        [-3.3118e-03, -1.8488e-02, 2.1094e-04],
+        [-3.3864e-03, -3.4373e-02, -7.9789e-04],
+    ],
+    dtype=np.float32,
+)
+
 _QUAD_PARENT_1IDX = {
     1: 0, 13: 0, 18: 0, 22: 0, 2: 1, 3: 2, 4: 3, 5: 3, 9: 3, 6: 5, 7: 6,
     8: 7, 10: 9, 11: 10, 12: 11, 14: 13, 15: 14, 16: 15, 17: 16, 19: 18,
@@ -176,17 +209,20 @@ _QUAD_REST_JOINTS = np.array(
 
 
 def get_predefined_skeleton(skel_type: str) -> Skeleton:
-    """The predefined quadruped skeleton: GL->CV flip of y/z, all joints
-    offset by the dropped world joint, 0-based parents/symmetry. The
-    18-joint human skeleton is not ported yet (ROADMAP, other families)."""
-    if skel_type != "quad":
-        raise NotImplementedError(
-            f"skeleton {skel_type!r} is not ported yet (ROADMAP.md, queue 1, item 6)"
-        )
-    rest = _QUAD_REST_JOINTS.copy()
+    """A predefined skeleton ("human" or "quad"): the human table upscaled
+    2.5x to the initial object bound, GL->CV flip of y/z, all joints offset
+    by the dropped world joint, 0-based parents/symmetry."""
+    if skel_type == "human":
+        parent_1idx, symm_1idx = _HUMAN_PARENT_1IDX, _HUMAN_SYMM_1IDX
+        rest = _HUMAN_REST_JOINTS.copy() * 2.5
+    elif skel_type == "quad":
+        parent_1idx, symm_1idx = _QUAD_PARENT_1IDX, _QUAD_SYMM_1IDX
+        rest = _QUAD_REST_JOINTS.copy()
+    else:
+        raise ValueError(f"Unknown skeleton type {skel_type}")
     rest[:, 1:] *= -1
     rest_joints = rest[1:] + rest[:1]
     B = len(rest_joints)
-    parents = [_QUAD_PARENT_1IDX[j + 1] - 1 for j in range(B)]
-    symm_idx = [_QUAD_SYMM_1IDX[j + 1] - 1 for j in range(B)]
+    parents = [parent_1idx[j + 1] - 1 for j in range(B)]
+    symm_idx = [symm_1idx[j + 1] - 1 for j in range(B)]
     return make_skeleton(parents, rest_joints, symm_idx)

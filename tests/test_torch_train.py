@@ -324,14 +324,21 @@ def test_check_grad_rolls_back_two_rounds(cli_run, norm):
 
 
 def test_train_cli_refuses_fields_without_kernels():
-    """comp (fg and bg composed) is not ported; fg / skel-quad and bg are."""
+    """Every field type (bg, fg, comp) and warp of lab4d_tpu's
+    parse_warp_type is ported; check_opts refuses a field type or warp
+    that neither package has."""
     from lab4d_tpu_torch import train as train_cli
 
-    opts = vars(train_cli.get_parser().parse_args(["--field_type", "comp"]))
-    with pytest.raises(NotImplementedError, match="comp"):
-        train_cli.check_opts(opts)
-    for argv in (["--field_type", "bg"], ["--field_type", "fg", "--fg_motion", "skel-quad"]):
-        train_cli.check_opts(vars(train_cli.get_parser().parse_args(argv)))
+    parse = train_cli.get_parser().parse_args
+    for argv in (["--field_type", "fgbg"], ["--field_type", "fg", "--fg_motion", "skel-dog"],
+                 ["--field_type", "comp", "--fg_motion", "comp_skel-quad_nvp"]):
+        with pytest.raises((ValueError, NotImplementedError)):
+            train_cli.check_opts(vars(parse(argv)))
+    motions = ("rigid", "dense", "nvp", "bob", "skel-human", "skel-quad",
+               "comp_skel-human_dense", "comp_skel-quad_dense")
+    for argv in [["--field_type", "bg"]] + [["--field_type", ft, "--fg_motion", m]
+                                             for ft in ("fg", "comp") for m in motions]:
+        train_cli.check_opts(vars(parse(argv)))
 
 
 def test_synthetic_scene_writer_matches_tests_synthetic(tmp_path):
