@@ -157,6 +157,9 @@ K3_TRAIN = ("camera/intrinsics train D5 W256", 256, 256, 5, 256)
 K3_TRAIN_SHAPES = [K3_TRAIN, ("appearance train D2 W64", 256, 64, 2, 64),
                    ("articulation train D5 W256", 512, 256, 5, 256),
                    ("camera, all 32 frames D5 W256", 32, 256, 5, 256)]
+# the category step (8 videos of 16 frames): the camera TimeMLP's prior term
+# over all 128 filtered frames
+K3_CATEGORY_SHAPES = [("camera, all 128 frames of 8 videos D5 W256", 128, 256, 5, 256)]
 # checked at a ragged count of many rows
 K3_RAGGED = ("ragged D5 W256", 70001, 256, 5, 256)
 # (label, rows, C_in, widths, skips, final_act) of the dense warps' CondMLPs
@@ -177,6 +180,14 @@ K4_SHAPES = [
     ("colour F8 D2 W128", 262144, 8, (128,) * 3, (), True, True),
     ("vis F10 D2 W64", 262144, 10, (64, 64, 1), (), False, False),
     ("vis-decay F10 D2 W64", 512, 10, (64, 64, 1), (), False, False),
+]
+# the category step's K4 calls: the fg base field at the mean instance code
+# on the gauss-skin term's 2,048 points, and the canonical feature field
+# (F6 D5 W128, 16 outputs, no window) at the step's 262,144 samples, which
+# the fused heads (K1) carry in a single-instance step
+K4_CATEGORY_SHAPES = [
+    ("gauss-skin fg base F10 D5 W128", 2048, 10, (128,) * 6, (4,), True, True),
+    ("feature F6 D5 W128", 262144, 6, (128,) * 5 + (16,), (4,), False, False),
 ]
 # the fg base field of export's canonical SDF grid: one marching-cubes chunk
 # of 64^3 points, instance code folded into the biases, no window, no saving
@@ -360,12 +371,12 @@ def phase_kernel():
                  if "cuda_launches_per_call" in r else ""))
         results[name].append(r)
 
-    for label, rows, C, D, W in K3_SHAPES + K3_TRAIN_SHAPES + [K3_RAGGED]:
+    for label, rows, C, D, W in K3_SHAPES + K3_TRAIN_SHAPES + K3_CATEGORY_SHAPES + [K3_RAGGED]:
         _k3_kernels(K, gen, label, rows, C, [W] * (D + 1), report)
     for label, rows, C, widths, skips, final_act in K3_WARP_SHAPES:
         _k3_kernels(K, gen, label, rows, C, widths, report, skips, final_act)
 
-    for shape in K4_SHAPES:
+    for shape in K4_SHAPES + K4_CATEGORY_SHAPES:
         _pe_kernels(K, gen, shape, report)
     _pe_forward_kernel(K, gen, K4_EXPORT, report)
     results.update(_heads_kernels(gen))
@@ -1057,7 +1068,8 @@ def phase_k3_paths(shapes):
     (K3_SHAPES, K3_TRAIN_SHAPES)."""
     from lab4d_tpu_torch.ops import mlp_kernel as K
 
-    checked = {(rows, C, (W,) * (D + 1), (), True) for _, rows, C, D, W in K3_SHAPES + K3_TRAIN_SHAPES}
+    checked = {(rows, C, (W,) * (D + 1), (), True)
+               for _, rows, C, D, W in K3_SHAPES + K3_TRAIN_SHAPES + K3_CATEGORY_SHAPES}
     checked |= {(rows, C, widths, skips, fa) for _, rows, C, widths, skips, fa in K3_WARP_SHAPES}
     gen = torch_generator()
     extra = sorted(set(shapes) - checked)
@@ -1081,7 +1093,7 @@ def torch_generator():
 
 
 def phase_render(model, geo_state, data_info, tag="render", topk=None, channels=None,
-                 n_frames=N_FRAMES, viewpoint="ref"):
+                 n_frames=N_FRAMES, viewpoint="ref", inst_id=0):
     """n_frames frames at RES^2 through the render CLI's own functions (eval
     mode topk / channels, as --eval_topk / --render_keys give them);
     returns every kernel's launches over exactly that run, the frames and
@@ -1090,7 +1102,7 @@ def phase_render(model, geo_state, data_info, tag="render", topk=None, channels=
 
     from lab4d_tpu_torch.render import construct_batch_from_opts, render_batch
 
-    opts = {"inst_id": 0, "render_res": RES, "viewpoint": viewpoint, "freeze_id": 0,
+    opts = {"inst_id": inst_id, "render_res": RES, "viewpoint": viewpoint, "freeze_id": 0,
             "num_frames": n_frames, "noskip": False}
     # warm-up at a small size: cuBLAS handles, allocator pools
     warm = dict(opts, render_res=32, num_frames=1)
@@ -1122,6 +1134,7 @@ def phase_render(model, geo_state, data_info, tag="render", topk=None, channels=
     ms_frame = elapsed / n_frames * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{tag}] {n_frames} {viewpoint} frames at {RES}^2"
+          f"{f' of instance {inst_id}' if inst_id else ''}"
           f"{'' if topk is None else f', top-{topk} eval'}: "
           f"{ms_frame:.1f} ms/frame, "
           f"launches {' '.join(f'{k}={v}' for k, v in launches.items())}, peak memory {peak:.2f} GiB, "
@@ -1201,8 +1214,23 @@ for _motion in FAMILIES:
     TRAIN_OPTS[_motion] = ["--field_type", "fg", "--fg_motion", _motion, "--seqname", "smoke",
                            "--logname", _motion, "--train_res", "64", "--num_workers", "4",
                            "--geo_init_steps", str(FAMILY_GEO_STEPS)]
+# [train-category]: the multi-video category model of the category tutorial
+# (fg / comp_skel-human_dense, --nosingle_inst: one instance code per video)
+# on CATEGORY_VIDS videos of CATEGORY_FRAMES frames at 64^2, each video's
+# sphere 10% larger than the last; [transfer] loads its checkpoint into the
+# one-video scene with --freeze_bone_len, [resume] into its own scene
+CATEGORY_VIDS, CATEGORY_FRAMES, CATEGORY_GEO_STEPS = 8, 16, 500
+TRANSFER_STEPS, RESUME_STEPS, LOAD_GEO_STEPS = 10, 2, 20
+TRAIN_OPTS["category"] = ["--field_type", "fg", "--fg_motion", "comp_skel-human_dense",
+                          "--no-single_inst", "--seqname", "cate", "--logname", "category",
+                          "--train_res", "64", "--num_workers", "4"]
+TRAIN_OPTS["transfer"] = ["--field_type", "fg", "--fg_motion", "comp_skel-human_dense",
+                          "--freeze_bone_len", "--seqname", "smoke", "--logname", "transfer",
+                          "--train_res", "64", "--num_workers", "4"]
 FIELD_NAMES = {"bg": "bg field", "fg": "fg / skel-quad field",
-               "comp": "comp: fg / comp_skel-human_dense + bg fields"}
+               "comp": "comp: fg / comp_skel-human_dense + bg fields",
+               "category": f"category: fg / comp_skel-human_dense, {CATEGORY_VIDS} instance codes",
+               "transfer": "transfer: fg / comp_skel-human_dense from the category checkpoint"}
 
 
 def write_scene(root):
@@ -1215,6 +1243,19 @@ def write_scene(root):
     make_synthetic_dataset(db, seqname="smoke", num_frames=32, res=64)
     print(f"[scene] synthetic orbit scene, 32 frames at 64^2, in {time.time() - t:.1f} s")
     return db
+
+
+def write_category_scene(db):
+    """The category scene beside write_scene's: CATEGORY_VIDS orbit videos
+    of CATEGORY_FRAMES frames at 64^2, video v's sphere (1 + 0.1 v) times
+    the first's, so that the instance codes have sizes to fit."""
+    from lab4d_tpu_torch.tools.synthetic_scene import make_synthetic_dataset
+
+    t = time.time()
+    make_synthetic_dataset(db, seqname="cate", num_vids=CATEGORY_VIDS,
+                           num_frames=CATEGORY_FRAMES, res=64, scale_step=0.1)
+    print(f"[scene] synthetic category scene, {CATEGORY_VIDS} videos x {CATEGORY_FRAMES} frames "
+          f"at 64^2, sphere radius 0.5 x (1 + 0.1 v), in {time.time() - t:.1f} s")
 
 
 def _step_grads(model, batch, draws, step=0):
@@ -1383,13 +1424,15 @@ def plain_kernels():
 
 
 def reference_steps(db, root, cate, geo_init_steps, eikonal_all_rays=False):
-    """A small trainer of the `cate` model ("bg", the fg / skel-quad model
-    or the comp model) after its prior fits with `geo_init_steps` geometry
-    steps, one batch of 128 rays of 64 samples and seeded random draws;
-    returns step(device): that training step's loss terms, gradients and
-    eikonal records (eikonal_records) on the device, from the trainer's
-    weights. eikonal_all_rays: the eikonal term at every ray instead of a
-    drawn sixteenth. comp's fields draw their eikonal at the same rays."""
+    """A small trainer of the `cate` model ("bg", the fg / skel-quad model,
+    the comp model or the category model) after its prior fits with
+    `geo_init_steps` geometry steps, one batch of 128 rays of 64 samples
+    and seeded random draws; returns step(device): that training step's
+    loss terms, gradients and eikonal records (eikonal_records) on the
+    device, from the trainer's weights. eikonal_all_rays: the eikonal term
+    at every ray instead of a drawn sixteenth. comp's fields draw their
+    eikonal at the same rays; the category model's draws include its
+    instance ids and code swaps."""
     import torch
 
     from lab4d_tpu_torch.engine.trainer import Trainer
@@ -1412,12 +1455,20 @@ def reference_steps(db, root, cate, geo_init_steps, eikonal_all_rays=False):
     if "fg" in draws_np:  # the global-match candidates, the gauss-skin points
         draws_np["fg"]["match_idx"] = rng.integers(0, rays * 64, 1024)
         draws_np["fg"]["gauss_u"] = rng.random((2048, 3)).astype(np.float32)
-    if cate == "comp":  # the bg's visibility points; the soft deformation's draws
+    if cate == "comp":  # the bg's visibility points
         draws_np["bg"]["vis_u"] = rng.random((512, 3)).astype(np.float32)
+    if trainer.opts["fg_motion"].startswith("comp"):  # the soft deformation's draws
         fi = trainer.data_info["frame_info"]
         draws_np["fg"].update(soft_u=rng.random((1024, 3)).astype(np.float32),
                               soft_frame=rng.integers(0, fi.num_frames_raw, 1024),
                               soft_inst=np.zeros(1024, np.int64))
+    num_inst = trainer.model.num_inst
+    if num_inst > 1:  # instance ids over the codes; the base and colour MLPs' swaps
+        rows = 2 * batch_np["hxy"].shape[0]
+        draws_np["fg"].update(vis_inst=rng.integers(0, num_inst, 512),
+                              soft_inst=rng.integers(0, num_inst, 1024),
+                              swap=[(rng.integers(0, num_inst, rows),
+                                     rng.random(rows).astype(np.float32)) for _ in range(2)])
 
     def step(dev):
         dev = torch.device(dev)
@@ -1425,7 +1476,8 @@ def reference_steps(db, root, cate, geo_init_steps, eikonal_all_rays=False):
         geo = {c: {k: v.to(dev) for k, v in g.items()} for c, g in trainer.geo_for_batch().items()}
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
         batch["geo"] = geo
-        draws = {c: {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
+        draws = {c: {k: [tuple(torch.as_tensor(a, device=dev) for a in p) for p in v]
+                     if k == "swap" else torch.as_tensor(v, device=dev) for k, v in d.items()}
                  for c, d in draws_np.items()}
         with eikonal_records([]) as eik:
             loss, grads = _step_grads(model, batch, draws)
@@ -1440,7 +1492,7 @@ def reference_steps(db, root, cate, geo_init_steps, eikonal_all_rays=False):
 # fitted states (20-500 steps) make the fg step's GPU and CPU results
 # differ beyond the bound with every kernel plain on the GPU as well
 # (PERF.md §6; tools/compare_fg_step.py)
-REF_GEO_STEPS = {"bg": 20, "fg": 5, "comp": 5}
+REF_GEO_STEPS = {"bg": 20, "fg": 5, "comp": 5, "category": 5}
 
 
 def phase_train_reference(db, root, cate):
@@ -1452,12 +1504,12 @@ def phase_train_reference(db, root, cate):
     step = reference_steps(db, root, cate, REF_GEO_STEPS[cate])
     got, want = step("cuda"), step("cpu")
     tag = "train-reference" + ("" if cate == "bg" else f"-{cate}")
-    if cate == "comp":
+    if cate in ("comp", "category"):
         need = {"reg_soft_deform", "reg_eikonal", "reg_gauss_skin", "reg_skel_prior"}
         if not all(want["loss"].get(k, 0) > 0 for k in need):
             fail(f"{tag}: a comp term is missing or zero on the CPU: "
                  + str({k: want["loss"].get(k) for k in sorted(need)}))
-        if len(got["eikonal"]) != 2:
+        if len(got["eikonal"]) != (2 if cate == "comp" else 1):
             fail(f"{tag}: {len(got['eikonal'])} eikonal records, not one per field")
     if cate != "bg":
         with plain_kernels():
@@ -1486,13 +1538,17 @@ def _reset_kernel_counts():
         fn.launches = 0
 
 
-def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, tag=None):
-    """The training entry at full width for the `cate` model (TRAIN_OPTS),
-    n_steps steps; returns the launch counts of the whole run and of the
-    training steps, and the median ms/step. calls: k3_records' TimeMLP
-    calls, whose share of the training steps is printed; shapes:
-    k3_records' K3f shapes, whose launches per training step are printed.
-    The total loss must fall over the run where it has 10 steps or more."""
+def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, tag=None,
+                extra=(), zero=(), out=None, trace=False):
+    """The training entry at full width for the `cate` model (TRAIN_OPTS,
+    then the arguments `extra`), n_steps steps; returns the launch counts
+    of the whole run and of the training steps, and the median ms/step.
+    calls: k3_records' TimeMLP calls, whose share of the training steps is
+    printed; shapes: k3_records' K3f shapes, whose launches per training
+    step are printed. The total loss must fall over the run where it has
+    10 steps or more. Every kernel must launch in the training steps but
+    those of `zero`, which must not (and K1 / K2 in a bg step); out["trainer"]
+    receives the trainer; trace: 3 more steps traced (_trace_steps)."""
     import torch
 
     from lab4d_tpu_torch import train as train_cli
@@ -1512,7 +1568,7 @@ def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, ta
 
     argv = TRAIN_OPTS[cate] + ["--num_rounds", "1", "--iters_per_round", str(n_steps),
                          "--save_freq", "1", "--database_root", db,
-                         "--logroot", os.path.join(root, "logdir")]
+                         "--logroot", os.path.join(root, "logdir"), *extra]
     torch.cuda.reset_peak_memory_stats()
     _reset_kernel_counts()
     Trainer.train_one_round = counted_round
@@ -1538,12 +1594,15 @@ def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, ta
              f"of the last 5 {last}")
     tag = tag or ("train" + ("" if cate == "bg" else f"-{cate}"))
     for name, n in steps.items():
-        if n <= 0 and (cate != "bg" or name not in ("K1", "K2")):
+        if name in zero and n != 0:
+            fail(f"{tag}: the training steps launched {name} {n} times, where it does not run")
+        if name not in zero and n <= 0 and (cate != "bg" or name not in ("K1", "K2")):
             fail(f"{tag}: the training steps launched no {name} kernel")
     if cate == "bg" and not steps["K4f"] == steps["K4b"] == 4 * TRAIN_STEPS:
         fail(f"{tag}: K4f / K4b ran {steps['K4f']} / {steps['K4b']} times in {TRAIN_STEPS} steps, "
              "not 4 each per step (base, colour, visibility, visibility decay)")
-    run_dir = os.path.join(root, "logdir", "smoke-" + cate)
+    run_dir = os.path.join(root, "logdir", "%s-%s" % (trainer.opts["seqname"],
+                                                      trainer.opts["logname"]))
     ckpt = os.path.join(run_dir, "ckpt_latest.flax")
     if not os.path.exists(ckpt):
         fail(f"{tag}: no checkpoint written")
@@ -1577,9 +1636,89 @@ def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, ta
                   for name, c in sorted(step_calls.items()) if c))
     print(f"[{tag}] launches in the training steps: "
           + " ".join(f"{k}={v}" for k, v in steps.items())
-          + "; in the whole run: " + " ".join(f"{k}={v}" for k, v in launches.items())
+          + " (per step: " + " ".join(f"{k}={v / n_steps:g}" for k, v in steps.items())
+          + "); in the whole run: " + " ".join(f"{k}={v}" for k, v in launches.items())
           + f"; checkpoint {os.path.getsize(ckpt)} bytes")
+    if trace:
+        dev, wall, idle = _trace_steps(trainer)
+        print(f"[{tag}] torch.profiler over 2 more steps (pre-drawn batches): device time "
+              f"{dev:.2f} ms/step of {wall:.2f} ms/step wall, idle share {idle:.3f}")
+        if trainer.model.num_inst > 1:
+            fwd, both = _plain_field_ms(trainer)
+            print(f"[{tag}] the fg field's heads at per-row codes (base, colour, visibility "
+                  f"MLPs; sdf, rgb heads), the plain chain at {FG_PAIRS * FG_SPP} points: "
+                  f"forward {fwd:.3f} ms, forward + backward {both:.3f} ms (CUDA events, "
+                  "median of 5)")
+    if out is not None:
+        out["trainer"] = trainer
     return launches, steps, ms, step_shapes
+
+
+def _plain_field_ms(trainer, reps=5):
+    """(forward ms, forward + backward ms) of the fg field's per-point
+    heads where K1 / K2 would run in a single-instance step, at a step's
+    points with one instance id per pair: NeRF.query_nerf (base and colour
+    MLPs, sdf and rgb heads) and the visibility MLP, the plain chain with
+    per-row code adds; the backward to every parameter and the points."""
+    import torch
+
+    field = trainer.model.fields.field_params["fg"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xyz = (torch.rand(FG_PAIRS, FG_SPP // 64, 64, 3, device="cuda", generator=gen) - 0.5) * 0.4
+    inst = torch.randint(0, trainer.model.num_inst, (FG_PAIRS,), device="cuda", generator=gen)
+    frame = torch.randint(0, trainer.data_info["frame_info"].num_frames_raw, (FG_PAIRS,),
+                          device="cuda", generator=gen)
+    xyz.requires_grad_(True)
+
+    def run(backward):
+        out = field.query_nerf(xyz, torch.zeros_like(xyz), frame, inst, alpha=1.0)
+        vis = field.vis_mlp(xyz, inst_id=inst)
+        if backward:
+            (out["rgb"].sum() + out["density"].sum() + vis.sum()).backward()
+
+    def median_ms(fn):
+        times = []
+        for _ in range(reps + 1):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            sync()
+            times.append(s.elapsed_time(e))
+        return float(np.median(times[1:]))
+
+    fwd = median_ms(lambda: run(False))
+    both = median_ms(lambda: run(True))
+    field.zero_grad(set_to_none=True)
+    return fwd, both
+
+
+def _trace_steps(trainer, n=3):
+    """(device ms/step, wall ms/step, idle share) of the trainer's
+    training step traced by torch.profiler over n - 1 steps on batches
+    drawn beforehand, after one untraced step: the summed time of the
+    kernels on the card against the steps' wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    geo = trainer.geo_for_batch()
+    batches = []
+    for _ in range(n):
+        b = trainer.batch_to_device(trainer.trainloader.next_batch())
+        b["geo"] = geo
+        batches.append(b)
+    trainer.trainloader.stop()
+    trainer.train_step(batches[0], trainer.current_steps)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches[1:]:
+            trainer.train_step(b, trainer.current_steps)
+        sync()
+        wall = (time.perf_counter() - t) * 1e3 / (n - 1)
+    dev = sum(e.device_time for e in prof.events()
+              if e.device_type == DeviceType.CUDA) / 1e3 / (n - 1)
+    return dev, wall, 1 - dev / wall
 
 
 EXPORT_GRID = 128  # export.py's default --grid_size
@@ -1594,18 +1733,20 @@ def _app_opts(parser, db, root, cate, extra=()):
         "--logroot", os.path.join(root, "logdir"), *extra]))
 
 
-def phase_export(db, root, cate):
+def phase_export(db, root, cate, inst_id=0):
     """export.py's functions at --grid_size 128 on the checkpoint of
     [train] / [train-fg]: the canonical mesh (SDF grid through K4f,
     marching cubes), each frame's motion (K3f) and the written files.
-    The SDF grid must be finite, and the mesh non-empty wherever the grid
+    The SDF grid (of instance inst_id: a category's code per row, so the
+    plain chain) must be finite, and the mesh non-empty wherever the grid
     crosses the level (the bg field after 25 steps may hold none inside
     its aabb). Returns the launches of every kernel over the export."""
     import torch
 
     from lab4d_tpu_torch import export as E
 
-    opts = _app_opts(E.get_parser(), db, root, cate, ["--grid_size", str(EXPORT_GRID)])
+    opts = _app_opts(E.get_parser(), db, root, cate,
+                     ["--grid_size", str(EXPORT_GRID), "--inst_id", str(inst_id)])
     times, sdf_vals = {"sdf": 0.0, "mc": 0.0}, []
     orig_mc = E.marching_cubes
 
@@ -1636,7 +1777,7 @@ def phase_export(db, root, cate):
     sync()
     elapsed = time.time() - t
     launches = _kernel_counts()
-    tag = f"export-{cate}"
+    tag = f"export-{cate}" + (f" instance {inst_id}" if inst_id else "")
     if sorted(meshes) != sorted(geo_state) or len(sdf_vals) != len(meshes) * EXPORT_GRID**3 // 262144:
         fail(f"{tag}: exported {sorted(meshes)} from {len(sdf_vals)} SDF chunks")
     per_grid = len(sdf_vals) // len(meshes)  # marching cubes queries each field's grid in turn
@@ -1664,7 +1805,10 @@ def phase_export(db, root, cate):
               f"{sdf.max():.4f}]: rest mesh {len(mesh.vertices)} vertices, "
               f"{len(mesh.faces)} faces; {len(motion[c])} frames; {c}-motion.json "
               + " ".join(f"{k}{list(v)}" for k, v in shapes.items()))
-    if launches["K4f"] <= 0 or launches["K3f"] <= 0:
+    # a category instance's SDF grid takes its code per row: the plain
+    # chain, as in JAX (whose CondMLP leaves the fused kernel at per-row codes)
+    per_row = model.num_inst > 1
+    if (launches["K4f"] <= 0) != per_row or launches["K3f"] <= 0:
         fail(f"{tag}: the export launched K4f {launches['K4f']} / K3f {launches['K3f']} times")
     print(f"[{tag}] {elapsed:.2f} s in all: model load {t_mesh - t:.2f}, canonical mesh "
           f"{times['mc']:.2f} (SDF grid {times['sdf']:.2f}, marching cubes "
@@ -1675,14 +1819,14 @@ def phase_export(db, root, cate):
     return launches
 
 
-def phase_reanimate(db, root, cate="fg"):
-    """reanimate.py's functions on the `cate` checkpoint (fg, or comp,
-    whose bg keeps its camera MLP) with --motion_id 0 (the
-    export_0000/fg-motion.json of [export-<cate>]), its frames at 128^2
-    with the default top-k eval: the batch's time-t articulation of each
-    frame equals get_vals(override_so3=...) of the json's joint angles on
-    the CPU within 1e-5. Returns the launches of every kernel over the
-    render."""
+def phase_reanimate(db, root, cate="fg", inst_id=0, motion_id=0):
+    """reanimate.py's functions on the `cate` checkpoint (fg, comp, whose
+    bg keeps its camera MLP, or the category model) with --inst_id and
+    --motion_id (the export_<motion_id>/fg-motion.json of [export-<cate>]),
+    its frames at 128^2 with the default top-k eval: the batch's time-t
+    articulation of each frame equals get_vals(override_so3=...) of the
+    json's joint angles at the instance's frames on the CPU within 1e-5.
+    Returns the launches of every kernel over the render."""
     import torch
 
     from lab4d_tpu_torch import reanimate as RA
@@ -1690,7 +1834,8 @@ def phase_reanimate(db, root, cate="fg"):
 
     tag = "reanimate" + ("" if cate == "fg" else f"-{cate}")
     opts = _app_opts(RA.get_parser(), db, root, cate,
-                     ["--motion_id", "0", "--render_res", str(REANIMATE_RES), "--freeze_id", "0"])
+                     ["--motion_id", str(motion_id), "--inst_id", str(inst_id), "--render_res",
+                      str(REANIMATE_RES), "--freeze_id", "0"])
     model, geo_state, data_info = construct_test_model(opts, torch.device("cuda"))
     batch, _ = RA.construct_batch_from_opts_reanimate(opts, model, geo_state, data_info, "cuda")
     n = len(batch["frameid_sub"])
@@ -1705,7 +1850,7 @@ def phase_reanimate(db, root, cate="fg"):
                        else v[i:i + 1]) for k, v in batch.items()}
             sub["geo"] = geo
             got = model.prepare_eval_samples(sub)["fg"]["t_articulation"]
-            fid = sub["frameid_sub"].cpu() + int(data_info["frame_info"].frame_offset_raw[0])
+            fid = sub["frameid_sub"].cpu() + int(data_info["frame_info"].frame_offset_raw[inst_id])
             want = arti_cpu.get_vals(fid, override_so3=sub["joint_so3"].cpu())
             err = max(err, *(float((a.cpu() - b).abs().max()) for a, b in zip(got, want)))
     if not err <= 1e-5:
@@ -1725,11 +1870,133 @@ def phase_reanimate(db, root, cate="fg"):
             fail(f"{tag}: channel {k} has shape {v.shape} or non-finite values")
     if launches["K3f"] <= 0:
         fail(f"{tag}: the render ran no fused_relu_mlp kernel")
-    print(f"[{tag}] motion 0 on the {cate} model: {n} frames at {REANIMATE_RES}^2, top-{topk} "
+    print(f"[{tag}] motion {motion_id} on instance {inst_id} of the {cate} model: {n} frames at "
+          f"{REANIMATE_RES}^2, top-{topk} "
           f"eval, {elapsed / n * 1e3:.1f} ms/frame; t_articulation vs get_vals(override_so3) on "
           f"the CPU {err:.1e} (<=1e-5); launches "
           + " ".join(f"{k}={v}" for k, v in launches.items())
           + f"; mask mean {rendered['mask'].mean():.4f}")
+    return launches
+
+
+def phase_render_category(db, root):
+    """[render-category]: the category checkpoint of [train-category]
+    through the render CLI's functions (--nosingle_inst: one code per
+    video): one 512^2 reference frame of instance 0 and one of instance 5,
+    the top-k eval (K = 8). Each instance must render its object (mask
+    above 0.01 somewhere). Returns the launches of both."""
+    import torch
+
+    from lab4d_tpu_torch.render import construct_test_model, get_parser
+
+    opts = _app_opts(get_parser(), db, root, "category")
+    model, geo_state, data_info = construct_test_model(opts, torch.device("cuda"))
+    codes = model.fields.field_params["fg"].basefield.inst_embedding.num_inst
+    if codes != CATEGORY_VIDS:
+        fail(f"render-category: the test-time model has {codes} instance codes")
+    total = collections.Counter()
+    for inst in (0, 5):
+        launches, frames, _ = phase_render(model, geo_state, data_info, "render-category",
+                                           topk=8, n_frames=1, inst_id=inst)
+        if not float(frames["mask"].max()) > 0.01:
+            fail(f"render-category: instance {inst} renders nothing (mask max "
+                 f"{float(frames['mask'].max())})")
+        total.update(launches)
+    return dict(total)
+
+
+def _category_ckpt(root):
+    return os.path.join(root, "logdir", "cate-category", "ckpt_latest.flax")
+
+
+def phase_transfer(db, root, shapes):
+    """[transfer]: the train CLI on the one-video scene from [train-category]'s
+    checkpoint (--load_path) with --freeze_bone_len, TRANSFER_STEPS steps,
+    as the category tutorial's second step: the model written before the
+    steps holds the category's per-video tables as their mean, Adam starts
+    afresh (the tables' shapes differ), the bone lengths are the same after
+    the steps, and the single-instance step runs its heads through K1 / K2.
+    Returns the launches of the run and of its steps."""
+    import torch
+
+    from lab4d_tpu_torch import bridge
+    from lab4d_tpu_torch.engine.trainer import PER_VIDEO_TABLES
+
+    out = {}
+    launches, steps, _, _ = phase_train(
+        db, root, "transfer", shapes=shapes, n_steps=TRANSFER_STEPS, out=out, trace=True,
+        extra=["--load_path", _category_ckpt(root), "--geo_init_steps", str(LOAD_GEO_STEPS)])
+    trainer = out["trainer"]
+    cate = bridge.params_from_flax(bridge.load_flax_checkpoint(_category_ckpt(root))["model"])
+    first = bridge.params_from_flax(bridge.load_flax_checkpoint(
+        os.path.join(trainer.save_dir, "ckpt_0000.flax"))["model"])
+    tables = [k for k in cate if any(t in k for t in PER_VIDEO_TABLES)]
+    err = max(float((first[k] - torch.from_numpy(cate[k].numpy().mean(0, keepdims=True)))
+                    .abs().max()) for k in tables)
+    if not (tables and err == 0.0) or any(first[k].shape[0] != 1 for k in tables):
+        fail(f"transfer: the loaded per-video tables differ from the category mean by {err}")
+    if trainer.opt_restored:
+        fail("transfer: Adam was restored across another video count")
+    bones = [k for k in first if "log_bone_len" in k]
+    state = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    moved = max(float((state[k] - first[k]).abs().max()) for k in bones)
+    if not (bones and moved == 0.0):
+        fail(f"transfer: --freeze_bone_len let the bone lengths move by {moved}")
+    print(f"[transfer] from the {CATEGORY_VIDS}-video category checkpoint into a one-video "
+          f"capture: {len(tables)} per-video tables loaded as the category mean (max abs diff "
+          f"{err:g}: {', '.join(sorted({k.split('.')[-2] for k in tables}))}); Adam reset (the "
+          f"tables' shapes differ: opt_restored={trainer.opt_restored}); {len(bones)} bone-length "
+          f"parameters unchanged after {TRANSFER_STEPS} steps (max abs diff {moved:g}); K1 / K2 "
+          f"launches per step {steps['K1'] / TRANSFER_STEPS:g} / {steps['K2'] / TRANSFER_STEPS:g}")
+    return launches, steps
+
+
+def phase_resume(db, root):
+    """[resume]: [train-category]'s checkpoint into the same architecture
+    with --noreset_steps: the Adam moments and count restored equal the
+    saved ones (max abs diff 0), and the step count continues through
+    RESUME_STEPS more steps of a round. Returns the launches of the round."""
+    import torch
+
+    from lab4d_tpu_torch import bridge
+    from lab4d_tpu_torch.engine.trainer import Trainer
+    from lab4d_tpu_torch.train import get_parser
+
+    path = _category_ckpt(root)
+    ckpt = bridge.load_flax_checkpoint(path)
+    opts = vars(get_parser().parse_args(TRAIN_OPTS["category"] + [
+        "--logname", "resume", "--load_path", path, "--no-reset_steps", "--num_rounds", "1",
+        "--iters_per_round", str(RESUME_STEPS), "--save_freq", "1",
+        "--geo_init_steps", str(LOAD_GEO_STEPS), "--database_root", db,
+        "--logroot", os.path.join(root, "logdir")]))
+    trainer = Trainer(opts)
+    count, moments = bridge.opt_state_from_optax(ckpt["opt_state"])
+    if not trainer.opt_restored or trainer.current_steps != int(ckpt["current_steps"]):
+        fail(f"resume: Adam restored {trainer.opt_restored}, step {trainer.current_steps}")
+    err = 0.0
+    for name, p in zip(trainer.param_names, trainer.params):
+        st = trainer.optimizer.state[p]
+        err = max(err, abs(float(st["step"]) - count),
+                  *(float((st[k].cpu() - torch.from_numpy(np.array(m))).abs().max())
+                    for k, m in zip(("exp_avg", "exp_avg_sq"), moments[name])))
+    if err != 0.0:
+        fail(f"resume: the restored Adam state differs from the saved one by {err}")
+    start = trainer.current_steps
+    _reset_kernel_counts()
+    try:
+        trainer.train()
+    finally:
+        trainer.close()
+    sync()
+    launches = _kernel_counts()
+    totals = [ld["total"] for ld in trainer.losses]
+    if trainer.current_steps != start + RESUME_STEPS or not np.all(np.isfinite(totals)):
+        fail(f"resume: {trainer.current_steps} steps after {start}, losses {totals}")
+    print(f"[resume] {path.split(os.sep)[-2]}/ckpt_latest.flax into the same model with "
+          f"--noreset_steps: {len(moments)} parameters' Adam moments (count {count}) equal the "
+          f"saved ones (max abs diff {err:g}); steps {start} -> {trainer.current_steps}, loss "
+          f"{totals[0]:.5f} -> {totals[-1]:.5f}; launches "
+          + " ".join(f"{k}={v}" for k, v in launches.items()))
     return launches
 
 
@@ -1802,6 +2069,23 @@ def main():
             render_comp_launches = phase_render_comp(db, root)
             export_comp_launches = phase_export(db, root, "comp")
             reanimate_comp_launches = phase_reanimate(db, root, "comp")
+        # the category model, its apps, and transfer / resume from its checkpoint
+        write_category_scene(db)
+        phase_train_reference(db, root, "category")
+        cate_calls = {}
+        with k3_records(cate_calls, k3_shapes):
+            cate_launches, cate_steps, _, _ = phase_train(
+                db, root, "category", cate_calls, k3_shapes, zero=("K1", "K2"), trace=True,
+                extra=["--geo_init_steps", str(CATEGORY_GEO_STEPS)])
+            render_cate_launches = phase_render_category(db, root)
+            export_cate_launches = phase_export(db, root, "category", inst_id=5)
+            motion_launches = phase_export(db, root, "category", inst_id=2)  # reanimate's motion
+            export_cate_launches = {k: v + motion_launches[k]
+                                    for k, v in export_cate_launches.items()}
+            reanimate_cate_launches = phase_reanimate(db, root, "category", inst_id=5,
+                                                      motion_id=2)
+            transfer_launches, transfer_steps = phase_transfer(db, root, k3_shapes)
+            resume_launches = phase_resume(db, root)
         for name, shapes in (("train-comp", comp_shapes),
                              ("train-families dense", family_runs["dense"][3])):
             rows = {(r, c) for r, c, *_ in shapes}
@@ -1831,13 +2115,19 @@ def main():
             ("train_families", {k: sum(r[0][k] for r in family_runs.values())
                                 for k in comp_launches}),
             ("render_comp", render_comp_launches), ("export_comp", export_comp_launches),
-            ("reanimate_comp", reanimate_comp_launches))}
+            ("reanimate_comp", reanimate_comp_launches), ("train_category", cate_launches),
+            ("render_category", render_cate_launches),
+            ("export_category", export_cate_launches),
+            ("reanimate_category", reanimate_cate_launches), ("transfer", transfer_launches),
+            ("resume", resume_launches))}
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": {**by_path, "train_steps": bg_steps.get(key, 0),
                                  "train_fg_steps": fg_steps.get(key, 0),
                                  "train_comp_steps": comp_steps.get(key, 0),
+                                 "train_category_steps": cate_steps.get(key, 0),
+                                 "transfer_steps": transfer_steps.get(key, 0),
                                  **{f"train_{m.replace('-', '_')}_steps": r[1].get(key, 0)
                                     for m, r in family_runs.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),

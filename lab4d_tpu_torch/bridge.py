@@ -9,6 +9,9 @@
   decoder, so a model fitted by the JAX trainer loads where neither flax
   nor msgpack is installed; `msgpack_dumps` is the matching encoder, with
   which the port's trainer writes its checkpoints in the same format.
+- `opt_state_to_optax` / `opt_state_from_optax` write and read the AdamW
+  moments in the layout the JAX trainer's optax state serializes to, so
+  that either trainer resumes the other's checkpoint with its moments.
 
 Name mapping, flax -> torch:
   module list entry  `head_0`          -> `head.0`
@@ -123,6 +126,91 @@ def params_to_flax(state_dict) -> Dict:
     return tree
 
 
+# ------------------------------------------------- optimizer state (optax)
+
+OPTAX_LAYOUT = "optax.chain(clip_with_norm, multi_transform(adamw))"
+PORT_LAYOUT = "lab4d_tpu_torch.AdamW"
+ADAMW_LABELS = ("base", "explicit")
+
+
+def _set_path(tree: Dict, path, value):
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def _leaves(tree, prefix=()):
+    """(path, array) of every leaf; empty dicts (optax's masked entries)
+    have none."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def opt_state_to_optax(moments, labels, count: int, grad_norm: float = 0.0) -> Dict:
+    """The AdamW state of the port as the JAX trainer's optimizer state
+    serializes (flax.serialization.to_state_dict of optax.chain(
+    clip_with_norm, multi_transform({"base": adamw, "explicit": adamw,
+    "frozen": set_to_zero}))):
+
+        {"0": {"grad_norm"}, "1": {"inner_states": {label: {"inner_state":
+         {"0": {"count", "mu", "nu"}, "1": {}, "2": {"count"}}}},
+         "frozen": {"inner_state": {}}}}}
+
+    mu / nu are flax param trees holding the moments of the label's
+    parameters and an empty dict at every other parameter. moments:
+    {torch name: (exp_avg, exp_avg_sq)} numpy arrays in the torch layout;
+    labels: {torch name: label}; count: the updates taken."""
+    c = np.asarray(count, np.int32)
+    inner = {}
+    for label in ADAMW_LABELS:
+        mu, nu = {}, {}
+        for name, lab in labels.items():
+            path, transpose = torch_to_flax_path(name)
+            if lab == label:
+                m, v = (np.ascontiguousarray(a.T if transpose else a) for a in moments[name])
+            else:
+                m, v = {}, {}
+            _set_path(mu, path, m)
+            _set_path(nu, path, v)
+        inner[label] = {"inner_state": {"0": {"count": c, "mu": mu, "nu": nu}, "1": {},
+                                        "2": {"count": c}}}
+    inner["frozen"] = {"inner_state": {}}
+    return {"0": {"grad_norm": np.asarray(grad_norm, np.float32)}, "1": {"inner_states": inner}}
+
+
+def opt_state_leaves(tree) -> Dict:
+    """{path: shape} of the leaves of an optimizer state in the optax
+    layout; a missing grad_norm leaf counts as the scalar it is (the JAX
+    trainer backfills it for checkpoints written before it had one)."""
+    shapes = {path: np.shape(v) for path, v in _leaves(tree)}
+    shapes.setdefault(("0", "grad_norm"), ())
+    return shapes
+
+
+def opt_state_from_optax(tree) -> Tuple[int, Dict[str, Tuple[np.ndarray, np.ndarray]]]:
+    """(count, {torch name: (exp_avg, exp_avg_sq)}) of an optimizer state
+    in the optax layout (opt_state_to_optax) or the port's earlier
+    manifest layout ({"layout": PORT_LAYOUT, "step", "params": {torch name:
+    {"exp_avg", "exp_avg_sq"}}})."""
+    if tree.get("layout") == PORT_LAYOUT:
+        return int(tree["step"]), {n: (np.asarray(ms["exp_avg"]), np.asarray(ms["exp_avg_sq"]))
+                                   for n, ms in tree["params"].items()}
+    moments, count = {}, 0
+    for label in ADAMW_LABELS:
+        adam = tree["1"]["inner_states"][label]["inner_state"]["0"]
+        count = int(adam["count"])
+        nu = dict(_leaves(adam["nu"]))
+        for path, m in _leaves(adam["mu"]):
+            key, transpose = flax_to_torch_key(path)
+            v = np.asarray(nu[path])
+            m = np.asarray(m)
+            moments[key] = (m.T, v.T) if transpose else (m, v)
+    return count, moments
+
+
 # ------------------------------------------------------------------ msgpack
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
@@ -234,7 +322,7 @@ def _pack(obj, out: list):
     elif isinstance(obj, (bool, np.bool_)):
         out.append(b"\xc3" if obj else b"\xc2")
     elif isinstance(obj, np.ndarray):
-        arr = np.ascontiguousarray(obj)
+        arr = np.asarray(obj, order="C")  # not ascontiguousarray: it makes 0-d arrays 1-d
         out.append(_pack_ext(_EXT_NDARRAY, msgpack_dumps(
             [list(arr.shape), arr.dtype.name, arr.tobytes()])))
     elif isinstance(obj, np.generic):

@@ -60,6 +60,7 @@ class DVRModel(nn.Module):
             generator = torch.Generator().manual_seed(0)
         self.frame_info = frame_info
         self.field_type = field_type
+        self.num_inst = num_inst
         self.train_res = train_res
         self.loss_weights = dict(loss_weights)
         self.fields = MultiFields(frame_info, field_type=field_type, fg_motion=fg_motion,
@@ -103,13 +104,16 @@ class DVRModel(nn.Module):
 
     # -------------------------------------------------------------- training
 
-    def forward(self, batch, sched, draws=None):
+    def forward(self, batch, sched, draws=None, generator=None):
         """Training forward of one batch of (M, 2, N, ...) frame pairs:
         returns the weighted, reduced loss terms {name: scalar}.
 
         sched: the step's schedule values; draws: optional injected random
         draws per field ({cate: {"eikonal_idx", "vis_u", "vis_inst",
-        "match_idx", "gauss_u", "soft_u", "soft_frame", "soft_inst"}})."""
+        "match_idx", "gauss_u", "soft_u", "soft_frame", "soft_inst",
+        "swap"}}; "swap": the instance-code swaps' (rand_id, u) pairs in
+        the JAX package's call order); generator: the source of the swap
+        draws not given (the trainer's)."""
         batch = dict(batch)
         geo = batch.pop("geo")
         batch = self.reshape_batch(self.process_frameid(batch))
@@ -117,7 +121,7 @@ class DVRModel(nn.Module):
         samples_dict = self.get_samples(batch, train=True)
         multifields_dict, deltas_dict, aux_dict = self.fields.query_multifields(
             samples_dict, alpha=sched["alpha"], train=True, flow_thresh=self.train_res,
-            draws=draws,
+            draws=draws, beta_prob=sched["beta_prob"], generator=generator,
         )
         rendered = render_pixel(*self.fields.compose_fields(multifields_dict, deltas_dict))
         if len(multifields_dict) == 1:  # one field: its own render is the composed one

@@ -1,12 +1,16 @@
 """Round-based trainer: AdamW with a one-cycle schedule, skip-not-clip
 of spiking steps with a two-round rollback, prior-fit initialization,
 host-maintained geometry state per field (fg, bg, or both for comp), a
-per-round eval render with its metrics and checkpoints in the JAX
-trainer's layout. Port of lab4d_tpu/engine/trainer.py for one card.
+per-round eval render with its metrics, checkpoints in the JAX
+trainer's layout (the AdamW moments in the layout of its optax state), and
+`--load_path`: a checkpoint of either trainer loaded into the model
+(merge_params: per-video tables of another video count are
+mean-compressed), its Adam moments restored where every leaf matches, its
+step count kept under --noreset_steps. Port of
+lab4d_tpu/engine/trainer.py for one card.
 
-Resuming from a checkpoint and the skeleton joint-angle prior fit (which
-needs "joint_angles" in the dataset metadata) are not ported yet
-(ROADMAP.md).
+The skeleton joint-angle prior fit (which needs "joint_angles" in the
+dataset metadata) is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from lab4d_tpu_torch.dataloader import data_utils
 from lab4d_tpu_torch.engine import init_utils
 from lab4d_tpu_torch.engine.model import LOSS_WEIGHT_NAMES, DVRModel
 from lab4d_tpu_torch.engine.schedules import compute_sched
-from lab4d_tpu_torch.meshlib import load_obj, uv_sphere
+from lab4d_tpu_torch.meshlib import Mesh, load_obj, uv_sphere
 from lab4d_tpu_torch.meshlib.marching import marching_cubes
 from lab4d_tpu_torch.meshlib.sdf import MeshSDF
 from lab4d_tpu_torch.nnutils.intrinsics import intrinsics_base_init
@@ -43,6 +47,9 @@ EXPLICIT_PARAM_NAMES = (
     "base_logfocal", "base_ppoint", "shift",
 )
 GRAD_NORM_MAX = 5.0
+# per-video tables that a checkpoint of another video count seeds with the
+# mean of its rows (merge_params)
+PER_VIDEO_TABLES = ("inst_embedding", "base_quat", "base_logfocal", "base_ppoint", "base_trans")
 
 
 def param_labels(model, freeze_bone_len: bool = False) -> Dict[str, str]:
@@ -88,18 +95,56 @@ def clip_with_norm(params: List[torch.Tensor], max_norm: float = GRAD_NORM_MAX) 
     return gnorm
 
 
+def merge_params(state: Dict[str, torch.Tensor], loaded) -> Dict[str, torch.Tensor]:
+    """The torch state dict `state` with the leaves of the flax param tree
+    `loaded` that it also holds (a strict=False load). A per-video table
+    (PER_VIDEO_TABLES) whose leading dimension differs, the video count,
+    takes the mean of the loaded rows in every row: a category checkpoint
+    seeds a new capture with its mean morphology. Other leaves of another
+    shape, and leaves on one side only, are left as they are."""
+    out = dict(state)
+    for path, value in bridge._flatten(loaded):
+        key, transpose = bridge.flax_to_torch_key(path)
+        if key not in out:
+            continue
+        cur = out[key]
+        v = np.asarray(value, np.float32)
+        cur_flax = tuple(cur.shape[::-1]) if transpose else tuple(cur.shape)
+        if v.shape == cur_flax:
+            pass
+        elif (v.ndim == len(cur_flax) and v.ndim >= 1 and v.shape[1:] == cur_flax[1:]
+              and any(t in path for t in PER_VIDEO_TABLES)):
+            v = np.broadcast_to(v.mean(0, keepdims=True), cur_flax)
+        else:
+            continue
+        out[key] = torch.from_numpy(np.array(v.T if transpose else v)).to(cur)
+    return out
+
+
 class Trainer:
     """Train a model of the port on one device."""
 
+    # the source of the instance-code swap draws (trainer_init seeds one on
+    # the device; None: torch's default generator)
+    swap_generator = None
+    # the learning rate of an update is the schedule at (step -
+    # lr_step_offset): the optimizer's own update count, as the JAX
+    # trainer's optax schedule reads it. A resumed run's Adam count may
+    # differ from its step count (load_checkpoint_train).
+    lr_step_offset = 0
+    # whether --load_path restored the checkpoint's Adam state
+    opt_restored = False
+
     def __init__(self, opts: Dict):
-        if opts.get("load_path"):
-            raise NotImplementedError("resuming from --load_path is not ported yet (ROADMAP.md)")
+        is_resumed = bool(opts.get("load_path"))
         self.opts = opts
         self.device = torch.device(opts.get("device", "cuda"))
         self.define_dataset()
         self.trainer_init()
         self.define_model()
-        self.optimizer_init()
+        self.optimizer_init(is_resumed=is_resumed)
+        if is_resumed:
+            self.load_checkpoint_train()
 
     # ----------------------------------------------------------------- setup
 
@@ -121,6 +166,7 @@ class Trainer:
         self.metrics = open(os.path.join(self.save_dir, "metrics.jsonl"), "a")
         self.current_steps = 0
         self.current_round = 0
+        self.swap_generator = torch.Generator(device=self.device).manual_seed(2)
         self.step_ms: List[float] = []
         self.grad_norms: List[float] = []
         self.losses: List[Dict[str, float]] = []
@@ -227,7 +273,7 @@ class Trainer:
         the skeleton and composed warps, a sphere of radius 0.1 for the
         other fg warps (rigid, dense, nvp, bob)."""
         rng = np.random.default_rng(0)
-        num_inst = self.model.fields.field_params[self.categories[0]].num_inst
+        num_inst = self.model.num_inst
         pools = {}
         for cate in self.categories:
             mesh = self.proxy[cate]
@@ -255,26 +301,34 @@ class Trainer:
 
     # ------------------------------------------------------------- optimizer
 
-    def optimizer_init(self):
+    def optimizer_init(self, is_resumed: bool = False):
         """AdamW (b1 0.9, b2 0.999, wd 1e-4) in two groups, the explicit
         parameters at 10x the learning rate, on a one-cycle schedule; the
-        learning rate of update k (k from 0) is the schedule at k."""
+        learning rate of update k (k from 0) is the schedule at k. A resumed
+        run's schedule starts at its peak and decays to a fifth of it.
+        Frozen parameters (--freeze_bone_len) are left out of the optimizer
+        and count in the gradient norm, as in optax's chain."""
         opts = self.opts
-        labels = param_labels(self.model, freeze_bone_len=opts.get("freeze_bone_len", False))
+        self.labels = param_labels(self.model, freeze_bone_len=opts.get("freeze_bone_len", False))
         named = dict(self.model.named_parameters())
         groups = []
         for label, scale in (("base", 1.0), ("explicit", 10.0)):
-            ps = [p for n, p in named.items() if labels[n] == label]
+            ps = [p for n, p in named.items() if self.labels[n] == label]
             if ps:
                 groups.append({"params": ps, "lr": 0.0, "lr_scale": scale, "label": label})
         self.params = [p for g in groups for p in g["params"]]
         self.param_names = [n for label in ("base", "explicit")
-                            for n in named if labels[n] == label]
+                            for n in named if self.labels[n] == label]
+        self.frozen_params = [p for n, p in named.items() if self.labels[n] == "frozen"]
         self.optimizer = torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                                            weight_decay=1e-4)
+        if is_resumed:
+            shape = dict(pct_start=0.0, div_factor=1.0, final_div_factor=5.0)
+        else:
+            shape = dict(pct_start=2.0 / opts["num_rounds"], div_factor=25.0,
+                         final_div_factor=1.0)
         self.sched_kwargs = dict(total_steps=self.total_steps, peak=opts["learning_rate"],
-                                 pct_start=2.0 / opts["num_rounds"], div_factor=25.0,
-                                 final_div_factor=1.0)
+                                 **shape)
 
     def learning_rate(self, step: int) -> float:
         return onecycle_linear(step, **self.sched_kwargs)
@@ -282,15 +336,19 @@ class Trainer:
     def train_step(self, batch, step: int, draws=None):
         """One AdamW update on a device batch; returns (loss dict of device
         scalars with "total", grad norm)."""
-        loss_dict = self.model(batch, compute_sched(step), draws=draws)
+        loss_dict = self.model(batch, compute_sched(step), draws=draws,
+                               generator=self.swap_generator)
         total = sum(loss_dict[k] for k in sorted(loss_dict))
         self.optimizer.zero_grad(set_to_none=True)
+        frozen = self.frozen_params
+        for p in frozen:
+            p.grad = None
         total.backward()
-        for p in self.params:
+        for p in self.params + frozen:
             if p.grad is None:  # untouched: a zero gradient, so weight decay still applies
                 p.grad = torch.zeros_like(p)
-        gnorm = clip_with_norm(self.params)
-        lr = self.learning_rate(step)
+        gnorm = clip_with_norm(self.params + frozen)
+        lr = self.learning_rate(step - self.lr_step_offset)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_scale"]
         self.optimizer.step()
@@ -493,23 +551,77 @@ class Trainer:
 
     # ----------------------------------------------------------- checkpoint
 
-    def opt_state_dict(self):
-        """AdamW moments by parameter name (the port's own layout)."""
+    def opt_state_dict(self) -> Dict:
+        """The AdamW state in the layout of the JAX trainer's optax state
+        (bridge.opt_state_to_optax): zero moments and count for parameters
+        no update has touched yet, and the last grad norm read back."""
         state = self.optimizer.state
-        out = {"layout": "lab4d_tpu_torch.AdamW", "step": int(self.current_steps), "params": {}}
+        moments, count = {}, 0
         for name, p in zip(self.param_names, self.params):
-            if p in state and "exp_avg" in state[p]:
-                out["params"][name] = {
-                    "exp_avg": state[p]["exp_avg"].detach().cpu().numpy(),
-                    "exp_avg_sq": state[p]["exp_avg_sq"].detach().cpu().numpy(),
-                }
-        return out
+            st = state.get(p, {})
+            if "exp_avg" in st:
+                moments[name] = (st["exp_avg"].detach().cpu().numpy(),
+                                 st["exp_avg_sq"].detach().cpu().numpy())
+                count = int(st["step"])
+            else:
+                zeros = np.zeros(tuple(p.shape), np.float32)
+                moments[name] = (zeros, zeros)
+        grad_norm = self.grad_norms[-1] if self.grad_norms else 0.0
+        return bridge.opt_state_to_optax(moments, self.labels, count, grad_norm)
+
+    def restore_opt_state(self, loaded) -> bool:
+        """Restore the AdamW moments and update count of a checkpoint's
+        opt_state (the optax layout, or the port's earlier manifest layout)
+        when every leaf is there with the shape this model's state has;
+        otherwise keep Adam fresh, as the JAX trainer does: a transfer to
+        another architecture or video count starts Adam from zero."""
+        if loaded is None:
+            return False
+        ok = True
+        if loaded.get("layout") == bridge.PORT_LAYOUT:
+            count, moments = bridge.opt_state_from_optax(loaded)
+            ok = set(moments) == set(self.param_names)
+            loaded = bridge.opt_state_to_optax(moments, self.labels, count) if ok else loaded
+        want = bridge.opt_state_leaves(self.opt_state_dict())
+        if not ok or bridge.opt_state_leaves(loaded) != want:
+            print("[warn] optimizer state mismatch; Adam moments reset", flush=True)
+            return False
+        count, moments = bridge.opt_state_from_optax(loaded)
+        for name, p in zip(self.param_names, self.params):
+            m, v = moments[name]
+            self.optimizer.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": torch.from_numpy(np.array(m, np.float32)).to(p),
+                "exp_avg_sq": torch.from_numpy(np.array(v, np.float32)).to(p),
+            }
+        self.lr_step_offset = self.current_steps - count
+        return True
+
+    def load_checkpoint_train(self):
+        """--load_path: the checkpoint's params merged into the model
+        (merge_params), its step and round kept under --noreset_steps, its
+        Adam moments restored where they fit (restore_opt_state; else the
+        schedule restarts with Adam), its proxy meshes taken and each
+        field's geometry state reset from them."""
+        ckpt = bridge.load_flax_checkpoint(self.opts["load_path"])
+        self.model.load_state_dict(merge_params(self.model.state_dict(), ckpt["model"]))
+        if not self.opts.get("reset_steps", True):
+            self.current_steps = int(ckpt["current_steps"])
+            self.current_round = int(ckpt["current_round"])
+        self.lr_step_offset = self.current_steps
+        self.opt_restored = self.restore_opt_state(ckpt.get("opt_state"))
+        for cate, pm in ckpt.get("proxy", {}).items():
+            if cate in self.categories:
+                self.proxy[cate] = Mesh(np.asarray(pm["vertices"], np.float32),
+                                        np.asarray(pm["faces"], np.int64))
+        for cate in self.categories:
+            self._reset_geo_state(cate, beta=0.0)
 
     def save_checkpoint(self, round_count):
         """Rotate the rollback caches; every save_freq rounds write
         ckpt_<round>.flax and ckpt_latest.flax: msgpack with the JAX
-        trainer's "manifest", "model" (flax param tree), "geo_state" and
-        "proxy", and "opt_state" in the port's own layout."""
+        trainer's "manifest", "model" (flax param tree), "opt_state" (the
+        layout of its optax state), "geo_state" and "proxy"."""
         self.model_cache[0] = self.model_cache[1]
         self.opt_cache[0] = self.opt_cache[1]
         self.model_cache[1] = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
@@ -520,7 +632,7 @@ class Trainer:
         payload = {
             "manifest": {"format": 1, "current_steps": int(self.current_steps),
                          "current_round": int(self.current_round),
-                         "opt_state_layout": "lab4d_tpu_torch.AdamW"},
+                         "opt_state_layout": bridge.OPTAX_LAYOUT},
             "model": bridge.params_to_flax(self.model.state_dict()),
             "opt_state": self.opt_state_dict(),
             "geo_state": {c: {k: np.asarray(v) for k, v in g.items()}

@@ -111,9 +111,20 @@ def _translate(flag: str, parser: argparse.ArgumentParser) -> List[str]:
     return [f"--{name}={value}"]
 
 
+def _absl_negation(arg: str, parser: argparse.ArgumentParser) -> str:
+    """absl's `--noname` of a boolean flag as argparse's `--no-name`; any
+    other argument as it is."""
+    name = arg[4:]
+    if not arg.startswith("--no") or arg in parser._option_string_actions:
+        return arg
+    action = parser._option_string_actions.get(f"--{name}")
+    return f"--no-{name}" if isinstance(action, argparse.BooleanOptionalAction) else arg
+
+
 def expand_flagfiles(argv: List[str], parser: argparse.ArgumentParser) -> List[str]:
     """argv with each `--flagfile=PATH` (or `--flagfile PATH`) replaced by
-    the flags of that file that `parser` takes."""
+    the flags of that file that `parser` takes, and absl's `--noname` of a
+    boolean flag as `--no-name`."""
     out, i = [], 0
     while i < len(argv):
         arg = argv[i]
@@ -122,7 +133,7 @@ def expand_flagfiles(argv: List[str], parser: argparse.ArgumentParser) -> List[s
         elif arg.startswith("--flagfile="):
             path, i = arg.split("=", 1)[1], i + 1
         else:
-            out.append(arg)
+            out.append(_absl_negation(arg, parser))
             i += 1
             continue
         for flag in _read_flagfile(path):

@@ -157,9 +157,13 @@ class CondMLP(nn.Module):
         return None
 
     def forward(self, feat: torch.Tensor, inst_id: Optional[torch.Tensor], fused=None,
-                pe_spec=None, row_code: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pe_spec=None, row_code: Optional[torch.Tensor] = None,
+                beta_prob: Optional[float] = None, train: bool = False,
+                swap=None) -> torch.Tensor:
         """feat: (M, ..., C), raw coordinates when pe_spec is given;
-        inst_id: (M,) or None (mean instance); row_code: (M, Cr)."""
+        inst_id: (M,) or None (mean instance); row_code: (M, Cr).
+        beta_prob, train, swap: the instance-code swap of training
+        (InstEmbedding), where codes vary per row."""
         if self.inst_channels == 0:
             if feat.shape[-1] == 0:
                 return feat
@@ -174,7 +178,9 @@ class CondMLP(nn.Module):
                 )
             return self.backbone(feat, fused=fused, const_code=code, pe_spec=pe_spec,
                                  row_code=row_code)
-        inst_rows = self.inst_embedding(inst_id).reshape(inst_id.shape[0], -1)
+        # per-row codes: the plain chain's row adds, as in the JAX package
+        inst_rows = self.inst_embedding(inst_id, beta_prob=beta_prob, train=train, swap=swap)
+        inst_rows = inst_rows.reshape(inst_id.shape[0], -1)
         rows = inst_rows if row_code is None else torch.cat([row_code, inst_rows], dim=-1)
         return self.backbone(feat, fused=fused, pe_spec=pe_spec, row_code=rows)
 
@@ -188,11 +194,13 @@ class CondMLP(nn.Module):
         return self.backbone.folded_params(feat_ch, const_code=code, row_code=row_code)
 
 
-def embed_cond_mlp(cond_mlp, pos_embedding, x, alpha=None, inst_id=None, fused=None):
+def embed_cond_mlp(cond_mlp, pos_embedding, x, alpha=None, inst_id=None, fused=None,
+                   beta_prob=None, train: bool = False, swap=None):
     """PosEmbedding + CondMLP, handing the embedding (and its annealing
     window at progress alpha) to BaseMLP's pe_spec path when the embedding
-    is a real Fourier map."""
+    is a real Fourier map. beta_prob, train, swap: CondMLP's code swap."""
     spec = pos_embedding.pe_spec(alpha)
+    kw = dict(fused=fused, beta_prob=beta_prob, train=train, swap=swap)
     if spec is None:
-        return cond_mlp(pos_embedding(x), inst_id, fused=fused)
-    return cond_mlp(x, inst_id, fused=fused, pe_spec=spec)
+        return cond_mlp(pos_embedding(x), inst_id, **kw)
+    return cond_mlp(x, inst_id, pe_spec=spec, **kw)

@@ -191,10 +191,10 @@ class Deformable(FeatureNeRF):
         return samples_dict
 
     def query_field(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
-                    draws=None, topk=None, channels=None):
+                    draws=None, topk=None, channels=None, beta_prob=None, swap=None):
         feat_dict, deltas, aux_dict = super().query_field(
             samples_dict, alpha=alpha, train=train, flow_thresh=flow_thresh, draws=draws,
-            topk=topk, channels=channels)
+            topk=topk, channels=channels, beta_prob=beta_prob, swap=swap)
         if train or wants(channels, "gauss_mask"):
             feat_dict.update(self.compute_gauss_density(feat_dict["xyz"], samples_dict))
         return feat_dict, deltas, aux_dict

@@ -1,6 +1,9 @@
 """Fourier position/time embeddings and learnable instance codes.
 
-Port of lab4d_tpu/nnutils/embedding.py (eval side: no instance-code swap).
+Port of lab4d_tpu/nnutils/embedding.py. In training the instance codes
+of a multi-video model are swapped at random (InstEmbedding), with the
+draws taken from a SwapDraws source: pairs a test hands in, else an
+explicit torch.Generator.
 """
 
 from __future__ import annotations
@@ -119,8 +122,30 @@ class PosEmbedding(nn.Module):
         return torch.cat([x, flat], dim=-1)
 
 
+class SwapDraws:
+    """The random draws of the instance-code swaps of one training forward:
+    one (rand_id (R,), u (inst_id's shape)) pair per InstEmbedding call that
+    swaps, taken in call order. The pairs given are taken first (a test's),
+    then draws from `generator` (None: torch's default generator)."""
+
+    def __init__(self, pairs=(), generator: Optional[torch.Generator] = None):
+        self.pairs = list(pairs)
+        self.generator = generator
+
+    def take(self, inst_id: torch.Tensor, num_inst: int):
+        if self.pairs:
+            rand_id, u = self.pairs.pop(0)
+        else:
+            g = self.generator
+            dev = inst_id.device if g is None else g.device
+            rand_id = torch.randint(0, num_inst, (inst_id.shape[0],), generator=g, device=dev)
+            u = torch.rand(inst_id.shape, generator=g, device=dev)
+        return rand_id.to(inst_id.device), u.to(inst_id.device)
+
+
 class InstEmbedding(nn.Module):
-    """Learnable per-video instance code."""
+    """Learnable per-video instance code, with code-swap regularization in
+    training."""
 
     def __init__(self, num_inst: int, inst_channels: int,
                  generator: Optional[torch.Generator] = None):
@@ -132,11 +157,21 @@ class InstEmbedding(nn.Module):
             with torch.no_grad():
                 self.mapping.weight.normal_(0.0, 1.0 / np.sqrt(num_inst), generator=generator)
 
-    def forward(self, inst_id: torch.Tensor) -> torch.Tensor:
+    def forward(self, inst_id: torch.Tensor, beta_prob: Optional[float] = None,
+                train: bool = False, swap: Optional[SwapDraws] = None) -> torch.Tensor:
+        """Codes of inst_id (R, ...). In training with a beta_prob, each
+        element takes, with probability beta_prob, the id drawn for its
+        leading row (one random id per row, broadcast over the row); swap:
+        the draws' source (None: torch's default generator). One instance
+        has no swap."""
         if self.inst_channels == 0:
             return torch.zeros(inst_id.shape + (0,), device=inst_id.device)
         if self.num_inst == 1:
             return self.mapping(torch.zeros_like(inst_id))
+        if train and beta_prob is not None:
+            rand_id, u = (swap or SwapDraws()).take(inst_id, self.num_inst)
+            rand_id = rand_id.reshape((inst_id.shape[0],) + (1,) * (inst_id.ndim - 1))
+            inst_id = torch.where(u < beta_prob, rand_id.expand(inst_id.shape), inst_id)
         return self.mapping(inst_id)
 
     def mean(self) -> torch.Tensor:

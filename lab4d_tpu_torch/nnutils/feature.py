@@ -121,13 +121,13 @@ class FeatureNeRF(NeRF):
     # ------------------------------------------------------------ queries
 
     def query_field(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
-                    draws=None, topk=None, channels=None):
+                    draws=None, topk=None, channels=None, beta_prob=None, swap=None):
         """NeRF.query_field plus, in training, the canonical feature and the
         global match of the pixel features (draws: optional {"match_idx":
         (1024,) candidate sample ids}) reprojected into the frame."""
         feat_dict, deltas, aux_dict = super().query_field(
             samples_dict, alpha=alpha, train=train, flow_thresh=flow_thresh, draws=draws,
-            topk=topk, channels=channels)
+            topk=topk, channels=channels, beta_prob=beta_prob, swap=swap)
         if not train:
             return feat_dict, deltas, aux_dict
         xyz = feat_dict["xyz"]

@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from lab4d_tpu_torch.nnutils.deformable import Deformable
-from lab4d_tpu_torch.nnutils.embedding import FrameInfo
+from lab4d_tpu_torch.nnutils.embedding import FrameInfo, SwapDraws
 from lab4d_tpu_torch.nnutils.nerf import NeRF
 from lab4d_tpu_torch.utils.quat import quaternion_translation_to_se3
 
@@ -83,16 +83,20 @@ class MultiFields(nn.Module):
         return samples_dict
 
     def query_multifields(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
-                          draws=None, topk=None, channels=None):
+                          draws=None, topk=None, channels=None, beta_prob=None, generator=None):
         """Per-field query_field; topk and channels: the eval's (see
-        NeRF.query_field_eval)."""
+        NeRF.query_field_eval). In training, beta_prob is the instance-code
+        swap probability; each field's swap draws are draws[cate]["swap"]
+        ((rand_id, u) pairs in call order), else drawn from `generator`."""
         multifields_dict, deltas_dict, aux_dict = {}, {}, {}
         for cate in self.categories:
             field = self.field_params[cate]
             if train:
+                d = None if draws is None else draws.get(cate)
+                swap = SwapDraws((d or {}).get("swap", ()), generator)
                 out = field.query_field(samples_dict[cate], alpha=alpha, train=True,
-                                        flow_thresh=flow_thresh,
-                                        draws=None if draws is None else draws.get(cate))
+                                        flow_thresh=flow_thresh, draws=d,
+                                        beta_prob=beta_prob, swap=swap)
                 # no training loss reads the integrated xyz / xyz_cam channels
                 out[0].pop("xyz", None)
                 out[0].pop("xyz_cam", None)

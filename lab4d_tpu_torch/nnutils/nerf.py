@@ -137,12 +137,16 @@ class NeRF(nn.Module):
     # ------------------------------------------------------------------ core
 
     def forward(self, xyz, dir=None, frame_id=None, inst_id=None, get_density: bool = True,
-                alpha: Optional[float] = None, fused: Optional[bool] = None):
+                alpha: Optional[float] = None, fused: Optional[bool] = None,
+                beta_prob: Optional[float] = None, train: bool = False, swap=None):
         """Field at canonical points: VolSDF density (or raw SDF), plus rgb
         when `dir` is given. alpha: coarse-to-fine annealing progress of the
-        positional encodings (None: full bands)."""
+        positional encodings (None: full bands); beta_prob, train, swap: the
+        instance-code swap of the base and colour MLPs in training
+        (InstEmbedding; a swap draw each, in that order)."""
+        swap_kw = dict(beta_prob=beta_prob, train=train, swap=swap)
         xyz_feat = embed_cond_mlp(self.basefield, self.pos_embedding, xyz, alpha=alpha,
-                                  inst_id=inst_id, fused=fused)
+                                  inst_id=inst_id, fused=fused, **swap_kw)
         sdf = self.sdf_head(xyz_feat)
         if get_density:
             ibeta = torch.exp(self.logibeta)
@@ -160,7 +164,8 @@ class NeRF(nn.Module):
         else:
             appr_embed = dir_embed
         xyz_feat = xyz_feat + embed_cond_mlp(self.colorfield, self.pos_embedding_color, xyz,
-                                             alpha=alpha, inst_id=inst_id, fused=fused)
+                                             alpha=alpha, inst_id=inst_id, fused=fused,
+                                             **swap_kw)
         rgb = self.rgb_head[1](torch.relu(self.rgb_head[0](torch.cat([xyz_feat, appr_embed], -1))))
         if self.color_act:
             rgb = torch.sigmoid(rgb)
@@ -199,12 +204,14 @@ class NeRF(nn.Module):
         return samples_dict
 
     def query_field(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
-                    draws=None, topk: Optional[int] = None, channels=None):
+                    draws=None, topk: Optional[int] = None, channels=None, beta_prob=None,
+                    swap=None):
         """Per-ray field channels: at eval the merged two-pass path, exact
         or top-k (see query_field_eval); in training, 64 samples per ray ->
         backward warp -> field heads (fused kernels) -> flow, cycle and
         eikonal channels. draws: optional {"eikonal_idx": (S,) ray ids}
-        (see compute_eikonal)."""
+        (see compute_eikonal); beta_prob, swap: the instance-code swap of
+        the field's heads where codes vary per row (NeRF.forward)."""
         if not train:
             return self.query_field_eval(samples_dict, topk=topk, channels=channels)
         Kinv = samples_dict["Kinv"]
@@ -218,7 +225,8 @@ class NeRF(nn.Module):
         xyz, dir, xyz_t = backwarp_dict["xyz"], backwarp_dict["dir"], backwarp_dict["xyz_t"]
         feat_dict = self.query_all_heads(xyz, frame_id, inst_id, alpha)
         if feat_dict is None:
-            feat_dict = self.query_nerf(xyz, dir, frame_id, inst_id, alpha=alpha)
+            feat_dict = self.query_nerf(xyz, dir, frame_id, inst_id, alpha=alpha,
+                                        beta_prob=beta_prob, train=True, swap=swap)
             feat_dict["vis"] = self.vis_mlp(xyz, inst_id=inst_id)
         samples_dict = self.prepare_forward_warp(xyz, inst_id, samples_dict)
         flow_dict, cyc_dict = self.compute_flow_cycle(hxy, xyz, xyz_t, frame_id, inst_id,
@@ -446,13 +454,15 @@ class NeRF(nn.Module):
         depth_all = torch.sort(torch.cat([depth, depth_fine], dim=2), dim=2).values
         return sample_cam_rays(hxy, Kinv, near_far, depth=depth_all)
 
-    def query_nerf(self, xyz, dir, frame_id, inst_id, alpha=None, fused=None):
+    def query_nerf(self, xyz, dir, frame_id, inst_id, alpha=None, fused=None, beta_prob=None,
+                   train: bool = False, swap=None):
         """Dense field evaluation on points flattened to (M, N*D, 3)."""
         lead = xyz.shape[:-1]
         M = xyz.shape[0]
         rgb, density = self.forward(
             xyz.reshape(M, -1, 3), dir=dir.reshape(M, -1, 3), frame_id=frame_id,
-            inst_id=inst_id, alpha=alpha, fused=fused,
+            inst_id=inst_id, alpha=alpha, fused=fused, beta_prob=beta_prob, train=train,
+            swap=swap,
         )
         rgb = rgb.reshape(lead + rgb.shape[-1:])
         density = density.reshape(lead + density.shape[-1:])

@@ -59,6 +59,9 @@ def common_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--fg_motion", default="rigid",
                    help="{rigid, dense, nvp, bob, skel-human, skel-quad, "
                         "comp_skel-human_dense, comp_skel-quad_dense}")
+    p.add_argument("--single_inst", action=argparse.BooleanOptionalAction, default=True,
+                   help="assume the same morphology over objs (--nosingle_inst: a "
+                        "multi-video category model, one instance code per video)")
     p.add_argument("--inst_id", type=int, default=0, help="video/instance id")
     p.add_argument("--device", default="cuda", help="torch device to run on")
     add_flagfile_option(p)
@@ -97,11 +100,13 @@ def eval_mode(opts: Dict):
 
 
 def construct_test_model(opts: Dict, device):
-    """Model from the dataset metadata + the JAX trainer's checkpoint.
+    """Model from the dataset metadata + a trainer's checkpoint (either
+    package's), with one instance or (--nosingle_inst) one per video.
     Returns (model, geo_state, data_info)."""
     data_info = data_utils.get_data_info(data_utils.config_to_datasets(opts))
-    model = DVRModel(data_info["frame_info"], field_type=opts["field_type"],
-                     fg_motion=opts["fg_motion"], num_inst=1, device=device)
+    frame_info = data_info["frame_info"]
+    model = DVRModel(frame_info, field_type=opts["field_type"], fg_motion=opts["fg_motion"],
+                     num_inst=1 if opts["single_inst"] else frame_info.num_vids, device=device)
     path = "%s/%s-%s/ckpt_%s.flax" % (
         opts["logroot"], opts["seqname"], opts["logname"], opts["load_suffix"]
     )

@@ -1,7 +1,8 @@
 """Where the time of a training step goes, on one CUDA device.
 
     python3 -m lab4d_tpu_torch.tools.profile_train [--field_type {bg,fg,comp}]
-        [--fg_motion MOTION] [--steps N] [--out FILE] [--turns DIR]
+        [--fg_motion MOTION] [--nosingle_inst] [--load_path CKPT] [--steps N]
+        [--out FILE] [--turns DIR]
 
 Run from the root of a checkout. It writes the synthetic scene of
 chip_smoke.py (one orbit video, 32 frames at 64^2), builds the trainer of
@@ -10,8 +11,12 @@ the flagship `--field_type fg --fg_motion skel-quad`, with comp
 `--field_type comp --fg_motion comp_skel-human_dense`; --fg_motion picks
 another warp: dense, nvp, bob, skel-human, comp_skel-quad_dense, ...) at
 full width (128 images x 2 frames x 16 pixels x 64 samples = 262,144
-points per field and step; the prior fits are cut to 50 geometry steps)
-and then:
+points per field and step; the prior fits are cut to 50 geometry steps).
+`--nosingle_inst`: chip_smoke.py's category model instead, `--field_type
+fg --fg_motion comp_skel-human_dense --nosingle_inst` (one instance code
+per video) on its category scene (8 videos of 16 frames at 64^2, each
+video's sphere its own size). `--load_path CKPT`: the trainer starts from
+that checkpoint (a transfer, or the same model resumed). Then:
 
 1. times `--steps` training steps on batches drawn beforehand, so that no
    data loading overlaps them: ms/step from CUDA events (median), and
@@ -28,11 +33,13 @@ and then:
 
 `--out` also writes the profiler's full table to FILE.
 
-`--turns DIR`: runs this tool (without --turns) from the checkout DIR and
-from this one in turns, each in a process of its own: DIR, this, this,
-DIR. Each run ends with the peak device memory its process allocated
-(torch.cuda.max_memory_allocated), printed by the runner, so that a
-checkout whose tool does not print it is measured the same way.
+`--turns DIR`: runs this tool (without --turns) on the package of the
+checkout DIR and on this one in turns, each in a process of its own: DIR,
+this, this, DIR. The scene is written once, here, and every turn runs
+this file's code (so that a checkout without --nosingle_inst is measured
+on the same category step; its trainer draws no code swap). Each run ends
+with the peak device memory its process allocated
+(torch.cuda.max_memory_allocated), printed by the runner.
 """
 
 from __future__ import annotations
@@ -45,18 +52,24 @@ import sys
 import tempfile
 import time
 
-# runs profile_train from the checkout argv[1] with the arguments after it,
-# then prints the process's peak device memory
+# runs the profile_train file argv[2] on the package of the checkout
+# argv[1] with the arguments after them, then prints the process's peak
+# device memory
 _RUNNER = """
 import os, runpy, sys
-root = sys.argv[1]
+root, tool = sys.argv[1], sys.argv[2]
 os.chdir(root)
 sys.path.insert(0, root)
-sys.argv = ["profile_train"] + sys.argv[2:]
+sys.argv = ["profile_train", "--checkout", root] + sys.argv[3:]
 import torch
-runpy.run_module("lab4d_tpu_torch.tools.profile_train", run_name="__main__")
+runpy.run_path(tool, run_name="__main__")
 print(f"[memory] peak device memory of the run: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 """
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# the category model's training flags (chip_smoke.py's TRAIN_OPTS["category"])
+CATEGORY_ARGV = ["--field_type", "fg", "--fg_motion", "comp_skel-human_dense", "--no-single_inst",
+                 "--seqname", "cate", "--logname", "category", "--train_res", "64",
+                 "--num_workers", "4"]
 
 
 def main(argv=None):
@@ -64,38 +77,54 @@ def main(argv=None):
     parser.add_argument("--field_type", choices=("bg", "fg", "comp"), default="bg")
     parser.add_argument("--fg_motion", default=None,
                         help="the fg warp (default: skel-quad for fg, comp_skel-human_dense "
-                             "for comp)")
+                             "for comp and the category model)")
+    parser.add_argument("--nosingle_inst", action="store_true",
+                        help="the multi-video category model on the category scene")
+    parser.add_argument("--load_path", default="", help="checkpoint the trainer starts from")
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--trace", type=int, default=3)
     parser.add_argument("--top", type=int, default=18)
     parser.add_argument("--out", default=None)
     parser.add_argument("--turns", default=None, help="root of another checkout to run in turns")
+    parser.add_argument("--scene", default=None, help=argparse.SUPPRESS)  # a written database
+    parser.add_argument("--checkout", default=ROOT, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    sys.path.insert(0, args.checkout)
+    import chip_smoke
+
     if args.turns:
-        here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
         rest = list(argv if argv is not None else sys.argv[1:])
         i = rest.index("--turns")
         rest = rest[:i] + rest[i + 2:]
-        for n, (tag, root) in enumerate((("parent", args.turns), ("this", here), ("this", here),
-                                         ("parent", args.turns))):
-            run = subprocess.run([sys.executable, "-c", _RUNNER, os.path.abspath(root), *rest],
-                                 capture_output=True, text=True)
-            for line in (run.stdout + (run.stderr if run.returncode else "")).splitlines():
-                print(f"[turn {n + 1} {tag}] {line}")
-            if run.returncode:
-                sys.exit(f"profile_train: the {tag} run failed ({run.returncode})")
+        with tempfile.TemporaryDirectory() as tmp:
+            db = _write_scene(chip_smoke, args, tmp)
+            for n, (tag, root) in enumerate((("parent", args.turns), ("this", ROOT),
+                                             ("this", ROOT), ("parent", args.turns))):
+                run = subprocess.run([sys.executable, "-c", _RUNNER, os.path.abspath(root),
+                                      os.path.abspath(__file__), *rest, "--scene", db],
+                                     capture_output=True, text=True)
+                for line in (run.stdout + (run.stderr if run.returncode else "")).splitlines():
+                    print(f"[turn {n + 1} {tag}] {line}")
+                if run.returncode:
+                    sys.exit(f"profile_train: the {tag} run failed ({run.returncode})")
         return
 
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("profile_train: no CUDA device")
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
-    import chip_smoke
-
     card = chip_smoke.phase_env()
     with tempfile.TemporaryDirectory() as root:
-        _profile(args, card, chip_smoke.write_scene(root), root)
+        db = args.scene or _write_scene(chip_smoke, args, root)
+        _profile(args, card, db, root)
+
+
+def _write_scene(chip_smoke, args, root):
+    """chip_smoke.py's scene (one orbit video), or its category scene."""
+    db = chip_smoke.write_scene(root)
+    if args.nosingle_inst:
+        chip_smoke.write_category_scene(db)
+    return db
 
 
 def _profile(args, card, db, root):
@@ -106,7 +135,9 @@ def _profile(args, card, db, root):
     from lab4d_tpu_torch.train import get_parser
 
     motion = [] if args.fg_motion is None else ["--fg_motion", args.fg_motion]
-    opts = vars(get_parser().parse_args(chip_smoke.TRAIN_OPTS[args.field_type] + motion + [
+    base = CATEGORY_ARGV if args.nosingle_inst else chip_smoke.TRAIN_OPTS[args.field_type]
+    load = ["--load_path", args.load_path] if args.load_path else []
+    opts = vars(get_parser().parse_args(base + motion + load + [
         "--geo_init_steps", "50", "--num_rounds", "1", "--iters_per_round", str(args.steps),
         "--database_root", db, "--logroot", os.path.join(root, "logdir")]))
     trainer = Trainer(opts)
@@ -183,6 +214,8 @@ def _measure(args, card, trainer, batches, opts):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.device_time for e in kernels) / 1e3
     what = opts["field_type"] + ("" if opts["field_type"] == "bg" else f" / {opts['fg_motion']}")
+    if not opts["single_inst"]:
+        what += f", {trainer.model.fields.field_params['fg'].num_inst} instance codes"
     print(f"[trace] {what}, {args.trace} steps: device time {device_ms:.2f} ms of {traced:.2f} ms "
           f"wall (traced), idle share {1 - device_ms / traced:.3f}")
     ops = [e for e in prof.key_averages()

@@ -2,7 +2,7 @@
 arrays and config as tests/synthetic.py, written without the JAX package
 (frames through PIL, meshes through lab4d_tpu_torch.meshlib).
 
-    python -m lab4d_tpu_torch.tools.synthetic_scene <root> [seqname]
+    python -m lab4d_tpu_torch.tools.synthetic_scene <root> [seqname] [num_vids] [scale_step]
 
 Writes the exact database/processed/** layout that the dataloader (and the
 reference preprocessing pipeline) uses, so training / rendering / export
@@ -20,6 +20,10 @@ can be exercised end-to-end without real videos:
 
 The scene is a lambertian sphere orbited by the camera; rgb/mask/depth/
 flow are analytically consistent, so optimization losses are meaningful.
+With scale_step > 0 each video of a multi-video scene (a category) has a
+sphere of its own size, radius * (1 + scale_step * vid), for the
+per-video instance codes to fit; at 0 (the default) every video has the
+same sphere, as tests/synthetic.py writes it.
 """
 
 from __future__ import annotations
@@ -84,8 +88,11 @@ def make_synthetic_dataset(
     res: int = 64,
     feat_res: int = 16,
     radius: float = 0.5,
+    scale_step: float = 0.0,
 ):
-    """Generate the dataset; returns the database root path."""
+    """Generate the dataset; returns the database root path. Video vid's
+    sphere has radius * (1 + scale_step * vid)."""
+    radii = [radius * (1 + scale_step * vid) for vid in range(num_vids)]
     os.makedirs(f"{root}/configs", exist_ok=True)
     proc = f"{root}/processed"
     deltas = [1, 2, 4, 8]
@@ -96,6 +103,7 @@ def make_synthetic_dataset(
 
     for vid in range(num_vids):
         vidname = f"{seqname}-{vid:04d}"
+        radius = radii[vid]
         dirs = {}
         for sub in (
             ["JPEGImages", "JPEGImagesRaw", "Annotations", "Depth", "Features",
@@ -244,4 +252,6 @@ def make_synthetic_dataset(
 if __name__ == "__main__":
     import sys
 
-    make_synthetic_dataset(sys.argv[1], seqname=sys.argv[2] if len(sys.argv) > 2 else "synthetic")
+    make_synthetic_dataset(sys.argv[1], seqname=sys.argv[2] if len(sys.argv) > 2 else "synthetic",
+                           num_vids=int(sys.argv[3]) if len(sys.argv) > 3 else 1,
+                           scale_step=float(sys.argv[4]) if len(sys.argv) > 4 else 0.0)

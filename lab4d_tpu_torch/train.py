@@ -13,9 +13,17 @@ proxy meshes and ckpt_*.flax checkpoints in the JAX trainer's layout).
     python -m lab4d_tpu_torch.train --seqname cat --logname comp --field_type comp \
         --fg_motion comp_skel-human_dense
 
+    python -m lab4d_tpu_torch.train --seqname cat --logname cate --fg_motion \
+        comp_skel-human_dense --nosingle_inst      # a multi-video category model
+    python -m lab4d_tpu_torch.train --seqname dog --logname ft --fg_motion \
+        comp_skel-human_dense --load_path logdir/cat-cate/ckpt_latest.flax --freeze_bone_len
+
 Every --field_type (fg, bg, comp) and --fg_motion of the JAX package
-trains. opts.log is written
-in the JAX package's format (flagfile.py), and `--flagfile` reads one.
+trains, one shared morphology or (--nosingle_inst) one instance code per
+video. --load_path starts from a checkpoint of either package (transfer,
+or with --noreset_steps a resumed run). opts.log is written in the JAX
+package's format (flagfile.py), and `--flagfile` reads one; boolean flags
+take absl's `--noname` as well as `--no-name`.
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--train_res", type=int, default=256, help="size of training images")
     p.add_argument("--logroot", default="logdir/", help="root directory for log files")
     p.add_argument("--feature_type", default="dinov2", help="{dinov2, cse}")
-    p.add_argument("--load_path", default="", help="path to load pretrained model (not ported)")
+    p.add_argument("--load_path", default="", help="path to load pretrained model")
     p.add_argument("--learning_rate", type=float, default=5e-4, help="learning rate")
     p.add_argument("--num_rounds", type=int, default=20, help="number of rounds to train")
     p.add_argument("--iters_per_round", type=int, default=200, help="number of iterations per round")
@@ -75,6 +83,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--pixels_per_image", type=int, default=16, help="pixel samples per image")
     p.add_argument("--freeze_bone_len", action=argparse.BooleanOptionalAction, default=False,
                    help="do not change bone length of skeleton")
+    p.add_argument("--reset_steps", action=argparse.BooleanOptionalAction, default=True,
+                   help="reset steps of loss scheduling, set to False if resuming training")
     p.add_argument("--num_workers", type=int, default=2, help="number of data-loading threads")
     p.add_argument("--save_freq", type=int, default=10, help="params saving frequency")
     p.add_argument("--eval_res", type=int, default=64, help="size used for eval visualizations")
@@ -93,8 +103,8 @@ def check_opts(opts: Dict):
         raise ValueError(f"--field_type {opts['field_type']}: one of bg, fg, comp")
     if opts["field_type"] != "bg":
         parse_warp_type(opts["fg_motion"])  # raises on an unknown motion
-    if opts["load_path"]:
-        raise NotImplementedError("--load_path (resuming) is not ported yet (ROADMAP.md)")
+    if opts["load_path"] and not os.path.isfile(opts["load_path"]):
+        raise FileNotFoundError(f"--load_path {opts['load_path']}: no such checkpoint")
 
 
 def save_opts(opts: Dict):

@@ -101,13 +101,17 @@ def jax_draw_order(draws):
                   ("randint", fg["soft_inst"])]
     if "gauss_u" in fg:
         order.append(("uniform", fg["gauss_u"]))
+    for d in draws.values():  # the instance-code swaps (a "swap" stream of their own)
+        for rand_id, u in d.get("swap", ()):
+            order += [("randint", rand_id), ("uniform", u)]
     return order
 
 
 def port_model(jmodel, field_type, fg_motion):
     fi = jmodel.frame_info
     return DVRModel(FrameInfo(fi.frame_offset, fi.frame_offset_raw, fi.frame_mapping),
-                    field_type=field_type, fg_motion=fg_motion, device="cpu",
+                    field_type=field_type, fg_motion=fg_motion, num_inst=jmodel.num_inst,
+                    device="cpu",
                     intrinsics_init=jmodel.intrinsics_init, rtmat_fg=jmodel.rtmat_fg,
                     rtmat_bg=jmodel.rtmat_bg, train_res=jmodel.train_res,
                     loss_weights=LOSS_WEIGHTS)
@@ -141,10 +145,13 @@ def make_family(field_type, fg_motion):
     return jmodel, batch, jax.tree_util.tree_map_with_path(perturb, params)
 
 
-def run_family_step(field_type, fg_motion):
-    """One training step of both packages on the same batch and draws."""
-    jmodel, batch, params = make_family(field_type, fg_motion)
-    draws = family_draws(field_type, fg_motion)
+def run_family_step(field_type, fg_motion, built=None, draws=None, port_draws=None):
+    """One training step of both packages on the same batch and draws.
+    built: (JAX model, batch, params) in place of make_family's; draws: in
+    place of family_draws'; port_draws: the port's draws where they differ
+    from JAX's."""
+    jmodel, batch, params = built or make_family(field_type, fg_motion)
+    draws = draws or family_draws(field_type, fg_motion)
     queues = {}
     for name, arr in jax_draw_order(draws):
         queues.setdefault((name, arr.shape), []).append(arr)
@@ -155,7 +162,10 @@ def run_family_step(field_type, fg_motion):
         def f(*args, **kwargs):
             shape = kwargs.get("shape", args[shape_arg] if len(args) > shape_arg else None)
             q = None if shape is None else queues.get((name, tuple(shape)))
-            if not q:  # e.g. flax's param init
+            # flax's param init, and its shape check of a parameter's
+            # initializer in apply (a uniform with dtype and bounds), which
+            # the (2M,) swap draws would otherwise meet at a 4-wide bias
+            if not q or (name == "uniform" and len(args) > 2):
                 return orig(*args, **kwargs)
             return jnp.asarray(q.pop(0))
         return f
@@ -192,7 +202,8 @@ def run_family_step(field_type, fg_motion):
     tbatch = {k: torch.tensor(np.asarray(v)) for k, v in batch.items() if k != "geo"}
     tbatch["geo"] = {c: {k: torch.tensor(np.asarray(v)) for k, v in g.items()}
                      for c, g in batch["geo"].items()}
-    tdraws = {c: {k: torch.tensor(v) for k, v in d.items()} for c, d in draws.items()}
+    tdraws = {c: {k: [tuple(map(torch.tensor, p)) for p in v] if k == "swap" else torch.tensor(v)
+                  for k, v in d.items()} for c, d in (port_draws or draws).items()}
     trainer = T.Trainer.__new__(T.Trainer)  # the optimizer and step, without a dataset
     trainer.model, trainer.opts = pmodel, {"learning_rate": LR, "num_rounds": 20}
     trainer.total_steps = TOTAL_STEPS
@@ -224,6 +235,7 @@ def run_family_step(field_type, fg_motion):
         "labels_jax": {bridge.flax_to_torch_key(p)[0]: v
                        for p, v in bridge._flatten(labels)},
         "labels_port": T.param_labels(pmodel),
+        "jmodel": jmodel, "jax_params": params, "port_batch": tbatch, "port_draws": tdraws,
     }
 
 

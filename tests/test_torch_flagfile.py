@@ -107,3 +107,25 @@ def test_jax_opts_log_reads_into_port(tmp_path, cli):
     if cli == "train":
         assert opts["single_inst"] is False and opts["freeze_bone_len"] is True
         assert opts["learning_rate"] == 0.001 and opts["num_workers"] == 3
+
+
+@pytest.mark.parametrize("cli", ["render", "export", "reanimate"])
+def test_category_opts_log_replays_into_the_apps(tmp_path, cli):
+    """A category run's opts.log (the port's train CLI, --nosingle_inst
+    given in absl's spelling) replays into render, export and reanimate
+    through --flagfile: --single_inst False builds the test-time model with
+    one instance code per video; a later --single_inst overrides it."""
+    import importlib
+
+    opts = flagfile.parse_opts(train_cli.get_parser(), [
+        "--seqname", "cate", "--logname", "c", "--fg_motion", "comp_skel-human_dense",
+        "--nosingle_inst", "--device", "cpu", "--logroot", str(tmp_path)])
+    assert opts["single_inst"] is False
+    train_cli.save_opts(opts)
+    path = tmp_path / "cate-c" / "opts.log"
+    assert "--nosingle_inst" in path.read_text().splitlines()
+    parser = importlib.import_module(f"lab4d_tpu_torch.{cli}").get_parser()
+    got = flagfile.parse_opts(parser, ["--flagfile", str(path), "--inst_id", "5"])
+    assert got["single_inst"] is False and got["inst_id"] == 5
+    assert got["fg_motion"] == "comp_skel-human_dense" and got["device"] == "cpu"
+    assert flagfile.parse_opts(parser, [f"--flagfile={path}", "--single_inst"])["single_inst"]

@@ -293,7 +293,8 @@ def test_train_cli_writes_a_checkpoint(cli_run):
     path = logdir / "sbg-t" / "ckpt_latest.flax"
     ckpt = bridge.load_flax_checkpoint(str(path))
     assert ckpt["current_steps"] == 2 and ckpt["current_round"] == 1
-    assert ckpt["opt_state"]["layout"] == "lab4d_tpu_torch.AdamW"
+    assert ckpt["opt_state_layout"] == bridge.OPTAX_LAYOUT  # the JAX trainer's optax state
+    assert int(ckpt["opt_state"]["1"]["inner_states"]["base"]["inner_state"]["0"]["count"]) == 2
     state = bridge.params_from_flax(ckpt["model"])
     for k, v in trainer.model.state_dict().items():
         np.testing.assert_array_equal(state[k].numpy(), v.numpy())
