@@ -95,9 +95,29 @@ synchronise; any failure exits non-zero:
    rendered (2 frames at 512^2 exact and top-k, one bev-30 frame; both
    fields visible), exported (both categories at grid 128) and reanimated
    (motion 0, 32 frames at 128^2);
-17. k3-paths: every shape K3f launched in phases 6, 8, 10-12 and 14-16,
-   and K3f / K3b against their plain versions at any the kernel phase did
-   not check.
+17. train-reference-category, train-category, render-category,
+   export-category, reanimate-category, transfer, resume: the category
+   model, its apps, and transfer / resume from its checkpoint;
+18. config (before the training phases): the train CLI refuses
+   `--imgs_per_gpu 0` at startup, before it writes anything; loader: the
+   32-frame scene's batch (128 pairs x 16 px) through the native sampler
+   (lab4d_tpu_torch/native) against its numpy reference and a second
+   loader of the same seed, every key equal, ms per batch of both in
+   turns; [train] / [train-fg] also print ms/step on batches drawn
+   beforehand beside the figure with the loader, and which logs the run
+   wrote (TensorBoard events need tensorboardX);
+19. joint-prior (after train-fg): the flagship trainer with a seeded
+   joint-angle prior (32 frames x 25 bones x 3) in its metadata runs
+   mlp_init's skeleton fit on the card, the articulation TimeMLP through
+   K3f / K3b at one row per frame, then on the CPU with every kernel
+   plain: both converge to 1e-4, agree before the fit to 1e-4 and after
+   it to 1e-2 relative, and take update counts within 10%;
+20. psnr (last): tools/compare_psnr.py's rigid protocol at seed 0, 5
+   rounds: the masked-PSNR trajectory beside lab4d_tpu's recorded one,
+   and every kernel's launches in the rigid steps;
+21. k3-paths: every shape K3f launched in the phases above, and K3f /
+   K3b against their plain versions at any the kernel phase did not
+   check.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel; the last line is
@@ -128,6 +148,7 @@ PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data shee
 PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_TF32 = 495e12  # FLOP/s, H100 SXM dense TF32 tensor cores (NVIDIA data sheet); 3xTF32 takes 3 products
 TRAIN_STEPS = 25
+PREDRAWN_STEPS = 10  # [train], [train-fg]: steps on batches drawn beforehand
 FG_PAIRS, FG_SPP = 256, 1024  # the flagship step: 128 images x 2 frames; 16 px x 64 samples
 # one training step, GPU (kernels) vs CPU (plain versions), fp32: loss terms
 # relative; gradients per parameter, max|d| <= abs + rel * max|g_cpu|
@@ -1423,16 +1444,18 @@ def plain_kernels():
         K.fused_relu_mlp, K.fused_pe_mlp, feature.fused_nerf_heads = kept
 
 
-def reference_steps(db, root, cate, geo_init_steps, eikonal_all_rays=False):
+def reference_steps(db, root, cate, geo_init_steps, eikonal_all_rays=False, batch_seed=None):
     """A small trainer of the `cate` model ("bg", the fg / skel-quad model,
     the comp model or the category model) after its prior fits with
     `geo_init_steps` geometry steps, one batch of 128 rays of 64 samples
     and seeded random draws; returns step(device): that training step's
     loss terms, gradients and eikonal records (eikonal_records) on the
     device, from the trainer's weights. eikonal_all_rays: the eikonal term
-    at every ray instead of a drawn sixteenth. comp's fields draw their
-    eikonal at the same rays; the category model's draws include its
-    instance ids and code swaps."""
+    at every ray instead of a drawn sixteenth. batch_seed: the batch drawn
+    from that seed instead of the loader's first (whose worker threads
+    share the videos' draws, so it differs from run to run). comp's fields
+    draw their eikonal at the same rays; the category model's draws
+    include its instance ids and code swaps."""
     import torch
 
     from lab4d_tpu_torch.engine.trainer import Trainer
@@ -1444,7 +1467,8 @@ def reference_steps(db, root, cate, geo_init_steps, eikonal_all_rays=False):
         "--logroot", os.path.join(root, f"ref-{cate}-{geo_init_steps}"),
     ]))
     trainer = Trainer(opts)
-    batch_np = trainer.trainloader.next_batch()
+    batch_np = (trainer.trainloader.next_batch() if batch_seed is None else
+                trainer.trainloader._make_batch(np.random.default_rng(batch_seed)))
     trainer.close()
     rng = np.random.default_rng(SEED)
     rays = batch_np["hxy"].shape[0] * 2 * batch_np["hxy"].shape[2]
@@ -1555,12 +1579,15 @@ def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, ta
     from lab4d_tpu_torch.engine.trainer import Trainer
 
     steps, step_calls, step_shapes = {}, {}, collections.Counter()
+    round_s = []
     orig = Trainer.train_one_round
 
     def counted_round(self, round_count):  # the launches of the training steps alone
         before, before_calls = _kernel_counts(), copy.deepcopy(calls or {})
         before_shapes = collections.Counter(shapes or {})
+        t_round = time.perf_counter()
         orig(self, round_count)
+        round_s.append(time.perf_counter() - t_round)
         steps.update({k: v - before[k] for k, v in _kernel_counts().items()})
         step_calls.update({k: v - before_calls.get(k, collections.Counter())
                            for k, v in (calls or {}).items()})
@@ -1612,11 +1639,18 @@ def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, ta
         fail(f"{tag}: the round's eval wrote no finite eval/psnr: {evals}")
     ms = float(np.median(trainer.step_ms[1:]))
     field = FIELD_NAMES.get(cate, f"fg / {cate} field")
+    logs = ("metrics.jsonl and TensorBoard events" if trainer.log.tb is not None
+            else "metrics.jsonl only (tensorboardX does not import here)")
     points = "262144 + 262144 points/step (fg + bg)" if cate == "comp" else "262144 points/step"
     print(f"[{tag}] {field}, 128 images x 2 frames x 16 px x 64 samples = {points}, "
           f"{n_steps} steps in {elapsed:.1f} s total (prior fits, geometry, checkpoint "
           f"included): {ms:.2f} ms/step (median after the first; first {trainer.step_ms[0]:.1f} ms), "
           f"peak memory {peak:.2f} GiB")
+    if cate in ("bg", "fg"):
+        print(f"[{tag}] with the loader (native sampler, {trainer.opts['num_workers']} threads): "
+              f"{ms:.2f} ms/step (CUDA events), {1e3 * sum(round_s) / n_steps:.2f} ms/step wall "
+              f"over the round; on {PREDRAWN_STEPS} batches drawn beforehand: "
+              f"{_predrawn_ms(trainer):.2f} ms/step (CUDA events, median); the run wrote {logs}")
     if evals:
         print(f"[{tag}] eval at the round's start: " + " ".join(
             f"{k}={v:.4f}" for k, v in evals[-1].items() if k.startswith("eval/")))
@@ -1719,6 +1753,245 @@ def _trace_steps(trainer, n=3):
     dev = sum(e.device_time for e in prof.events()
               if e.device_type == DeviceType.CUDA) / 1e3 / (n - 1)
     return dev, wall, 1 - dev / wall
+
+
+def _predrawn_ms(trainer, n=PREDRAWN_STEPS):
+    """Median ms/step (CUDA events) of n more training steps of the trainer
+    on batches drawn beforehand, after one warm-up step: the step without
+    the loader, beside train_one_round's figure with it."""
+    import torch
+
+    geo = trainer.geo_for_batch()
+    rng = np.random.default_rng(SEED)
+    batches = []
+    for _ in range(n + 1):
+        b = trainer.batch_to_device(trainer.trainloader._make_batch(rng))
+        b["geo"] = geo
+        batches.append(b)
+    trainer.train_step(batches[0], trainer.current_steps)
+    sync()
+    events = []
+    for b in batches[1:]:
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        trainer.train_step(b, trainer.current_steps)
+        e.record()
+        events.append((s, e))
+    sync()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+LOADER_PAIRS, LOADER_PIXELS, LOADER_BATCHES = 128, 16, 8
+
+
+def _seeded_loader(db, gather, seed=SEED, seqname="smoke", pairs=LOADER_PAIRS):
+    """The training loader of `seqname`'s videos at LOADER_PIXELS px per
+    image, its pair draws and each video's delta and pixel draws seeded."""
+    from lab4d_tpu_torch.dataloader import data_utils
+
+    opts = dict(seqname=seqname, data_prefix="crop", train_res=64, feature_type="dinov2",
+                pixels_per_image=LOADER_PIXELS, database_root=db)
+    datasets = data_utils.config_to_datasets(opts)
+    for i, ds in enumerate(datasets):
+        ds.rng = np.random.default_rng(seed + 1 + i)
+        ds.idx_sampler.rng = ds.rng
+        ds.idx_sampler._refill()
+    return data_utils.TrainBatchLoader(datasets, imgs_per_batch=pairs, seed=seed, gather=gather)
+
+
+def phase_loader(db):
+    """[loader]: the training batch of the 32-frame scene (128 pairs x 16
+    px) through the native sampler against its numpy reference from the
+    same seeds (every key equal), and against a second native loader of
+    the same seed; ms per batch of both, in turns, in this process (one
+    thread)."""
+    loaders = {name: _seeded_loader(db, gather) for name, gather in (
+        ("native", "native"), ("reference", "reference"), ("native-again", "native"))}
+    rngs = {name: np.random.default_rng(SEED) for name in loaders}
+    times = collections.defaultdict(list)
+    for i in range(LOADER_BATCHES):
+        batches = {}
+        for name in (("native", "reference", "native-again") if i % 2 == 0
+                     else ("native-again", "reference", "native")):
+            t = time.perf_counter()
+            batches[name] = loaders[name]._make_batch(rngs[name])
+            times[name.split("-")[0]].append((time.perf_counter() - t) * 1e3)
+        for other in ("reference", "native-again"):
+            for k, v in batches["native"].items():
+                if not np.array_equal(v, batches[other][k]):
+                    fail(f"loader: the native batch's {k} differs from the {other} loader's "
+                         f"(batch {i}, max abs diff {np.abs(v - batches[other][k]).max()})")
+    shapes = {k: v.shape for k, v in batches["native"].items() if k in ("rgb", "feature", "hxy")}
+    print(f"[loader] {LOADER_PAIRS} pairs x {LOADER_PIXELS} px of the 32-frame 64^2 scene, "
+          f"{LOADER_BATCHES} batches: native (libsampler, on the "
+          f"loader's thread) equals the numpy reference and a second loader of the same seed on "
+          f"every key {shapes}; ms per batch (one thread, median): native "
+          f"{np.median(times['native']):.3f} (min {min(times['native']):.3f}), reference "
+          f"{np.median(times['reference']):.3f} (min {min(times['reference']):.3f})")
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+JOINT_PRIOR_GEO_STEPS = 5
+JOINT_PRIOR_DEVICES = ("cuda", "cpu")  # the fit on the card, then its reference
+
+
+def joint_prior(num_frames, bones=25, seed=SEED):
+    """A seeded synthetic joint-angle prior (num_frames, bones, 3): one
+    sinusoid over the video per degree of freedom."""
+    rng = np.random.default_rng(seed)
+    amp = rng.uniform(0.05, 0.3, (1, bones, 3))
+    phase = rng.uniform(0, 2 * np.pi, (1, bones, 3))
+    t = np.arange(num_frames, dtype=np.float64)[:, None, None] / num_frames
+    return (amp * np.sin(2 * np.pi * t + phase)).astype(np.float32)
+
+
+def phase_joint_prior(db, root):
+    """[joint-prior]: the trainer of `--field_type fg --fg_motion skel-quad`
+    with a seeded joint-angle prior in its dataset metadata (32 frames x 25
+    bones x 3) runs mlp_init's skeleton fit (init_utils.fit_until_converged
+    at tol 1e-4) on the card, the articulation's TimeMLP through K3f / K3b
+    at one row per frame, then the same trainer on the CPU with every
+    kernel plain. Both fits must converge; the losses before the fits must
+    agree to 1e-4 relative and after them to 1e-2 relative, the update
+    counts within 10%, and the card's fit must launch K3f and K3b; returns
+    its launches."""
+    import torch
+
+    from lab4d_tpu_torch.engine import init_utils
+    from lab4d_tpu_torch.engine.trainer import Trainer
+    from lab4d_tpu_torch.train import get_parser
+
+    prior = joint_prior(32)
+    fits = []
+    orig = init_utils.fit_until_converged
+
+    class PriorTrainer(Trainer):
+        def define_dataset(self):
+            super().define_dataset()
+            self.data_info["joint_angles"] = prior
+
+    def recorded(loss_fn, params, tol, log_name="fit", **kw):
+        if log_name != "skeleton":
+            return orig(loss_fn, params, tol, log_name=log_name, **kw)
+        with torch.no_grad():
+            before = float(loss_fn())
+        _reset_kernel_counts()
+        t = time.time()
+        loss, iters = orig(loss_fn, params, tol, log_name=log_name, **kw)
+        with torch.no_grad():
+            after = float(loss_fn())
+        if torch.cuda.is_available():
+            sync()
+        fits.append({
+            "before": before, "loss": loss, "after": after, "iters": iters,
+            "s": time.time() - t, "launches": _kernel_counts()})
+        return loss, iters
+
+    init_utils.fit_until_converged = recorded
+    try:
+        for n, dev in enumerate(JOINT_PRIOR_DEVICES):
+            opts = vars(get_parser().parse_args(TRAIN_OPTS["fg"] + [
+                "--logname", f"prior-{dev}", "--geo_init_steps", str(JOINT_PRIOR_GEO_STEPS),
+                "--num_rounds", "1", "--iters_per_round", "1", "--device", dev,
+                "--database_root", db, "--logroot", os.path.join(root, "logdir")]))
+            trainer = PriorTrainer(opts)
+            trainer.close()
+            if len(fits) != n + 1 or trainer.skel_fit[0] != fits[n]["loss"]:
+                fail(f"joint-prior: the {dev} trainer ran no skeleton fit")
+    finally:
+        init_utils.fit_until_converged = orig
+    gpu, cpu = fits
+    k3 = {k: gpu["launches"][k] for k in ("K3f", "K3b")}
+    if not all(np.isfinite([gpu["after"], cpu["after"]])):
+        fail(f"joint-prior: non-finite losses {gpu} {cpu}")
+    if not (gpu["loss"] <= 1e-4 and cpu["loss"] <= 1e-4):
+        fail(f"joint-prior: a fit did not converge to 1e-4: card {gpu['loss']}, cpu {cpu['loss']}")
+    # both fits stop at 1e-4, so their ends are held relative to their size
+    for key, rtol in (("before", 1e-4), ("after", 1e-2)):
+        if abs(gpu[key] - cpu[key]) > rtol * max(gpu[key], cpu[key]):
+            fail(f"joint-prior: the loss {key} the fit differs by more than {rtol:g} relative: "
+                 f"card {gpu[key]!r}, CPU {cpu[key]!r}")
+    if abs(gpu["iters"] - cpu["iters"]) > 0.1 * cpu["iters"]:
+        fail(f"joint-prior: the card's fit took {gpu['iters']} updates, the CPU's {cpu['iters']}")
+    if not (k3["K3f"] > 0 and k3["K3b"] > 0):
+        fail(f"joint-prior: the card's fit launched K3f / K3b {k3['K3f']} / {k3['K3b']} times")
+    print(f"[joint-prior] fg / skel-quad, a seeded prior of {prior.shape[0]} frames x "
+          f"{prior.shape[1]} bones x 3 in the metadata; mlp_init's skeleton fit (tol 1e-4): "
+          f"loss {gpu['before']!r} -> {gpu['after']!r} on the card in {gpu['iters']} updates "
+          f"({gpu['s']:.1f} s), {cpu['before']!r} -> {cpu['after']!r} on the CPU with every "
+          f"kernel plain in {cpu['iters']} updates ({cpu['s']:.1f} s); launches in the card's "
+          "fit: " + " ".join(f"{k}={v}" for k, v in gpu["launches"].items())
+          + f" (K3f / K3b {k3['K3f'] / max(gpu['iters'], 1):g} per update)")
+    return gpu["launches"]
+
+
+PSNR_ROUNDS, PSNR_FRAMES = 5, 81
+
+
+def phase_psnr(root):
+    """[psnr]: tools/compare_psnr.py's rigid protocol at seed 0 on the card,
+    cut to PSNR_ROUNDS rounds: the masked-PSNR trajectory beside the JAX
+    package's recorded seed-0 trajectory (psnr_compare.json) and every
+    kernel's launches in the rigid training steps; returns the launches
+    of the whole run."""
+    from lab4d_tpu_torch.engine.trainer import Trainer
+    from lab4d_tpu_torch.tools import compare_psnr as CP
+
+    workdir = os.path.join(root, "psnr")
+    t = time.time()
+    db = CP.make_dataset(workdir, 64, PSNR_FRAMES)
+    steps = collections.Counter()
+    orig = Trainer.train_one_round
+
+    def counted_round(self, round_count):
+        before = _kernel_counts()
+        orig(self, round_count)
+        steps.update({k: v - before[k] for k, v in _kernel_counts().items()})
+
+    _reset_kernel_counts()
+    Trainer.train_one_round = counted_round
+    try:
+        traj, mesh_err, secs = CP.run_seed(db, workdir, SEED, PSNR_ROUNDS, 64, 20, PSNR_FRAMES,
+                                           "cuda")
+    finally:
+        Trainer.train_one_round = orig
+    sync()
+    launches = _kernel_counts()
+    if len(traj) != PSNR_ROUNDS or not np.all(np.isfinite(traj)):
+        fail(f"psnr: the trajectory is not {PSNR_ROUNDS} finite values: {traj}")
+    iters = CP.effective_iters(20, PSNR_FRAMES)
+    jax_traj = CP.recorded_spread()["traj_by_seed"][str(SEED)][:PSNR_ROUNDS]
+    print(f"[psnr] rigid fg, {PSNR_FRAMES} frames at 64^2, {PSNR_ROUNDS} rounds x {iters} steps of "
+          f"4 pairs x 8 px, seed {SEED} ({time.time() - t:.1f} s with the scene; training and eval "
+          f"{secs:.1f} s): masked PSNR by round " + ", ".join(f"{p:.4f}" for p in traj)
+          + "; lab4d_tpu's recorded seed 0 (psnr_compare.json, CPU): "
+          + ", ".join(f"{p:.4f}" for p in jax_traj)
+          + f"; canonical mesh's mean distance from the sphere {mesh_err:.4f}")
+    print(f"[psnr] launches in the {PSNR_ROUNDS * iters} rigid steps: "
+          + " ".join(f"{k}={v}" for k, v in steps.items())
+          + " (per step: " + " ".join(f"{k}={v / (PSNR_ROUNDS * iters):g}" for k, v in steps.items())
+          + "); in the whole run: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    for k in ("K3f", "K3b"):
+        if steps[k] <= 0:
+            fail(f"psnr: the rigid steps launched no {k}")
+    return launches, dict(steps)
+
+
+def phase_config(db, root):
+    """[config]: the train CLI refuses a bad flag at startup, as
+    lab4d_tpu/config.py's get_config does, before it writes anything."""
+    from lab4d_tpu_torch import train as train_cli
+
+    logroot = os.path.join(root, "config-logdir")
+    try:
+        train_cli.main(TRAIN_OPTS["bg"] + ["--imgs_per_gpu", "0", "--database_root", db,
+                                           "--logroot", logroot])
+    except ValueError as e:
+        if os.path.exists(logroot):
+            fail("config: the refused run wrote its log directory")
+        print(f"[config] --imgs_per_gpu 0 refused at startup: {e}")
+        return
+    fail("config: --imgs_per_gpu 0 was not refused")
 
 
 EXPORT_GRID = 128  # export.py's default --grid_size
@@ -2048,6 +2321,8 @@ def main():
     del model, exact_frames
     with tempfile.TemporaryDirectory() as root:
         db = write_scene(root)
+        phase_config(db, root)
+        phase_loader(db)
         phase_train_reference(db, root, "bg")
         with k3_records({}, k3_shapes):
             bg_launches, bg_steps, _, _ = phase_train(db, root, "bg")
@@ -2055,6 +2330,7 @@ def main():
         with k3_records(fg_calls, k3_shapes):
             fg_launches, fg_steps, _, _ = phase_train(db, root, "fg", fg_calls, k3_shapes)
         with k3_records({}, k3_shapes):
+            prior_launches = phase_joint_prior(db, root)
             export_launches = {cate: phase_export(db, root, cate) for cate in ("fg", "bg")}
             reanimate_launches = phase_reanimate(db, root)
         phase_train_reference(db, root, "comp")
@@ -2086,6 +2362,8 @@ def main():
                                                       motion_id=2)
             transfer_launches, transfer_steps = phase_transfer(db, root, k3_shapes)
             resume_launches = phase_resume(db, root)
+        with k3_records({}, k3_shapes):
+            psnr_launches, psnr_steps = phase_psnr(root)
         for name, shapes in (("train-comp", comp_shapes),
                              ("train-families dense", family_runs["dense"][3])):
             rows = {(r, c) for r, c, *_ in shapes}
@@ -2119,7 +2397,8 @@ def main():
             ("render_category", render_cate_launches),
             ("export_category", export_cate_launches),
             ("reanimate_category", reanimate_cate_launches), ("transfer", transfer_launches),
-            ("resume", resume_launches))}
+            ("resume", resume_launches), ("joint_prior", prior_launches),
+            ("psnr", psnr_launches))}
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),
@@ -2128,6 +2407,7 @@ def main():
                                  "train_comp_steps": comp_steps.get(key, 0),
                                  "train_category_steps": cate_steps.get(key, 0),
                                  "transfer_steps": transfer_steps.get(key, 0),
+                                 "psnr_steps": psnr_steps.get(key, 0),
                                  **{f"train_{m.replace('-', '_')}_steps": r[1].get(key, 0)
                                     for m, r in family_runs.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in kernels[key]),

@@ -47,7 +47,7 @@ def load_sequence_config(seqname: str, database_root: str = "database"):
     return [section_dict(f"data_{i}", base) for i in range(numvid)]
 
 
-def config_to_datasets(opts: Dict, is_eval: bool = True) -> List[VidData]:
+def config_to_datasets(opts: Dict, is_eval: bool = False) -> List[VidData]:
     """One VidData per video of the sequence: full frames without flow
     pairs beyond delta 1 for eval, `pixels_per_image` pixels of pairs at
     deltas {1, 2, 4, 8} for training."""
@@ -130,12 +130,14 @@ def get_vid_length(inst_id, data_info):
 class TrainBatchLoader:
     """Threaded prefetching sampler of fixed-shape (M, 2, N, ...) training
     batches: each batch samples `imgs_per_batch` frame pairs uniformly over
-    all videos, with the datasets' `pixels_per_image` pixels each."""
+    all videos, with the datasets' `pixels_per_image` pixels each, gathered
+    by `gather` ("native" or its numpy "reference"; VidData.load_pairs_batch)."""
 
     def __init__(self, datasets: List[VidData], imgs_per_batch: int, num_workers: int = 2,
-                 prefetch: int = 4, seed: int = 0):
+                 prefetch: int = 4, seed: int = 0, gather: str = "native"):
         self.datasets = datasets
         self.imgs_per_batch = imgs_per_batch
+        self.gather = gather
         pool = []
         for di, ds in enumerate(datasets):
             pool += [(di, fi) for fi in range(len(ds))]
@@ -146,15 +148,19 @@ class TrainBatchLoader:
         self._stop = threading.Event()
         self._threads = []
 
+    def _pick_pairs(self, rng) -> np.ndarray:
+        """Ordered (imgs_per_batch, 2) array of (dataset_idx, frame_idx)."""
+        return self.pool[rng.integers(0, len(self.pool), size=self.imgs_per_batch)]
+
     def _make_batch(self, rng) -> Dict[str, np.ndarray]:
-        ordered = self.pool[rng.integers(0, len(self.pool), size=self.imgs_per_batch)]
-        # one load per video, rows scattered back to the drawn order
+        ordered = self._pick_pairs(rng)
+        # one gather per video over its pairs, rows scattered back to the drawn order
         by_vid: Dict[int, list] = {}
         order: Dict[int, list] = {}
         for row, (di, fi) in enumerate(ordered):
             by_vid.setdefault(int(di), []).append(int(fi))
             order.setdefault(int(di), []).append(row)
-        chunks = [(self.datasets[di].load_pairs_batch(fis, rng), order[di])
+        chunks = [(self.datasets[di].load_pairs_batch(fis, rng, gather=self.gather), order[di])
                   for di, fis in by_vid.items()]
         inv = np.argsort(np.concatenate([np.asarray(r) for _, r in chunks]))
         return {k: np.concatenate([c[k] for c, _ in chunks], axis=0)[inv] for k in chunks[0][0]}

@@ -1,5 +1,7 @@
 """Per-video frame data over numpy mmap. The port's copy of
-lab4d_tpu/dataloader/vidloader.py, without the native batch sampler.
+lab4d_tpu/dataloader/vidloader.py: a training batch's pixels are gathered
+by the native sampler (lab4d_tpu_torch/native), in the JAX package's draw
+order.
 
 Parity: lab4d/dataloader/vidloader.py — identical on-disk contract
 (database/processed/{JPEGImages,Annotations,FlowFW_k,FlowBW_k,Depth,
@@ -17,6 +19,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from lab4d_tpu_torch import native
 from lab4d_tpu_torch.utils.numpy_utils import bilinear_interp
 
 
@@ -166,13 +169,70 @@ class VidData:
         x0 = idx // self.img_size[0]
         return np.stack([x0, y0], axis=-1)
 
-    def load_pairs_batch(self, indices, rng=None) -> Dict[str, np.ndarray]:
-        """Pairs for `indices` (F,) pair-start frames through the per-frame
-        numpy path; returns dict of (F, 2, ...) arrays matching load_pair's
-        contract. (The JAX package's C++ batch sampler, lab4d_tpu/native,
-        is not ported: ROADMAP.md.)"""
-        items = [self.load_pair(int(i)) for i in indices]
-        return {k: np.stack([it[k] for it in items]) for k in items[0]}
+    def load_pairs_batch(self, indices, rng=None, gather: str = "native") -> Dict[str, np.ndarray]:
+        """Pairs for `indices` (F,) pair-start frames, every modality
+        gathered in one call over all 2F frames; returns dict of (F, 2, ...)
+        arrays matching load_pair's contract.
+
+        The draws are the JAX package's (lab4d_tpu/dataloader/vidloader.py
+        load_pairs_batch): all F deltas first, then the 2F pixel sets, both
+        from self.rng. gather: "native" (the C++ library) or "reference"
+        (its numpy version, the same values)."""
+        ops = native.backend(gather)
+        F = len(indices)
+        N = self.pixels_per_image
+        deltas = [self.sample_delta(int(i)) for i in indices]
+        f0 = np.asarray([int(i) for i in indices], np.int32)
+        f1 = f0 + np.asarray(deltas, np.int32)
+        fids = np.empty(2 * F, np.int32)
+        fids[0::2] = f0
+        fids[1::2] = f1
+        xys = np.stack([self.sample_xy() for _ in range(2 * F)]).astype(np.int32)
+
+        rgb = ops.gather_pixels(self.mmap["rgb"], fids, xys)
+        if rgb.shape[-1] == 1:  # gray
+            rgb = np.repeat(rgb, 3, axis=-1)
+        mask2 = ops.gather_pixels(self.mmap["mask"], fids, xys)
+        depth = ops.gather_pixels(self.mmap["depth"], fids, xys)
+        feat_map = self.mmap["feature"]
+        feature = ops.gather_features_bilinear(
+            feat_map, fids, xys, float(feat_map.shape[1]) / self.img_size[0])
+
+        # flow: one gather per (delta, direction)
+        flow = np.zeros((2 * F, N, 3), np.float32)
+        groups: Dict[tuple, list] = {}
+        for i in range(F):
+            groups.setdefault((deltas[i], True), []).append(i)
+            groups.setdefault((deltas[i], False), []).append(i)
+        for (d, is_fw), rows in groups.items():
+            rows = np.asarray(rows)
+            if is_fw:
+                src, sel = self.mmap["flowfw"][d], 2 * rows  # first of the pair
+                sub_fids = (f0[rows] // d).astype(np.int32)
+            else:
+                src, sel = self.mmap["flowbw"][d], 2 * rows + 1
+                sub_fids = (f1[rows] // d - 1).astype(np.int32)
+            flow[sel] = ops.gather_pixels(src, sub_fids, xys[sel])
+
+        hxy = np.concatenate([xys.astype(np.float32), np.ones((2 * F, N, 1), np.float32)], -1)
+
+        def pair(x):
+            return x.reshape((F, 2) + x.shape[1:])
+
+        return {
+            "rgb": pair(rgb),
+            "mask": pair(mask2[..., :1]),
+            "depth": pair(depth),
+            "feature": pair(feature),
+            "flow": pair(flow[..., :2]),
+            "flow_uct": pair(flow[..., 2:]),
+            "vis2d": pair(mask2[..., 1:]),
+            "crop2raw": self.crop2raw[fids].astype(np.float32).reshape(F, 2, 4),
+            "is_detected": self.is_detected[fids].astype(np.float32).reshape(F, 2),
+            "dataid": np.full((F, 2), self.dataid, np.int32),
+            "frameid_sub": np.asarray(self.frame_map, np.int32)[fids].reshape(F, 2),
+            "hxy": pair(hxy),
+        }
 
     def load_pair(self, im0idx: int) -> Dict[str, np.ndarray]:
         """Sample a (frame, frame+delta) pair -> dict of (2, ...) arrays."""

@@ -45,6 +45,7 @@ class DVRModel(nn.Module):
     The module is built from `generator` on the CPU and then moved to
     `device` (the card unless the caller asks for the CPU). Training needs
     the priors: intrinsics_init (M, 4) and rtmat_fg / rtmat_bg (M, 4, 4),
+    and the skeleton's joint_angles_init (M, B, 3) where there is one,
     and takes train_res (the flow threshold, in pixels) and loss_weights
     ((flag name, value) pairs).
     """
@@ -54,7 +55,8 @@ class DVRModel(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  intrinsics_init: Optional[np.ndarray] = None,
                  rtmat_fg: Optional[np.ndarray] = None, rtmat_bg: Optional[np.ndarray] = None,
-                 train_res: int = 256, loss_weights=()):
+                 train_res: int = 256, loss_weights=(),
+                 joint_angles_init: Optional[np.ndarray] = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -65,7 +67,7 @@ class DVRModel(nn.Module):
         self.loss_weights = dict(loss_weights)
         self.fields = MultiFields(frame_info, field_type=field_type, fg_motion=fg_motion,
                                   num_inst=num_inst, rtmat_fg=rtmat_fg, rtmat_bg=rtmat_bg,
-                                  generator=generator)
+                                  joint_angles_init=joint_angles_init, generator=generator)
         self.intrinsics = IntrinsicsMLP(frame_info, num_freq_t=0, intrinsics_init=intrinsics_init,
                                         generator=generator)
         self.register_buffer("frame_offset_raw", torch.as_tensor(frame_info.frame_offset_raw),

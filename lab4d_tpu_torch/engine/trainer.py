@@ -6,11 +6,11 @@ trainer's layout (the AdamW moments in the layout of its optax state), and
 `--load_path`: a checkpoint of either trainer loaded into the model
 (merge_params: per-video tables of another video count are
 mean-compressed), its Adam moments restored where every leaf matches, its
-step count kept under --noreset_steps. Port of
-lab4d_tpu/engine/trainer.py for one card.
-
-The skeleton joint-angle prior fit (which needs "joint_angles" in the
-dataset metadata) is not ported yet (ROADMAP.md).
+step count kept under --noreset_steps, and the skeleton's joint-angle
+prior fit where the dataset metadata holds "joint_angles". Scalars and
+the eval's image grids go to metrics.jsonl and, where tensorboardX
+imports, to TensorBoard (make_logger). Port of lab4d_tpu/engine/trainer.py
+for one card.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from lab4d_tpu_torch.render import render_batch
 from lab4d_tpu_torch.utils import metrics
 from lab4d_tpu_torch.utils.geom import get_near_far
 from lab4d_tpu_torch.utils.quat import quaternion_translation_to_se3
+from lab4d_tpu_torch.utils.vis import img2color, make_image_grid
 
 EXPLICIT_PARAM_NAMES = (
     "logibeta", "logsigma", "logscale", "log_gauss", "base_quat",
@@ -134,9 +135,14 @@ class Trainer:
     lr_step_offset = 0
     # whether --load_path restored the checkpoint's Adam state
     opt_restored = False
+    # the skeleton's joint-angle prior fit: (final loss, updates), or None
+    # where mlp_init ran none
+    skel_fit = None
 
     def __init__(self, opts: Dict):
         is_resumed = bool(opts.get("load_path"))
+        if opts.get("profile"):
+            opts = dict(opts, iters_per_round=10)
         self.opts = opts
         self.device = torch.device(opts.get("device", "cuda"))
         self.define_dataset()
@@ -150,7 +156,7 @@ class Trainer:
 
     def define_dataset(self):
         opts = self.opts
-        self.datasets = data_utils.config_to_datasets(opts, is_eval=False)
+        self.datasets = data_utils.config_to_datasets(opts)
         self.eval_datasets = data_utils.config_to_datasets(opts, is_eval=True)
         self.data_info = data_utils.get_data_info(self.eval_datasets)
         self.trainloader = data_utils.TrainBatchLoader(
@@ -163,7 +169,7 @@ class Trainer:
         opts = self.opts
         self.save_dir = os.path.join(opts["logroot"], "%s-%s" % (opts["seqname"], opts["logname"]))
         os.makedirs(self.save_dir, exist_ok=True)
-        self.metrics = open(os.path.join(self.save_dir, "metrics.jsonl"), "a")
+        self.log = make_logger(self.save_dir)
         self.current_steps = 0
         self.current_round = 0
         self.swap_generator = torch.Generator(device=self.device).manual_seed(2)
@@ -184,6 +190,7 @@ class Trainer:
             generator=torch.Generator().manual_seed(0),
             intrinsics_init=info["intrinsics"], rtmat_fg=info["rtmat"][info["vis_info"]["fg"]],
             rtmat_bg=info["rtmat"][info["vis_info"]["bg"]], train_res=opts["train_res"],
+            joint_angles_init=info.get("joint_angles"),
             loss_weights=tuple((k, opts[k]) for k in LOSS_WEIGHT_NAMES if k in opts),
         )
         self.proxy = {cate: self._init_proxy(cate) for cate in self.categories}
@@ -263,6 +270,11 @@ class Trainer:
                                        log_name="camera")
         init_utils.fit_until_converged(model.intrinsics.compute_distance_to_prior, params,
                                        tol=1.0, log_name="intrinsics")
+        if info.get("joint_angles") is not None and self.opts["fg_motion"].startswith(
+                ("skel", "comp")):
+            articulation = model.fields.field_params["fg"].warp.articulation
+            self.skel_fit = init_utils.fit_until_converged(
+                articulation.prior_fit_loss, params, tol=1e-4, log_name="skeleton")
         steps = self.opts.get("geo_init_steps", 500)
         self.geo_init_losses = init_utils.fit_geometry(
             model, self._build_geometry_pools(num_steps=steps), num_steps=steps)
@@ -369,7 +381,7 @@ class Trainer:
                 print(f"Round {round_count:03d}: time={time.time() - start:.3f}s", flush=True)
         finally:
             self.trainloader.stop()
-            self.metrics.flush()
+            self.log.flush()
 
     def run_one_round(self, round_count):
         times = {}
@@ -412,9 +424,8 @@ class Trainer:
                 self.check_grad(gn)
                 record = {k: float(v) for k, v in ld.items()}
                 self.losses.append(record)
-                if step % 10 == 0:
-                    self.metrics.write(json.dumps({"step": step, "grad_norm": gn, **record}) + "\n")
-            self.metrics.flush()
+                if step % 10 == 0:  # the JAX trainer's record: its loss dict, keys sorted
+                    self.log.scalars(dict(sorted({**record, "grad_norm": gn}.items())), step)
             pending.clear()
 
         for _ in range(self.opts["iters_per_round"]):
@@ -439,7 +450,7 @@ class Trainer:
     def close(self):
         """Stop the loader threads and close the metrics log."""
         self.trainloader.stop()
-        self.metrics.close()
+        self.log.close()
 
     def check_grad(self, grad_norm: float, thresh: float = GRAD_NORM_MAX):
         """Loss-spike rollback: when a grad norm spikes or is non-finite,
@@ -453,12 +464,11 @@ class Trainer:
     # ----------------------------------------------------------------- eval
 
     def model_eval(self):
-        """Render the eval frames and write their metrics to metrics.jsonl
-        (step: the round)."""
+        """Render the eval frames; log their image grids and metrics (step:
+        the round)."""
         rendered, ref = self.render_frames(self.eval_fid)
-        record = {"step": self.current_round, **self.compute_eval_metrics(rendered, ref)}
-        self.metrics.write(json.dumps(record) + "\n")
-        self.metrics.flush()
+        self.log.images(rendered, self.current_round)
+        self.log.scalars(self.compute_eval_metrics(rendered, ref), self.current_round)
 
     @staticmethod
     def compute_eval_metrics(rendered, ref):
@@ -645,3 +655,48 @@ class Trainer:
             f.write(bridge.msgpack_dumps(payload))
         shutil.copy(path, "%s/ckpt_latest.flax" % self.save_dir)
         print(f"saved checkpoint round {round_count}", flush=True)
+
+
+class make_logger:
+    """Scalar and image logger of a run directory: metrics.jsonl always,
+    TensorBoard scalars and `img_<key>` image grids when tensorboardX
+    imports (else JSONL only), as lab4d_tpu/engine/trainer.py's
+    _make_logger. `tb` is the SummaryWriter or None."""
+
+    def __init__(self, save_dir: str):
+        self.save_dir = save_dir
+        self.jsonl = open(os.path.join(save_dir, "metrics.jsonl"), "a")
+        try:
+            from tensorboardX import SummaryWriter
+
+            self.tb = SummaryWriter(save_dir)
+        except Exception:
+            self.tb = None
+
+    def scalars(self, d: Dict[str, float], step: int):
+        self.jsonl.write(json.dumps({"step": step, **d}) + "\n")
+        self.jsonl.flush()
+        if self.tb:
+            for k, v in d.items():
+                self.tb.add_scalar(k, v, step)
+
+    def images(self, rendered: Dict[str, np.ndarray], step: int):
+        """Each (frames, H, W, C) channel of `rendered` as one colourized grid."""
+        if not self.tb:
+            return
+        for k, v in rendered.items():
+            try:
+                img = img2color(k, make_image_grid(v))
+                self.tb.add_image("img_" + k, img, step, dataformats="HWC")
+            except Exception:  # a channel without a colour map is not logged
+                pass
+
+    def flush(self):
+        self.jsonl.flush()
+        if self.tb:
+            self.tb.flush()
+
+    def close(self):
+        self.jsonl.close()
+        if self.tb:
+            self.tb.close()

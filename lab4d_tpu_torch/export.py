@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from lab4d_tpu_torch.engine.model import DVRModel
-from lab4d_tpu_torch.flagfile import parse_opts
+from lab4d_tpu_torch.flagfile import parse_opts, validate_opts
 from lab4d_tpu_torch.meshlib import Mesh
 from lab4d_tpu_torch.meshlib.marching import marching_cubes
 from lab4d_tpu_torch.render import common_parser, construct_test_model
@@ -172,7 +172,9 @@ def export(opts: Dict) -> str:
 
 
 def main(argv=None):
-    return export(parse_opts(get_parser(), argv))
+    opts = parse_opts(get_parser(), argv)
+    validate_opts(opts)
+    return export(opts)
 
 
 if __name__ == "__main__":

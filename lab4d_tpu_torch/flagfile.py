@@ -49,11 +49,27 @@ def flag_line(name: str, value) -> str:
     return f"--{name}={value}"
 
 
-def opts_log_lines(opts: Dict) -> List[str]:
-    """The lines of opts.log for the port's options `opts`."""
+def absl_flags(opts: Dict) -> Dict:
+    """Every flag of lab4d_tpu/config.py by name, with the port's value
+    from `opts` (the JAX default where the port has no such option) and
+    --device as use_cpu: the flat dict that config_hier.validate checks."""
     values = dict(JAX_CONFIG_FLAGS)
     values.update({k: v for k, v in opts.items() if k in JAX_CONFIG_FLAGS})
     values["use_cpu"] = opts.get("device", "cuda") == "cpu"
+    return values
+
+
+def validate_opts(opts: Dict):
+    """Reject at startup the flags lab4d_tpu/config.py's get_config
+    rejects (config_hier.validate on absl_flags(opts))."""
+    from lab4d_tpu_torch.config_hier import validate
+
+    validate(absl_flags(opts))
+
+
+def opts_log_lines(opts: Dict) -> List[str]:
+    """The lines of opts.log for the port's options `opts`."""
+    values = absl_flags(opts)
     return [flag_line(k, values[k]) for k in sorted(values)]
 
 

@@ -38,12 +38,16 @@ class Deformable(FeatureNeRF):
     """The backward warp un-articulates time-t points to the canonical
     frame; articulations are computed once per batch in get_samples."""
 
-    def __init__(self, category: str, fg_motion: str = "skel-quad", **kwargs):
+    def __init__(self, category: str, fg_motion: str = "skel-quad", joint_angles_init=None,
+                 **kwargs):
         super().__init__(category, **kwargs)
         self.fg_motion = fg_motion
         spec = parse_warp_type(fg_motion)
+        warp_kwargs = dict(spec["kwargs"])
+        if issubclass(spec["cls"], SkinningWarp):  # the skeleton's joint-angle prior
+            warp_kwargs["joint_angles_init"] = joint_angles_init
         self.warp = spec["cls"](self.frame_info, generator=kwargs.get("generator"),
-                                **spec["kwargs"])
+                                **warp_kwargs)
 
     @property
     def has_skinning(self) -> bool:

@@ -154,8 +154,8 @@ class InstEmbedding(nn.Module):
         self.inst_channels = inst_channels
         if inst_channels > 0:
             self.mapping = nn.Embedding(num_inst, inst_channels)
-            with torch.no_grad():
-                self.mapping.weight.normal_(0.0, 1.0 / np.sqrt(num_inst), generator=generator)
+            with torch.no_grad():  # flax nn.Embed's init: std 1 / sqrt(features)
+                self.mapping.weight.normal_(0.0, 1.0 / np.sqrt(inst_channels), generator=generator)
 
     def forward(self, inst_id: torch.Tensor, beta_prob: Optional[float] = None,
                 train: bool = False, swap: Optional[SwapDraws] = None) -> torch.Tensor:

@@ -30,6 +30,7 @@ class MultiFields(nn.Module):
     def __init__(self, frame_info: FrameInfo, field_type: str = "fg",
                  fg_motion: str = "skel-quad", num_inst: int = 1,
                  rtmat_fg: Optional[np.ndarray] = None, rtmat_bg: Optional[np.ndarray] = None,
+                 joint_angles_init: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if field_type not in ("fg", "bg", "comp"):
@@ -51,7 +52,7 @@ class MultiFields(nn.Module):
                 "fg", fg_motion=fg_motion, frame_info=frame_info, num_inst=num_inst, D=5,
                 W=128, num_freq_dir=-1, appr_channels=32, init_scale=INIT_SCALE["fg"],
                 rtmat_init=prior(rtmat_fg, "fg"), eikonal_dense=eikonal_dense,
-                generator=generator,
+                joint_angles_init=joint_angles_init, generator=generator,
             )
         if field_type in ("bg", "comp"):
             fields["bg"] = NeRF(

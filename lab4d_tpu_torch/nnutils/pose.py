@@ -115,11 +115,17 @@ class ArticulationFlatMLP(TimeMLP):
 
 
 class ArticulationSkelMLP(TimeMLP):
-    """Skeleton articulation: joint angles -> FK -> bone dual quaternions."""
+    """Skeleton articulation: joint angles -> FK -> bone dual quaternions.
+    joint_angles_init (M, B, 3): an external joint-angle prior per
+    filtered frame, which prior_fit_loss fits the joint angles to."""
 
     def __init__(self, frame_info: FrameInfo, skel_type: str = "quad",
+                 joint_angles_init: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(frame_info, generator=generator)
+        if joint_angles_init is not None:
+            joint_angles_init = torch.as_tensor(np.asarray(joint_angles_init, np.float32))
+        self.register_buffer("joint_angles_init", joint_angles_init, persistent=False)
         self.skeleton = get_predefined_skeleton(skel_type)
         self.num_se3 = self.skeleton.num_joints
         W = self.W
@@ -205,3 +211,9 @@ class ArticulationSkelMLP(TimeMLP):
         so3 = self.compute_so3(self.time_embedding.mean_embedding())
         log_inc = self.log_bone_len(so3.new_zeros(so3.shape[:-2] + (0,)), None)
         return torch.mean(so3**2) + 0.02 * torch.mean(log_inc**2)
+
+    def prior_fit_loss(self):
+        """The init-time fit: MSE between the joint angles of every filtered
+        frame and joint_angles_init."""
+        so3 = self.get_vals(None, return_so3=True)
+        return torch.mean((so3 - self.joint_angles_init) ** 2)

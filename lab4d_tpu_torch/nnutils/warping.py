@@ -93,7 +93,7 @@ class SkinningWarp(nn.Module):
 
     def __init__(self, frame_info: FrameInfo, skel_type: str = "quad",
                  init_gauss_scale: float = 0.03, init_beta: float = 0.01,
-                 generator: Optional[torch.Generator] = None):
+                 joint_angles_init=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.frame_info = frame_info
         self.skel_type = skel_type
@@ -102,6 +102,7 @@ class SkinningWarp(nn.Module):
             symm_idx = None
         else:
             self.articulation = ArticulationSkelMLP(frame_info, skel_type=skel_type,
+                                                    joint_angles_init=joint_angles_init,
                                                     generator=generator)
             symm_idx = self.articulation.skeleton.symm_idx
         self.skinning_model = SkinningField(
@@ -153,8 +154,10 @@ class ComposedWarp(SkinningWarp):
     runs before skinning going forward and after it going backward."""
 
     def __init__(self, frame_info: FrameInfo, skel_type: str = "quad", post_warp_D: int = 2,
-                 post_warp_W: int = 256, generator: Optional[torch.Generator] = None):
-        super().__init__(frame_info, skel_type=skel_type, generator=generator)
+                 post_warp_W: int = 256, joint_angles_init=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(frame_info, skel_type=skel_type, joint_angles_init=joint_angles_init,
+                         generator=generator)
         self.post_warp = DenseWarp(frame_info, D=post_warp_D, W=post_warp_W, generator=generator)
 
     def forward(self, xyz, frame_id, inst_id, backward=False, samples_dict=None):

@@ -18,7 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from lab4d_tpu_torch.flagfile import parse_opts
+from lab4d_tpu_torch.flagfile import parse_opts, validate_opts
 from lab4d_tpu_torch.render import construct_batch_from_opts, get_parser as render_parser, render
 from lab4d_tpu_torch.utils.quat import se3_to_quaternion_translation
 
@@ -51,8 +51,9 @@ def construct_batch_from_opts_reanimate(opts: Dict, model, geo_state, data_info,
 
 
 def main(argv=None):
-    return render(parse_opts(get_parser(), argv),
-                  construct_batch_func=construct_batch_from_opts_reanimate)
+    opts = parse_opts(get_parser(), argv)
+    validate_opts(opts)
+    return render(opts, construct_batch_func=construct_batch_from_opts_reanimate)
 
 
 if __name__ == "__main__":

@@ -28,7 +28,7 @@ import torch
 from lab4d_tpu_torch.bridge import load_flax_checkpoint, params_from_flax
 from lab4d_tpu_torch.dataloader import data_utils
 from lab4d_tpu_torch.engine.model import DVRModel
-from lab4d_tpu_torch.flagfile import add_flagfile_option, parse_opts
+from lab4d_tpu_torch.flagfile import add_flagfile_option, parse_opts, validate_opts
 from lab4d_tpu_torch.utils import cam_traj as C
 from lab4d_tpu_torch.utils.geom import K2inv, K2mat, mat2K
 from lab4d_tpu_torch.utils.io import make_save_dir, save_rendered
@@ -103,7 +103,7 @@ def construct_test_model(opts: Dict, device):
     """Model from the dataset metadata + a trainer's checkpoint (either
     package's), with one instance or (--nosingle_inst) one per video.
     Returns (model, geo_state, data_info)."""
-    data_info = data_utils.get_data_info(data_utils.config_to_datasets(opts))
+    data_info = data_utils.get_data_info(data_utils.config_to_datasets(opts, is_eval=True))
     frame_info = data_info["frame_info"]
     model = DVRModel(frame_info, field_type=opts["field_type"], fg_motion=opts["fg_motion"],
                      num_inst=1 if opts["single_inst"] else frame_info.num_vids, device=device)
@@ -253,7 +253,9 @@ def render(opts: Dict, construct_batch_func=construct_batch_from_opts):
 
 
 def main(argv=None):
-    return render(parse_opts(get_parser(), argv))
+    opts = parse_opts(get_parser(), argv)
+    validate_opts(opts)
+    return render(opts)
 
 
 if __name__ == "__main__":

@@ -33,6 +33,15 @@ that checkpoint (a transfer, or the same model resumed). Then:
 
 `--out` also writes the profiler's full table to FILE.
 
+`--loader`: the loader against the steps, in turns, in one process: for
+the bg and the fg (skel-quad) trainers, `--steps` steps on batches drawn
+beforehand and `--steps` steps of train_one_round with the threaded
+loader, in the order pre-drawn, loader, loader, pre-drawn (ms/step from
+CUDA events, median, and wall ms/step); then one batch of the flagship
+loader (128 pairs x 16 px) through the native sampler and through its
+numpy reference, in turns (native, reference, reference, native), 10
+batches each (ms per batch, median, in this process, one thread).
+
 `--turns DIR`: runs this tool (without --turns) on the package of the
 checkout DIR and on this one in turns, each in a process of its own: DIR,
 this, this, DIR. The scene is written once, here, and every turn runs
@@ -86,6 +95,8 @@ def main(argv=None):
     parser.add_argument("--top", type=int, default=18)
     parser.add_argument("--out", default=None)
     parser.add_argument("--turns", default=None, help="root of another checkout to run in turns")
+    parser.add_argument("--loader", action="store_true",
+                        help="the loader against pre-drawn batches, bg and fg, in turns")
     parser.add_argument("--scene", default=None, help=argparse.SUPPRESS)  # a written database
     parser.add_argument("--checkout", default=ROOT, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -116,7 +127,10 @@ def main(argv=None):
     card = chip_smoke.phase_env()
     with tempfile.TemporaryDirectory() as root:
         db = args.scene or _write_scene(chip_smoke, args, root)
-        _profile(args, card, db, root)
+        if args.loader:
+            _loader_turns(args, card, db, root)
+        else:
+            _profile(args, card, db, root)
 
 
 def _write_scene(chip_smoke, args, root):
@@ -127,7 +141,9 @@ def _write_scene(chip_smoke, args, root):
     return db
 
 
-def _profile(args, card, db, root):
+def _trainer(args, db, root, field_type, n_batches):
+    """The trainer of the profiled step and n_batches of its batches on the
+    device, drawn beforehand."""
     import torch
 
     import chip_smoke
@@ -135,7 +151,7 @@ def _profile(args, card, db, root):
     from lab4d_tpu_torch.train import get_parser
 
     motion = [] if args.fg_motion is None else ["--fg_motion", args.fg_motion]
-    base = CATEGORY_ARGV if args.nosingle_inst else chip_smoke.TRAIN_OPTS[args.field_type]
+    base = CATEGORY_ARGV if args.nosingle_inst else chip_smoke.TRAIN_OPTS[field_type]
     load = ["--load_path", args.load_path] if args.load_path else []
     opts = vars(get_parser().parse_args(base + motion + load + [
         "--geo_init_steps", "50", "--num_rounds", "1", "--iters_per_round", str(args.steps),
@@ -143,12 +159,74 @@ def _profile(args, card, db, root):
     trainer = Trainer(opts)
     geo = trainer.geo_for_batch()
     batches = []
-    for _ in range(args.steps + args.trace):
+    for _ in range(n_batches):
         b = trainer.batch_to_device(trainer.trainloader.next_batch())
         b["geo"] = geo
         batches.append(b)
     trainer.trainloader.stop()
     torch.cuda.synchronize()
+    return trainer, opts, batches
+
+
+def _predrawn_steps(trainer, batches, step):
+    """CUDA-event ms of a training step on each of `batches`."""
+    import torch
+
+    events = []
+    for b in batches:
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        trainer.train_step(b, step)
+        e.record()
+        events.append((s, e))
+        step += 1
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in events]
+
+
+def _loader_turns(args, card, db, root):
+    import numpy as np
+
+    import chip_smoke
+
+    for field_type in ("bg", "fg"):
+        trainer, opts, batches = _trainer(args, db, root, field_type, args.steps + 2)
+        try:
+            _predrawn_steps(trainer, batches[:2], 0)  # warm-up
+            for turn, kind in enumerate(("pre-drawn", "loader", "loader", "pre-drawn")):
+                if kind == "pre-drawn":
+                    t = time.perf_counter()
+                    ms = _predrawn_steps(trainer, batches[2:], trainer.current_steps)
+                    wall = (time.perf_counter() - t) * 1e3 / len(ms)
+                else:
+                    trainer.trainloader.start()
+                    trainer.step_ms = []
+                    t = time.perf_counter()
+                    trainer.train_one_round(0)
+                    wall = (time.perf_counter() - t) * 1e3 / args.steps
+                    trainer.trainloader.stop()
+                    ms = trainer.step_ms[1:]
+                print(f"[loader-turns] {field_type} turn {turn + 1} {kind}: {np.median(ms):.2f} "
+                      f"ms/step (CUDA events, median of {len(ms)}), {wall:.2f} ms/step wall")
+        finally:
+            trainer.close()
+    for turn, gather in enumerate(("native", "reference", "reference", "native")):
+        loader = chip_smoke._seeded_loader(db, gather)
+        rng = np.random.default_rng(0)
+        loader._make_batch(rng)
+        times = []
+        for _ in range(10):
+            t = time.perf_counter()
+            loader._make_batch(rng)
+            times.append((time.perf_counter() - t) * 1e3)
+        print(f"[loader-turns] batch of {chip_smoke.LOADER_PAIRS} pairs x {chip_smoke.LOADER_PIXELS} "
+              f"px, turn {turn + 1} {gather}: {np.median(times):.3f} ms (median of 10; min "
+              f"{min(times):.3f}), one thread")
+    print(card)
+
+
+def _profile(args, card, db, root):
+    trainer, opts, batches = _trainer(args, db, root, args.field_type, args.steps + args.trace)
     try:
         _measure(args, card, trainer, batches, opts)
     finally:

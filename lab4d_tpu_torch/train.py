@@ -23,7 +23,9 @@ trains, one shared morphology or (--nosingle_inst) one instance code per
 video. --load_path starts from a checkpoint of either package (transfer,
 or with --noreset_steps a resumed run). opts.log is written in the JAX
 package's format (flagfile.py), and `--flagfile` reads one; boolean flags
-take absl's `--noname` as well as `--no-name`.
+take absl's `--noname` as well as `--no-name`. The flags are checked at
+startup as lab4d_tpu/config.py checks them (config_hier.validate), and
+`--profile` cuts a round to 10 iterations.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from typing import Dict
 
 import torch
 
-from lab4d_tpu_torch.flagfile import add_flagfile_option, parse_opts, write_opts_log
+from lab4d_tpu_torch.flagfile import (add_flagfile_option, parse_opts, validate_opts,
+                                      write_opts_log)
 from lab4d_tpu_torch.nnutils.warping import parse_warp_type
 
 # flag -> (default, help), as in lab4d_tpu/config.py
@@ -90,6 +93,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_res", type=int, default=64, help="size used for eval visualizations")
     p.add_argument("--geo_init_steps", type=int, default=500,
                    help="SDF-distillation steps for geometry init")
+    p.add_argument("--profile", action=argparse.BooleanOptionalAction, default=False,
+                   help="profile the training loop (10 iterations per round)")
     p.add_argument("--database_root", default="database",
                    help="root of preprocessed dataset + configs")
     p.add_argument("--device", default="cuda",
@@ -99,8 +104,9 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def check_opts(opts: Dict):
-    if opts["field_type"] not in ("bg", "fg", "comp"):
-        raise ValueError(f"--field_type {opts['field_type']}: one of bg, fg, comp")
+    """The JAX package's startup checks (flagfile.validate_opts), then the
+    port's own: a known warp and an existing --load_path file."""
+    validate_opts(opts)
     if opts["field_type"] != "bg":
         parse_warp_type(opts["fg_motion"])  # raises on an unknown motion
     if opts["load_path"] and not os.path.isfile(opts["load_path"]):

@@ -1,6 +1,6 @@
-"""Visualization helpers: tag-aware colorization, image grids and bone
-meshes. The port's copy of the parts of lab4d_tpu/utils/vis.py that
-rendering and export use."""
+"""Visualization helpers: tag-aware colorization, image grids, bone and
+camera meshes, rgb-d meshes. The port's copy of lab4d_tpu/utils/vis.py
+(bone colours without matplotlib)."""
 
 from __future__ import annotations
 
@@ -137,3 +137,68 @@ def _strut(a, b, r) -> Mesh:
         [0, 3, 1], [1, 3, 4], [1, 4, 2], [2, 4, 5], [2, 5, 0], [0, 5, 3],
     ]
     return Mesh(np.asarray(verts), np.asarray(faces))
+
+
+def draw_cams(rtmats: np.ndarray, scale: float = 0.1) -> Mesh:
+    """Camera frusta meshes from (M, 4, 4) object-to-camera transforms
+    (vis_utils.py:68+). Frusta are drawn at the camera centers in object
+    space (cam-to-object inverse applied)."""
+    meshes = []
+    # simple pyramid pointing +z
+    pts = np.array(
+        [[0, 0, 0], [-1, -1, 2], [1, -1, 2], [1, 1, 2], [-1, 1, 2]],
+        dtype=np.float64,
+    ) * scale * 0.5
+    faces = np.array(
+        [[0, 1, 2], [0, 2, 3], [0, 3, 4], [0, 4, 1], [1, 3, 2], [1, 4, 3]]
+    )
+    for rt in rtmats:
+        rt = np.asarray(rt)
+        cam2obj = np.linalg.inv(
+            np.vstack([rt[:3], [[0, 0, 0, 1]]]) if rt.shape[0] == 3 else rt
+        )
+        m = Mesh(pts.copy(), faces.copy())
+        m.apply_transform(cam2obj)
+        meshes.append(m)
+    return concatenate(meshes)
+
+
+def minmax_normalize(x: np.ndarray) -> np.ndarray:
+    """Scale to [0, 1] (vis_utils.py parity)."""
+    lo, hi = np.min(x), np.max(x)
+    return (x - lo) / max(hi - lo, 1e-12)
+
+
+def image_to_mesh(rgb: np.ndarray, depth: np.ndarray, K, mask=None,
+                  max_depth_jump: float = 0.1) -> Mesh:
+    """Unproject an rgb-d image into a colored triangle mesh
+    (vis_utils.py image_to_mesh parity): grid triangulation with edges
+    dropped across depth discontinuities."""
+    h, w = depth.shape[:2]
+    fx, fy, cx, cy = K
+    xs, ys = np.meshgrid(np.arange(w), np.arange(h))
+    z = depth.reshape(h, w)
+    pts = np.stack(
+        [(xs - cx) / fx * z, (ys - cy) / fy * z, z], -1
+    ).reshape(-1, 3)
+    colors = rgb.reshape(-1, rgb.shape[-1])[:, :3]
+
+    idx = np.arange(h * w).reshape(h, w)
+    a, b, c, d = (
+        idx[:-1, :-1].ravel(), idx[:-1, 1:].ravel(),
+        idx[1:, :-1].ravel(), idx[1:, 1:].ravel(),
+    )
+    faces = np.concatenate(
+        [np.stack([a, c, b], -1), np.stack([b, c, d], -1)], 0
+    )
+    zf = z.reshape(-1)
+    ok = np.ones(len(faces), bool)
+    for i in range(3):
+        for j in range(i + 1, 3):
+            ok &= np.abs(zf[faces[:, i]] - zf[faces[:, j]]) < max_depth_jump
+        ok &= zf[faces[:, i]] > 0
+    if mask is not None:
+        mf = mask.reshape(-1) > 0
+        for i in range(3):
+            ok &= mf[faces[:, i]]
+    return Mesh(pts, faces[ok], vertex_colors=colors)
