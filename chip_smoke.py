@@ -114,7 +114,15 @@ synchronise; any failure exits non-zero:
    it to 1e-2 relative, and take update counts within 10%;
 20. psnr (last): tools/compare_psnr.py's rigid protocol at seed 0, 5
    rounds: the masked-PSNR trajectory beside lab4d_tpu's recorded one,
-   and every kernel's launches in the rigid steps;
+   the canonical mesh's Chamfer distance to the GT sphere, and every
+   kernel's launches in the rigid steps;
+22. ddp (after train-fg): the flagship step over ranks (parallel/dist.py)
+   on train-fg's params and one global batch of 128 pairs x 16 px, 10
+   steps per run in turns: one process, the sharded path at NCCL world
+   size 1, two ranks sharing the card through gloo (64 pairs each), one
+   process again; each held to tests/test_torch_ddp.py's bounds
+   (tools/ddp_step.py compare), ms/step and the gradient bytes
+   all-reduced per step;
 21. k3-paths: every shape K3f launched in the phases above, and K3f /
    K3b against their plain versions at any the kernel phase did not
    check.
@@ -1688,6 +1696,95 @@ def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, ta
     return launches, steps, ms, step_shapes
 
 
+DDP_STEPS = 10  # [ddp]: steps of each run, on one global batch
+
+
+def phase_ddp(trainer, root):
+    """The flagship step over ranks (parallel/dist.py) against the
+    one-process step on the same global batch (128 pairs x 16 px: 262,144
+    points), params and draws (torch's generators seeded alike; the draws'
+    global shapes on the card), DDP_STEPS steps each, in turns: one process;
+    (a) the sharded path at NCCL world size 1; (b) two ranks sharing the
+    card through gloo (host copies), 64 pairs each; one process again.
+    Each held to tools/ddp_step.py compare's bounds (tests/test_torch_ddp.py's)
+    on its first step; ms/step (CUDA events, median after the first) and
+    the gradient bytes all-reduced per step. Returns the kernels' launches
+    in (a)."""
+    import torch
+
+    from lab4d_tpu_torch.engine.model import LOSS_WEIGHT_NAMES
+    from lab4d_tpu_torch.parallel import dist
+    from lab4d_tpu_torch.tools import ddp_step
+
+    t = time.time()
+    info, opts = trainer.data_info, trainer.opts
+    batch = trainer.trainloader._make_batch(np.random.default_rng(SEED))
+    path = os.path.join(root, "ddp_case.pt")
+    ddp_step.save_case(
+        path, info["frame_info"],
+        {"field_type": "fg", "fg_motion": "skel-quad", "num_inst": 1,
+         "intrinsics_init": info["intrinsics"], "rtmat_fg": info["rtmat"][info["vis_info"]["fg"]],
+         "rtmat_bg": info["rtmat"][info["vis_info"]["bg"]], "train_res": opts["train_res"],
+         "joint_angles_init": info.get("joint_angles"),
+         "loss_weights": tuple((k, opts[k]) for k in LOSS_WEIGHT_NAMES if k in opts)},
+        {k: v.detach().cpu().numpy() for k, v in trainer.model.state_dict().items()},
+        batch, {c: {k: v.cpu().numpy() for k, v in g.items()}
+                for c, g in trainer.geo_for_batch().items()},
+        trainer.current_steps)
+    case = ddp_step.load_case(path)
+    npix = batch["rgb"].shape[0] * batch["rgb"].shape[2]
+    one = ddp_step.run_case(case, "cuda", DDP_STEPS)
+    dist.init_distributed("cuda", f"tcp://localhost:{dist.free_port()}", 1, 0)
+    _reset_kernel_counts()
+    try:
+        nccl1 = ddp_step.run_case(case, "cuda", DDP_STEPS)
+        sync()
+        launches = _kernel_counts()
+        backend = torch.distributed.get_backend()
+    finally:
+        dist.shutdown()
+    gloo2 = ddp_step.run_sharded(path, 2, "cuda", backend="gloo", steps=DDP_STEPS,
+                                 share_card=True)
+    again = ddp_step.run_case(case, "cuda", DDP_STEPS)
+    sync()
+    med = lambda r: float(np.median(r["ms"][1:]))  # noqa: E731
+    # the loader over ranks: each rank draws the whole global batch (the
+    # draws stay the one-process order), not only its block
+    from lab4d_tpu_torch.dataloader.data_utils import TrainBatchLoader
+
+    loader_ms = {}
+    for pairs in (128, 64):
+        loader = TrainBatchLoader(trainer.datasets, imgs_per_batch=pairs, seed=SEED)
+        rng = np.random.default_rng(SEED)
+        draws_ms = []
+        for _ in range(6):
+            t_draw = time.perf_counter()
+            loader._make_batch(rng)
+            draws_ms.append(1e3 * (time.perf_counter() - t_draw))
+        loader_ms[pairs] = float(np.median(draws_ms[1:]))
+    lines = []
+    for name, run in (("(a) NCCL world size 1", nccl1), ("(b) 2 ranks over gloo", gloo2),
+                      ("one process, again", again)):
+        res = ddp_step.compare(one, dict(run, checksums=run.get("checksums", [])), npix)
+        if res["fails"]:
+            fail(f"ddp {name} against the one-process step: {res['fails'][:5]}")
+        lines.append(f"{name}: {med(run):.2f} ms/step; worst of the bounds: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in res["worst"].items()) + f", count flips {res['flips']}")
+    if backend != "nccl" or any(launches[k] <= 0 for k in launches):
+        fail(f"ddp (a): backend {backend}, launches {launches}")
+    print(f"[ddp] fg / skel-quad, {batch['rgb'].shape[0]} pairs x {batch['rgb'].shape[2]} px "
+          f"(262144 points) per step, {DDP_STEPS} steps per run, in turns; one process: "
+          f"{med(one):.2f} ms/step; " + "; ".join(lines)
+          + f"; rank 1 of (b): {float(np.median(gloo2['ms_by_rank'][1][1:])):.2f} ms/step; "
+          f"gradient all-reduced per step: {gloo2['grad_bytes']} bytes (fp32, one flat buffer); "
+          f"rank checksums of (b) after the last step equal; {time.time() - t:.1f} s")
+    print(f"[ddp] the loader over ranks: a rank draws the global batch of 128 pairs x 16 px in "
+          f"{loader_ms[128]:.2f} ms (host, one thread, median of 5), where its block of 64 pairs "
+          f"alone would take {loader_ms[64]:.2f} ms")
+    print("[ddp] launches in (a)'s steps: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    return launches
+
+
 def _plain_field_ms(trainer, reps=5):
     """(forward ms, forward + backward ms) of the fg field's per-point
     heads where K1 / K2 would run in a single-instance step, at a step's
@@ -1951,8 +2048,8 @@ def phase_psnr(root):
     _reset_kernel_counts()
     Trainer.train_one_round = counted_round
     try:
-        traj, mesh_err, secs = CP.run_seed(db, workdir, SEED, PSNR_ROUNDS, 64, 20, PSNR_FRAMES,
-                                           "cuda")
+        traj, mesh, secs = CP.run_seed(db, workdir, SEED, PSNR_ROUNDS, 64, 20, PSNR_FRAMES,
+                                       "cuda")
     finally:
         Trainer.train_one_round = orig
     sync()
@@ -1966,7 +2063,10 @@ def phase_psnr(root):
           f"{secs:.1f} s): masked PSNR by round " + ", ".join(f"{p:.4f}" for p in traj)
           + "; lab4d_tpu's recorded seed 0 (psnr_compare.json, CPU): "
           + ", ".join(f"{p:.4f}" for p in jax_traj)
-          + f"; canonical mesh's mean distance from the sphere {mesh_err:.4f}")
+          + f"; canonical mesh's mean distance from the sphere {mesh['radius_err']:.4f}, "
+          f"its Chamfer distance to the GT sphere {mesh['chamfer_vs_gt']:.4f} (lab4d_tpu's "
+          f"recorded {CP.recorded_chamfer():.4f} after its own 400-step protocol, not on this "
+          f"card)")
     print(f"[psnr] launches in the {PSNR_ROUNDS * iters} rigid steps: "
           + " ".join(f"{k}={v}" for k, v in steps.items())
           + " (per step: " + " ".join(f"{k}={v / (PSNR_ROUNDS * iters):g}" for k, v in steps.items())
@@ -2327,8 +2427,11 @@ def main():
         with k3_records({}, k3_shapes):
             bg_launches, bg_steps, _, _ = phase_train(db, root, "bg")
         phase_train_reference(db, root, "fg")
+        fg_run = {}
         with k3_records(fg_calls, k3_shapes):
-            fg_launches, fg_steps, _, _ = phase_train(db, root, "fg", fg_calls, k3_shapes)
+            fg_launches, fg_steps, _, _ = phase_train(db, root, "fg", fg_calls, k3_shapes,
+                                                      out=fg_run)
+            ddp_launches = phase_ddp(fg_run.pop("trainer"), root)
         with k3_records({}, k3_shapes):
             prior_launches = phase_joint_prior(db, root)
             export_launches = {cate: phase_export(db, root, cate) for cate in ("fg", "bg")}
@@ -2398,7 +2501,7 @@ def main():
             ("export_category", export_cate_launches),
             ("reanimate_category", reanimate_cate_launches), ("transfer", transfer_launches),
             ("resume", resume_launches), ("joint_prior", prior_launches),
-            ("psnr", psnr_launches))}
+            ("psnr", psnr_launches), ("ddp", ddp_launches))}
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),

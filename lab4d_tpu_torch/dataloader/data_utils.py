@@ -131,28 +131,63 @@ class TrainBatchLoader:
     """Threaded prefetching sampler of fixed-shape (M, 2, N, ...) training
     batches: each batch samples `imgs_per_batch` frame pairs uniformly over
     all videos, with the datasets' `pixels_per_image` pixels each, gathered
-    by `gather` ("native" or its numpy "reference"; VidData.load_pairs_batch)."""
+    by `gather` ("native" or its numpy "reference"; VidData.load_pairs_batch).
+
+    imgs_per_batch is the global batch of a run over ranks
+    (parallel/dist.py): every rank's loader draws the same global batches
+    in the same order, and the rank trains on its block of rows. Each
+    worker thread draws from streams of its own (worker 0 from the pair
+    stream and the datasets' own delta and pixel draws, as the JAX
+    package's single worker does; worker w > 0 from streams seeded from
+    the loader's seed, VidData.with_draws) and the workers' batches are
+    taken in turn, so that the sequence does not depend on which thread
+    runs first.
+    With video_shards > 1, block j of the leading axis (one of the
+    total_shards blocks) draws its pairs from the videos of group
+    j % video_shards (di % video_shards), as the JAX package's loader does
+    for its ("data", "video") mesh."""
 
     def __init__(self, datasets: List[VidData], imgs_per_batch: int, num_workers: int = 2,
-                 prefetch: int = 4, seed: int = 0, gather: str = "native"):
+                 prefetch: int = 4, seed: int = 0, gather: str = "native",
+                 total_shards: int = 1, video_shards: int = 1):
         self.datasets = datasets
         self.imgs_per_batch = imgs_per_batch
         self.gather = gather
+        self.total_shards = max(1, total_shards)
+        self.video_shards = max(1, video_shards)
+        if self.total_shards % self.video_shards or imgs_per_batch % self.total_shards:
+            raise ValueError(f"{imgs_per_batch} pairs over {self.total_shards} shards and "
+                             f"{self.video_shards} video shards do not split evenly")
         pool = []
         for di, ds in enumerate(datasets):
             pool += [(di, fi) for fi in range(len(ds))]
         self.pool = np.asarray(pool, dtype=np.int64)
+        if self.video_shards > 1:
+            self.group_pools = [self.pool[self.pool[:, 0] % self.video_shards == g]
+                                for g in range(self.video_shards)]
+            if not all(len(p) for p in self.group_pools):
+                raise ValueError("every video shard needs at least one video")
         self.rng = np.random.default_rng(seed)
         self.num_workers = max(1, num_workers)
-        self.queue: queue.Queue = queue.Queue(maxsize=prefetch)
+        self.prefetch = prefetch
+        self.queues: List[queue.Queue] = []
+        self._turn = 0
         self._stop = threading.Event()
         self._threads = []
 
     def _pick_pairs(self, rng) -> np.ndarray:
         """Ordered (imgs_per_batch, 2) array of (dataset_idx, frame_idx)."""
-        return self.pool[rng.integers(0, len(self.pool), size=self.imgs_per_batch)]
+        if self.video_shards == 1:
+            return self.pool[rng.integers(0, len(self.pool), size=self.imgs_per_batch)]
+        m = self.imgs_per_batch // self.total_shards
+        blocks = []
+        for j in range(self.total_shards):
+            gpool = self.group_pools[j % self.video_shards]
+            blocks.append(gpool[rng.integers(0, len(gpool), size=m)])
+        return np.concatenate(blocks, axis=0)
 
-    def _make_batch(self, rng) -> Dict[str, np.ndarray]:
+    def _make_batch(self, rng, datasets=None) -> Dict[str, np.ndarray]:
+        datasets = self.datasets if datasets is None else datasets
         ordered = self._pick_pairs(rng)
         # one gather per video over its pairs, rows scattered back to the drawn order
         by_vid: Dict[int, list] = {}
@@ -160,18 +195,22 @@ class TrainBatchLoader:
         for row, (di, fi) in enumerate(ordered):
             by_vid.setdefault(int(di), []).append(int(fi))
             order.setdefault(int(di), []).append(row)
-        chunks = [(self.datasets[di].load_pairs_batch(fis, rng, gather=self.gather), order[di])
+        chunks = [(datasets[di].load_pairs_batch(fis, rng, gather=self.gather), order[di])
                   for di, fis in by_vid.items()]
         inv = np.argsort(np.concatenate([np.asarray(r) for _, r in chunks]))
         return {k: np.concatenate([c[k] for c, _ in chunks], axis=0)[inv] for k in chunks[0][0]}
 
-    def _worker(self, wid: int):
-        rng = np.random.default_rng(self.rng.integers(0, 2**31) + wid)
+    def _worker(self, wid: int, rng, datasets):
+        q = self.queues[wid]
         while not self._stop.is_set():
-            batch = self._make_batch(rng)
+            # a batch made before a stop and not queued is queued first after
+            # a restart, so that the stream skips none
+            if self._held[wid] is None:
+                self._held[wid] = self._make_batch(rng, datasets)
             while not self._stop.is_set():
                 try:
-                    self.queue.put(batch, timeout=0.5)
+                    q.put(self._held[wid], timeout=0.5)
+                    self._held[wid] = None
                     break
                 except queue.Full:
                     continue
@@ -180,15 +219,29 @@ class TrainBatchLoader:
         if self._threads:
             return
         self._stop.clear()
+        if not self.queues:  # the workers' streams, seeded in worker order
+            self.queues = [queue.Queue(maxsize=max(1, self.prefetch // self.num_workers))
+                           for _ in range(self.num_workers)]
+            self._rngs = [np.random.default_rng(self.rng.integers(0, 2**31) + w)
+                          for w in range(self.num_workers)]
+            self._views = [self.datasets] + [
+                [ds.with_draws(int(self.rng.integers(0, 2**31))) for ds in self.datasets]
+                for _ in range(1, self.num_workers)]
+            self._held = [None] * self.num_workers
         for w in range(self.num_workers):
-            t = threading.Thread(target=self._worker, args=(w,), daemon=True)
+            t = threading.Thread(target=self._worker, args=(w, self._rngs[w], self._views[w]),
+                                 daemon=True)
             t.start()
             self._threads.append(t)
 
     def next_batch(self) -> Dict[str, np.ndarray]:
+        """The next batch, from the workers in turn: the same sequence in
+        every run from the same seed, whichever thread finishes first."""
         if not self._threads:
             self.start()
-        return self.queue.get()
+        batch = self.queues[self._turn].get()
+        self._turn = (self._turn + 1) % self.num_workers
+        return batch
 
     def stop(self):
         self._stop.set()

@@ -12,6 +12,7 @@ numpy batches to the device (no torch Dataset/DataLoader machinery).
 
 from __future__ import annotations
 
+import copy
 import glob
 import os
 from pathlib import Path
@@ -168,6 +169,14 @@ class VidData:
         y0 = idx % self.img_size[0]
         x0 = idx // self.img_size[0]
         return np.stack([x0, y0], axis=-1)
+
+    def with_draws(self, seed: int) -> "VidData":
+        """This video (its data shared, not copied) with delta and pixel
+        draws of its own, from `seed`."""
+        view = copy.copy(self)
+        view.rng = np.random.default_rng(seed)
+        view.idx_sampler = RangeSampler(self.idx_sampler.num_elems, rng=view.rng)
+        return view
 
     def load_pairs_batch(self, indices, rng=None, gather: str = "native") -> Dict[str, np.ndarray]:
         """Pairs for `indices` (F,) pair-start frames, every modality

@@ -20,8 +20,9 @@ from lab4d_tpu_torch.nnutils.embedding import FrameInfo
 from lab4d_tpu_torch.nnutils.intrinsics import IntrinsicsMLP
 from lab4d_tpu_torch.nnutils.multifields import MultiFields
 from lab4d_tpu_torch.ops.renderer import render_pixel
+from lab4d_tpu_torch.parallel import dist
 from lab4d_tpu_torch.utils.geom import K2inv, K2mat
-from lab4d_tpu_torch.utils.loss import nonzero_mean
+from lab4d_tpu_torch.utils.loss import nonzero_count, nonzero_mean
 
 # loss weights read from the config (flag names)
 LOSS_WEIGHT_NAMES = (
@@ -30,6 +31,12 @@ LOSS_WEIGHT_NAMES = (
     "reg_deform_cyc_wt", "reg_delta_skin_wt", "reg_skin_entropy_wt",
     "reg_gauss_skin_wt", "reg_cam_prior_wt", "reg_skel_prior_wt",
     "reg_gauss_mask_wt", "reg_soft_deform_wt",
+)
+# loss terms that do not depend on the batch (regularizers at random points
+# of the aabb, the priors): in a forward sharded over ranks each rank
+# computes the same value, and only rank 0's enters the summed gradient
+BATCH_FREE_TERMS = (
+    "reg_visibility", "reg_soft_deform", "reg_gauss_skin", "reg_cam_prior", "reg_skel_prior",
 )
 
 
@@ -115,7 +122,13 @@ class DVRModel(nn.Module):
         "match_idx", "gauss_u", "soft_u", "soft_frame", "soft_inst",
         "swap"}}; "swap": the instance-code swaps' (rand_id, u) pairs in
         the JAX package's call order); generator: the source of the swap
-        draws not given (the trainer's)."""
+        draws not given (the trainer's).
+
+        Inside parallel/dist.py's sharded_batch(), `batch` is this rank's
+        block of a global batch, the draws (given or made) are the global
+        batch's, and the terms returned are this rank's shares: summed over
+        the ranks they are the terms of the one-process forward on the
+        global batch, and so are their gradients."""
         batch = dict(batch)
         geo = batch.pop("geo")
         batch = self.reshape_batch(self.process_frameid(batch))
@@ -146,9 +159,9 @@ class DVRModel(nn.Module):
         mask = mask.float()
         vis2d = vis2d.float() * is_detected.float()[:, None, None]
         in_vis = (vis2d > 0).float()
-        pos = torch.sum(mask * in_vis)
-        neg = torch.sum((1 - mask) * in_vis)
-        total = torch.sum(vis2d)
+        sums = torch.stack([torch.sum(mask * in_vis), torch.sum((1 - mask) * in_vis),
+                            torch.sum(vis2d)])
+        pos, neg, total = dist.global_sum(sums)  # over the global batch
         pos_wt = total / torch.clamp(pos, min=1e-6)
         neg_wt = total / torch.clamp(neg, min=1e-6)
         balanced = 0.5 * pos_wt * mask + 0.5 * neg_wt * (1 - mask)
@@ -244,9 +257,17 @@ class DVRModel(nn.Module):
             "reg_skel_prior": sched["reg_skel_prior_factor"],
             "reg_gauss_mask": sched["reg_gauss_mask_factor"],
         }
+        rank, world = dist.batch_shards()
+        counts = {}
+        if world > 1:  # a sharded batch: each per-row term's count over the global batch
+            rows = [k for k in loss_dict if k not in BATCH_FREE_TERMS]
+            total = dist.global_sum(torch.stack([nonzero_count(loss_dict[k]) for k in rows]))
+            counts = dict(zip(rows, total))
         out = {}
         for k, v in loss_dict.items():
-            v = nonzero_mean(v)
+            v = nonzero_mean(v, counts.get(k))
+            if world > 1 and k in BATCH_FREE_TERMS and rank != 0:
+                v = v * 0.0
             if k in px_unit_keys:
                 v = v / self.train_res
             if k + "_wt" in self.loss_weights:

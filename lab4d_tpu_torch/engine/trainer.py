@@ -9,8 +9,16 @@ mean-compressed), its Adam moments restored where every leaf matches, its
 step count kept under --noreset_steps, and the skeleton's joint-angle
 prior fit where the dataset metadata holds "joint_angles". Scalars and
 the eval's image grids go to metrics.jsonl and, where tensorboardX
-imports, to TensorBoard (make_logger). Port of lab4d_tpu/engine/trainer.py
-for one card.
+imports, to TensorBoard (make_logger). Port of lab4d_tpu/engine/trainer.py.
+
+Over ranks (--ngpu N, one process per card; parallel/dist.py), every
+rank's loader draws the same global batch of imgs_per_gpu x N pairs and
+the rank trains on its block of it; the step's reductions are global, the
+gradients are summed over the ranks before the skip-not-clip, so every
+rank takes the update of the one-process step on the global batch. Rank
+0 alone renders the eval, logs, refreshes the proxy geometry (broadcast
+to the others) and writes files; the ranks' params and generators are
+checked to agree at each round's end.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from lab4d_tpu_torch.meshlib.sdf import MeshSDF
 from lab4d_tpu_torch.nnutils.intrinsics import intrinsics_base_init
 from lab4d_tpu_torch.nnutils.multifields import INIT_SCALE
 from lab4d_tpu_torch.nnutils.pose import camera_base_quat_init
+from lab4d_tpu_torch.parallel import dist
 from lab4d_tpu_torch.render import render_batch
 from lab4d_tpu_torch.utils import metrics
 from lab4d_tpu_torch.utils.geom import get_near_far
@@ -50,7 +59,7 @@ EXPLICIT_PARAM_NAMES = (
 GRAD_NORM_MAX = 5.0
 # per-video tables that a checkpoint of another video count seeds with the
 # mean of its rows (merge_params)
-PER_VIDEO_TABLES = ("inst_embedding", "base_quat", "base_logfocal", "base_ppoint", "base_trans")
+PER_VIDEO_TABLES = dist.PER_VIDEO_PARAM_TOKENS
 
 
 def param_labels(model, freeze_bone_len: bool = False) -> Dict[str, str]:
@@ -123,7 +132,8 @@ def merge_params(state: Dict[str, torch.Tensor], loaded) -> Dict[str, torch.Tens
 
 
 class Trainer:
-    """Train a model of the port on one device."""
+    """Train a model of the port on one device, or on one rank of a process
+    group (parallel/dist.py) whose size is opts["ngpu"]."""
 
     # the source of the instance-code swap draws (trainer_init seeds one on
     # the device; None: torch's default generator)
@@ -138,6 +148,8 @@ class Trainer:
     # the skeleton's joint-angle prior fit: (final loss, updates), or None
     # where mlp_init ran none
     skel_fit = None
+    # bytes of gradient summed over the ranks by the last step (0 on one rank)
+    grad_bytes_reduced = 0
 
     def __init__(self, opts: Dict):
         is_resumed = bool(opts.get("load_path"))
@@ -151,25 +163,47 @@ class Trainer:
         self.optimizer_init(is_resumed=is_resumed)
         if is_resumed:
             self.load_checkpoint_train()
+        self.sync_from_main()
 
     # ----------------------------------------------------------------- setup
 
     def define_dataset(self):
+        """The datasets and the loader of the global batch: imgs_per_gpu x
+        ngpu pairs, in ngpu blocks, one per rank; with --video_shards V,
+        block j from the videos of group j % V, falling back to plain data
+        parallelism (with a warning) where V does not divide both ngpu and
+        the video count, as the JAX trainer does."""
         opts = self.opts
         self.datasets = data_utils.config_to_datasets(opts)
         self.eval_datasets = data_utils.config_to_datasets(opts, is_eval=True)
         self.data_info = data_utils.get_data_info(self.eval_datasets)
+        num_shards = opts.get("ngpu", 1)
+        if num_shards != dist.world_size():
+            raise ValueError(f"--ngpu {num_shards} on a process group of {dist.world_size()} "
+                             "ranks (train.py starts one rank per card)")
+        num_vids = self.data_info["frame_info"].num_vids
+        num_video = opts.get("video_shards", 1)
+        if num_video > 1 and (num_shards % num_video or num_vids % num_video):
+            print(f"[warn] video_shards={num_video} does not divide ngpu={num_shards} and "
+                  f"num_vids={num_vids}; falling back to pure data parallelism", flush=True)
+            num_video = 1
+        self.num_video_shards = num_video
+        self.num_data_shards = num_shards // num_video
+        if num_shards > 1:  # every rank draws the same deltas and pixels
+            self.datasets = [ds.with_draws(1 + i) for i, ds in enumerate(self.datasets)]
         self.trainloader = data_utils.TrainBatchLoader(
-            self.datasets, imgs_per_batch=opts["imgs_per_gpu"],
-            num_workers=opts.get("num_workers", 2),
+            self.datasets, imgs_per_batch=opts["imgs_per_gpu"] * num_shards,
+            num_workers=opts.get("num_workers", 2), total_shards=num_shards,
+            video_shards=num_video,
         )
         self.total_steps = opts["num_rounds"] * opts["iters_per_round"]
 
     def trainer_init(self):
         opts = self.opts
         self.save_dir = os.path.join(opts["logroot"], "%s-%s" % (opts["seqname"], opts["logname"]))
-        os.makedirs(self.save_dir, exist_ok=True)
-        self.log = make_logger(self.save_dir)
+        if dist.is_main():
+            os.makedirs(self.save_dir, exist_ok=True)
+        self.log = make_logger(self.save_dir) if dist.is_main() else NullLogger()
         self.current_steps = 0
         self.current_round = 0
         self.swap_generator = torch.Generator(device=self.device).manual_seed(2)
@@ -345,11 +379,33 @@ class Trainer:
     def learning_rate(self, step: int) -> float:
         return onecycle_linear(step, **self.sched_kwargs)
 
+    def sync_from_main(self):
+        """Over ranks: every rank takes rank 0's params, buffers, geometry
+        state and proxy meshes (the prior fits on the card are not bitwise
+        repeatable, and ranks that disagree would drift apart silently)."""
+        if dist.world_size() == 1:
+            return
+        dist.broadcast_tensors_(list(self.model.state_dict().values()))
+        self.geo_state, self.proxy = dist.broadcast_object((self.geo_state, self.proxy))
+
+    def check_in_sync(self):
+        """Over ranks: raise unless every rank holds the same params and the
+        same state of the generator the step draws from."""
+        if dist.world_size() == 1:
+            return
+        dist.check_in_sync({"params": dist.checksum(list(self.model.parameters())),
+                            "generator": dist.rng_state_checksum(self.device)})
+
     def train_step(self, batch, step: int, draws=None):
         """One AdamW update on a device batch; returns (loss dict of device
-        scalars with "total", grad norm)."""
-        loss_dict = self.model(batch, compute_sched(step), draws=draws,
-                               generator=self.swap_generator)
+        scalars with "total", grad norm). Over ranks, `batch` is this rank's
+        block of the global batch, `draws` the global batch's draws, the
+        loss terms returned are this rank's shares (summed over the ranks,
+        the global batch's terms) and the norm is that of the gradient
+        summed over the ranks."""
+        with dist.sharded_batch():
+            loss_dict = self.model(batch, compute_sched(step), draws=draws,
+                                   generator=self.swap_generator)
         total = sum(loss_dict[k] for k in sorted(loss_dict))
         self.optimizer.zero_grad(set_to_none=True)
         frozen = self.frozen_params
@@ -359,6 +415,7 @@ class Trainer:
         for p in self.params + frozen:
             if p.grad is None:  # untouched: a zero gradient, so weight decay still applies
                 p.grad = torch.zeros_like(p)
+        self.grad_bytes_reduced = dist.all_reduce_grads_(self.params + frozen)
         gnorm = clip_with_norm(self.params + frozen)
         lr = self.learning_rate(step - self.lr_step_offset)
         for group in self.optimizer.param_groups:
@@ -391,25 +448,39 @@ class Trainer:
             fn()
             times[name] = time.time() - t0
 
-        try:
-            timed("eval", self.model_eval)
-        except Exception:  # a failed eval must not end the training run
-            print("[warn] eval failed:\n" + traceback.format_exc(), flush=True)
+        if dist.is_main():
+            try:
+                timed("eval", self.model_eval)
+            except Exception:  # a failed eval must not end the training run
+                print("[warn] eval failed:\n" + traceback.format_exc(), flush=True)
         timed("geo", self.update_geometry_aux)
-        timed("export", lambda: self.export_geometry_aux("%s/%03d" % (self.save_dir, round_count)))
+        if dist.is_main():
+            timed("export", lambda: self.export_geometry_aux(
+                "%s/%03d" % (self.save_dir, round_count)))
         timed("train", lambda: self.train_one_round(round_count))
         self.current_round += 1
         timed("ckpt", lambda: self.save_checkpoint(round_count=self.current_round))
         print("  " + " ".join(f"{k}={v:.1f}s" for k, v in times.items()), flush=True)
 
     def batch_to_device(self, batch_np):
+        """A host batch on the device; over ranks, this rank's block of the
+        global batch."""
+        if dist.world_size() > 1:
+            batch_np = dist.batch_block(batch_np, dist.rank(), dist.world_size())
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
                 for k, v in batch_np.items()}
 
     def train_one_round(self, round_count):
         """iters_per_round updates. Grad norms and losses are read back
-        every 10 steps in one transfer; a spike triggers the rollback then.
-        On the card each step's time is kept (CUDA events) in step_ms."""
+        every 10 steps in one transfer (over ranks, the losses summed over
+        the ranks in one collective); a spike triggers the rollback then.
+        On the card each step's time is kept (CUDA events) in step_ms. Over
+        ranks the round starts with torch's generators seeded alike on every
+        rank and ends with check_in_sync."""
+        if dist.world_size() > 1:
+            # every rank makes the round's draws from the same generator state,
+            # whatever rank 0 alone drew before (eval, logging)
+            torch.manual_seed(round_count + 1)
         geo = self.geo_for_batch()
         pending = []
         timing = self.device.type == "cuda"
@@ -419,10 +490,13 @@ class Trainer:
             if not pending:
                 return
             norms = torch.stack([p[1] for p in pending]).tolist()
-            for (step, _, ld), gn in zip(pending, norms):
+            keys = sorted(pending[0][2])
+            terms = dist.all_reduce_sum_(torch.stack(
+                [torch.stack([ld[k] for k in keys]) for _, _, ld in pending])).tolist()
+            for (step, _, _), gn, values in zip(pending, norms, terms):
                 self.grad_norms.append(gn)
                 self.check_grad(gn)
-                record = {k: float(v) for k, v in ld.items()}
+                record = dict(zip(keys, values))
                 self.losses.append(record)
                 if step % 10 == 0:  # the JAX trainer's record: its loss dict, keys sorted
                     self.log.scalars(dict(sorted({**record, "grad_norm": gn}.items())), step)
@@ -446,6 +520,7 @@ class Trainer:
         if timing:
             torch.cuda.synchronize(self.device)
             self.step_ms += [s.elapsed_time(e) for s, e in events]
+        self.check_in_sync()
 
     def close(self):
         """Stop the loader threads and close the metrics log."""
@@ -527,12 +602,16 @@ class Trainer:
     # ------------------------------------------------------ geometry upkeep
 
     def update_geometry_aux(self):
-        """Marching-cubes proxy refresh and aabb / near-far EMA."""
-        for cate in self.categories:
-            mesh = self.extract_canonical_mesh(cate)
-            if not mesh.is_empty:
-                self.proxy[cate] = mesh
-            self._reset_geo_state(cate, beta=0.9)
+        """Marching-cubes proxy refresh and aabb / near-far EMA; over ranks
+        on rank 0, its results broadcast (marching cubes on the card is not
+        bitwise repeatable)."""
+        if dist.is_main():
+            for cate in self.categories:
+                mesh = self.extract_canonical_mesh(cate)
+                if not mesh.is_empty:
+                    self.proxy[cate] = mesh
+                self._reset_geo_state(cate, beta=0.9)
+        self.geo_state, self.proxy = dist.broadcast_object((self.geo_state, self.proxy))
 
     def extract_canonical_mesh(self, cate, grid_size=64, level=0.005, use_visibility=True,
                                use_extend_aabb=True):
@@ -636,7 +715,7 @@ class Trainer:
         self.opt_cache[0] = self.opt_cache[1]
         self.model_cache[1] = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
         self.opt_cache[1] = copy.deepcopy(self.optimizer.state_dict())
-        if round_count % self.opts["save_freq"] != 0:
+        if round_count % self.opts["save_freq"] != 0 or not dist.is_main():
             return
         path = "%s/ckpt_%04d.flax" % (self.save_dir, round_count)
         payload = {
@@ -655,6 +734,22 @@ class Trainer:
             f.write(bridge.msgpack_dumps(payload))
         shutil.copy(path, "%s/ckpt_latest.flax" % self.save_dir)
         print(f"saved checkpoint round {round_count}", flush=True)
+
+
+class NullLogger:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def scalars(self, d, step):
+        pass
+
+    def images(self, rendered, step):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
 
 
 class make_logger:

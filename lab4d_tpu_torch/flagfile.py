@@ -13,9 +13,13 @@ opts.log` with absl's `append_flags_into_file` (lab4d_tpu/config.py
 - `expand_flagfiles` replaces each `--flagfile=PATH` of an argument list by
   the flags of that file (absl's format: one flag per line, `#` and `//`
   comments, nested flagfiles), in place, so that later arguments override
-  them as in absl. Flags the parser does not take are left out: a JAX
-  opts.log carries the training flags, which the render CLI has no use
-  for, and absl's own. `--use_cpu` becomes `--device=cpu`.
+  them as in absl. Flags the parser does not take (absl's own) are left
+  out. `--use_cpu` becomes `--device=cpu`.
+- `add_config_flags` gives a CLI every flag of lab4d_tpu/config.py that it
+  does not define itself, with the JAX default, as the JAX package's absl
+  apps all take the training flags; `parse_opts` reads absl's boolean
+  forms (`--name`, `--noname`, `--name=true|false`) and turns `--use_cpu`
+  into `--device cpu`.
 """
 
 from __future__ import annotations
@@ -128,13 +132,16 @@ def _translate(flag: str, parser: argparse.ArgumentParser) -> List[str]:
 
 
 def _absl_negation(arg: str, parser: argparse.ArgumentParser) -> str:
-    """absl's `--noname` of a boolean flag as argparse's `--no-name`; any
-    other argument as it is."""
-    name = arg[4:]
-    if not arg.startswith("--no") or arg in parser._option_string_actions:
+    """absl's `--noname` and `--name=true|false` of a boolean flag as
+    argparse's `--name` / `--no-name`; any other argument as it is."""
+    opts = parser._option_string_actions
+    name, eq, value = arg.partition("=")
+    if eq and isinstance(opts.get(name), argparse.BooleanOptionalAction):
+        return name if _bool_value(value) else "--no-" + name[2:]
+    if not arg.startswith("--no") or arg in opts:
         return arg
-    action = parser._option_string_actions.get(f"--{name}")
-    return f"--no-{name}" if isinstance(action, argparse.BooleanOptionalAction) else arg
+    action = opts.get(f"--{arg[4:]}")
+    return f"--no-{arg[4:]}" if isinstance(action, argparse.BooleanOptionalAction) else arg
 
 
 def expand_flagfiles(argv: List[str], parser: argparse.ArgumentParser) -> List[str]:
@@ -163,7 +170,28 @@ def add_flagfile_option(parser: argparse.ArgumentParser):
                         help="read flags from this file (absl's format, e.g. a run's opts.log)")
 
 
+def add_config_flags(parser: argparse.ArgumentParser):
+    """Every flag of lab4d_tpu/config.py (JAX_CONFIG_FLAGS) that `parser`
+    does not define yet, with the JAX default; a boolean takes `--name` /
+    `--no-name` (and absl's forms, through parse_opts)."""
+    for name, default in sorted(JAX_CONFIG_FLAGS.items()):
+        if f"--{name}" in parser._option_string_actions:
+            continue
+        if isinstance(default, bool):
+            parser.add_argument(f"--{name}", action=argparse.BooleanOptionalAction,
+                                default=default, help="a training flag of the JAX package")
+        else:
+            parser.add_argument(f"--{name}", type=type(default), default=default,
+                                help="a training flag of the JAX package")
+
+
 def parse_opts(parser: argparse.ArgumentParser, argv=None) -> Dict:
-    """The options of argv (default: the command line), flagfiles expanded."""
+    """The options of argv (default: the command line), flagfiles expanded;
+    --use_cpu sets --device cpu."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    return vars(parser.parse_args(expand_flagfiles(argv, parser)))
+    opts = vars(parser.parse_args(expand_flagfiles(argv, parser)))
+    if opts.get("use_cpu"):
+        opts["device"] = "cpu"
+    if "use_cpu" in opts and "device" in opts:
+        opts["use_cpu"] = opts["device"] == "cpu"
+    return opts

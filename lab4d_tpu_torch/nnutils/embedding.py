@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from lab4d_tpu_torch.nnutils.linear import TorchDense
+from lab4d_tpu_torch.parallel import dist
 
 
 class FrameInfo:
@@ -126,20 +127,27 @@ class SwapDraws:
     """The random draws of the instance-code swaps of one training forward:
     one (rand_id (R,), u (inst_id's shape)) pair per InstEmbedding call that
     swaps, taken in call order. The pairs given are taken first (a test's),
-    then draws from `generator` (None: torch's default generator)."""
+    then draws from `generator` (None: torch's default generator). Where
+    the rows are one rank's block of a sharded batch (parallel/dist.py),
+    the pairs are the global batch's (given or drawn so) and the rank takes
+    the rows of its block."""
 
     def __init__(self, pairs=(), generator: Optional[torch.Generator] = None):
         self.pairs = list(pairs)
         self.generator = generator
 
     def take(self, inst_id: torch.Tensor, num_inst: int):
+        rank, world = dist.batch_shards()
         if self.pairs:
             rand_id, u = self.pairs.pop(0)
         else:
             g = self.generator
             dev = inst_id.device if g is None else g.device
-            rand_id = torch.randint(0, num_inst, (inst_id.shape[0],), generator=g, device=dev)
-            u = torch.rand(inst_id.shape, generator=g, device=dev)
+            rows = inst_id.shape[0] * world
+            rand_id = torch.randint(0, num_inst, (rows,), generator=g, device=dev)
+            u = torch.rand((rows,) + tuple(inst_id.shape[1:]), generator=g, device=dev)
+        if world > 1:
+            rand_id, u = dist.block(rand_id, rank, world), dist.block(u, rank, world)
         return rand_id.to(inst_id.device), u.to(inst_id.device)
 
 

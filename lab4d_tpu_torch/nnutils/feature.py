@@ -19,6 +19,7 @@ from lab4d_tpu_torch.nnutils.base import BaseMLP
 from lab4d_tpu_torch.nnutils.embedding import PosEmbedding
 from lab4d_tpu_torch.nnutils.nerf import NeRF
 from lab4d_tpu_torch.ops.field_kernel import TILE_ROWS, FieldCfg, fused_nerf_heads
+from lab4d_tpu_torch.parallel import dist
 from lab4d_tpu_torch.utils.geom import Kmatinv, pinhole_projection, safe_norm
 
 
@@ -158,14 +159,28 @@ class FeatureNeRF(NeRF):
         """Soft-argmax match of pixel features (M, N, C) against the
         canonical samples at `num_candidates` ids drawn with replacement
         (idx: the draw, (k,)); the candidates' features are evaluated anew
-        through the plain feature MLP. Returns (M, N, 3) matched points."""
+        through the plain feature MLP. Returns (M, N, 3) matched points.
+
+        Where the samples are one rank's block of a sharded batch
+        (parallel/dist.py), the ids are drawn over the global batch's
+        samples (or given so), and each candidate comes from the rank that
+        holds it (all_gather, its gradient carried back there): every rank
+        matches against the global batch's candidate set."""
         shape = feat_px.shape
         feat_px = feat_px.reshape(-1, shape[-1])
         xyz_canonical = xyz_canonical.reshape(-1, 3)
         total = xyz_canonical.shape[0]
+        rank, world = dist.batch_shards()
         if idx is None:
-            idx = torch.randint(0, total, (min(num_candidates, total),), device=xyz_canonical.device)
-        xyz_c = xyz_canonical[idx]
+            idx = torch.randint(0, total * world, (min(num_candidates, total * world),),
+                                device=xyz_canonical.device)
+        if world > 1:
+            local = idx.to(xyz_canonical.device) - rank * total
+            mine = ((local >= 0) & (local < total))[:, None]
+            held = torch.where(mine, xyz_canonical[local.clamp(0, total - 1)], 0.0)
+            xyz_c = dist.all_gather(held).sum(0)  # one rank holds each, the others add 0
+        else:
+            xyz_c = xyz_canonical[idx]
         feat_c = self.compute_feat(xyz_c, fused=False)["feature"]
         prob = torch.softmax(feat_px @ feat_c.t() * torch.exp(self.logsigma), dim=-1)
         return (prob @ xyz_c).reshape(shape[:-1] + (3,))

@@ -37,6 +37,7 @@ from lab4d_tpu_torch.nnutils.linear import TorchDense
 from lab4d_tpu_torch.nnutils.pose import CameraMLP
 from lab4d_tpu_torch.nnutils.visibility import VisField
 from lab4d_tpu_torch.ops.renderer import compute_weights, sample_cam_rays, sample_pdf
+from lab4d_tpu_torch.parallel import dist
 from lab4d_tpu_torch.utils.geom import (
     Kmatinv,
     apply_se3mat,
@@ -533,11 +534,21 @@ class NeRF(nn.Module):
 
         idx: (S,) ray ids, drawn without replacement when not given. The
         SDF goes through the plain MLP chain (fused=False) because the loss
-        differentiates its gradient once more."""
+        differentiates its gradient once more. Where the rays are one
+        rank's block of a sharded batch (parallel/dist.py), the ids are
+        drawn over the global batch's rays (or given so) and the rank
+        evaluates those in its block."""
         M, N, Dd, _ = xyz.shape
-        sample_size = max(1, (M * N) // sample_ratio)
+        rank, world = dist.batch_shards()
+        sample_size = max(1, (M * N * world) // sample_ratio)
         if idx is None:
-            idx = torch.randperm(M * N, device=xyz.device)[:sample_size]
+            idx = torch.randperm(M * N * world, device=xyz.device)[:sample_size]
+        if world > 1:
+            idx = idx.to(xyz.device)
+            idx = idx[(idx >= rank * M * N) & (idx < (rank + 1) * M * N)] - rank * M * N
+            if idx.numel() == 0:  # none of the global draw's rays is in this block
+                return (xyz.new_zeros(M, N, Dd, 1) if self.eikonal_dense
+                        else xyz.new_zeros(0, Dd, 1))
         xyz_s = xyz.reshape(M * N, Dd, 3)[idx].detach().requires_grad_(True)
         inst_s = None if inst_id is None else inst_id[:, None].expand(M, N).reshape(-1)[idx]
         with torch.enable_grad():

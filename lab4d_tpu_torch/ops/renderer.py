@@ -12,6 +12,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from lab4d_tpu_torch.parallel import dist
+
 
 def sample_cam_rays(
     hxy: torch.Tensor,
@@ -77,11 +79,18 @@ def render_pixel(field_dict: Dict[str, torch.Tensor], deltas: torch.Tensor):
         rendered["delta_skin"] = field_dict["delta_skin"].mean(dim=(-1, -2))
     if "vis" in field_dict:
         # visibility BCE normalized by the mean transmittance of the chunk
+        # (of the global batch, where the batch is one rank's block)
         is_visible = transmit.detach()
         vis_loss = -torch.mean(
             F.logsigmoid(field_dict["vis"][..., 0]) * is_visible, dim=-1, keepdim=True
         )
-        rendered["vis"] = vis_loss / torch.clamp(is_visible.mean(), min=1e-6)
+        if dist.batch_shards()[1] > 1:
+            vis_sum, count = dist.global_sum(torch.stack([
+                is_visible.sum(), is_visible.new_tensor(float(is_visible.numel()))]))
+            mean_visible = vis_sum / count
+        else:
+            mean_visible = is_visible.mean()
+        rendered["vis"] = vis_loss / torch.clamp(mean_visible, min=1e-6)
     if "gauss_density" in field_dict:
         gauss_weights, _ = compute_weights(field_dict["gauss_density"], deltas)
         rendered["gauss_mask"] = torch.sum(gauss_weights, dim=-1, keepdim=True)

@@ -28,7 +28,8 @@ import torch
 from lab4d_tpu_torch.bridge import load_flax_checkpoint, params_from_flax
 from lab4d_tpu_torch.dataloader import data_utils
 from lab4d_tpu_torch.engine.model import DVRModel
-from lab4d_tpu_torch.flagfile import add_flagfile_option, parse_opts, validate_opts
+from lab4d_tpu_torch.flagfile import (add_config_flags, add_flagfile_option, parse_opts,
+                                      validate_opts)
 from lab4d_tpu_torch.utils import cam_traj as C
 from lab4d_tpu_torch.utils.geom import K2inv, K2mat, mat2K
 from lab4d_tpu_torch.utils.io import make_save_dir, save_rendered
@@ -44,7 +45,9 @@ TOPK_CHUNK = 65536
 
 def common_parser(description: str) -> argparse.ArgumentParser:
     """The flags the render, export and reanimate CLIs share: the run, its
-    checkpoint, the dataset, the model and the device."""
+    checkpoint, the dataset, the model and the device, and every other
+    training flag of lab4d_tpu/config.py (taken and unused, as the JAX
+    package's apps take them)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--seqname", default="cat", help="name of the sequence")
     p.add_argument("--logname", default="tmp", help="name of the saved log")
@@ -64,7 +67,10 @@ def common_parser(description: str) -> argparse.ArgumentParser:
                         "multi-video category model, one instance code per video)")
     p.add_argument("--inst_id", type=int, default=0, help="video/instance id")
     p.add_argument("--device", default="cuda", help="torch device to run on")
+    p.add_argument("--use_cpu", action=argparse.BooleanOptionalAction, default=False,
+                   help="run on the CPU (the same as --device cpu)")
     add_flagfile_option(p)
+    add_config_flags(p)
     return p
 
 

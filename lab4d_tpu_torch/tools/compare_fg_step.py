@@ -2,6 +2,7 @@
 step on the CPU, at several fitted states, on one CUDA device.
 
     python3 -m lab4d_tpu_torch.tools.compare_fg_step [--geo_init_steps N ...] [--eikonal_all_rays]
+        [--batch_seeds S ...] [--cate category]
 
 Run from the root of a checkout. For each N it builds chip_smoke.py's
 reference trainer (the synthetic scene, prior fits with N geometry-init
@@ -19,7 +20,10 @@ The prior fits on the GPU are not bitwise repeatable, and the loader's
 first batch varies, so a state N differs from run to run;
 --batch_seeds S ... runs each N once for each batch drawn from seed S
 (a new trainer each time) and ends with how many runs lay outside the
-bound.
+bound. --cate category: chip_smoke.py's category model on its 8-video
+scene instead. Each plain-GPU-vs-CPU pair also counts the ReLU inputs of
+the whole step (every torch.relu, in call order) that lie on other sides
+of zero in the two runs.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ def main(argv=None):
                         help="the eikonal term at every ray, not a drawn sixteenth")
     parser.add_argument("--batch_seeds", type=int, nargs="+", default=[None],
                         help="batches drawn from these seeds (default: the loader's first)")
+    parser.add_argument("--cate", default="fg", choices=["fg", "category"],
+                        help="the flagship model or the category model")
     args = parser.parse_args(argv)
 
     import torch
@@ -50,15 +56,25 @@ def main(argv=None):
     card = chip_smoke.phase_env()
     with tempfile.TemporaryDirectory() as root:
         db = chip_smoke.write_scene(root)
+        if args.cate == "category":
+            chip_smoke.write_category_scene(db)
         outside = collections.Counter()
         for n in args.geo_init_steps:
             for seed in args.batch_seeds:
-                step = chip_smoke.reference_steps(db, root, "fg", n, args.eikonal_all_rays, seed)
+                step = chip_smoke.reference_steps(db, root, args.cate, n, args.eikonal_all_rays,
+                                                  seed)
                 kernels = step("cuda")
-                with chip_smoke.plain_kernels():
+                relu_gpu, relu_cpu = [], []
+                with chip_smoke.plain_kernels(), chip_smoke._relu_inputs(relu_gpu):
                     plain = step("cuda")
-                cpu = step("cpu")
+                with chip_smoke._relu_inputs(relu_cpu):
+                    cpu = step("cpu")
+                flips = [(a.cpu() > 0) != (b > 0) for a, b in zip(relu_gpu, relu_cpu)
+                         if a.shape == b.shape]
                 tag = f"geo_init_steps {n}, batch seed {seed}"
+                print(f"[compare] {tag}: ReLU inputs on other sides of zero, plain GPU vs "
+                      f"CPU: {sum(int(f.sum()) for f in flips)} of "
+                      f"{sum(f.numel() for f in flips)} in {len(flips)} calls")
                 for what, got, want in (("kernels vs plain, GPU", kernels, plain),
                                         ("plain GPU vs CPU", plain, cpu),
                                         ("kernels GPU vs CPU", kernels, cpu)):

@@ -15,8 +15,12 @@ steps per round; after each round the trainer refreshes its geometry and
 renders its eval frames, whose masked PSNR (masked_psnr: PSNR over the
 reference mask) is the trajectory. Then the canonical mesh is extracted at
 grid 64 (level 0, no visibility mask, extended aabb) and divided by the fg
-field's scale; its mean distance from the scene's sphere (radius 0.5) is
-recorded. `--seeds`: one run per seed, the seed setting torch's
+field's scale; its mean distance from the scene's sphere (radius 0.5) and
+its Chamfer distance to the GT sphere (`uv_sphere(radius=0.5,
+count=[32, 32])`, as scripts/compare_reference_psnr.py compare_meshes
+measures it) are recorded, the latter beside the JAX package's recorded
+value (psnr_compare.json "full_budget_400steps", the JAX package's own
+400-step protocol on its own hardware). `--seeds`: one run per seed, the seed setting torch's
 generators, the loader's and each video's pixel draws. Writes `--out`
 (default psnr_torch.json at the repo root; psnr_compare.json is read, not
 written) with each seed's trajectory, the final mean and sample std, and
@@ -128,23 +132,44 @@ def train_rounds(trainer, seed, rounds):
     return traj
 
 
-def run_seed(db, workdir, seed, rounds, res, iters, frames, device):
-    """One protocol run; returns (trajectory, mesh error, seconds)."""
+def mesh_metrics(trainer):
+    """The canonical fg mesh in world units: its mean distance from the
+    scene's sphere and its Chamfer distance to the GT sphere."""
     import torch
+
+    from lab4d_tpu_torch.meshlib import Mesh, uv_sphere
+    from lab4d_tpu_torch.utils.metrics import chamfer_distance
+
+    mesh = trainer.extract_canonical_mesh("fg", grid_size=64, level=0.0, use_visibility=False,
+                                          use_extend_aabb=True)
+    scale = float(torch.exp(trainer.model.fields.field_params["fg"].logscale).item())
+    verts = np.asarray(mesh.vertices, np.float64) / scale
+    if not len(verts):
+        return {"radius_err": float("nan"), "chamfer_vs_gt": float("nan")}
+    world = Mesh(verts.astype(np.float32), np.asarray(mesh.faces))
+    return {"radius_err": float(np.mean(np.abs(np.linalg.norm(verts, axis=-1) - SPHERE_RADIUS))),
+            "chamfer_vs_gt": chamfer_distance(world, uv_sphere(radius=SPHERE_RADIUS,
+                                                               count=[32, 32]))}
+
+
+def run_seed(db, workdir, seed, rounds, res, iters, frames, device):
+    """One protocol run; returns (trajectory, mesh_metrics, seconds)."""
 
     t = time.time()
     trainer = build_trainer(db, workdir, seed, rounds, res, iters, frames, device)
     try:
         traj = train_rounds(trainer, seed, rounds)
-        mesh = trainer.extract_canonical_mesh("fg", grid_size=64, level=0.0, use_visibility=False,
-                                              use_extend_aabb=True)
-        scale = float(torch.exp(trainer.model.fields.field_params["fg"].logscale).item())
-        verts = np.asarray(mesh.vertices, np.float64) / scale
-        mesh_err = (float(np.mean(np.abs(np.linalg.norm(verts, axis=-1) - SPHERE_RADIUS)))
-                    if len(verts) else float("nan"))
+        mesh = mesh_metrics(trainer)
     finally:
         trainer.close()
-    return traj, mesh_err, time.time() - t
+    return traj, mesh, time.time() - t
+
+
+def recorded_chamfer(path=os.path.join(ROOT, "psnr_compare.json")) -> float:
+    """The JAX package's recorded Chamfer distance of its canonical mesh to
+    the GT sphere (its 400-step protocol)."""
+    with open(path) as f:
+        return float(json.load(f)["full_budget_400steps"]["mesh"]["chamfer_ours_vs_gt"])
 
 
 def recorded_spread(path=os.path.join(ROOT, "psnr_compare.json")):
@@ -227,7 +252,11 @@ def rigid(args, workdir):
         "torch_final_by_seed": {s: t[-1] for s, t in trajs.items()},
         "torch_final_mean": mean, "torch_final_std": std,
         "torch_last3_mean": float(np.mean([np.mean(t[-3:]) for t in trajs.values()])),
-        "torch_mesh_radius_err_by_seed": meshes,
+        "torch_mesh_radius_err_by_seed": {s: m["radius_err"] for s, m in meshes.items()},
+        "torch_mesh_chamfer_vs_gt_by_seed": {s: m["chamfer_vs_gt"] for s, m in meshes.items()},
+        "torch_mesh_chamfer_vs_gt_mean": float(np.mean([m["chamfer_vs_gt"]
+                                                         for m in meshes.values()])),
+        "jax_recorded_chamfer_vs_gt_400steps": recorded_chamfer(),
         "torch_seconds_by_seed": secs,
         "jax_recorded": {k: rec[k] for k in ("final_mean", "final_std", "final_by_seed")},
         "gap_final_mean": mean - rec["final_mean"],
@@ -237,7 +266,10 @@ def rigid(args, workdir):
         out["parting_round"] = first_parting_round(trajs, rec["traj_by_seed"], rec["final_std"])
     print(f"[psnr] final masked PSNR {mean:.4f} +- {std:.4f} dB over seeds {args.seeds} "
           f"({card}); lab4d_tpu recorded {rec['final_mean']:.4f} +- {rec['final_std']:.4f}; "
-          f"gap {mean - rec['final_mean']:+.4f} dB", flush=True)
+          f"gap {mean - rec['final_mean']:+.4f} dB; canonical mesh's Chamfer distance to the GT "
+          f"sphere {out['torch_mesh_chamfer_vs_gt_mean']:.4f} (lab4d_tpu recorded "
+          f"{out['jax_recorded_chamfer_vs_gt_400steps']:.4f} after its own 400-step protocol)",
+          flush=True)
     return out
 
 

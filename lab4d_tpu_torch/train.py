@@ -1,10 +1,10 @@
 """Training CLI of the port.
 
-Port of lab4d_tpu/train.py on PyTorch: the flags of lab4d_tpu/config.py
-that training reads, with the same names and defaults, parsed with
-argparse. It runs the prior fits and then rounds of AdamW steps on one
-card, writing `<logroot>/<seqname>-<logname>/` (opts.log, metrics.jsonl,
-proxy meshes and ckpt_*.flax checkpoints in the JAX trainer's layout).
+Port of lab4d_tpu/train.py on PyTorch: the flags of lab4d_tpu/config.py,
+with the same names and defaults, parsed with argparse. It runs the prior
+fits and then rounds of AdamW steps on one card, or on --ngpu cards, writing
+`<logroot>/<seqname>-<logname>/` (opts.log, metrics.jsonl, proxy meshes and
+ckpt_*.flax checkpoints in the JAX trainer's layout).
 
     python -m lab4d_tpu_torch.train --seqname cat --logname bg --field_type bg
     python -m lab4d_tpu_torch.train --seqname cat --logname fg --field_type fg \
@@ -17,6 +17,20 @@ proxy meshes and ckpt_*.flax checkpoints in the JAX trainer's layout).
         comp_skel-human_dense --nosingle_inst      # a multi-video category model
     python -m lab4d_tpu_torch.train --seqname dog --logname ft --fg_motion \
         comp_skel-human_dense --load_path logdir/cat-cate/ckpt_latest.flax --freeze_bone_len
+
+    python -m lab4d_tpu_torch.train --ngpu 4 ...            # four cards, one process each
+    torchrun --nproc_per_node 4 -m lab4d_tpu_torch.train --ngpu 4 ...
+    python -m lab4d_tpu_torch.train --ngpu 2 --use_cpu ...  # two CPU processes (gloo)
+
+--ngpu N trains on N ranks, one process per card (NCCL; gloo with
+--use_cpu), on a global batch of imgs_per_gpu x N pairs of which each
+rank takes its block; every update is the one-process update on the
+global batch (parallel/dist.py). Outside torchrun the CLI starts the N
+processes itself; under torchrun (or the JAX package's LAB4D_MULTIHOST
+rendezvous) each process is one rank and the world size must equal
+--ngpu. --ngpu above the visible cards is an error. --video_shards V makes
+block j of the global batch draw from the videos of group j % V, as the
+JAX trainer's ("data", "video") mesh does.
 
 Every --field_type (fg, bg, comp) and --fg_motion of the JAX package
 trains, one shared morphology or (--nosingle_inst) one instance code per
@@ -36,9 +50,10 @@ from typing import Dict
 
 import torch
 
-from lab4d_tpu_torch.flagfile import (add_flagfile_option, parse_opts, validate_opts,
-                                      write_opts_log)
+from lab4d_tpu_torch.flagfile import (add_config_flags, add_flagfile_option, parse_opts,
+                                      validate_opts, write_opts_log)
 from lab4d_tpu_torch.nnutils.warping import parse_warp_type
+from lab4d_tpu_torch.parallel import dist
 
 # flag -> (default, help), as in lab4d_tpu/config.py
 LOSS_WEIGHTS = {
@@ -79,6 +94,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--logroot", default="logdir/", help="root directory for log files")
     p.add_argument("--feature_type", default="dinov2", help="{dinov2, cse}")
     p.add_argument("--load_path", default="", help="path to load pretrained model")
+    p.add_argument("--load_suffix", default="", help="suffix of params, {latest, 0, 10, ...}")
     p.add_argument("--learning_rate", type=float, default=5e-4, help="learning rate")
     p.add_argument("--num_rounds", type=int, default=20, help="number of rounds to train")
     p.add_argument("--iters_per_round", type=int, default=200, help="number of iterations per round")
@@ -88,6 +104,12 @@ def get_parser() -> argparse.ArgumentParser:
                    help="do not change bone length of skeleton")
     p.add_argument("--reset_steps", action=argparse.BooleanOptionalAction, default=True,
                    help="reset steps of loss scheduling, set to False if resuming training")
+    p.add_argument("--ngpu", type=int, default=1,
+                   help="number of cards (ranks) to shard the ray batch over")
+    p.add_argument("--video_shards", type=int, default=1,
+                   help="video groups of a category model's batch: block j of the global "
+                        "batch draws from videos j %% video_shards (must divide ngpu and the "
+                        "video count)")
     p.add_argument("--num_workers", type=int, default=2, help="number of data-loading threads")
     p.add_argument("--save_freq", type=int, default=10, help="params saving frequency")
     p.add_argument("--eval_res", type=int, default=64, help="size used for eval visualizations")
@@ -99,7 +121,10 @@ def get_parser() -> argparse.ArgumentParser:
                    help="root of preprocessed dataset + configs")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on; opts.log writes it as --use_cpu / --nouse_cpu")
+    p.add_argument("--use_cpu", action=argparse.BooleanOptionalAction, default=False,
+                   help="train on the CPU (the same as --device cpu)")
     add_flagfile_option(p)
+    add_config_flags(p)
     return p
 
 
@@ -122,7 +147,8 @@ def save_opts(opts: Dict):
 
 
 def train(opts: Dict):
-    """Build the trainer and run every round; returns the trainer."""
+    """Build the trainer and run every round (over ranks: this rank's
+    part; rank 0 writes opts.log); returns the trainer."""
     from lab4d_tpu_torch.engine.trainer import Trainer
 
     check_opts(opts)
@@ -130,7 +156,8 @@ def train(opts: Dict):
         # fp32 products in full precision, as the kernels and the parity tests assume
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    save_opts(opts)
+    if dist.is_main():
+        save_opts(opts)
     trainer = Trainer(opts)
     try:
         trainer.train()
@@ -139,8 +166,54 @@ def train(opts: Dict):
     return trainer
 
 
+def check_cards(opts: Dict, local_ranks: int):
+    """On the card, `local_ranks` ranks need as many visible cards."""
+    if not opts["device"].startswith("cuda"):
+        return
+    visible = torch.cuda.device_count()
+    if local_ranks > visible:
+        raise SystemExit(f"--ngpu {opts['ngpu']} needs {local_ranks} cards on this host; "
+                         f"{visible} visible")
+
+
+def run_rank(rank: int, opts: Dict, init_method=None, world=None):
+    """One rank: join the group (from the arguments, else the environment),
+    train on this rank's device, leave the group."""
+    if opts["device"] == "cpu" and world:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    device = dist.init_distributed(opts["device"], init_method, world, rank)
+    try:
+        return train(dict(opts, device=str(device)))
+    finally:
+        dist.shutdown()
+
+
+def launch(opts: Dict):
+    """Train on --ngpu ranks: this process alone at --ngpu 1; one rank of
+    the group that torchrun's (or LAB4D_MULTIHOST's) environment describes,
+    whose size must be --ngpu; else --ngpu processes started here, one per
+    card (or on the CPU with --use_cpu). Returns this process's trainer,
+    or None where the trainers ran in processes started here."""
+    n = opts["ngpu"]
+    found = dist.env_world()
+    if found is not None:
+        if found["world_size"] != n:
+            raise SystemExit(f"--ngpu {n} but the process group has {found['world_size']} ranks")
+        check_cards(opts, found["local_rank"] + 1)
+        return run_rank(found["rank"], opts)
+    if n == 1:
+        return train(opts)
+    check_opts(opts)
+    check_cards(opts, n)
+    import torch.multiprocessing as mp
+
+    init = f"tcp://localhost:{dist.free_port()}"
+    mp.start_processes(run_rank, args=(opts, init, n), nprocs=n, start_method="spawn")
+    return None
+
+
 def main(argv=None):
-    return train(parse_opts(get_parser(), argv))
+    return launch(parse_opts(get_parser(), argv))
 
 
 if __name__ == "__main__":

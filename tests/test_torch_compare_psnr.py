@@ -60,3 +60,5 @@ def test_a_tiny_rigid_run_on_the_cpu(tmp_path):
     assert all(np.isfinite(t).all() and len(t) == 1 for t in got["torch_traj_by_seed"].values())
     assert np.isclose(got["gap_final_mean"], got["torch_final_mean"] - 22.1792)
     assert "parting_round" not in got  # 1 round of 20: no round-by-round comparison
+    assert set(got["torch_mesh_chamfer_vs_gt_by_seed"]) == {"0", "1"}
+    assert got["jax_recorded_chamfer_vs_gt_400steps"] == CP.recorded_chamfer()

@@ -9,8 +9,10 @@ none of them.
 - a fresh interpreter in which those modules cannot be imported trains
   the bg field for two steps on the CPU (synthetic scene, prior fits,
   batches through the native sampler, the round's eval render, checkpoint)
-  and renders it, imports the flag schema, the profiling, raster and
-  PSNR-comparison modules, and then holds none of them in sys.modules.
+  and renders it, imports the flag schema, the profiling, raster,
+  metrics and PSNR-comparison modules, the process-group helpers
+  (parallel/dist.py), the device map and the sharded-step tool, and then
+  holds none of them in sys.modules.
 """
 
 import ast
@@ -74,7 +76,8 @@ def test_string_scan_sees_a_program_in_a_string(tmp_path):
 
 
 NEW_MODULES = ("native/__init__.py", "config_hier.py", "utils/profile.py", "utils/raster.py",
-               "tools/compare_psnr.py")
+               "tools/compare_psnr.py", "parallel/__init__.py", "parallel/dist.py",
+               "utils/device_map.py", "tools/ddp_step.py", "utils/metrics.py")
 
 
 def test_scan_sees_every_module():
@@ -93,7 +96,9 @@ class Block:
 sys.meta_path.insert(0, Block())
 from lab4d_tpu_torch import config_hier, native, render, train
 from lab4d_tpu_torch.tools import compare_psnr
-from lab4d_tpu_torch.utils import profile, raster
+from lab4d_tpu_torch.utils import device_map, metrics, profile, raster
+from lab4d_tpu_torch.parallel import dist
+from lab4d_tpu_torch.tools import ddp_step
 from lab4d_tpu_torch.tools.synthetic_scene import make_synthetic_dataset
 root = sys.argv[1]
 make_synthetic_dataset(root + '/database', seqname='iso', num_frames=8, res=16)

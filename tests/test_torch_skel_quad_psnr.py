@@ -4,13 +4,18 @@ tools/compare_psnr.py's protocol (the same scene, flags, step count and
 seeded loader draws; the two packages draw pixels in the same order).
 
     python3 -m tests.test_torch_skel_quad_psnr [--seeds 0,1,2,3] [--rounds 6]
-        [--frames 32] [--jax_init] [--out psnr_torch.json]
+        [--frames 32] [--jax_init] [--jax_draws] [--out psnr_torch.json]
 
 Run from the root of a checkout. Each side starts from its own prior fits,
 or with --jax_init the port starts from the JAX side's params and proxy
 meshes right after its fits (the JAX trainer's checkpoint), so that the
 two trajectories differ only in the steps' arithmetic and random draws.
-Writes "skel_quad_cpu" (or "skel_quad_cpu_jax_init") into --out.
+With --jax_draws the port's steps also take the JAX side's in-step random
+draws (the eikonal rays, the global-match candidates, the visibility-decay
+and gauss-skin points that JAX derives from fold_in(PRNGKey(42), step)),
+recorded from its jitted step through ordered debug callbacks, as the
+one-step tests hand the same draws to both packages. Writes
+"skel_quad_cpu" (or "skel_quad_cpu_jax_init", "..._jax_draws") into --out.
 
 The init is held against JAX's: the instance codes' against flax
 nn.Embed's, and every parameter leaf's spread at three model kinds. The
@@ -53,17 +58,73 @@ def jax_eval_psnr(trainer):
     return CP.masked_psnr(np.asarray(out["rgb"]), ref["rgb"], ref["mask"][..., 0])
 
 
-def jax_rounds(trainer, seed, rounds):
-    """compare_psnr.train_rounds on the JAX trainer."""
+def jax_rounds(trainer, seed, rounds, record=None):
+    """compare_psnr.train_rounds on the JAX trainer. record: a list that
+    takes, per step, the (jax.random function, value) draws of the step in
+    call order (the step is traced with the draws reported through ordered
+    debug callbacks)."""
+    import jax
+
     CP.seed_draws(trainer, seed)
     traj = []
-    for r in range(rounds):
-        trainer.train_one_round(r)
-        trainer.current_round += 1
-        trainer.update_geometry_aux()
-        traj.append(jax_eval_psnr(trainer))
-        print(f"[psnr jax] seed {seed} round {r}: {traj[-1]:.4f}", flush=True)
+    mp = pytest.MonkeyPatch()
+    if record is not None:
+        calls = []
+
+        def recording(name, shape_arg):
+            orig = getattr(jax.random, name)
+
+            def f(*args, **kwargs):
+                out = orig(*args, **kwargs)
+                # flax's initializer shape check in apply calls uniform with bounds
+                if not (name == "uniform" and len(args) > 2):
+                    jax.debug.callback(lambda v: calls.append((name, np.asarray(v))), out,
+                                       ordered=True)
+                return out
+            return f
+
+        for name, arg in (("choice", 2), ("uniform", 1), ("randint", 1)):
+            mp.setattr(jax.random, name, recording(name, arg))
+    try:
+        for r in range(rounds):
+            start = trainer.current_steps
+            trainer.train_one_round(r)
+            if record is not None:
+                jax.effects_barrier()
+                steps = trainer.current_steps - start
+                per = len(calls) // steps
+                assert per * steps == len(calls), (len(calls), steps)
+                record += [calls[i * per:(i + 1) * per] for i in range(steps)]
+                calls.clear()
+            trainer.current_round += 1
+            trainer.update_geometry_aux()
+            traj.append(jax_eval_psnr(trainer))
+            print(f"[psnr jax] seed {seed} round {r}: {traj[-1]:.4f}", flush=True)
+    finally:
+        mp.undo()
     return traj
+
+
+def port_draws(calls):
+    """One step's recorded JAX draws as the port's fg draws (the order of
+    tests/test_torch_families.py jax_draw_order: eikonal rays, match
+    candidates, visibility-decay points and ids, gauss-skin points)."""
+    import torch
+
+    names = ["eikonal_idx", "match_idx", "vis_u", "vis_inst", "gauss_u"]
+    want = ["choice", "randint", "uniform", "randint", "uniform"]
+    assert [c[0] for c in calls] == want, [c[0] for c in calls]
+    return {"fg": {k: torch.as_tensor(np.array(v)) for k, (_, v) in zip(names, calls)}}
+
+
+def feed_draws(trainer, record):
+    """Hand each step of `trainer` the recorded draws of that step."""
+    step = trainer.train_step
+
+    def with_draws(batch, i, draws=None):
+        return step(batch, i, draws=port_draws(record[i]))
+
+    trainer.train_step = with_draws
 
 
 def load_init(trainer, path):
@@ -80,9 +141,11 @@ def load_init(trainer, path):
         trainer._reset_geo_state(cate, beta=0.0)
 
 
-def run_pair(db, workdir, seed, rounds, res, iters, frames, jax_init, extra=(), on_init=None):
+def run_pair(db, workdir, seed, rounds, res, iters, frames, jax_init, extra=(), on_init=None,
+             jax_draws=False):
     """Both packages' trajectories for one seed, the JAX side first.
-    on_init(jax_trainer, port_trainer): called before the first step."""
+    on_init(jax_trainer, port_trainer): called before the first step;
+    jax_draws: the port's steps take the JAX steps' random draws."""
     jt, ckpt = jax_trainer(db, workdir, seed, rounds, res, iters, frames, extra)
     pt = CP.build_trainer(db, workdir, seed, rounds, res, iters, frames, "cpu", "skel-quad", extra)
     try:
@@ -90,7 +153,10 @@ def run_pair(db, workdir, seed, rounds, res, iters, frames, jax_init, extra=(), 
             load_init(pt, ckpt)
         if on_init is not None:
             on_init(jt, pt)
-        jax_traj = jax_rounds(jt, seed, rounds)
+        record = [] if jax_draws else None
+        jax_traj = jax_rounds(jt, seed, rounds, record)
+        if jax_draws:
+            feed_draws(pt, record)
         torch_traj = CP.train_rounds(pt, seed, rounds)
     finally:
         jt.trainloader.stop()
@@ -103,17 +169,20 @@ def compare(args, workdir):
     out = {"settings": {"fg_motion": "skel-quad", "rounds": args.rounds, "res": args.res,
                         "frames": args.frames,
                         "iters_effective": CP.effective_iters(args.iters, args.frames),
-                        "device": "cpu", "init": "jax" if args.jax_init else "own"},
+                        "device": "cpu", "init": "jax" if args.jax_init else "own",
+                        "draws": "jax" if args.jax_draws else "own"},
            "torch": {}, "jax": {}}
     for seed in args.seeds:
         out["torch"][str(seed)], out["jax"][str(seed)] = run_pair(
-            db, workdir, seed, args.rounds, args.res, args.iters, args.frames, args.jax_init)
+            db, workdir, seed, args.rounds, args.res, args.iters, args.frames, args.jax_init,
+            jax_draws=args.jax_draws)
         print(f"[skel-quad cpu] seed {seed}: torch {np.round(out['torch'][str(seed)], 4).tolist()}"
               f", jax {np.round(out['jax'][str(seed)], 4).tolist()}", flush=True)
     diffs = [np.asarray(out["torch"][s]) - np.asarray(out["jax"][s]) for s in out["torch"]]
     out["max_abs_round_gap"] = float(np.max(np.abs(diffs)))
     out["final_gap_mean"] = float(np.mean([d[-1] for d in diffs]))
-    return {"skel_quad_cpu_jax_init" if args.jax_init else "skel_quad_cpu": out}
+    key = "skel_quad_cpu_jax_init" if args.jax_init else "skel_quad_cpu"
+    return {key + ("_jax_draws" if args.jax_draws else ""): out}
 
 
 def main(argv=None):
@@ -128,6 +197,8 @@ def main(argv=None):
     ap.add_argument("--res", type=int, default=64)
     ap.add_argument("--jax_init", action="store_true",
                     help="start the port from the JAX side's fitted params and proxy")
+    ap.add_argument("--jax_draws", action="store_true",
+                    help="the port's steps take the JAX steps' recorded random draws")
     ap.add_argument("--out", default=os.path.join(CP.ROOT, "psnr_torch.json"))
     ap.add_argument("--workdir", default=None)
     args = ap.parse_args(argv)
@@ -213,6 +284,16 @@ def test_init_spread_matches_jax_leaf_by_leaf(field_type, fg_motion):
     assert random_leaves >= 40
 
 
+def _first_step_losses(run_dir):
+    """The step-0 record of a trainer's metrics.jsonl (its loss terms)."""
+    import json
+
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rec = next(json.loads(line) for line in f if '"grad_norm"' in line)
+    assert rec["step"] == 0
+    return rec
+
+
 def test_tiny_skel_quad_comparison(tmp_path):
     db = CP.make_dataset(str(tmp_path), TINY["res"], TINY["frames"])
     start = {}
@@ -221,12 +302,29 @@ def test_tiny_skel_quad_comparison(tmp_path):
         out, ref = pt.render_frames(pt.eval_fid)
         start["torch"] = CP.masked_psnr(out["rgb"], ref["rgb"], ref["mask"][..., 0])
         start["jax"] = jax_eval_psnr(jt)
+        # the between-round refresh from the same params: the marching-cubes
+        # proxy and the aabb / near-far / corner EMA equal JAX's
+        jt.update_geometry_aux()
+        pt.update_geometry_aux()
+        assert len(pt.proxy["fg"].vertices) == len(jt.proxy["fg"].vertices) > 0
+        for k in ("aabb", "near_far", "corners"):
+            np.testing.assert_allclose(pt.geo_state["fg"][k], jt.geo_state["fg"][k], rtol=0,
+                                       atol=1e-5, err_msg=k)
 
     torch_traj, jax_traj = run_pair(db, str(tmp_path), 0, jax_init=True, extra=TINY_FLAGS,
-                                    on_init=first_render, **TINY)
+                                    on_init=first_render, jax_draws=True, **TINY)
     assert len(torch_traj) == len(jax_traj) == 1
     assert np.isfinite(torch_traj + jax_traj).all()
     assert abs(start["torch"] - start["jax"]) <= 1e-4, start
+    # --jax_draws: the port's steps took the JAX steps' recorded draws, so the
+    # first step's loss terms (both trainers' metrics.jsonl, the same batch)
+    # agree as the one-step tests' do
+    want = _first_step_losses(os.path.join(str(tmp_path), "logdir_jax", f"{CP.SEQNAME}-jax0"))
+    got = _first_step_losses(os.path.join(str(tmp_path), "logdir", f"{CP.SEQNAME}-seed0"))
+    terms = [k for k in want if k not in ("step", "grad_norm", "total")]
+    assert len(terms) >= 16
+    for k in terms:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-9, err_msg=k)
 
 
 if __name__ == "__main__":
