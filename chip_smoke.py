@@ -125,7 +125,19 @@ synchronise; any failure exits non-zero:
    all-reduced per step;
 21. k3-paths: every shape K3f launched in the phases above, and K3f /
    K3b against their plain versions at any the kernel phase did not
-   check.
+   check;
+23. preprocess (after psnr): the port's preprocessing entry point
+   (`python -m lab4d_tpu_torch.preprocess.run`'s main) on one synthetic
+   raw video of 64 frames at 512^2 written in-process: every stage's
+   backend (each must be the neural one: the shipped weights), seconds
+   per stage and per frame, peak device memory, one batch of the port's
+   loader from the output (no kernel of K1-K4 lies on this path: its
+   nets and dense programs are plain PyTorch, as the JAX pipeline is XLA
+   without Pallas); preprocess-reference: each of the five nets on 2
+   frames, the LK flow, the filter bank and one TSDF integration at
+   128^3 on the card against the port on the CPU, and the canonical
+   rotation fit's stopping iterations and rotations, each with its
+   tolerance.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel; the last line is
@@ -136,6 +148,7 @@ prints no result.
 import collections
 import contextlib
 import copy
+import glob
 import json
 import os
 import subprocess
@@ -2373,6 +2386,209 @@ def phase_resume(db, root):
     return launches
 
 
+# the preprocessing phases: one raw video of PRE_FRAMES frames at PRE_RES^2,
+# the orbit turning PRE_DEG_PER_FRAME between frames (enough motion that
+# the frame filter, median flow > 5% of 160 px, keeps them)
+PRE_FRAMES, PRE_RES, PRE_DEG_PER_FRAME = 64, 512, 12.0
+PRE_NEURAL = {"segmentation": "unet", "flow": "raft", "depth": "unet", "viewpoint": "net",
+              "features": "net"}
+PRE_NET_TOL = 1e-4  # GPU vs CPU, of the output's largest magnitude (fp32, no TF32)
+PRE_EPE_TOL = 1e-2  # px, mean endpoint error of the LK flow
+PRE_TSDF_TOL = 1e-5
+PRE_ROT_TOL_DEG = 0.05
+PRE_FIT_LOSS_RTOL = 0.10  # the chaotic full-length fit: twice JAX's own spread (5%)
+PRE_FEAT_TOL = 1e-5  # the filter bank, of its largest response
+
+
+def phase_preprocess(root):
+    """[preprocess]: the port's preprocessing entry point
+    (lab4d_tpu_torch.preprocess.run's main, as `python -m
+    lab4d_tpu_torch.preprocess.run smokevid "" quad 0` runs it) on one raw
+    video written in-process (tools/synthetic_scene.write_raw_video):
+    frames, filter, segmentation, flow at deltas 1, 2, 4, 8, depth, crops,
+    camera registration, TSDF fusion, canonical registration, features.
+    Fails unless every stage ran its neural backend. Prints seconds per
+    stage and per frame, each worker's peak device memory, and one batch
+    of the port's loader from the output; returns the database root."""
+    from lab4d_tpu_torch.dataloader.data_utils import TrainBatchLoader, config_to_datasets
+    from lab4d_tpu_torch.preprocess import run as pre_run
+    from lab4d_tpu_torch.tools.synthetic_scene import write_raw_video
+
+    db = os.path.join(root, "preprocess", "database")
+    t = time.time()
+    write_raw_video(db, "smokevid", num_frames=PRE_FRAMES, res=PRE_RES,
+                    orbit_span=PRE_FRAMES * PRE_DEG_PER_FRAME / 360.0, lead_black=1)
+    print(f"[preprocess] raw video: 1 black + {PRE_FRAMES} frames at {PRE_RES}^2 (MJPEG), "
+          f"written in {time.time() - t:.1f} s")
+    t = time.time()
+    out = pre_run.main(["smokevid", "", "quad", "0", "--database_root", db])
+    wall = time.time() - t
+    (seq,) = out["seqnames"]
+    rec = out["workers"][seq]
+    backends = {**rec["segmentation"]["backends"], **rec["priors"]["backends"],
+                **out["features"]["backends"]}
+    print("[preprocess] backends: " + ", ".join(f"{k} {v}" for k, v in backends.items()))
+    for stage, want in PRE_NEURAL.items():
+        if backends.get(stage) != want:
+            fail(f"preprocess: {stage} ran the {backends.get(stage)!r} backend, not {want!r}")
+    proc = f"{db}/processed"
+    n = len(glob.glob(f"{proc}/JPEGImages/Full-Resolution/{seq}/*.jpg"))
+    if n < 8:
+        fail(f"preprocess: the frame filter kept {n} frames")
+    seconds = {}
+    for part in ("frames", "segmentation", "priors"):
+        seconds.update(rec[part]["seconds"])
+    seconds.update(out["features"]["seconds"])
+    print(f"[preprocess] {n} of {PRE_FRAMES} frames kept; seconds per stage (per frame, ms): "
+          + ", ".join(f"{k} {v:.2f} ({1e3 * v / n:.1f})" for k, v in seconds.items())
+          + f"; the stages {sum(seconds.values()):.1f} s, the run {wall:.1f} s with its two "
+          f"worker processes' start")
+    peaks = {part: rec[part]["peak_bytes"] for part in ("frames", "segmentation", "priors")}
+    peaks["features"] = out["features"]["peak_bytes"]
+    if None in peaks.values():
+        fail(f"preprocess: a worker ran off the card: {peaks}")
+    print("[preprocess] peak device memory (GiB): " + ", ".join(
+        f"{k} {v / 2**30:.3f}" for k, v in peaks.items()))
+    opts = {"seqname": "smokevid", "database_root": db, "data_prefix": "crop", "train_res": 256,
+            "feature_type": "dinov2", "pixels_per_image": 16}
+    loader = TrainBatchLoader(config_to_datasets(opts), imgs_per_batch=8, num_workers=1)
+    try:
+        batch = loader.next_batch()
+    finally:
+        loader.stop()
+    for key in ("rgb", "mask", "depth", "flow", "feature"):
+        if key not in batch or not np.isfinite(np.asarray(batch[key], np.float32)).all():
+            fail(f"preprocess: the loader's batch has no finite {key}")
+    print("[preprocess] the port's loader on the output: one batch of 8 pairs x 16 px, "
+          + ", ".join(f"{k} {tuple(batch[k].shape)}" for k in ("rgb", "depth", "flow", "feature")))
+    return db, seq
+
+
+def _pre_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()), float(np.abs(want).max())
+
+
+def phase_preprocess_reference(db, seq):
+    """[preprocess-reference]: on the first 2 frames of [preprocess]'s
+    output, each net, the LK flow, the filter bank, and one TSDF
+    integration at the 128^3 grid on the card against the port on the
+    CPU; the canonical rotation fit on tools/synthetic_scene.py's
+    rotation_fit_inputs (as tests/test_torch_preprocess_classical.py).
+    Each check prints its tolerance."""
+    import cv2
+    import torch
+
+    from lab4d_tpu_torch.preprocess.backends import (depth_unet, feat_backends, feat_net,
+                                                     flow_classical, flow_raft, seg_unet,
+                                                     viewpoint_net)
+    from lab4d_tpu_torch.preprocess.libs.registration import (fit_canonical_rotations, fit_loss,
+                                                               rotation_gap_deg)
+    from lab4d_tpu_torch.preprocess.scripts.tsdf_fusion import integrate
+    from lab4d_tpu_torch.tools.synthetic_scene import (raw_orbit, render_raw_frame,
+                                                       rotation_fit_inputs)
+
+    t = time.time()
+    paths = sorted(glob.glob(f"{db}/processed/JPEGImages/Full-Resolution/{seq}/*.jpg"))[:2]
+    frames = [cv2.imread(p)[..., ::-1] for p in paths]
+    masks = [np.load(p.replace("JPEGImages", "Annotations").replace(".jpg", ".npy"))
+             for p in paths]
+    crops = np.stack([viewpoint_net.crop_masked(f, m) for f, m in zip(frames, masks)])
+    crops256 = [cv2.resize(f, (256, 256)) for f in frames]
+
+    def nets(dev):
+        out = {}
+        fw, bw = flow_raft.compute_flows(frames[:1], frames[1:], device=dev)
+        out["flow_raft"] = np.concatenate([fw, bw])
+        out["seg_unet"] = np.stack(list(seg_unet.segment_probs(frames, device=dev)))
+        out["depth_unet"] = np.stack(depth_unet.depth_video_unet(frames, device=dev))
+        out["feat_net"] = feat_net.frames_features_net(crops256, device=dev).cpu().numpy()
+        model = viewpoint_net.load_model("quad", device=dev)
+        with torch.no_grad():
+            out["viewpoint_net"] = model(
+                torch.from_numpy(crops).permute(0, 3, 1, 2).to(dev)).cpu().numpy()
+        return out
+
+    got, want = nets("cuda"), nets("cpu")
+    for name in got:
+        err, scale = _pre_err(got[name], want[name])
+        print(f"[preprocess-reference] {name} on 2 frames, GPU vs CPU: max abs err {err:.3g} "
+              f"(tol {PRE_NET_TOL:g} x max |out| {scale:.4g})")
+        if not err <= PRE_NET_TOL * scale:
+            fail(f"preprocess-reference: {name} GPU vs CPU {err} > {PRE_NET_TOL} x {scale}")
+
+    lk = {dev: flow_classical.compute_flows(frames[:1], frames[1:], device=dev)
+          for dev in ("cuda", "cpu")}
+    for i, direction in enumerate(("fw", "bw")):
+        epe = np.linalg.norm(lk["cuda"][i][..., :2] - lk["cpu"][i][..., :2], axis=-1)
+        print(f"[preprocess-reference] LK flow {direction} at 288^2, GPU vs CPU: mean endpoint "
+              f"error {epe.mean():.3g} px (tol {PRE_EPE_TOL:g}), max {epe.max():.3g}")
+        if not epe.mean() <= PRE_EPE_TOL:
+            fail(f"preprocess-reference: LK flow {direction} mean EPE {epe.mean()}")
+
+    fb = {}
+    for dev in ("cuda", "cpu"):
+        with torch.no_grad():
+            x = torch.from_numpy(np.stack(crops256) / np.float32(255.0)).permute(0, 3, 1, 2)
+            fb[dev] = feat_backends.filterbank_features(x.to(dev)).cpu().numpy()
+    err, scale = _pre_err(fb["cuda"], fb["cpu"])
+    print(f"[preprocess-reference] filter bank on 2 256^2 crops, GPU vs CPU: max abs err "
+          f"{err:.3g} (tol {PRE_FEAT_TOL:g} x {scale:.4g})")
+    if not err <= PRE_FEAT_TOL * scale:
+        fail(f"preprocess-reference: filter bank {err}")
+
+    # TSDF: 2 frames of the raw orbit's depth at 512^2 into 128^3 voxels
+    K, rts = raw_orbit(PRE_FRAMES, PRE_RES, PRE_FRAMES * PRE_DEG_PER_FRAME / 360.0)
+    depths = np.stack([render_raw_frame(rts[i], K, PRE_RES)[2] for i in (0, 1)])
+    Ks = np.tile(K.astype(np.float32), (2, 1))
+    s2c = rts[:2].astype(np.float32)
+    ax = np.linspace(-6.5, 6.5, 128)
+    vox = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3).astype(np.float32)
+    trunc = float(np.float32(5 * 13.0 / 127))
+    ts = {}
+    for dev in ("cuda", "cpu"):
+        with torch.no_grad():
+            tt, ww = integrate(torch.ones(len(vox), device=dev), torch.zeros(len(vox), device=dev),
+                               torch.from_numpy(vox).to(dev), torch.from_numpy(depths).to(dev),
+                               torch.from_numpy(Ks).to(dev), torch.from_numpy(s2c).to(dev), trunc)
+        ts[dev] = (tt.cpu().numpy(), ww.cpu().numpy())
+    p = vox.astype(np.float64) @ np.swapaxes(s2c[:, :3, :3], -1, -2).astype(np.float64)
+    p = p + s2c[:, None, :3, 3]
+    uv = Ks[:, None, :2] * p[..., :2] / np.maximum(p[..., 2:], 1e-6) + Ks[:, None, 2:]
+    tie = (np.abs(uv - np.floor(uv) - 0.5) < 1e-4).any(-1).any(0)
+    ok = ~tie
+    w_diff = int((ts["cuda"][1][ok] != ts["cpu"][1][ok]).sum())
+    err = float(np.abs(ts["cuda"][0][ok] - ts["cpu"][0][ok]).max())
+    print(f"[preprocess-reference] TSDF, 2 frames into 128^3 voxels, GPU vs CPU: max abs err "
+          f"{err:.3g} (tol {PRE_TSDF_TOL:g}) and {w_diff} weights apart, outside "
+          f"{int(tie.sum())} voxels within 1e-4 px of a pixel boundary; "
+          f"{int((ts['cpu'][1] > 0).sum())} voxels observed")
+    if w_diff or not err <= PRE_TSDF_TOL:
+        fail(f"preprocess-reference: TSDF err {err}, {w_diff} weights apart")
+
+    for kind, iters in (("consistent", 2000), ("inconsistent", 20), ("inconsistent", 2000)):
+        chain, ann = rotation_fit_inputs(kind)
+        fits = {dev: fit_canonical_rotations(chain, ann, max_iters=iters, device=dev)
+                for dev in ("cuda", "cpu")}
+        gap = float(rotation_gap_deg(fits["cuda"][0], fits["cpu"][0]).max())
+        if iters == 20 or kind == "consistent":
+            print(f"[preprocess-reference] rotation fit, {kind} input, {iters} iterations per "
+                  f"phase: stopping iterations GPU {fits['cuda'][1]} CPU {fits['cpu'][1]}; "
+                  f"rotations {gap:.4f} deg apart (tol {PRE_ROT_TOL_DEG:g})")
+            if fits["cuda"][1] != fits["cpu"][1] or not gap <= PRE_ROT_TOL_DEG:
+                fail(f"preprocess-reference: rotation fit ({kind}, {iters}) {gap} deg")
+        else:  # the chaotic full-length fit: held to the loss it reaches
+            lg, lc = fit_loss(fits["cuda"][0], chain, ann), fit_loss(fits["cpu"][0], chain, ann)
+            print(f"[preprocess-reference] rotation fit, {kind} input, full length: stopping "
+                  f"iterations GPU {fits['cuda'][1]} CPU {fits['cpu'][1]}; final loss GPU "
+                  f"{lg:.5f} CPU {lc:.5f} (tol {PRE_FIT_LOSS_RTOL:g} relative); rotations "
+                  f"{gap:.3f} deg apart (the fit runs at its loss floor, where the end point "
+                  f"is chaotic)")
+            if not abs(lg - lc) <= PRE_FIT_LOSS_RTOL * lc:
+                fail(f"preprocess-reference: full rotation fit loss {lg} vs {lc}")
+    print(f"[preprocess-reference] {time.time() - t:.1f} s")
+
+
 KERNEL_INFO = {  # JSON name, source, the TPU kernel it replaces
     "K1": ("nerf_heads_fwd", "lab4d_tpu_torch/csrc/nerf_heads.cu",
            "lab4d_tpu/ops/field_kernel.py:544"),
@@ -2467,6 +2683,8 @@ def main():
             resume_launches = phase_resume(db, root)
         with k3_records({}, k3_shapes):
             psnr_launches, psnr_steps = phase_psnr(root)
+        pre_db, pre_seq = phase_preprocess(root)
+        phase_preprocess_reference(pre_db, pre_seq)
         for name, shapes in (("train-comp", comp_shapes),
                              ("train-families dense", family_runs["dense"][3])):
             rows = {(r, c) for r, c, *_ in shapes}

@@ -6,6 +6,8 @@ none of them.
 - an AST scan of every import statement, and of every string literal
   for import statements and dotted lab4d_tpu module names (a program
   kept in a string and run in a child interpreter imports too);
+- the preprocessing port (lab4d_tpu_torch/preprocess/) also imports no
+  optax, sklearn, imageio, nor the JAX package's preprocess/;
 - a fresh interpreter in which those modules cannot be imported trains
   the bg field for two steps on the CPU (synthetic scene, prior fits,
   batches through the native sampler, the round's eval render, checkpoint)
@@ -26,6 +28,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "lab4d_tpu")
+# the card has none of these either; the preprocessing port imports none
+PREPROCESS_FORBIDDEN = FORBIDDEN + ("optax", "sklearn", "imageio", "preprocess")
 SOURCES = sorted((REPO / "lab4d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -40,8 +44,10 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_import(path):
+    rel = path.relative_to(REPO).as_posix()
+    forbidden = PREPROCESS_FORBIDDEN if rel.startswith("lab4d_tpu_torch/preprocess/") else FORBIDDEN
     bad = [(line, name) for line, name in _imported_roots(path)
-           if name.split(".")[0] in FORBIDDEN]
+           if name.split(".")[0] in forbidden]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
@@ -77,7 +83,24 @@ def test_string_scan_sees_a_program_in_a_string(tmp_path):
 
 NEW_MODULES = ("native/__init__.py", "config_hier.py", "utils/profile.py", "utils/raster.py",
                "tools/compare_psnr.py", "parallel/__init__.py", "parallel/dist.py",
-               "utils/device_map.py", "tools/ddp_step.py", "utils/metrics.py")
+               "utils/device_map.py", "tools/ddp_step.py", "utils/metrics.py",
+               "preprocess/__init__.py", "preprocess/run.py",
+               "preprocess/backends/__init__.py", "preprocess/backends/weights.py",
+               "preprocess/backends/layers.py", "preprocess/backends/flow_classical.py",
+               "preprocess/backends/flow_raft.py", "preprocess/backends/seg_unet.py",
+               "preprocess/backends/seg_backends.py", "preprocess/backends/prompt_select.py",
+               "preprocess/backends/depth_unet.py", "preprocess/backends/depth_backends.py",
+               "preprocess/backends/feat_net.py", "preprocess/backends/feat_backends.py",
+               "preprocess/backends/viewpoint_net.py", "preprocess/libs/__init__.py",
+               "preprocess/libs/io.py", "preprocess/libs/geometry.py",
+               "preprocess/libs/registration.py", "preprocess/scripts/__init__.py",
+               "preprocess/scripts/extract_frames.py", "preprocess/scripts/frame_filter.py",
+               "preprocess/scripts/write_config.py", "preprocess/scripts/download.py",
+               "preprocess/scripts/manual_cameras.py", "preprocess/scripts/compute_flow.py",
+               "preprocess/scripts/crop.py", "preprocess/scripts/camera_registration.py",
+               "preprocess/scripts/tsdf_fusion.py",
+               "preprocess/scripts/canonical_registration.py",
+               "preprocess/scripts/extract_features.py")
 
 
 def test_scan_sees_every_module():
@@ -100,7 +123,20 @@ from lab4d_tpu_torch.utils import device_map, metrics, profile, raster
 from lab4d_tpu_torch.parallel import dist
 from lab4d_tpu_torch.tools import ddp_step
 from lab4d_tpu_torch.tools.synthetic_scene import make_synthetic_dataset
+from lab4d_tpu_torch.preprocess import run as preprocess_run
+from lab4d_tpu_torch.preprocess.backends import flow_classical
+from lab4d_tpu_torch.preprocess.scripts.tsdf_fusion import integrate
+import numpy as np, torch
 root = sys.argv[1]
+a = (np.random.default_rng(0).random((40, 40, 3)) * 255).astype(np.uint8)
+fw, bw = flow_classical.compute_pair_flow(a, np.roll(a, 2, 1), res=32, device='cpu')
+assert fw.shape == (32, 32, 3) and np.isfinite(fw).all()
+vox = torch.rand(64, 3) - 0.5
+s2c = torch.eye(4)[None].clone()
+s2c[0, 2, 3] = 2.0
+t, w = integrate(torch.ones(64), torch.zeros(64), vox, torch.full((1, 16, 16), 2.0),
+                 torch.tensor([[16.0, 16.0, 8.0, 8.0]]), s2c, 0.1)
+assert (w > 0).any() and torch.isfinite(t).all()
 make_synthetic_dataset(root + '/database', seqname='iso', num_frames=8, res=16)
 common = ['--seqname', 'iso', '--logname', 'r', '--train_res', '16', '--field_type', 'bg',
           '--device', 'cpu', '--database_root', root + '/database', '--logroot', root + '/logdir']
@@ -113,6 +149,8 @@ out = render.main(common + ['--load_suffix', 'latest', '--render_res', '4', '--f
                             '--num_frames', '1'])
 assert out['rgb'].shape == (1, 4, 4, 3)
 loaded = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})
+assert not loaded, loaded
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in ('optax', 'sklearn', 'preprocess'))
 assert not loaded, loaded
 print('isolated ok')
 """
