@@ -137,7 +137,24 @@ synchronise; any failure exits non-zero:
    frames, the LK flow, the filter bank and one TSDF integration at
    128^3 on the card against the port on the CPU, and the canonical
    rotation fit's stopping iterations and rotations, each with its
-   tolerance.
+   tolerance;
+24. train-nets (after preprocess-reference): the five preprocessing-net
+   trainers (lab4d_tpu_torch/scripts/train_*.py) at their default
+   resolution and batch, NET_STEPS steps each, the weights into the run's
+   temporary directory: pool seconds, ms/step (CUDA events), peak device
+   memory, first and last logged loss, the held-out line; the written
+   file must load; no trainer may write database/weights/ (checked over
+   phases 24-27); no K1-K4 on this path (plain convs, as flax's);
+25. train-nets-reference: each trainer from one init on one batch, 3
+   updates on the card and on the CPU: the step-0 loss, the step-0
+   gradients and the parameters after the updates (the sign-flip bound);
+26. adversarial: scripts/validate_adversarial.py at ADV_ARGS (the
+   skel-quad train CLI in this process on tools/synthetic_adversarial.py's
+   scene): its JSON and every kernel's launches, each of which must run;
+27. tools: render_intermediate on [train-fg]'s proxy meshes,
+   create_collage on [render]'s frames, run_rendering_parallel (devlist
+   0,0,0,0: four workers on the card) on the category run, run_crop_all on [preprocess]'s output, the
+   browser's index and one mesh png; each must write its files.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of every kernel; the last line is
@@ -149,6 +166,8 @@ import collections
 import contextlib
 import copy
 import glob
+import importlib
+import io
 import json
 import os
 import subprocess
@@ -2589,6 +2608,232 @@ def phase_preprocess_reference(db, seq):
     print(f"[preprocess-reference] {time.time() - t:.1f} s")
 
 
+# [train-nets]: the five preprocessing-net trainers (lab4d_tpu_torch/scripts/
+# train_*.py) at their default resolution and batch, NET_STEPS steps each
+# (cut from their 1,500 / 1,200; the pool is min(96, steps) batches)
+NET_TRAINERS = {  # name: (main's size arguments, the weights file, its backend module)
+    "flow_raft": ({"res": 128, "batch": 4}, "flow_raft"),
+    "seg_unet": ({"res": 128, "batch": 4}, "seg_unet"),
+    "depth_unet": ({"res": 128, "batch": 4}, "depth_unet"),
+    "feat_net": ({"batch": 4}, "feat_net"),
+    "viewpoint": ({"batch": 16}, "viewpoint_net"),
+}
+NET_STEPS, NET_LOG_EVERY = 40, 10
+NET_REF_STEPS = 3  # [train-nets-reference]: updates on the card and on the CPU
+# grads: of each leaf's max|g_cpu|; close_share: of the parameters within 1e-5
+NET_REF_TOL = {"loss_rtol": 1e-5, "grad_rel": 1e-4, "close_share": 0.999}
+# [adversarial]: lab4d_tpu_torch/scripts/validate_adversarial.py, cut from
+# 64 frames at 256^2, 20 rounds x 200 steps
+ADV_ARGS = ["--frames", "16", "--res", "128", "--rounds", "1", "--iters_per_round", "50",
+            "--geo_init_steps", "100"]
+# [tools]: run_rendering_parallel's 8 renders as four workers sharing the
+# card (each render process takes ~13 s to start and render; in turns on
+# one worker 105.5 s)
+TOOLS_DEVLIST = [0, 0, 0, 0]
+
+
+def _net_module(name):
+    return importlib.import_module(f"lab4d_tpu_torch.scripts.train_{name}")
+
+
+def _weights_digest():
+    """{file: bytes} of database/weights/, which no phase may write."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return {p: open(p, "rb").read() for p in sorted(glob.glob(f"{here}/database/weights/*"))}
+
+
+def phase_train_nets(root):
+    """[train-nets]: each trainer's main on the card (NET_STEPS steps, the
+    weights into `root`): pool seconds, ms/step (CUDA events, median),
+    peak device memory, first and last logged loss, the held-out line.
+    Fails on a non-finite loss, a step off the card, or a written file the
+    port's load_model cannot read."""
+    import torch
+
+    for name, (kw, backend) in NET_TRAINERS.items():
+        mod = _net_module(name)
+        out_path = os.path.join(root, "weights", f"{backend}.msgpack")
+        stats = {}
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t = time.time()
+        with contextlib.redirect_stdout(buf):
+            mod.main(steps=NET_STEPS, out_path=out_path, log_every=NET_LOG_EVERY, stats=stats,
+                     **kw)
+        wall = time.time() - t
+        log = buf.getvalue()
+        losses = [v for _, v in stats["logged"]]
+        if not np.all(np.isfinite(losses)):
+            fail(f"train-nets {name}: non-finite loss {losses}")
+        if len(stats["step_ms"]) != NET_STEPS:
+            fail(f"train-nets {name}: {len(stats['step_ms'])} of {NET_STEPS} steps on the card")
+        loader = importlib.import_module(f"lab4d_tpu_torch.preprocess.backends.{backend}")
+        if loader.load_model(path=out_path) is None:
+            fail(f"train-nets {name}: load_model cannot read {out_path}")
+        held = [ln for ln in log.splitlines() if ln.startswith("held-out")]
+        params = [ln for ln in log.splitlines() if ln.startswith("params:")]
+        print(f"[train-nets] {name} ({', '.join(f'{k} {v}' for k, v in kw.items())}), "
+              f"{params[0]}, {NET_STEPS} steps: pool of {min(96, NET_STEPS)} batches "
+              f"{stats['pool_s']:.2f} s, {float(np.median(stats['step_ms'])):.2f} ms/step "
+              f"(median; mean {float(np.mean(stats['step_ms'])):.2f}), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, wall {wall:.1f} s; {held[0]}")
+
+
+def phase_train_nets_reference():
+    """[train-nets-reference]: each trainer from flax's init (SEED) on one
+    batch, through its own `train` on the card and on the CPU (TF32 off):
+    one update for the first loss (1e-5 relative) and its gradients as
+    the chain takes them (1e-4 of each leaf's max|g|), then NET_REF_STEPS
+    updates from the init for the parameters, within the sign-flip bound
+    2 * sum(lr) + 1e-6 (Adam's first updates are ~lr * sign(g)) and with
+    at least NET_REF_TOL["close_share"] of the elements within 1e-5."""
+    import torch
+
+    from lab4d_tpu_torch.scripts.optim import warmup_cosine
+
+    for name, (kw, _) in NET_TRAINERS.items():
+        mod = _net_module(name)
+        rng = np.random.default_rng(SEED)
+        size = (kw["res"],) if "res" in kw else ()
+        batch = mod.make_batch(rng, kw["batch"], *size)
+        init = mod.make_model(torch.Generator().manual_seed(SEED)).train()
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            pool = [tuple(torch.from_numpy(x).to(dev) for x in batch)]
+            first, model = copy.deepcopy(init).to(dev), copy.deepcopy(init).to(dev)
+            with contextlib.redirect_stdout(io.StringIO()):
+                (_, loss), = mod.train(first, pool, 1, log_every=1)
+                mod.train(model, pool, NET_REF_STEPS, log_every=1)
+            runs[dev] = (loss, {k: p.grad.detach().cpu() for k, p in first.named_parameters()},
+                         {k: v.detach().cpu() for k, v in model.state_dict().items()})
+        (lg, gg, pg), (lc, gc, pc) = runs["cuda"], runs["cpu"]
+        loss_err = abs(lg - lc) / abs(lc)
+        leaf_errs = {k: float((gg[k] - gc[k]).abs().max() / gc[k].abs().max().clamp(min=1e-30))
+                     for k in gc}
+        worst = max(leaf_errs, key=leaf_errs.get)
+        grad_err = leaf_errs[worst]
+        sched = warmup_cosine(mod.PEAK_LR, NET_REF_STEPS)
+        bound = 2 * sum(sched(k) for k in range(NET_REF_STEPS)) + 1e-6
+        param_err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+        close = sum(int(((pg[k] - pc[k]).abs() <= 1e-5).sum()) for k in pc) / sum(
+            v.numel() for v in pc.values())
+        print(f"[train-nets-reference] {name}: first loss GPU {lg:.6f} vs CPU {lc:.6f} (rel "
+              f"{loss_err:.2e}, tol {NET_REF_TOL['loss_rtol']:g}), gradients worst leaf "
+              f"({worst}) {grad_err:.2e} of its max (tol {NET_REF_TOL['grad_rel']:g}), "
+              f"parameters after {NET_REF_STEPS} updates max |d| {param_err:.2e} (bound "
+              f"{bound:.2e}), {100 * close:.3f}% within 1e-5 (tol "
+              f"{100 * NET_REF_TOL['close_share']:g}%)")
+        if not (loss_err <= NET_REF_TOL["loss_rtol"] and grad_err <= NET_REF_TOL["grad_rel"]
+                and param_err <= bound and close >= NET_REF_TOL["close_share"]):
+            fail(f"train-nets-reference {name}: GPU and CPU disagree")
+
+
+def phase_adversarial(root):
+    """[adversarial]: lab4d_tpu_torch/scripts/validate_adversarial.py on the
+    card (ADV_ARGS; the train CLI in this process), its JSON and every
+    kernel's launches over the run, each of which must launch."""
+    import torch
+
+    from lab4d_tpu_torch.scripts import validate_adversarial
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_counts()
+    buf = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        out = validate_adversarial.main(ADV_ARGS + ["--workdir", os.path.join(root, "adv")])
+    sync()
+    wall = time.time() - t
+    launches = _kernel_counts()
+    print(f"[adversarial] {' '.join(ADV_ARGS)}: {json.dumps(out)}")
+    print(f"[adversarial] {wall:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+          + " ".join(f"{k}={v}" for k, v in launches.items()))
+    if out["psnr_final"] is None or not np.isfinite(out["psnr_final"]):
+        fail(f"adversarial: no finite eval/psnr: {out}")
+    idle = [k for k, v in launches.items() if v <= 0]
+    if idle:
+        fail(f"adversarial: kernels {idle} never launched")
+    return launches
+
+
+def phase_tools(root, render_frames, pre_db, pre_seq):
+    """[tools]: render_intermediate on [train-fg]'s proxy meshes,
+    create_collage on [render]'s frames (as pngs), run_rendering_parallel
+    with TOOLS_DEVLIST on the category run, run_crop_all on [preprocess]'s
+    output, the browser's build_index and one render_mesh_png; each must
+    write its files."""
+    from lab4d_tpu_torch.browser import app
+    from lab4d_tpu_torch.scripts import (create_collage, render_intermediate, run_crop_all,
+                                         run_rendering_parallel)
+    from lab4d_tpu_torch.utils.io import imwrite
+
+    def written(pattern, what):
+        found = glob.glob(pattern)
+        if not found:
+            fail(f"tools: {what} wrote nothing matching {pattern}")
+        return found
+
+    testdir = os.path.join(root, "logdir", "smoke-fg")
+    t = time.time()
+    frames = render_intermediate.main(["--testdir", testdir, "--res", "256"])
+    if not frames:
+        fail(f"tools: render_intermediate found no proxy mesh under {testdir}")
+    out = written(f"{testdir}/intermediate-fg*", "render_intermediate")
+    print(f"[tools] render_intermediate: {len(frames)} frames at 256^2 -> "
+          f"{os.path.basename(out[0])} in {time.time() - t:.1f} s")
+
+    t = time.time()
+    clips = os.path.join(root, "tools", "render")
+    for key, fr in render_frames.items():
+        os.makedirs(f"{clips}/{key}", exist_ok=True)
+        for i, f in enumerate(fr):
+            f = np.clip(np.asarray(f, np.float32), 0, 1)
+            f = f[..., 0] if f.ndim == 3 and f.shape[-1] == 1 else f
+            imwrite(f"{clips}/{key}/{i:05d}.png", (f * 255).astype(np.uint8))
+    collage = os.path.join(root, "tools", "collage.mp4")
+    with contextlib.redirect_stdout(io.StringIO()):
+        create_collage.create_collage(f"{clips}/*", collage)
+    out = written(os.path.join(root, "tools", "collage*"), "create_collage")
+    print(f"[tools] create_collage: {len(render_frames)} clips of {N_FRAMES} frames -> "
+          f"{os.path.basename(out[0])} in {time.time() - t:.1f} s")
+
+    t = time.time()
+    extra = ["--field_type", "fg", "--fg_motion", "comp_skel-human_dense", "--no-single_inst",
+             "--train_res", "64", "--database_root", os.path.join(root, "database"),
+             "--logroot", os.path.join(root, "logdir"), "--render_res", "64", "--num_frames", "1"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        done = run_rendering_parallel.run_rendering_parallel("cate", "category", TOOLS_DEVLIST,
+                                                             extra)
+    if done != list(range(CATEGORY_VIDS)):
+        fail(f"tools: run_rendering_parallel rendered {done}")
+    for inst in done:
+        written(os.path.join(root, "logdir", "cate-category", f"renderings_{inst:04d}", "*", "*"),
+                f"run_rendering_parallel instance {inst}")
+    print(f"[tools] run_rendering_parallel: devlist {','.join(map(str, TOOLS_DEVLIST))}, "
+          f"{len(done)} instances of the category run at 64^2, one frame each, in "
+          f"{time.time() - t:.1f} s")
+
+    t = time.time()
+    proc = f"{pre_db}/processed"
+    with contextlib.redirect_stdout(io.StringIO()):
+        seqs = run_crop_all.main([pre_seq, "256", proc])
+    for prefix in ("crop-256", "full-256"):
+        written(f"{proc}/JPEGImages/Full-Resolution/{pre_seq}/{prefix}.npy",
+                f"run_crop_all {prefix}")
+    print(f"[tools] run_crop_all: {seqs}, crop and full at 256 in {time.time() - t:.1f} s")
+
+    t = time.time()
+    page = app.build_index(root)
+    png = app.render_mesh_png(sorted(glob.glob(f"{testdir}/*-fg-proxy.obj"))[-1], 30.0)
+    n_cells = page.count('<div class="cell">')
+    if not n_cells or png[:8] != b"\x89PNG\r\n\x1a\n":
+        fail("tools: the browser's index has no cell or its mesh render is no png")
+    print(f"[tools] browser: index of {n_cells} cells, a 512^2 mesh png of {len(png)} bytes "
+          f"in {time.time() - t:.1f} s")
+
+
 KERNEL_INFO = {  # JSON name, source, the TPU kernel it replaces
     "K1": ("nerf_heads_fwd", "lab4d_tpu_torch/csrc/nerf_heads.cu",
            "lab4d_tpu/ops/field_kernel.py:544"),
@@ -2634,6 +2879,7 @@ def main():
     with k3_records({}, k3_shapes):
         render_launches, exact_frames, _ = phase_render(model, geo_state, data_info)
         topk_launches = phase_render_topk(model, geo_state, data_info, exact_frames)
+    render_frames = {k: exact_frames[k] for k in ("rgb", "mask")}
     del model, exact_frames
     with tempfile.TemporaryDirectory() as root:
         db = write_scene(root)
@@ -2685,6 +2931,13 @@ def main():
             psnr_launches, psnr_steps = phase_psnr(root)
         pre_db, pre_seq = phase_preprocess(root)
         phase_preprocess_reference(pre_db, pre_seq)
+        weights_before = _weights_digest()
+        phase_train_nets(root)
+        phase_train_nets_reference()
+        adv_launches = phase_adversarial(root)
+        phase_tools(root, render_frames, pre_db, pre_seq)
+        if _weights_digest() != weights_before:
+            fail("a phase wrote into database/weights/")
         for name, shapes in (("train-comp", comp_shapes),
                              ("train-families dense", family_runs["dense"][3])):
             rows = {(r, c) for r, c, *_ in shapes}
@@ -2719,7 +2972,7 @@ def main():
             ("export_category", export_cate_launches),
             ("reanimate_category", reanimate_cate_launches), ("transfer", transfer_launches),
             ("resume", resume_launches), ("joint_prior", prior_launches),
-            ("psnr", psnr_launches), ("ddp", ddp_launches))}
+            ("psnr", psnr_launches), ("ddp", ddp_launches), ("adversarial", adv_launches))}
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),

@@ -316,6 +316,23 @@ def _pack_ext(code: int, payload: bytes) -> bytes:
     return head + struct.pack(">b", code) + payload
 
 
+_UINTS = ((1 << 8, ">BB", 0xCC), (1 << 16, ">BH", 0xCD), (1 << 32, ">BI", 0xCE),
+          (1 << 64, ">BQ", 0xCF))
+_INTS = ((1 << 7, ">Bb", 0xD0), (1 << 15, ">Bh", 0xD1), (1 << 31, ">Bi", 0xD2),
+         (1 << 63, ">Bq", 0xD3))
+
+
+def _pack_int(obj: int) -> bytes:
+    """An int at msgpack's smallest width, as msgpack (and so flax) writes
+    it: a fixint, else uint 8/16/32/64 when >= 0, int 8/16/32/64 when < 0."""
+    if 0 <= obj <= 0x7F or -32 <= obj < 0:
+        return struct.pack(">b" if obj < 0 else ">B", obj)
+    for bound, fmt, code in (_UINTS if obj >= 0 else _INTS):
+        if (obj < bound) if obj >= 0 else (obj >= -bound):
+            return struct.pack(fmt, code, obj)
+    raise OverflowError(f"int {obj} does not fit msgpack's 64 bits")
+
+
 def _pack(obj, out: list):
     if obj is None:
         out.append(b"\xc0")
@@ -329,12 +346,7 @@ def _pack(obj, out: list):
         arr = np.asarray(obj)
         out.append(_pack_ext(_EXT_NPSCALAR, msgpack_dumps([[], arr.dtype.name, arr.tobytes()])))
     elif isinstance(obj, int):
-        if 0 <= obj <= 0x7F or -32 <= obj < 0:
-            out.append(struct.pack(">b" if obj < 0 else ">B", obj))
-        elif obj >= 0:
-            out.append(struct.pack(">BQ", 0xCF, obj))
-        else:
-            out.append(struct.pack(">Bq", 0xD3, obj))
+        out.append(_pack_int(obj))
     elif isinstance(obj, float):
         out.append(struct.pack(">Bd", 0xCB, obj))
     elif isinstance(obj, str):

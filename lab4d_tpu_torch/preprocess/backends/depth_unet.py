@@ -29,6 +29,10 @@ BATCH = 16  # frames per call of the net
 class DepthUNet(UNet):
     """rgb (B, 3, H, W) in [0,1] -> metric depth (B, H, W)."""
 
+    # the output bias starts at the scene scale (~3), as flax's bias_init
+    # in preprocess/backends/depth_unet.py does
+    BIAS_INIT = {"Conv_14.bias": 3.0}
+
     def __init__(self):
         super().__init__(3)
 

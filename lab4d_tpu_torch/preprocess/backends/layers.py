@@ -128,6 +128,61 @@ def flax_to_state_dict(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
+def state_dict_to_flax(module: nn.Module) -> Dict:
+    """flax_to_state_dict's inverse: the module's parameters as the flax
+    params tree, "weight" back to "kernel" (a conv's (O, I, kh, kw) to
+    (kh, kw, I, O), a dense layer's (out, in) to (in, out)), float32 numpy
+    leaves, the keys of every level in lexical order as flax writes a
+    tree that went through jit (Conv_0, Conv_1, Conv_10, ...; bias before
+    kernel). msgpack_dumps of it is flax.serialization.to_bytes's output."""
+    tree: Dict = {}
+    for name, t in module.state_dict().items():
+        *mod, leaf = name.split(".")
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            leaf = "kernel"
+        elif leaf != "bias":
+            raise ValueError(f"unexpected parameter {name}")
+        node = tree
+        for m in mod:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
+
+    def ordered(node):
+        if not isinstance(node, dict):
+            return node
+        return {k: ordered(node[k]) for k in sorted(node)}
+
+    return ordered(tree)
+
+
+# flax's lecun_normal: variance_scaling(1.0, "fan_in", "truncated_normal"),
+# a normal truncated at +-2 std whose std is divided by the truncated
+# normal's own std (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise `module` in place as flax initialises the net: every
+    kernel lecun_normal (fan_in = kh * kw * in for a conv, in for a dense
+    layer), every bias zero, except the biases the module names in its
+    BIAS_INIT ({parameter name: constant}). The draws come from
+    `generator` (on the CPU), in the order of named_parameters."""
+    consts = getattr(module, "BIAS_INIT", {})
+    for name, p in module.named_parameters():
+        if name.endswith("weight"):
+            fan_in = p[0].numel()  # (O, I, kh, kw) or (out, in)
+            std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+            draw = torch.empty(p.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std, generator=generator)
+            p.copy_(draw)
+        else:
+            p.fill_(consts.get(name, 0.0))
+    return module
+
+
 @functools.lru_cache(maxsize=8)
 def _read_state_dict(path: str, mtime: float) -> Dict[str, torch.Tensor]:
     with open(path, "rb") as f:

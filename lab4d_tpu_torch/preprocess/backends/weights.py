@@ -33,3 +33,13 @@ def resolve_weights(name: str) -> str:
         return repo_path
     return cwd_path
 
+
+
+def train_out_path(name: str) -> str:
+    """Where a trainer (lab4d_tpu_torch/scripts/train_*.py) writes its
+    weights by default: ``$LAB4D_WEIGHTS_DIR/<name>``, else
+    ``database/weights/<name>`` relative to the current directory. It never
+    falls back to the repo, so a short run cannot overwrite the shipped
+    weights."""
+    wdir = os.environ.get("LAB4D_WEIGHTS_DIR", os.path.join("database", "weights"))
+    return os.path.join(wdir, name)

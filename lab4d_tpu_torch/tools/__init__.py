@@ -1,2 +1,2 @@
 """Tools of the port: measurement scripts, which run on a CUDA device, and
-the synthetic scene writer."""
+the synthetic scene writers (synthetic_scene.py, synthetic_adversarial.py)."""

@@ -286,10 +286,16 @@ def _sphere_hit(origin, dirs, radius, inner=False):
     return np.where(ok, s, 0.0), ok
 
 
-def render_raw_frame(rt, K, res):
-    """A textured sphere (fg, radius 0.5 at the origin) inside a textured
-    room sphere (bg, radius 6): rgb (res,res,3), mask (fg bool), depth (z),
-    pts (scene xyz)."""
+def orbit_pose(t: float, dist: float = CAM_DIST):
+    """Scene-to-camera SE(3), the camera orbiting the origin (y-axis)."""
+    return _lookat_pose(t, dist)
+
+
+def render_raw_frame(rt, K, res, tex_freqs=None, fg_radius: float = FG_RADIUS):
+    """A textured sphere (fg, radius `fg_radius` at the origin) inside a
+    textured room sphere (bg, radius 6): rgb (res,res,3), mask (fg bool),
+    depth (z), pts (scene xyz). `tex_freqs` (3 floats) replace the fg
+    texture's frequencies; the bg texture keeps its own."""
     xs, ys = np.meshgrid(np.arange(res), np.arange(res), indexing="xy")
     fx, fy, cx, cy = K
     d = np.stack([(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs, float)], -1)
@@ -297,20 +303,20 @@ def render_raw_frame(rt, K, res):
     origin = -R.T @ tvec
     dirs = d @ R
 
-    s_fg, hit_fg = _sphere_hit(origin, dirs, FG_RADIUS)
+    s_fg, hit_fg = _sphere_hit(origin, dirs, fg_radius)
     s_bg, hit_bg = _sphere_hit(origin, dirs, BG_RADIUS, inner=True)
     use_fg = hit_fg & (~hit_bg | (s_fg < s_bg))
     s = np.where(use_fg, s_fg, s_bg)
     pts = origin + s[..., None] * dirs
 
-    normal_fg = pts / FG_RADIUS
+    normal_fg = pts / fg_radius
     normal_bg = -pts / BG_RADIUS
     normal = np.where(use_fg[..., None], normal_fg, normal_bg)
     light = np.array([0.5, 0.7, 0.5])
     lam = 0.4 + 0.6 * np.clip(normal @ light, 0, 1)
-    tex = np.where(
-        use_fg[..., None], _texture(pts * 4.0), _texture(pts, freqs=(1.3, 2.1, 0.9))
-    )
+    fg_tex = _texture(pts * 4.0) if tex_freqs is None else _texture(
+        pts * 4.0, freqs=tuple(tex_freqs))
+    tex = np.where(use_fg[..., None], fg_tex, _texture(pts, freqs=(1.3, 2.1, 0.9)))
     rgb = np.clip(lam[..., None] * tex, 0, 1)
     depth = s * d[..., 2]
     return rgb.astype(np.float32), use_fg, depth.astype(np.float32), pts

@@ -44,21 +44,23 @@ def _dynamic_worker(func, arg, it, dev, result_queue, dev_queue):
     result_queue.put((it, out))
 
 
-def _collect(result_queue, procs, n: int) -> dict:
-    """n (key, result) pairs from the workers; raises if a worker died
-    without its result."""
-    out = {}
-    while len(out) < n:
+def _get(q, procs):
+    """The next item of q; raises (and stops every worker) if a worker
+    died without its result."""
+    while True:
         try:
-            key, value = result_queue.get(timeout=1.0)
-            out[key] = value
+            return q.get(timeout=1.0)
         except queue.Empty:
             dead = [p for p in procs if p.exitcode not in (None, 0)]
             if dead:
                 for p in procs:
                     p.terminate()
                 raise RuntimeError(f"device_map: a worker exited with {dead[0].exitcode}")
-    return out
+
+
+def _collect(result_queue, procs, n: int) -> dict:
+    """n (key, result) pairs from the workers."""
+    return dict(_get(result_queue, procs) for _ in range(n))
 
 
 def device_map(func: Callable, args: Sequence[Tuple], devices: Optional[List] = None,
@@ -91,7 +93,7 @@ def device_map(func: Callable, args: Sequence[Tuple], devices: Optional[List] = 
         procs = []
         for it, arg in enumerate(args):
             p = mp.Process(target=_dynamic_worker,
-                           args=(func, arg, it, dev_queue.get(), result_queue, dev_queue))
+                           args=(func, arg, it, _get(dev_queue, procs), result_queue, dev_queue))
             p.start()
             procs.append(p)
         by_it = _collect(result_queue, procs, len(procs))

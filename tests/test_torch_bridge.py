@@ -210,3 +210,33 @@ def test_msgpack_rejects_truncated_data():
     data = serialization.msgpack_serialize({"a": np.zeros(4, np.float32)})
     with pytest.raises(ValueError):
         bridge.msgpack_restore(data[:-3])
+
+
+_INTS = [0, 127, 128, 255, 256, 65535, 65536, 2**32 - 1, 2**32, 2**64 - 1, -1, -32, -33, -128,
+         -129, -32768, -32769, -(2**31), -(2**31) - 1, -(2**63)]
+
+
+@pytest.mark.parametrize("value", _INTS)
+def test_msgpack_int_smallest_width(value):
+    """Ints are written at msgpack's smallest width, as msgpack (and so
+    flax) writes them, byte for byte."""
+    assert bridge.msgpack_dumps(value) == msgpack.packb(value)
+    assert bridge.msgpack_dumps([[3, 3, value], value]) == msgpack.packb([[3, 3, value], value])
+
+
+@pytest.mark.parametrize("name", ["flow_raft", "seg_unet", "depth_unet", "feat_net",
+                                  "viewpoint_net"])
+def test_shipped_weights_rewrite_byte_for_byte(name):
+    """A shipped net's weights loaded into the port's module and written
+    back (layers.state_dict_to_flax through msgpack_dumps) are the file's
+    bytes: the layout flax.serialization.to_bytes writes."""
+    from lab4d_tpu_torch.preprocess.backends import (depth_unet, feat_net, flow_raft, layers,
+                                                     seg_unet, viewpoint_net)
+
+    mod = {"flow_raft": flow_raft, "seg_unet": seg_unet, "depth_unet": depth_unet,
+           "feat_net": feat_net, "viewpoint_net": viewpoint_net}[name]
+    path = mod.weights_path()
+    data = open(path, "rb").read()
+    assert bridge.msgpack_dumps(bridge.msgpack_restore(data)) == data
+    model = mod.load_model(path=path)
+    assert bridge.msgpack_dumps(layers.state_dict_to_flax(model)) == data

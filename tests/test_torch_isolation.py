@@ -1,20 +1,23 @@
 """The port stands alone: nothing under lab4d_tpu_torch/, and not
-chip_smoke.py, imports jax, flax or the JAX package (lab4d_tpu), not even
-a module of it that has no JAX in it; the card that runs the port has
-none of them.
+chip_smoke.py, imports jax, flax, optax, absl, imageio, matplotlib, the
+JAX package (lab4d_tpu) or the repo's other root packages (scripts,
+tests, preprocess, browser), not even a module of them that has no JAX
+in it; the card that runs the port has none of them.
 
 - an AST scan of every import statement, and of every string literal
   for import statements and dotted lab4d_tpu module names (a program
   kept in a string and run in a child interpreter imports too);
 - the preprocessing port (lab4d_tpu_torch/preprocess/) also imports no
-  optax, sklearn, imageio, nor the JAX package's preprocess/;
+  sklearn;
 - a fresh interpreter in which those modules cannot be imported trains
   the bg field for two steps on the CPU (synthetic scene, prior fits,
   batches through the native sampler, the round's eval render, checkpoint)
   and renders it, imports the flag schema, the profiling, raster,
   metrics and PSNR-comparison modules, the process-group helpers
-  (parallel/dist.py), the device map and the sharded-step tool, and then
-  holds none of them in sys.modules.
+  (parallel/dist.py), the device map and the sharded-step tool, the five
+  net trainers (the depth net's trains two steps and its file loads), the
+  adversarial scene, the tools of lab4d_tpu_torch/scripts/ and the
+  browser, and then holds none of them in sys.modules.
 """
 
 import ast
@@ -28,8 +31,13 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "lab4d_tpu")
-# the card has none of these either; the preprocessing port imports none
-PREPROCESS_FORBIDDEN = FORBIDDEN + ("optax", "sklearn", "imageio", "preprocess")
+# the card has none of these either, and the repo's root packages are the
+# JAX package's tools
+OUTSIDE = ("optax", "absl", "imageio", "matplotlib", "scripts", "tests", "preprocess",
+           "browser")
+PORT_FORBIDDEN = FORBIDDEN + OUTSIDE
+# the preprocessing port imports no sklearn either
+PREPROCESS_FORBIDDEN = PORT_FORBIDDEN + ("sklearn",)
 SOURCES = sorted((REPO / "lab4d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -45,16 +53,19 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_import(path):
     rel = path.relative_to(REPO).as_posix()
-    forbidden = PREPROCESS_FORBIDDEN if rel.startswith("lab4d_tpu_torch/preprocess/") else FORBIDDEN
+    forbidden = (PREPROCESS_FORBIDDEN if rel.startswith("lab4d_tpu_torch/preprocess/")
+                 else PORT_FORBIDDEN)
     bad = [(line, name) for line, name in _imported_roots(path)
            if name.split(".")[0] in forbidden]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
 # a program kept in a string (run with `python -c` or exec) imports too
+_ROOTS = ("jax|jaxlib|flax|lab4d_tpu|optax|absl|imageio|matplotlib|scripts|tests|preprocess"
+          "|browser")
 _IMPORT_IN_TEXT = re.compile(
-    r"\bimport\s+(jax|jaxlib|flax|lab4d_tpu)\b(?![/_])"
-    r"|\bfrom\s+(jax|jaxlib|flax|lab4d_tpu)(\.\w+)*\s+import\b"
+    rf"\bimport\s+({_ROOTS})\b(?![/_])"
+    rf"|\bfrom\s+({_ROOTS})(\.\w+)*\s+import\b"
     r"|\blab4d_tpu\.\w")
 
 
@@ -76,9 +87,12 @@ def test_string_scan_sees_a_program_in_a_string(tmp_path):
     src.write_text('CODE = r"""\nimport jax\nfrom lab4d_tpu.config import get_config\n'
                    'from lab4d_tpu_torch.tools import compare_psnr\n"""\n'
                    'DOC = "a copy of lab4d_tpu/config.py, as from lab4d_tpu/render.py"\n'
-                   'MOD = "lab4d_tpu.engine.trainer"\n')
+                   'MOD = "lab4d_tpu.engine.trainer"\n'
+                   'MORE = "from tests.synthetic_raw import render_frame; import imageio"\n'
+                   'PATHS = "scripts/train_seg_unet.py, from lab4d_tpu_torch.scripts import x"\n')
     found = [text for _, text in _imports_in_strings(src)]
-    assert found == ["import jax", "from lab4d_tpu.config import", "lab4d_tpu.e"], found
+    assert found == ["import jax", "from lab4d_tpu.config import", "lab4d_tpu.e",
+                     "from tests.synthetic_raw import", "import imageio"], found
 
 
 NEW_MODULES = ("native/__init__.py", "config_hier.py", "utils/profile.py", "utils/raster.py",
@@ -100,7 +114,14 @@ NEW_MODULES = ("native/__init__.py", "config_hier.py", "utils/profile.py", "util
                "preprocess/scripts/crop.py", "preprocess/scripts/camera_registration.py",
                "preprocess/scripts/tsdf_fusion.py",
                "preprocess/scripts/canonical_registration.py",
-               "preprocess/scripts/extract_features.py")
+               "preprocess/scripts/extract_features.py",
+               "scripts/__init__.py", "scripts/optim.py", "scripts/train_flow_raft.py",
+               "scripts/train_seg_unet.py", "scripts/train_depth_unet.py",
+               "scripts/train_feat_net.py", "scripts/train_viewpoint.py",
+               "scripts/validate_adversarial.py", "scripts/render_intermediate.py",
+               "scripts/create_collage.py", "scripts/run_rendering_parallel.py",
+               "scripts/run_crop_all.py", "browser/__init__.py", "browser/app.py",
+               "tools/synthetic_adversarial.py")
 
 
 def test_scan_sees_every_module():
@@ -126,8 +147,18 @@ from lab4d_tpu_torch.tools.synthetic_scene import make_synthetic_dataset
 from lab4d_tpu_torch.preprocess import run as preprocess_run
 from lab4d_tpu_torch.preprocess.backends import flow_classical
 from lab4d_tpu_torch.preprocess.scripts.tsdf_fusion import integrate
+from lab4d_tpu_torch.scripts import (create_collage, render_intermediate, run_crop_all,
+                                     run_rendering_parallel, train_depth_unet, train_feat_net,
+                                     train_flow_raft, train_seg_unet, train_viewpoint,
+                                     validate_adversarial)
+from lab4d_tpu_torch.browser import app
+from lab4d_tpu_torch.tools.synthetic_adversarial import make_adversarial_dataset
 import numpy as np, torch
 root = sys.argv[1]
+train_depth_unet.main(steps=2, res=32, batch=1, out_path=root + '/w/depth_unet.msgpack',
+                      device='cpu')
+from lab4d_tpu_torch.preprocess.backends import depth_unet
+assert depth_unet.load_model(path=root + '/w/depth_unet.msgpack') is not None
 a = (np.random.default_rng(0).random((40, 40, 3)) * 255).astype(np.uint8)
 fw, bw = flow_classical.compute_pair_flow(a, np.roll(a, 2, 1), res=32, device='cpu')
 assert fw.shape == (32, 32, 3) and np.isfinite(fw).all()
@@ -150,14 +181,14 @@ out = render.main(common + ['--load_suffix', 'latest', '--render_res', '4', '--f
 assert out['rgb'].shape == (1, 4, 4, 3)
 loaded = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})
 assert not loaded, loaded
-loaded = sorted(m for m in sys.modules if m.split('.')[0] in ('optax', 'sklearn', 'preprocess'))
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in {outside!r} + ('sklearn',))
 assert not loaded, loaded
 print('isolated ok')
 """
 
 
 def test_train_and_render_without_jax(tmp_path):
-    code = _PROGRAM.format(forbidden=FORBIDDEN)
+    code = _PROGRAM.format(forbidden=PORT_FORBIDDEN, outside=OUTSIDE)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)

@@ -1,7 +1,8 @@
 """The port's visualization and profiling utilities against the JAX
 package's: utils/raster.py (render_mesh, look_at, turntable_frames),
-utils/vis.py's draw_cams, minmax_normalize and image_to_mesh, all equal
-exactly on the same numpy inputs; and utils/profile.py, whose spans
+utils/vis.py's draw_cams, minmax_normalize, image_to_mesh and
+img2color (depth through the embedded plasma table, no matplotlib), all
+equal exactly on the same numpy inputs; and utils/profile.py, whose spans
 appear by name in a CPU torch.profiler trace and whose cuda_profile
 writes a Chrome trace.
 """
@@ -68,6 +69,19 @@ def test_minmax_normalize_matches_jax():
     x = np.random.default_rng(2).standard_normal((5, 7)).astype(np.float32)
     np.testing.assert_array_equal(vis.minmax_normalize(x), jax_vis.minmax_normalize(x))
     np.testing.assert_array_equal(vis.minmax_normalize(np.ones(3)), jax_vis.minmax_normalize(np.ones(3)))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_depth_colors_match_jax(dtype):
+    rng = np.random.default_rng(4)
+    depth = (rng.random((2, 33, 31)) * 4).astype(dtype)
+    depth[0, :5] = 0.0  # background
+    for tag, img in (("depth", depth[0]), ("depth", depth[1][..., None]), ("mask", depth[0] / 4)):
+        np.testing.assert_array_equal(vis.img2color(tag, img), jax_vis.img2color(tag, img))
+    x = np.array([0.0, 1.0, 1 - 1e-12, -0.5, 1.5, np.nan, 0.5, 255 / 256], dtype)
+    import matplotlib.cm as cm
+
+    np.testing.assert_array_equal(vis.plasma(x), cm.plasma(x)[..., :3])
 
 
 @pytest.mark.parametrize("with_mask", [False, True])
