@@ -10,9 +10,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lab4d_tpu_torch.engine import jax_streams
 from lab4d_tpu_torch.utils.loss import align_vectors
 
 
@@ -39,11 +41,12 @@ def fit_until_converged(loss_fn: Callable, params, tol: float, lr: float = 1e-3,
     return loss, iters
 
 
-def field_init_terms(field, pts, inst_id):
-    """SDF, visibility logit and per-point eikonal of one field."""
+def field_init_terms(field, pts, inst_id, eikonal_idx):
+    """SDF, visibility logit and per-point eikonal (at the points
+    eikonal_idx) of one field."""
     sdf = field.forward(pts, inst_id=inst_id, get_density=False)
     vis = field.vis_mlp(pts, inst_id=inst_id)
-    eik = field.compute_eikonal(pts[:, None, None], inst_id=inst_id)
+    eik = field.compute_eikonal(pts[:, None, None], inst_id=inst_id, idx=eikonal_idx)
     return sdf, vis, eik
 
 
@@ -52,15 +55,23 @@ def fit_geometry(model, pools: Dict[str, Dict[str, torch.Tensor]], num_steps: in
     """SDF distillation from the proxy geometry.
 
     pools: per category {"pts": (S, n, 3), "sdf_gt": (S, n, 1),
-    "inst_id": (S, n)} sampled on the host, S >= num_steps. Returns the
-    first and last losses."""
+    "inst_id": (S, n)} sampled on the host, S >= num_steps. Step s takes
+    its eikonal points as the JAX package's fit does, from
+    fold_in(PRNGKey(7), s) (jax_streams.prior_fit_eikonal), all drawn
+    before the loop and moved in one copy. Returns the first and last
+    losses."""
     opt = torch.optim.Adam(list(model.parameters()), lr=lr)
+    eikonal = jax_streams.to_device(
+        {cate: {"idx": np.stack([jax_streams.prior_fit_eikonal(s, cate, pool["pts"].shape[1])
+                                 for s in range(num_steps)])}
+         for cate, pool in pools.items()}, next(iter(pools.values()))["pts"].device)
     losses = []
     for step in range(num_steps):
         total = 0.0
         for cate, pool in pools.items():
             field = model.fields.field_params[cate]
-            sdf, vis, eik = field_init_terms(field, pool["pts"][step], pool["inst_id"][step])
+            sdf, vis, eik = field_init_terms(field, pool["pts"][step], pool["inst_id"][step],
+                                             eikonal[cate]["idx"][step])
             sdf_gt = pool["sdf_gt"][step]
             scale = align_vectors(sdf, sdf_gt).detach()
             sdf_loss = torch.mean((sdf * scale - sdf_gt) ** 2)

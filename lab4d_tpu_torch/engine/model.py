@@ -4,8 +4,9 @@ lab4d_tpu/engine/model.py.
 
 Geometry state (aabb, per-frame near-far, proxy corners) arrives in
 batch["geo"], as in the JAX package. The training forward takes the
-schedule values of the step (`sched`, engine/schedules.py) and, for tests,
-the random draws of the regularizers (`draws`).
+schedule values of the step (`sched`, engine/schedules.py) and the step
+index, from whose key it derives the step's random draws as the JAX
+package does (engine/jax_streams.py); a test may hand in draws of its own.
 """
 
 from __future__ import annotations
@@ -16,11 +17,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from lab4d_tpu_torch.nnutils.embedding import FrameInfo
+from lab4d_tpu_torch import bridge
+from lab4d_tpu_torch.engine import jax_streams
+from lab4d_tpu_torch.nnutils.embedding import FrameInfo, InstEmbedding
 from lab4d_tpu_torch.nnutils.intrinsics import IntrinsicsMLP
 from lab4d_tpu_torch.nnutils.multifields import MultiFields
 from lab4d_tpu_torch.ops.renderer import render_pixel
 from lab4d_tpu_torch.parallel import dist
+from lab4d_tpu_torch.utils import jax_random as jr
 from lab4d_tpu_torch.utils.geom import K2inv, K2mat
 from lab4d_tpu_torch.utils.loss import nonzero_count, nonzero_mean
 
@@ -49,9 +53,12 @@ class DVRModel(nn.Module):
     """Differentiable volume rendering model over one field, or the fg and
     bg fields composed (field_type "comp").
 
-    The module is built from `generator` on the CPU and then moved to
-    `device` (the card unless the caller asks for the CPU). Training needs
-    the priors: intrinsics_init (M, 4) and rtmat_fg / rtmat_bg (M, 4, 4),
+    The module is built on the CPU and then moved to `device` (the card
+    unless the caller asks for the CPU). Its parameters are flax's init of
+    the JAX model at PRNGKey(0), the JAX trainer's params key
+    (jax_streams.init_params_like_jax), or torch draws from `generator`
+    where one is given (tests that load params afterwards).
+    Training needs the priors: intrinsics_init (M, 4) and rtmat_fg / rtmat_bg (M, 4, 4),
     and the skeleton's joint_angles_init (M, B, 3) where there is one,
     and takes train_res (the flow threshold, in pixels) and loss_weights
     ((flag name, value) pairs).
@@ -65,8 +72,6 @@ class DVRModel(nn.Module):
                  train_res: int = 256, loss_weights=(),
                  joint_angles_init: Optional[np.ndarray] = None):
         super().__init__()
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
         self.frame_info = frame_info
         self.field_type = field_type
         self.num_inst = num_inst
@@ -79,6 +84,11 @@ class DVRModel(nn.Module):
                                         generator=generator)
         self.register_buffer("frame_offset_raw", torch.as_tensor(frame_info.frame_offset_raw),
                              persistent=False)
+        for name, m in self.named_modules():
+            if isinstance(m, InstEmbedding):  # its flax scope, where its swaps draw
+                m.scope = bridge.torch_to_flax_path(name + ".mapping.weight")[0][:-2]
+        if generator is None:
+            jax_streams.init_params_like_jax(self, jr.PRNGKey(0))
         self.to(device)
 
     def process_frameid(self, batch):
@@ -113,22 +123,42 @@ class DVRModel(nn.Module):
 
     # -------------------------------------------------------------- training
 
-    def forward(self, batch, sched, draws=None, generator=None):
+    def step_draws(self, batch, step: int, given=None):
+        """The random draws of training step `step` on `batch` (this rank's
+        block of the global batch inside sharded_batch()): the JAX
+        package's draws from fold_in(PRNGKey(42), step) at the global
+        batch's shape (jax_streams.training_draws), made on the host and
+        moved to the device in one copy, with the entries of `given`
+        ({cate: {name: array}}, a test's) in place of the derived ones."""
+        _, world = dist.batch_shards()
+        M, _, N = batch["hxy"].shape[:3]
+        draws = jax_streams.training_draws(self, step, 2 * M * N * world,
+                                           with_match="feature" in batch)
+        for cate, d in (given or {}).items():
+            draws[cate] = {**draws.get(cate, {}), **d}
+        dev = batch["hxy"].device
+        draws = jax_streams.to_device(draws, dev)
+        return {c: {k: (torch.as_tensor(v).to(dev) if k != "swap" else v)
+                    for k, v in d.items()} if isinstance(d, dict) else d
+                for c, d in draws.items()}
+
+    def forward(self, batch, sched, draws=None, step: int = 0):
         """Training forward of one batch of (M, 2, N, ...) frame pairs:
         returns the weighted, reduced loss terms {name: scalar}.
 
-        sched: the step's schedule values; draws: optional injected random
-        draws per field ({cate: {"eikonal_idx", "vis_u", "vis_inst",
-        "match_idx", "gauss_u", "soft_u", "soft_frame", "soft_inst",
-        "swap"}}; "swap": the instance-code swaps' (rand_id, u) pairs in
-        the JAX package's call order); generator: the source of the swap
-        draws not given (the trainer's).
+        sched: the step's schedule values; step: the step's index, from
+        whose key the step's random draws derive (step_draws); draws:
+        optional draws per field in place of those ({cate: {"eikonal_idx",
+        "vis_u", "vis_inst", "match_idx", "gauss_u", "soft_u",
+        "soft_frame", "soft_inst", "swap"}}; "swap": the instance-code
+        swaps' (rand_id, u) pairs in the JAX package's call order).
 
         Inside parallel/dist.py's sharded_batch(), `batch` is this rank's
         block of a global batch, the draws (given or made) are the global
         batch's, and the terms returned are this rank's shares: summed over
         the ranks they are the terms of the one-process forward on the
         global batch, and so are their gradients."""
+        draws = self.step_draws(batch, step, draws)
         batch = dict(batch)
         geo = batch.pop("geo")
         batch = self.reshape_batch(self.process_frameid(batch))
@@ -136,7 +166,7 @@ class DVRModel(nn.Module):
         samples_dict = self.get_samples(batch, train=True)
         multifields_dict, deltas_dict, aux_dict = self.fields.query_multifields(
             samples_dict, alpha=sched["alpha"], train=True, flow_thresh=self.train_res,
-            draws=draws, beta_prob=sched["beta_prob"], generator=generator,
+            draws=draws, beta_prob=sched["beta_prob"],
         )
         rendered = render_pixel(*self.fields.compose_fields(multifields_dict, deltas_dict))
         if len(multifields_dict) == 1:  # one field: its own render is the composed one

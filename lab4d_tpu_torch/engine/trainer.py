@@ -17,8 +17,13 @@ the rank trains on its block of it; the step's reductions are global, the
 gradients are summed over the ranks before the skip-not-clip, so every
 rank takes the update of the one-process step on the global batch. Rank
 0 alone renders the eval, logs, refreshes the proxy geometry (broadcast
-to the others) and writes files; the ranks' params and generators are
-checked to agree at each round's end.
+to the others) and writes files; the ranks' params are checked to agree
+at each round's end.
+
+The random streams are the JAX trainer's (engine/jax_streams.py): the
+params from flax's init at PRNGKey(0), the prior fit's eikonal rays from
+fold_in(PRNGKey(7), step) and each training step's draws from
+fold_in(PRNGKey(42), step), derived alike on every rank.
 """
 
 from __future__ import annotations
@@ -135,9 +140,6 @@ class Trainer:
     """Train a model of the port on one device, or on one rank of a process
     group (parallel/dist.py) whose size is opts["ngpu"]."""
 
-    # the source of the instance-code swap draws (trainer_init seeds one on
-    # the device; None: torch's default generator)
-    swap_generator = None
     # the learning rate of an update is the schedule at (step -
     # lr_step_offset): the optimizer's own update count, as the JAX
     # trainer's optax schedule reads it. A resumed run's Adam count may
@@ -206,7 +208,6 @@ class Trainer:
         self.log = make_logger(self.save_dir) if dist.is_main() else NullLogger()
         self.current_steps = 0
         self.current_round = 0
-        self.swap_generator = torch.Generator(device=self.device).manual_seed(2)
         self.step_ms: List[float] = []
         self.grad_norms: List[float] = []
         self.losses: List[Dict[str, float]] = []
@@ -218,10 +219,10 @@ class Trainer:
         info = self.data_info
         fi = info["frame_info"]
         self.categories = ("fg", "bg") if opts["field_type"] == "comp" else (opts["field_type"],)
+        # no generator: flax's init at PRNGKey(0), as the JAX trainer's
         self.model = DVRModel(
             fi, field_type=opts["field_type"], fg_motion=opts["fg_motion"],
             num_inst=1 if opts["single_inst"] else fi.num_vids, device=self.device,
-            generator=torch.Generator().manual_seed(0),
             intrinsics_init=info["intrinsics"], rtmat_fg=info["rtmat"][info["vis_info"]["fg"]],
             rtmat_bg=info["rtmat"][info["vis_info"]["bg"]], train_res=opts["train_res"],
             joint_angles_init=info.get("joint_angles"),
@@ -389,12 +390,11 @@ class Trainer:
         self.geo_state, self.proxy = dist.broadcast_object((self.geo_state, self.proxy))
 
     def check_in_sync(self):
-        """Over ranks: raise unless every rank holds the same params and the
-        same state of the generator the step draws from."""
+        """Over ranks: raise unless every rank holds the same params (the
+        steps' draws derive from the step index alike on every rank)."""
         if dist.world_size() == 1:
             return
-        dist.check_in_sync({"params": dist.checksum(list(self.model.parameters())),
-                            "generator": dist.rng_state_checksum(self.device)})
+        dist.check_in_sync({"params": dist.checksum(list(self.model.parameters()))})
 
     def train_step(self, batch, step: int, draws=None):
         """One AdamW update on a device batch; returns (loss dict of device
@@ -402,10 +402,10 @@ class Trainer:
         block of the global batch, `draws` the global batch's draws, the
         loss terms returned are this rank's shares (summed over the ranks,
         the global batch's terms) and the norm is that of the gradient
-        summed over the ranks."""
+        summed over the ranks. The step's random draws derive from `step`
+        (DVRModel.step_draws); `draws` replaces those it gives."""
         with dist.sharded_batch():
-            loss_dict = self.model(batch, compute_sched(step), draws=draws,
-                                   generator=self.swap_generator)
+            loss_dict = self.model(batch, compute_sched(step), draws=draws, step=step)
         total = sum(loss_dict[k] for k in sorted(loss_dict))
         self.optimizer.zero_grad(set_to_none=True)
         frozen = self.frozen_params
@@ -475,12 +475,7 @@ class Trainer:
         every 10 steps in one transfer (over ranks, the losses summed over
         the ranks in one collective); a spike triggers the rollback then.
         On the card each step's time is kept (CUDA events) in step_ms. Over
-        ranks the round starts with torch's generators seeded alike on every
-        rank and ends with check_in_sync."""
-        if dist.world_size() > 1:
-            # every rank makes the round's draws from the same generator state,
-            # whatever rank 0 alone drew before (eval, logging)
-            torch.manual_seed(round_count + 1)
+        ranks the round ends with check_in_sync."""
         geo = self.geo_for_batch()
         pending = []
         timing = self.device.type == "cuda"

@@ -129,15 +129,13 @@ class Deformable(FeatureNeRF):
             valid = valid & (torch.linalg.norm(flow, dim=-1, keepdim=True) < float(flow_thresh))
         return {"flow": torch.cat([flow, valid.to(flow.dtype)], dim=-1)}, cyc_dict
 
-    def gauss_skin_consistency_loss(self, aabb, alpha=None, u=None, nsample: int = 2048):
+    def gauss_skin_consistency_loss(self, aabb, alpha=None, u=None):
         """BCE between the rest-pose bone-Gaussian density and the field's
         own (detached, clipped) density at points of the aabb, balanced
-        between inside and outside. u: (nsample, 3) uniform draws, drawn
-        here when not given. Zero without skinning."""
+        between inside and outside. u: (n, 3) uniform draws (n = 2048 in
+        training). Zero without skinning."""
         if not self.has_skinning:
             return self.logscale.new_zeros(())
-        if u is None:
-            u = torch.rand(nsample, 3, device=aabb.device)
         pts = self.sample_points_aabb(u, aabb, extend_factor=0.25)
         density_gauss = self.warp.get_gauss_density(pts)
         density = self.forward(pts, inst_id=None, get_density=True, alpha=alpha)
@@ -149,20 +147,13 @@ class Deformable(FeatureNeRF):
         bce = -(density * torch.log(dg) + (1 - density) * torch.log(1 - dg))
         return torch.mean(bce * weight)
 
-    def soft_deform_loss(self, aabb, nsample: int = 1024, u=None, frame_id=None, inst_id=None):
+    def soft_deform_loss(self, aabb, u=None, frame_id=None, inst_id=None):
         """The composed warp's post-warp displacement (compute_post_warp_dist2)
-        at points of the aabb, random raw frames and instances. u: (nsample,
-        3) uniform draws, frame_id and inst_id: (nsample,), drawn here when
-        not given. Zero for the other warps."""
+        at points of the aabb, random raw frames and instances. u: (n, 3)
+        uniform draws, frame_id and inst_id: (n,) (n = 1024 in training).
+        Zero for the other warps."""
         if not isinstance(self.warp, ComposedWarp):
             return self.logscale.new_zeros(())
-        dev = aabb.device
-        if u is None:
-            u = torch.rand(nsample, 3, device=dev)
-        if frame_id is None:
-            frame_id = torch.randint(0, self.frame_info.num_frames_raw, (nsample,), device=dev)
-        if inst_id is None:
-            inst_id = torch.randint(0, self.frame_info.num_vids, (nsample,), device=dev)
         pts = self.sample_points_aabb(u, aabb, extend_factor=1.0)
         return self.warp.compute_post_warp_dist2(pts[:, None, None], frame_id, inst_id).mean()
 

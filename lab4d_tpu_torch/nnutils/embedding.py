@@ -2,13 +2,14 @@
 
 Port of lab4d_tpu/nnutils/embedding.py. In training the instance codes
 of a multi-video model are swapped at random (InstEmbedding), with the
-draws taken from a SwapDraws source: pairs a test hands in, else an
-explicit torch.Generator.
+draws taken from a SwapDraws source: pairs a test hands in, else the
+training step's swap key, from which each embedding draws at its flax
+scope (`InstEmbedding.scope`, set by DVRModel) as the JAX package does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,6 +17,8 @@ from torch import nn
 
 from lab4d_tpu_torch.nnutils.linear import TorchDense
 from lab4d_tpu_torch.parallel import dist
+from lab4d_tpu_torch.utils import flax_rng
+from lab4d_tpu_torch.utils import jax_random as jr
 
 
 class FrameInfo:
@@ -126,26 +129,32 @@ class PosEmbedding(nn.Module):
 class SwapDraws:
     """The random draws of the instance-code swaps of one training forward:
     one (rand_id (R,), u (inst_id's shape)) pair per InstEmbedding call that
-    swaps, taken in call order. The pairs given are taken first (a test's),
-    then draws from `generator` (None: torch's default generator). Where
-    the rows are one rank's block of a sharded batch (parallel/dist.py),
-    the pairs are the global batch's (given or drawn so) and the rank takes
-    the rows of its block."""
+    swaps. The pairs given are taken first, in call order (a test's); then
+    each call draws as the JAX package's InstEmbedding does from the step's
+    swap root `key`: split(make_rng("swap")) at the embedding's flax scope,
+    counted per scope (utils/flax_rng.py), randint ids and uniform u, on
+    the host. Where the rows are one rank's block of a sharded batch
+    (parallel/dist.py), the pairs are the global batch's (given or drawn
+    so) and the rank takes the rows of its block."""
 
-    def __init__(self, pairs=(), generator: Optional[torch.Generator] = None):
+    def __init__(self, pairs=(), key=None):
         self.pairs = list(pairs)
-        self.generator = generator
+        self.key = key
+        self.counts: dict = {}
 
-    def take(self, inst_id: torch.Tensor, num_inst: int):
+    def take(self, inst_id: torch.Tensor, num_inst: int, scope: Tuple[str, ...] = ()):
         rank, world = dist.batch_shards()
         if self.pairs:
             rand_id, u = self.pairs.pop(0)
+        elif self.key is None:
+            raise ValueError("an instance-code swap without draws: give its pairs or the "
+                             "step's swap key")
         else:
-            g = self.generator
-            dev = inst_id.device if g is None else g.device
+            count = self.counts[scope] = self.counts.get(scope, 0) + 1
+            r_id, r_mask = jr.split(flax_rng.make_rng(self.key, scope, count))
             rows = inst_id.shape[0] * world
-            rand_id = torch.randint(0, num_inst, (rows,), generator=g, device=dev)
-            u = torch.rand((rows,) + tuple(inst_id.shape[1:]), generator=g, device=dev)
+            rand_id = torch.from_numpy(jr.randint(r_id, (rows,), 0, num_inst).astype(np.int64))
+            u = torch.from_numpy(jr.uniform(r_mask, (rows,) + tuple(inst_id.shape[1:])))
         if world > 1:
             rand_id, u = dist.block(rand_id, rank, world), dist.block(u, rank, world)
         return rand_id.to(inst_id.device), u.to(inst_id.device)
@@ -153,7 +162,10 @@ class SwapDraws:
 
 class InstEmbedding(nn.Module):
     """Learnable per-video instance code, with code-swap regularization in
-    training."""
+    training. `scope`: the embedding's flax scope path, from which its
+    swap draws derive."""
+
+    scope: Tuple[str, ...] = ()
 
     def __init__(self, num_inst: int, inst_channels: int,
                  generator: Optional[torch.Generator] = None):
@@ -170,14 +182,14 @@ class InstEmbedding(nn.Module):
         """Codes of inst_id (R, ...). In training with a beta_prob, each
         element takes, with probability beta_prob, the id drawn for its
         leading row (one random id per row, broadcast over the row); swap:
-        the draws' source (None: torch's default generator). One instance
-        has no swap."""
+        the draws' source (SwapDraws; without one a swap raises). One
+        instance has no swap."""
         if self.inst_channels == 0:
             return torch.zeros(inst_id.shape + (0,), device=inst_id.device)
         if self.num_inst == 1:
             return self.mapping(torch.zeros_like(inst_id))
         if train and beta_prob is not None:
-            rand_id, u = (swap or SwapDraws()).take(inst_id, self.num_inst)
+            rand_id, u = (swap or SwapDraws()).take(inst_id, self.num_inst, self.scope)
             rand_id = rand_id.reshape((inst_id.shape[0],) + (1,) * (inst_id.ndim - 1))
             inst_id = torch.where(u < beta_prob, rand_id.expand(inst_id.shape), inst_id)
         return self.mapping(inst_id)

@@ -124,8 +124,8 @@ class FeatureNeRF(NeRF):
     def query_field(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
                     draws=None, topk=None, channels=None, beta_prob=None, swap=None):
         """NeRF.query_field plus, in training, the canonical feature and the
-        global match of the pixel features (draws: optional {"match_idx":
-        (1024,) candidate sample ids}) reprojected into the frame."""
+        global match of the pixel features (draws["match_idx"]: the (1024,)
+        candidate sample ids) reprojected into the frame."""
         feat_dict, deltas, aux_dict = super().query_field(
             samples_dict, alpha=alpha, train=train, flow_thresh=flow_thresh, draws=draws,
             topk=topk, channels=channels, beta_prob=beta_prob, swap=swap)
@@ -135,8 +135,7 @@ class FeatureNeRF(NeRF):
         if "feature" not in feat_dict:
             feat_dict.update(self.compute_feat(xyz))
         if "feature" in samples_dict:
-            idx = None if draws is None else draws.get("match_idx")
-            xyz_matches = self.global_match(samples_dict["feature"], xyz, idx=idx)
+            xyz_matches = self.global_match(samples_dict["feature"], xyz, draws["match_idx"])
             xy_reproj, xyz_reproj = self.forward_project(
                 xyz_matches, samples_dict["field2cam"], samples_dict["Kinv"],
                 samples_dict["frame_id"], samples_dict["inst_id"], samples_dict=samples_dict)
@@ -155,25 +154,22 @@ class FeatureNeRF(NeRF):
             feat = self.feature_field(xyz, pe_spec=freqs, fused=fused)
         return {"feature": feat / torch.clamp(safe_norm(feat), min=1e-6)}
 
-    def global_match(self, feat_px, xyz_canonical, num_candidates: int = 1024, idx=None):
+    def global_match(self, feat_px, xyz_canonical, idx):
         """Soft-argmax match of pixel features (M, N, C) against the
-        canonical samples at `num_candidates` ids drawn with replacement
-        (idx: the draw, (k,)); the candidates' features are evaluated anew
-        through the plain feature MLP. Returns (M, N, 3) matched points.
+        canonical samples at the ids `idx` ((k,), drawn with replacement);
+        the candidates' features are evaluated anew through the plain
+        feature MLP. Returns (M, N, 3) matched points.
 
         Where the samples are one rank's block of a sharded batch
-        (parallel/dist.py), the ids are drawn over the global batch's
-        samples (or given so), and each candidate comes from the rank that
-        holds it (all_gather, its gradient carried back there): every rank
-        matches against the global batch's candidate set."""
+        (parallel/dist.py), the ids are the global batch's samples', and
+        each candidate comes from the rank that holds it (all_gather, its
+        gradient carried back there): every rank matches against the
+        global batch's candidate set."""
         shape = feat_px.shape
         feat_px = feat_px.reshape(-1, shape[-1])
         xyz_canonical = xyz_canonical.reshape(-1, 3)
         total = xyz_canonical.shape[0]
         rank, world = dist.batch_shards()
-        if idx is None:
-            idx = torch.randint(0, total * world, (min(num_candidates, total * world),),
-                                device=xyz_canonical.device)
         if world > 1:
             local = idx.to(xyz_canonical.device) - rank * total
             mine = ((local >= 0) & (local < total))[:, None]

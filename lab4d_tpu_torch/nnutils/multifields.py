@@ -84,17 +84,19 @@ class MultiFields(nn.Module):
         return samples_dict
 
     def query_multifields(self, samples_dict, alpha=None, train: bool = False, flow_thresh=None,
-                          draws=None, topk=None, channels=None, beta_prob=None, generator=None):
+                          draws=None, topk=None, channels=None, beta_prob=None):
         """Per-field query_field; topk and channels: the eval's (see
-        NeRF.query_field_eval). In training, beta_prob is the instance-code
-        swap probability; each field's swap draws are draws[cate]["swap"]
-        ((rand_id, u) pairs in call order), else drawn from `generator`."""
+        NeRF.query_field_eval). In training, draws are the step's
+        (DVRModel.step_draws: draws[cate] the field's, draws["swap_key"] the
+        swap root) and beta_prob is the instance-code swap probability;
+        each field's swap draws are draws[cate]["swap"] ((rand_id, u) pairs
+        in call order) where given, else derived from the swap root."""
         multifields_dict, deltas_dict, aux_dict = {}, {}, {}
         for cate in self.categories:
             field = self.field_params[cate]
             if train:
-                d = None if draws is None else draws.get(cate)
-                swap = SwapDraws((d or {}).get("swap", ()), generator)
+                d = draws[cate]
+                swap = SwapDraws(d.get("swap", ()), draws.get("swap_key"))
                 out = field.query_field(samples_dict[cate], alpha=alpha, train=True,
                                         flow_thresh=flow_thresh, draws=d,
                                         beta_prob=beta_prob, swap=swap)
@@ -128,13 +130,13 @@ class MultiFields(nn.Module):
 
     # ------------------------------------------------------------- reg terms
 
-    def visibility_decay_loss(self, aabbs, draws=None):
-        """draws: optional {cate: {"vis_u": (n, 3), "vis_inst": (n,)}}."""
+    def visibility_decay_loss(self, aabbs, draws):
+        """draws: {cate: {"vis_u": (n, 3), "vis_inst": (n,)}}."""
         loss = 0.0
         for cate in self.categories:
-            d = {} if draws is None else draws.get(cate, {})
+            d = draws[cate]
             loss = loss + self.field_params[cate].visibility_decay_loss(
-                aabbs[cate], u=d.get("vis_u"), inst_id=d.get("vis_inst"))
+                aabbs[cate], u=d["vis_u"], inst_id=d["vis_inst"])
         return loss
 
     def cam_prior_loss(self):
@@ -144,20 +146,21 @@ class MultiFields(nn.Module):
         return loss
 
     def gauss_skin_consistency_loss(self, aabbs, alpha=None, draws=None):
-        """draws: optional {cate: {"gauss_u": (2048, 3)}}."""
+        """draws: {cate: {"gauss_u": (2048, 3)}} where the field has
+        skinning."""
         loss = 0.0
         for cate in self.categories:
-            d = {} if draws is None else draws.get(cate, {})
+            d = draws[cate]
             loss = loss + self.field_params[cate].gauss_skin_consistency_loss(
                 aabbs[cate], alpha=alpha, u=d.get("gauss_u"))
         return loss
 
     def soft_deform_loss(self, aabbs, draws=None):
-        """draws: optional {cate: {"soft_u": (1024, 3), "soft_frame":
-        (1024,), "soft_inst": (1024,)}}."""
+        """draws: {cate: {"soft_u": (1024, 3), "soft_frame": (1024,),
+        "soft_inst": (1024,)}} where the field's warp is composed."""
         loss = 0.0
         for cate in self.categories:
-            d = {} if draws is None else draws.get(cate, {})
+            d = draws[cate]
             loss = loss + self.field_params[cate].soft_deform_loss(
                 aabbs[cate], u=d.get("soft_u"), frame_id=d.get("soft_frame"),
                 inst_id=d.get("soft_inst"))

@@ -210,8 +210,8 @@ class NeRF(nn.Module):
         """Per-ray field channels: at eval the merged two-pass path, exact
         or top-k (see query_field_eval); in training, 64 samples per ray ->
         backward warp -> field heads (fused kernels) -> flow, cycle and
-        eikonal channels. draws: optional {"eikonal_idx": (S,) ray ids}
-        (see compute_eikonal); beta_prob, swap: the instance-code swap of
+        eikonal channels. draws: the step's draws, {"eikonal_idx": (S,)
+        ray ids, ...} (see compute_eikonal); beta_prob, swap: the instance-code swap of
         the field's heads where codes vary per row (NeRF.forward)."""
         if not train:
             return self.query_field_eval(samples_dict, topk=topk, channels=channels)
@@ -235,8 +235,8 @@ class NeRF(nn.Module):
         feat_dict.update(flow_dict)
         for k in cyc_dict:
             feat_dict[k] = (cyc_dict[k] + backwarp_dict[k]) / 2 if k in backwarp_dict else cyc_dict[k]
-        idx = None if draws is None else draws.get("eikonal_idx")
-        feat_dict["eikonal"] = self.compute_eikonal(xyz, inst_id=inst_id, alpha=alpha, idx=idx)
+        feat_dict["eikonal"] = self.compute_eikonal(xyz, inst_id=inst_id, alpha=alpha,
+                                                    idx=draws["eikonal_idx"])
         feat_dict["xyz"] = xyz
         feat_dict["xyz_cam"] = xyz_cam
         feat_dict["depth"] = depth / torch.exp(self.logscale)  # world units
@@ -527,22 +527,18 @@ class NeRF(nn.Module):
                                       flow_thresh=flow_thresh)
         return flow_dict, self.cycle_loss(xyz, xyz_t, frame_id, inst_id, samples_dict, train=True)
 
-    def compute_eikonal(self, xyz, inst_id=None, sample_ratio: int = 16, alpha=None, idx=None):
-        """Eikonal term (|grad sdf| - 1)^2 at the samples of a random
-        1/sample_ratio of the rays, in canonical space: (S, D, 1), or
-        (M, N, D, 1) with zeros elsewhere for an eikonal_dense field.
+    def compute_eikonal(self, xyz, inst_id=None, alpha=None, *, idx):
+        """Eikonal term (|grad sdf| - 1)^2 at the samples of the rays `idx`
+        ((S,) ray ids, a 1/16 of the rays drawn without replacement:
+        engine/jax_streams.py eikonal_rays), in canonical space: (S, D, 1),
+        or (M, N, D, 1) with zeros elsewhere for an eikonal_dense field.
 
-        idx: (S,) ray ids, drawn without replacement when not given. The
-        SDF goes through the plain MLP chain (fused=False) because the loss
-        differentiates its gradient once more. Where the rays are one
+        The SDF goes through the plain MLP chain (fused=False) because the
+        loss differentiates its gradient once more. Where the rays are one
         rank's block of a sharded batch (parallel/dist.py), the ids are
-        drawn over the global batch's rays (or given so) and the rank
-        evaluates those in its block."""
+        the global batch's and the rank evaluates those in its block."""
         M, N, Dd, _ = xyz.shape
         rank, world = dist.batch_shards()
-        sample_size = max(1, (M * N * world) // sample_ratio)
-        if idx is None:
-            idx = torch.randperm(M * N * world, device=xyz.device)[:sample_size]
         if world > 1:
             idx = idx.to(xyz.device)
             idx = idx[(idx >= rank * M * N) & (idx < (rank + 1) * M * N)] - rank * M * N
@@ -566,14 +562,9 @@ class NeRF(nn.Module):
         aabb = extend_aabb(aabb, factor=extend_factor)
         return aabb[0] + u * (aabb[1] - aabb[0])
 
-    def visibility_decay_loss(self, aabb, nsample: int = 512, u=None, inst_id=None):
-        """Push visibility down at random points of the aabb. u: (nsample, 3)
-        uniform draws and inst_id: (nsample,) instance ids, drawn here when
-        not given."""
-        if u is None:
-            u = torch.rand(nsample, 3, device=aabb.device)
-        if inst_id is None:
-            inst_id = torch.randint(0, self.num_inst, (nsample,), device=aabb.device)
+    def visibility_decay_loss(self, aabb, u, inst_id):
+        """Push visibility down at random points of the aabb. u: (n, 3)
+        uniform draws, inst_id: (n,) instance ids (n = 512 in training)."""
         vis = self.vis_mlp(self.sample_points_aabb(u, aabb), inst_id=inst_id)
         return -F.logsigmoid(-vis).mean()
 

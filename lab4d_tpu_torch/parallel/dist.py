@@ -287,16 +287,9 @@ def checksum(tensors: Sequence[torch.Tensor]) -> float:
     return 0.0 if total is None else float(total.item())
 
 
-def rng_state_checksum(device: torch.device) -> float:
-    """A checksum of torch's default generator on `device`, the source of
-    the training step's random draws."""
-    state = torch.cuda.get_rng_state(device) if device.type == "cuda" else torch.get_rng_state()
-    return checksum([state.to(torch.float64)])
-
-
 def check_in_sync(named: Dict[str, float]):
     """Raise unless every rank holds the same values (e.g. checksums of
-    the params and the generators): ranks that drifted apart would train
+    the params): ranks that drifted apart would train
     silently on different models."""
     if world_size() == 1:
         return

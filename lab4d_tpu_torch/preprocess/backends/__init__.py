@@ -4,14 +4,16 @@ Each prior (flow, depth, segmentation, features) has a classical backend
 that needs no weights and a neural one that runs when its weights, which
 ship in database/weights/, load. Selection via env vars:
 
-  LAB4D_DEPTH_BACKEND   = unet | flowdisp | const      (default: auto)
-  LAB4D_SEG_BACKEND     = unet | grabcut | full        (default: auto)
-  LAB4D_FEAT_BACKEND    = net | filterbank             (default: auto)
-  LAB4D_FLOW_BACKEND    = raft | classical             (default: auto)
+  LAB4D_DEPTH_BACKEND   = zoe | unet | flowdisp | const      (default: auto)
+  LAB4D_SEG_BACKEND     = external | unet | grabcut | full   (default: auto)
+  LAB4D_FEAT_BACKEND    = dinov2 | net | filterbank          (default: auto)
+  LAB4D_FLOW_BACKEND    = raft | classical                   (default: auto)
 
-"auto" picks the neural backend if its weights load, else the classical
-one. (The JAX package's torch.hub and plugin backends, ZoeDepth, DINOv2,
-Track-Anything and the CSE viewpoint head, are not part of the port.)
+"auto" picks, as the JAX package does, a torch.hub model whose repo the
+hub cache already holds (ZoeDepth, DINOv2) or a plugin module that
+imports (`track_anything_cli`; `cse_viewpoint` for the canonical
+rotations, scripts/canonical_registration.py), else the neural backend
+if its weights load, else the classical one. Nothing is downloaded.
 """
 
 import os

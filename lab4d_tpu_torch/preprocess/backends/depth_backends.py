@@ -1,5 +1,7 @@
 """Monocular depth backends (port of preprocess/backends/depth_backends.py).
 
+  zoe       — ZoeDepth (ZoeD_NK) through torch.hub, chosen only when the
+              hub cache already holds its repo (nothing is downloaded)
   unet      — the monocular depth U-Net (depth_unet.py) when its weights,
               which ship in database/weights/, load
   flowdisp  — classical fallback: motion-parallax proxy depth. For a
@@ -10,8 +12,7 @@
               median scene depth to ~3 units, with temporal smoothing.
   const     — constant depth (3.0) everywhere
 
-(The JAX package's ZoeDepth backend, which needs torch.hub weights, is
-not part of the port.) Output contract: Depth/<seq>/%05d.npy float16.
+Output contract: Depth/<seq>/%05d.npy float16.
 """
 
 from __future__ import annotations
@@ -25,6 +26,29 @@ import numpy as np
 
 MEDIAN_DEPTH = 3.0
 EPS = 1e-3
+
+
+def _probe_zoe() -> bool:
+    """Whether torch.hub's cache already holds ZoeDepth (or the MiDaS repo
+    it builds on): the backend is never chosen where it would download."""
+    import torch
+
+    hub_dir = torch.hub.get_dir()
+    return any(os.path.isdir(os.path.join(hub_dir, d))
+               for d in ("isl-org_ZoeDepth_main", "intel-isl_MiDaS_master"))
+
+
+def depth_video_zoe(frames: List[np.ndarray], device=None) -> List[np.ndarray]:
+    """ZoeD_NK's metric depth of each (H, W, 3) uint8 frame (infer_pil)."""
+    import torch
+    from PIL import Image
+
+    from lab4d_tpu_torch.preprocess import resolve_device
+
+    model = torch.hub.load("isl-org/ZoeDepth", "ZoeD_NK", pretrained=True)
+    model = model.to(resolve_device(device)).eval()
+    with torch.no_grad():
+        return [np.asarray(model.infer_pil(Image.fromarray(f)), np.float32) for f in frames]
 
 
 def depth_video_flowdisp(frames: List[np.ndarray], res: int = 288,
@@ -63,10 +87,16 @@ def depth_video_const(frames: List[np.ndarray]) -> List[np.ndarray]:
 
 
 def pick_depth_backend() -> str:
-    """Explicit env override, else unet when its weights load, else flowdisp."""
+    """Explicit env override, else the best available: zoe (hub cache) >
+    unet (its weights load) > flowdisp."""
     choice = os.environ.get("LAB4D_DEPTH_BACKEND", "auto")
     if choice != "auto":
         return choice
+    try:
+        if _probe_zoe():
+            return "zoe"
+    except Exception:  # a probe that fails means the backend is unavailable
+        pass
     from lab4d_tpu_torch.preprocess.backends import depth_unet
 
     return "unet" if depth_unet.available() else "flowdisp"
@@ -80,7 +110,9 @@ def extract_depth(seqname: str, outdir: str = "database/processed", device=None)
     out_dir = f"{outdir}/Depth/Full-Resolution/{seqname}"
     os.makedirs(out_dir, exist_ok=True)
     frames = [cv2.imread(p)[..., ::-1] for p in img_paths]
-    if backend == "unet":
+    if backend == "zoe":
+        depths = depth_video_zoe(frames, device=device)
+    elif backend == "unet":
         from lab4d_tpu_torch.preprocess.backends.depth_unet import depth_video_unet
 
         depths = depth_video_unet(frames, device=device)
@@ -89,7 +121,7 @@ def extract_depth(seqname: str, outdir: str = "database/processed", device=None)
     elif backend == "flowdisp":
         depths = depth_video_flowdisp(frames, device=device)
     else:
-        raise ValueError(f"LAB4D_DEPTH_BACKEND={backend!r}: not one of unet, flowdisp, const")
+        raise ValueError(f"LAB4D_DEPTH_BACKEND={backend!r}: not one of zoe, unet, flowdisp, const")
     for p, d in zip(img_paths, depths):
         np.save(
             f"{out_dir}/{os.path.basename(p).replace('.jpg', '.npy')}",

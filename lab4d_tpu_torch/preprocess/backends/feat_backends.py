@@ -4,6 +4,9 @@ masked pixels of every video of a collection (port of
 preprocess/backends/feat_backends.py).
 
 Backends:
+  dinov2     — torch.hub's dinov2_vits14 patch tokens (384-dim, 16x16 at
+               224^2, bilinearly resized to 112^2), chosen only when the
+               hub cache already holds its repo (nothing is downloaded)
   net        — the trained dense-descriptor U-Net (feat_net.py) when
                database/weights/feat_net.msgpack exists: 24-dim maps
                through the collection PCA
@@ -11,7 +14,6 @@ Backends:
                colour pyramid + even/odd steerable responses) on the
                device, through the same PCA. Deterministic, no weights.
 
-(The JAX package's torch.hub DINOv2 backend is not part of the port.)
 The PCA is the port's own (no scikit-learn on the card): the fit of
 sklearn.decomposition.PCA(n_components=16) in the scikit-learn 1.9.0 the
 JAX package's tests run with, its centring, its "covariance_eigh" solver
@@ -22,6 +24,8 @@ entry positive). The projection runs on the device.
 
 from __future__ import annotations
 
+import functools
+import os
 from typing import List
 
 import cv2
@@ -92,6 +96,46 @@ def frames_features_filterbank(rgbs_u8: List[np.ndarray], device=None) -> torch.
 
 
 # ---------------------------------------------------------------------------
+# dinov2 backend (gated on the hub cache)
+# ---------------------------------------------------------------------------
+
+
+def probe_dinov2() -> bool:
+    import torch
+
+    return os.path.isdir(os.path.join(torch.hub.get_dir(), "facebookresearch_dinov2_main"))
+
+
+_DINO_MEAN = np.array([0.485, 0.456, 0.406])
+_DINO_STD = np.array([0.229, 0.224, 0.225])
+
+
+@functools.lru_cache(maxsize=2)
+def _dinov2(device: str):
+    model = torch.hub.load("facebookresearch/dinov2", "dinov2_vits14")
+    return model.to(device).eval()
+
+
+def frames_features_dinov2(rgbs_u8: List[np.ndarray], device=None) -> torch.Tensor:
+    """(H, W, 3) uint8 frames -> (N, C, FEAT_RES, FEAT_RES): each frame
+    resized to 224^2 (cv2), normalised with ImageNet's mean and std (in
+    float64, as the JAX package's backend), its 16x16 patch tokens
+    bilinearly resized."""
+    dev = resolve_device(device)
+    model = _dinov2(str(dev))
+    out = []
+    with torch.no_grad():
+        for rgb in rgbs_u8:
+            img = cv2.resize(rgb, (224, 224)).astype(np.float32) / 255.0
+            img = (img - _DINO_MEAN) / _DINO_STD
+            x = torch.tensor(img.transpose(2, 0, 1)[None], dtype=torch.float32, device=dev)
+            tok = model.forward_features(x)["x_norm_patchtokens"]
+            feat = tok.reshape(1, 16, 16, -1).permute(0, 3, 1, 2)
+            out.append(F.interpolate(feat, size=(FEAT_RES, FEAT_RES), mode="bilinear"))
+    return torch.cat(out)
+
+
+# ---------------------------------------------------------------------------
 # collection-level extraction with shared PCA
 # ---------------------------------------------------------------------------
 
@@ -129,14 +173,16 @@ def extract_features_collection(
     from lab4d_tpu_torch.preprocess.libs.io import load_frame_data
 
     dev = resolve_device(device)
-    if backend == "net":
+    if backend == "dinov2":
+        frames_fn = frames_features_dinov2
+    elif backend == "net":
         from lab4d_tpu_torch.preprocess.backends.feat_net import frames_features_net
 
         frames_fn = frames_features_net
     elif backend == "filterbank":
         frames_fn = frames_features_filterbank
     else:
-        raise ValueError(f"LAB4D_FEAT_BACKEND={backend!r}: not one of net, filterbank")
+        raise ValueError(f"LAB4D_FEAT_BACKEND={backend!r}: not one of dinov2, net, filterbank")
 
     raw_feats, masks = [], []
     for paths in seq_frames:

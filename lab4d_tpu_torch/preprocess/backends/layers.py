@@ -23,6 +23,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from lab4d_tpu_torch.bridge import msgpack_restore
+from lab4d_tpu_torch.utils import flax_rng
+from lab4d_tpu_torch.utils import jax_random as jr
 
 
 def same_padding(size: int, k: int, stride: int = 1, dilation: int = 1) -> Tuple[int, int]:
@@ -157,27 +159,24 @@ def state_dict_to_flax(module: nn.Module) -> Dict:
     return ordered(tree)
 
 
-# flax's lecun_normal: variance_scaling(1.0, "fan_in", "truncated_normal"),
-# a normal truncated at +-2 std whose std is divided by the truncated
-# normal's own std (jax.nn.initializers.variance_scaling)
-_TRUNC_STD = 0.87962566103423978
-
-
 @torch.no_grad()
-def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Initialise `module` in place as flax initialises the net: every
-    kernel lecun_normal (fan_in = kh * kw * in for a conv, in for a dense
-    layer), every bias zero, except the biases the module names in its
-    BIAS_INIT ({parameter name: constant}). The draws come from
-    `generator` (on the CPU), in the order of named_parameters."""
+def flax_init_(module: nn.Module, key=None) -> nn.Module:
+    """Initialise `module` in place as flax's `Net().init(key)` does (key:
+    a utils/jax_random key, default PRNGKey(0), the JAX trainers'): every
+    kernel lecun_normal, drawn from its layer's scope key (the layer's
+    flax path, count 1; utils/flax_rng.py), every bias zero, except the
+    biases the module names in its BIAS_INIT ({parameter name:
+    constant})."""
+    key = jr.PRNGKey(0) if key is None else key
     consts = getattr(module, "BIAS_INIT", {})
     for name, p in module.named_parameters():
-        if name.endswith("weight"):
-            fan_in = p[0].numel()  # (O, I, kh, kw) or (out, in)
-            std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
-            draw = torch.empty(p.shape, dtype=torch.float32)
-            nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std, generator=generator)
-            p.copy_(draw)
+        *scope, leaf = name.split(".")
+        if leaf == "weight":
+            # flax's kernel layout: HWIO for a conv, (in, out) for a dense layer
+            perm = (2, 3, 1, 0) if p.ndim == 4 else (1, 0)
+            shape = tuple(p.shape[i] for i in perm)
+            kernel = flax_rng.lecun_normal(flax_rng.make_rng(key, scope, 1), shape)
+            p.copy_(torch.from_numpy(kernel).permute(*np.argsort(perm)))
         else:
             p.fill_(consts.get(name, 0.0))
     return module

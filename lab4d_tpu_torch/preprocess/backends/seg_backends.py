@@ -9,7 +9,10 @@ preprocess/backends/seg_backends.py).
               propagated frame-to-frame through the classical flow
   full      — everything is foreground (rigid-scene setups)
 
-(The JAX package's Track-Anything CLI backend is not part of the port.)
+  external  — the Track-Anything CLI, a plugin module
+              (`track_anything_cli`) chosen when it is importable; it
+              writes the masks itself
+
 Output contract (consumed by libs/io.py load_mask): one int npy per
 frame, 0 = background, 1 = foreground, all -1 = no detection.
 """
@@ -138,11 +141,23 @@ def segment_video_full(frames: List[np.ndarray]):
     return [np.ones(f.shape[:2], np.int8) for f in frames]
 
 
+def _probe_external() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("track_anything_cli") is not None
+
+
 def pick_seg_backend() -> str:
-    """Explicit env override, else unet when its weights load, else grabcut."""
+    """Explicit env override, else the best available: external (the
+    Track-Anything CLI) > unet (its weights load) > grabcut."""
     choice = os.environ.get("LAB4D_SEG_BACKEND", "auto")
     if choice != "auto":
         return choice
+    try:
+        if _probe_external():
+            return "external"
+    except Exception:  # a probe that fails means the backend is unavailable
+        pass
     from lab4d_tpu_torch.preprocess.backends import seg_unet
 
     return "unet" if seg_unet.available() else "grabcut"
@@ -159,6 +174,12 @@ def run_segmentation(seqname: str, outdir: str, text_prompt: str = "", device=No
     out_dir = f"{outdir}/Annotations/Full-Resolution/{seqname}"
     os.makedirs(out_dir, exist_ok=True)
 
+    if backend == "external":
+        import track_anything_cli  # a plugin, installed beside the port
+
+        track_anything_cli.track_anything_cli(
+            f"{outdir}/JPEGImages/Full-Resolution/{seqname}", text_prompt, out_dir)
+        return backend
     frames = [cv2.imread(p)[..., ::-1] for p in img_paths]
     if backend == "full":
         masks = segment_video_full(frames)
@@ -169,7 +190,7 @@ def run_segmentation(seqname: str, outdir: str, text_prompt: str = "", device=No
     elif backend == "grabcut":
         masks = segment_video_grabcut(frames, device=device)
     else:
-        raise ValueError(f"LAB4D_SEG_BACKEND={backend!r}: not one of unet, grabcut, full")
+        raise ValueError(f"LAB4D_SEG_BACKEND={backend!r}: not one of external, unet, grabcut, full")
     if text_prompt.strip():
         # prompt-grounded instance selection over the tracked components
         # (see backends/prompt_select.py)

@@ -4,17 +4,18 @@ rotations for the fg field's camera prior, Cameras/<seq>/01-canonical.npy
 
 Rotation priors come from, in order of preference:
   1. manual annotations  Cameras/<seq>/01-manual.json  {frame: 4x4 list}
-  2. the viewpoint CNN (backends/viewpoint_net.py) when its weights load
-  3. none — the Procrustes chain alone, gauge-fixed at frame 0
+  2. the CSE viewpoint plugin (a `cse_viewpoint` module) when importable
+  3. the viewpoint CNN (backends/viewpoint_net.py) when its weights load
+  4. none — the Procrustes chain alone, gauge-fixed at frame 0
 fused with the pairwise relative-rotation chain by the fit in
 libs/registration.py, on the device. Translations use the bbox
 heuristic: depth = focal / sqrt(bbox area) (unit surface area), xy from
-the bbox center ray, z capped at 10. (The JAX package's CSE-viewpoint
-plugin is not part of the port.)
+the bbox center ray, z capped at 10.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import sys
@@ -30,13 +31,19 @@ MAX_DEPTH = 10.0
 
 
 def load_rotation_priors(seqname, outdir, obj_class, img_paths, device=None):
-    """({frame: rotation}, the source's name: "manual", "net" or "none")."""
+    """({frame: rotation}, the source's name: "manual", "cse", "net" or
+    "none")."""
     cam_dir = f"{outdir}/Cameras/Full-Resolution/{seqname}"
     manual = f"{cam_dir}/01-manual.json"
     if obj_class == "other" or os.path.exists(manual):
         with open(manual) as f:
             raw = json.load(f)
         return {int(k): np.asarray(v, np.float32) for k, v in raw.items()}, "manual"
+    if importlib.util.find_spec("cse_viewpoint") is not None:
+        import cse_viewpoint  # a plugin, installed beside the port
+
+        rots = cse_viewpoint.predict_viewpoints(img_paths, obj_class)
+        return {i: np.asarray(r, np.float32) for i, r in enumerate(rots)}, "cse"
     from lab4d_tpu_torch.preprocess.backends import viewpoint_net
 
     model = viewpoint_net.load_model(obj_class, device=device)

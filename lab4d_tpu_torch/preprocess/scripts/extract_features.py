@@ -25,9 +25,12 @@ def extract_features(
 ):
     from lab4d_tpu_torch.preprocess.backends.feat_net import probe_feat_net
 
+    from lab4d_tpu_torch.preprocess.backends.feat_backends import probe_dinov2
+
     outdir = f"{database_root}/processed"
-    # the trained descriptor net when its weights exist, else the filter bank
-    backend = pick_backend("LAB4D_FEAT_BACKEND", "net", "filterbank", probe_feat_net)
+    # hub-cached dinov2 > the trained descriptor net (its weights exist) > the filter bank
+    fallback = pick_backend("LAB4D_FEAT_BACKEND", "net", "filterbank", probe_feat_net)
+    backend = pick_backend("LAB4D_FEAT_BACKEND", "dinov2", fallback, probe_dinov2)
 
     seqnames = config_seqnames(collection_name, database_root)
     seq_frames = [frame_list(outdir, s) for s in seqnames]

@@ -178,7 +178,7 @@ def run_main(weights_name: str, make_batch, make_model, train, heldout, steps: i
     dev = resolve_device(device)
     out_path = out_path or train_out_path(weights_name)
     rng = np.random.default_rng(seed)
-    model = model if model is not None else make_model(torch.Generator().manual_seed(0))
+    model = model if model is not None else make_model(0)
     model = model.to(dev).train().requires_grad_(True)
     print("params:", sum(p.numel() for p in model.parameters()))
 

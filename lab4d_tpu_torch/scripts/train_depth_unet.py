@@ -47,12 +47,14 @@ def silog_rmse(pred, gt) -> float:
     return float(np.sqrt(np.mean(d**2) - np.mean(d) ** 2))
 
 
-def make_model(generator: torch.Generator):
-    """DepthUNet at flax's initialisation (output bias 3.0), drawn from `generator`."""
+def make_model(seed: int = 0):
+    """DepthUNet at flax's init from PRNGKey(seed), as the JAX trainer's
+    `DepthUNet().init(PRNGKey(0), ...)` (seed 0)."""
     from lab4d_tpu_torch.preprocess.backends.depth_unet import DepthUNet
     from lab4d_tpu_torch.preprocess.backends.layers import flax_init_
+    from lab4d_tpu_torch.utils import jax_random as jr
 
-    return flax_init_(DepthUNet(), generator)
+    return flax_init_(DepthUNet(), jr.PRNGKey(seed))
 
 
 def loss_fn(model, rgb, gt):

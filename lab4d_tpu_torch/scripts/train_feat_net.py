@@ -92,12 +92,14 @@ def bilinear(fmap, yx):
     )
 
 
-def make_model(generator: torch.Generator):
-    """FeatNet at flax's initialisation, drawn from `generator`."""
+def make_model(seed: int = 0):
+    """FeatNet at flax's init from PRNGKey(seed), as the JAX trainer's
+    `FeatNet().init(PRNGKey(0), ...)` (seed 0)."""
     from lab4d_tpu_torch.preprocess.backends.feat_net import FeatNet
     from lab4d_tpu_torch.preprocess.backends.layers import flax_init_
+    from lab4d_tpu_torch.utils import jax_random as jr
 
-    return flax_init_(FeatNet(), generator)
+    return flax_init_(FeatNet(), jr.PRNGKey(seed))
 
 
 def loss_fn(model, i0, i1, src, dst):

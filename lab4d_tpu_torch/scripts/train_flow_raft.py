@@ -88,12 +88,14 @@ def epe(pred, gt, valid):
     return float((e * valid).sum() / np.maximum(valid.sum(), 1))
 
 
-def make_model(generator: torch.Generator):
-    """RAFTLite at flax's initialisation, drawn from `generator`."""
+def make_model(seed: int = 0):
+    """RAFTLite at flax's init from PRNGKey(seed), as the JAX trainer's
+    `RAFTLite().init(PRNGKey(0), ...)` (seed 0)."""
     from lab4d_tpu_torch.preprocess.backends.flow_raft import RAFTLite
     from lab4d_tpu_torch.preprocess.backends.layers import flax_init_
+    from lab4d_tpu_torch.utils import jax_random as jr
 
-    return flax_init_(RAFTLite(), generator)
+    return flax_init_(RAFTLite(), jr.PRNGKey(seed))
 
 
 def loss_fn(model, i0, i1, gt, valid):

@@ -117,12 +117,14 @@ def iou(pred, gt) -> float:
     return float(inter / max(union, 1))
 
 
-def make_model(generator: torch.Generator):
-    """SegUNet at flax's initialisation, drawn from `generator`."""
+def make_model(seed: int = 0):
+    """SegUNet at flax's init from PRNGKey(seed), as the JAX trainer's
+    `SegUNet().init(PRNGKey(0), ...)` (seed 0)."""
     from lab4d_tpu_torch.preprocess.backends.layers import flax_init_
+    from lab4d_tpu_torch.utils import jax_random as jr
     from lab4d_tpu_torch.preprocess.backends.seg_unet import SegUNet
 
-    return flax_init_(SegUNet(), generator)
+    return flax_init_(SegUNet(), jr.PRNGKey(seed))
 
 
 def loss_fn(model, x, gt):

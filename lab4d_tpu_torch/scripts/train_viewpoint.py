@@ -71,12 +71,14 @@ def geodesic_deg(Ra: np.ndarray, Rb: np.ndarray) -> float:
     return float(np.rad2deg(np.arccos(np.clip((tr - 1) / 2, -1, 1))))
 
 
-def make_model(generator: torch.Generator):
-    """ViewpointNet at flax's initialisation, drawn from `generator`."""
+def make_model(seed: int = 0):
+    """ViewpointNet at flax's init from PRNGKey(seed), as the JAX trainer's
+    `ViewpointNet().init(PRNGKey(0), ...)` (seed 0)."""
     from lab4d_tpu_torch.preprocess.backends.layers import flax_init_
+    from lab4d_tpu_torch.utils import jax_random as jr
     from lab4d_tpu_torch.preprocess.backends.viewpoint_net import ViewpointNet
 
-    return flax_init_(ViewpointNet(), generator)
+    return flax_init_(ViewpointNet(), jr.PRNGKey(seed))
 
 
 def loss_fn(model, imgs, Rs):

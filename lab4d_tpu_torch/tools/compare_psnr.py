@@ -20,8 +20,9 @@ its Chamfer distance to the GT sphere (`uv_sphere(radius=0.5,
 count=[32, 32])`, as scripts/compare_reference_psnr.py compare_meshes
 measures it) are recorded, the latter beside the JAX package's recorded
 value (psnr_compare.json "full_budget_400steps", the JAX package's own
-400-step protocol on its own hardware). `--seeds`: one run per seed, the seed setting torch's
-generators, the loader's and each video's pixel draws. Writes `--out`
+400-step protocol on its own hardware). `--seeds`: one run per seed, the seed setting
+the loader's and each video's pixel draws (the init and the steps' draws
+are the JAX package's streams, the same in every run, as in its protocol). Writes `--out`
 (default psnr_torch.json at the repo root; psnr_compare.json is read, not
 written) with each seed's trajectory, the final mean and sample std, and
 the gap to the JAX package's recorded mean.
@@ -99,8 +100,9 @@ def seed_draws(trainer, seed):
 
 def build_trainer(db, workdir, seed, rounds, res, iters, frames, device, fg_motion="rigid",
                   extra=()):
-    """The protocol's Trainer, its prior fits run, torch's generators seeded
-    with `seed` first; `extra`: train flags appended to the protocol's."""
+    """The protocol's Trainer, its prior fits run (its init and draws are
+    the JAX package's streams; `seed` names the run and, in train_rounds,
+    seeds the loader); `extra`: train flags appended to the protocol's."""
     import torch
 
     from lab4d_tpu_torch.engine.trainer import Trainer
@@ -109,7 +111,6 @@ def build_trainer(db, workdir, seed, rounds, res, iters, frames, device, fg_moti
     if device.startswith("cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    torch.manual_seed(seed)
     opts = vars(get_parser().parse_args(train_argv(
         db, os.path.join(workdir, "logdir"), f"seed{seed}", fg_motion, rounds, res, iters,
         frames, device) + list(extra)))

@@ -4,8 +4,8 @@ global batch, params and draws (parallel/dist.py).
 A case file (save_case) holds a model's constructor arguments and
 params, one global batch with its geometry state, and optionally the
 step's random draws at the global batch's shape (without them, each side
-draws from torch's default generators seeded alike (SEED), so
-the draws' global shapes are checked too). run_case runs `steps`
+derives the step's draws from its index, as the trainer does, so the
+draws' global shapes are checked too). run_case runs `steps`
 training steps on it in this process, on one rank's block where a
 process group is up; run_sharded starts `world` ranks (gloo on the CPU,
 or NCCL / gloo on the card, several ranks sharing one card through
@@ -29,8 +29,8 @@ from lab4d_tpu_torch.parallel import dist
 MODEL_KEYS = ("field_type", "fg_motion", "num_inst", "intrinsics_init", "rtmat_fg", "rtmat_bg",
               "train_res", "loss_weights", "joint_angles_init")
 # the optimizer's schedule (the JAX one-step tests': a 20-round run of 400
-# steps at 5e-4) and the seed of the draws a case does not give
-LEARNING_RATE, NUM_ROUNDS, TOTAL_STEPS, SEED = 5e-4, 20, 400, 0
+# steps at 5e-4)
+LEARNING_RATE, NUM_ROUNDS, TOTAL_STEPS = 5e-4, 20, 400
 
 
 def save_case(path: str, frame_info, model_kwargs: Dict, state: Dict[str, np.ndarray],
@@ -70,7 +70,6 @@ def build_trainer(case: Dict, device):
     trainer.opts = {"learning_rate": LEARNING_RATE, "num_rounds": NUM_ROUNDS}
     trainer.total_steps = TOTAL_STEPS
     trainer.optimizer_init()
-    trainer.swap_generator = torch.Generator(device=device).manual_seed(2)
     return trainer
 
 
@@ -89,7 +88,6 @@ def run_case(case: Dict, device, steps: int = 1) -> Dict:
     over the ranks) and the params after it, the params' checksum after
     the last step, ms per step (CUDA events on the card, wall on the
     CPU) and the gradient bytes reduced per step."""
-    torch.manual_seed(SEED)  # the draws not given in the case
     trainer = build_trainer(case, device)
     rank, world = dist.rank(), dist.world_size()
     batch = {k: torch.as_tensor(v).to(device)

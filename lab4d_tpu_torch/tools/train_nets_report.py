@@ -13,9 +13,8 @@ memory, the logged losses and the held-out metric of the trained net and
 of the classical backend; then the shipped weights through the same
 held-out function (the same seed, so the same draws). Prints one line per
 net and writes the records as JSON. Each trainer starts from flax's init
-drawn by make_model from torch seed `--init_seed` (0, as main does), or
-from the weights `DIR/<net>.msgpack` (`--init`), e.g. flax's own init
-written on the CPU by `python -m tests.test_torch_train_optim DIR [KEY]`.
+at PRNGKey(`--init_seed`) (make_model; 0, as main and the JAX trainers
+do), or from the weights `DIR/<net>.msgpack` (`--init`).
 `--device cpu` runs the trainers on the CPU (no ms/step).
 """
 
@@ -61,7 +60,7 @@ def run_net(name: str, steps=None, init_seed: int = 0, init_dir: str = "",
         if model is None:
             raise FileNotFoundError(f"no {backend}.msgpack under {init_dir}")
     else:
-        model = mod.make_model(torch.Generator().manual_seed(init_seed))
+        model = mod.make_model(init_seed)
     kw = {"model": model, "device": device}
     if steps is not None:
         kw["steps"] = steps
@@ -96,7 +95,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nets", default=",".join(NETS))
     ap.add_argument("--steps", type=int, default=None, help="cut every trainer to N steps")
-    ap.add_argument("--init_seed", type=int, default=0, help="torch seed of make_model's init")
+    ap.add_argument("--init_seed", type=int, default=0, help="the PRNGKey seed of make_model's flax init")
     ap.add_argument("--init", default="", help="start from DIR/<net>.msgpack instead")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--out", default="")
@@ -105,7 +104,7 @@ def main(argv=None):
 
     resolve_device(args.device)  # TF32 off on the card
     records = {"card": card() if args.device == "cuda" else "cpu",
-               "init": args.init or f"make_model seed {args.init_seed}", "nets": []}
+               "init": args.init or f"flax init PRNGKey({args.init_seed})", "nets": []}
     print(f"card: {records['card']}; init: {records['init']}", flush=True)
     for name in args.nets.split(","):
         rec = run_net(name, args.steps, args.init_seed, args.init, args.device)

@@ -94,14 +94,16 @@ def test_inst_embedding_swap_matches_jax(num_inst, beta_prob, train):
 
 
 def test_inst_embedding_swap_from_a_generator():
-    """Without given pairs the draws come from the generator: the same seed
+    """Without given pairs the draws come from the step's swap key (the
+    port's generator of JAX's draws, utils/jax_random.py): the same key
     gives the same codes, and one call draws one pair."""
+    from lab4d_tpu_torch.utils import jax_random as jr
+
     emb = InstEmbedding(4, 8, generator=torch.Generator().manual_seed(0))
     inst_id = torch.arange(4).repeat(3, 1)
 
     def codes(seed):
-        return emb(inst_id, beta_prob=0.9, train=True,
-                   swap=SwapDraws(generator=torch.Generator().manual_seed(seed)))
+        return emb(inst_id, beta_prob=0.9, train=True, swap=SwapDraws(key=jr.PRNGKey(seed)))
 
     torch.testing.assert_close(codes(5), codes(5), rtol=0, atol=0)
     assert not torch.equal(codes(5), emb(inst_id))

@@ -9,7 +9,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import pytest
-import torch
 
 import lab4d_tpu_torch.scripts.train_flow_raft as port
 from tests.test_torch_train_optim import check_batches, check_chain, check_init, check_mains
@@ -32,19 +31,19 @@ def test_make_batch_bitwise():
 
 
 def test_flax_init():
-    check_init(_flax_params(), port.make_model(torch.Generator().manual_seed(0)))
+    check_init(_flax_params(), port.make_model(0))
 
 
 def test_main_against_jax(tmp_path):
     import scripts.train_flow_raft as ref
 
     jax_log, port_log = check_mains(ref.main, port.main, _flax_params(),
-                                    port.make_model(torch.Generator().manual_seed(1)), tmp_path,
+                                    port.make_model(1), tmp_path,
                                     peak=port.PEAK_LR, res=RES, batch=2)
     assert "held-out EPE: raft=" in port_log and " px, classical=" in port_log
 
 
 @pytest.mark.parametrize("steps", [3, 20])
 def test_chain_matches_optax(steps):
-    check_chain(port.make_model(torch.Generator().manual_seed(0)), port.PEAK_LR, steps,
+    check_chain(port.make_model(0), port.PEAK_LR, steps,
                 n_updates=min(steps, 6))

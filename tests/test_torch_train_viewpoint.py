@@ -10,7 +10,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import pytest
-import torch
 
 import lab4d_tpu_torch.scripts.train_viewpoint as port
 from tests.test_torch_train_optim import check_batches, check_chain, check_init, check_mains
@@ -31,21 +30,21 @@ def test_make_batch_bitwise():
 
 
 def test_flax_init():
-    check_init(_flax_params(), port.make_model(torch.Generator().manual_seed(0)))
+    check_init(_flax_params(), port.make_model(0))
 
 
 def test_main_against_jax(tmp_path):
     import scripts.train_viewpoint as ref
 
     jax_log, port_log = check_mains(ref.main, port.main, _flax_params(),
-                                    port.make_model(torch.Generator().manual_seed(1)), tmp_path,
+                                    port.make_model(1), tmp_path,
                                     peak=port.PEAK_LR, batch=2)
     assert "held-out geodesic error: median=" in port_log
 
 
 @pytest.mark.parametrize("steps", [3, 20])
 def test_chain_matches_optax(steps):
-    check_chain(port.make_model(torch.Generator().manual_seed(0)), port.PEAK_LR, steps,
+    check_chain(port.make_model(0), port.PEAK_LR, steps,
                 n_updates=min(steps, 6))
 
 
