@@ -29,7 +29,11 @@ synchronise; any failure exits non-zero:
    canonical SDF grid (262,144 points of the fg base field, 10
    frequencies, widths 128 x 6, skip at 4, no saving), and K3f / K3b at
    the dense warps' shapes (262,144 rows of 167 inputs, skip at 4, no final
-   ReLU: the dense map D6 W256 and the post-warp D2 W256). Max error,
+   ReLU: the dense map D6 W256 and the post-warp D2 W256; the dense map
+   also at a ragged 262,143). K3 prints the engine each shape ran on (the
+   cluster engine for the TimeMLPs' rows, the row engine from 1,024 rows:
+   70,001 and the warps') and fails unless it is relu_mlp_plan's and a
+   second call gives the same bits. Max error,
    tolerance, median device time from CUDA-graph replay for kernel and
    plain version, CUDA launches per call, and the bound (the larger of
    FLOPs over the fp32 peak and bytes over the memory rate; for K1 / K2
@@ -99,7 +103,8 @@ synchronise; any failure exits non-zero:
 15. train-families: bob, skel-human, dense, nvp and comp_skel-quad_dense
    as the fg field at full width, 5 steps each after 20 geometry-init
    steps: finite losses, every kernel launched; the dense and comp paths
-   must launch K3f at 262,144 rows of 167 inputs;
+   must launch K3f at 262,144 rows of 167 inputs; the dense step's device
+   time over 2 more steps (torch.profiler) and K3's share of it;
 16. render-comp, export-comp, reanimate-comp: the comp checkpoint of 14
    rendered (2 frames at 512^2 exact and top-k, one bev-30 frame; both
    fields visible), exported (both categories at grid 128) and reanimated
@@ -179,6 +184,7 @@ import importlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -241,9 +247,11 @@ K3_RAGGED = ("ragged D5 W256", 70001, 256, 5, 256)
 K3_WARP_SHAPES = [
     ("dense map D6 W256", 262144, 167, (256,) * 6 + (3,), (4,), False),
     ("post-warp D2 W256", 262144, 167, (256,) * 2 + (3,), (), False),
+    ("dense map D6 W256, ragged", 262143, 167, (256,) * 6 + (3,), (4,), False),
 ]
-# the shapes tools/profile_k4b_phases.py profiles K3f / K3b at
-K3_PROFILE = [("render D5 W256", 1, 256, 5, 256), K3_TRAIN, K3_TRAIN_SHAPES[1]]
+# the TimeMLP shapes tools/profile_k4b_phases.py profiles K3f / K3b at (with
+# the warps' shapes of 262,144 rows)
+K3_PROFILE = [("render D5 W256", 1, 256, 5, 256), K3_TRAIN, K3_TRAIN_SHAPES[1], K3_TRAIN_SHAPES[2]]
 # (label, rows, n_freqs, widths, skips, final_act, window) of the bg field
 K4_SHAPES = [
     ("base F6 D5 W128", 262144, 6, (128,) * 6, (4,), True, True),
@@ -527,7 +535,9 @@ def _k3_kernels(K, gen, label, rows, C, widths, report=None, skips=(), final_act
     from K3f's own saved outputs against mlp_backward_saved_reference on the
     same ones; K3f + K3b against autograd through a recomputed plain
     forward outside the ReLU ties (_mlp_relu_ties: every flipped input
-    within 10x K3f's saved error of zero). Then, given report, both timed
+    within 10x K3f's saved error of zero); a second call of each must give
+    the same bits, and both must run on relu_mlp_plan's engine (the cluster
+    engine for few rows, the row engine for many). Then, given report, both timed
     with their bounds: fp32 FMA and
     3xTF32, K3b's from the saved outputs; K3f also without saving, against
     mlp_reference (a render saves nothing). At 1 row K3f and mlp_reference
@@ -540,7 +550,7 @@ def _k3_kernels(K, gen, label, rows, C, widths, report=None, skips=(), final_act
     x = torch.randn(rows, C, generator=gen).cuda()
     args = (x, weights, biases, skips, final_act)
     got, acts = K.mlp_forward_saved(*args)
-    launches_f = K.fused_relu_mlp.cuda_launches
+    launches_f, engine_f = K.fused_relu_mlp.cuda_launches, K.fused_relu_mlp.engine
     got_ns = K.fused_relu_mlp(*args)  # nothing requires a gradient: K3f without saving
     want, want_acts = K.mlp_forward_saved_reference(*args)
     sync()
@@ -554,12 +564,20 @@ def _k3_kernels(K, gen, label, rows, C, widths, report=None, skips=(), final_act
         g = g * (got > 0)  # the final ReLU's mask, as the caller applies it
     bwd_args = (x, g, weights, biases, skips)
     got_b = K.fused_relu_mlp_backward(*bwd_args, saved=acts)
-    launches_b = K.fused_relu_mlp_backward.cuda_launches
+    launches_b, engine_b = K.fused_relu_mlp_backward.cuda_launches, K.fused_relu_mlp_backward.engine
     want_b = K.mlp_backward_saved_reference(*bwd_args, acts)
     sync()
     abs_err, rel_err = _bwd_errs(got_b, want_b)
     if not rel_err <= KERNEL_TOL:
         fail(f"K3b {label} disagrees with its plain version: rel err {rel_err} > {KERNEL_TOL}")
+    again, acts_again = K.mlp_forward_saved(*args)
+    again_b = K.fused_relu_mlp_backward(*bwd_args, saved=acts)
+    sync()
+    if not (torch.equal(again, got) and torch.equal(acts_again, acts) and all(
+            torch.equal(a, b) for a, b in zip([got_b[0], *got_b[1], *got_b[2]],
+                                              [again_b[0], *again_b[1], *again_b[2]]))):
+        fail(f"K3f / K3b {label}: a second call differs from the first")
+    del again, acts_again, again_b
     _, z = K.mlp_forward_saved_reference(*args, pre_activations=True)
     tie_rows, n_ties, z_tie = _mlp_relu_ties(K, weights, rows, acts, z)
     _, rel_auto = _bwd_errs(got_b, K.mlp_backward_reference(*bwd_args))
@@ -567,7 +585,8 @@ def _k3_kernels(K, gen, label, rows, C, widths, report=None, skips=(), final_act
     _, rel_kept = _bwd_errs(K.fused_relu_mlp_backward(x, g_kept, *bwd_args[2:], saved=acts),
                             K.mlp_backward_reference(x, g_kept, *bwd_args[2:]))
     sync()
-    print(f"[kernel] K3f + K3b {label} against autograd through the plain forward: all rows "
+    print(f"[kernel] K3f + K3b {label} ({engine_f} engine; a second call bitwise equal) "
+          f"against autograd through the plain forward: all rows "
           f"{rel_auto:.1e}; ReLU ties: {n_ties} (row, unit) pairs in {int(tie_rows.sum())} of "
           f"{rows} rows, largest |input| {z_tie:.2e} (tol {10 * err_saved:.2e}, 10x K3f's saved "
           f"error); the other rows {rel_kept:.1e} (tol {KERNEL_TOL:g})")
@@ -575,10 +594,14 @@ def _k3_kernels(K, gen, label, rows, C, widths, report=None, skips=(), final_act
         fail(f"K3f {label}: a ReLU input of {z_tie} flips between K3f and the plain forward")
     if not rel_kept <= KERNEL_TOL:
         fail(f"K3f + K3b {label} disagree with autograd outside the ReLU ties: {rel_kept}")
+    in_dims = [C] + [w + (C if i + 1 in skips else 0) for i, w in enumerate(widths[:-1])]
+    want_engine = K.relu_mlp_plan(C, in_dims, list(widths), rows).engine
+    if (engine_f, engine_b) != (want_engine, want_engine):
+        fail(f"K3f / K3b {label} ran on the {engine_f} / {engine_b} engine, the plan's is "
+             f"{want_engine}")
 
     if report is None:
         return
-    in_dims = [C] + [w + (C if i + 1 in skips else 0) for i, w in enumerate(widths[:-1])]
     out_dims = list(widths)
     macs = mlp_macs(in_dims, out_dims)
     n_params = macs + sum(out_dims)
@@ -588,13 +611,14 @@ def _k3_kernels(K, gen, label, rows, C, widths, report=None, skips=(), final_act
     flops_b = 4 * rows * macs  # dIn and dW of every layer from the saved outputs
     nbytes_b = 4 * (2 * rows * C + rows * W + 2 * n_params) + saved_bytes
     plan = K.relu_mlp_plan(C, in_dims, out_dims, rows)
+    engine = ("row engine, wgmma 3xTF32" if plan.engine == "rows" else
+              "cluster engine, " + ("fp32 FMA" if plan.fwd_fma else "mma.sync 3xTF32"))
     inner = 3 if rows > 4096 else 100
     main = (label, rows) == K3_TRAIN[:2]
     extra_f = {"ms_no_save": device_ms(lambda: K.fused_relu_mlp(*args), inner),
                "plain_ms_no_save": device_ms(lambda: K.mlp_reference(*args), inner),
                "bound_3xtf32_ms": bound_ms(3 * flops_f, nbytes_f, PEAK_TF32)[0],
-               "cuda_launches_per_call": launches_f, "engine": "fp32 FMA" if plan.fwd_fma else "3xTF32",
-               "main": main}
+               "cuda_launches_per_call": launches_f, "engine": engine, "main": main}
     if rows == 1:
         extra_f["ms_cold_l2"] = cold_ms(lambda: K.fused_relu_mlp(*args))
         extra_f["plain_ms_cold_l2"] = cold_ms(lambda: K.mlp_reference(*args))
@@ -604,6 +628,8 @@ def _k3_kernels(K, gen, label, rows, C, widths, report=None, skips=(), final_act
            lambda: K.mlp_backward_saved_reference(*bwd_args, acts), flops_b, nbytes_b,
            inner, rel_err=rel_err, extra={
                "bound_3xtf32_ms": bound_ms(3 * flops_b, nbytes_b, PEAK_TF32)[0],
+               "engine": "row engine, wgmma 3xTF32" if plan.engine == "rows" else
+               "cluster engine, mma.sync 3xTF32",
                "cuda_launches_per_call": launches_b, "relu_tie_pairs": n_ties,
                "relu_tie_rows": int(tie_rows.sum()), "max_rel_err_autograd_all_rows": rel_auto,
                "max_rel_err_autograd_untied_rows": rel_kept, "main": main})
@@ -1817,9 +1843,10 @@ def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, ta
           + "); in the whole run: " + " ".join(f"{k}={v}" for k, v in launches.items())
           + f"; checkpoint {os.path.getsize(ckpt)} bytes")
     if trace:
-        dev, wall, idle = _trace_steps(trainer)
+        dev, wall, idle, k3 = _trace_steps(trainer)
         print(f"[{tag}] torch.profiler over 2 more steps (pre-drawn batches): device time "
-              f"{dev:.2f} ms/step of {wall:.2f} ms/step wall, idle share {idle:.3f}")
+              f"{dev:.2f} ms/step of {wall:.2f} ms/step wall, idle share {idle:.3f}; K3f / K3b's "
+              f"kernels (rm_*, rw_*) {k3:.2f} ms/step, {k3 / dev:.3f} of the device time")
         if trainer.model.num_inst > 1:
             fwd, both = _plain_field_ms(trainer)
             print(f"[{tag}] the fg field's heads at per-row codes (base, colour, visibility "
@@ -1960,10 +1987,13 @@ def _plain_field_ms(trainer, reps=5):
 
 
 def _trace_steps(trainer, n=3):
-    """(device ms/step, wall ms/step, idle share) of the trainer's
-    training step traced by torch.profiler over n - 1 steps on batches
-    drawn beforehand, after one untraced step: the summed time of the
-    kernels on the card against the steps' wall time."""
+    """(device ms/step, wall ms/step, idle share, K3's device ms/step) of
+    the trainer's training step traced by torch.profiler over n - 1 steps on
+    batches drawn beforehand, after one untraced step: the summed time of
+    the kernels on the card against the steps' wall time; K3's: the kernels
+    of csrc/fused_relu_mlp.cu's two engines (rm_*, rw_*; K3b's reduction of
+    dW chunks, hm_reduce_kernel, is shared with K2 and K4b and not
+    counted)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1982,9 +2012,11 @@ def _trace_steps(trainer, n=3):
             trainer.train_step(b, trainer.current_steps)
         sync()
         wall = (time.perf_counter() - t) * 1e3 / (n - 1)
-    dev = sum(e.device_time for e in prof.events()
-              if e.device_type == DeviceType.CUDA) / 1e3 / (n - 1)
-    return dev, wall, 1 - dev / wall
+    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = sum(e.device_time for e in cuda) / 1e3 / (n - 1)
+    k3 = sum(e.device_time for e in cuda
+             if re.search(r"(?:^|[^A-Za-z])r[mw]_\w*kernel", e.name)) / 1e3 / (n - 1)
+    return dev, wall, 1 - dev / wall, k3
 
 
 def _predrawn_ms(trainer, n=PREDRAWN_STEPS):
@@ -3018,7 +3050,8 @@ def main():
             for motion in FAMILIES:
                 family_runs[motion] = phase_train(db, root, motion, shapes=k3_shapes,
                                                   n_steps=FAMILY_STEPS,
-                                                  tag=f"train-families {motion}")
+                                                  tag=f"train-families {motion}",
+                                                  trace=motion == "dense")
             render_comp_launches = phase_render_comp(db, root)
             export_comp_launches = phase_export(db, root, "comp")
             reanimate_comp_launches = phase_reanimate(db, root, "comp")

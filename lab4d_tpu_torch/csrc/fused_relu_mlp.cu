@@ -1,5 +1,5 @@
-// K3f and K3b: the fused ReLU MLP of the TimeMLP backbones, forward and
-// backward, hand-written for Hopper (sm_90a).
+// K3f and K3b: the fused ReLU MLP, forward and backward, hand-written for
+// Hopper (sm_90a), on two engines behind the same entry points.
 //
 // K3f replaces the Pallas kernel lab4d_tpu/ops/mlp_kernel.py:_fwd
 // (_fwd_kernel); K3b replaces _bwd (_bwd_kernel). Semantics are theirs: D+1
@@ -7,22 +7,29 @@
 // each skip layer as [x, h], an optional ReLU on the output; the backward
 // returns dx, every dW and every db. The final ReLU's mask on the incoming
 // gradient is applied by the caller, as the JAX VJP does. Weights stay in
-// the torch.nn.Linear layout (out, in).
+// the torch.nn.Linear layout (out, in). K3f saves every hidden layer's
+// output after its ReLU when autograd needs it (the caller decides), layer
+// l's block a row-major (rows, out_l) array at act_off[l] * rows floats
+// (K4f's layout); K3b reads those and recomputes no forward.
 //
-// What bounds it on the card: the camera, intrinsics and articulation
-// TimeMLPs are D5 W256 (1.57 MB of fp32 weights) on a few rows: 1 or 2
-// when a render queries its frames; 1, 32, 256 (the frames of a training
-// batch) and 512 in a training step. At 256 rows the forward is 201 MFLOP
+// Two kinds of callers, and an engine for each (ops/mlp_kernel.py
+// relu_mlp_plan picks by row count; the crossover, 1,024 rows, is measured
+// by tools/profile_k4b_phases.py --k3_sweep):
+// - the TimeMLPs (camera, intrinsics, articulation: D5 W256, 1.57 MB of
+//   weights; appearance D2 W64) on 1 to 512 rows: the cluster engine (rm_*);
+// - the warps' CondMLPs at every sample of a training step, 262,144 rows
+//   (the dense warp's maps, 167 inputs -> D6 W256 with x again at layer 4
+//   -> 3; the composed warp's post-warp, D2 W256): the row engine (rw_*).
+//
+// The cluster engine. What bounds it: at 256 rows the forward is 201 MFLOP
 // (3.0 us on fp32 FMA, 1.2 us in 3xTF32 on the tensor cores) and the
-// backward from saved layer outputs twice that; at 1 row the weights,
-// read once, bound it (0.47 us). Every layer depends on the one before,
-// so what the card waits on is the latency of each layer's weights, of
-// its short product chain and of the barrier between layers, not
-// arithmetic (PERF.md prices each with the anatomy copies of
-// tools/profile_k4b_phases.py); and a block that streams all 1.57 MB from
-// L2 alone needs ~15 us for it.
-//
-// What the design does about it:
+// backward from saved layer outputs twice that; at 1 row the weights, read
+// once, bound it (0.47 us). Every layer depends on the one before, so what
+// the card waits on is the latency of each layer's weights, of its short
+// product chain and of the barrier between layers, not arithmetic (PERF.md
+// prices each with the anatomy copies of tools/profile_k4b_phases.py); and
+// a block that streams all 1.57 MB from L2 alone needs ~15 us for it.
+// What its design does about it:
 // - A cluster of 8 blocks on 8 SMs carries one tile of rows through every
 //   layer, in one launch. Each block owns 1/8 of a layer's output columns
 //   (the forward) or input columns (the backward's dIn), so it reads only
@@ -44,25 +51,69 @@
 //   summed into an fp32 register); the 16 warps of a block split the
 //   reduction, and their partial sums are added in a fixed order through
 //   shared memory.
-// - K3f saves every hidden layer's output after its ReLU when autograd
-//   needs it (the caller decides), in the layout of K4f's (layer l's block
-//   a row-major (rows, out_l) array at act_off[l] * rows floats). K3b
-//   reads those and recomputes no forward. It is two launches: dIn through
-//   every layer on K3f's cluster tiles (each layer's masked gradient G
-//   stored for dW; dx summed over the cluster in rank order), then every
-//   layer's dW = G^T A and db = sum G at once, straight into the gradient.
-//   Up to 512 rows (the training step's 256 frames) each 32 x 32 output
+// - K3b is two launches: dIn through every layer on K3f's cluster tiles
+//   (each layer's masked gradient G stored for dW; dx summed over the
+//   cluster in rank order), then every layer's dW = G^T A and db = sum G at
+//   once, straight into the gradient. Up to 512 rows each 32 x 32 output
 //   tile is one block that stages all rows of its operands at once and
-//   splits them over its warps (rm_dw_rows_kernel: one wait for memory,
-//   where the split-K tiles of heads_mma.cuh wait once per 32 rows). More
-//   rows take hm_dw_tile's 64 x 64 tiles over chunks of rows, into
-//   workspace slices summed in chunk order by hm_reduce_kernel (a third
-//   launch) when there is more than one chunk.
+//   splits them over its warps (rm_dw_rows_kernel). More rows take
+//   hm_dw_tile's 64 x 64 tiles over chunks of rows, into workspace slices
+//   summed in chunk order by hm_reduce_kernel (a third launch).
 //
-// No float atomics: every sum across warps, blocks and chunks runs in a
-// fixed order, and the result is the same from run to run. Layers take at
-// most 512 inputs and outputs (two 32-column units of a block's warps),
-// and the buffers of their widths must fit in shared memory.
+// The row engine. What bounds it: the products. The dense map is 414k
+// multiply-adds per row, 217 GFLOP forward per call: 3.2 ms on fp32 FMA,
+// 1.3 ms in 3xTF32 at the tensor cores' TF32 rate; K3b twice that. At many
+// rows the cluster engine's tiles re-stage all weights per 32 rows (12 GB
+// from L2 per call) and wait at a cluster barrier per layer: it ran at 12%
+// of the fp32 bound and lost 3x to the plain per-layer chain. What its
+// design does about it:
+// - One block of two warpgroups per SM (persistent) walks tiles of 64 rows
+//   and carries each through every layer: the tile's x and hidden layer
+//   stay in shared memory; only the output, the saved outputs and K3b's G
+//   go to device memory. 64 rows halve the weights' L2 traffic of 32-row
+//   tiles (13.6 GB per dense call in hi and lo, under the products); 128
+//   rows do not fit: x, h and a ring of weight slabs fill 210 KB of the
+//   227.
+// - The products are wgmma.mma_async m64n128k8 (m64n8k8 for a last layer
+//   of at most 16 outputs) in 3xTF32: A (the tile's rows) from registers,
+//   split once per slab by rw_split (hi = x cut to tf32, lo = the rest: two
+//   instructions); B from shared memory, the weights split once per call
+//   by rw_pack_kernel into slabs laid out as wgmma's K-major core matrices
+//   (no swizzle). Each warpgroup takes 128 of a layer's 256 columns; a
+//   slab's three products per k8 step accumulate in the tensor core from
+//   zero, and the slab's sum (16 of K) is added to fp32 registers, which
+//   bounds what the tensor core's accumulation can lose
+//   (tests/test_torch_mlp_kernel.py emulates it).
+// - The weight slabs (16 of K x 256 columns, hi and lo: 32 KB) stream
+//   through a ring of 3 slots by 1D bulk copies of the TMA unit, completing
+//   on mbarriers; the last warp to finish with a slot refills it, so no
+//   warp waits on a producer and all 255 registers a thread may hold are
+//   the products'. The slabs form one stream across layers and tiles.
+// - A hidden layer's pass keeps its columns in registers until both
+//   warpgroups are done reading the layer's input, then bias, ReLU and the
+//   store go into the same shared buffer (the biases are staged once) and,
+//   when saving, to device memory in 8-byte streaming stores. (Stores or
+//   shared-memory loads moved under the next products to hide them made
+//   the engine slower: wgmma reads B from the same shared memory.)
+// - K3b's dIn runs the same engine through the layers last to first over
+//   W^T's slabs (x's columns first, into a dx accumulator, then h's), with
+//   the ReLU masks read from K3f's saved outputs; G_{l-1} goes from
+//   shared memory to device memory split into hi and lo, in the K-major
+//   core-matrix slabs dW's wgmma reads (coalesced 16-byte stores). dW =
+//   G^T A is a wgmma product over chunks of rows, 128 inputs x 128 outputs
+//   per block: A^T's fragments from the saved outputs in registers (loaded
+//   one slab ahead), G's slabs through a ring of 4 by the TMA unit; each
+//   32-row slab's sum is added to fp32, the chunks' slices summed in chunk
+//   order by hm_reduce_kernel; db is the sum of G's hi + lo in row order.
+//   (G stored in fp32 and split by dW's threads made dIn 0.7 ms faster and
+//   dW 2 ms slower at the dense map.) K3f is two launches (the split, the
+//   engine), K3b four.
+//
+// No float atomics on values: every sum across warps, blocks and chunks
+// runs in a fixed order, and the result is the same from run to run.
+// Layers take at most 512 inputs and outputs (the cluster engine) or 256
+// outputs and x of 256 (the row engine); the buffers of their widths must
+// fit in shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -593,6 +644,762 @@ rm_dw_rows_kernel(const __grid_constant__ RmArgs a, const float* __restrict__ x,
   }
 }
 
+// ------------------------------------------------------------------ the row engine
+
+#define RW_ROWS 64       // rows of a tile: one m64 wgmma per warpgroup
+#define RW_KS 16         // k-depth of a weight slab: two k8 steps
+#define RW_RS 32         // rows of a G slab of the dW product: four k8 steps
+#define RW_NW 128        // columns of a warpgroup's wgmma (n128) ...
+#define RW_NWS 8         // ... or n8, for a last layer of at most 16 outputs
+#define RW_STAGES 3      // weight slabs in flight (2 where 3 do not fit)
+#define RW_DW_STAGES 4   // G slabs in flight
+#define RW_THREADS 256   // two warpgroups
+#define RW_WARPS (RW_THREADS / 32)
+#define RW_SLAB (64 * RW_NW)       // floats of the largest slab, hi and lo
+#define RW_MAX_WIDTH 256 // widest layer output and x the engine takes
+#define RW_DW_M 128      // dW inputs per block: 64 per warpgroup
+
+// One step of the engine: K3f's layer l, or K3b's dIn of layer L - 1 - s.
+// A pass is 2 nw columns, nw per warpgroup; a slab RW_KS of the reduction
+// for those columns, hi then lo, each [k / 4][n / 8][n % 8][k % 4] (the
+// K-major core matrices of wgmma without swizzle).
+struct RwStep {
+  int K, kpad;      // reduction length; padded to whole slabs
+  int nw;           // RW_NW or RW_NWS
+  int n_pass;       // passes
+  int n_xpass;      // K3b: the first passes take x's columns (into dx), the rest h's
+  int x_cols, h_cols, h_src;  // K3b: x and h columns, and W's column of h column 0
+  long long img;    // floats before the step's slabs in the packed weights
+};
+
+struct RwArgs {
+  RmArgs m;                  // the layers, the saved-output and gradient layouts
+  RwStep st[RM_MAX_LAYERS];  // K3f: layer s; K3b: layer L - 1 - s
+  long long img_total;       // floats of the packed weights
+  int n_tiles, rows_pad, ldx, ldh;  // tiles of RW_ROWS rows; smem row strides
+  int bias_off[RM_MAX_LAYERS], bias_total;  // K3f: the biases in shared memory
+  int stages;                // slots of K3f's / K3b's dIn ring: RW_STAGES, or 2
+  int nwo[RM_MAX_LAYERS];    // dW: columns (outputs) of layer l's G slabs, RW_NW or RW_NWS
+  int n_ot[RM_MAX_LAYERS];   // and how many such slabs side by side
+  long long gimg[RM_MAX_LAYERS + 1];  // floats before layer l's G slabs; [L]: all
+  int dwt0[RM_MAX_LAYERS + 1];        // the first dW block of layer l; [L]: all
+};
+
+__device__ __forceinline__ uint32_t rw_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void rw_mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(rw_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void rw_mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = rw_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes from global to shared memory by the TMA unit (a 1D bulk copy),
+// completing on bar
+__device__ __forceinline__ void rw_bulk_load(float* dst, const float* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(rw_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(rw_addr(dst)),
+      "l"(src), "r"(bytes), "r"(rw_addr(bar))
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor without swizzle: lbo the bytes between
+// the two core matrices of a k8 step, sbo between 8-column groups
+__device__ __forceinline__ uint64_t rw_desc(const float* s, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((rw_addr(s) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void rw_wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void rw_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void rw_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// Keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns past the wgmma's start or its wait
+template <int N>
+__device__ __forceinline__ void rw_own(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void rw_own(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (+)= A . B for the warpgroup's 64 rows: A (64 x 8, tf32) from registers
+// (the m16n8k8 A fragment of the warp's 16 rows), B (8 x N) from shared
+// memory; scale_d = 0 starts from zero. The accumulation stays in the
+// tensor core until the caller reads d after rw_wait0.
+__device__ __forceinline__ void rw_mma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void rw_mma_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t desc,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{" "%0, %1, %2, %3" "}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// x = hi + lo: hi is x cut to tf32 (its low 13 mantissa bits cleared, so
+// exact), lo the rest, exact in fp32 with at most 13 significant bits, of
+// which the tensor core reads the top 11. Two instructions where a
+// rounding split takes three, two of them conversions.
+__device__ __forceinline__ void rw_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// hm_frag_a's A fragment (rows m0 .. m0 + 16, columns ka .. ka + 8), split
+// by rw_split
+template <class AOp>
+__device__ __forceinline__ void rw_frag_a(const AOp& A, int ka, int m0, uint32_t (&ah)[4],
+                                          uint32_t (&al)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  rw_split(A(m0 + g, ka + t), ah[0], al[0]);
+  rw_split(A(m0 + g + 8, ka + t), ah[1], al[1]);
+  rw_split(A(m0 + g, ka + t + 4), ah[2], al[2]);
+  rw_split(A(m0 + g + 8, ka + t + 4), ah[3], al[3]);
+}
+
+template <int NW>
+__device__ __forceinline__ void rw_mma(float (&d)[NW / 2], const uint32_t (&a)[4], uint64_t desc,
+                                       int scale_d) {
+  if constexpr (NW == RW_NW) rw_mma_n128(d, a, desc, scale_d);
+  else rw_mma_n8(d, a, desc, scale_d);
+}
+
+// f(m, c, v(m, c), v(m, c + 1)) for the warpgroup's accumulators: m the
+// row of 64, c an even column of NW
+template <int NW, class F>
+__device__ __forceinline__ void rw_each(const float (&v)[NW / 2], const F& f) {
+  const int lane = threadIdx.x & 31, m = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int c = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    f(m, 8 * j + c, v[4 * j], v[4 * j + 1]);
+    f(m + 8, 8 * j + c, v[4 * j + 2], v[4 * j + 3]);
+  }
+}
+
+// The slabs of K3f's or K3b's dIn steps in the order the engine takes
+// them: tile after tile (blockIdx.x, then every gridDim.x-th), step after
+// step, pass after pass, slab after slab. next() gives the next slab's
+// source and size and moves on.
+struct RwFeed {
+  const RwArgs* a;
+  const float* pk;
+  int tile, s, q;
+  __device__ __forceinline__ bool next(const float*& src, uint32_t& bytes) {
+    if (tile >= a->n_tiles) return false;
+    const RwStep& st = a->st[s];
+    const int f = 64 * st.nw;
+    src = pk + st.img + (long long)q * f;
+    bytes = 4 * f;
+    if (++q == st.n_pass * (st.kpad / RW_KS)) {
+      q = 0;
+      if (++s == a->m.n_layers) {
+        s = 0;
+        tile += gridDim.x;
+      }
+    }
+    return true;
+  }
+};
+
+// dW's slabs: n of them, stride floats apart
+struct RwDwFeed {
+  const float* base;
+  int s, n, stride;
+  uint32_t bytes;
+  __device__ __forceinline__ bool next(const float*& src, uint32_t& b) {
+    if (s >= n) return false;
+    src = base + (size_t)s * stride;
+    b = bytes;
+    ++s;
+    return true;
+  }
+};
+
+// The first `stages` slabs of feed into the ring (thread 0), every thread
+// moving its copy of feed on by as many
+template <class Feed>
+__device__ __forceinline__ void rw_prime(Feed& feed, int stages, float* ring, uint64_t* full) {
+  for (int i = 0; i < stages; ++i) {
+    const float* src;
+    uint32_t bytes;
+    if (feed.next(src, bytes) && threadIdx.x == 0)
+      rw_bulk_load(ring + i * RW_SLAB, src, bytes, full + i);
+  }
+}
+
+// The warp is done with the slab in `slot`: it counts itself out (cnt, per
+// slot, counts modulo the block's warps), and the last warp out refills the
+// slot with feed's next slab, `stages` on from the one it held. Every thread
+// moves its copy of feed on.
+template <class Feed>
+__device__ __forceinline__ void rw_release(Feed& feed, int slot, float* ring, uint64_t* full,
+                                           uint32_t* cnt) {
+  const float* src = nullptr;
+  uint32_t bytes = 0;
+  const bool more = feed.next(src, bytes);
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0 && atomicAdd(cnt + slot, 1u) % RW_WARPS == RW_WARPS - 1 && more)
+    rw_bulk_load(ring + slot * RW_SLAB, src, bytes, full + slot);
+}
+
+// One pass of a step: sum (the warpgroup's 64 rows x NW columns) = A (64 x
+// K, rows of the tile in shared memory, zero past K) . B (the step's slabs,
+// streamed through the ring of `stages` slots), in 3xTF32: per slab, each
+// k8 step's three products (lo.hi, hi.lo, hi.hi) accumulate in the tensor
+// core from zero, and the slab's sum is added to sum in fp32. A's
+// fragments are split into hi and lo once per slab (loaded before the
+// slab's products: shared-memory loads under them slow the products'
+// reads of B); the slabs' B is split already.
+template <int NW, class AOp, class Feed>
+__device__ __forceinline__ void rw_pass(float (&sum)[NW / 2], const AOp& A, int nslab, float* ring,
+                                        uint64_t* full, uint32_t* cnt, int stages, int& it,
+                                        Feed& feed) {
+  const int wg = threadIdx.x >> 7, mw = 16 * ((threadIdx.x >> 5) & 3);
+  float acc[NW / 2];
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) sum[i] = acc[i] = 0.f;
+  for (int s = 0; s < nslab; ++s, ++it) {
+    const int slot = it % stages;
+    const float* sl = ring + slot * RW_SLAB;
+    uint32_t ah[2][4], al[2][4];
+    rw_frag_a(A, RW_KS * s, mw, ah[0], al[0]);
+    rw_frag_a(A, RW_KS * s + 8, mw, ah[1], al[1]);
+    rw_mbar_wait(full + slot, (it / stages) & 1);
+    rw_own(acc);
+    rw_wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* bh = sl + 16 * NW * j + 4 * NW * wg;
+      const uint64_t dh = rw_desc(bh, 32 * NW, 128), dl = rw_desc(bh + 32 * NW, 32 * NW, 128);
+      rw_mma<NW>(acc, al[j], dh, j);
+      rw_mma<NW>(acc, ah[j], dl, 1);
+      rw_mma<NW>(acc, ah[j], dh, 1);
+    }
+    rw_commit();
+    rw_wait0();
+    rw_own(acc);
+    rw_own(ah[0]);
+    rw_own(ah[1]);
+    rw_own(al[0]);
+    rw_own(al[1]);
+    rw_release(feed, slot, ring, full, cnt);
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) sum[i] += acc[i];
+  }
+}
+
+// Rows r0 .. r0 + RW_ROWS of a layer's G (hs, n columns; zero past them up
+// to its slabs' n_ot * nwo) into its dW slabs, split into tf32 hi and lo:
+// slab (r / RW_RS, c / nwo), each half [r % 32 / 4][c % nwo / 8][c % 8]
+// [r % 4]. A thread takes 4 rows of a column at a time: one float4 in each
+// half, a warp 512 bytes in a row.
+__device__ __forceinline__ void rw_gput(const float* hs, int ldh, int n, float* img, int nwo,
+                                        int n_ot, int r0) {
+  const int w = n_ot * nwo;
+  for (int e = threadIdx.x; e < (RW_ROWS / 4) * w; e += RW_THREADS) {
+    const int r4 = e / w, c = e - r4 * w, r = r0 + 4 * r4, ot = c / nwo, o = c - ot * nwo;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) rw_split(c < n ? hs[(4 * r4 + q) * ldh + c] : 0.f, hi[q], lo[q]);
+    float* d = img + ((size_t)(r / RW_RS) * n_ot + ot) * (64 * nwo) +
+               ((r % RW_RS) >> 2) * (4 * nwo) + (o >> 3) * 32 + (o & 7) * 4;
+    *reinterpret_cast<float4*>(d) = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
+                                                __uint_as_float(hi[2]), __uint_as_float(hi[3]));
+    *reinterpret_cast<float4*>(d + 32 * nwo) = make_float4(
+        __uint_as_float(lo[0]), __uint_as_float(lo[1]), __uint_as_float(lo[2]), __uint_as_float(lo[3]));
+  }
+}
+
+// n floats from p on into L2, one 128-byte line per thread at a time
+__device__ __forceinline__ void rw_prefetch_l2(const float* p, size_t n) {
+  for (size_t i = 32 * (size_t)threadIdx.x; i < n; i += 32 * (size_t)RW_THREADS)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + i));
+}
+
+// Every step's weights split into tf32 hi and lo, in the slabs the engine
+// streams (K3f: B(k, n) = W_l[n][k]; K3b: B(k, n) = W_l[k][i(n)], i(n) x's
+// column in the x passes, h_src + n in the h pass), zero past the ends.
+__global__ void __launch_bounds__(HM_THREADS)
+rw_pack_kernel(const __grid_constant__ RwArgs a, int bwd, float* __restrict__ pk) {
+  const int L = a.m.n_layers;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < a.img_total;
+       e += (long long)gridDim.x * blockDim.x) {
+    int s = 0;
+    while (s + 1 < L && e >= a.st[s + 1].img) ++s;
+    const RwStep& st = a.st[s];
+    const int l = bwd ? L - 1 - s : s, nw = st.nw, f = 64 * nw, nsl = st.kpad / RW_KS;
+    const long long o = e - st.img, ps = o / f;
+    const int q = (int)(o - ps * f), p = (int)(ps / nsl), sl = (int)(ps % nsl);
+    const bool lo = q >= 32 * nw;
+    const int q2 = lo ? q - 32 * nw : q, kc = q2 / (8 * nw), q3 = q2 - kc * 8 * nw;
+    const int c = 2 * nw * p + (q3 >> 5) * 8 + ((q3 & 31) >> 2);
+    const int k = RW_KS * sl + 4 * kc + (q3 & 3);
+    float v = 0.f;
+    if (k < st.K) {
+      if (!bwd) {
+        if (c < st.h_cols) v = __ldg(a.m.w[l] + (size_t)c * st.K + k);
+      } else {
+        const int hc = c - 2 * nw * st.n_xpass;
+        const int i = p < st.n_xpass ? (c < st.x_cols ? c : -1) : (hc < st.h_cols ? st.h_src + hc : -1);
+        if (i >= 0) v = __ldg(a.m.w[l] + (size_t)k * a.m.in_dim[l] + i);
+      }
+    }
+    uint32_t hi, lw;
+    rw_split(v, hi, lw);
+    pk[e] = __uint_as_float(lo ? lw : hi);
+  }
+}
+
+// The ring's barriers and slot counters (the first 32 floats of shared
+// memory), then the ring
+__device__ __forceinline__ float* rw_ring_init(float* smem, int stages, uint64_t*& full,
+                                               uint32_t*& cnt) {
+  full = reinterpret_cast<uint64_t*>(smem);
+  cnt = reinterpret_cast<uint32_t*>(full + stages);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      rw_mbar_init(full + s, 1);
+      cnt[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  return smem + 32;
+}
+
+// Two elements of a row of floats at p (v0 at p[0], v1 at p[1] when two)
+// as one 8-byte store where p is aligned (vec), else as two; cs: streaming
+// stores (__stcs)
+__device__ __forceinline__ void rw_st2(float* p, float v0, float v1, bool two, bool vec, bool cs) {
+  if (two && vec) {
+    if (cs) __stcs(reinterpret_cast<float2*>(p), make_float2(v0, v1));
+    else *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+    return;
+  }
+  if (cs) __stcs(p, v0);
+  else p[0] = v0;
+  if (two) {
+    if (cs) __stcs(p + 1, v1);
+    else p[1] = v1;
+  }
+}
+
+// K3f (BWD false) and K3b's dIn (BWD true) on the row engine: one block per
+// SM walks tiles of RW_ROWS rows and carries each through every step.
+// K3f: in = x, out = y, save = the saved outputs (or null). K3b: in = g,
+// acts = K3f's saved outputs, out = dx, save = the G slabs for dW.
+// smem: the ring's barriers and counters, the ring, then xs (x, or K3b's
+// dx accumulator; RW_ROWS x ldx), hs (the hidden layer, or K3b's G; RW_ROWS
+// x ldh) and K3f's biases. A hidden layer's pass holds its 2 x 128 columns
+// in registers until every warp is done reading hs, then stores them in
+// place.
+template <bool BWD>
+__global__ void __launch_bounds__(RW_THREADS, 1)
+rw_kernel(const __grid_constant__ RwArgs a, const float* __restrict__ in,
+          const float* __restrict__ pk, const float* __restrict__ acts, float* __restrict__ out,
+          float* __restrict__ save) {
+  extern __shared__ __align__(16) float rw_smem[];
+  uint64_t* full;
+  uint32_t* cnt;
+  float* ring = rw_ring_init(rw_smem, a.stages, full, cnt);
+  float* xs = ring + a.stages * RW_SLAB;
+  float* hs = xs + RW_ROWS * a.ldx;
+  float* bsm = hs + RW_ROWS * a.ldh;  // K3f: layer l's bias at bias_off[l]
+  const int tid = threadIdx.x, L = a.m.n_layers, c_in = a.m.c_in, rows = a.m.rows;
+  const int ldx = a.ldx, ldh = a.ldh;
+  if constexpr (!BWD)
+    for (int l = 0; l < L; ++l)
+      for (int i = tid; i < a.m.out_dim[l]; i += RW_THREADS) bsm[a.bias_off[l] + i] = __ldg(a.m.b[l] + i);
+  __syncthreads();
+  RwFeed feed{&a, pk, (int)blockIdx.x, 0, 0};
+  rw_prime(feed, a.stages, ring, full);
+  const int wg = tid >> 7;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const int row0 = tile * RW_ROWS, nr = min(RW_ROWS, rows - row0);
+    __syncthreads();  // every warp is done with the previous tile's xs and hs
+    // the tile's x (K3f) or g (K3b) by cp.async, zero past the last row: a
+    // loop of loads and shared stores would wait for each load in turn
+    const int nin = BWD ? a.m.out_dim[L - 1] : c_in;
+    float* dst = BWD ? hs : xs;
+    const int ld = BWD ? ldh : ldx;
+    for (int i = tid; i < RW_ROWS * nin; i += RW_THREADS) {
+      const int r = i / nin, c = i - r * nin;
+      hm_cp4(dst + r * ld + c, r < nr ? in + (size_t)(row0 + r) * nin + c : in, r < nr);
+    }
+    hm_cp_commit();
+    if constexpr (BWD) {  // dx's accumulator from zero; G of the last layer is g, into its dW slabs too
+      for (int i = tid; i < RW_ROWS * c_in; i += RW_THREADS) xs[(i / c_in) * ldx + i % c_in] = 0.f;
+      hm_cp_wait();
+      __syncthreads();
+      rw_gput(hs, ldh, nin, save + a.gimg[L - 1], a.nwo[L - 1], a.n_ot[L - 1], row0);
+    } else {
+      hm_cp_wait();
+    }
+    __syncthreads();
+    for (int s = 0; s < L; ++s) {
+      const RwStep& st = a.st[s];
+      const int l = BWD ? L - 1 - s : s, nsl = st.kpad / RW_KS;
+      const RmIn A = BWD ? RmIn{hs, ldh, st.K, hs, ldh, st.K}
+                   : l == 0 ? RmIn{xs, ldx, c_in, xs, ldx, c_in}
+                   : rm_skip(a.m, l) ? RmIn{xs, ldx, c_in, hs, ldh, st.K}
+                                     : RmIn{hs, ldh, st.K, hs, ldh, st.K};
+      const float* bias = bsm + a.bias_off[l];
+      if (BWD && st.h_cols > 0)  // the ReLU masks this step's h pass reads: into L2 meanwhile
+        rw_prefetch_l2(acts + (size_t)a.m.act_off[l - 1] * rows + (size_t)row0 * st.h_cols,
+                       (size_t)nr * st.h_cols);
+      for (int p = 0; p < st.n_pass; ++p) {
+        if (st.nw == RW_NWS) {  // K3f's narrow last layer: straight to y
+          float sum[RW_NWS / 2];
+          rw_pass<RW_NWS>(sum, A, nsl, ring, full, cnt, a.stages, it, feed);
+          const int N = st.h_cols, c0 = 2 * RW_NWS * p + RW_NWS * wg;
+          rw_each<RW_NWS>(sum, [&](int m, int cl, float v0, float v1) {
+            const int c = c0 + cl;
+            if (m >= nr || c >= N) return;
+            v0 += bias[c];
+            out[(size_t)(row0 + m) * N + c] = a.m.final_act ? fmaxf(v0, 0.f) : v0;
+            if (c + 1 < N) {
+              v1 += bias[c + 1];
+              out[(size_t)(row0 + m) * N + c + 1] = a.m.final_act ? fmaxf(v1, 0.f) : v1;
+            }
+          });
+          continue;
+        }
+        float sum[RW_NW / 2];
+        rw_pass<RW_NW>(sum, A, nsl, ring, full, cnt, a.stages, it, feed);
+        const int c0 = 2 * RW_NW * p + RW_NW * wg;
+        if constexpr (!BWD) {
+          const int N = st.h_cols;
+          const bool relu = l < L - 1 || a.m.final_act;
+          if (l == L - 1) {  // the output layer: straight to y
+            const bool vec = (N & 1) == 0;
+            rw_each<RW_NW>(sum, [&](int m, int cl, float v0, float v1) {
+              const int c = c0 + cl;
+              if (m >= nr || c >= N) return;
+              v0 += bias[c];
+              v1 += c + 1 < N ? bias[c + 1] : 0.f;
+              rw_st2(out + (size_t)(row0 + m) * N + c, relu ? fmaxf(v0, 0.f) : v0,
+                     relu ? fmaxf(v1, 0.f) : v1, c + 1 < N, vec, false);
+            });
+            continue;
+          }
+          float* sv = save != nullptr ? save + (size_t)a.m.act_off[l] * rows : nullptr;
+          const bool vec = ((N | (a.m.act_off[l] * rows)) & 1) == 0;
+          __syncthreads();  // every warp is done reading hs
+          rw_each<RW_NW>(sum, [&](int m, int cl, float v0, float v1) {
+            const int c = c0 + cl;
+            if (c >= N) return;
+            const bool two = c + 1 < N;
+            v0 = fmaxf(v0 + bias[c], 0.f);
+            v1 = two ? fmaxf(v1 + bias[c + 1], 0.f) : 0.f;
+            rw_st2(hs + m * ldh + c, v0, v1, two, true, false);
+            if (sv != nullptr && m < nr) rw_st2(sv + (size_t)(row0 + m) * N + c, v0, v1, two, vec, true);
+          });
+          __syncthreads();  // layer l is complete in hs
+        } else if (p < st.n_xpass) {  // x's columns: into dx
+          rw_each<RW_NW>(sum, [&](int m, int cl, float v0, float v1) {
+            const int c = c0 + cl;
+            if (c < st.x_cols) xs[m * ldx + c] += v0;
+            if (c + 1 < st.x_cols) xs[m * ldx + c + 1] += v1;
+          });
+        } else {  // h's columns: G_{l-1}, masked by K3f's saved h_{l-1}
+          const int kh = st.h_cols, c1 = RW_NW * wg;
+          const float* hp = acts + (size_t)a.m.act_off[l - 1] * rows;
+          const bool vec = ((kh | (a.m.act_off[l - 1] * rows)) & 1) == 0;
+          // every mask value of the thread's elements first (rw_each's), so
+          // that the loads overlap
+          const int lane = tid & 31, mb = 16 * ((tid >> 5) & 3) + (lane >> 2);
+          const int cb = c1 + 2 * (lane & 3);
+          float2 mk[RW_NW / 8][2];
+#pragma unroll
+          for (int j = 0; j < RW_NW / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int m = mb + 8 * h, c = cb + 8 * j;
+              mk[j][h] = make_float2(0.f, 0.f);
+              if (m >= nr || c >= kh) continue;
+              const float* p = hp + (size_t)(row0 + m) * kh + c;
+              if (c + 1 < kh && vec) mk[j][h] = __ldg(reinterpret_cast<const float2*>(p));
+              else mk[j][h] = make_float2(__ldg(p), c + 1 < kh ? __ldg(p + 1) : 0.f);
+            }
+          __syncthreads();  // every warp is done reading G_l
+#pragma unroll
+          for (int j = 0; j < RW_NW / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int m = mb + 8 * h, c = cb + 8 * j;
+              if (c < kh)
+                rw_st2(hs + m * ldh + c, mk[j][h].x > 0.f ? sum[4 * j + 2 * h] : 0.f,
+                       mk[j][h].y > 0.f ? sum[4 * j + 2 * h + 1] : 0.f, c + 1 < kh, true, false);
+            }
+          __syncthreads();  // G_{l-1} is complete in hs
+          rw_gput(hs, ldh, kh, save + a.gimg[l - 1], a.nwo[l - 1], a.n_ot[l - 1], row0);
+        }
+      }
+    }
+    if constexpr (BWD) {
+      __syncthreads();
+      for (int i = tid; i < nr * c_in; i += RW_THREADS) {
+        const int r = i / c_in, c = i - r * c_in;
+        out[(size_t)(row0 + r) * c_in + c] = xs[r * ldx + c];
+      }
+    }
+  }
+}
+
+// dW = G^T A and db = sum G of one layer over the chunk blockIdx.y of
+// a.m.pc rows, as dW^T = A^T G: blockIdx.x is one layer's block of
+// RW_DW_M inputs x NWO outputs (dwt0). A^T's fragments come straight from
+// the saved outputs (x, [x, h_{l-1}] or h_{l-1}; 32-byte runs of 4 rows,
+// one slab ahead), G from its slabs through the ring; each slab's products
+// accumulate in the tensor core and are added to fp32 registers. The
+// blocks of the first inputs also sum G's columns for db (hi + lo, in row
+// order). Into ws, the chunk's slice of the gradients.
+template <int NWO>
+__device__ __forceinline__ void rw_dw_block(const RwArgs& a, int l, const float* __restrict__ x,
+                                            const float* __restrict__ acts,
+                                            const float* __restrict__ gimg, float* __restrict__ ws,
+                                            float* ring, uint64_t* full, uint32_t* cnt) {
+  const int tid = threadIdx.x, c = a.m.c_in, rows = a.m.rows;
+  const int t = blockIdx.x - a.dwt0[l], n_ot = a.n_ot[l], ot = t % n_ot, mt = t / n_ot;
+  const int N = a.m.out_dim[l], K = a.m.in_dim[l];
+  const int r0 = blockIdx.y * a.m.pc, nsl = (min(a.m.pc, rows - r0) + RW_RS - 1) / RW_RS;
+  RwDwFeed feed{gimg + a.gimg[l] + ((size_t)(r0 / RW_RS) * n_ot + ot) * 64 * NWO, 0, nsl,
+                n_ot * 64 * NWO, 256 * NWO};
+  rw_prime(feed, RW_DW_STAGES, ring, full);
+  const int lane = tid & 31, wg = tid >> 7, g = lane >> 2, tq = lane & 3;
+  const int i0 = RW_DW_M * mt + 64 * wg + 16 * ((tid >> 5) & 3) + g;  // the thread's first input
+  const bool has_x = l == 0 || rm_skip(a.m, l);
+  const int xoff = has_x ? c : 0, kh = l > 0 ? a.m.out_dim[l - 1] : 0;
+  const float* hp = l > 0 ? acts + (size_t)a.m.act_off[l - 1] * rows : x;
+  // the thread's two inputs i0 and i0 + 8: each a column of x or of h_{l-1}
+  const float* col[2];
+  int ld[2];
+  bool ok[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int i = i0 + 8 * u;
+    col[u] = i < xoff ? x + i : hp + (i - xoff);
+    ld[u] = i < xoff ? c : kh;
+    ok[u] = i < K;
+  }
+  float raw[4][4];
+  auto load = [&](int s) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = r0 + RW_RS * s + 8 * j + tq + 4 * (q >> 1), u = q & 1;
+        raw[j][q] = ok[u] && r < rows ? __ldg(col[u] + (size_t)r * ld[u]) : 0.f;
+      }
+  };
+  const bool do_b = mt == 0 && wg == 0 && tid < NWO;
+  float db = 0.f, sum[NWO / 2], acc[NWO / 2];
+#pragma unroll
+  for (int i = 0; i < NWO / 2; ++i) sum[i] = acc[i] = 0.f;
+  if (nsl > 0) load(0);
+  for (int s = 0; s < nsl; ++s) {
+    const int slot = s % RW_DW_STAGES;
+    const float* sl = ring + slot * RW_SLAB;
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) rw_split(raw[j][q], ah[j][q], al[j][q]);
+    if (s + 1 < nsl) load(s + 1);
+    rw_mbar_wait(full + slot, (s / RW_DW_STAGES) & 1);
+    if (do_b) {
+      const float* hb = sl + (tid >> 3) * 32 + (tid & 7) * 4;
+#pragma unroll
+      for (int kc = 0; kc < RW_RS / 4; ++kc) {
+        const float4 h4 = *reinterpret_cast<const float4*>(hb + kc * 4 * NWO);
+        const float4 l4 = *reinterpret_cast<const float4*>(hb + kc * 4 * NWO + 32 * NWO);
+        db += h4.x + l4.x;
+        db += h4.y + l4.y;
+        db += h4.z + l4.z;
+        db += h4.w + l4.w;
+      }
+    }
+    rw_own(acc);
+    rw_wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* bh = sl + 8 * NWO * j;
+      const uint64_t dh = rw_desc(bh, 16 * NWO, 128), dl = rw_desc(bh + 32 * NWO, 16 * NWO, 128);
+      rw_mma<NWO>(acc, al[j], dh, j);
+      rw_mma<NWO>(acc, ah[j], dl, 1);
+      rw_mma<NWO>(acc, ah[j], dh, 1);
+    }
+    rw_commit();
+    rw_wait0();
+    rw_own(acc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      rw_own(ah[j]);
+      rw_own(al[j]);
+    }
+    rw_release(feed, slot, ring, full, cnt);
+#pragma unroll
+    for (int i = 0; i < NWO / 2; ++i) sum[i] += acc[i];
+  }
+  const int ib = RW_DW_M * mt + 64 * wg, o0 = NWO * ot;
+  float* dw = ws + a.m.off_w[l];
+  rw_each<NWO>(sum, [&](int m, int cl, float v0, float v1) {
+    const int i = ib + m, o = o0 + cl;
+    if (i >= K) return;
+    if (o < N) dw[(size_t)o * K + i] = v0;
+    if (o + 1 < N) dw[(size_t)(o + 1) * K + i] = v1;
+  });
+  if (do_b && o0 + tid < N) ws[a.m.off_b[l] + o0 + tid] = db;
+}
+
+__global__ void __launch_bounds__(RW_THREADS, 1)
+rw_dw_kernel(const __grid_constant__ RwArgs a, const float* __restrict__ x,
+             const float* __restrict__ acts, const float* __restrict__ gimg,
+             float* __restrict__ ws) {
+  extern __shared__ __align__(16) float rw_smem[];
+  uint64_t* full;
+  uint32_t* cnt;
+  float* ring = rw_ring_init(rw_smem, RW_DW_STAGES, full, cnt);
+  int l = 0;
+  while (l + 1 < a.m.n_layers && (int)blockIdx.x >= a.dwt0[l + 1]) ++l;
+  __syncthreads();
+  float* out = ws + (size_t)blockIdx.y * a.m.n_params;
+  if (a.nwo[l] == RW_NW) rw_dw_block<RW_NW>(a, l, x, acts, gimg, out, ring, full, cnt);
+  else rw_dw_block<RW_NWS>(a, l, x, acts, gimg, out, ring, full, cnt);
+}
+
+// The row engine's steps (K3f, or K3b's dIn with bwd) and dW layout for
+// a.m's layers and rows; cudaErrorInvalidValue when a width exceeds
+// RW_MAX_WIDTH
+static size_t rw_smem_bytes(const RwArgs& r);
+
+static int rw_fill(RwArgs& r, bool bwd) {
+  const RmArgs& m = r.m;
+  const int L = m.n_layers, c = m.c_in;
+  if (c > RW_MAX_WIDTH) return (int)cudaErrorInvalidValue;
+  int wmax = 1;
+  for (int l = 0; l < L; ++l) {
+    if (m.out_dim[l] > RW_MAX_WIDTH) return (int)cudaErrorInvalidValue;
+    if (bwd || l < L - 1) wmax = std::max(wmax, m.out_dim[l]);
+  }
+  long long img = 0;
+  for (int s = 0; s < L; ++s) {
+    RwStep& st = r.st[s];
+    const int l = bwd ? L - 1 - s : s;
+    st.img = img;
+    if (!bwd) {
+      st.K = m.in_dim[l];
+      st.nw = m.out_dim[l] <= 2 * RW_NWS ? RW_NWS : RW_NW;
+      st.n_pass = (m.out_dim[l] + 2 * st.nw - 1) / (2 * st.nw);
+      st.n_xpass = st.x_cols = st.h_src = 0;
+      st.h_cols = m.out_dim[l];
+    } else {
+      st.K = m.out_dim[l];
+      st.nw = RW_NW;
+      st.x_cols = l == 0 || ((m.skip_mask >> l) & 1) ? c : 0;
+      st.n_xpass = (st.x_cols + 2 * RW_NW - 1) / (2 * RW_NW);
+      st.h_cols = l > 0 ? m.out_dim[l - 1] : 0;
+      st.h_src = st.x_cols;
+      st.n_pass = st.n_xpass + (st.h_cols > 0);
+    }
+    st.kpad = rm_round(st.K, RW_KS);
+    img += (long long)st.n_pass * (st.kpad / RW_KS) * 64 * st.nw;
+  }
+  r.img_total = img;
+  r.bias_total = 0;
+  for (int l = 0; l < L; ++l) {
+    r.bias_off[l] = r.bias_total;
+    if (!bwd) r.bias_total += rm_round(m.out_dim[l], 4);
+  }
+  r.ldx = hm_ld(c);
+  r.ldh = hm_ld(wmax);
+  r.n_tiles = (m.rows + RW_ROWS - 1) / RW_ROWS;
+  r.rows_pad = r.n_tiles * RW_ROWS;
+  long long gi = 0;
+  int tiles = 0;
+  for (int l = 0; l < L; ++l) {
+    r.nwo[l] = m.out_dim[l] <= RW_NWS ? RW_NWS : RW_NW;
+    r.n_ot[l] = (m.out_dim[l] + r.nwo[l] - 1) / r.nwo[l];
+    r.gimg[l] = gi;
+    gi += (long long)(r.rows_pad / RW_RS) * r.n_ot[l] * 64 * r.nwo[l];
+    r.dwt0[l] = tiles;
+    tiles += ((m.in_dim[l] + RW_DW_M - 1) / RW_DW_M) * r.n_ot[l];
+  }
+  r.gimg[L] = gi;
+  r.dwt0[L] = tiles;
+  r.stages = RW_STAGES;
+  if (rw_smem_bytes(r) > RM_SMEM) r.stages = 2;
+  return 0;
+}
+
+static size_t rw_smem_bytes(const RwArgs& r) {
+  return sizeof(float) * (32 + (size_t)r.stages * RW_SLAB + (size_t)RW_ROWS * (r.ldx + r.ldh) +
+                          r.bias_total);
+}
+
+static const size_t RW_DW_SMEM = sizeof(float) * (32 + (size_t)RW_DW_STAGES * RW_SLAB);
+
+static int rw_sms() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+static int rw_pack(const RwArgs& r, int bwd, float* pk, cudaStream_t st) {
+  const long long blocks = std::min<long long>((r.img_total + HM_THREADS - 1) / HM_THREADS, 4096);
+  rw_pack_kernel<<<(unsigned)blocks, HM_THREADS, 0, st>>>(r, bwd, pk);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------------ launch
 
 // The layer table and the layouts of the saved outputs and gradients; w /
@@ -811,6 +1618,102 @@ int lab4d_relu_mlp_bwd(const float* x, const float* g, const float* acts, float*
   if (n_chunks > 1) {
     hm_reduce_kernel<<<(a.n_params + HM_THREADS - 1) / HM_THREADS, HM_THREADS, 0, st>>>(
         ws, n_chunks, a.n_params, grads);
+    if ((err = (int)cudaGetLastError())) return err;
+    ++n;
+  }
+  if (n_launches != nullptr) *n_launches = n;
+  return 0;
+}
+
+// The row engine's layout for an MLP of these widths at `rows` rows:
+// sizes[0] K3f's packed weights (floats), [1] K3b's, [2] the G slabs of
+// dW, [3] dW's blocks per chunk, [4] K3f's and [5] K3b's dIn shared memory
+// per block (bytes), [6] dW's, [7] floats per row of the saved outputs,
+// [8] floats of the gradients. Returns cudaErrorInvalidValue when the
+// engine does not take these widths, else 0.
+int lab4d_relu_mlp_rows_layout(const int* in_dim, const int* out_dim, int n_layers, int c_in,
+                               int skip_mask, int rows, long long* sizes) {
+  RwArgs f, b;
+  int err = rm_fill_args(f.m, nullptr, nullptr, in_dim, out_dim, n_layers, c_in, rows, skip_mask, 0);
+  if (err) return err;
+  b.m = f.m;
+  if ((err = rw_fill(f, false)) || (err = rw_fill(b, true))) return err;
+  sizes[0] = f.img_total;
+  sizes[1] = b.img_total;
+  sizes[2] = b.gimg[n_layers];
+  sizes[3] = b.dwt0[n_layers];
+  sizes[4] = (long long)rw_smem_bytes(f);
+  sizes[5] = (long long)rw_smem_bytes(b);
+  sizes[6] = (long long)RW_DW_SMEM;
+  sizes[7] = f.m.act_total;
+  sizes[8] = f.m.n_params;
+  return rw_smem_bytes(f) > RM_SMEM || rw_smem_bytes(b) > RM_SMEM ? (int)cudaErrorInvalidValue : 0;
+}
+
+// K3f on the row engine: y (rows, out_last) = MLP(x); acts as for
+// lab4d_relu_mlp_fwd; pk: sizes[0] floats (lab4d_relu_mlp_rows_layout) for
+// the split weights. Returns the error, or 0; *n_launches: 2.
+int lab4d_relu_mlp_rows_fwd(const float* x, float* y, float* acts, float* pk,
+                            const void* const* w, const void* const* b, const int* in_dim,
+                            const int* out_dim, int n_layers, int c_in, int rows, int skip_mask,
+                            int final_act, int* n_launches, void* stream) {
+  RwArgs r;
+  int err = rm_fill_args(r.m, w, b, in_dim, out_dim, n_layers, c_in, rows, skip_mask, final_act);
+  if (err || (err = rw_fill(r, false))) return err;
+  const size_t smem = rw_smem_bytes(r);
+  const int n_sm = rw_sms();
+  if (n_sm < 1) return (int)cudaErrorInvalidDevice;
+  if ((err = rm_set_smem((const void*)rw_kernel<false>, smem))) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((err = rw_pack(r, 0, pk, st))) return err;
+  rw_kernel<false><<<std::min(r.n_tiles, n_sm), RW_THREADS, smem, st>>>(r, x, pk, nullptr, y, acts);
+  if ((err = (int)cudaGetLastError())) return err;
+  if (n_launches != nullptr) *n_launches = 2;
+  return 0;
+}
+
+// K3b on the row engine, from K3f's saved outputs: dx and grads as for
+// lab4d_relu_mlp_bwd; n_chunks chunks of pc rows (a multiple of 32) for
+// dW. scratch: sizes[1] floats for the split transposed weights, sizes[2]
+// for G's slabs, then n_chunks * sizes[8] floats of workspace when
+// n_chunks > 1. Returns the error, or 0; *n_launches: the launches made
+// (3, or 4 with chunks).
+int lab4d_relu_mlp_rows_bwd(const float* x, const float* g, const float* acts, float* dx,
+                            float* grads, float* scratch, const void* const* w,
+                            const void* const* b, const int* in_dim, const int* out_dim,
+                            int n_layers, int c_in, int rows, int skip_mask, int n_chunks, int pc,
+                            int* n_launches, void* stream) {
+  RwArgs r;
+  int err = rm_fill_args(r.m, w, b, in_dim, out_dim, n_layers, c_in, rows, skip_mask, 0);
+  if (err || (err = rw_fill(r, true))) return err;
+  if (n_chunks < 1 || pc < 1 || pc % RW_RS || (long long)(n_chunks - 1) * pc >= rows ||
+      (long long)n_chunks * pc < rows)
+    return (int)cudaErrorInvalidValue;
+  r.m.pc = pc;
+  r.m.n_chunks = n_chunks;
+  const size_t smem = rw_smem_bytes(r);
+  const int n_sm = rw_sms();
+  if (n_sm < 1) return (int)cudaErrorInvalidDevice;
+  if ((err = rm_set_smem((const void*)rw_kernel<true>, smem)) ||
+      (err = rm_set_smem((const void*)rw_dw_kernel, RW_DW_SMEM)))
+    return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pt = scratch;
+  float* gimg = scratch + r.img_total;
+  float* ws = n_chunks > 1 ? gimg + r.gimg[n_layers] : grads;
+  int n = 0;
+  if ((err = rw_pack(r, 1, pt, st))) return err;
+  ++n;
+  rw_kernel<true><<<std::min(r.n_tiles, n_sm), RW_THREADS, smem, st>>>(r, g, pt, acts, dx, gimg);
+  if ((err = (int)cudaGetLastError())) return err;
+  ++n;
+  rw_dw_kernel<<<dim3(r.dwt0[n_layers], n_chunks), RW_THREADS, RW_DW_SMEM, st>>>(r, x, acts, gimg,
+                                                                                ws);
+  if ((err = (int)cudaGetLastError())) return err;
+  ++n;
+  if (n_chunks > 1) {
+    hm_reduce_kernel<<<(r.m.n_params + HM_THREADS - 1) / HM_THREADS, HM_THREADS, 0, st>>>(
+        ws, n_chunks, r.m.n_params, grads);
     if ((err = (int)cudaGetLastError())) return err;
     ++n;
   }

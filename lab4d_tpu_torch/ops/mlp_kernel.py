@@ -6,9 +6,9 @@ layout, (out, in), so module parameters go to the kernels without a copy;
 the JAX package stores the transpose.
 
 - K3f `fused_relu_mlp` forward (csrc/fused_relu_mlp.cu): the TimeMLP
-  backbones, 1 to a few hundred rows. When autograd needs a gradient it
-  also saves every hidden layer output (`pe_act_layout`,
-  `mlp_forward_saved`).
+  backbones (1 to 512 rows) and the warps' CondMLPs at every sample
+  (262,144 rows). When autograd needs a gradient it also saves every
+  hidden layer output (`pe_act_layout`, `mlp_forward_saved`).
 - K3b `fused_relu_mlp_backward` (csrc/fused_relu_mlp.cu): its VJP from
   those saved outputs; its plain version on the same saved outputs is
   `mlp_backward_saved_reference`.
@@ -28,10 +28,10 @@ differentiable: on the card their backward is K3b / K4b, first order only
 mask on the incoming gradient is applied here, outside the kernels, as the
 JAX VJPs do.
 
-K3f / K3b's row-count decisions (`relu_mlp_plan`: K3f's tile, K3b's
-chunks of rows for dW and its launches) are made here in plain Python, so
-that the CPU tests reach them; the library lays out their shared memory
-itself (as many layers' weight slices in flight as fit). K4f / K4b's launch plan is the library's own (`pe_mlp_plan` reads
+K3f / K3b's row-count decisions (`relu_mlp_plan`: the engine, K3f's
+tile, K3b's chunks of rows for dW and its launches) are made here in plain
+Python, so that the CPU tests reach them; the library lays out their
+shared memory itself. K4f / K4b's launch plan is the library's own (`pe_mlp_plan` reads
 it from csrc/fused_pe_mlp.cu); only their width limit (`check_pe_widths`)
 and the saved outputs' layout (`pe_act_layout`) are kept here.
 """
@@ -58,6 +58,12 @@ K3_FMA_ROWS = 8
 K3_MAX_WIDTH = 512  # RM_MAX_WIDTH: widest layer input and output of K3f / K3b
 K3_DW_ROWS = 512  # RM_DW_ROWS: K3b's dW takes every row at once up to this many rows
 K3_CHUNK_ROWS = 1024  # K3b's dW past them: fewest rows per chunk of the split over rows
+# K3f / K3b's row engine (csrc/fused_relu_mlp.cu, rw_*): from this many rows
+# on (the crossover measured by tools/profile_k4b_phases.py --k3_sweep),
+# where no layer output and no input x is wider than K3_ROWS_MAX_WIDTH
+K3_ROWS_MIN = 1024
+K3_ROWS_MAX_WIDTH = 256  # RW_MAX_WIDTH
+_RW_ROWS, _RW_KS, _RW_RS, _RW_NW, _RW_NWS, _RW_DW_M = 64, 16, 32, 128, 8, 128  # RW_* of the library
 
 
 # ------------------------------------------------------------ plain versions
@@ -199,44 +205,96 @@ def pe_mlp_backward_saved_reference(x, g, window, weights, biases, freqs, skip_i
 
 class ReluMlpPlan(NamedTuple):
     """K3f / K3b's row-count decisions for one shape (relu_mlp_plan)."""
-    fwd_fma: bool  # K3f on its 8-row fp32 FMA tile (few rows), else 3xTF32 on 32 rows
+    fwd_fma: bool  # the cluster engine's K3f on its 8-row fp32 FMA tile, else 3xTF32 on 32 rows
     n_chunks: int  # K3b's dW: chunks of rows, one workspace slice each when > 1
     chunk_rows: int  # rows per chunk, whole 32-row slabs
     n_params: int  # floats of the gradients: every dW, then every db
     act_floats: int  # saved floats per row (pe_act_layout)
-    scratch_floats: int  # K3b's scratch: the hidden layers' gradients, the workspace
+    scratch_floats: int  # K3b's scratch: its split weights and G slabs (rows engine) or the
+    # hidden layers' gradients (cluster engine), then the workspace
     bwd_launches: int  # CUDA launches of one K3b call
+    engine: str = "cluster"  # "cluster" (few rows) or "rows"
+    pack_floats: int = 0  # K3f's split weights (rows engine)
+    fwd_launches: int = 1  # CUDA launches of one K3f call
 
 
 def _cdiv(a, b):
     return -(-a // b)
 
 
-def relu_mlp_plan(c_in, in_dims, out_dims, rows, n_sm=132):
-    """K3f / K3b's row-count decisions (ReluMlpPlan, made once per shape):
-    K3f's tile (fp32 FMA on 8 rows up to 8 rows, a render's few frames, else
-    3xTF32 on 32), and K3b's chunks of rows for dW: one (dW straight into
-    the gradient, two launches; up to K3_DW_ROWS rows from every row at
-    once) up to K3_CHUNK_ROWS rows, else about four waves of dW blocks on
-    n_sm SMs, at most 512 chunks (a third launch sums them). The library
-    lays out the shared memory (lab4d_relu_mlp_smem) and raises at launch
-    when a layer's buffers do not fit."""
-    return _relu_plan_of(c_in, tuple(in_dims), tuple(out_dims), rows, n_sm)
+def relu_mlp_plan(c_in, in_dims, out_dims, rows, n_sm=132, engine=None):
+    """K3f / K3b's row-count decisions (ReluMlpPlan, made once per shape).
+
+    Two engines sit behind K3f and K3b (csrc/fused_relu_mlp.cu):
+    - the cluster engine, for the TimeMLPs' few rows (1 to 512: a render's
+      frames, a training batch's frames): one cluster of 8 blocks per tile
+      of rows splits every layer's columns, so that the 1.57 MB of weights
+      is read once per tile by 8 SMs and no layer waits on the latency of
+      more than 1/8 of it. K3f runs fp32 FMA on 8 rows up to 8 rows, else
+      3xTF32 mma.sync on 32; K3b's dW is one launch up to K3_CHUNK_ROWS
+      rows (from every row at once up to K3_DW_ROWS), else chunks of rows
+      summed by a third launch.
+    - the row engine, from K3_ROWS_MIN rows on (the warp fields' 262,144
+      samples), where the card's time goes into the products and into
+      streaming the weights: one persistent block per SM carries tiles of
+      64 rows through every layer on wgmma 3xTF32, with the weights split
+      once per call and streamed from L2 by the TMA unit; K3b's dW is a
+      wgmma product over chunks of rows, summed by a further launch.
+      It takes layers of at most K3_ROWS_MAX_WIDTH outputs and x of at
+      most that many columns; wider MLPs stay on the cluster engine.
+    Both chunk K3b's dW so that about four waves of blocks cover n_sm SMs,
+    at most 512 chunks. engine: force "cluster" or "rows" (the profilers'
+    sweep); the library lays out the shared memory (lab4d_relu_mlp_smem,
+    lab4d_relu_mlp_rows_layout) and raises at launch when a layer's
+    buffers do not fit."""
+    return _relu_plan_of(c_in, tuple(in_dims), tuple(out_dims), rows, n_sm, engine)
+
+
+def rows_engine_layout(c_in, in_dims, out_dims, rows):
+    """The row engine's buffers (lab4d_relu_mlp_rows_layout's first four
+    numbers): (K3f's split weights, K3b's split transposed weights, the G
+    slabs of K3b's dW, floats each; dW's blocks per chunk of rows)."""
+    L = len(in_dims)
+    skip = [l > 0 and in_dims[l] != out_dims[l - 1] for l in range(L)]
+    pk = pt = gimg = tiles = 0
+    for l in range(L):
+        nw = _RW_NWS if out_dims[l] <= 2 * _RW_NWS else _RW_NW
+        pk += _cdiv(out_dims[l], 2 * nw) * _cdiv(in_dims[l], _RW_KS) * 64 * nw
+        x_cols = c_in if l == 0 or skip[l] else 0
+        n_pass = _cdiv(x_cols, 2 * _RW_NW) + (l > 0)
+        pt += n_pass * _cdiv(out_dims[l], _RW_KS) * 64 * _RW_NW
+        nwo = _RW_NWS if out_dims[l] <= _RW_NWS else _RW_NW
+        n_ot = _cdiv(out_dims[l], nwo)
+        gimg += _cdiv(rows, _RW_ROWS) * _RW_ROWS // _RW_RS * n_ot * 64 * nwo
+        tiles += _cdiv(in_dims[l], _RW_DW_M) * n_ot
+    return pk, pt, gimg, tiles
 
 
 @functools.lru_cache(maxsize=256)
-def _relu_plan_of(c_in, in_dims, out_dims, rows, n_sm):
+def _relu_plan_of(c_in, in_dims, out_dims, rows, n_sm, engine):
     if max(*in_dims, *out_dims) > K3_MAX_WIDTH:
         raise ValueError(f"K3f / K3b take layers of at most {K3_MAX_WIDTH} inputs and outputs")
-    tiles = sum(_cdiv(o, 64) * _cdiv(i, 64) for i, o in zip(in_dims, out_dims))
-    n_chunks = 1 if rows <= K3_DW_ROWS else \
+    fits = max(c_in, *out_dims) <= K3_ROWS_MAX_WIDTH
+    if engine is None:
+        engine = "rows" if rows >= K3_ROWS_MIN and fits else "cluster"
+    elif engine == "rows" and not fits:
+        raise ValueError(f"K3's row engine takes x and layers of at most {K3_ROWS_MAX_WIDTH} columns")
+    n_params = sum(o * (i + 1) for i, o in zip(in_dims, out_dims))
+    act = sum(out_dims[:-1])
+    if engine == "rows":
+        pk, pt, gimg, tiles = rows_engine_layout(c_in, in_dims, out_dims, rows)
+    else:
+        pk, pt, gimg = 0, 0, rows * act
+        tiles = sum(_cdiv(o, 64) * _cdiv(i, 64) for i, o in zip(in_dims, out_dims))
+    n_chunks = 1 if engine == "cluster" and rows <= K3_DW_ROWS else \
         max(1, min(_cdiv(rows, K3_CHUNK_ROWS), _cdiv(4 * n_sm, tiles), 512))
     chunk_rows = _cdiv(_cdiv(rows, n_chunks), 32) * 32
     n_chunks = _cdiv(rows, chunk_rows)
-    n_params = sum(o * (i + 1) for i, o in zip(in_dims, out_dims))
-    act = sum(out_dims[:-1])
-    return ReluMlpPlan(rows <= K3_FMA_ROWS, n_chunks, chunk_rows, n_params, act,
-                       rows * act + (n_chunks * n_params if n_chunks > 1 else 0),
+    ws = n_chunks * n_params if n_chunks > 1 else 0
+    if engine == "rows":
+        return ReluMlpPlan(False, n_chunks, chunk_rows, n_params, act, pt + gimg + ws,
+                           3 + (n_chunks > 1), "rows", pk, 2)
+    return ReluMlpPlan(rows <= K3_FMA_ROWS, n_chunks, chunk_rows, n_params, act, gimg + ws,
                        2 + (n_chunks > 1))
 
 
@@ -278,6 +336,17 @@ def bind_signatures(name, lib):
             vp, vp, vp, vp, vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, i32, i32, i32, pi32, vp,
         ]
         lib.lab4d_relu_mlp_bwd.restype = i32
+        lib.lab4d_relu_mlp_rows_layout.argtypes = [pi32, pi32, i32, i32, i32, i32,
+                                                   ctypes.POINTER(ctypes.c_longlong)]
+        lib.lab4d_relu_mlp_rows_layout.restype = i32
+        lib.lab4d_relu_mlp_rows_fwd.argtypes = [
+            vp, vp, vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, i32, i32, pi32, vp,
+        ]
+        lib.lab4d_relu_mlp_rows_fwd.restype = i32
+        lib.lab4d_relu_mlp_rows_bwd.argtypes = [
+            vp, vp, vp, vp, vp, vp, pvp, pvp, pi32, pi32, i32, i32, i32, i32, i32, i32, pi32, vp,
+        ]
+        lib.lab4d_relu_mlp_rows_bwd.restype = i32
     elif name == "fused_pe_mlp":
         lib.lab4d_pe_mlp_plan.argtypes = [pi32, pi32, i32, i32, i32, i32, i32,
                                           ctypes.POINTER(ctypes.c_longlong)]
@@ -375,32 +444,39 @@ def _split_grads(flat, weights):
     return dws, dbs
 
 
-def _k3_plan(x, weights):
+def _k3_plan(x, weights, engine=None):
     return relu_mlp_plan(x.shape[1], [w.shape[1] for w in weights], [w.shape[0] for w in weights],
-                         x.shape[0], _n_sm(x.device))
+                         x.shape[0], _n_sm(x.device), engine)
 
 
-def _launch_k3f(lib, x, weights, biases, skip_idx, final_act, stream, save):
-    """Run K3f; returns (out, acts, n), acts the saved hidden outputs
-    (pe_act_layout) when save, else None, and n the CUDA launches made."""
+def _launch_k3f(lib, x, weights, biases, skip_idx, final_act, stream, save, engine=None):
+    """Run K3f on the plan's engine (or `engine`); returns (out, acts, n),
+    acts the saved hidden outputs (pe_act_layout) when save, else None, and
+    n the CUDA launches made."""
     layers, skip_mask = _layer_args(weights, biases, skip_idx)
-    plan = _k3_plan(x, weights)
+    plan = _k3_plan(x, weights, engine)
     out = torch.empty((x.shape[0], weights[-1].shape[0]), device=x.device, dtype=x.dtype)
     acts = torch.empty(x.shape[0] * plan.act_floats, device=x.device, dtype=x.dtype) if save else None
     n_launches = ctypes.c_int(0)
-    err = lib.lab4d_relu_mlp_fwd(
-        x.data_ptr(), out.data_ptr(), None if acts is None else acts.data_ptr(), *layers,
-        x.shape[1], x.shape[0], skip_mask, int(final_act), int(plan.fwd_fma),
-        ctypes.byref(n_launches), stream)
+    acts_ptr = None if acts is None else acts.data_ptr()
+    if plan.engine == "rows":
+        pk = torch.empty(plan.pack_floats, device=x.device, dtype=x.dtype)
+        err = lib.lab4d_relu_mlp_rows_fwd(
+            x.data_ptr(), out.data_ptr(), acts_ptr, pk.data_ptr(), *layers, x.shape[1],
+            x.shape[0], skip_mask, int(final_act), ctypes.byref(n_launches), stream)
+    else:
+        err = lib.lab4d_relu_mlp_fwd(
+            x.data_ptr(), out.data_ptr(), acts_ptr, *layers, x.shape[1], x.shape[0], skip_mask,
+            int(final_act), int(plan.fwd_fma), ctypes.byref(n_launches), stream)
     _raise_on(lib, err, "relu_mlp_fwd")
     return out, acts, n_launches.value
 
 
-def _launch_k3b(lib, x, g, weights, biases, skip_idx, acts, stream):
-    """Run K3b from K3f's saved outputs acts; returns (dx, dWs, dbs, n), n
-    the CUDA launches made."""
+def _launch_k3b(lib, x, g, weights, biases, skip_idx, acts, stream, engine=None):
+    """Run K3b from K3f's saved outputs acts on the plan's engine (or
+    `engine`); returns (dx, dWs, dbs, n), n the CUDA launches made."""
     layers, skip_mask = _layer_args(weights, biases, skip_idx)
-    plan = _k3_plan(x, weights)
+    plan = _k3_plan(x, weights, engine)
     if acts.shape != (x.shape[0] * plan.act_floats,) or acts.device != x.device or \
             acts.dtype != x.dtype or not acts.is_contiguous():
         raise ValueError(f"acts must hold {plan.act_floats} floats per row (pe_act_layout)")
@@ -408,10 +484,10 @@ def _launch_k3b(lib, x, g, weights, biases, skip_idx, acts, stream):
     flat = torch.empty(plan.n_params, device=x.device, dtype=x.dtype)
     scratch = torch.empty(max(plan.scratch_floats, 1), device=x.device, dtype=x.dtype)
     n_launches = ctypes.c_int(0)
-    err = lib.lab4d_relu_mlp_bwd(
-        x.data_ptr(), g.data_ptr(), acts.data_ptr(), dx.data_ptr(), flat.data_ptr(),
-        scratch.data_ptr(), *layers, x.shape[1], x.shape[0], skip_mask, plan.n_chunks,
-        plan.chunk_rows, ctypes.byref(n_launches), stream)
+    bwd = lib.lab4d_relu_mlp_rows_bwd if plan.engine == "rows" else lib.lab4d_relu_mlp_bwd
+    err = bwd(x.data_ptr(), g.data_ptr(), acts.data_ptr(), dx.data_ptr(), flat.data_ptr(),
+              scratch.data_ptr(), *layers, x.shape[1], x.shape[0], skip_mask, plan.n_chunks,
+              plan.chunk_rows, ctypes.byref(n_launches), stream)
     _raise_on(lib, err, "relu_mlp_bwd")
     dws, dbs = _split_grads(flat, weights)
     return dx, dws, dbs, n_launches.value
@@ -528,6 +604,7 @@ def _k3f_cuda(x, weights, biases, skip_idx, final_act, save):
                           _stream(x.device), save)
     fused_relu_mlp.launches += 1
     fused_relu_mlp.cuda_launches = n
+    fused_relu_mlp.engine = _k3_plan(x, weights).engine
     return tuple(out)
 
 
@@ -598,6 +675,7 @@ def fused_relu_mlp(
 
 fused_relu_mlp.launches = 0
 fused_relu_mlp.cuda_launches = 0
+fused_relu_mlp.engine = None  # the engine of the last CUDA call: "cluster" or "rows"
 
 
 def fused_relu_mlp_backward(x, g, weights, biases, skip_idx=(), saved=None):
@@ -625,11 +703,13 @@ def fused_relu_mlp_backward(x, g, weights, biases, skip_idx=(), saved=None):
                           _stream(x.device))
     fused_relu_mlp_backward.launches += 1
     fused_relu_mlp_backward.cuda_launches = n
+    fused_relu_mlp_backward.engine = _k3_plan(x, weights).engine
     return tuple(out)
 
 
 fused_relu_mlp_backward.launches = 0
 fused_relu_mlp_backward.cuda_launches = 0
+fused_relu_mlp_backward.engine = None  # the engine of the last CUDA call
 
 
 # ------------------------------------------------------------------ K4f, K4b

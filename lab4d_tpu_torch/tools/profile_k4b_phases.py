@@ -1,7 +1,8 @@
 """Where the time of K4f and K4b goes on the bg field's MLPs, and of K3f
-and K3b on the TimeMLPs, on one CUDA device.
+and K3b on the TimeMLPs and the warps' CondMLPs, on one CUDA device.
 
     python3 -m lab4d_tpu_torch.tools.profile_k4b_phases [--reps N] [--parent DIR] [--k3_only]
+    python3 -m lab4d_tpu_torch.tools.profile_k4b_phases --k3_sweep [--reps N]
 
 Run from the root of a checkout. At the three 262,144-point shapes of
 chip_smoke.K4_SHAPES (the base, colour and visibility MLPs of a bg
@@ -26,11 +27,10 @@ training step):
 
 A copy with a phase off computes other outputs; only `full` is checked.
 
-K3f and K3b at the TimeMLPs' shapes (chip_smoke.K3_PROFILE: D5 W256 at 1
-and 256 rows, D2 W64 at 256), by anatomy copies of
-csrc/fused_relu_mlp.cu, each timed by CUDA-graph replay
-(chip_smoke.device_ms):
-  - full: the kernels as they are (checked against their plain versions);
+K3f and K3b by anatomy copies of csrc/fused_relu_mlp.cu, each timed by
+CUDA-graph replay (chip_smoke.device_ms), `full` checked against the plain
+versions. On the cluster engine, at the TimeMLPs' shapes
+(chip_smoke.K3_PROFILE: D5 W256 at 1, 256 and 512 rows, D2 W64 at 256):
   - empty: K3f returns at its start (a cluster launch with its shared
     memory); no-wstage: without the weight staging; no-remote: each block
     stores a layer's outputs into its own shared memory only (no
@@ -40,27 +40,40 @@ csrc/fused_relu_mlp.cu, each timed by CUDA-graph replay
     products and their stores; barriers: neither staging nor math (the
     launch, x and the barriers);
   - K3b's dIn launch alone (din-only) and its dW launch alone (dw-only).
+On the row engine, at the warps' 262,144 rows (chip_smoke.K3_WARP_SHAPES:
+the dense map and the post-warp):
+  - rw-no-math: K3f and K3b's dIn without their wgmma products;
+    rw-no-wstage: without the weight slabs' bulk copies (the slots keep
+    stale values); rw-mma-1x: one product per k8 step instead of three;
+    rw-no-split: A's fragments not loaded nor split; rw-no-drain: no wait
+    for a slab's products before its slot is released; rw-no-epi: a hidden
+    layer's pass without its epilogue; no-save: K3f without saving;
+  - K3b's dIn alone (din-only), its dW alone (dw-only), K3b without dW's
+    products (rw-dw-no-math), without writing G's slabs for dW
+    (rw-no-gput), without loading the ReLU masks (rw-no-mask).
 
---parent DIR: the root of a checkout whose K4f / K4b are the row-tiled
-fp32 FMA design (csrc/fused_pe_mlp.cu on csrc/mlp_tiles.cuh, as at commit
-450f66c). Its fused_pe_mlp.cu is built from DIR, its wrapper
+--parent DIR: the root of a checkout of an earlier commit. Its
+fused_pe_mlp.cu and fused_relu_mlp.cu are built from DIR, its wrapper
 DIR/lab4d_tpu_torch/ops/mlp_kernel.py loaded under another name, checked
-against its plain version, and its K4f / K4b timed in turns with this
-checkout's: parent, new, new, parent in every round, at all four shapes
-of K4_SHAPES (the fourth: the 512 visibility-decay points of a step,
-which get the turns only).
+against its plain versions, and its K4f / K4b (with the row-tiled design
+of commit 450f66c in mind: at all four shapes of K4_SHAPES, the fourth the
+512 visibility-decay points of a step, which get the turns only) and K3f
+(saving) / K3b (from its own K3f's saved outputs) timed in turns with this
+checkout's: parent, new, new, parent in every round, at every K3 shape
+above, beside the plain versions. --k3_only: only the K3 parts.
 
-With --parent, K3f and K3b are timed in turns with DIR's too (parent,
-new, new, parent), at every shape of chip_smoke.K3_PROFILE, by CUDA-graph
-replay: DIR's fused_relu_mlp.cu is built from DIR, its K3b is whatever
-DIR's wrapper runs (the row-tiled parent recomputes the forward), the new
-K3b runs from K3f's saved outputs. --k3_only: only the K3 parts.
+--k3_sweep: K3f and K3b on both engines in turns (cluster, rows, rows,
+cluster), and their plain versions, at 256 to 262,144 rows at the dense
+map's and the post-warp's widths; it prints the crossover, the fewest
+swept rows from which the row engine wins at every larger count and both
+shapes (relu_mlp_plan's K3_ROWS_MIN is set from it).
 
 Each round times every run in turn: at 262,144 points, CUDA events around
 5 back-to-back calls after one warm-up call; at 512 points, where the
 host's launches would outlast the kernels, 100 calls captured into one
-CUDA graph and replayed (chip_smoke.device_ms). The median over `--reps`
-rounds is printed, then the card's name and power limit.
+CUDA graph and replayed (chip_smoke.device_ms; K3: 3 calls past 4,096
+rows). The median over `--reps` rounds is printed, then the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -131,14 +144,82 @@ K3_COPIES = {
     "din-only": [
         ("fused_relu_mlp.cu", "    rm_dw_rows_kernel<<<", "    if (0) rm_dw_rows_kernel<<<"),
         ("fused_relu_mlp.cu", "    rm_dw_kernel<<<", "    if (0) rm_dw_kernel<<<"),
+        ("fused_relu_mlp.cu", "  rw_dw_kernel<<<", "  if (0) rw_dw_kernel<<<"),
     ],
-    "dw-only": [(
+    "dw-only": [
+        ("fused_relu_mlp.cu", "  rm_din_kernel<<<tiles * RM_CLUSTER",
+         "  if (0) rm_din_kernel<<<tiles * RM_CLUSTER"),
+        ("fused_relu_mlp.cu", "  rw_kernel<true><<<", "  if (0) rw_kernel<true><<<"),
+    ],
+    # the row engine: K3f and K3b's dIn without their products (the weight
+    # streaming, the barriers and the epilogues), or without the weight
+    # streaming (the slabs keep stale values; the products, A's loads and
+    # the epilogues); K3b's dW without its products
+    "rw-no-math": [(
         "fused_relu_mlp.cu",
-        "  rm_din_kernel<<<tiles * RM_CLUSTER",
-        "  if (0) rm_din_kernel<<<tiles * RM_CLUSTER",
+        "      rw_mma<NW>(acc, al[j], dh, j);\n      rw_mma<NW>(acc, ah[j], dl, 1);\n"
+        "      rw_mma<NW>(acc, ah[j], dh, 1);",
+        "      if (0) {\n      rw_mma<NW>(acc, al[j], dh, j);\n      rw_mma<NW>(acc, ah[j], dl, 1);\n"
+        "      rw_mma<NW>(acc, ah[j], dh, 1);\n      }",
+    )],
+    "rw-no-wstage": [(
+        "fused_relu_mlp.cu",
+        "      rw_bulk_load(ring + i * RW_SLAB, src, bytes, full + i);",
+        "      asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\" ::\"r\"(rw_addr(full + i)));",
+    ), (
+        "fused_relu_mlp.cu",
+        "    rw_bulk_load(ring + slot * RW_SLAB, src, bytes, full + slot);",
+        "    asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\" ::\"r\"(rw_addr(full + slot)));",
+    )],
+    "rw-mma-1x": [(
+        "fused_relu_mlp.cu",
+        "      rw_mma<NW>(acc, al[j], dh, j);\n      rw_mma<NW>(acc, ah[j], dl, 1);\n"
+        "      rw_mma<NW>(acc, ah[j], dh, 1);",
+        "      rw_mma<NW>(acc, ah[j], dh, j);",
+    )],
+    "rw-no-split": [(
+        "fused_relu_mlp.cu",
+        "    rw_frag_a(A, RW_KS * s, mw, ah[0], al[0]);\n"
+        "    rw_frag_a(A, RW_KS * s + 8, mw, ah[1], al[1]);",
+        "    for (int q = 0; q < 4; ++q) ah[0][q] = ah[1][q] = al[0][q] = al[1][q] = 0x3c000000u + s;",
+    )],
+    "rw-no-drain": [(
+        "fused_relu_mlp.cu",
+        "    rw_wait0();\n    rw_own(acc);\n    rw_own(ah[0]);",
+        "    rw_own(acc);\n    rw_own(ah[0]);",
+    )],
+    "rw-no-epi": [(
+        "fused_relu_mlp.cu",
+        "          __syncthreads();  // every warp is done reading hs\n          rw_each<RW_NW>(sum,",
+        "          __syncthreads();  // every warp is done reading hs\n          if (a.m.rows < 0) rw_each<RW_NW>(sum,",
+    )],
+    "rw-no-gput": [(
+        "fused_relu_mlp.cu",
+        "          rw_gput(hs, ldh, kh, save + a.gimg[l - 1], a.nwo[l - 1], a.n_ot[l - 1], row0);",
+        "",
+    )],
+    "rw-no-mask": [(
+        "fused_relu_mlp.cu",
+        "              mk[j][h] = make_float2(0.f, 0.f);\n              if (m >= nr || c >= kh) continue;",
+        "              mk[j][h] = make_float2(1.f, 1.f);\n              continue;",
+    )],
+    "rw-dw-no-math": [(
+        "fused_relu_mlp.cu",
+        "      rw_mma<NWO>(acc, al[j], dh, j);\n      rw_mma<NWO>(acc, ah[j], dl, 1);\n"
+        "      rw_mma<NWO>(acc, ah[j], dh, 1);",
+        "      if (0) {\n      rw_mma<NWO>(acc, al[j], dh, j);\n      rw_mma<NWO>(acc, ah[j], dl, 1);\n"
+        "      rw_mma<NWO>(acc, ah[j], dh, 1);\n      }",
     )],
 }
-_K3B_COPIES = ("full", "din-only", "dw-only")
+# the copies timed per engine: K3f's, K3b's
+_K3_ENGINE_COPIES = {
+    "cluster": (("full", "empty", "no-wstage", "no-remote", "no-sync", "no-math", "barriers"),
+                ("full", "din-only", "dw-only")),
+    "rows": (("full", "rw-no-math", "rw-no-wstage", "rw-mma-1x", "rw-no-split", "rw-no-drain",
+              "rw-no-epi"),
+             ("full", "din-only", "dw-only", "rw-no-math", "rw-no-wstage", "rw-dw-no-math",
+              "rw-no-gput", "rw-no-mask")),
+}
 
 # the copies timed without saving the hidden outputs
 _NO_SAVE = ("no-save", "mm-only", "mm-tf32")
@@ -233,58 +314,141 @@ def load_parent_mlp_kernel(root, libs):
     return mod
 
 
+def _k3_inputs(chip_smoke, gen, rows, C, widths, skips):
+    """K3's weights, x and an output gradient at one shape, as chip_smoke
+    makes them."""
+    import torch
+
+    ws, bs = chip_smoke._mlp_params(C, 0, 0, gen, "cuda", widths=list(widths), skips=skips)
+    x = torch.randn(rows, C, generator=gen).cuda()
+    g = torch.randn(rows, widths[-1], generator=gen).cuda()
+    return x, ws, bs, g
+
+
+def _k3_shapes(chip_smoke):
+    """(label, rows, C_in, widths, skips, final_act) of every shape K3 is
+    profiled at: the TimeMLPs' (chip_smoke.K3_PROFILE, which get the anatomy
+    copies) and the warps' (chip_smoke.K3_WARP_SHAPES, on the row engine)."""
+    return ([(label, rows, C, (W,) * (D + 1), (), True) for label, rows, C, D, W in
+             chip_smoke.K3_PROFILE] + [s for s in chip_smoke.K3_WARP_SHAPES if s[1] == 262144])
+
+
 def k3_profile(chip_smoke, K, libs, pmk, reps):
     """K3f / K3b's anatomy copies (libs: {copy: library of
-    fused_relu_mlp.cu}) at every shape of chip_smoke.K3_PROFILE, `full`
-    checked against the plain versions; with pmk (the parent's
-    mlp_kernel), K3f and K3b in turns with the parent's."""
+    fused_relu_mlp.cu}) at the TimeMLP shapes of chip_smoke.K3_PROFILE,
+    `full` checked against the plain versions (at the warps' shapes too);
+    with pmk (the parent's mlp_kernel), K3f (saving, as training runs it)
+    and K3b from saved outputs in turns with the parent's at every shape."""
     import torch
 
     tol = chip_smoke.KERNEL_TOL
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
-    for label, rows, C, D, W in chip_smoke.K3_PROFILE:
-        ws, bs = chip_smoke._mlp_params(C, D, W, gen, "cuda")
-        x = torch.randn(rows, C, generator=gen).cuda()
-        g = torch.randn(rows, W, generator=gen).cuda()
-        want, want_acts = K.mlp_forward_saved_reference(x, ws, bs, (), True)
-        out, acts, _ = K._launch_k3f(libs["full"], x, ws, bs, (), True, K._stream(x.device), True)
-        got_b = K._launch_k3b(libs["full"], x, g, ws, bs, (), acts, K._stream(x.device))[:3]
-        want_b = K.mlp_backward_saved_reference(x, g, ws, bs, (), acts)
+    for label, rows, C, widths, skips, final_act in _k3_shapes(chip_smoke):
+        x, ws, bs, g = _k3_inputs(chip_smoke, gen, rows, C, widths, skips)
+        fargs = (x, ws, bs, skips, final_act)
+        want, want_acts = K.mlp_forward_saved_reference(*fargs)
+        out, acts, _ = K._launch_k3f(libs["full"], x, ws, bs, skips, final_act,
+                                     K._stream(x.device), True)
+        got_b = K._launch_k3b(libs["full"], x, g, ws, bs, skips, acts, K._stream(x.device))[:3]
+        want_b = K.mlp_backward_saved_reference(x, g, ws, bs, skips, acts)
         torch.cuda.synchronize()
         err = max(float((out - want).abs().max()), float((acts - want_acts).abs().max()))
         rel_b = chip_smoke._bwd_errs(list(got_b), list(want_b))[1]
-        print(f"[k3] {label}: full vs plain: K3f abs err {err:.3e}, K3b rel err {rel_b:.3e} "
-              f"(tol {tol:g})")
+        engine = K._k3_plan(x, ws).engine
+        print(f"[k3] {label} ({engine} engine): full vs plain: K3f abs err {err:.3e}, K3b rel err "
+              f"{rel_b:.3e} (tol {tol:g})")
         if not max(err, rel_b) <= tol:
             sys.exit(f"profile_k4b_phases: K3f / K3b {label} disagree with their plain versions")
         # the stream is looked up per call, as the wrappers do: under CUDA
         # graph capture it is the capturing stream
-        fwd = {name: (lambda lib=lib: K._launch_k3f(lib, x, ws, bs, (), True,
-                                                    K._stream(x.device), True))
-               for name, lib in libs.items() if name not in _K3B_COPIES[1:]}
-        bwd = {name: (lambda lib=libs[name]: K._launch_k3b(lib, x, g, ws, bs, (), acts,
+        f_copies, b_copies = _K3_ENGINE_COPIES[engine]
+        fwd = {name: (lambda lib=libs[name]: K._launch_k3f(lib, x, ws, bs, skips, final_act,
+                                                           K._stream(x.device), True))
+               for name in f_copies}
+        bwd = {name: (lambda lib=libs[name]: K._launch_k3b(lib, x, g, ws, bs, skips, acts,
                                                            K._stream(x.device)))
-               for name in _K3B_COPIES}
+               for name in b_copies}
+        inner = 3 if rows > 4096 else 100
+        graph_ms = lambda fn: chip_smoke.device_ms(fn, inner)  # noqa: E731
+        fwd["no-save"] = lambda: K._launch_k3f(libs["full"], x, ws, bs, skips, final_act,
+                                               K._stream(x.device), False)
         times = _time_rounds({**{f"K3f {k}": v for k, v in fwd.items()},
-                              **{f"K3b {k}": v for k, v in bwd.items()}}, reps,
-                             chip_smoke.device_ms)
+                              **{f"K3b {k}": v for k, v in bwd.items()}}, reps, graph_ms)
         print(f"[k3] {label}, us: " + " ".join(f"{k}={v * 1e3:.2f}" for k, v in times.items()))
         if pmk is None:
             continue
-        old_f = lambda: pmk.fused_relu_mlp(x, ws, bs, (), True)  # noqa: E731
-        old_b = lambda: pmk.fused_relu_mlp_backward(x, g, ws, bs)  # noqa: E731
-        perr = max(float((old_f() - want).abs().max()),
-                   chip_smoke._bwd_errs(list(old_b()), list(K.mlp_backward_reference(x, g, ws, bs)))[1])
+        _, pacts = pmk.mlp_forward_saved(x, ws, bs, skips, final_act)
+        old_f = lambda: pmk.mlp_forward_saved(*fargs)  # noqa: E731
+        old_b = lambda: pmk.fused_relu_mlp_backward(x, g, ws, bs, skips, saved=pacts)  # noqa: E731
+        pwant_b = K.mlp_backward_saved_reference(x, g, ws, bs, skips, pacts)
+        perr = max(float((old_f()[0] - want).abs().max()),
+                   chip_smoke._bwd_errs(list(old_b()), list(pwant_b))[1])
         torch.cuda.synchronize()
         print(f"[parent] {label}: parent K3f abs err / K3b rel err vs plain, worst {perr:.3e}")
         if not perr <= tol:
             sys.exit(f"profile_k4b_phases: the parent's K3f / K3b {label} disagree with plain")
         turns = _time_rounds({"K3f parent 1": old_f, "K3f 1": fwd["full"], "K3f 2": fwd["full"],
                               "K3f parent 2": old_f, "K3b parent 1": old_b, "K3b 1": bwd["full"],
-                              "K3b 2": bwd["full"], "K3b parent 2": old_b}, reps,
-                             chip_smoke.device_ms)
-        print(f"[turns] {label}, us (parent, new, new, parent): " + " ".join(
+                              "K3b 2": bwd["full"], "K3b parent 2": old_b,
+                              "K3f plain": lambda: K.mlp_forward_saved_reference(*fargs),
+                              "K3b plain": lambda: K.mlp_backward_saved_reference(
+                                  x, g, ws, bs, skips, acts)}, reps, graph_ms)
+        print(f"[turns] {label}, us (parent, new, new, parent; plain): " + " ".join(
             f"{k}={v * 1e3:.2f}" for k, v in turns.items()))
+
+
+# the row counts of the engines' crossover sweep
+K3_SWEEP_ROWS = (256, 1024, 4096, 16384, 65536, 70001, 262144)
+
+
+def k3_sweep(chip_smoke, K, lib, reps):
+    """K3f (saving) and K3b (from saved outputs) on both engines, in turns
+    (cluster, rows, rows, cluster), and their plain versions, at every row
+    count of K3_SWEEP_ROWS and the widths of the warps' CondMLPs (the dense
+    map and the post-warp, chip_smoke.K3_WARP_SHAPES), each timed by
+    CUDA-graph replay; then the crossover: the fewest swept rows from which
+    the row engine's K3f + K3b beat the cluster engine's at every larger
+    count and both shapes."""
+    import torch
+
+    gen = torch.Generator().manual_seed(chip_smoke.SEED)
+    shapes = [s for s in chip_smoke.K3_WARP_SHAPES if s[1] == 262144]
+    wins = {}
+    for label, _, C, widths, skips, final_act in shapes:
+        for rows in K3_SWEEP_ROWS:
+            x, ws, bs, g = _k3_inputs(chip_smoke, gen, rows, C, widths, skips)
+            acts = {e: K._launch_k3f(lib, x, ws, bs, skips, final_act, K._stream(x.device), True,
+                                     engine=e)[1] for e in ("cluster", "rows")}
+
+            def f(e):
+                return lambda: K._launch_k3f(lib, x, ws, bs, skips, final_act,
+                                             K._stream(x.device), True, engine=e)
+
+            def b(e):
+                return lambda: K._launch_k3b(lib, x, g, ws, bs, skips, acts[e],
+                                             K._stream(x.device), engine=e)
+
+            inner = 3 if rows > 4096 else 20
+            t = _time_rounds({"K3f cluster 1": f("cluster"), "K3f rows 1": f("rows"),
+                              "K3f rows 2": f("rows"), "K3f cluster 2": f("cluster"),
+                              "K3b cluster 1": b("cluster"), "K3b rows 1": b("rows"),
+                              "K3b rows 2": b("rows"), "K3b cluster 2": b("cluster"),
+                              "K3f plain": lambda: K.mlp_forward_saved_reference(
+                                  x, ws, bs, skips, final_act),
+                              "K3b plain": lambda: K.mlp_backward_saved_reference(
+                                  x, g, ws, bs, skips, acts["rows"])},
+                             reps, lambda fn: chip_smoke.device_ms(fn, inner))
+            cl = min(t["K3f cluster 1"], t["K3f cluster 2"]) + min(t["K3b cluster 1"],
+                                                                    t["K3b cluster 2"])
+            rw = max(t["K3f rows 1"], t["K3f rows 2"]) + max(t["K3b rows 1"], t["K3b rows 2"])
+            wins[(label, rows)] = rw < cl
+            print(f"[k3-sweep] {label} rows={rows}, ms: " + " ".join(
+                f"{k}={v:.4f}" for k, v in t.items())
+                + f"; K3f+K3b cluster {cl:.4f} (best turn) / rows {rw:.4f} (worst turn)")
+    cross = next((r for r in K3_SWEEP_ROWS
+                  if all(wins[(s[0], q)] for s in shapes for q in K3_SWEEP_ROWS if q >= r)), None)
+    print(f"[k3-sweep] crossover: the row engine wins from {cross} rows on at both shapes "
+          f"(relu_mlp_plan's K3_ROWS_MIN: {K.K3_ROWS_MIN})")
 
 
 def _shape_inputs(chip_smoke, gen, shape):
@@ -307,6 +471,8 @@ def main(argv=None):
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--parent", default=None, help="root of a checkout to time in turns")
     parser.add_argument("--k3_only", action="store_true", help="profile K3f / K3b only")
+    parser.add_argument("--k3_sweep", action="store_true",
+                        help="time K3's two engines across row counts (then stop)")
     args = parser.parse_args(argv)
 
     import torch
@@ -323,6 +489,10 @@ def main(argv=None):
     from lab4d_tpu_torch.tools import profile_heads_phases as PH
 
     card = chip_smoke.phase_env()
+    if args.k3_sweep:
+        k3_sweep(chip_smoke, K, K._kernel_lib("fused_relu_mlp"), args.reps)
+        print(card)
+        return
     out_dir = str(BUILD_DIR / "k4_phases")
     main_src = "fused_pe_mlp.cu"
     pdir = Path(args.parent) / "lab4d_tpu_torch" / "csrc" if args.parent else None

@@ -544,10 +544,14 @@ def _mm_3xtf32(a, b):
     return ah @ bh + (_tf32(a - ah) @ bh + ah @ _tf32(b - bh))
 
 
-def _kernel_dataflow(x, g, window, weights, biases, freqs, skips, final_act, mm):
+def _kernel_dataflow(x, g, window, weights, biases, freqs, skips, final_act, mm, mm_dw=None,
+                     masks=None):
     """K4f then K4b from its saved outputs (K3f then K3b without
-    frequencies), with every product of the layers, dW and dIn through mm:
-    (out, dx, dWs, dbs), dtype of x."""
+    frequencies), with every product of the layers and dIn through mm, and
+    dW through mm_dw (by default mm): (out, dx, dWs, dbs, masks), dtype of
+    x; masks: each ReLU's (input > 0), or, given, the ReLUs take these
+    instead (another run's, so that both compare outside the ReLU ties)."""
+    mm_dw = mm_dw or mm
     from lab4d_tpu_torch.nnutils.embedding import fourier_embed
 
     xl = x.detach().requires_grad_(True)
@@ -556,30 +560,71 @@ def _kernel_dataflow(x, g, window, weights, biases, freqs, skips, final_act, mm)
     Xd = X.detach()
     h, hs = Xd, []
     n = len(weights)
+    masks = list(masks) if masks is not None else [None] * n
     for i in range(n):
         if i in skips:
             h = torch.cat([Xd, h], dim=-1)
         h = mm(h, weights[i].T) + biases[i]
         if i < n - 1 or final_act:
-            h = torch.relu(h)
+            if masks[i] is None:
+                masks[i] = h > 0
+            h = h * masks[i]
         hs.append(h)
     out = h
-    gcur = g * (out > 0) if final_act else g
+    gcur = g * masks[n - 1] if final_act else g
     dX = torch.zeros_like(Xd)
     dws, dbs = [None] * n, [None] * n
     for i in range(n - 1, -1, -1):
         hprev = hs[i - 1] if i > 0 else None
         A = Xd if i == 0 else (torch.cat([Xd, hprev], dim=-1) if i in skips else hprev)
-        dws[i] = mm(gcur.T, A)
+        dws[i] = mm_dw(gcur.T, A)
         dbs[i] = gcur.sum(0)
         din = mm(gcur, weights[i])
         if i == 0 or i in skips:
             dX = dX + din[:, : Xd.shape[1]]
             din = din[:, Xd.shape[1]:]
         if i > 0:
-            gcur = din * (hprev > 0)
+            gcur = din * masks[i - 1]
     dx = torch.autograd.grad(X, xl, dX)[0]
-    return out, dx, dws, dbs
+    return out, dx, dws, dbs, masks
+
+
+def _trunc32(t):
+    """float64 to float32, rounded toward zero."""
+    f = t.float()
+    return torch.where(f.double().abs() > t.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tf32_rz(t):
+    """fp32 cut to TF32 (its low 13 mantissa bits cleared)."""
+    return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_wgmma_3xtf32(chunk):
+    """a @ b as K3's row engine computes it (csrc/fused_relu_mlp.cu, rw_*):
+    each operand split as rw_split does (hi = the operand cut to TF32, lo =
+    the rest, which the tensor core is taken to cut to TF32 too); per chunk
+    of `chunk` along the reduction (a weight slab of 16, a G slab of 32 rows
+    for dW), each k8 step's three products (lo.hi, hi.lo, hi.hi) added in
+    turn to a partial sum that starts from zero, every such sum cut to fp32
+    toward zero (a pessimistic model of wgmma's accumulation in the tensor
+    core); each chunk's partial then added to the fp32 result, rounded to
+    nearest."""
+    def mm(a, b):
+        a, b = a.contiguous(), b.contiguous()
+        ah, bh = _tf32_rz(a), _tf32_rz(b)
+        al, bl = _tf32_rz(a - ah), _tf32_rz(b - bh)
+        K = a.shape[1]
+        out = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+        for k0 in range(0, K, chunk):
+            t = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float64)
+            for k in range(k0, min(K, k0 + chunk), 8):
+                ks = slice(k, min(K, k + 8))
+                for u, v in ((al, bh), (ah, bl), (ah, bh)):
+                    t = _trunc32(t + u[:, ks].double() @ v[ks].double()).double()
+            out = out + t.float()
+        return out
+    return mm
 
 
 # K3 at the TimeMLP backbones' widths (C_in, widths, skips, final_act)
@@ -587,9 +632,15 @@ K3_WIDTHS = {
     "k3-D5W256": (256, (256,) * 6, (), True),
     "k3-D2W64": (64, (64,) * 3, (), True),
 }
+# and at the warps' CondMLPs on the row engine: PE(xyz) + time code, 3
+# outputs without a final ReLU (chip_smoke.K3_WARP_SHAPES)
+K3_ROWS_WIDTHS = {
+    "k3-dense-D6W256-skip4": (167, (256,) * 6 + (3,), (4,), False),
+    "k3-postwarp-D2W256": (167, (256,) * 2 + (3,), (), False),
+}
 
 
-@pytest.mark.parametrize("field", list(K4_WIDTHS) + list(K3_WIDTHS))
+@pytest.mark.parametrize("field", list(K4_WIDTHS) + list(K3_WIDTHS) + list(K3_ROWS_WIDTHS))
 def test_3xtf32_error_budget(field):
     """K4f / K4b's arithmetic emulated on the CPU at each bg field MLP's
     widths and frequency ladder (1,024 points, live window), and K3f /
@@ -597,10 +648,18 @@ def test_3xtf32_error_budget(field):
     embedding): every product of the forward, dW and dIn in 3xTF32 with
     fp32 sums stays within chip_smoke.KERNEL_TOL (1e-4) of fp64: the
     output's max abs error, and each gradient's max error over its largest
-    entry. The ReLU masks are the fp64 run's, as a comparison outside ReLU
-    ties takes them."""
+    entry. At the warps' dense map and post-warp (2,048 rows) the products
+    follow the row engine's order instead (_mm_wgmma_3xtf32: in-core sums
+    of 16-deep weight slabs and of 32-row G slabs for dW, cut toward zero,
+    then fp32). The ReLU masks are the fp64 run's, as a comparison outside
+    ReLU ties takes them."""
     rng = np.random.default_rng(7)
-    if field in K3_WIDTHS:
+    mm, mm_dw = _mm_3xtf32, None
+    if field in K3_ROWS_WIDTHS:
+        C, widths, skips, final_act = K3_ROWS_WIDTHS[field]
+        n_freqs, rows, c_x = 0, 2048, C
+        mm, mm_dw = _mm_wgmma_3xtf32(16), _mm_wgmma_3xtf32(32)
+    elif field in K3_WIDTHS:
         C, widths, skips, final_act = K3_WIDTHS[field]
         n_freqs, rows, c_x = 0, 256, C
     else:
@@ -619,12 +678,14 @@ def test_3xtf32_error_budget(field):
     freqs = tuple(float(2.0**i) for i in range(n_freqs))
     ref = _kernel_dataflow(x.double(), g.double(), win.double(), [w.double() for w in weights],
                            [b.double() for b in biases], freqs, skips, final_act, torch.matmul)
-    got = _kernel_dataflow(x, g, win, weights, biases, freqs, skips, final_act, _mm_3xtf32)
+    got = _kernel_dataflow(x, g, win, weights, biases, freqs, skips, final_act, mm, mm_dw,
+                           masks=ref[4])
     fwd = float((got[0].double() - ref[0]).abs().max())
     bwd = max(float((a.double() - r).abs().max()) / max(1.0, float(r.abs().max()))
               for a, r in zip([got[1]] + got[2] + got[3], [ref[1]] + ref[2] + ref[3]))
     one = _kernel_dataflow(x, g, win, weights, biases, freqs, skips, final_act,
-                           lambda a, b: _tf32(a.contiguous()) @ _tf32(b.contiguous()))
+                           lambda a, b: _tf32(a.contiguous()) @ _tf32(b.contiguous()),
+                           masks=ref[4])
     fwd1 = float((one[0].double() - ref[0]).abs().max())
     print(f"{field}: 3xTF32 forward {fwd:.2e}, backward {bwd:.2e}; 1xTF32 forward {fwd1:.2e}")
     assert fwd <= 1e-4 and bwd <= 1e-4, (fwd, bwd)
@@ -632,40 +693,94 @@ def test_3xtf32_error_budget(field):
 
 
 # (C_in, widths, skips, rows, want): want = (K3f on its FMA tile, dW
-# chunks, K3b's launches)
+# chunks, K3b's launches, engine)
 K3_PLAN_CASES = [
-    (256, (256,) * 6, (), 1, (True, 1, 2)),  # a render's camera query
-    (256, (256,) * 6, (), 7, (True, 1, 2)),
-    (256, (256,) * 6, (), 9, (False, 1, 2)),  # past 8 rows: 3xTF32 on 32-row tiles
-    (256, (256,) * 6, (), 256, (False, 1, 2)),  # the training step's TimeMLPs
-    (64, (64,) * 3, (), 256, (False, 1, 2)),  # appearance
-    (95, (128,) * 6, (4,), 300, (False, 1, 2)),  # a skip layer
-    (256, (256,) * 6, (), 70001, (False, 6, 3)),  # many rows: dW in chunks
-    (256, (256,) * 7, (), 262144, (False, 5, 3)),  # the dense warp's D6 W256
+    (256, (256,) * 6, (), 1, (True, 1, 2, "cluster")),  # a render's camera query
+    (256, (256,) * 6, (), 7, (True, 1, 2, "cluster")),
+    (256, (256,) * 6, (), 9, (False, 1, 2, "cluster")),  # past 8 rows: 3xTF32 on 32-row tiles
+    (256, (256,) * 6, (), 32, (False, 1, 2, "cluster")),  # the camera over a scene's frames
+    (256, (256,) * 6, (), 128, (False, 1, 2, "cluster")),  # the category camera's frames
+    (256, (256,) * 6, (), 256, (False, 1, 2, "cluster")),  # the training step's TimeMLPs
+    (256, (256,) * 6, (), 512, (False, 1, 2, "cluster")),  # the articulation's t + rest
+    (64, (64,) * 3, (), 256, (False, 1, 2, "cluster")),  # appearance
+    (95, (128,) * 6, (4,), 300, (False, 1, 2, "cluster")),  # a skip layer
+    (256, (256,) * 6, (), 70001, (False, 22, 4, "rows")),  # many rows: the row engine
+    (256, (256,) * 7, (), 262144, (False, 19, 4, "rows")),  # D6 W256
+    (167, (256,) * 6 + (3,), (4,), 262144, (False, 18, 4, "rows")),  # the dense warp's maps
+    (167, (256,) * 2 + (3,), (), 262144, (False, 53, 4, "rows")),  # the post-warp
+    (167, (256,) * 6 + (3,), (4,), 262143, (False, 18, 4, "rows")),  # ragged
+    (167, (256,) * 2 + (3,), (), 1024, (False, 1, 3, "rows")),  # the crossover, 1,024 rows
+    (167, (256,) * 2 + (3,), (), 512, (False, 1, 2, "cluster")),  # below it
+    (512, (256,) * 6, (), 70001, (False, 5, 3, "cluster")),  # x wider than the row engine takes
 ]
+
+
+def _k3_in_dims(c_x, widths, skips):
+    return [c_x] + [w + (c_x if i + 1 in skips else 0) for i, w in enumerate(widths[:-1])]
 
 
 @pytest.mark.parametrize("c_x,widths,skips,rows,want", K3_PLAN_CASES)
 def test_relu_mlp_plan(c_x, widths, skips, rows, want):
-    """K3f / K3b's row-count decisions: K3f's fp32 FMA tile of 8 rows up
-    to 8 rows, else 3xTF32 on 32-row tiles for both; one chunk of rows for
-    dW up to 1,024 rows (dW straight into the gradient, 2 launches), else
-    chunks of whole 32-row slabs that cover the rows, at most 512, and a
-    third launch; the gradients', saved outputs' and scratch floats; one
-    plan per shape, made once. (test_cuda_k3_plan holds the library's
-    shared-memory layout and its floats against these.)"""
-    in_dims = [c_x] + [w + (c_x if i + 1 in skips else 0) for i, w in enumerate(widths[:-1])]
+    """K3f / K3b's row-count decisions: the cluster engine up to
+    K3_ROWS_MIN rows (K3f's fp32 FMA tile of 8 rows up to 8 rows, else
+    3xTF32 on 32-row tiles for both; one chunk of rows for dW up to 1,024
+    rows, dW straight into the gradient, 2 launches), the row engine from
+    there on where x and every layer are at most 256 wide (K3f: the split
+    of the weights and the engine, 2 launches; K3b: the split, dIn, dW
+    and the chunks' reduction, 4 launches), else chunks of whole 32-row
+    slabs that cover the rows, at most 512, and a reduction launch; the
+    gradients', saved outputs' and scratch floats; one plan per shape, made
+    once. (test_cuda_k3_plan holds the library's layouts against these.)"""
+    in_dims = _k3_in_dims(c_x, widths, skips)
     plan = K.relu_mlp_plan(c_x, in_dims, list(widths), rows)
-    assert (plan.fwd_fma, plan.n_chunks, plan.bwd_launches) == want
+    assert (plan.fwd_fma, plan.n_chunks, plan.bwd_launches, plan.engine) == want
     assert plan.chunk_rows % 32 == 0 and plan.n_chunks <= 512
     assert (plan.n_chunks - 1) * plan.chunk_rows < rows <= plan.n_chunks * plan.chunk_rows
     n_params = sum(o * (i + 1) for i, o in zip(in_dims, widths))
     assert plan.n_params == n_params and plan.act_floats == sum(widths[:-1])
     ws = [torch.zeros(o, i) for i, o in zip(in_dims, widths)]
     assert K.pe_act_layout(ws)[1] == plan.act_floats
-    assert plan.scratch_floats == rows * plan.act_floats + (
-        plan.n_chunks * n_params if plan.n_chunks > 1 else 0)
+    ws_floats = plan.n_chunks * n_params if plan.n_chunks > 1 else 0
+    if plan.engine == "rows":
+        pk, pt, gimg, _ = K.rows_engine_layout(c_x, in_dims, widths, rows)
+        assert (plan.pack_floats, plan.fwd_launches) == (pk, 2)
+        assert plan.scratch_floats == pt + gimg + ws_floats
+    else:
+        assert (plan.pack_floats, plan.fwd_launches) == (0, 1)
+        assert plan.scratch_floats == rows * plan.act_floats + ws_floats
     assert K.relu_mlp_plan(c_x, tuple(in_dims), widths, rows) is plan
+
+
+@pytest.mark.parametrize("widths,skips", [((256,) * 6 + (3,), (4,)), ((256,) * 2 + (3,), ())])
+def test_relu_mlp_plan_crossover(widths, skips):
+    """The engine changes at K3_ROWS_MIN rows (the measured crossover) and
+    can be forced either way (the profilers' sweep); the row engine refuses
+    layers wider than 256."""
+    in_dims = _k3_in_dims(167, widths, skips)
+    n = K.K3_ROWS_MIN
+    assert K.relu_mlp_plan(167, in_dims, widths, n - 1).engine == "cluster"
+    assert K.relu_mlp_plan(167, in_dims, widths, n).engine == "rows"
+    assert K.relu_mlp_plan(167, in_dims, widths, 1, engine="rows").engine == "rows"
+    assert K.relu_mlp_plan(167, in_dims, widths, 262144, engine="cluster").engine == "cluster"
+    with pytest.raises(ValueError, match="at most 256"):
+        K.relu_mlp_plan(167, [167, 512], [512, 3], 262144, engine="rows")
+
+
+def test_rows_engine_layout():
+    """The row engine's buffers for the post-warp (167 -> 256 -> 256 -> 3)
+    at 100 rows, counted by hand. K3f's split weights, per layer passes x
+    16-deep slabs x 64 nw floats (hi and lo of 2 nw columns): 1 x 11 x 8,192
+    + 1 x 16 x 8,192 + 1 x 16 x 512 (the 3 outputs on n8). K3b's, over the
+    input columns: layer 2 one h pass of 1 slab (3 outputs padded to 16),
+    layer 1 one of 16 slabs, layer 0 one x pass of 16 slabs, each 8,192. G's
+    slabs for dW: 128 rows (two 64-row tiles) = 4 slabs of 32 rows, of 2 x
+    32 x 128 floats per 128 outputs (two for 256, one n8 of 2 x 32 x 8 for
+    3). dW blocks: 2 x 2 + 2 x 2 + 2 x 1 (128 inputs x an output slab)."""
+    pk, pt, gimg, tiles = K.rows_engine_layout(167, [167, 256, 256], [256, 256, 3], 100)
+    assert pk == 11 * 8192 + 16 * 8192 + 16 * 512
+    assert pt == 1 * 8192 + 16 * 8192 + 16 * 8192
+    assert gimg == 4 * (2 * 8192 + 2 * 8192 + 512)
+    assert tiles == 10
 
 
 def test_relu_mlp_plan_rejects_wide_layers():
@@ -852,65 +967,82 @@ def _assert_close_rel(got, want, rel=1e-4):
     torch.testing.assert_close(got, want, rtol=0, atol=rel * max(1.0, float(want.abs().max())))
 
 
-# (rows, C_in, D, W, skips): the render and training rows of the TimeMLPs
-# (camera / intrinsics / articulation D5 W256, appearance D2 W64), a skip
-# layer on both of K3f's tiles (C_in 95: the 4-byte weight staging), K3f's
-# FMA tile's edge (8 / 9 rows) and a ragged large count
-K3_CUDA_CASES = RENDER_SHAPES + [
+# (rows, C_in, widths, skips, final_act): the render and training rows of
+# the TimeMLPs (camera / intrinsics / articulation D5 W256, appearance D2
+# W64, final ReLU), a skip layer on both of K3f's cluster tiles (C_in 95:
+# the 4-byte weight staging), K3f's FMA tile's edge (8 / 9 rows) and a
+# ragged large count; then the row engine at the warps' CondMLPs (167
+# inputs, 3 outputs without a final ReLU): the dense warp's maps, the
+# composed warp's post-warp, and a ragged count
+K3_CUDA_CASES = [(r, c, (w,) * (d + 1), s, True) for r, c, d, w, s in [
+    (*shape, ()) for shape in RENDER_SHAPES] + [
     (2, 256, 5, 256, ()), (8, 256, 5, 256, ()), (9, 256, 5, 256, ()), (256, 256, 5, 256, ()),
     (256, 64, 2, 64, ()), (300, 95, 5, 128, (4,)), (5, 95, 5, 128, (4,)), (70001, 256, 5, 256, ()),
+]] + [
+    (262144, 167, (256,) * 6 + (3,), (4,), False),
+    (262144, 167, (256,) * 2 + (3,), (), False),
+    (262143, 167, (256,) * 6 + (3,), (4,), False),
 ]
-K3_CUDA_CASES = [c if len(c) == 5 else (*c, ()) for c in K3_CUDA_CASES]
 
 
-def _k3_cuda_case(rows, C_in, D, W, skips):
-    ws, bs = _cuda_mlp(C_in, [W] * (D + 1), skips, seed=rows + W)
+def _k3_cuda_case(rows, C_in, widths, skips):
+    ws, bs = _cuda_mlp(C_in, list(widths), skips, seed=rows + widths[0])
     x = torch.randn(rows, C_in, generator=torch.Generator().manual_seed(rows)).cuda()
     return x, ws, bs
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,C_in,D,W,skips", K3_CUDA_CASES)
-def test_cuda_kernel_matches_plain(rows, C_in, D, W, skips):
-    """K3f against mlp_forward_saved_reference on the card (fp32 FMA up to
-    8 rows, else 3xTF32, vs cuBLAS fp32 with TF32 off: atol 1e-4): its
-    output with and without saving, and its saved hidden outputs."""
+@pytest.mark.parametrize("rows,C_in,widths,skips,final_act", K3_CUDA_CASES)
+def test_cuda_kernel_matches_plain(rows, C_in, widths, skips, final_act):
+    """K3f against mlp_forward_saved_reference on the card (the cluster
+    engine's fp32 FMA up to 8 rows, else 3xTF32; the row engine's wgmma
+    3xTF32 from K3_ROWS_MIN rows; vs cuBLAS fp32 with TF32 off: atol 1e-4):
+    its output with and without saving, and its saved hidden outputs, on
+    the plan's engine; the row engine's output also against fp64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    x, ws, bs = _k3_cuda_case(rows, C_in, D, W, skips)
+    x, ws, bs = _k3_cuda_case(rows, C_in, widths, skips)
     launches = K.fused_relu_mlp.launches
-    got = K.fused_relu_mlp(x, ws, bs, skips, True)  # nothing requires a gradient: no saving
-    got_s, acts = K.mlp_forward_saved(x, ws, bs, skips, True)
-    want, want_acts = K.mlp_forward_saved_reference(x, ws, bs, skips, True)
+    got = K.fused_relu_mlp(x, ws, bs, skips, final_act)  # nothing requires a gradient: no saving
+    got_s, acts = K.mlp_forward_saved(x, ws, bs, skips, final_act)
+    want, want_acts = K.mlp_forward_saved_reference(x, ws, bs, skips, final_act)
     torch.cuda.synchronize()
     assert K.fused_relu_mlp.launches == launches + 2
+    plan = K.relu_mlp_plan(C_in, [w.shape[1] for w in ws], list(widths), rows)
+    assert K.fused_relu_mlp.engine == plan.engine
+    assert K.fused_relu_mlp.cuda_launches == plan.fwd_launches
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     torch.testing.assert_close(got_s, got, atol=0, rtol=0)
     torch.testing.assert_close(acts, want_acts, atol=1e-4, rtol=0)
+    if plan.engine == "rows":  # the tensor core's accumulation, against fp64
+        want64 = K.mlp_reference(x.double(), [w.double() for w in ws], [b.double() for b in bs],
+                                 skips, final_act)
+        torch.testing.assert_close(got.double(), want64, atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,C_in,D,W,skips", K3_CUDA_CASES)
-def test_cuda_k3b_matches_plain(rows, C_in, D, W, skips):
+@pytest.mark.parametrize("rows,C_in,widths,skips,final_act", K3_CUDA_CASES)
+def test_cuda_k3b_matches_plain(rows, C_in, widths, skips, final_act):
     """K3b from K3f's saved outputs against mlp_backward_saved_reference on
-    the same ones, on the card (TF32 off in cuBLAS; 3xTF32 within 1e-4 of
-    each array's largest entry); two calls give bitwise-equal gradients (no
-    float atomics); without saved= it raises."""
+    the same ones, on the card and the plan's engine (TF32 off in cuBLAS;
+    3xTF32 within 1e-4 of each array's largest entry); two calls give
+    bitwise-equal gradients (no float atomics); without saved= it raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    x, ws, bs = _k3_cuda_case(rows, C_in, D, W, skips)
-    _, acts = K.mlp_forward_saved(x, ws, bs, skips, True)
-    g = torch.randn(rows, W, device="cuda")
+    x, ws, bs = _k3_cuda_case(rows, C_in, widths, skips)
+    _, acts = K.mlp_forward_saved(x, ws, bs, skips, final_act)
+    g = torch.randn(rows, widths[-1], device="cuda")
     launches = K.fused_relu_mlp_backward.launches
     got = K.fused_relu_mlp_backward(x, g, ws, bs, skips, saved=acts)
     want = K.mlp_backward_saved_reference(x, g, ws, bs, skips, acts)
     again = K.fused_relu_mlp_backward(x, g, ws, bs, skips, saved=acts)
     torch.cuda.synchronize()
     assert K.fused_relu_mlp_backward.launches == launches + 2
-    plan = K.relu_mlp_plan(C_in, [w.shape[1] for w in ws], [W] * (D + 1), rows)
+    plan = K.relu_mlp_plan(C_in, [w.shape[1] for w in ws], list(widths), rows)
     assert K.fused_relu_mlp_backward.cuda_launches == plan.bwd_launches
+    assert K.fused_relu_mlp_backward.engine == plan.engine
     _assert_close_rel(got[0], want[0])
     for a, b in zip(got[1] + got[2], want[1] + want[2]):
         _assert_close_rel(a, b)
@@ -921,35 +1053,76 @@ def test_cuda_k3b_matches_plain(rows, C_in, D, W, skips):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,C_in,D,W,skips", K3_CUDA_CASES)
-def test_cuda_k3_plan(rows, C_in, D, W, skips):
-    """The library's shared-memory layout of K3f and K3b's dIn
-    (lab4d_relu_mlp_smem: as many layers' weight slices in flight as fit in
-    sm_90's 227 KB, every layer at render rows) for relu_mlp_plan's tile;
-    its saved floats per row and gradients' floats are the plan's; the card
-    runs at least one cluster of each kernel at once; and widths whose
-    buffers do not fit are refused, at launch too."""
+@pytest.mark.parametrize("rows,C_in,widths,skips,final_act", K3_CUDA_CASES[-3:])
+def test_cuda_k3_large_rows_is_deterministic(rows, C_in, widths, skips, final_act):
+    """K3f + K3b on the row engine, run twice on the same inputs, give
+    bitwise-equal outputs, saved outputs and gradients: every sum over
+    warps, blocks and chunks of rows runs in a fixed order, without float
+    atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    x, ws, bs = _k3_cuda_case(rows, C_in, widths, skips)
+    g = torch.randn(rows, widths[-1], generator=torch.Generator().manual_seed(3)).cuda()
+    runs = []
+    for _ in range(2):
+        y, acts = K.mlp_forward_saved(x, ws, bs, skips, final_act)
+        dx, dws, dbs = K.fused_relu_mlp_backward(x, g, ws, bs, skips, saved=acts)
+        runs.append([y, acts, dx, *dws, *dbs])
+    torch.cuda.synchronize()
+    assert K.fused_relu_mlp.engine == K.fused_relu_mlp_backward.engine == "rows"
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,C_in,widths,skips,final_act", K3_CUDA_CASES)
+def test_cuda_k3_plan(rows, C_in, widths, skips, final_act):
+    """The library's layout for relu_mlp_plan's engine. The cluster engine
+    (lab4d_relu_mlp_smem): K3f's and K3b's dIn shared memory (as many
+    layers' weight slices in flight as fit in sm_90's 227 KB, every layer
+    at render rows) for the plan's tile, and the card runs at least one
+    cluster of each kernel at once. The row engine
+    (lab4d_relu_mlp_rows_layout): its split weights, G slabs and dW blocks
+    are rows_engine_layout's, and its blocks fit in 227 KB. Either way the
+    saved floats per row and the gradients' floats are the plan's; and
+    widths whose buffers do not fit are refused, at launch too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the sizes are the kernel library's")
-    ws, _ = _torch_mlp(C_in, [W] * (D + 1), skips, seed=0)
-    in_dims, out_dims = [w.shape[1] for w in ws], [W] * (D + 1)
+    ws, _ = _torch_mlp(C_in, list(widths), skips, seed=0)
+    in_dims, out_dims = [w.shape[1] for w in ws], list(widths)
+    n = len(in_dims)
+    skip_mask = sum(1 << i for i in skips)
     plan = K.relu_mlp_plan(C_in, in_dims, out_dims, rows)
     lib = K._kernel_lib("fused_relu_mlp")
+    ints = lambda v: (ctypes.c_int * len(v))(*v)  # noqa: E731
 
     def layout(in_dims, out_dims, c_in, skip_mask, fma):
         n, sizes = len(in_dims), (ctypes.c_longlong * 6)()
-        err = lib.lab4d_relu_mlp_smem((ctypes.c_int * n)(*in_dims), (ctypes.c_int * n)(*out_dims),
-                                      n, c_in, skip_mask, int(fma), sizes)
+        err = lib.lab4d_relu_mlp_smem(ints(in_dims), ints(out_dims), n, c_in, skip_mask, int(fma),
+                                      sizes)
         return err, list(sizes)
 
+    if plan.engine == "rows":
+        sizes = (ctypes.c_longlong * 9)()
+        assert lib.lab4d_relu_mlp_rows_layout(ints(in_dims), ints(out_dims), n, C_in, skip_mask,
+                                              rows, sizes) == 0
+        pk, pt, gimg, tiles, f_smem, b_smem, dw_smem, act, n_params = list(sizes)
+        assert (pk, pt, gimg, tiles) == K.rows_engine_layout(C_in, in_dims, out_dims, rows)
+        assert pk == plan.pack_floats
+        assert max(f_smem, b_smem, dw_smem) <= K.SMEM_PER_SM
+        assert (act, n_params) == (plan.act_floats, plan.n_params)
+        wide = (ctypes.c_longlong * 9)()
+        assert lib.lab4d_relu_mlp_rows_layout(ints([167, 512]), ints([512, 3]), 2, 167, 0, rows,
+                                              wide) != 0
+        return
     err, (f_stages, f_smem, b_stages, b_smem, act, n_params) = layout(
-        in_dims, out_dims, C_in, sum(1 << i for i in skips), plan.fwd_fma)
+        in_dims, out_dims, C_in, skip_mask, plan.fwd_fma)
     assert err == 0
     assert (act, n_params) == (plan.act_floats, plan.n_params)
-    assert 1 <= f_stages <= D + 1 and 1 <= b_stages <= D + 1
+    assert 1 <= f_stages <= n and 1 <= b_stages <= n
     assert max(f_smem, b_smem) <= K.SMEM_PER_SM
-    if plan.fwd_fma and W == 256:
-        assert f_stages == D + 1  # a render's query: every layer's weights in flight at launch
+    if plan.fwd_fma and widths[0] == 256:
+        assert f_stages == n  # a render's query: every layer's weights in flight at launch
     assert lib.lab4d_relu_mlp_max_clusters(0 if plan.fwd_fma else 1, f_smem) >= 1
     assert lib.lab4d_relu_mlp_max_clusters(2, b_smem) >= 1
     assert layout([256, 512], [512, 8], 256, 0, False)[0] != 0
