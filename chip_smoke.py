@@ -151,7 +151,12 @@ synchronise; any failure exits non-zero:
    frames, the LK flow, the filter bank and one TSDF integration at
    128^3 on the card against the port on the CPU, and the canonical
    rotation fit's stopping iterations and rotations, each with its
-   tolerance;
+   tolerance; between the two, [preprocess] also runs the depth and
+   segmentation stage CLIs (`python -m lab4d_tpu_torch.preprocess.scripts.depth
+   smokevid-0000`, and `segmentation`) as subprocesses on a copy of
+   [preprocess]'s frames, their Depth/ and Annotations/ frames against
+   the pipeline's within [preprocess-reference]'s bound, and each CLI's
+   seconds;
 24. train-nets (after preprocess-reference): the five preprocessing-net
    trainers (lab4d_tpu_torch/scripts/train_*.py) at their default
    resolution and batch, NET_STEPS steps each, the weights into the run's
@@ -1192,6 +1197,28 @@ def k3_records(calls, shapes):
         TimeMLP.forward_feat, K._launch_k3f = orig_feat, orig_launch
 
 
+@contextlib.contextmanager
+def k4_records(shapes):
+    """While on, every K4f and K4b launch counts its ("K4f" or "K4b",
+    rows, input width, layer widths) in shapes (a collections.Counter)."""
+    from lab4d_tpu_torch.ops import mlp_kernel as K
+
+    orig_fwd, orig_bwd = K._launch_pe_fwd, K._launch_pe_bwd
+
+    def record(name, orig):
+        def launch(lib, x, *args, **kwargs):
+            weights = args[2] if name == "K4b" else args[1]
+            shapes[(name, x.shape[0], x.shape[1], tuple(w.shape[0] for w in weights))] += 1
+            return orig(lib, x, *args, **kwargs)
+        return launch
+
+    K._launch_pe_fwd, K._launch_pe_bwd = record("K4f", orig_fwd), record("K4b", orig_bwd)
+    try:
+        yield
+    finally:
+        K._launch_pe_fwd, K._launch_pe_bwd = orig_fwd, orig_bwd
+
+
 def phase_k3_paths(shapes):
     """K3f / K3b against their plain versions at every shape K3f launched
     on the render and training paths that the kernel phase did not check
@@ -1748,6 +1775,7 @@ def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, ta
     from lab4d_tpu_torch.engine.trainer import Trainer
 
     steps, step_calls, step_shapes = {}, {}, collections.Counter()
+    k4_shapes = collections.Counter()
     round_s = []
     orig = Trainer.train_one_round
 
@@ -1755,7 +1783,8 @@ def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, ta
         before, before_calls = _kernel_counts(), copy.deepcopy(calls or {})
         before_shapes = collections.Counter(shapes or {})
         t_round = time.perf_counter()
-        orig(self, round_count)
+        with k4_records(k4_shapes):
+            orig(self, round_count)
         round_s.append(time.perf_counter() - t_round)
         steps.update({k: v - before[k] for k, v in _kernel_counts().items()})
         step_calls.update({k: v - before_calls.get(k, collections.Counter())
@@ -1832,6 +1861,11 @@ def phase_train(db, root, cate, calls=None, shapes=None, n_steps=TRAIN_STEPS, ta
               "launches / step; each has its K3b in the backward): " + "; ".join(
                   f"{r}, {c}, {w[0]}x{len(w) - 1}+{w[-1]}, {list(sk)}: {n / n_steps:g}"
                   for (r, c, w, sk, _), n in sorted(step_shapes.items())))
+    if k4_shapes:
+        print(f"[{tag}] K4f / K4b launches per training step by shape (rows, input width, "
+              "layer widths: launches / step): " + "; ".join(
+                  f"{k} {r}, {c}, {'x'.join(map(str, w))}: {n / n_steps:g}"
+                  for (k, r, c, w), n in sorted(k4_shapes.items())))
     if step_calls:
         print(f"[{tag}] TimeMLP backbone calls in the {n_steps} training steps (rows x calls; "
               "K3f forward, K3b backward): " + "; ".join(
@@ -2618,6 +2652,89 @@ def phase_preprocess(root):
     return db, seq
 
 
+def phase_stage_clis(root, db, seq, card, device=None):
+    """[preprocess], its stage CLIs: the depth and segmentation CLIs (`python -m
+    lab4d_tpu_torch.preprocess.scripts.depth <seq>`, and `... .segmentation
+    <seq>`) as subprocesses on a copy of [preprocess]'s frames, from a
+    directory whose database/processed is the copy (their default outdir),
+    on the card unless `device` is given. Their Depth/ and Annotations/
+    frames are held against the pipeline's within [preprocess-reference]'s
+    bound: depth within PRE_NET_TOL of its largest value plus one
+    half-precision ulp of each stored value; a mask pixel may differ only
+    where the segmentation net's probability on the card lies within
+    PRE_NET_TOL of the 0.5 cut. Prints each CLI's seconds (its process
+    start included)."""
+    import shutil
+
+    import cv2
+
+    from lab4d_tpu_torch.preprocess.backends.seg_unet import segment_probs
+
+    cwd = os.path.join(root, "stage_clis")
+    frames_dir = f"{cwd}/database/processed/JPEGImages/Full-Resolution/{seq}"
+    os.makedirs(frames_dir)
+    for path in sorted(glob.glob(f"{db}/processed/JPEGImages/Full-Resolution/{seq}/*.jpg")):
+        shutil.copy(path, frames_dir)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    seconds = {}
+    for cli in ("depth", "segmentation"):
+        cmd = [sys.executable, "-m", f"lab4d_tpu_torch.preprocess.scripts.{cli}", seq]
+        cmd += ["--device", device] if device else []
+        t = time.time()
+        proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True,
+                              timeout=600)
+        seconds[cli] = time.time() - t
+        if proc.returncode != 0:
+            fail(f"preprocess stage CLIs: {' '.join(cmd[1:])} exited {proc.returncode}: "
+                 f"{proc.stderr.strip()[-2000:]}")
+
+    def frames(base, sub):
+        return sorted(glob.glob(f"{base}/processed/{sub}/Full-Resolution/{seq}/0*.npy"))
+
+    want, got = frames(db, "Depth"), frames(f"{cwd}/database", "Depth")
+    if not want or len(want) != len(got):
+        fail(f"preprocess stage CLIs: depth wrote {len(got)} frames, the pipeline "
+             f"{len(want)}")
+    depth_err, scale = 0.0, 0.0
+    for a, b in zip(want, got):
+        w, g = np.load(a).astype(np.float64), np.load(b).astype(np.float64)
+        if g.shape != w.shape:
+            fail(f"preprocess stage CLIs: depth {os.path.basename(b)} {g.shape} vs {w.shape}")
+        scale = max(scale, float(np.abs(w).max()))
+        depth_err = max(depth_err, float(np.max(np.abs(g - w) - 2.0**-10 * np.abs(w))))
+    if not depth_err <= PRE_NET_TOL * scale:
+        fail(f"preprocess stage CLIs: depth {depth_err} beyond one fp16 ulp > {PRE_NET_TOL} x "
+             f"{scale}")
+    want, got = frames(db, "Annotations"), frames(f"{cwd}/database", "Annotations")
+    if not want or len(want) != len(got):
+        fail(f"preprocess stage CLIs: segmentation wrote {len(got)} frames, the pipeline "
+             f"{len(want)}")
+    differ = [i for i, (a, b) in enumerate(zip(want, got))
+              if not np.array_equal(np.load(a), np.load(b))]
+    tie = 0.0
+    if differ:
+        imgs = [cv2.imread(p)[..., ::-1] for p in sorted(glob.glob(f"{frames_dir}/*.jpg"))]
+        # every frame, as the stage runs them: each is conditioned on the last
+        probs = list(segment_probs(imgs, device=device or "cuda"))
+        for i in differ:
+            flip = np.load(want[i]) != np.load(got[i])
+            h, w = flip.shape
+            prob = cv2.resize(probs[i], (w, h), interpolation=cv2.INTER_NEAREST)
+            tie = max(tie, float(np.abs(prob[flip] - 0.5).max()))
+        if not tie <= PRE_NET_TOL:
+            fail(f"preprocess stage CLIs: a mask pixel differs {tie} from the 0.5 cut > "
+                 f"{PRE_NET_TOL}")
+    print(f"[preprocess] the depth and segmentation stage CLIs on a copy of the pipeline's "
+          f"{len(want)} frames ({card}): depth {seconds['depth']:.2f} s, segmentation "
+          f"{seconds['segmentation']:.2f} s (each with its process start); depth vs the "
+          f"pipeline: max abs err beyond one fp16 ulp {depth_err:.3g} (tol {PRE_NET_TOL:g} x "
+          f"max {scale:.4g}); masks: {len(differ)} of {len(want)} frames differ, farthest "
+          f"differing pixel {tie:.3g} from the 0.5 cut (tol {PRE_NET_TOL:g})")
+    return seconds
+
+
 def _pre_err(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max()), float(np.abs(want).max())
@@ -3075,6 +3192,7 @@ def main():
         with k3_records({}, k3_shapes):
             psnr_launches, psnr_steps = phase_psnr(root)
         pre_db, pre_seq = phase_preprocess(root)
+        phase_stage_clis(root, pre_db, pre_seq, card)
         phase_preprocess_reference(pre_db, pre_seq)
         weights_before = _weights_digest()
         phase_train_nets(root)

@@ -23,6 +23,17 @@ from lab4d_tpu_torch.nnutils.embedding import InstEmbedding, fourier_embed
 from lab4d_tpu_torch.nnutils.linear import TorchDense
 
 
+class ScaleLayer(nn.Module):
+    """Multiply by a fixed scale (no parameter)."""
+
+    def __init__(self, scale: float = 0.1):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale
+
+
 class BaseMLP(nn.Module):
     """Skip-connection MLP with layers linear_1..linear_D and linear_final.
 

@@ -33,6 +33,29 @@ def get_rotating_cam(num_cameras, axis=(0, 1, 0), distance=3.0, initial_angle=0.
     return np.stack([get_object_to_camera_matrix(a, axis, distance) for a in angles])
 
 
+def get_fixed_cam(num_cameras, axis=(0, 1, 0), distance=3.0, angle=0.0) -> np.ndarray:
+    """num_cameras copies of one view: the object turned `angle` degrees
+    about `axis` around a point `distance` in front of the camera."""
+    lshift, rshift = np.eye(4)[None], np.eye(4)[None]
+    lshift[0, :3, 3] = [0, 0, distance]
+    rshift[0, :3, 3] = [0, 0, -distance]
+    return lshift @ get_rotating_cam(num_cameras, axis, 0.0, angle, angle) @ rshift
+
+
+def get_orbit_camera(num_cameras, max_angle=5.0, cycles=2) -> np.ndarray:
+    """(num_cameras, 4, 4) rotations wobbling up to `max_angle` degrees
+    about x and y, `cycles` times around."""
+    from scipy.spatial.transform import Rotation
+
+    max_angle = np.deg2rad(max_angle)
+    out = np.tile(np.eye(4)[None], (num_cameras, 1, 1))
+    for i in range(num_cameras):
+        phase = cycles * 2 * np.pi * i / num_cameras
+        out[i, :3, :3] = Rotation.from_rotvec(
+            [max_angle * np.cos(phase), max_angle * np.sin(phase), 0.0]).as_matrix()
+    return out
+
+
 def get_bev_cam(field2cam: np.ndarray, elev: float = 90.0) -> np.ndarray:
     """Bird's-eye trajectory relative to the view-space object."""
     ave_depth = field2cam[:, 2, 3].mean()

@@ -1,8 +1,9 @@
 """Geometry utilities in torch: intrinsics ops, pinhole projection,
-dual-quaternion blend skinning, near-far estimation, aabb ops.
+SO(3) / SE(3) maps, dual-quaternion blend skinning, near-far estimation,
+aabb ops.
 
-Port of the parts of lab4d_tpu/utils/geom.py that the rendering and
-training paths use. Functions broadcast over leading batch dims.
+Port of lab4d_tpu/utils/geom.py. Functions broadcast over leading batch
+dims.
 """
 
 from __future__ import annotations
@@ -12,9 +13,12 @@ import torch.nn.functional as F
 
 from lab4d_tpu_torch.utils.quat import (
     DualQuaternion,
+    axis_angle_to_quaternion,
     dual_quaternion_to_quaternion_translation,
     quaternion_to_matrix,
     quaternion_translation_apply,
+    quaternion_translation_to_se3,
+    se3_to_quaternion_translation,
 )
 
 
@@ -71,6 +75,57 @@ def mat2K(Kmat: torch.Tensor) -> torch.Tensor:
 def Kmatinv(Kmat: torch.Tensor) -> torch.Tensor:
     """Inverse of a 3x3 intrinsics matrix (either way round)."""
     return K2inv(mat2K(Kmat))
+
+
+def hat_map(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrices (..., 3, 3) of (..., 3) vectors."""
+    x, y, z = v.unbind(-1)
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([zero, -z, y], -1),
+            torch.stack([z, zero, -x], -1),
+            torch.stack([-y, x, zero], -1),
+        ],
+        dim=-2,
+    )
+
+
+def so3_to_exp_map(so3: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Rodrigues formula: axis-angle (..., 3) -> rotation matrix (..., 3, 3)."""
+    theta = torch.sqrt(torch.clamp(torch.sum(so3 * so3, -1, keepdim=True), min=eps * eps))
+    V = hat_map(so3 / theta)
+    theta = theta[..., None]
+    eye = torch.eye(3, dtype=so3.dtype, device=so3.device).expand(V.shape)
+    return eye + torch.sin(theta) * V + (1.0 - torch.cos(theta)) * (V @ V)
+
+
+def se3_mat2rt(mat: torch.Tensor):
+    """(..., 4, 4) SE(3) -> rotation (..., 3, 3), translation (..., 3)."""
+    return mat[..., :3, :3], mat[..., :3, 3]
+
+
+def se3_vec2mat(vec: torch.Tensor) -> torch.Tensor:
+    """SE(3) vector -> (..., 4, 4) matrix; vec is (..., 7) [t, quat wxyz]
+    or (..., 6) [t, axis-angle]."""
+    if vec.shape[-1] == 6:
+        q = axis_angle_to_quaternion(vec[..., 3:6])
+    else:
+        q = vec[..., 3:7]
+    return quaternion_translation_to_se3(q, vec[..., :3])
+
+
+def se3_mat2vec(mat: torch.Tensor, outdim: int = 7) -> torch.Tensor:
+    """SE(3) matrix -> (..., 7) [t, quat] or (..., 6) [t, axis-angle]."""
+    q, t = se3_to_quaternion_translation(mat)
+    if outdim == 7:
+        return torch.cat([t, q], dim=-1)
+    if outdim == 6:
+        w = torch.clamp(q[..., :1], -1.0, 1.0)
+        angle = 2.0 * torch.arccos(w)
+        s = torch.sqrt(torch.clamp(1.0 - w * w, min=1e-12))
+        return torch.cat([t, q[..., 1:] / s * angle], dim=-1)
+    raise ValueError(outdim)
 
 
 def apply_se3mat(se3, pts: torch.Tensor) -> torch.Tensor:
@@ -159,6 +214,21 @@ def extend_aabb(aabb: torch.Tensor, factor: float = 0.1) -> torch.Tensor:
 def check_inside_aabb(xyz: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
     """Boolean mask of points strictly inside the aabb."""
     return torch.all((xyz > aabb[0]) & (xyz < aabb[1]), dim=-1)
+
+
+def sample_grid(aabb, grid_size: int) -> torch.Tensor:
+    """Dense (grid_size^3, 3) xyz grid spanning a (2, 3) aabb, x-major."""
+    aabb = torch.as_tensor(aabb)
+    axes = [torch.linspace(float(aabb[0][i]), float(aabb[1][i]), grid_size, dtype=aabb.dtype,
+                           device=aabb.device) for i in range(3)]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(-1, 3)
+
+
+def eval_func_chunk(fn, data: torch.Tensor, chunk_size: int) -> torch.Tensor:
+    """fn over the leading axis of data in chunks of chunk_size rows, the
+    results concatenated in order (caps the memory of grid sweeps)."""
+    return torch.cat([fn(data[i:i + chunk_size]) for i in range(0, data.shape[0], chunk_size)],
+                     dim=0)
 
 
 def get_bone_coords(xyz: torch.Tensor, bone2obj: DualQuaternion, scale=None) -> torch.Tensor:

@@ -1,11 +1,22 @@
-"""Loss helpers. Port of the parts of lab4d_tpu/utils/loss.py that
-training uses."""
+"""Loss helpers. Port of lab4d_tpu/utils/loss.py (its
+cross_entropy_skin_loss is in nnutils/warping.py)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+
+def entropy_loss(prob: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Entropy of probability distributions along `axis`."""
+    return -torch.sum(prob * torch.log(prob + 1e-9), dim=axis)
+
+
+def masked_mean(v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of v over the elements where mask is truthy (0 if none)."""
+    mask = mask.to(v.dtype)
+    return torch.sum(v * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def align_vectors(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:

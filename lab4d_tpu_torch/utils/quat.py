@@ -20,6 +20,11 @@ def quaternion_conjugate(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
+def standardize_quaternion(q: torch.Tensor) -> torch.Tensor:
+    """Flip the sign so that the real part is non-negative."""
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
 def quaternion_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hamilton product; broadcasts."""
     aw, ax, ay, az = a.unbind(-1)
@@ -56,6 +61,14 @@ def quaternion_translation_apply(q, t, pt):
 def quaternion_translation_inverse(q, t) -> QuaternionTranslation:
     q_inv = quaternion_conjugate(q)
     return q_inv, quaternion_apply(q_inv, -t)
+
+
+def quaternion_translation_mul(qt1: QuaternionTranslation,
+                               qt2: QuaternionTranslation) -> QuaternionTranslation:
+    """Composition of two (quat, trans) SE(3)s: qt1 after qt2."""
+    q1, t1 = qt1
+    q2, t2 = qt2
+    return quaternion_mul(q1, q2), quaternion_apply(q1, t2) + t1
 
 
 def axis_angle_to_quaternion(axis_angle: torch.Tensor) -> torch.Tensor:
@@ -147,6 +160,11 @@ def dual_quaternion_to_se3(dq: DualQuaternion) -> torch.Tensor:
     return quaternion_translation_to_se3(q, t)
 
 
+def se3_to_dual_quaternion(se3: torch.Tensor) -> DualQuaternion:
+    """(..., 4, 4) SE(3) matrix -> dual quaternion."""
+    return quaternion_translation_to_dual_quaternion(*se3_to_quaternion_translation(se3))
+
+
 def dual_quaternion_mul(dq1: DualQuaternion, dq2: DualQuaternion) -> DualQuaternion:
     r1, d1 = dq1
     r2, d2 = dq2
@@ -160,3 +178,38 @@ def dual_quaternion_q_conjugate(dq: DualQuaternion) -> DualQuaternion:
 def dual_quaternion_inverse(dq: DualQuaternion) -> DualQuaternion:
     """Inverse of a unit dual quaternion (= quaternion conjugate)."""
     return dual_quaternion_q_conjugate(dq)
+
+
+def dual_quaternion_apply(dq: DualQuaternion, pt: torch.Tensor) -> torch.Tensor:
+    """Apply a unit dual quaternion to 3D points."""
+    return quaternion_translation_apply(*dual_quaternion_to_quaternion_translation(dq), pt)
+
+
+def dual_quaternion_norm(dq: DualQuaternion) -> DualQuaternion:
+    """dq times its quaternion conjugate: ((1, 0, 0, 0), 0) for a unit dq."""
+    return dual_quaternion_mul(dq, dual_quaternion_q_conjugate(dq))
+
+
+def dual_quaternion_d_conjugate(dq: DualQuaternion) -> DualQuaternion:
+    """Dual-number conjugate: (r, d) -> (r, -d)."""
+    return dq[0], -dq[1]
+
+
+def dual_quaternion_3rd_conjugate(dq: DualQuaternion) -> DualQuaternion:
+    """The quaternion and the dual conjugate combined."""
+    return dual_quaternion_d_conjugate(dual_quaternion_q_conjugate(dq))
+
+
+def dual_quaternion_linear_blend(w: torch.Tensor, dq_basis: DualQuaternion) -> DualQuaternion:
+    """Normalized linear blend of dual-quaternion bases, without a
+    hemisphere fix (dual_quaternion_skinning in utils/geom.py has one).
+
+    Args:
+        w: (..., N, K) blend weights; dq_basis: ((..., K, T, 4) x 2)
+    Returns:
+        ((..., N, T, 4) x 2) unit dual quaternions
+    """
+    br = torch.einsum("...nk,...ktd->...ntd", w, dq_basis[0])
+    bd = torch.einsum("...nk,...ktd->...ntd", w, dq_basis[1])
+    inv = 1.0 / torch.sqrt(torch.clamp(torch.sum(br * br, -1, keepdim=True), min=1e-12))
+    return br * inv, bd * inv

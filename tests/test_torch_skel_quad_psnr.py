@@ -1,10 +1,15 @@
-"""The flagship model (--fg_motion skel-quad) trained by the port and by
-the JAX package on the CPU at matched steps: the masked-PSNR trajectory of
-tools/compare_psnr.py's protocol (the same scene, flags, step count and
-seeded loader draws; the two packages draw pixels in the same order).
+"""The flagship model (--fg_motion skel-quad), or the rigid object, trained
+by the port and by the JAX package on the CPU at matched steps: the
+masked-PSNR trajectory of tools/compare_psnr.py's protocol (the same scene,
+flags, step count and seeded loader draws; the two packages draw pixels in
+the same order).
 
-    python3 -m tests.test_torch_skel_quad_psnr [--seeds 0,1,2,3] [--rounds 6]
-        [--frames 32] [--jax_init] [--jax_draws] [--out psnr_torch.json]
+    python3 -m tests.test_torch_skel_quad_psnr [--fg_motion skel-quad|rigid]
+        [--seeds 0,1,2,3] [--rounds 6] [--frames 32] [--jax_init] [--jax_draws]
+        [--out psnr_torch.json]
+
+The rigid protocol at its full settings: `--fg_motion rigid --rounds 20
+--frames 81` (20 steps per round at 64^2).
 
 Run from the root of a checkout. Each side starts from its own prior fits,
 or with --jax_init the port starts from the JAX side's params and proxy
@@ -15,12 +20,15 @@ draws (the eikonal rays, the global-match candidates, the visibility-decay
 and gauss-skin points that JAX derives from fold_in(PRNGKey(42), step)),
 recorded from its jitted step through ordered debug callbacks, as the
 one-step tests hand the same draws to both packages. Writes
-"skel_quad_cpu" (or "skel_quad_cpu_jax_init", "..._jax_draws") into --out.
+"<motion>_cpu" (or "<motion>_cpu_jax_init", "..._jax_draws"; <motion> is
+skel_quad or rigid) into --out: both trajectories per seed, each side's
+render before the first step, the per-seed round-0 and final gaps, their
+largest gap, and the final gaps' mean and sample std.
 
 The init is held against JAX's: the instance codes' against flax
 nn.Embed's, and every parameter leaf's spread at three model kinds. The
-comparison test runs at a tiny size, one round on 9 frames at
-16^2, from the JAX side's init: the port's first eval render, before any
+comparison test runs at a tiny size for skel-quad and for rigid, one
+round on 9 frames at 16^2, from the JAX side's init: the port's first eval render, before any
 step, equals the JAX side's to 1e-4 dB in masked PSNR, and both rounds
 end finite.
 """
@@ -36,7 +44,7 @@ import pytest
 from lab4d_tpu_torch.tools import compare_psnr as CP
 
 
-def jax_trainer(db, workdir, seed, rounds, res, iters, frames, extra=()):
+def jax_trainer(db, workdir, seed, rounds, res, iters, frames, extra=(), fg_motion="skel-quad"):
     """The JAX package's Trainer on the protocol's flags, prior fits run and
     saved as ckpt_0000.flax; returns (trainer, checkpoint path)."""
     from lab4d_tpu.config_hier import validate
@@ -45,7 +53,7 @@ def jax_trainer(db, workdir, seed, rounds, res, iters, frames, extra=()):
     from lab4d_tpu_torch.train import get_parser
 
     logroot = os.path.join(workdir, "logdir_jax")
-    argv = CP.train_argv(db, logroot, f"jax{seed}", "skel-quad", rounds, res, iters, frames, "cpu")
+    argv = CP.train_argv(db, logroot, f"jax{seed}", fg_motion, rounds, res, iters, frames, "cpu")
     opts = flagfile.absl_flags(vars(get_parser().parse_args(argv + list(extra))))
     validate(opts)
     trainer = Trainer(opts)
@@ -105,24 +113,27 @@ def jax_rounds(trainer, seed, rounds, record=None):
     return traj
 
 
-def port_draws(calls):
+def port_draws(calls, fg_motion="skel-quad"):
     """One step's recorded JAX draws as the port's fg draws (the order of
     tests/test_torch_families.py jax_draw_order: eikonal rays, match
-    candidates, visibility-decay points and ids, gauss-skin points)."""
+    candidates, visibility-decay points and ids, then the gauss-skin
+    points, which the rigid warp does not draw)."""
     import torch
 
     names = ["eikonal_idx", "match_idx", "vis_u", "vis_inst", "gauss_u"]
     want = ["choice", "randint", "uniform", "randint", "uniform"]
+    if fg_motion == "rigid":
+        want = want[:4]
     assert [c[0] for c in calls] == want, [c[0] for c in calls]
     return {"fg": {k: torch.as_tensor(np.array(v)) for k, (_, v) in zip(names, calls)}}
 
 
-def feed_draws(trainer, record):
+def feed_draws(trainer, record, fg_motion="skel-quad"):
     """Hand each step of `trainer` the recorded draws of that step."""
     step = trainer.train_step
 
     def with_draws(batch, i, draws=None):
-        return step(batch, i, draws=port_draws(record[i]))
+        return step(batch, i, draws=port_draws(record[i], fg_motion))
 
     trainer.train_step = with_draws
 
@@ -142,12 +153,12 @@ def load_init(trainer, path):
 
 
 def run_pair(db, workdir, seed, rounds, res, iters, frames, jax_init, extra=(), on_init=None,
-             jax_draws=False):
+             jax_draws=False, fg_motion="skel-quad"):
     """Both packages' trajectories for one seed, the JAX side first.
     on_init(jax_trainer, port_trainer): called before the first step;
     jax_draws: the port's steps take the JAX steps' random draws."""
-    jt, ckpt = jax_trainer(db, workdir, seed, rounds, res, iters, frames, extra)
-    pt = CP.build_trainer(db, workdir, seed, rounds, res, iters, frames, "cpu", "skel-quad", extra)
+    jt, ckpt = jax_trainer(db, workdir, seed, rounds, res, iters, frames, extra, fg_motion)
+    pt = CP.build_trainer(db, workdir, seed, rounds, res, iters, frames, "cpu", fg_motion, extra)
     try:
         if jax_init:
             load_init(pt, ckpt)
@@ -156,7 +167,7 @@ def run_pair(db, workdir, seed, rounds, res, iters, frames, jax_init, extra=(), 
         record = [] if jax_draws else None
         jax_traj = jax_rounds(jt, seed, rounds, record)
         if jax_draws:
-            feed_draws(pt, record)
+            feed_draws(pt, record, fg_motion)
         torch_traj = CP.train_rounds(pt, seed, rounds)
     finally:
         jt.trainloader.stop()
@@ -164,24 +175,38 @@ def run_pair(db, workdir, seed, rounds, res, iters, frames, jax_init, extra=(), 
     return torch_traj, jax_traj
 
 
+def start_psnr(jt, pt):
+    """Both trainers' eval render before the first step (masked PSNR)."""
+    out, ref = pt.render_frames(pt.eval_fid)
+    return CP.masked_psnr(out["rgb"], ref["rgb"], ref["mask"][..., 0]), jax_eval_psnr(jt)
+
+
 def compare(args, workdir):
     db = CP.make_dataset(workdir, args.res, args.frames)
-    out = {"settings": {"fg_motion": "skel-quad", "rounds": args.rounds, "res": args.res,
+    out = {"settings": {"fg_motion": args.fg_motion, "rounds": args.rounds, "res": args.res,
                         "frames": args.frames,
                         "iters_effective": CP.effective_iters(args.iters, args.frames),
                         "device": "cpu", "init": "jax" if args.jax_init else "own",
                         "draws": "jax" if args.jax_draws else "own"},
-           "torch": {}, "jax": {}}
+           "torch": {}, "jax": {}, "start": {}}
     for seed in args.seeds:
+        def on_init(jt, pt, s=str(seed)):
+            out["start"][s] = dict(zip(("torch", "jax"), start_psnr(jt, pt)))
+
         out["torch"][str(seed)], out["jax"][str(seed)] = run_pair(
             db, workdir, seed, args.rounds, args.res, args.iters, args.frames, args.jax_init,
-            jax_draws=args.jax_draws)
-        print(f"[skel-quad cpu] seed {seed}: torch {np.round(out['torch'][str(seed)], 4).tolist()}"
-              f", jax {np.round(out['jax'][str(seed)], 4).tolist()}", flush=True)
+            on_init=on_init, jax_draws=args.jax_draws, fg_motion=args.fg_motion)
+        print(f"[{args.fg_motion} cpu] seed {seed}: torch "
+              f"{np.round(out['torch'][str(seed)], 4).tolist()}, jax "
+              f"{np.round(out['jax'][str(seed)], 4).tolist()}", flush=True)
     diffs = [np.asarray(out["torch"][s]) - np.asarray(out["jax"][s]) for s in out["torch"]]
+    finals = [d[-1] for d in diffs]
     out["max_abs_round_gap"] = float(np.max(np.abs(diffs)))
-    out["final_gap_mean"] = float(np.mean([d[-1] for d in diffs]))
-    key = "skel_quad_cpu_jax_init" if args.jax_init else "skel_quad_cpu"
+    out["round0_gap_by_seed"] = {s: float(d[0]) for s, d in zip(out["torch"], diffs)}
+    out["final_gap_by_seed"] = {s: float(f) for s, f in zip(out["torch"], finals)}
+    out["final_gap_mean"] = float(np.mean(finals))
+    out["final_gap_std"] = float(np.std(finals, ddof=1)) if len(finals) > 1 else float("nan")
+    key = args.fg_motion.replace("-", "_") + "_cpu" + ("_jax_init" if args.jax_init else "")
     return {key + ("_jax_draws" if args.jax_draws else ""): out}
 
 
@@ -190,6 +215,7 @@ def main(argv=None):
 
     jax.config.update("jax_platforms", "cpu")
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--fg_motion", default="skel-quad", choices=("skel-quad", "rigid"))
     ap.add_argument("--seeds", default="0,1,2,3")
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--iters", type=int, default=20)
@@ -294,7 +320,9 @@ def _first_step_losses(run_dir):
     return rec
 
 
-def test_tiny_skel_quad_comparison(tmp_path):
+@pytest.mark.parametrize("fg_motion", ["skel-quad", "rigid"])
+def test_tiny_skel_quad_comparison(tmp_path, fg_motion):
+    """The comparison at TINY for the flagship warp and the rigid one."""
     db = CP.make_dataset(str(tmp_path), TINY["res"], TINY["frames"])
     start = {}
 
@@ -306,13 +334,22 @@ def test_tiny_skel_quad_comparison(tmp_path):
         # proxy and the aabb / near-far / corner EMA equal JAX's
         jt.update_geometry_aux()
         pt.update_geometry_aux()
-        assert len(pt.proxy["fg"].vertices) == len(jt.proxy["fg"].vertices) > 0
+        n_port, n_jax = len(pt.proxy["fg"].vertices), len(jt.proxy["fg"].vertices)
+        assert n_jax > 0
+        if fg_motion == "skel-quad":
+            assert n_port == n_jax
+        else:
+            # the rigid init has 2 of the 64^3 grid's SDF values within
+            # 1.1e-6 of the 0.005 level (the fields agree to 3e-5 there),
+            # which add 7 vertices on one side: 1e-3 of the count
+            assert abs(n_port - n_jax) <= 1e-3 * n_jax, (n_port, n_jax)
         for k in ("aabb", "near_far", "corners"):
             np.testing.assert_allclose(pt.geo_state["fg"][k], jt.geo_state["fg"][k], rtol=0,
                                        atol=1e-5, err_msg=k)
 
     torch_traj, jax_traj = run_pair(db, str(tmp_path), 0, jax_init=True, extra=TINY_FLAGS,
-                                    on_init=first_render, jax_draws=True, **TINY)
+                                    on_init=first_render, jax_draws=True, fg_motion=fg_motion,
+                                    **TINY)
     assert len(torch_traj) == len(jax_traj) == 1
     assert np.isfinite(torch_traj + jax_traj).all()
     assert abs(start["torch"] - start["jax"]) <= 1e-4, start
