@@ -25,7 +25,9 @@ synchronise; any failure exits non-zero:
    (fused_nerf_heads and its backward) at the flagship fg field's step
    (262,144 points, 1024 per pair, 256 appearance rows; K1 as training
    runs it, saving its layer outputs, and K2 from those; K1 + K2 also
-   against autograd outside the ReLU ties), and K4f alone at export's
+   against autograd outside the ReLU ties, and a second call of both
+   bitwise equal; the engine they ran on and their CUDA launches per
+   call printed), and K4f alone at export's
    canonical SDF grid (262,144 points of the fg base field, 10
    frequencies, widths 128 x 6, skip at 4, no saving), and K3f / K3b at
    the dense warps' shapes (262,144 rows of 167 inputs, skip at 4, no final
@@ -41,8 +43,9 @@ synchronise; any failure exits non-zero:
    work is dIn and dW from the saved layer outputs, and K4b's row also
    gives the bound of the VJP from x with the forward recomputed);
 3b. heads-anatomy: one round of K1's anatomy copies
-   (tools/profile_heads_phases.py, built beside the kernels): `full`
-   against its plain version, the stripped copies timed;
+   (tools/profile_heads_phases.py, built beside the kernels: the wgmma
+   engine without products, in 1xTF32, without its weight stream; and
+   without saving): `full` against its plain version, the others timed;
 4. model: the flagship fg / skel-quad DVRModel at full width (field heads
    D=5 W=128, TimeMLP backbones D=5 W=256, 25 bones) from a seeded
    generator, on a scene built in-process (one orbit video);
@@ -315,7 +318,7 @@ def phase_build():
 
     t = time.time()
     anatomy_dir = str(BUILD_DIR / "heads_phases" / "smoke")
-    procs = PH.start_copies(CSRC_DIR, PH.MMA_K1, anatomy_dir)
+    procs = PH.start_copies(CSRC_DIR, PH.K1_COPIES, anatomy_dir)
     build_all()
     for name in KERNELS:
         load_library(name)
@@ -893,12 +896,26 @@ def _heads_kernels(gen):
     if not max(rel_kept.values()) <= KERNEL_TOL:
         fail(f"K1 + K2 disagree with autograd outside the ReLU ties: {max(rel_kept.items(), key=lambda t: t[1])}")
     k2_launches = FK.fused_nerf_heads_backward.cuda_launches
+    got2, acts2 = FK.nerf_heads_forward_saved(*args)
+    got_b2 = FK.fused_nerf_heads_backward(x, g, *args[1:], saved=(acts2, got2[1]))
+    sync()
+    first = list(got) + [acts] + [got_b[0], got_b[1], got_b[3]] + FK.flatten_nets(got_b[2])[0]
+    again = list(got2) + [acts2] + [got_b2[0], got_b2[1], got_b2[3]] + FK.flatten_nets(got_b2[2])[0]
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    print(f"[kernel] K1 + K2 a second time on the same inputs: {'bitwise equal' if same else 'DIFFERENT'} "
+          f"({len(first)} arrays)")
+    if not same:
+        fail("K1 / K2 are not bitwise repeatable")
+    del got2, acts2, got_b2, again
 
     # 234,688 multiply-adds per point at the flagship widths (PERF.md)
     macs = sum(w.numel() for w in FK.flatten_nets(nets)[0][0::2]) - 64 * 32
     weights = sum(t.numel() for t in FK.flatten_nets(nets)[0])
     n_saved = FK.act_layout(nets)[1]
     label = f"flagship heads D5 W128, {FG_PAIRS} pairs x {FG_SPP}"
+    plan = FK.heads_plan(FK.heads_dims(nets, args[6]), FG_SPP, P, FK._n_sm(x.device))
+    engine = (f"wgmma 3xTF32, TMA-fed weight slabs, {plan.tile_rows}-point tiles on {plan.grid} "
+              f"persistent blocks, {plan.stages} slabs in flight; dW over {plan.n_chunks} chunks")
     out = {}
     for key, kernel, plain, flops, nbytes, rel, launches in (
         ("K1", lambda: FK.nerf_heads_forward_saved(*args), lambda: FK.nerf_heads_reference(*args),
@@ -912,7 +929,7 @@ def _heads_kernels(gen):
         r = {"label": label, "rows": P, "macs_per_point": macs,
              "max_abs_err": max(abs_b.values()) if backward else max(errs.values()),
              "ms": device_ms(kernel, 3), "plain_ms": eager_ms(plain, 2) if backward else device_ms(plain, 2),
-             "cuda_launches_per_call": launches}
+             "cuda_launches_per_call": launches, "engine": engine}
         if rel is not None:
             r["max_rel_err"] = rel
             r["relu_tie_pairs"], r["relu_tie_rows"] = n_ties, int(tie_rows.sum())
@@ -921,6 +938,7 @@ def _heads_kernels(gen):
         r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes)
         r["bound_3xtf32_ms"], _ = bound_ms(3 * flops, nbytes, PEAK_TF32)
         sync()
+        print(f"[kernel] {key} {label}: engine {engine}, {launches} CUDA launches per call")
         print(f"[kernel] {key} {label}: {macs} MAC/point, {launches} CUDA launches per call, device "
               f"kernel {r['ms']:.3f} ms / plain {r['plain_ms']:.3f} ms{' (eager)' if backward else ''} "
               f"/ bound {r['bound_ms']:.3f} ms ({r['bound_by']}, fp32 FMA) / "

@@ -1,19 +1,19 @@
-// Tensor-core tile products in 3xTF32 for Hopper (sm_90a): the core of K1
-// and K2 (csrc/nerf_heads.cu) and of K4f and K4b (csrc/fused_pe_mlp.cu),
-// with the split-K weight gradients that K2, K3b and K4b share and the
-// ordered reduction of their workspace slices.
+// Tensor-core tile products in 3xTF32 for Hopper (sm_90a) on mma.sync:
+// the engine of K4f and K4b (csrc/fused_pe_mlp.cu) and of K3's cluster
+// engine (csrc/fused_relu_mlp.cu), with the split-K weight gradients of
+// K4b and the ordered reduction of K3b's and K4b's workspace slices. (K1 /
+// K2, csrc/nerf_heads.cu, and K3's row engine run on wgmma, csrc/wgmma.cuh;
+// they take only this file's staging helpers: hm_ld, hm_cp4, HmMK.)
 //
-// What bounds it: the field heads are fp32 products at 234,688
-// multiply-adds per point; on fp32 FMA the flagship step's K1 needs at
-// least 1.84 ms and K2 about three times that (the H100's 67 TFLOP/s). The
-// tensor cores run TF32 at 495 TFLOP/s, but one TF32 product keeps 11
-// significant bits, which misses the kernels' 1e-4 tolerance against the
-// fp32 plain versions. What the design does about it: each fp32 operand is
-// split into hi = tf32(x) (cvt.rna) and lo = tf32(x - hi), and every k-step
+// What bounds it: the bg field's MLPs are fp32 products (K4f at the base
+// MLP 0.72 ms on fp32 FMA, the H100's 67 TFLOP/s). The tensor cores run
+// TF32 at 495 TFLOP/s, but one TF32 product keeps 11 significant bits,
+// which misses the kernels' 1e-4 tolerance against the fp32 plain
+// versions. What the design does about it: each fp32 operand is split
+// into hi = tf32(x) (cvt.rna) and lo = tf32(x - hi), and every k-step
 // issues three mma.sync.m16n8k8 products, lo.hi + hi.lo + hi.hi (the
-// dropped lo.lo term is below fp32 rounding), whose sum is added to an fp32
-// register accumulator (hm_mma3). That is 3 x 2 x 123 GFLOP = 0.75 ms for
-// K1 at the TF32 peak, below the FMA bound.
+// dropped lo.lo term is below fp32 rounding), whose sum is added to an
+// fp32 register accumulator (hm_mma3).
 //
 // A warp computes units of 16 rows x 32 columns (four n8 tiles), from
 // operands in shared memory that the caller lays out m-major (element

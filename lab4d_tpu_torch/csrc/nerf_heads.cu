@@ -1,6 +1,6 @@
 // K1 and K2: every per-point head of the FeatureNeRF field, forward and
-// backward, hand-written for Hopper (sm_90a) on the 3xTF32 tensor-core
-// products of heads_mma.cuh.
+// backward, hand-written for Hopper (sm_90a) on wgmma in 3xTF32 with
+// weights fed by the TMA unit (the primitives of csrc/wgmma.cuh).
 //
 // K1 replaces lab4d_tpu/ops/field_kernel.py:_run_fwd (Pallas kernel
 // _fwd_kernel / _forward_tile); K2 replaces _run_bwd (_bwd_kernel /
@@ -10,92 +10,175 @@
 //   colour MLP -> + feat = hc -> rgb1 (with the pair's appearance row as a
 //     bias row) -> ReLU -> rgb2 -> sigmoid;
 //   visibility MLP -> logit; feature MLP -> 16 channels -> L2 normalisation.
-// The heads read the shared frequency ladder (the colour ladder; the other
-// embeddings use its first n_freqs), the base and colour embeddings carry
-// their annealing windows. K2 returns dx through the Fourier embeddings,
-// every dW / db, d ibeta and the appearance rows' gradient; the windows get
-// none (as in the JAX VJP).
-//
+// K2 returns dx through the Fourier embeddings, every dW / db, d ibeta and
+// the appearance rows' gradient; the windows get none (as in the JAX VJP).
 // Weights come in the split layout of ops/field_kernel.py:split_nets (the
 // torch.nn.Linear (out, in) layout, a skip layer as [W_x | W_h] column
-// blocks, rgb1 as W_hc and W_appr), so the [X, h] operand of a skip layer
-// is never concatenated.
+// blocks, rgb1 as W_hc and W_appr).
 //
 // What bounds it on the card: at the flagship step (262,144 points, W 128)
 // the heads cost 234,688 multiply-adds per point: 123 GFLOP for K1 and
-// about three times that for K2, 0.75 ms and 2.24 ms at the TF32 peak in
-// 3xTF32 (1.84 ms and 5.51 ms on fp32 FMA). What the design does about it:
-// - K1 is one fused kernel. A block of 16 warps owns 64 points and keeps
-//   their activations in shared memory (row-major, ~121 KB), chaining the
-//   heads' layers as tensor-core products. The 0.95 MB of weights do not
-//   fit in shared memory: they are split into tf32 hi / lo once per call
-//   (nh_pack_kernel) and stream from L2 in double-buffered k-slabs of 32
-//   by 16-byte cp.async, one barrier per slab, once per 64 points. Narrow
-//   layers (1, 3, 16 outputs) are single n8 tiles of the warps that hold
-//   their rows, not block-wide sweeps. When autograd needs them, K1 also
-//   writes every layer output to device memory (streaming stores): 2,001
-//   floats per point at the flagship widths (2.1 GB at 262,144 points,
-//   0.63 ms at 3.35 TB/s), which K2 reads instead of recomputing the
-//   forward.
-// - K2 is a sequence of launches that walks the heads in reverse, layer by
-//   layer over all points: dIn = G . W (the ReLU mask of the saved input as
-//   its epilogue, the X columns into dX) and dW = G^T . A, db = sum G as a
-//   split-K product over 128 chunks of points, each chunk's partials in its
-//   own workspace slice, summed in chunk order at the end. (A fused
-//   backward tile must hold the base head's 768 floats per point in shared
-//   memory, which caps it at 32 points, and add every tile's 0.95 MB of
-//   weight gradients to a workspace.) Small kernels of their own: the
-//   output cotangents through the density, sigmoid and normalisation (and
-//   d ibeta); the embedding of each head; the chain rule through sin / cos
-//   to dx; the per-pair column sums of d rgb_h and the appearance
-//   gradients.
-//
-// No float atomics: every sum across blocks runs in a fixed order, and the
-// result is the same from run to run. Precise sinf / cosf / expf / expm1f
-// (no fast math); angles reach 2^11 |x|.
+// twice that for K2 from K1's saved outputs, 0.75 ms and 1.49 ms at the
+// TF32 peak in 3xTF32 (1.84 ms and 3.67 ms on fp32 FMA); K1's 2,001 saved
+// floats per point (2.1 GB) take 0.63 ms at 3.35 TB/s, and K2 reads them
+// twice and writes and reads every layer's G once for dW. The mma.sync
+// engine of PR 4 ran at 4x the fp32 bound: each 64-point block re-streamed
+// all weights from L2 by cp.async with a block barrier per 32-deep slab,
+// and K2 walked the heads layer by layer over all points in 53 launches.
+// What this engine does about it:
+// - One persistent block of two warpgroups per SM walks tiles of 128
+//   points (ops/field_kernel.py:heads_plan). Each warpgroup owns 64 of the
+//   tile's rows and every column of a layer (widths <= 128: one wgmma of
+//   m64nNk8, N = 8 .. 128 by the layer's width), so the two warpgroups read
+//   the same weight slab for 128 rows and sync with each other only
+//   through the slab ring; inside a warpgroup a named barrier (128 threads)
+//   orders a layer's in-place store. A pass's products accumulate each
+//   16-deep slab in the tensor core from zero (lo.hi + hi.lo + hi.hi per k8
+//   step; A split in registers by rw_split) and add the slab's sum to fp32
+//   registers, which bounds what the tensor core's accumulation can lose
+//   (tests/test_torch_field_kernel.py emulates this order).
+// - The weights are split into tf32 hi / lo once per call (nh_pack_kernel)
+//   into the slabs of the passes (ops/field_kernel.py:heads_passes), laid
+//   out as wgmma's K-major core matrices without swizzle, and stream as one
+//   sequence across passes and tiles through a ring of 3 slots (2 where 3
+//   do not fit) of 1D TMA bulk copies completing on mbarriers; the last
+//   warp out of a slot refills it.
+// - One Fourier ladder per point, the colour ladder interleaved as [x |
+//   sin, cos of frequency 0 | ...], so that every head's embedding is a
+//   prefix of it; the pack permutes the weights' embedding columns to that
+//   order and folds the heads' annealing windows into them. An embedding's
+//   K is padded to whole slabs in the pack, never in the callers' tensors.
+// - K1: the tile's hidden layers stay in shared memory (H; feat and then
+//   hc = feat + colour in F); only the four outputs and, when autograd
+//   needs them, every layer output go to device memory (streaming stores).
+//   The sdf head (width -> 1) is an FMA epilogue of the base head's last
+//   layer, from its registers; the feature's normalisation sums the
+//   channels of a row across the accumulator's quad. rgb1's appearance
+//   term is a bias row per pair, computed by the pack launch.
+// - K2's dIn: the same engine walks each tile's heads from the last layer
+//   to the first over W^T's slabs: the output cotangents in the tile's
+//   prologue, the ReLU masks from K1's saved outputs (loaded after the
+//   pass, two parts of 16 in flight; into L2 during it), dX of the shared
+//   ladder summed over every head in shared memory and carried through
+//   sin / cos to dx in the tile's epilogue (no X or dX reaches device
+//   memory; the ladder itself goes to a buffer for dW), the pairs' sums of
+//   d rgb_h per 64-row half.
+//   Every layer's G goes to device memory once, in fp32 by streaming
+//   stores, in the 32-row K-major slabs dW's wgmma reads (2.1 GB at the
+//   flagship step; split into hi / lo it was 4.2).
+// - K2's dW = G^T A for every layer is one launch over chunks of rows,
+//   each chunk into its workspace slice; the slices are summed in chunk
+//   order with the appearance gradients and d ibeta in the last launch. A
+//   block is warp specialised: its producer warp streams each 32-row slab
+//   by TMA into a ring (G's fp32 slab; A's whole saved rows, the embedding
+//   from the ladder buffer, hc as feat and colour, in 8 bulk copies of 4
+//   rows per operand: one copy per row was dW's bottleneck), splits G into
+//   hi / lo in the slot and releases it to the two warpgroups by an
+//   mbarrier. A slab's rows are permuted (nh_slab_row) so that the A^T
+//   fragment loads, from tiles padded per 4-row chunk, hit distinct banks.
+//   K1 is 2 CUDA launches, K2 4.
+
+// No float atomics on values: every sum across warps, blocks and chunks
+// runs in a fixed order, and the result is the same from run to run.
+// Precise sinf / cosf / expf / expm1f (no fast math); angles reach 2^11 |x|.
+
+#include <algorithm>
 
 #include "heads_mma.cuh"
+#include "wgmma.cuh"
 
 #define NH_MAX_LAYERS 8
 #define NH_MAX_FREQS 16
+#define NH_MAX_PASSES 68   // K2's passes at 4 heads of 8 layers that all read x
+#define NH_MAX_DW 36       // dW's layers: every head layer, sdf, rgb2, rgb1
+#define NH_HEADS 4         // base, colour, visibility, feature
 #define NH_RGB 3
-#define NH_HEADS 4   // base, colour, visibility, feature
-#define NH_TR 64     // points per K1 block
-#define NH_K1_THREADS 512  // 16 warps per K1 block
-#define NH_NMAX 128  // widest layer output
-#define NH_LDS 36    // row stride of a staged weight slab (k-slab of 32 + 4)
+#define NH_TR 128          // points per tile
+#define NH_HALF 64         // a warpgroup's rows of the tile
+#define NH_THREADS 256     // two warpgroups
+#define NH_WARPS (NH_THREADS / 32)
+#define NH_KS 16           // k-depth of a weight slab: two k8 steps
+#define NH_NMAX 128        // widest layer: one wgmma of a warpgroup
+#define NH_SLAB (32 * NH_NMAX)  // floats of a ring slot: the widest slab, hi and lo
+#define NH_RS 32           // rows of a G slab of dW: four k8 steps
+#define NH_DW_M 128        // dW inputs per block: 64 per warpgroup
+#define NH_DW_THREADS (NH_THREADS + 32)  // dW: two warpgroups and a producer warp
+#define NH_DW_STAGES 3     // dW's slabs in flight
+#define NH_DW_SLAB (64 * NH_NMAX)  // floats of the widest G slab, hi and lo
+#define NH_DW_A (8 * (4 * NH_NMAX + 8))  // floats of an A tile: 8 chunks of 4 rows, padded
+#define NH_DW_SLOT (NH_DW_SLAB + 2 * NH_DW_A)  // G's slab and A's tiles (x and h, or hc's two)
+#define NH_SMEM (227 * 1024)
+
+// What a pass computes (NhPass.epi). K1: a hidden layer into H; the base
+// head's last layer into F, with the sdf and density; the colour head's
+// last into F (+= : hc); rgb1 into H; rgb2 to rgb; the visibility logit;
+// the feature and its normalisation. K2: d hc from d rgb_h (the base and
+// colour heads' last G); a layer's x columns into dX; its h columns into
+// the previous layer's G.
+enum { NH_E_HID, NH_E_BASE, NH_E_COL, NH_E_RGB1, NH_E_RGB2, NH_E_VIS, NH_E_FEAT,
+       NH_E_DHC, NH_E_DX, NH_E_DH };
+// dW's A operand (NhDw.kind): the embedding, [embedding | h_{l-1}], h_{l-1}
+// (or the saved input of sdf / rgb2), hc = feat + colour
+enum { NH_A_X, NH_A_XH, NH_A_H, NH_A_HC };
 
 // One ReLU MLP head in the split layout. off_*: offsets of its gradients in
 // a workspace slice; act_off: floats per point before layer l's saved
-// output in the activation buffer (each layer a (rows, out) block).
+// output (a (rows, out) row-major block at act_off * rows).
 struct NhHead {
   int n_layers, skip_mask, n_freqs, c_x;
   int in_dim[NH_MAX_LAYERS];  // full input width (c_x + h on a skip layer)
   int out_dim[NH_MAX_LAYERS];
-  int k1[NH_MAX_LAYERS];  // columns of w1: c_x on a skip layer, in_dim otherwise
   int off_w1[NH_MAX_LAYERS], off_w2[NH_MAX_LAYERS], off_b[NH_MAX_LAYERS];
   int act_off[NH_MAX_LAYERS];
-  int pk_off[NH_MAX_LAYERS];  // offset of the layer's pre-split weights in the packed buffer
   const float* window;  // (n_freqs,) annealing window or null
-  const float* w1[NH_MAX_LAYERS];
+  const float* w1[NH_MAX_LAYERS];  // (out, c_x) on a layer with x (0 or skip), else (out, in)
   const float* w2[NH_MAX_LAYERS];  // the h columns of a skip layer, else null
   const float* b[NH_MAX_LAYERS];
 };
 
+// One pass of the engine: a wgmma of nw columns (n of them real) over nsl
+// slabs of the reduction. Its slabs lie at img in the packed weights, each
+// hi then lo, [k / 4][n / 8][n % 8][k % 4] (wgmma's K-major core matrices).
+struct NhPass {
+  int img;
+  short nsl, n;
+  unsigned char nxs;   // K1: the first nxs slabs read the tile's ladder, the rest the A buffer
+  unsigned char nw;    // 8, 16, 32, 64 or 128
+  signed char epi;     // NH_E_*
+  signed char head, layer;  // its layer (head -1: rgb1, rgb2, d hc)
+  signed char src;     // the A buffer: 0 H, 1 F
+  signed char dw;      // K2: the dW layer whose G the pass reads first, stored before it, or -1
+  signed char first;   // K2: the first pass of a head
+};
+
+// One layer of dW = G^T A, db = sum G
+struct NhDw {
+  int goff;   // floats before its G slab in each 32-row group of the G image
+  int blk0;   // its first dW block
+  short K, N, nwo;  // inputs, outputs, G slab columns (8 .. 128)
+  signed char kind, head, layer;  // NH_A_*; head -1 sdf, -2 rgb2, -3 rgb1's W_hc
+};
+
 struct NhArgs {
   NhHead head[NH_HEADS];
-  int rows, spp, tr, n_chunks;
+  NhPass pass[NH_MAX_PASSES];  // K1's passes or K2's, as the launch takes them
+  NhDw dw[NH_MAX_DW];
+  int n_pass, n_dw, rows, spp, n_tiles, n_chunks, pc, dw_blocks;
   int width;       // output width of the base and colour MLPs (hc)
   int rgb_hidden;  // rgb1 outputs
   int appr_dim;    // appearance channels
   int feat_dim;    // feature channels
-  int max_cx;      // widest embedding
-  int g_width;     // widest layer output
+  int n_freqs;     // frequencies of the shared ladder (the most any head takes)
+  int img_total;   // floats of the packed weights
+  int stages;      // slots of the engine's ring
+  int ldx, ldh;    // row strides of the ladder (dX) and of H / F in shared memory
+  int ldl;         // row stride of K2's ladder buffer (dW's embedding columns)
+  int gstride;     // floats of one 32-row group of K2's G image
   int off_w_sdf, off_b_sdf, off_w_hc, off_w_rgb2, off_b_rgb2, off_dibeta;
-  int n_slice;    // floats of one workspace slice
-  int act_rgbh;   // floats per point before rgb_h in the activation buffer
-  int act_total;  // saved floats per point
-  int pk_hc, pk_rgb2, pk_total;  // packed weights: rgb1's W_hc, rgb2's; floats in all
+  int n_slice;     // floats of one workspace slice
+  int act_rgbh;    // floats per point before rgb_h in the saved outputs
+  int act_total;   // saved floats per point
+  int dw_sdf, dw_rgb2, dw_rgb1;  // their dW layers
   float freq[NH_MAX_FREQS];
   const float* w_sdf;   // (1, width)
   const float* b_sdf;   // (1,)
@@ -107,584 +190,1075 @@ struct NhArgs {
   const float* ibeta;   // (1,) on the device
 };
 
-// A layer weight as column blocks [w1 (n, k1) | w2 (n, K - k1)]
-struct NhW {
-  const float* w1;
-  int k1;
-  const float* w2;
-  __device__ __forceinline__ const float* at(int n, int k, int K) const {
-    return k < k1 ? w1 + (size_t)n * k1 + k : w2 + (size_t)n * (K - k1) + (k - k1);
-  }
-};
-
-__host__ __host__ __device__ __forceinline__ NhW nh_w(const NhHead& h, int l) { return NhW{h.w1[l], h.k1[l], h.w2[l]}; }
-
 __device__ __forceinline__ float nh_sign(float s) { return s > 0.f ? 1.f : (s < 0.f ? -1.f : 0.f); }
 
 __device__ __forceinline__ float nh_sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
-// Column k of head h's embedding [x, sin (F x 3), cos (F x 3)] of the point
-// xv (3 floats), sin / cos times the window
-__device__ __forceinline__ float nh_embed_at(const NhArgs& a, const NhHead& h, const float* xv,
-                                             int k) {
-  const int C = 3, FC = h.n_freqs * 3;
-  if (k < C) return xv[k];
-  const int c = (k - C) % C, f = ((k - C) % FC) / C;
-  const float ang = xv[c] * a.freq[f];
-  float v = k < C + FC ? sinf(ang) : cosf(ang);
-  if (h.window != nullptr) v *= __ldg(h.window + f);
-  return v;
+__host__ __device__ __forceinline__ bool nh_has_x(const NhHead& h, int l) {
+  return l == 0 || ((h.skip_mask >> l) & 1);
 }
+
+// The column of head h's embedding [x, sin (nf x 3), cos (nf x 3)] at
+// position p of the shared ladder [x | sin, cos of frequency 0 | ...]
+__device__ __forceinline__ int nh_orig(int nf, int p) {
+  if (p < 3) return p;
+  const int q = p - 3, f = q / 6, r = q - 6 * f;
+  return 3 + (r >= 3 ? 3 * nf : 0) + 3 * f + r % 3;
+}
+
+// Head h's annealing window at ladder position p
+__device__ __forceinline__ float nh_win(const NhHead& h, int p) {
+  return p < 3 || h.window == nullptr ? 1.f : __ldg(h.window + (p - 3) / 6);
+}
+
+// The calling warpgroup's 128 threads (named barrier 1 or 2)
+__device__ __forceinline__ void nh_bar() {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
+}
+
+// ------------------------------------------------------------------ the ring
+
+// The ring's barriers and slot counters (the first 32 floats of shared
+// memory), then the ring
+__device__ __forceinline__ float* nh_ring_init(float* smem, int stages, uint64_t*& full,
+                                               uint32_t*& cnt) {
+  full = reinterpret_cast<uint64_t*>(smem);
+  cnt = reinterpret_cast<uint32_t*>(full + stages);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      rw_mbar_init(full + s, 1);
+      cnt[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  return smem + 32;
+}
+
+// The engine's weight slabs in the order it takes them: tile after tile
+// (blockIdx.x, then every gridDim.x-th), pass after pass, slab after slab.
+// next() gives the next slab's source and size and moves on.
+struct NhFeed {
+  const NhArgs* a;
+  const float* pk;
+  int tile, p, q;
+  __device__ __forceinline__ bool next(const float*& src, uint32_t& bytes) {
+    if (tile >= a->n_tiles) return false;
+    const NhPass& ps = a->pass[p];
+    const int f = 32 * ps.nw;
+    src = pk + ps.img + q * f;
+    bytes = 4 * f;
+    if (++q == ps.nsl) {
+      q = 0;
+      if (++p == a->n_pass) {
+        p = 0;
+        tile += gridDim.x;
+      }
+    }
+    return true;
+  }
+};
+
+// The first `stages` slabs of feed into the ring (thread 0), every thread
+// moving its copy of feed on by as many
+__device__ __forceinline__ void nh_prime(NhFeed& feed, int stages, float* ring, uint64_t* full) {
+  for (int i = 0; i < stages; ++i) {
+    const float* src;
+    uint32_t bytes;
+    if (feed.next(src, bytes) && threadIdx.x == 0)
+      rw_bulk_load(ring + i * NH_SLAB, src, bytes, full + i);
+  }
+}
+
+// The warp is done with the slab in `slot`: it counts itself out, and the
+// last of the block's warps refills the slot with feed's next slab,
+// `stages` on from the one it held. Every thread moves its copy of feed on.
+__device__ __forceinline__ void nh_release(NhFeed& feed, int slot, float* ring, uint64_t* full,
+                                           uint32_t* cnt) {
+  const float* src = nullptr;
+  uint32_t bytes = 0;
+  const bool more = feed.next(src, bytes);
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0 && atomicAdd(cnt + slot, 1u) % NH_WARPS == NH_WARPS - 1 && more)
+    rw_bulk_load(ring + slot * NH_SLAB, src, bytes, full + slot);
+}
+
+// One pass: sum (the warpgroup's 64 rows x NW columns) = A . B over nsl
+// slabs of 16: A's columns [16 s, 16 s + 16) from xs for s < nxs, from as
+// at column 16 (s - nxs) after (row-major, zero or finite past the
+// reduction, whose weights are zero); B the pass's slabs through the ring.
+// Per slab, each k8 step's three products (lo.hi, hi.lo, hi.hi) accumulate
+// in the tensor core from zero and the slab's sum is added to sum in fp32.
+template <int NW>
+__device__ __forceinline__ void nh_pass(float (&sum)[NW / 2], const float* xs, int ldx,
+                                        const float* as, int lda, int nsl, int nxs, float* ring,
+                                        uint64_t* full, uint32_t* cnt, int stages, int& it,
+                                        NhFeed& feed) {
+  const int mw = 16 * ((threadIdx.x >> 5) & 3);
+  float acc[NW / 2];
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) sum[i] = acc[i] = 0.f;
+  for (int s = 0; s < nsl; ++s, ++it) {
+    const int slot = it % stages;
+    const float* sl = ring + slot * NH_SLAB;
+    const HmMK A = s < nxs ? HmMK{xs + NH_KS * s, ldx} : HmMK{as + NH_KS * (s - nxs), lda};
+    uint32_t ah[2][4], al[2][4];
+    rw_frag_a(A, 0, mw, ah[0], al[0]);
+    rw_frag_a(A, 8, mw, ah[1], al[1]);
+    rw_mbar_wait(full + slot, (it / stages) & 1);
+    rw_own(acc);
+    rw_wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* bh = sl + 8 * NW * j;
+      const uint64_t dh = rw_desc(bh, 16 * NW, 128), dl = rw_desc(bh + 16 * NW, 16 * NW, 128);
+      rw_mma<NW>(acc, al[j], dh, j);
+      rw_mma<NW>(acc, ah[j], dl, 1);
+      rw_mma<NW>(acc, ah[j], dh, 1);
+    }
+    rw_commit();
+    rw_wait0();
+    rw_own(acc);
+    rw_own(ah[0]);
+    rw_own(ah[1]);
+    rw_own(al[0]);
+    rw_own(al[1]);
+    nh_release(feed, slot, ring, full, cnt);
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) sum[i] += acc[i];
+  }
+}
+
+// The engine's shared memory: the ring's barriers and slots, then per
+// warpgroup the ladder (K1) or dX (K2) (NH_HALF x ldx), H and F (NH_HALF x
+// ldh each), then K2's per-row g_sdf and d ibeta terms
+struct NhBufs {
+  float *ring, *xs, *hs, *fs, *gsd, *dib;
+  uint64_t* full;
+  uint32_t* cnt;
+  __device__ __forceinline__ NhBufs(float* smem, const NhArgs& a) {
+    ring = nh_ring_init(smem, a.stages, full, cnt);
+    const int wg = threadIdx.x >> 7;
+    float* base = ring + a.stages * NH_SLAB;
+    xs = base + wg * NH_HALF * a.ldx;
+    hs = base + NH_TR * a.ldx + wg * NH_HALF * a.ldh;
+    fs = hs + NH_TR * a.ldh;
+    gsd = base + NH_TR * (a.ldx + 2 * a.ldh) + wg * NH_HALF;
+    dib = gsd + NH_TR;
+    for (int i = threadIdx.x; i < NH_TR * (a.ldx + 2 * a.ldh); i += NH_THREADS) base[i] = 0.f;
+  }
+};
 
 // ------------------------------------------------------------------ K1
 
-// A layer input in shared memory: columns [0, k1) of s1, then s2; zero at
-// and past K
-struct NhActIn {
-  const float* s1;
-  int ld1, k1;
-  const float* s2;
-  int ld2, K;
-  __device__ __forceinline__ float operator()(int m, int k) const {
-    return k < k1 ? s1[m * ld1 + k] : (k < K ? s2[m * ld2 + (k - k1)] : 0.f);
+// The shared ladder of the warpgroup's 64 points at row r0: [x | sin, cos
+// of each frequency] (zero where the half holds no points)
+__device__ __forceinline__ void nh_ladder(float* xs, int ldx, const float* __restrict__ x, int r0,
+                                          bool valid, const NhArgs& a) {
+  const int per = 3 * (a.n_freqs + 1);
+  for (int e = threadIdx.x & 127; e < NH_HALF * per; e += 128) {
+    const int m = e / per, q = e - m * per, f = q / 3 - 1, c = q % 3;
+    const float xv = valid ? __ldg(x + (size_t)(r0 + m) * 3 + c) : 0.f;
+    float* row = xs + m * ldx;
+    if (f < 0) {
+      row[c] = xv;
+    } else {
+      float s, co;
+      sincosf(xv * a.freq[f], &s, &co);
+      row[3 + 6 * f + c] = s;
+      row[6 + 6 * f + c] = co;
+    }
   }
-};
-
-// A layer's weights, pre-split by nh_pack_kernel: hi then lo, each (N, kp)
-// row-major, kp = K rounded up to a whole k-slab (zero-padded)
-struct NhPk {
-  const float* hi;
-  int kp;
-};
-
-__host__ __device__ __forceinline__ int nh_kp(int K) { return (K + HM_KS - 1) / HM_KS * HM_KS; }
-
-__device__ __forceinline__ NhPk nh_pk(const float* wpk, const NhHead& h, int l) {
-  return NhPk{wpk + h.pk_off[l], nh_kp(h.in_dim[l])};
 }
 
-// O = In . W^T on the block's 64 points, O handed to epi(m, n, value);
-// wsl: two stages of hi and lo weight slabs (NH_NMAX x NH_LDS each). Warp w
-// owns the unit of rows 16 (w % 4) and columns 32 (w / 4). Called by the
-// whole block; ends with a barrier, so O is visible and the slabs free.
-template <class Epi>
-__device__ void nh_layer(const NhActIn& in, const NhPk& W, int N, int K, float* wsl, const Epi& epi) {
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
-  const int nv = warp < 4 * ((N + 31) / 32) ? hm_nv(N, n0) : 0;
-  float c[4][4];
-  hm_zero(c);
-  const int n_slab = W.kp / HM_KS;
-  const float* lo = W.hi + (size_t)N * W.kp;
-  auto stage = [&](int s) {
-    float* dst = wsl + (s & 1) * (2 * NH_NMAX * NH_LDS);
-    const int k0 = s * HM_KS;
-    for (int e = tid; e < N * (HM_KS / 4) * 2; e += NH_K1_THREADS) {
-      const int half = e >= N * (HM_KS / 4);
-      const int e2 = e - half * N * (HM_KS / 4), n = e2 >> 3, q = (e2 & 7) * 4;
-      hm_cp16(dst + half * NH_NMAX * NH_LDS + n * NH_LDS + q,
-              (half ? lo : W.hi) + (size_t)n * W.kp + k0 + q);
+// Sum over the 4 threads of an accumulator quad (a row's columns)
+__device__ __forceinline__ float nh_quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+struct NhOut {
+  const float* abias;  // (pairs, rgb_hidden) rgb1's bias row per pair
+  float *density, *rgb, *vis, *feat, *acts;
+};
+
+// One K1 pass on the warpgroup's rows r0 .. r0 + 64 and its epilogue
+template <int NW>
+__device__ __forceinline__ void nh_fwd_pass(const NhArgs& a, const NhPass& ps, NhBufs& B, int r0,
+                                            bool valid, const NhOut& o, int& it, NhFeed& feed) {
+  float sum[NW / 2];
+  nh_pass<NW>(sum, B.xs, a.ldx, ps.src ? B.fs : B.hs, a.ldh, ps.nsl, ps.nxs, B.ring, B.full, B.cnt,
+              a.stages, it, feed);
+  const int N = ps.n, rows = a.rows, ldh = a.ldh;
+  const NhHead& h = a.head[ps.head < 0 ? 0 : ps.head];
+  const float* bias = ps.epi == NH_E_RGB1   ? o.abias + (size_t)(r0 / a.spp) * a.rgb_hidden
+                      : ps.epi == NH_E_RGB2 ? a.b_rgb2
+                                            : h.b[ps.layer];
+  const int aoff = ps.epi == NH_E_RGB1 ? a.act_rgbh : h.act_off[ps.layer];
+  float* sv = o.acts != nullptr && valid && ps.epi != NH_E_RGB2
+                  ? o.acts + (size_t)aoff * rows + (size_t)r0 * N
+                  : nullptr;
+  const bool vec = (N & 1) == 0;
+  const int lane = threadIdx.x & 31, mq = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  if (ps.epi == NH_E_RGB2) {  // sigmoid rgb, straight to the output
+    if (valid)
+      rw_each<NW>(sum, [&](int m, int c, float v0, float v1) {
+        float* y = o.rgb + (size_t)(r0 + m) * NH_RGB + c;
+        if (c < NH_RGB) y[0] = nh_sigmoid(v0 + __ldg(bias + c));
+        if (c + 1 < NH_RGB) y[1] = nh_sigmoid(v1 + __ldg(bias + c + 1));
+      });
+    return;
+  }
+  if (ps.epi == NH_E_VIS) {  // the logit: column 0
+    if (valid)
+      rw_each<NW>(sum, [&](int m, int c, float v0, float) {
+        if (c != 0) return;
+        const float v = v0 + __ldg(bias);
+        o.vis[r0 + m] = v;
+        if (sv != nullptr) __stcs(sv + m, v);
+      });
+    return;
+  }
+  if (ps.epi == NH_E_FEAT) {  // save the raw feature, then normalise each row
+    float pa = 0.f, pb = 0.f;
+    rw_each<NW>(sum, [&](int m, int c, float v0, float v1) {
+      if (c >= N) return;
+      const bool two = c + 1 < N;
+      v0 += __ldg(bias + c);
+      v1 = two ? v1 + __ldg(bias + c + 1) : 0.f;
+      if (m & 8) pb = fmaf(v1, v1, fmaf(v0, v0, pb));
+      else pa = fmaf(v1, v1, fmaf(v0, v0, pa));
+      if (sv != nullptr) rw_st2(sv + (size_t)m * N + c, v0, v1, two, vec, true);
+    });
+    const float da = fmaxf(sqrtf(nh_quad_sum(pa) + 1e-12f), 1e-6f);
+    const float db = fmaxf(sqrtf(nh_quad_sum(pb) + 1e-12f), 1e-6f);
+    if (valid)
+      rw_each<NW>(sum, [&](int m, int c, float v0, float v1) {
+        if (c >= N) return;
+        const float d = (m & 8) ? db : da;
+        float* y = o.feat + (size_t)(r0 + m) * N + c;
+        y[0] = (v0 + __ldg(bias + c)) / d;
+        if (c + 1 < N) y[1] = (v1 + __ldg(bias + c + 1)) / d;
+      });
+    return;
+  }
+  // ReLU layers into shared memory: H (hidden, rgb1), F (base: feat; colour: += into hc)
+  float* dst = ps.epi == NH_E_BASE || ps.epi == NH_E_COL ? B.fs : B.hs;
+  float pa = 0.f, pb = 0.f;  // the base head: the sdf's dot product, rows mq and mq + 8
+  nh_bar();                  // every thread of the warpgroup is done reading the pass's input
+  rw_each<NW>(sum, [&](int m, int c, float v0, float v1) {
+    if (c >= N) return;
+    const bool two = c + 1 < N;
+    v0 = fmaxf(v0 + __ldg(bias + c), 0.f);
+    v1 = two ? fmaxf(v1 + __ldg(bias + c + 1), 0.f) : 0.f;
+    float* d = dst + m * ldh + c;
+    if (ps.epi == NH_E_COL) {
+      d[0] += v0;
+      if (two) d[1] += v1;
+    } else {
+      rw_st2(d, v0, v1, two, true, false);
     }
-    hm_cp_commit();
-  };
-  stage(0);
-  for (int s = 0; s < n_slab; ++s) {
-    hm_cp_wait();
-    __syncthreads();  // slab s is in; every warp is done with slab s - 1
-    if (s + 1 < n_slab) stage(s + 1);
-    const float* bh = wsl + (s & 1) * (2 * NH_NMAX * NH_LDS);
-    if (nv > 0) {
-#pragma unroll
-      for (int k8 = 0; k8 < HM_KS; k8 += 8)
-        hm_step_pk(c, in, s * HM_KS + k8, bh, bh + NH_NMAX * NH_LDS, NH_LDS, 1, k8, m0, n0, nv);
+    if (sv != nullptr) rw_st2(sv + (size_t)m * N + c, v0, v1, two, vec, true);
+    if (ps.epi == NH_E_BASE) {
+      const float p = fmaf(two ? __ldg(a.w_sdf + c + 1) : 0.f, v1, __ldg(a.w_sdf + c) * v0);
+      if (m & 8) pb += p;
+      else pa += p;
+    }
+  });
+  if (ps.epi == NH_E_BASE) {
+    const float sa = nh_quad_sum(pa) + __ldg(a.b_sdf), sb = nh_quad_sum(pb) + __ldg(a.b_sdf);
+    if (valid && (lane & 3) == 0) {
+      const float ib = __ldg(a.ibeta);
+      o.density[r0 + mq] = (0.5f + 0.5f * nh_sign(sa) * expm1f(-fabsf(sa) * ib)) * ib;
+      o.density[r0 + mq + 8] = (0.5f + 0.5f * nh_sign(sb) * expm1f(-fabsf(sb) * ib)) * ib;
     }
   }
-  if (nv > 0) hm_store(c, m0, n0, nv, N, epi);
+  nh_bar();  // the layer is complete in shared memory
+}
+
+// K1: one block per SM walks the tiles of NH_TR points and carries each
+// through every pass (NhArgs.pass: the heads' layers, rgb1 and rgb2 in
+// order). pk: the packed weights (nh_pack_kernel); acts: null, or every
+// layer output (act_total floats per point).
+__global__ void __launch_bounds__(NH_THREADS, 1)
+nh_fwd_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ x,
+              const float* __restrict__ pk, NhOut o) {
+  extern __shared__ __align__(16) float nh_smem[];
+  NhBufs B(nh_smem, a);
   __syncthreads();
-}
-
-// Each epilogue also writes its value to the layer's saved block sv
-// ((rows, svn) row-major, from the tile's first row) unless sv is null,
-// as a streaming store (__stcs), so the 2 GB of saved outputs do not evict
-// the weights from L2.
-struct NhEpiRelu {  // h[m][n] = relu(v + b[n])
-  float* h;
-  int ld;
-  const float* b;
-  float* sv;
-  int svn;
-  __device__ __forceinline__ void operator()(int m, int n, float v) const {
-    const float o = fmaxf(v + __ldg(b + n), 0.f);
-    h[m * ld + n] = o;
-    if (sv != nullptr) __stcs(sv + (size_t)m * svn + n, o);
-  }
-};
-
-struct NhEpiColour {  // c = relu(v + b[n]) (saved); hc = feat + c in place in f
-  float* f;
-  int ld;
-  const float* b;
-  float* sv;
-  int svn;
-  __device__ __forceinline__ void operator()(int m, int n, float v) const {
-    const float cv = fmaxf(v + __ldg(b + n), 0.f);
-    f[m * ld + n] += cv;
-    if (sv != nullptr) __stcs(sv + (size_t)m * svn + n, cv);
-  }
-};
-
-struct NhEpiReluSmemBias {  // h[m][n] = relu(v + bias[n]), bias in shared memory
-  float* h;
-  int ld;
-  const float* bias;
-  float* sv;
-  int svn;
-  __device__ __forceinline__ void operator()(int m, int n, float v) const {
-    const float o = fmaxf(v + bias[n], 0.f);
-    h[m * ld + n] = o;
-    if (sv != nullptr) __stcs(sv + (size_t)m * svn + n, o);
-  }
-};
-
-struct NhEpiSigmoidOut {  // rgb[row0 + m][n] = sigmoid(v + b[n])
-  float* y;
-  const float* b;
-  int row0;
-  __device__ __forceinline__ void operator()(int m, int n, float v) const {
-    y[(size_t)(row0 + m) * NH_RGB + n] = nh_sigmoid(v + __ldg(b + n));
-  }
-};
-
-struct NhEpiOut {  // y[row0 + m][n] = v + b[n] (n_out columns, unless y is null), and h[m][n]
-  float* y;
-  float* h;
-  int ld;
-  const float* b;
-  int row0, n_out;
-  float* sv;
-  int svn;
-  __device__ __forceinline__ void operator()(int m, int n, float v) const {
-    const float o = v + __ldg(b + n);
-    if (y != nullptr) y[(size_t)(row0 + m) * n_out + n] = o;
-    h[m * ld + n] = o;
-    if (sv != nullptr) __stcs(sv + (size_t)m * svn + n, o);
-  }
-};
-
-// The saved block of a layer of n outputs at act_off for the tile at row0
-__device__ __forceinline__ float* nh_sv(float* acts, int act_off, int n, int row0, int rows) {
-  return acts == nullptr ? nullptr : acts + (size_t)act_off * rows + (size_t)row0 * n;
-}
-
-// X of head h for the block's points, row-major (ld floats per point)
-__device__ void nh_embed_tile(float* xs, int ld, const float* __restrict__ x, int row0,
-                              const NhArgs& a, const NhHead& h) {
-  for (int idx = threadIdx.x; idx < NH_TR * h.c_x; idx += NH_K1_THREADS) {
-    const int r = idx / h.c_x, k = idx - r * h.c_x;
-    const float* xp = x + (size_t)(row0 + r) * 3;
-    const float xv[3] = {__ldg(xp), __ldg(xp + 1), __ldg(xp + 2)};
-    xs[r * ld + k] = nh_embed_at(a, h, xv, k);
-  }
-  __syncthreads();
-}
-
-// Layers [0, n_layers) of head h on the tile (X in xs), each ReLU output in
-// pp[l & 1] and saved; the last layer's output goes to epi_last (which
-// saves it).
-template <class Epi>
-__device__ void nh_head_fwd(const NhArgs& a, const NhHead& h, const float* wpk, const float* xs,
-                            int ldx, float* const* pp, int ldh, float* wsl, float* acts, int row0,
-                            const Epi& epi_last) {
-  for (int l = 0; l < h.n_layers; ++l) {
-    const bool skip = l > 0 && ((h.skip_mask >> l) & 1);
-    const float* hp = l > 0 ? pp[(l - 1) & 1] : xs;
-    const NhActIn in = l == 0 ? NhActIn{xs, ldx, h.c_x, xs, ldx, h.c_x}
-                       : skip ? NhActIn{xs, ldx, h.c_x, hp, ldh, h.in_dim[l]}
-                              : NhActIn{hp, ldh, h.in_dim[l], hp, ldh, h.in_dim[l]};
-    if (l < h.n_layers - 1)
-      nh_layer(in, nh_pk(wpk, h, l), h.out_dim[l], h.in_dim[l], wsl,
-               NhEpiRelu{pp[l & 1], ldh, h.b[l],
-                         nh_sv(acts, h.act_off[l], h.out_dim[l], row0, a.rows), h.out_dim[l]});
-    else
-      nh_layer(in, nh_pk(wpk, h, l), h.out_dim[l], h.in_dim[l], wsl, epi_last);
-  }
-}
-
-// Every layer's weights of K1, pre-split into tf32 hi and lo, zero-padded
-// to whole k-slabs, into wpk (pk_total floats). blockIdx.y: the layer, in
-// the heads' order, then rgb1's W_hc and rgb2.
-__global__ void __launch_bounds__(HM_THREADS)
-nh_pack_kernel(const __grid_constant__ NhArgs a, float* __restrict__ wpk) {
-  int L = blockIdx.y, N, K, off;
-  NhW w;
-  for (int hi = 0; hi < NH_HEADS; ++hi) {
-    const NhHead& h = a.head[hi];
-    if (L < h.n_layers) {
-      N = h.out_dim[L], K = h.in_dim[L], off = h.pk_off[L], w = nh_w(h, L);
-      L = -1;
-      break;
+  NhFeed feed{&a, pk, (int)blockIdx.x, 0, 0};
+  nh_prime(feed, a.stages, B.ring, B.full);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const int r0 = tile * NH_TR + (threadIdx.x >> 7) * NH_HALF;
+    const bool valid = r0 < a.rows;  // rows are whole halves
+    nh_bar();  // the warpgroup is done with the previous tile's ladder
+    nh_ladder(B.xs, a.ldx, x, r0, valid, a);
+    nh_bar();
+    for (int p = 0; p < a.n_pass; ++p) {
+      const NhPass& ps = a.pass[p];
+      switch (ps.nw) {
+        case 128: nh_fwd_pass<128>(a, ps, B, r0, valid, o, it, feed); break;
+        case 64: nh_fwd_pass<64>(a, ps, B, r0, valid, o, it, feed); break;
+        case 32: nh_fwd_pass<32>(a, ps, B, r0, valid, o, it, feed); break;
+        case 16: nh_fwd_pass<16>(a, ps, B, r0, valid, o, it, feed); break;
+        default: nh_fwd_pass<8>(a, ps, B, r0, valid, o, it, feed); break;
+      }
     }
-    L -= h.n_layers;
-  }
-  if (L == 0) N = a.rgb_hidden, K = a.width, off = a.pk_hc, w = NhW{a.w_hc, a.width, nullptr};
-  if (L == 1) N = NH_RGB, K = a.rgb_hidden, off = a.pk_rgb2, w = NhW{a.w_rgb2, a.rgb_hidden, nullptr};
-  if (L > 1) return;
-  const int kp = nh_kp(K);
-  for (int e = blockIdx.x * HM_THREADS + threadIdx.x; e < N * kp; e += gridDim.x * HM_THREADS) {
-    const int n = e / kp, k = e - n * kp;
-    const float v = k < K ? __ldg(w.at(n, k, K)) : 0.f;
-    uint32_t hi, lo;
-    hm_split(v, hi, lo);
-    wpk[off + e] = __uint_as_float(hi);
-    wpk[off + (size_t)N * kp + e] = __uint_as_float(lo);
-  }
-}
-
-// smem: X (64 x hm_ld(max_cx)), H0, H1, F (64 x hm_ld(g_width) each), two
-// stages of hi / lo weight slabs, the rgb1 bias row. One block per 64 points.
-__global__ void __launch_bounds__(NH_K1_THREADS, 1)
-nerf_heads_fwd_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ x,
-                      const float* __restrict__ appr, const float* __restrict__ wpk,
-                      float* __restrict__ density, float* __restrict__ rgb, float* __restrict__ vis,
-                      float* __restrict__ feat, float* __restrict__ acts) {
-  extern __shared__ __align__(16) float smem[];
-  const int ldx = hm_ld(a.max_cx), ldh = hm_ld(a.g_width);
-  const NhHead &hb = a.head[0], &hcol = a.head[1], &hv = a.head[2], &hf = a.head[3];
-  float* xs = smem;
-  float* H0 = xs + NH_TR * ldx;
-  float* H1 = H0 + NH_TR * ldh;
-  float* F = H1 + NH_TR * ldh;
-  float* wsl = F + NH_TR * ldh;
-  float* abias = wsl + 4 * NH_NMAX * NH_LDS;
-  float* pp[2] = {H0, H1};
-  const int row0 = blockIdx.x * NH_TR;
-  const float* arow = appr + (size_t)(row0 / a.spp) * a.appr_dim;
-  for (int o = threadIdx.x; o < a.rgb_hidden; o += NH_K1_THREADS) {
-    float s = __ldg(a.b_rgb1 + o);
-    for (int c = 0; c < a.appr_dim; ++c)
-      s = fmaf(__ldg(a.w_appr + (size_t)o * a.appr_dim + c), __ldg(arow + c), s);
-    abias[o] = s;
-  }
-
-  // base MLP -> feat (final ReLU) in F; density from the sdf head
-  nh_embed_tile(xs, ldx, x, row0, a, hb);
-  const int lb = hb.n_layers - 1, lc = hcol.n_layers - 1, lv = hv.n_layers - 1, lf = hf.n_layers - 1;
-  nh_head_fwd(a, hb, wpk, xs, ldx, pp, ldh, wsl, acts, row0,
-              NhEpiRelu{F, ldh, hb.b[lb], nh_sv(acts, hb.act_off[lb], a.width, row0, a.rows), a.width});
-  if (threadIdx.x < NH_TR) {
-    const int r = threadIdx.x;
-    float s = __ldg(a.b_sdf);
-    for (int k = 0; k < a.width; ++k) s = fmaf(__ldg(a.w_sdf + k), F[r * ldh + k], s);
-    const float ib = __ldg(a.ibeta);
-    density[row0 + r] = (0.5f + 0.5f * nh_sign(s) * expm1f(-fabsf(s) * ib)) * ib;
-  }
-  // colour MLP; hc = feat + its output in place in F
-  nh_embed_tile(xs, ldx, x, row0, a, hcol);
-  nh_head_fwd(a, hcol, wpk, xs, ldx, pp, ldh, wsl, acts, row0,
-              NhEpiColour{F, ldh, hcol.b[lc], nh_sv(acts, hcol.act_off[lc], a.width, row0, a.rows),
-                          a.width});
-  // rgb head: rgb_h into the other buffer, then rgb2 and the sigmoid
-  float* rbuf = pp[(lc + 1) & 1];
-  nh_layer(NhActIn{F, ldh, a.width, F, ldh, a.width}, NhPk{wpk + a.pk_hc, nh_kp(a.width)},
-           a.rgb_hidden, a.width, wsl,
-           NhEpiReluSmemBias{rbuf, ldh, abias, nh_sv(acts, a.act_rgbh, a.rgb_hidden, row0, a.rows),
-                             a.rgb_hidden});
-  nh_layer(NhActIn{rbuf, ldh, a.rgb_hidden, rbuf, ldh, a.rgb_hidden},
-           NhPk{wpk + a.pk_rgb2, nh_kp(a.rgb_hidden)}, NH_RGB, a.rgb_hidden, wsl,
-           NhEpiSigmoidOut{rgb, a.b_rgb2, row0});
-  // visibility logit
-  nh_embed_tile(xs, ldx, x, row0, a, hv);
-  float* vbuf = pp[lv & 1];
-  nh_head_fwd(a, hv, wpk, xs, ldx, pp, ldh, wsl, acts, row0,
-              NhEpiOut{vis, vbuf, ldh, hv.b[lv], row0, 1, nh_sv(acts, hv.act_off[lv], 1, row0, a.rows), 1});
-  // feature, then its L2 normalisation per point
-  nh_embed_tile(xs, ldx, x, row0, a, hf);
-  float* fbuf = pp[lf & 1];
-  nh_head_fwd(a, hf, wpk, xs, ldx, pp, ldh, wsl, acts, row0,
-              NhEpiOut{nullptr, fbuf, ldh, hf.b[lf], row0, a.feat_dim,
-                       nh_sv(acts, hf.act_off[lf], a.feat_dim, row0, a.rows), a.feat_dim});
-  if (threadIdx.x < NH_TR) {
-    const int r = threadIdx.x;
-    const float* f16 = fbuf + r * ldh;
-    float ss = 0.f;
-    for (int j = 0; j < a.feat_dim; ++j) ss = fmaf(f16[j], f16[j], ss);
-    const float denom = fmaxf(sqrtf(ss + 1e-12f), 1e-6f);
-    for (int j = 0; j < a.feat_dim; ++j) feat[(size_t)(row0 + r) * a.feat_dim + j] = f16[j] / denom;
   }
 }
 
 // ------------------------------------------------------------------ K2
 
-// Per point, one warp: the gradients at the heads' outputs. g_sdf: of the
-// sdf through the density; g_rgb: of rgb2's output through the sigmoid
-// (from the saved rgb); g_rgbh: of rgb_h (through rgb2 and its ReLU); hc =
-// feat + the colour output; g_f16: of the feature MLP's raw output through
-// the normalisation. Block b covers chunk b of the points and writes its
-// d ibeta into its workspace slice (the warps' sums in warp order).
-#define NH_OUT_THREADS 1024
-__global__ void __launch_bounds__(NH_OUT_THREADS)
-nh_bwd_out_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ acts,
-                  const float* __restrict__ rgb, const float* __restrict__ gd,
-                  const float* __restrict__ grgb, const float* __restrict__ gfeat,
-                  float* __restrict__ hc, float* __restrict__ g_sdf, float* __restrict__ g_rgb,
-                  float* __restrict__ g_rgbh, float* __restrict__ g_f16, float* __restrict__ ws) {
-  const int W = a.width, RH = a.rgb_hidden, FD = a.feat_dim, P = a.rows;
-  const int pc = P / a.n_chunks, p0 = blockIdx.x * pc;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const NhHead &hb = a.head[0], &hcol = a.head[1], &hf = a.head[3];
-  const float* featb = acts + (size_t)hb.act_off[hb.n_layers - 1] * P;
-  const float* col = acts + (size_t)hcol.act_off[hcol.n_layers - 1] * P;
-  const float* rgbh = acts + (size_t)a.act_rgbh * P;
-  const float* f16 = acts + (size_t)hf.act_off[hf.n_layers - 1] * P;
-  const float ib = __ldg(a.ibeta);
-  float dib = 0.f;
-  for (int p = p0 + warp; p < p0 + pc; p += NH_OUT_THREADS / 32) {
-    float s = 0.f;
-    for (int k = lane; k < W; k += 32) {
-      const float fv = featb[(size_t)p * W + k];
-      s = fmaf(__ldg(a.w_sdf + k), fv, s);
-      hc[(size_t)p * W + k] = fv + col[(size_t)p * W + k];
-    }
-    s = hm_warp_sum(s) + __ldg(a.b_sdf);
-    const float e = expf(-fabsf(s) * ib), g = gd[p];
-    if (lane == 0) {
-      g_sdf[p] = g * (-0.5f * ib * ib * e);
-      dib += g * (0.5f + 0.5f * nh_sign(s) * expm1f(-fabsf(s) * ib) - 0.5f * ib * s * e);
-    }
-    float gr[NH_RGB];
-#pragma unroll
-    for (int o = 0; o < NH_RGB; ++o) {
-      const float sv = rgb[(size_t)p * NH_RGB + o];
-      gr[o] = grgb[(size_t)p * NH_RGB + o] * sv * (1.f - sv);
-      if (lane == o) g_rgb[(size_t)p * NH_RGB + o] = gr[o];
-    }
-    for (int j = lane; j < RH; j += 32) {
-      float v = 0.f;
-#pragma unroll
-      for (int o = 0; o < NH_RGB; ++o) v = fmaf(gr[o], __ldg(a.w_rgb2 + o * RH + j), v);
-      g_rgbh[(size_t)p * RH + j] = rgbh[(size_t)p * RH + j] > 0.f ? v : 0.f;
-    }
-    const float fv = lane < FD ? f16[(size_t)p * FD + lane] : 0.f;
-    const float denom = fmaxf(sqrtf(hm_warp_sum(fv * fv) + 1e-12f), 1e-6f);
-    const float gf = lane < FD ? gfeat[(size_t)p * FD + lane] : 0.f;
-    const float dot = hm_warp_sum(fv / denom * gf);
-    if (lane < FD) g_f16[(size_t)p * FD + lane] = (gf - fv / denom * dot) / denom;
-  }
-  __shared__ float part[NH_OUT_THREADS / 32];
-  if (lane == 0) part[warp] = dib;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = 0.f;
-    for (int w = 0; w < NH_OUT_THREADS / 32; ++w) t += part[w];
-    ws[(size_t)blockIdx.x * a.n_slice + a.off_dibeta] = t;
-  }
-}
-
-// Where dIn = G . W goes. mode 0: columns k < x_cols into dX (stored or
-// added), the rest, masked by the saved input hprev > 0, into gn (the
-// gradient of the previous layer's output). mode 1 (rgb1): d hc into the
-// base head's gradient gn = [feat > 0] (v + g_sdf w_sdf) and the colour
-// head's gc = [colour > 0] v.
-struct NhDinOut {
-  int mode;
-  float* dX;
-  int ldx, x_cols, store;
-  float* gn;
-  const float* hprev;
-  float* gc;
-  const float* feat;
-  const float* col;
-  const float* g_sdf;
-  const float* w_sdf;
+struct NhGrad {
+  const float *acts, *rgb, *gd, *grgb, *gvis, *gfeat;
+  float *dx, *gimg, *gpart, *dpart;
+  float* lad;  // the rows' ladder (ldl floats a row), for dW's embedding columns
 };
 
-// dIn = G . W for 64 points x 64 input columns per block; a k-slab is 32
-// outputs: G m-major (4-byte copies: its rows may be 1 or 3 floats), W
-// from its pre-split hi / lo (nh_pack_kernel), k-major. Dynamic shared
-// memory: two stages of G (64 x NH_LDS) and of W's hi and lo (32 x HM_LDT).
-#define NH_DIN_SMEM (sizeof(float) * 2 * (64 * NH_LDS + 2 * HM_KS * HM_LDT))
-__global__ void __launch_bounds__(HM_THREADS)
-nh_din_kernel(const float* __restrict__ g, int N, NhPk w, int K, const NhDinOut o) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const size_t p0 = (size_t)blockIdx.x * 64;
-  const int kb = blockIdx.y * 64;
-  const float* wlo = w.hi + (size_t)N * w.kp;
-  auto sa = [&](int s) { return smem + (s & 1) * (64 * NH_LDS + 2 * HM_KS * HM_LDT); };
-  auto stage = [&](int s) {
-    const int ns = s * HM_KS;
-    float* a = sa(s);
-    float* b = a + 64 * NH_LDS;
-    for (int e = tid; e < 64 * HM_KS; e += HM_THREADS) {
-      const int m = e >> 5, kk = e & 31, n = ns + kk;
-      hm_cp4(a + m * NH_LDS + kk, n < N ? g + (p0 + m) * N + n : g, n < N);
-    }
-    for (int e = tid; e < 2 * HM_KS * 16; e += HM_THREADS) {  // 16-byte chunks of hi, then lo
-      const int half = e >= HM_KS * 16, e2 = e - half * HM_KS * 16;
-      const int kk = e2 >> 4, col = (e2 & 15) * 4, n = ns + kk;
-      if (kb + col < w.kp)
-        hm_cp16(b + half * HM_KS * HM_LDT + kk * HM_LDT + col,
-                (half ? wlo : w.hi) + (size_t)min(n, N - 1) * w.kp + kb + col, n < N);
-    }
-    hm_cp_commit();
-  };
-  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
-  const int nv = hm_nv(K - kb, n0);
-  float c[4][4];
-  hm_zero(c);
-  const int n_slab = (N + HM_KS - 1) / HM_KS;
-  stage(0);
-  for (int s = 0; s < n_slab; ++s) {
-    hm_cp_wait();
-    __syncthreads();
-    if (s + 1 < n_slab) stage(s + 1);
-    const HmMK A{sa(s), NH_LDS};  // A(m, kk) = G[m][kk]
-    const float* bh = sa(s) + 64 * NH_LDS;  // B(kk, n) = W[kk][n]
-    if (nv > 0) {
+// The row of a 32-row group at position k of its dW slab: k = 8 j + 4 h +
+// t holds row 16 h + 4 t + j, so that the four rows a warp's A^T fragment
+// load reads at once (t = 0 .. 3) lie in four chunks of 4 rows (nh_dw_fill)
+__host__ __device__ __forceinline__ int nh_slab_row(int k) {
+  return 16 * ((k >> 2) & 1) + 4 * (k & 3) + (k >> 3);
+}
+
+// Rows r0 .. r0 + 64 of a layer's G (src: n columns, row stride ld) into
+// its dW slabs, in fp32 (dW's producer warp splits them): 32-row group
+// r / 32 at gimg + (r / 32) gstride + goff, [k / 4][c / 8][c % 8][k % 4],
+// k the row's position (nh_slab_row). A thread takes 4 positions of a
+// column at a time: one float4, a streaming store (G is read back by the
+// next launch, from device memory).
+__device__ __forceinline__ void nh_gput(const float* src, int ld, int n, const NhDw& d,
+                                        float* gimg, int gstride, int r0) {
+  const int nwo = d.nwo;
+  for (int e = threadIdx.x & 127; e < (NH_HALF / 4) * nwo; e += 128) {
+    const int k4 = e / nwo, c = e - k4 * nwo, grp = k4 >> 3, k0 = 4 * (k4 & 7);
+    float v[4];
 #pragma unroll
-      for (int k8 = 0; k8 < HM_KS; k8 += 8)
-        hm_step_pk(c, A, k8, bh, bh + HM_KS * HM_LDT, 1, HM_LDT, k8, m0, n0, nv);
+    for (int q = 0; q < 4; ++q) v[q] = c < n ? src[(NH_RS * grp + nh_slab_row(k0 + q)) * ld + c] : 0.f;
+    float* p = gimg + (size_t)(r0 / NH_RS + grp) * gstride + d.goff + (k4 & 7) * (4 * nwo) +
+               (c >> 3) * 32 + (c & 7) * 4;
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+}
+
+// The tile's output cotangents, on the warpgroup's 64 rows: g_sdf (through
+// the density) in gsd and each row's d ibeta term, g_rgb (through the
+// sigmoid) in F's first 3 columns, g_rgbh (through rgb2 and its ReLU) in H;
+// their G slabs for dW, the half's column sums of g_rgbh and d ibeta.
+__device__ __forceinline__ void nh_bwd_prologue(const NhArgs& a, NhBufs& B, int r0, bool valid,
+                                                const NhGrad& g) {
+  const int wt = threadIdx.x & 127, W = a.width, RH = a.rgb_hidden, rows = a.rows, ldh = a.ldh;
+  const NhHead& hb = a.head[0];
+  const float* feat = g.acts + (size_t)hb.act_off[hb.n_layers - 1] * rows;
+  const float* rgbh = g.acts + (size_t)a.act_rgbh * rows;
+  nh_bar();  // the warpgroup is done with the previous tile's buffers
+  // feat into F and rgb_h into H by cp.async (zero where the half holds no
+  // points): a loop of loads and shared stores would wait for each load
+  for (int e = wt; e < NH_HALF * W; e += 128) {
+    const int m = e / W, c = e - m * W;
+    hm_cp4(B.fs + m * ldh + c, valid ? feat + (size_t)(r0 + m) * W + c : feat, valid);
+  }
+  for (int e = wt; e < NH_HALF * RH; e += 128) {
+    const int m = e / RH, j = e - m * RH;
+    hm_cp4(B.hs + m * ldh + j, valid ? rgbh + (size_t)(r0 + m) * RH + j : rgbh, valid);
+  }
+  hm_cp_commit();
+  for (int e = wt; e < NH_HALF * a.ldx; e += 128) B.xs[e] = 0.f;
+  hm_cp_wait();
+  nh_bar();
+  {  // the sdf, two threads per row
+    const int m = wt >> 1;
+    float s = 0.f;
+    for (int c = wt & 1; c < W; c += 2) s = fmaf(__ldg(a.w_sdf + c), B.fs[m * ldh + c], s);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __ldg(a.b_sdf);
+    if ((wt & 1) == 0) {
+      const float ib = __ldg(a.ibeta), ex = expf(-fabsf(s) * ib);
+      const float gv = valid ? __ldg(g.gd + r0 + m) : 0.f;
+      B.gsd[m] = gv * (-0.5f * ib * ib * ex);
+      B.dib[m] = gv * (0.5f + 0.5f * nh_sign(s) * expm1f(-fabsf(s) * ib) - 0.5f * ib * s * ex);
     }
   }
-  if (nv == 0) return;
-  hm_store(c, m0, n0, nv, K - kb, [&](int m, int n, float v) {
-    const size_t p = p0 + m;
-    const int k = kb + n;
-    if (o.mode == 1) {
-      const size_t i = p * K + k;
-      o.gn[i] = o.feat[i] > 0.f ? v + o.g_sdf[p] * __ldg(o.w_sdf + k) : 0.f;
-      o.gc[i] = o.col[i] > 0.f ? v : 0.f;
-    } else if (k < o.x_cols) {
-      float* d = o.dX + p * o.ldx + k;
-      *d = o.store ? v : *d + v;
-    } else {
-      const int kh = K - o.x_cols;
-      const size_t i = p * kh + (k - o.x_cols);
-      o.gn[i] = o.hprev[i] > 0.f ? v : 0.f;
+  nh_bar();  // F is read
+  for (int e = wt; e < NH_HALF * NH_RGB; e += 128) {
+    const int m = e / NH_RGB, c = e - m * NH_RGB;
+    const size_t i = (size_t)(r0 + m) * NH_RGB + c;
+    const float sv = valid ? __ldg(g.rgb + i) : 0.f, gv = valid ? __ldg(g.grgb + i) : 0.f;
+    B.fs[m * ldh + c] = gv * sv * (1.f - sv);
+  }
+  nh_bar();
+  for (int e = wt; e < NH_HALF * RH; e += 128) {  // in place over rgb_h
+    const int m = e / RH, j = e - m * RH;
+    float v = 0.f;
+#pragma unroll
+    for (int c = 0; c < NH_RGB; ++c) v = fmaf(B.fs[m * ldh + c], __ldg(a.w_rgb2 + c * RH + j), v);
+    B.hs[m * ldh + j] = B.hs[m * ldh + j] > 0.f ? v : 0.f;
+  }
+  nh_bar();
+  if (!valid) return;
+  nh_gput(B.gsd, 1, 1, a.dw[a.dw_sdf], g.gimg, a.gstride, r0);
+  nh_gput(B.fs, ldh, NH_RGB, a.dw[a.dw_rgb2], g.gimg, a.gstride, r0);
+  nh_gput(B.hs, ldh, RH, a.dw[a.dw_rgb1], g.gimg, a.gstride, r0);
+  for (int j = wt; j < RH; j += 128) {
+    float s = 0.f;
+    for (int m = 0; m < NH_HALF; ++m) s += B.hs[m * ldh + j];
+    g.gpart[(size_t)(r0 / NH_HALF) * RH + j] = s;
+  }
+  if (wt == 0) {
+    float s = 0.f;
+    for (int m = 0; m < NH_HALF; ++m) s += B.dib[m];
+    g.dpart[r0 / NH_HALF] = s;
+  }
+}
+
+// A head's first G before its last layer's passes: the visibility logit's
+// cotangent, or the feature's through its normalisation, into H
+__device__ __forceinline__ void nh_bwd_start(const NhArgs& a, int head, NhBufs& B, int r0, bool valid,
+                                             const NhGrad& g) {
+  const int wt = threadIdx.x & 127, ldh = a.ldh;
+  nh_bar();
+  if (head == 2) {
+    for (int m = wt; m < NH_HALF; m += 128) B.hs[m * ldh] = valid ? __ldg(g.gvis + r0 + m) : 0.f;
+  } else {
+    const NhHead& hf = a.head[3];
+    const int FD = a.feat_dim, m = wt >> 1;
+    const float* f16 = g.acts + (size_t)hf.act_off[hf.n_layers - 1] * a.rows + (size_t)(r0 + m) * FD;
+    const float* gf = g.gfeat + (size_t)(r0 + m) * FD;
+    float ss = 0.f, dot = 0.f;
+    for (int c = wt & 1; c < FD; c += 2) {
+      const float fv = valid ? __ldg(f16 + c) : 0.f;
+      ss = fmaf(fv, fv, ss);
+    }
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    const float den = fmaxf(sqrtf(ss + 1e-12f), 1e-6f);
+    for (int c = wt & 1; c < FD; c += 2)
+      if (valid) dot = fmaf(__ldg(f16 + c) / den, __ldg(gf + c), dot);
+    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+    for (int c = wt & 1; c < FD; c += 2)
+      B.hs[m * ldh + c] = valid ? (__ldg(gf + c) - __ldg(f16 + c) / den * dot) / den : 0.f;
+  }
+  nh_bar();
+}
+
+// Bit i of the result: whether the saved layer output (rows, n) at the
+// thread's accumulator element i (rw_each's order: element 4 j + 2 h + u
+// at row m + 8 h, column 8 j + c + u) is positive, for the warpgroup's
+// rows from r0; the loads issued 16 at a time, two parts in flight
+// (NW / 2 <= 64 elements)
+template <int NW>
+__device__ __forceinline__ uint64_t nh_mask_bits(const float* __restrict__ act, int n, int r0,
+                                                 bool valid) {
+  const int lane = threadIdx.x & 31, m = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int c = 2 * (lane & 3);
+  constexpr int B = NW / 2 < 16 ? NW / 2 : 16, P = NW / 2 / B;  // parts of B loads
+  float v[2][B];
+  auto load = [&](int p, float (&w)[B]) {
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      const int e = p * B + i, k = 8 * (e >> 2) + c + (e & 1), row = m + 8 * ((e >> 1) & 1);
+      w[i] = valid && k < n ? __ldg(act + (size_t)(r0 + row) * n + k) : 0.f;
+    }
+  };
+  uint64_t bits = 0;
+  load(0, v[0]);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (p + 1 < P) load(p + 1, v[(p + 1) & 1]);  // the next part in flight while this one is tested
+#pragma unroll
+    for (int i = 0; i < B; ++i) bits |= (uint64_t)(v[p & 1][i] > 0.f) << (p * B + i);
+  }
+  return bits;
+}
+
+// f(m, k, i, v) for each accumulator element i of the thread at row m,
+// column k < n
+template <int NW, class F>
+__device__ __forceinline__ void nh_each_bit(const float (&v)[NW / 2], int n, const F& f) {
+  const int lane = threadIdx.x & 31, m = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int c = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) {
+    const int k = 8 * (i >> 2) + c + (i & 1);
+    if (k < n) f(m + 8 * ((i >> 1) & 1), k, i, v[i]);
+  }
+}
+
+// n floats from p on into L2, one 128-byte line per thread of the
+// warpgroup at a time
+__device__ __forceinline__ void nh_prefetch_l2(const float* p, int n) {
+  for (int i = 32 * (threadIdx.x & 127); i < n; i += 32 * 128)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + i));
+}
+
+// One K2 pass on the warpgroup's rows and its epilogue
+template <int NW>
+__device__ __forceinline__ void nh_bwd_pass(const NhArgs& a, const NhPass& ps, NhBufs& B, int r0,
+                                            bool valid, const NhGrad& g, int& it, NhFeed& feed) {
+  const int N = ps.n, rows = a.rows, ldh = a.ldh, ldx = a.ldx;
+  // the ReLU masks the epilogue reads: into L2 while the products run
+  if (valid && ps.epi == NH_E_DH)
+    nh_prefetch_l2(g.acts + (size_t)a.head[ps.head].act_off[ps.layer - 1] * rows + (size_t)r0 * N,
+                   NH_HALF * N);
+  if (valid && ps.epi == NH_E_DHC)
+    for (int hi = 0; hi < 2; ++hi)
+      nh_prefetch_l2(g.acts + (size_t)a.head[hi].act_off[a.head[hi].n_layers - 1] * rows + (size_t)r0 * N,
+                     NH_HALF * N);
+  float sum[NW / 2];
+  nh_pass<NW>(sum, B.xs, a.ldx, ps.src ? B.fs : B.hs, a.ldh, ps.nsl, 0, B.ring, B.full, B.cnt,
+              a.stages, it, feed);
+  if (ps.epi == NH_E_DX) {  // the layer's x columns into dX
+    rw_each<NW>(sum, [&](int m, int c, float v0, float v1) {
+      if (c < N) B.xs[m * ldx + c] += v0;
+      if (c + 1 < N) B.xs[m * ldx + c + 1] += v1;
+    });
+    return;
+  }
+  if (ps.epi == NH_E_DHC) {  // G of the base head's last layer (with the sdf's) into H, the colour's into F
+    const NhHead &hb = a.head[0], &hc = a.head[1];
+    const uint64_t fon = nh_mask_bits<NW>(g.acts + (size_t)hb.act_off[hb.n_layers - 1] * rows, N, r0, valid);
+    const uint64_t con = nh_mask_bits<NW>(g.acts + (size_t)hc.act_off[hc.n_layers - 1] * rows, N, r0, valid);
+    nh_bar();
+    nh_each_bit<NW>(sum, N, [&](int m, int k, int bit, float v) {
+      B.hs[m * ldh + k] = (fon >> bit) & 1 ? v + B.gsd[m] * __ldg(a.w_sdf + k) : 0.f;
+      B.fs[m * ldh + k] = (con >> bit) & 1 ? v : 0.f;
+    });
+    nh_bar();
+    return;
+  }
+  // NH_E_DH: the h columns, masked by K1's saved h_{l-1}, into H
+  const NhHead& h = a.head[ps.head];
+  const uint64_t on = nh_mask_bits<NW>(g.acts + (size_t)h.act_off[ps.layer - 1] * rows, N, r0, valid);
+  nh_bar();
+  nh_each_bit<NW>(sum, N, [&](int m, int k, int bit, float v) {
+    B.hs[m * ldh + k] = (on >> bit) & 1 ? v : 0.f;
+  });
+  nh_bar();
+}
+
+// K2's dIn: the engine of K1 over K2's passes (the tile's output
+// cotangents, then each head from its last layer to its first; each
+// layer's G into its dW slabs before its passes), then dx from dX through
+// the ladder's sin / cos, the ladder itself into g.lad for dW.
+__global__ void __launch_bounds__(NH_THREADS, 1)
+nh_din_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ x,
+              const float* __restrict__ pk, NhGrad g) {
+  extern __shared__ __align__(16) float nh_smem[];
+  NhBufs B(nh_smem, a);
+  __syncthreads();
+  NhFeed feed{&a, pk, (int)blockIdx.x, 0, 0};
+  nh_prime(feed, a.stages, B.ring, B.full);
+  int it = 0;
+  const int wt = threadIdx.x & 127;
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const int r0 = tile * NH_TR + (threadIdx.x >> 7) * NH_HALF;
+    const bool valid = r0 < a.rows;
+    nh_bwd_prologue(a, B, r0, valid, g);
+    for (int p = 0; p < a.n_pass; ++p) {
+      const NhPass& ps = a.pass[p];
+      if (ps.first && ps.head >= 2) nh_bwd_start(a, ps.head, B, r0, valid, g);
+      if (ps.dw >= 0 && valid)
+        nh_gput(ps.src ? B.fs : B.hs, a.ldh, a.dw[ps.dw].N, a.dw[ps.dw], g.gimg, a.gstride, r0);
+      switch (ps.nw) {
+        case 128: nh_bwd_pass<128>(a, ps, B, r0, valid, g, it, feed); break;
+        case 64: nh_bwd_pass<64>(a, ps, B, r0, valid, g, it, feed); break;
+        case 32: nh_bwd_pass<32>(a, ps, B, r0, valid, g, it, feed); break;
+        case 16: nh_bwd_pass<16>(a, ps, B, r0, valid, g, it, feed); break;
+        default: nh_bwd_pass<8>(a, ps, B, r0, valid, g, it, feed); break;
+      }
+    }
+    nh_bar();  // dX is complete
+    if (!valid) continue;
+    for (int e = wt; e < NH_HALF * 3; e += 128) {
+      const int m = e / 3, c = e - 3 * m;
+      const float* d = B.xs + m * a.ldx;
+      const float xv = __ldg(x + (size_t)(r0 + m) * 3 + c);
+      float* lad = g.lad + (size_t)(r0 + m) * a.ldl;
+      float s = d[c];
+      lad[c] = xv;
+      for (int f = 0; f < a.n_freqs; ++f) {
+        float sn, cs;
+        sincosf(xv * a.freq[f], &sn, &cs);
+        s += (cs * d[3 + 6 * f + c] - sn * d[6 + 6 * f + c]) * a.freq[f];
+        lad[3 + 6 * f + c] = sn;
+        lad[6 + 6 * f + c] = cs;
+      }
+      g.dx[(size_t)(r0 + m) * 3 + c] = s;
+    }
+  }
+}
+
+// dW layer d's A operand as it lands in a slot's tiles: whole rows of up
+// to two sources, each tile 8 chunks of 4 rows (rows 4 c .. 4 c + 3 of the
+// slab at chunk c, c (4 ld + 8) floats in: the padding puts the chunks
+// that a fragment load reads at once on other banks). Tile 0 holds the
+// embedding (the ladder buffer, which K2's dIn writes) where the layer
+// reads x, else the saved block of its h (hc: feat's, and the colour's in
+// tile 1); tile 1 the h of a layer that reads x and h.
+struct NhDwSrc {
+  const float* src[2];
+  int ld[2], n;  // the tiles' row strides; tiles
+  int cx;        // the layer's embedding columns (0: none)
+};
+
+__device__ __forceinline__ NhDwSrc nh_dw_src(const NhArgs& a, const NhDw& d, const float* acts,
+                                             const float* lad) {
+  const int rows = a.rows;
+  const NhHead &hb = a.head[0], &hc = a.head[1];
+  const float* feat = acts + (size_t)hb.act_off[hb.n_layers - 1] * rows;
+  if (d.head == -1) return NhDwSrc{{feat, nullptr}, {d.K, 0}, 1, 0};
+  if (d.head == -2) return NhDwSrc{{acts + (size_t)a.act_rgbh * rows, nullptr}, {d.K, 0}, 1, 0};
+  if (d.head == -3)
+    return NhDwSrc{{feat, acts + (size_t)hc.act_off[hc.n_layers - 1] * rows}, {d.K, d.K}, 2, 0};
+  const NhHead& h = a.head[d.head];
+  const int cx = nh_has_x(h, d.layer) ? h.c_x : 0, kh = d.K - cx;
+  const float* hs = d.layer > 0 ? acts + (size_t)h.act_off[d.layer - 1] * rows : nullptr;
+  if (cx == 0) return NhDwSrc{{hs, nullptr}, {kh, 0}, 1, 0};
+  return NhDwSrc{{lad, hs}, {a.ldl, kh}, hs != nullptr ? 2 : 1, cx};
+}
+
+// A bulk copy by the TMA unit that completes on bar (the caller has set
+// the barrier's expected bytes)
+__device__ __forceinline__ void nh_bulk(float* dst, const float* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(rw_addr(dst)),
+      "l"(src), "r"(bytes), "r"(rw_addr(bar))
+      : "memory");
+}
+
+// Slab rb .. rb + 32 of dW layer d into slot sl, by the calling warp: G's
+// fp32 slab (lane 0), and lane 8 t + c the chunk c of tile t, every copy
+// on the slot's barrier, whose expected bytes lane 0 sets first
+__device__ __forceinline__ void nh_dw_fill(const NhArgs& a, const NhDw& d, const NhDwSrc& S,
+                                           const float* gimg, float* sl, uint64_t* bar, int rb) {
+  const int lane = threadIdx.x & 31, t = lane >> 3, c = lane & 7;
+  if (lane == 0) {
+    uint32_t bytes = 128u * d.nwo;
+    for (int i = 0; i < S.n; ++i) bytes += NH_RS * 4u * S.ld[i];
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(rw_addr(bar)), "r"(bytes)
+                 : "memory");
+  }
+  __syncwarp();
+  if (lane == 0) nh_bulk(sl, gimg + (size_t)(rb / NH_RS) * a.gstride + d.goff, 128u * d.nwo, bar);
+  if (t < S.n)
+    nh_bulk(sl + NH_DW_SLAB + t * NH_DW_A + c * (4 * S.ld[t] + 8),
+            S.src[t] + (size_t)(rb + 4 * c) * S.ld[t], 16u * S.ld[t], bar);
+}
+
+// Where dW(o, i) goes in the chunk's workspace slice (the pack's
+// permutation and window undone on the embedding's columns), or -1
+__device__ __forceinline__ long long nh_dw_dst(const NhArgs& a, const NhDw& d, int o, int i, float& scale) {
+  scale = 1.f;
+  if (d.head == -1) return a.off_w_sdf + i;
+  if (d.head == -2) return a.off_w_rgb2 + (long long)o * d.K + i;
+  if (d.head == -3) return a.off_w_hc + (long long)o * d.K + i;
+  const NhHead& h = a.head[d.head];
+  const int l = d.layer;
+  if (!nh_has_x(h, l)) return h.off_w1[l] + (long long)o * d.K + i;
+  if (i < h.c_x) {
+    scale = nh_win(h, i);
+    return h.off_w1[l] + (long long)o * h.c_x + nh_orig(h.n_freqs, i);
+  }
+  return h.off_w2[l] + (long long)o * (d.K - h.c_x) + (i - h.c_x);
+}
+
+// dW's ring: per slot, full (the TMA copies landed), ready (G split),
+// empty (every compute warp done with it)
+struct NhDwRing {
+  float* slots;
+  uint64_t *full, *ready, *empty;
+};
+
+// dW = G^T A and db = sum G of the layer d over the chunk blockIdx.y of pc
+// rows, as dW^T = A^T G: blockIdx.x is one of the layer's blocks of NH_DW_M
+// inputs x NWO outputs. Warp specialised: the producer warp (the block's
+// last) fills a ring of NH_DW_STAGES slots by TMA bulk copies (G's fp32
+// slab, its rows in nh_slab_row's order, and A's whole rows in chunks of 4:
+// nh_dw_src), splits each landed G slab into tf32 hi / lo in place, and
+// refills a slot once both warpgroups are done with it. The warpgroups
+// take A^T's fragments from the slot's tiles (in the same row order); each
+// slab's products accumulate in the tensor core and are added to fp32
+// registers. The block of the first inputs also sums G's columns for db
+// (hi + lo, in row order). Into ws, the chunk's slice.
+template <int NWO>
+__device__ __forceinline__ void nh_dw_block(const NhArgs& a, int di, const float* __restrict__ lad,
+                                            const float* __restrict__ acts,
+                                            const float* __restrict__ gimg, float* __restrict__ ws,
+                                            const NhDwRing& R) {
+  const NhDw& d = a.dw[di];
+  const int tid = threadIdx.x, mt = blockIdx.x - d.blk0, ib0 = NH_DW_M * mt;
+  const int r0 = blockIdx.y * a.pc, nsl = (min(a.pc, a.rows - r0) + NH_RS - 1) / NH_RS;
+  const int lane = tid & 31;
+  if (tid >= NH_THREADS) {  // the producer warp
+    const NhDwSrc S = nh_dw_src(a, d, acts, lad);
+    for (int s = 0; s < NH_DW_STAGES && s < nsl; ++s)
+      nh_dw_fill(a, d, S, gimg, R.slots + s * NH_DW_SLOT, R.full + s, r0 + NH_RS * s);
+    for (int s = 0; s < nsl; ++s) {
+      const int slot = s % NH_DW_STAGES;
+      rw_mbar_wait(R.full + slot, (s / NH_DW_STAGES) & 1);
+      float4* g = reinterpret_cast<float4*>(R.slots + slot * NH_DW_SLOT);
+      for (int e = lane; e < 8 * NWO; e += 32) {  // G into hi (in place) and lo
+        const float4 v = g[e];
+        uint32_t h[4], l[4];
+        rw_split(v.x, h[0], l[0]);
+        rw_split(v.y, h[1], l[1]);
+        rw_split(v.z, h[2], l[2]);
+        rw_split(v.w, h[3], l[3]);
+        g[e] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                           __uint_as_float(h[3]));
+        g[e + 8 * NWO] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                                     __uint_as_float(l[2]), __uint_as_float(l[3]));
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the split, to wgmma's reads
+      __syncwarp();
+      if (lane == 0)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(rw_addr(R.ready + slot)) : "memory");
+      // slab s - 1's slot, once both warpgroups are done with it, takes slab s - 1 + stages
+      const int f = s - 1 + NH_DW_STAGES;
+      if (s >= 1 && f < nsl) {
+        const int fs = (s - 1) % NH_DW_STAGES;
+        rw_mbar_wait(R.empty + fs, ((s - 1) / NH_DW_STAGES) & 1);
+        nh_dw_fill(a, d, S, gimg, R.slots + fs * NH_DW_SLOT, R.full + fs, r0 + NH_RS * f);
+      }
+    }
+    return;
+  }
+  const int wg = tid >> 7, tq = lane & 3;
+  const int i0 = ib0 + 64 * wg + 16 * ((tid >> 5) & 3) + (lane >> 2);
+  const NhDwSrc S = nh_dw_src(a, d, acts, lad);
+  // each input's tile, column and row stride there; kind: 0 past the
+  // inputs, 1 the tile's value, 2 the sum of both tiles' (hc)
+  int tile[2], col[2], ld[2], kind[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int i = i0 + 8 * u;
+    tile[u] = S.cx > 0 && i >= S.cx ? 1 : 0;
+    col[u] = i - (tile[u] ? S.cx : 0);
+    ld[u] = S.ld[tile[u]];
+    kind[u] = i >= d.K ? 0 : d.kind == NH_A_HC ? 2 : 1;
+  }
+  const bool do_b = mt == 0 && wg == 0 && tid < NWO;
+  float db = 0.f, sum[NWO / 2], acc[NWO / 2];
+#pragma unroll
+  for (int i = 0; i < NWO / 2; ++i) sum[i] = acc[i] = 0.f;
+  for (int s = 0; s < nsl; ++s) {
+    const int slot = s % NH_DW_STAGES;
+    const float* sl = R.slots + slot * NH_DW_SLOT;
+    rw_mbar_wait(R.ready + slot, (s / NH_DW_STAGES) & 1);
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // position 8 j + 4 (q >> 1) + tq: row 4 c + j, c = 4 (q >> 1) + tq
+        const int u = q & 1, c = 4 * (q >> 1) + tq;
+        const float* t = sl + NH_DW_SLAB + tile[u] * NH_DW_A + c * (4 * ld[u] + 8) + j * ld[u] + col[u];
+        rw_split(kind[u] == 0 ? 0.f : kind[u] == 2 ? t[0] + t[NH_DW_A] : t[0], ah[j][q], al[j][q]);
+      }
+    if (do_b) {
+      const float* hb = sl + (tid >> 3) * 32 + (tid & 7) * 4;
+#pragma unroll
+      for (int kc = 0; kc < NH_RS / 4; ++kc) {
+        const float4 h4 = *reinterpret_cast<const float4*>(hb + kc * 4 * NWO);
+        const float4 l4 = *reinterpret_cast<const float4*>(hb + kc * 4 * NWO + 32 * NWO);
+        db += h4.x + l4.x;
+        db += h4.y + l4.y;
+        db += h4.z + l4.z;
+        db += h4.w + l4.w;
+      }
+    }
+    rw_own(acc);
+    rw_wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* bh = sl + 8 * NWO * j;
+      const uint64_t dh = rw_desc(bh, 16 * NWO, 128), dl = rw_desc(bh + 32 * NWO, 16 * NWO, 128);
+      rw_mma<NWO>(acc, al[j], dh, j);
+      rw_mma<NWO>(acc, ah[j], dl, 1);
+      rw_mma<NWO>(acc, ah[j], dh, 1);
+    }
+    rw_commit();
+    rw_wait0();
+    rw_own(acc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      rw_own(ah[j]);
+      rw_own(al[j]);
+    }
+    __syncwarp();  // the warp is done with the slot
+    if (lane == 0)
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(rw_addr(R.empty + slot)) : "memory");
+#pragma unroll
+    for (int i = 0; i < NWO / 2; ++i) sum[i] += acc[i];
+  }
+  const int ib = ib0 + 64 * wg;
+  rw_each<NWO>(sum, [&](int m, int cl, float v0, float v1) {
+    const int i = ib + m;
+    if (i >= d.K) return;
+    float sc;
+    if (cl < d.N) {
+      const long long o = nh_dw_dst(a, d, cl, i, sc);
+      ws[o] = v0 * sc;
+    }
+    if (cl + 1 < d.N) {
+      const long long o = nh_dw_dst(a, d, cl + 1, i, sc);
+      ws[o] = v1 * sc;
     }
   });
-}
-
-// X = head h's embedding of every point, row-major (rows, c_x)
-__global__ void __launch_bounds__(HM_THREADS)
-nh_embed_kernel(const __grid_constant__ NhArgs a, int head, const float* __restrict__ x,
-                float* __restrict__ X) {
-  const NhHead& h = a.head[head];
-  const size_t total = (size_t)a.rows * h.c_x;
-  for (size_t idx = (size_t)blockIdx.x * HM_THREADS + threadIdx.x; idx < total;
-       idx += (size_t)gridDim.x * HM_THREADS) {
-    const size_t p = idx / h.c_x;
-    const int k = (int)(idx - p * h.c_x);
-    const float xv[3] = {__ldg(x + p * 3), __ldg(x + p * 3 + 1), __ldg(x + p * 3 + 2)};
-    X[idx] = nh_embed_at(a, h, xv, k);
+  if (do_b && tid < d.N) {
+    const int ob = d.head == -1 ? a.off_b_sdf : d.head == -2 ? a.off_b_rgb2
+                 : d.head == -3 ? -1 : a.head[d.head].off_b[d.layer];
+    if (ob >= 0) ws[ob + tid] = db;
   }
 }
 
-// dx (stored or added) = the X columns of dX plus the chain rule through
-// head h's sin / cos columns
-__global__ void __launch_bounds__(HM_THREADS)
-nh_fold_kernel(const __grid_constant__ NhArgs a, int head, const float* __restrict__ x,
-               const float* __restrict__ dX, float* __restrict__ dx, int store) {
-  const NhHead& h = a.head[head];
-  const int C = 3, FC = h.n_freqs * 3;
-  for (size_t idx = (size_t)blockIdx.x * HM_THREADS + threadIdx.x; idx < (size_t)a.rows * C;
-       idx += (size_t)gridDim.x * HM_THREADS) {
-    const size_t p = idx / C;
-    const int c = (int)(idx - p * C);
-    const float* d = dX + p * h.c_x;
-    float s = d[c];
-    const float xv = __ldg(x + idx);
-    for (int f = 0; f < h.n_freqs; ++f) {
-      const float ang = xv * a.freq[f];
-      const float win = h.window != nullptr ? __ldg(h.window + f) : 1.f;
-      const float gs = d[C + f * C + c] * win;
-      const float gc = d[C + FC + f * C + c] * win;
-      s += (cosf(ang) * gs - sinf(ang) * gc) * a.freq[f];
+// The pairs' sums of d rgb_h (gpair: the halves' column sums in order),
+// each pair's appearance gradient dappr = gpair . W_appr, and the halves'
+// d ibeta terms of an even share of the halves summed in order into
+// dsum[blockIdx.x]. sm: rgb_hidden floats of shared memory.
+__device__ __forceinline__ void nh_appr_pairs(const NhArgs& a, const float* __restrict__ gpart,
+                                              const float* __restrict__ dpart, float* __restrict__ gpair,
+                                              float* __restrict__ dappr, float* __restrict__ dsum,
+                                              float* sm) {
+  const int RH = a.rgb_hidden, CA = a.appr_dim, hpp = a.spp / NH_HALF, n_pairs = a.rows / a.spp;
+  for (int m = blockIdx.x; m < n_pairs; m += gridDim.x) {
+    for (int o = threadIdx.x; o < RH; o += NH_THREADS) {
+      float s = 0.f;
+      for (int h = 0; h < hpp; ++h) s += gpart[(size_t)(m * hpp + h) * RH + o];
+      sm[o] = s;
+      gpair[(size_t)m * RH + o] = s;
     }
-    dx[idx] = store ? s : dx[idx] + s;
+    __syncthreads();
+    for (int c = threadIdx.x; c < CA; c += NH_THREADS) {
+      float s = 0.f;
+      for (int o = 0; o < RH; ++o) s = fmaf(sm[o], __ldg(a.w_appr + (size_t)o * CA + c), s);
+      dappr[(size_t)m * CA + c] = s;
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    const int n = a.rows / NH_HALF, per = (n + gridDim.x - 1) / gridDim.x;
+    float s = 0.f;
+    for (int h = blockIdx.x * per; h < min(n, (int)(blockIdx.x + 1) * per); ++h) s += dpart[h];
+    dsum[blockIdx.x] = s;
   }
 }
 
-// gpair[m][j] = sum over the spp points of pair m, in order, of g_rgbh[p][j]
-__global__ void __launch_bounds__(HM_THREADS)
-nh_pair_sum_kernel(const float* __restrict__ g_rgbh, int spp, int RH, float* __restrict__ gpair) {
-  const size_t m = blockIdx.x;
-  for (int j = threadIdx.x; j < RH; j += HM_THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < spp; ++r) s += g_rgbh[(m * spp + r) * RH + j];
-    gpair[m * RH + j] = s;
+struct NhDwOut {
+  const float *gpart, *dpart;
+  float *ws, *gpair, *dappr, *dsum;
+};
+
+// dW of every layer over the chunks (blockIdx.y < n_chunks; blockIdx.x the
+// layer's block, dw[].blk0), and in the row blockIdx.y == n_chunks the
+// appearance pairs (nh_appr_pairs)
+__global__ void __launch_bounds__(NH_DW_THREADS, 1)
+nh_dw_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ lad,
+             const float* __restrict__ acts, const float* __restrict__ gimg, NhDwOut o) {
+  extern __shared__ __align__(16) float nh_smem[];
+  if ((int)blockIdx.y == a.n_chunks) {
+    nh_appr_pairs(a, o.gpart, o.dpart, o.gpair, o.dappr, o.dsum, nh_smem);
+    return;
+  }
+  uint64_t* bars = reinterpret_cast<uint64_t*>(nh_smem);
+  const NhDwRing R{nh_smem + 32, bars, bars + NH_DW_STAGES, bars + 2 * NH_DW_STAGES};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NH_DW_STAGES; ++i) {
+      rw_mbar_init(R.full + i, 1);
+      rw_mbar_init(R.ready + i, 1);
+      rw_mbar_init(R.empty + i, NH_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  int di = 0;
+  while (di + 1 < a.n_dw && (int)blockIdx.x >= a.dw[di + 1].blk0) ++di;
+  __syncthreads();
+  float* ws = o.ws + (size_t)blockIdx.y * a.n_slice;
+  switch (a.dw[di].nwo) {
+    case 128: nh_dw_block<128>(a, di, lad, acts, gimg, ws, R); break;
+    case 64: nh_dw_block<64>(a, di, lad, acts, gimg, ws, R); break;
+    case 32: nh_dw_block<32>(a, di, lad, acts, gimg, ws, R); break;
+    case 16: nh_dw_block<16>(a, di, lad, acts, gimg, ws, R); break;
+    default: nh_dw_block<8>(a, di, lad, acts, gimg, ws, R); break;
   }
 }
 
-// The appearance gradients from the pairs' sums gpair (n_pairs, RH):
-// dappr[m][c] = sum_o gpair[m][o] W_appr[o][c],
-// dW_appr[o][c] = sum_m gpair[m][o] appr[m][c], db_rgb1[o] = sum_m gpair[m][o].
+// grads: the chunks' workspace slices summed in chunk order (d ibeta: the
+// blocks' sums of nh_appr_pairs in order), then dW_appr = gpair^T appr and
+// db_rgb1 = sum gpair over the pairs in order
 __global__ void __launch_bounds__(HM_THREADS)
-nh_appr_kernel(const float* __restrict__ gpair, int n_pairs, int RH, int CA,
-               const float* __restrict__ appr, const float* __restrict__ w_appr,
-               float* __restrict__ dappr, float* __restrict__ dw_appr, float* __restrict__ db_rgb1) {
-  const int stride = gridDim.x * HM_THREADS, i0 = blockIdx.x * HM_THREADS + threadIdx.x;
-  for (int idx = i0; idx < n_pairs * CA; idx += stride) {
-    const int m = idx / CA, c = idx - m * CA;
-    float s = 0.f;
-    for (int o = 0; o < RH; ++o) s = fmaf(gpair[(size_t)m * RH + o], __ldg(w_appr + o * CA + c), s);
-    dappr[idx] = s;
-  }
-  for (int idx = i0; idx < RH * CA; idx += stride) {
-    const int o = idx / CA, c = idx - o * CA;
-    float s = 0.f;
-    for (int m = 0; m < n_pairs; ++m) s = fmaf(gpair[(size_t)m * RH + o], __ldg(appr + (size_t)m * CA + c), s);
-    dw_appr[idx] = s;
-  }
-  for (int o = i0; o < RH; o += stride) {
-    float s = 0.f;
+nh_reduce_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ ws,
+                 const float* __restrict__ gpair, const float* __restrict__ dsum,
+                 const float* __restrict__ appr, float* __restrict__ grads) {
+  const int e = blockIdx.x * HM_THREADS + threadIdx.x, RH = a.rgb_hidden, CA = a.appr_dim;
+  const int n_pairs = a.rows / a.spp;
+  float s = 0.f;
+  if (e < a.n_slice) {
+    if (e == a.off_dibeta)
+      for (int b = 0; b < a.dw_blocks; ++b) s += dsum[b];
+    else
+      for (int b = 0; b < a.n_chunks; ++b) s += ws[(size_t)b * a.n_slice + e];
+  } else if (e < a.n_slice + RH * CA) {
+    const int k = e - a.n_slice, o = k / CA, c = k - o * CA;
+    for (int m = 0; m < n_pairs; ++m)
+      s = fmaf(gpair[(size_t)m * RH + o], __ldg(appr + (size_t)m * CA + c), s);
+  } else if (e < a.n_slice + RH * CA + RH) {
+    const int o = e - a.n_slice - RH * CA;
     for (int m = 0; m < n_pairs; ++m) s += gpair[(size_t)m * RH + o];
-    db_rgb1[o] = s;
+  } else {
+    return;
+  }
+  grads[e] = s;
+}
+
+// ------------------------------------------------------------------ the pack
+
+// B(k, n) of pass ps: the forward's W_l[n][k] (k over [the ladder's
+// positions, padded to 16 nxs | h]); K2's W_l[k][n] (its x columns at the
+// ladder's positions, or its h columns), W_hc for rgb1 / d hc, W_rgb2. The
+// embedding's columns carry the head's window. Zero past the ends.
+__device__ __forceinline__ float nh_pack_value(const NhArgs& a, const NhPass& ps, int k, int n) {
+  const int W = a.width, RH = a.rgb_hidden;
+  if (ps.epi == NH_E_RGB1) return n < RH && k < W ? __ldg(a.w_hc + (size_t)n * W + k) : 0.f;
+  if (ps.epi == NH_E_RGB2) return n < NH_RGB && k < RH ? __ldg(a.w_rgb2 + (size_t)n * RH + k) : 0.f;
+  if (ps.epi == NH_E_DHC) return k < RH && n < W ? __ldg(a.w_hc + (size_t)k * W + n) : 0.f;
+  const NhHead& h = a.head[ps.head];
+  const int l = ps.layer, N = h.out_dim[l], K = h.in_dim[l];
+  const int cx = nh_has_x(h, l) ? h.c_x : 0, kh = K - cx;
+  int o, p = -1, j = -1;  // W_l's row; a ladder position or an h column
+  if (ps.epi == NH_E_DX) {
+    o = k;
+    p = n;
+  } else if (ps.epi == NH_E_DH) {
+    o = k;
+    j = n;
+  } else {
+    o = n;
+    if (k < NH_KS * ps.nxs) p = k;
+    else j = k - NH_KS * ps.nxs;
+  }
+  if (o >= N) return 0.f;
+  if (p >= 0) return p < cx ? __ldg(h.w1[l] + (size_t)o * cx + nh_orig(h.n_freqs, p)) * nh_win(h, p) : 0.f;
+  if (j >= kh) return 0.f;
+  return cx > 0 ? __ldg(h.w2[l] + (size_t)o * kh + j) : __ldg(h.w1[l] + (size_t)o * K + j);
+}
+
+// Every pass's weights split into tf32 hi and lo, in the slabs the engine
+// streams (pk, img_total floats); with abias, also rgb1's bias row of every
+// pair, b_rgb1 + W_appr . appr (K1).
+__global__ void __launch_bounds__(HM_THREADS)
+nh_pack_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ appr,
+               float* __restrict__ pk, float* __restrict__ abias) {
+  const long long n_ab = abias != nullptr ? (long long)(a.rows / a.spp) * a.rgb_hidden : 0;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < a.img_total + n_ab;
+       e += (long long)gridDim.x * blockDim.x) {
+    if (e >= a.img_total) {
+      const int k = (int)(e - a.img_total), m = k / a.rgb_hidden, oc = k - m * a.rgb_hidden;
+      float s = __ldg(a.b_rgb1 + oc);
+      for (int c = 0; c < a.appr_dim; ++c)
+        s = fmaf(__ldg(a.w_appr + (size_t)oc * a.appr_dim + c), __ldg(appr + (size_t)m * a.appr_dim + c), s);
+      abias[k] = s;
+      continue;
+    }
+    int lo_p = 0, hi_p = a.n_pass - 1;  // the last pass whose slabs start at or before e
+    while (lo_p < hi_p) {
+      const int mid = (lo_p + hi_p + 1) >> 1;
+      if (a.pass[mid].img <= e) lo_p = mid;
+      else hi_p = mid - 1;
+    }
+    const NhPass& ps = a.pass[lo_p];
+    const int nw = ps.nw, f = 32 * nw, o = (int)(e - ps.img), sl = o / f, q = o - sl * f;
+    const bool lo = q >= 16 * nw;
+    const int q2 = lo ? q - 16 * nw : q, kc = q2 / (4 * nw), q3 = q2 - kc * 4 * nw;
+    const int n = (q3 >> 5) * 8 + ((q3 & 31) >> 2), k = NH_KS * sl + 4 * kc + (q3 & 3);
+    uint32_t hv, lv;
+    rw_split(nh_pack_value(a, ps, k, n), hv, lv);
+    pk[e] = __uint_as_float(lo ? lv : hv);
   }
 }
 
 // ------------------------------------------------------------------ launch
 
-static size_t nh_fwd_smem(const NhArgs& a) {
-  return sizeof(float) * ((size_t)NH_TR * (hm_ld(a.max_cx) + 3 * hm_ld(a.g_width)) +
-                          4 * NH_NMAX * NH_LDS + (a.rgb_hidden + 3) / 4 * 4);
+static size_t nh_engine_smem(const NhArgs& a) {
+  return sizeof(float) * (32 + (size_t)a.stages * NH_SLAB + (size_t)NH_TR * (a.ldx + 2 * a.ldh) +
+                          2 * NH_TR);
 }
 
+static const size_t NH_DW_SMEM = sizeof(float) * (32 + (size_t)NH_DW_STAGES * NH_DW_SLOT);
+
+static bool nh_wgmma_width(int nw) { return nw == 8 || nw == 16 || nw == 32 || nw == 64 || nw == 128; }
+
+static int nh_round16(int n) { return (n + NH_KS - 1) / NH_KS * NH_KS; }
+
 // The shapes the kernels assume: each head a chain of layers over its
-// embedding (skip layers re-reading it), K1's 64-point tiles and K2's
-// chunks whole and within one pair's samples, every width within the
-// kernels' buffers.
-static int nh_check(const NhArgs& a) {
-  if (a.tr != NH_TR || a.spp % NH_TR != 0 || a.rows < a.spp || a.rows % a.spp != 0 ||
-      a.n_chunks < 1 || a.rows % a.n_chunks != 0 || (a.rows / a.n_chunks) % HM_KS != 0)
-    return (int)cudaErrorInvalidValue;
-  if (a.g_width > NH_NMAX || a.width > a.g_width || a.rgb_hidden > a.g_width || a.feat_dim > 32 ||
-      a.feat_dim > a.g_width || a.max_cx < 3)
-    return (int)cudaErrorInvalidValue;
+// embedding (skip layers re-reading it), whole halves of 64 points within
+// one pair's samples, every width within the engine's buffers, and the
+// pass and dW tables of ops/field_kernel.py within the packed weights and
+// the G image.
+static int nh_check(const NhArgs& a, bool bwd) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if (a.spp % NH_HALF != 0 || a.rows < a.spp || a.rows % a.spp != 0 ||
+      a.n_tiles != (a.rows + NH_TR - 1) / NH_TR || a.pc < NH_RS || a.pc % NH_RS != 0 ||
+      a.n_chunks != (a.rows + a.pc - 1) / a.pc || a.n_freqs < 0 || a.n_freqs > NH_MAX_FREQS)
+    return bad;
+  if (a.width > NH_NMAX || a.rgb_hidden > NH_NMAX || a.feat_dim > 32 || a.stages < 2 || a.stages > 3 ||
+      a.ldh < a.width || a.ldh < a.rgb_hidden || a.ldh % 8 != 4 || a.ldx % 8 != 4 ||
+      nh_engine_smem(a) > NH_SMEM)
+    return bad;
   for (int i = 0; i < NH_HEADS; ++i) {
     const NhHead& h = a.head[i];
-    if (h.n_layers < 2 || h.n_layers > NH_MAX_LAYERS || h.n_freqs < 0 ||
-        h.n_freqs > NH_MAX_FREQS || h.c_x != 3 * (2 * h.n_freqs + 1) || h.c_x > a.max_cx ||
-        (h.skip_mask & 1))
-      return (int)cudaErrorInvalidValue;
+    if (h.n_layers < 2 || h.n_layers > NH_MAX_LAYERS || h.n_freqs < 0 || h.n_freqs > a.n_freqs ||
+        h.c_x != 3 * (2 * h.n_freqs + 1) || nh_round16(h.c_x) > a.ldx || (h.skip_mask & 1))
+      return bad;
     for (int l = 0; l < h.n_layers; ++l) {
-      const bool skip = l > 0 && ((h.skip_mask >> l) & 1);
-      const int want = (l == 0 ? 0 : h.out_dim[l - 1]) + ((l == 0 || skip) ? h.c_x : 0);
-      if (h.in_dim[l] != want || h.out_dim[l] < 1 || h.out_dim[l] > a.g_width ||
-          h.k1[l] != (skip ? h.c_x : want) || (skip != (h.w2[l] != nullptr)))
-        return (int)cudaErrorInvalidValue;
+      const bool hx = nh_has_x(h, l);
+      const int want = (l == 0 ? 0 : h.out_dim[l - 1]) + (hx ? h.c_x : 0);
+      if (h.in_dim[l] != want || h.out_dim[l] < 1 || h.out_dim[l] > NH_NMAX ||
+          ((l > 0 && hx) != (h.w2[l] != nullptr)))
+        return bad;
     }
   }
   if (a.head[0].out_dim[a.head[0].n_layers - 1] != a.width ||
       a.head[1].out_dim[a.head[1].n_layers - 1] != a.width ||
       a.head[2].out_dim[a.head[2].n_layers - 1] != 1 ||
       a.head[3].out_dim[a.head[3].n_layers - 1] != a.feat_dim)
-    return (int)cudaErrorInvalidValue;
-  return 0;
+    return bad;
+  if (a.n_pass < 1 || a.n_pass > NH_MAX_PASSES) return bad;
+  int img = 0;
+  for (int p = 0; p < a.n_pass; ++p) {
+    const NhPass& ps = a.pass[p];
+    const bool k2 = ps.epi >= NH_E_DHC;
+    if (k2 != bwd || ps.img != img || !nh_wgmma_width(ps.nw) || ps.n < 1 || ps.n > ps.nw ||
+        ps.nsl < 1 || ps.nxs > ps.nsl || NH_KS * (ps.nsl - ps.nxs) > NH_NMAX || NH_KS * ps.nxs > a.ldx ||
+        ps.head >= NH_HEADS || (ps.head < 0 && ps.epi != NH_E_RGB1 && ps.epi != NH_E_RGB2 &&
+                                ps.epi != NH_E_DHC) ||
+        (ps.head >= 0 && ps.layer >= a.head[ps.head].n_layers) || ps.dw >= a.n_dw)
+      return bad;
+    img += ps.nsl * 32 * ps.nw;
+  }
+  if (img != a.img_total) return bad;
+  if (!bwd) return 0;
+  if (a.n_dw < 3 || a.n_dw > NH_MAX_DW || a.dw_sdf >= a.n_dw || a.dw_rgb2 >= a.n_dw || a.dw_rgb1 >= a.n_dw)
+    return bad;
+  int goff = 0, blk = 0;
+  for (int i = 0; i < a.n_dw; ++i) {
+    const NhDw& d = a.dw[i];
+    if (d.goff != goff || d.blk0 != blk || !nh_wgmma_width(d.nwo) || d.N < 1 || d.N > d.nwo || d.K < 1)
+      return bad;
+    goff += 32 * d.nwo;
+    blk += (d.K + NH_DW_M - 1) / NH_DW_M;
+  }
+  // dW's A rows arrive by TMA bulk copies: 16-byte rows
+  if (a.ldl % 4 != 0 || a.ldl < 3 + 6 * a.n_freqs || a.width % 4 != 0 || a.rgb_hidden % 4 != 0)
+    return bad;
+  for (int i = 0; i < NH_HEADS; ++i)
+    for (int l = 0; l + 1 < a.head[i].n_layers; ++l)
+      if (a.head[i].out_dim[l] % 4 != 0) return bad;
+  return goff == a.gstride && blk == a.dw_blocks ? 0 : bad;
 }
 
 static int nh_set_smem(const void* kernel, size_t smem) {
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > NH_SMEM) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -692,47 +1266,72 @@ static int nh_set_smem(const void* kernel, size_t smem) {
   return 0;
 }
 
-// Scratch of K2, floats: 3 gradient buffers (rows x g_width), X and dX
-// (rows x max_cx), hc (rows x width), g_sdf, g_rgb (3), g_rgbh, g_f16 per
-// point, the chunks' workspace slices, the pairs' sums and the pre-split
-// weights.
+static int nh_sms() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+static int nh_pack(const NhArgs& a, const float* appr, float* pk, float* abias, cudaStream_t st) {
+  const long long total = a.img_total + (abias != nullptr ? (long long)(a.rows / a.spp) * a.rgb_hidden : 0);
+  const long long blocks = std::min<long long>((total + HM_THREADS - 1) / HM_THREADS, 4096);
+  nh_pack_kernel<<<(unsigned)blocks, HM_THREADS, 0, st>>>(a, appr, pk, abias);
+  return (int)cudaGetLastError();
+}
+
+// K2's scratch, floats: the split transposed weights, the G image, the
+// rows' ladder, the chunks' workspace slices, the halves' g_rgbh sums and
+// d ibeta terms, the pairs' sums, the dW blocks' d ibeta sums.
 static size_t nh_bwd_scratch(const NhArgs& a) {
-  const size_t P = a.rows;
-  return P * (3 * a.g_width + 2 * a.max_cx + a.width + 1 + NH_RGB + a.rgb_hidden + a.feat_dim) +
-         (size_t)a.n_chunks * a.n_slice + (size_t)(a.rows / a.spp) * a.rgb_hidden + a.pk_total;
+  const size_t halves = a.rows / NH_HALF, groups = (size_t)a.n_tiles * (NH_TR / NH_RS);
+  return (size_t)a.img_total + groups * a.gstride + (size_t)a.n_chunks * a.n_slice +
+         halves * (a.rgb_hidden + 1) + (size_t)(a.rows / a.spp) * a.rgb_hidden + a.dw_blocks +
+         (size_t)a.rows * a.ldl;
 }
 
 extern "C" {
 
+// The launch layout of these args (K1's passes, or K2's with bwd): sizes[0]
+// the engine's shared memory per block (bytes), [1] its blocks, [2] dW's
+// shared memory, [3] K2's scratch floats, [4] sizeof(NhArgs). Returns the
+// error of nh_check, or 0.
+int lab4d_nerf_heads_layout(const NhArgs* args, int bwd, long long* sizes) {
+  const NhArgs& a = *args;
+  const int err = nh_check(a, bwd != 0);
+  const int n_sm = nh_sms();
+  sizes[0] = (long long)nh_engine_smem(a);
+  sizes[1] = std::min(a.n_tiles, n_sm);
+  sizes[2] = (long long)NH_DW_SMEM;
+  sizes[3] = bwd ? (long long)nh_bwd_scratch(a) : 0;
+  sizes[4] = (long long)sizeof(NhArgs);
+  return err;
+}
+
 // density (rows, 1), rgb (rows, 3), vis (rows, 1), feat (rows, feat_dim) of
 // the points x (rows, 3); appr: (rows / spp, appr_dim) appearance rows.
-// wpk: pk_total floats of scratch for the pre-split weights. acts: null,
-// or (act_total * rows) floats for every layer output (K2's input). Two
-// launches: the weights' split, then the heads. Returns the error, or 0;
-// *n_launches: the launches made.
+// wpk: img_total + (rows / spp) * rgb_hidden floats of scratch for the
+// split weights and rgb1's bias rows. acts: null, or (act_total * rows)
+// floats for every layer output (K2's input). Two launches: the split,
+// then the engine. Returns the error, or 0; *n_launches: the launches made.
 int lab4d_nerf_heads_fwd(const NhArgs* args, const float* x, const float* appr, float* wpk,
                          float* density, float* rgb, float* vis, float* feat, float* acts,
                          int* n_launches, void* stream) {
   const NhArgs& a = *args;
-  int err = nh_check(a);
+  int err = nh_check(a, false);
   if (err) return err;
-  const size_t smem = nh_fwd_smem(a);
-  err = nh_set_smem((const void*)nerf_heads_fwd_kernel, smem);
-  if (err) return err;
+  const size_t smem = nh_engine_smem(a);
+  const int n_sm = nh_sms();
+  if (n_sm < 1) return (int)cudaErrorInvalidDevice;
+  if ((err = nh_set_smem((const void*)nh_fwd_kernel, smem))) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int n_layers = 2;
-  for (int i = 0; i < NH_HEADS; ++i) n_layers += a.head[i].n_layers;
-  int n = 0;
-  nh_pack_kernel<<<dim3(8, n_layers), HM_THREADS, 0, st>>>(a, wpk);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  ++n;
-  nerf_heads_fwd_kernel<<<a.rows / NH_TR, NH_K1_THREADS, smem, st>>>(a, x, appr, wpk, density, rgb,
-                                                                     vis, feat, acts);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  ++n;
-  if (n_launches != nullptr) *n_launches = n;
+  float* abias = wpk + a.img_total;
+  if ((err = nh_pack(a, appr, wpk, abias, st))) return err;
+  const NhOut o{abias, density, rgb, vis, feat, acts};
+  nh_fwd_kernel<<<std::min(a.n_tiles, n_sm), NH_THREADS, smem, st>>>(a, x, wpk, o);
+  if ((err = (int)cudaGetLastError())) return err;
+  if (n_launches != nullptr) *n_launches = 2;
   return 0;
 }
 
@@ -744,34 +1343,33 @@ size_t lab4d_nerf_heads_bwd_scratch(const NhArgs* args) { return nh_bwd_scratch(
 // among them), then dW_appr (rgb_hidden, appr_dim) and db_rgb1
 // (rgb_hidden,); dappr (rows / spp, appr_dim). scratch: nh_bwd_scratch
 // floats. events / kinds (may be null): a CUDA event recorded before the
-// first launch and after each launch, and each launch's kind (0 output cotangents, 1 embedding, 2 dW,
-// 3 dIn, 4 dx fold, 5 appearance, 6 reduction, 7 weight split), for as
+// first launch and after each launch, and each launch's kind (7 weight
+// split, 3 dIn engine, 2 dW and the appearance pairs, 6 reduction), for as
 // many launches as n_events allows. Returns the error, or 0;
-// *n_launches: the launches made.
+// *n_launches: the launches made (4).
 int lab4d_nerf_heads_bwd(const NhArgs* args, const float* x, const float* appr, const float* acts,
                          const float* rgb, const float* gd, const float* grgb, const float* gvis,
                          const float* gfeat, float* dx, float* grads, float* dappr, float* scratch,
                          void** events, int* kinds, int n_events, int* n_launches, void* stream) {
   const NhArgs& a = *args;
-  int err = nh_check(a);
+  int err = nh_check(a, true);
   if (err) return err;
+  const size_t smem = nh_engine_smem(a);
+  const int n_sm = nh_sms();
+  if (n_sm < 1) return (int)cudaErrorInvalidDevice;
+  if ((err = nh_set_smem((const void*)nh_din_kernel, smem)) ||
+      (err = nh_set_smem((const void*)nh_dw_kernel, NH_DW_SMEM)))
+    return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t P = a.rows;
-  const int n_pairs = a.rows / a.spp, pc = a.rows / a.n_chunks;
-  float* GA = scratch;
-  float* GB = GA + P * a.g_width;
-  float* GC = GB + P * a.g_width;
-  float* X = GC + P * a.g_width;
-  float* dX = X + P * a.max_cx;
-  float* hc = dX + P * a.max_cx;
-  float* g_sdf = hc + P * a.width;
-  float* g_rgb = g_sdf + P;
-  float* g_rgbh = g_rgb + P * NH_RGB;
-  float* g_f16 = g_rgbh + P * a.rgb_hidden;
-  float* ws = g_f16 + P * a.feat_dim;
-  float* gpair = ws + (size_t)a.n_chunks * a.n_slice;
-  float* wpk = gpair + (size_t)n_pairs * a.rgb_hidden;
-  if ((err = nh_set_smem((const void*)nh_din_kernel, NH_DIN_SMEM))) return err;
+  const size_t halves = a.rows / NH_HALF, groups = (size_t)a.n_tiles * (NH_TR / NH_RS);
+  float* pk = scratch;  // the TMA unit's sources first: 16-byte aligned
+  float* gimg = pk + a.img_total;
+  float* lad = gimg + groups * a.gstride;
+  float* ws = lad + (size_t)a.rows * a.ldl;
+  float* gpart = ws + (size_t)a.n_chunks * a.n_slice;
+  float* dpart = gpart + halves * a.rgb_hidden;
+  float* gpair = dpart + halves;
+  float* dsum = gpair + (size_t)(a.rows / a.spp) * a.rgb_hidden;
   int n = 0;
   if (events != nullptr && n_events > 0 &&
       (err = (int)cudaEventRecord(static_cast<cudaEvent_t>(events[0]), st)))
@@ -789,95 +1387,16 @@ int lab4d_nerf_heads_bwd(const NhArgs* args, const float* x, const float* appr, 
     ++n;
     return 0;
   };
-  auto act = [&](int off) { return acts + (size_t)off * P; };
-  auto dw = [&](const float* g, int N, HmSrc src, int K, int ow1, int ow2, int ob) {
-    const int nkt = (K + 63) / 64;
-    hm_dw_kernel<<<dim3(((N + 63) / 64) * nkt, a.n_chunks), HM_THREADS, 0, st>>>(
-        g, N, src, K, a.rows, pc, nkt, ws, a.n_slice, src.k1, ow1, ow2, ob);
-    return done(2);
-  };
-  auto din = [&](const float* g, int N, NhPk w, int K, const NhDinOut& o) {
-    nh_din_kernel<<<dim3(a.rows / 64, (K + 63) / 64), HM_THREADS, NH_DIN_SMEM, st>>>(g, N, w, K, o);
-    return done(3);
-  };
-  const int eb = (int)((P * a.max_cx + HM_THREADS - 1) / HM_THREADS);
-  const int grid_e = eb < 132 * 16 ? eb : 132 * 16;
-  const NhHead& hb = a.head[0];
-  const NhHead& hcol = a.head[1];
-  const float* featb = act(hb.act_off[hb.n_layers - 1]);
-  const float* colb = act(hcol.act_off[hcol.n_layers - 1]);
-  const float* rgbh = act(a.act_rgbh);
-  const int W = a.width, RH = a.rgb_hidden;
-
-  int n_layers = 2;
-  for (int i = 0; i < NH_HEADS; ++i) n_layers += a.head[i].n_layers;
-  nh_pack_kernel<<<dim3(8, n_layers), HM_THREADS, 0, st>>>(a, wpk);
-  if ((err = done(7))) return err;
-  nh_bwd_out_kernel<<<a.n_chunks, NH_OUT_THREADS, 0, st>>>(a, acts, rgb, gd, grgb, gfeat, hc, g_sdf,
-                                                       g_rgb, g_rgbh, g_f16, ws);
-  if ((err = done(0))) return err;
-  if ((err = dw(g_sdf, 1, HmSrc{featb, W, W, featb, W}, W, a.off_w_sdf, a.off_w_sdf, a.off_b_sdf))) return err;
-  if ((err = dw(g_rgb, NH_RGB, HmSrc{rgbh, RH, RH, rgbh, RH}, RH, a.off_w_rgb2, a.off_w_rgb2,
-                a.off_b_rgb2)))
-    return err;
-  nh_pair_sum_kernel<<<n_pairs, HM_THREADS, 0, st>>>(g_rgbh, a.spp, RH, gpair);
-  if ((err = done(5))) return err;
-  float* dw_appr = grads + a.n_slice;
-  nh_appr_kernel<<<8, HM_THREADS, 0, st>>>(gpair, n_pairs, RH, a.appr_dim, appr, a.w_appr, dappr,
-                                           dw_appr, dw_appr + (size_t)RH * a.appr_dim);
-  if ((err = done(5))) return err;
-  if ((err = dw(g_rgbh, RH, HmSrc{hc, W, W, hc, W}, W, a.off_w_hc, a.off_w_hc, -1))) return err;
-  {
-    NhDinOut o{};
-    o.mode = 1;
-    o.gn = GA;
-    o.gc = GC;
-    o.feat = featb;
-    o.col = colb;
-    o.g_sdf = g_sdf;
-    o.w_sdf = a.w_sdf;
-    if ((err = din(g_rgbh, RH, NhPk{wpk + a.pk_hc, nh_kp(W)}, W, o))) return err;
-  }
-
-  // the heads in reverse, layer by layer; start gradients: base GA, colour
-  // GC, visibility gvis, feature g_f16
-  const float* g_start[NH_HEADS] = {GA, GC, gvis, g_f16};
-  for (int hi = 0; hi < NH_HEADS; ++hi) {
-    const NhHead& h = a.head[hi];
-    nh_embed_kernel<<<grid_e, HM_THREADS, 0, st>>>(a, hi, x, X);
-    if ((err = done(1))) return err;
-    const float* g = g_start[hi];
-    float* gbuf[2] = {hi == 0 ? GB : GA, hi == 0 ? GA : GB};  // never the start buffer
-    int cur = 0;
-    bool x_written = false;
-    for (int l = h.n_layers - 1; l >= 0; --l) {
-      const int N = h.out_dim[l], K = h.in_dim[l];
-      const bool skip = l > 0 && ((h.skip_mask >> l) & 1);
-      const bool has_x = l == 0 || skip;
-      const float* hprev = l > 0 ? act(h.act_off[l - 1]) : nullptr;
-      const int kh = l > 0 ? h.out_dim[l - 1] : 0;
-      const HmSrc src = l == 0 ? HmSrc{X, h.c_x, h.c_x, X, h.c_x}
-                        : skip ? HmSrc{X, h.c_x, h.c_x, hprev, kh}
-                               : HmSrc{hprev, kh, kh, hprev, kh};
-      if ((err = dw(g, N, src, K, h.off_w1[l], h.off_w2[l], h.off_b[l]))) return err;
-      NhDinOut o{};
-      o.mode = 0;
-      o.dX = dX;
-      o.ldx = h.c_x;
-      o.x_cols = has_x ? h.c_x : 0;
-      o.store = x_written ? 0 : 1;
-      o.gn = gbuf[cur];
-      o.hprev = hprev;
-      if ((err = din(g, N, NhPk{wpk + h.pk_off[l], nh_kp(K)}, K, o))) return err;
-      x_written = x_written || has_x;
-      g = gbuf[cur];
-      cur ^= 1;
-    }
-    nh_fold_kernel<<<grid_e, HM_THREADS, 0, st>>>(a, hi, x, dX, dx, hi == 0 ? 1 : 0);
-    if ((err = done(4))) return err;
-  }
-  hm_reduce_kernel<<<(a.n_slice + HM_THREADS - 1) / HM_THREADS, HM_THREADS, 0, st>>>(
-      ws, a.n_chunks, a.n_slice, grads);
+  if ((err = nh_pack(a, appr, pk, nullptr, st)) || (err = done(7))) return err;
+  const NhGrad g{acts, rgb, gd, grgb, gvis, gfeat, dx, gimg, gpart, dpart, lad};
+  nh_din_kernel<<<std::min(a.n_tiles, n_sm), NH_THREADS, smem, st>>>(a, x, pk, g);
+  if ((err = done(3))) return err;
+  const NhDwOut o{gpart, dpart, ws, gpair, dappr, dsum};
+  nh_dw_kernel<<<dim3(a.dw_blocks, a.n_chunks + 1), NH_DW_THREADS, NH_DW_SMEM, st>>>(a, lad, acts, gimg, o);
+  if ((err = done(2))) return err;
+  const int n_out = a.n_slice + a.rgb_hidden * (a.appr_dim + 1);
+  nh_reduce_kernel<<<(n_out + HM_THREADS - 1) / HM_THREADS, HM_THREADS, 0, st>>>(a, ws, gpair, dsum,
+                                                                                 appr, grads);
   if ((err = done(6))) return err;
   if (n_launches != nullptr) *n_launches = n;
   return 0;

@@ -37,6 +37,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -44,8 +45,8 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from lab4d_tpu_torch.nnutils.embedding import fourier_embed
-from lab4d_tpu_torch.ops.mlp_kernel import (SMEM_PER_SM, _raise_on, _stream, _vjp, mlp_reference,
-                                            needs_saved)
+from lab4d_tpu_torch.ops.mlp_kernel import (SMEM_PER_SM, _n_sm, _raise_on, _stream, _vjp,
+                                            mlp_reference, needs_saved)
 
 OUT_DIMS = (1, 3, 1, 16)  # density, rgb, vis, feat
 NET_ORDER = ("base", "sdf", "color", "rgb1", "rgb2", "vis", "feat")
@@ -195,20 +196,6 @@ def act_layout(nets):
     return offs, n
 
 
-def pack_layout(nets, cfg):
-    """Where K1's pre-split weights go (nh_pack_kernel): {(head, layer),
-    "rgb1", "rgb2": offset}, and the floats in all. A layer of N outputs and
-    K inputs takes 2 N kp floats (hi, then lo), kp = K rounded up to 32."""
-    offs, n = {}, 0
-    layers = [((name, i), w.shape) for name in HEADS for i, w in enumerate(nets[name][0::2])]
-    hc = nets["base"][-2].shape[0]
-    layers += [("rgb1", (nets["rgb1"][0].shape[0], hc)), ("rgb2", nets["rgb2"][0].shape)]
-    for key, (N, K) in layers:
-        offs[key] = n
-        n += 2 * N * (-(-K // 32) * 32)
-    return offs, n
-
-
 def _head_layers(x, window, wb, skips, freqs):
     """Every layer output of one head before its ReLU (ReLU between the
     layers, none after the last)."""
@@ -326,34 +313,196 @@ def nerf_heads_backward_saved_reference(x, g, appr_rows, win_b, win_c, nets, ibe
 # ---------------------------------------------------------- launch planning
 
 
-TILE_ROWS = 64  # NH_TR: points per K1 block
+TILE_ROWS = 64  # NH_HALF: a warpgroup's points of the engine's tile; a pair's samples are whole multiples
+ENGINE_ROWS = 128  # NH_TR: points per tile of K1 / K2's engine
 MAX_WIDTH = 128  # NH_NMAX: widest layer output
-SLAB_LD = 36  # NH_LDS: row stride of a staged weight slab
-MAX_CHUNKS = 128  # K2's split of the points for dW / db
-CHUNK_ALIGN = 32  # HM_KS: points per k-slab of K2's dW products
+SLAB_K = 16  # NH_KS: k-depth of a weight slab
+SLOT_FLOATS = 32 * MAX_WIDTH  # NH_SLAB: a ring slot, the widest slab's hi and lo
+G_ROWS = 32  # NH_RS: rows of a G slab of K2's dW
+DW_M = 128  # NH_DW_M: dW inputs per block
+DW_SMEM = 4 * (32 + 3 * (64 * MAX_WIDTH + 2 * 8 * (4 * MAX_WIDTH + 8)))  # NH_DW_SMEM: 3 slots of G and A
+MAX_PASSES, MAX_DW = 68, 36  # NH_MAX_PASSES, NH_MAX_DW
+MAX_CHUNKS = 512  # K2's split of the points for dW / db
+WGMMA_WIDTHS = (8, 16, 32, 64, 128)  # the wgmma widths the engine instantiates
+EPI = ("hid", "base", "col", "rgb1", "rgb2", "vis", "feat", "dhc", "dx", "dh")  # NH_E_*, in order
+A_KINDS = ("x", "xh", "h", "hc")  # NH_A_*: dW's A operand
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _r16(n):
+    return _cdiv(n, SLAB_K) * SLAB_K
+
+
+def wgmma_width(n: int) -> int:
+    """The narrowest wgmma of the engine that holds n columns."""
+    return next(w for w in WGMMA_WIDTHS if w >= n)
+
+
+class HeadShape(NamedTuple):
+    n_layers: int
+    skips: tuple
+    n_freqs: int
+    c_x: int  # embedding columns, 3 (2 n_freqs + 1)
+    in_dims: tuple
+    out_dims: tuple
+
+    def has_x(self, layer):
+        return layer == 0 or layer in self.skips
+
+
+class HeadsShapes(NamedTuple):
+    """The widths K1 / K2's passes and dW layers follow (hashable)."""
+    heads: tuple  # HeadShape of base, colour, visibility, feature
+    width: int  # output width of base and colour (hc)
+    rgb_hidden: int
+    feat_dim: int
+
+
+def heads_shapes(nets, cfg) -> HeadsShapes:
+    heads = []
+    for name in HEADS:
+        ws = nets[name][0::2]
+        nf = getattr(cfg, _NET_FREQS[name])
+        skips = tuple(i for i in getattr(cfg, _NET_SKIPS[name]) if i < len(ws))
+        heads.append(HeadShape(len(ws), skips, nf, 3 * (2 * nf + 1), tuple(w.shape[1] for w in ws),
+                               tuple(w.shape[0] for w in ws)))
+    return HeadsShapes(tuple(heads), nets["base"][-2].shape[0], nets["rgb1"][0].shape[0],
+                       nets["feat"][-2].shape[0])
+
+
+class HeadPass(NamedTuple):
+    """One pass of the engine (NhPass in csrc/nerf_heads.cu): a wgmma of nw
+    columns (n real) over nsl slabs of SLAB_K of the reduction, its slabs
+    at img floats in the packed weights."""
+    img: int
+    nsl: int
+    n: int
+    nxs: int  # K1: the first nxs slabs read the tile's Fourier ladder, the rest the A buffer
+    nw: int
+    epi: int  # what it computes: EPI
+    head: int  # its head's index in HEADS, -1 for rgb1, rgb2 and K2's d hc
+    layer: int
+    src: int  # the A buffer: 0 H, 1 F (hc; K2: the colour head's last G)
+    dw: int  # K2: the dW layer whose G it reads first, or -1
+    first: int  # K2: the first pass of a head
+
+
+@functools.lru_cache(maxsize=None)
+def heads_passes(s: HeadsShapes, bwd: bool):
+    """K1's passes (bwd False) or K2's, in the engine's order, and the
+    floats of their packed weights. K1: every layer of base and colour,
+    rgb1 (over hc in F), rgb2, visibility, feature; a layer with x reads the
+    ladder's first round16(c_x) columns, then its h. K2: d hc = d rgb_h .
+    W_hc, then each head from its last layer to its first: a layer's x
+    columns (into dX) before its h columns (into the previous layer's G)."""
+    out, img = [], 0
+
+    def add(nsl, n, epi, head=-1, layer=0, nxs=0, src=0, dw=-1, first=0):
+        nonlocal img
+        nw = wgmma_width(n)
+        out.append(HeadPass(img, nsl, n, nxs, nw, EPI.index(epi), head, layer, src, dw, first))
+        img += nsl * 32 * nw
+
+    if not bwd:
+        last = ("base", "col", "vis", "feat")
+        for hi, h in enumerate(s.heads):
+            for l in range(h.n_layers):
+                nxs = _r16(h.c_x) // SLAB_K if h.has_x(l) else 0
+                kh = h.in_dims[l] - (h.c_x if h.has_x(l) else 0)
+                add(nxs + _cdiv(kh, SLAB_K), h.out_dims[l],
+                    last[hi] if l == h.n_layers - 1 else "hid", hi, l, nxs)
+            if hi == 1:
+                add(_cdiv(s.width, SLAB_K), s.rgb_hidden, "rgb1", src=1)
+                add(_cdiv(s.rgb_hidden, SLAB_K), OUT_DIMS[1], "rgb2")
+    else:
+        add(_cdiv(s.rgb_hidden, SLAB_K), s.width, "dhc")
+        dw = 3  # heads_dw: sdf, rgb2, rgb1, then the heads' layers
+        for hi, h in enumerate(s.heads):
+            for l in range(h.n_layers - 1, -1, -1):
+                src = int(hi == 1 and l == h.n_layers - 1)
+                nsl = _cdiv(h.out_dims[l], SLAB_K)
+                lead = dict(dw=dw + l, first=int(l == h.n_layers - 1))
+                if h.has_x(l):
+                    add(nsl, h.c_x, "dx", hi, l, src=src, **lead)
+                    lead = {}
+                if l > 0:
+                    add(nsl, h.in_dims[l] - (h.c_x if h.has_x(l) else 0), "dh", hi, l, src=src, **lead)
+            dw += h.n_layers
+    if len(out) > MAX_PASSES:
+        raise ValueError(f"the heads take {len(out)} passes, more than {MAX_PASSES}")
+    return tuple(out), img
+
+
+class DwLayer(NamedTuple):
+    """One layer of K2's dW (NhDw): dW = G^T A over K inputs and N outputs,
+    G's fp32 slabs (32 rows x nwo) at goff floats in each 32-row group of
+    the G image."""
+    goff: int
+    blk0: int  # its first dW block of a chunk
+    K: int
+    N: int
+    nwo: int
+    kind: int  # A: A_KINDS
+    head: int  # its head, or -1 sdf, -2 rgb2, -3 rgb1's W_hc
+    layer: int
+
+
+@functools.lru_cache(maxsize=None)
+def heads_dw(s: HeadsShapes):
+    """K2's dW layers (sdf, rgb2, rgb1's W_hc, then every head layer in
+    order), the floats of one 32-row group of the G image, and dW's blocks
+    per chunk of rows (DW_M inputs each)."""
+    out, goff, blk = [], 0, 0
+
+    def add(K, N, kind, head, layer=0):
+        nonlocal goff, blk
+        nwo = wgmma_width(N)
+        out.append(DwLayer(goff, blk, K, N, nwo, A_KINDS.index(kind), head, layer))
+        goff += 32 * nwo
+        blk += _cdiv(K, DW_M)
+
+    add(s.width, 1, "h", -1)
+    add(s.rgb_hidden, OUT_DIMS[1], "h", -2)
+    add(s.width, s.rgb_hidden, "hc", -3)
+    for hi, h in enumerate(s.heads):
+        for l in range(h.n_layers):
+            add(h.in_dims[l], h.out_dims[l], "x" if l == 0 else "xh" if l in h.skips else "h", hi, l)
+    if len(out) > MAX_DW:
+        raise ValueError(f"the heads take {len(out)} dW layers, more than {MAX_DW}")
+    return tuple(out), goff, blk
 
 
 class HeadsPlan(NamedTuple):
-    tile_rows: int  # K1: points per block
-    smem_bytes: int  # K1's shared memory per block
-    grid: int  # K1's blocks
-    n_chunks: int  # K2: chunks of the points, one workspace slice each
+    tile_rows: int  # points per tile of the engine
+    smem_bytes: int  # the engine's shared memory per block (K1 and K2's dIn)
+    grid: int  # the engine's blocks: one per SM, at most one per tile
+    stages: int  # weight slabs in flight
+    ldx: int  # shared-memory row stride of the ladder (K2: dX)
+    ldh: int  # and of H and F
+    n_chunks: int  # K2's dW: chunks of the points, one workspace slice each
+    chunk_rows: int
 
 
 class HeadsDims(NamedTuple):
-    """Widths that size the kernels' buffers (NhArgs in csrc/nerf_heads.cu)."""
+    """Widths that size the kernels' buffers and dW's grid."""
     width: int  # output width of base and colour (hc)
     rgb_hidden: int
     max_cx: int  # widest embedding
     g_width: int  # widest layer output
+    dw_blocks: int  # K2's dW blocks per chunk of rows
+    row_align: int  # gcd of the saved widths dW's A reads (hidden layers, width, rgb_hidden)
 
 
 def heads_dims(nets, cfg) -> HeadsDims:
-    c_x = {n: 3 * (2 * getattr(cfg, _NET_FREQS[n]) + 1) for n in HEADS}
-    outs = [w.shape[0] for n in HEADS for w in nets[n][0::2]]
-    width, rgb_hidden = nets["base"][-2].shape[0], nets["rgb1"][0].shape[0]
-    return HeadsDims(width=width, rgb_hidden=rgb_hidden, max_cx=max(c_x.values()),
-                     g_width=max(rgb_hidden, *outs))
+    s = heads_shapes(nets, cfg)
+    outs = [o for h in s.heads for o in h.out_dims]
+    hidden = [o for h in s.heads for o in h.out_dims[:-1]]
+    return HeadsDims(width=s.width, rgb_hidden=s.rgb_hidden, max_cx=max(h.c_x for h in s.heads),
+                     g_width=max(s.rgb_hidden, *outs), dw_blocks=heads_dw(s)[2],
+                     row_align=math.gcd(s.width, s.rgb_hidden, *hidden))
 
 
 def _ld(n: int) -> int:
@@ -361,30 +510,116 @@ def _ld(n: int) -> int:
     return (n + 3) // 8 * 8 + 4
 
 
-def heads_smem(d: HeadsDims) -> int:
-    """Shared memory of a K1 block (nh_fwd_smem), bytes: the 64 points'
-    embedding and three layer buffers, two stages of hi / lo weight slabs,
-    the rgb1 bias row."""
-    return 4 * (TILE_ROWS * (_ld(d.max_cx) + 3 * _ld(d.g_width)) + 4 * MAX_WIDTH * SLAB_LD
-                + (d.rgb_hidden + 3) // 4 * 4)
+def heads_smem(ldx: int, ldh: int, stages: int) -> int:
+    """Shared memory of an engine block (nh_engine_smem), bytes: the ring's
+    barriers and slots, the tile's ladder, H and F, K2's per-row terms."""
+    return 4 * (32 + stages * SLOT_FLOATS + ENGINE_ROWS * (ldx + 2 * ldh) + 2 * ENGINE_ROWS)
 
 
-def heads_plan(d: HeadsDims, spp: int, rows: int) -> HeadsPlan:
-    """K1: one block per 64 points (a divisor of the samples of a pair);
-    K2: the most chunks (at most 128) that split the points into whole
-    k-slabs, for its dW / db partial sums."""
+def heads_plan(d: HeadsDims, spp: int, rows: int, n_sm: int = 132) -> HeadsPlan:
+    """The engine: tiles of 128 points (two halves of 64, each within a
+    pair), one persistent block per SM, 3 weight slabs in flight where
+    they fit; K2's dW: chunks of whole G slabs, about eight waves of its
+    blocks over n_sm SMs, at most MAX_CHUNKS."""
     if rows % spp:
         raise ValueError(f"{rows} points are not whole pairs of {spp}")
     if spp % TILE_ROWS:
         raise ValueError(f"{spp} samples per pair are not whole tiles of {TILE_ROWS} points")
     if d.g_width > MAX_WIDTH:
         raise ValueError(f"layers wider than {MAX_WIDTH} are not supported")
-    smem = heads_smem(d)
+    if d.row_align % 4:
+        raise ValueError("K2's dW copies saved rows of 16 bytes: hidden widths, the heads' width "
+                         "and rgb1's must be multiples of 4")
+    ldx, ldh = _ld(_r16(d.max_cx)), _ld(_r16(d.g_width))
+    stages = 3 if heads_smem(ldx, ldh, 3) <= SMEM_PER_SM else 2
+    smem = heads_smem(ldx, ldh, stages)
     if smem > SMEM_PER_SM:
         raise ValueError(f"K1 needs {smem} bytes of shared memory, more than {SMEM_PER_SM}")
-    n_chunks = next(c for c in range(min(MAX_CHUNKS, rows // CHUNK_ALIGN), 0, -1)
-                    if rows % c == 0 and (rows // c) % CHUNK_ALIGN == 0)
-    return HeadsPlan(TILE_ROWS, smem, rows // TILE_ROWS, n_chunks)
+    n = max(1, min(_cdiv(rows, G_ROWS), _cdiv(8 * n_sm, d.dw_blocks), MAX_CHUNKS))
+    chunk = _cdiv(_cdiv(rows, n), G_ROWS) * G_ROWS
+    return HeadsPlan(ENGINE_ROWS, smem, min(_cdiv(rows, ENGINE_ROWS), n_sm), stages, ldx, ldh,
+                     _cdiv(rows, chunk), chunk)
+
+
+def ladder_order(n_freqs: int):
+    """The embedding column [x, sin (F x 3), cos (F x 3)] at each position
+    of the shared ladder [x | sin, cos of frequency 0 | ...], and each
+    position's frequency (-1 for x)."""
+    cols, freq = [0, 1, 2], [-1, -1, -1]
+    for f in range(n_freqs):
+        cols += [3 + 3 * f + c for c in range(3)] + [3 + 3 * n_freqs + 3 * f + c for c in range(3)]
+        freq += [f] * 6
+    return cols, freq
+
+
+def _layer_arrays(snets, name, skips, layer):
+    """(w1, w2 or None, b) of a layer in split_nets' layout."""
+    pos = 0
+    for i in range(layer):
+        pos += 3 if i in skips else 2
+    arrs = snets[name]
+    return (arrs[pos], arrs[pos + 1], arrs[pos + 2]) if layer in skips else (arrs[pos], None, arrs[pos + 1])
+
+
+def _pass_matrix(p, s, snets, windows):
+    """B of a pass, (nsl * SLAB_K, nw): the forward's B[k, n] = W[n, k] over
+    [ladder, padded to SLAB_K nxs | h], K2's W[k, n] (d hc: W_hc; a layer's
+    x columns in ladder order, or its h columns); the embedding's columns
+    times the head's window; zero elsewhere (nh_pack_value)."""
+    B = torch.zeros(p.nsl * SLAB_K, p.nw, dtype=torch.float32)
+    epi, W, RH = EPI[p.epi], s.width, s.rgb_hidden
+    w_hc = snets["rgb1"][0]
+    if epi == "rgb1":
+        B[:W, :RH] = w_hc.T
+    elif epi == "rgb2":
+        B[:RH, :OUT_DIMS[1]] = snets["rgb2"][0].T
+    elif epi == "dhc":
+        B[:RH, :W] = w_hc
+    else:
+        name, h, l = HEADS[p.head], s.heads[p.head], p.layer
+        w1, w2, _ = _layer_arrays(snets, name, h.skips, l)
+        N, cx = h.out_dims[l], h.c_x if h.has_x(l) else 0
+        wh = w2 if w2 is not None else (None if cx else w1)
+        if cx:
+            cols, freq = ladder_order(h.n_freqs)
+            win = windows.get(name)
+            scale = torch.ones(cx) if win is None else torch.cat(
+                [torch.ones(3), win.detach().cpu().float().repeat_interleave(6)])
+            wl = w1.detach().cpu().float()[:, cols] * scale
+        if epi == "dx":
+            B[:N, :cx] = wl
+        elif epi == "dh":
+            B[:N, : wh.shape[1]] = wh.detach().cpu().float()
+        else:
+            if cx:
+                B[:cx, :N] = wl.T
+            if wh is not None:
+                k0 = SLAB_K * p.nxs
+                B[k0: k0 + wh.shape[1], :N] = wh.detach().cpu().float().T
+    return B
+
+
+def _tf32_cut(t):
+    """fp32 cut to TF32 (its low 13 mantissa bits cleared): rw_split's hi."""
+    return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def pack_reference(nets, cfg, appr_dim, win_b=None, win_c=None, bwd=False):
+    """Plain version of nh_pack_kernel's weights (on the CPU): every pass's
+    B split into hi (cut to TF32) and lo (the rest), each 16-deep slab hi
+    then lo, [k / 4][n / 8][n % 8][k % 4]."""
+    s = heads_shapes(nets, cfg)
+    snets = split_nets(nets, cfg, appr_dim)
+    windows = {"base": win_b, "color": win_c}
+    out = []
+    for p in heads_passes(s, bwd)[0]:
+        B = _pass_matrix(p, s, snets, windows)
+        hi = _tf32_cut(B)
+        for sl in range(p.nsl):
+            for half in (hi, B - hi):
+                blk = half[SLAB_K * sl: SLAB_K * (sl + 1)]
+                out.append(blk.reshape(4, 4, p.nw // 8, 8).permute(0, 2, 3, 1).reshape(-1))
+    return torch.cat(out)
 
 
 # ------------------------------------------------------------- the library
@@ -393,20 +628,34 @@ def heads_plan(d: HeadsDims, spp: int, rows: int) -> HeadsPlan:
 class _NhHead(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in ("n_layers", "skip_mask", "n_freqs", "c_x")] + [
         (n, ctypes.c_int * MAX_LAYERS)
-        for n in ("in_dim", "out_dim", "k1", "off_w1", "off_w2", "off_b", "act_off", "pk_off")
+        for n in ("in_dim", "out_dim", "off_w1", "off_w2", "off_b", "act_off")
     ] + [("window", ctypes.c_void_p)] + [
         (n, ctypes.c_void_p * MAX_LAYERS) for n in ("w1", "w2", "b")
     ]
 
 
-_ARG_INTS = ("rows", "spp", "tr", "n_chunks", "width", "rgb_hidden", "appr_dim", "feat_dim",
-             "max_cx", "g_width", "off_w_sdf", "off_b_sdf", "off_w_hc", "off_w_rgb2", "off_b_rgb2",
-             "off_dibeta", "n_slice", "act_rgbh", "act_total", "pk_hc", "pk_rgb2", "pk_total")
+class _NhPass(ctypes.Structure):
+    _fields_ = [("img", ctypes.c_int), ("nsl", ctypes.c_short), ("n", ctypes.c_short),
+                ("nxs", ctypes.c_ubyte), ("nw", ctypes.c_ubyte)] + [
+        (n, ctypes.c_byte) for n in ("epi", "head", "layer", "src", "dw", "first")]
+
+
+class _NhDw(ctypes.Structure):
+    _fields_ = [("goff", ctypes.c_int), ("blk0", ctypes.c_int)] + [
+        (n, ctypes.c_short) for n in ("K", "N", "nwo")] + [
+        (n, ctypes.c_byte) for n in ("kind", "head", "layer")]
+
+
+_ARG_INTS = ("n_pass", "n_dw", "rows", "spp", "n_tiles", "n_chunks", "pc", "dw_blocks", "width",
+             "rgb_hidden", "appr_dim", "feat_dim", "n_freqs", "img_total", "stages", "ldx", "ldh",
+             "ldl", "gstride", "off_w_sdf", "off_b_sdf", "off_w_hc", "off_w_rgb2", "off_b_rgb2",
+             "off_dibeta", "n_slice", "act_rgbh", "act_total", "dw_sdf", "dw_rgb2", "dw_rgb1")
 _ARG_PTRS = ("w_sdf", "b_sdf", "w_hc", "w_appr", "b_rgb1", "w_rgb2", "b_rgb2", "ibeta")
 
 
 class _NhArgs(ctypes.Structure):
-    _fields_ = [("head", _NhHead * len(HEADS))] + [(n, ctypes.c_int) for n in _ARG_INTS] + [
+    _fields_ = [("head", _NhHead * len(HEADS)), ("pass_", _NhPass * MAX_PASSES),
+                ("dw", _NhDw * MAX_DW)] + [(n, ctypes.c_int) for n in _ARG_INTS] + [
         ("freq", ctypes.c_float * MAX_FREQS)
     ] + [(n, ctypes.c_void_p) for n in _ARG_PTRS]
 
@@ -429,6 +678,8 @@ def bind_signatures(lib):
     lib.lab4d_nerf_heads_bwd.restype = i32
     lib.lab4d_nerf_heads_bwd_scratch.argtypes = [vp]
     lib.lab4d_nerf_heads_bwd_scratch.restype = ctypes.c_size_t
+    lib.lab4d_nerf_heads_layout.argtypes = [vp, i32, vp]
+    lib.lab4d_nerf_heads_layout.restype = i32
     lib.lab4d_nerf_heads_args_size.argtypes = []
     lib.lab4d_nerf_heads_args_size.restype = i32
     lib.lab4d_cuda_error_string.argtypes = [i32]
@@ -445,7 +696,7 @@ def _ptr(t):
 def _grad_offsets(snets, rgb_hidden, appr_dim):
     """Offsets of every split array's gradient in the kernel's flat output:
     the workspace slice (all but rgb1's W_appr and bias, then d ibeta), then
-    dW_appr and db_rgb1, which the appearance pass writes."""
+    dW_appr and db_rgb1, which the last launch writes."""
     offs, n = {}, 0
     for name in NET_ORDER:
         for i, a in enumerate(snets[name]):
@@ -484,43 +735,49 @@ def _check_inputs(x, appr, win_b, win_c, nets, ibeta, cfg, spp):
             raise ValueError(f"head {name} has more than {MAX_LAYERS} layers")
 
 
-def _build_args(x, appr, win_b, win_c, nets, snets, ibeta, cfg, spp, plan, dims, offs, n_slice):
+def _build_args(x, appr, win_b, win_c, nets, snets, ibeta, cfg, spp, plan, shapes, offs, n_slice, bwd):
     """The NhArgs of a launch: every pointer of the split nets, the heads'
-    layer tables, the gradients' workspace offsets and the saved outputs'
-    layout."""
+    layer tables, K1's or K2's passes (bwd), K2's dW layers, the gradients'
+    workspace offsets and the saved outputs' layout."""
     a = _NhArgs()
     windows = {"base": win_b, "color": win_c}
     acts, act_total = act_layout(nets)
-    pk, pk_total = pack_layout(nets, cfg)
     for hi, name in enumerate(HEADS):
-        h = a.head[hi]
-        skips = getattr(cfg, _NET_SKIPS[name])
-        n = len(nets[name]) // 2
-        h.n_layers, h.n_freqs = n, getattr(cfg, _NET_FREQS[name])
-        h.c_x = 3 * (2 * h.n_freqs + 1)
-        h.skip_mask = sum(1 << i for i in skips if i < n)
+        h, hs = a.head[hi], shapes.heads[hi]
+        h.n_layers, h.n_freqs, h.c_x = hs.n_layers, hs.n_freqs, hs.c_x
+        h.skip_mask = sum(1 << i for i in hs.skips)
         h.window = _ptr(windows.get(name))
         pos = 0
-        for i in range(n):
+        for i in range(hs.n_layers):
             w1 = snets[name][pos]
-            h.w1[i], h.off_w1[i], h.k1[i] = w1.data_ptr(), offs[(name, pos)], w1.shape[1]
-            h.out_dim[i], h.act_off[i], h.pk_off[i] = w1.shape[0], acts[(name, i)], pk[(name, i)]
-            if i in skips:
-                w2 = snets[name][pos + 1]
-                h.w2[i], h.off_w2[i] = w2.data_ptr(), offs[(name, pos + 1)]
-                h.in_dim[i] = w1.shape[1] + w2.shape[1]
+            h.w1[i], h.off_w1[i] = w1.data_ptr(), offs[(name, pos)]
+            h.in_dim[i], h.out_dim[i], h.act_off[i] = hs.in_dims[i], hs.out_dims[i], acts[(name, i)]
+            if i in hs.skips:
+                h.w2[i], h.off_w2[i] = snets[name][pos + 1].data_ptr(), offs[(name, pos + 1)]
                 pos += 1
             else:
-                h.w2[i], h.in_dim[i], h.off_w2[i] = None, w1.shape[1], offs[(name, pos)]
+                h.w2[i], h.off_w2[i] = None, offs[(name, pos)]
             h.b[i], h.off_b[i] = snets[name][pos + 1].data_ptr(), offs[(name, pos + 1)]
             pos += 2
-    ints = dict(rows=x.shape[0], spp=spp, tr=plan.tile_rows, n_chunks=plan.n_chunks,
-                width=dims.width, rgb_hidden=dims.rgb_hidden, appr_dim=appr.shape[1],
-                feat_dim=nets["feat"][-2].shape[0], max_cx=dims.max_cx, g_width=dims.g_width,
+    passes, img_total = heads_passes(shapes, bwd)
+    for i, p in enumerate(passes):
+        for k, v in p._asdict().items():
+            setattr(a.pass_[i], k, v)
+    dws, gstride, dw_blocks = heads_dw(shapes)
+    for i, d in enumerate(dws):
+        for k, v in d._asdict().items():
+            setattr(a.dw[i], k, v)
+    ints = dict(n_pass=len(passes), n_dw=len(dws), rows=x.shape[0], spp=spp,
+                n_tiles=_cdiv(x.shape[0], ENGINE_ROWS), n_chunks=plan.n_chunks, pc=plan.chunk_rows,
+                dw_blocks=dw_blocks, width=shapes.width, rgb_hidden=shapes.rgb_hidden,
+                appr_dim=appr.shape[1], feat_dim=shapes.feat_dim,
+                n_freqs=max(h.n_freqs for h in shapes.heads), img_total=img_total,
+                stages=plan.stages, ldx=plan.ldx, ldh=plan.ldh,
+                ldl=_cdiv(3 + 6 * max(h.n_freqs for h in shapes.heads), 4) * 4, gstride=gstride,
                 off_w_sdf=offs[("sdf", 0)], off_b_sdf=offs[("sdf", 1)], off_w_hc=offs[("rgb1", 0)],
                 off_w_rgb2=offs[("rgb2", 0)], off_b_rgb2=offs[("rgb2", 1)],
                 off_dibeta=offs["dibeta"], n_slice=n_slice, act_rgbh=acts["rgb_h"],
-                act_total=act_total, pk_hc=pk["rgb1"], pk_rgb2=pk["rgb2"], pk_total=pk_total)
+                act_total=act_total, dw_sdf=0, dw_rgb2=1, dw_rgb1=2)
     for k, v in ints.items():
         setattr(a, k, v)
     for f, v in enumerate(cfg.freqs):
@@ -533,28 +790,43 @@ def _build_args(x, appr, win_b, win_c, nets, snets, ibeta, cfg, spp, plan, dims,
     return a
 
 
-def _prepare(x, appr, win_b, win_c, nets, ibeta, cfg, spp):
+def _prepare(x, appr, win_b, win_c, nets, ibeta, cfg, spp, bwd):
     _check_inputs(x, appr, win_b, win_c, nets, ibeta, cfg, spp)
     ibeta = ibeta.reshape(1).contiguous()
     snets = split_nets(nets, cfg, appr.shape[1])
-    dims = heads_dims(nets, cfg)
-    plan = heads_plan(dims, spp, x.shape[0])
-    offs, n_slice, n_grads = _grad_offsets(snets, dims.rgb_hidden, appr.shape[1])
-    args = _build_args(x, appr, win_b, win_c, nets, snets, ibeta, cfg, spp, plan, dims, offs, n_slice)
+    shapes = heads_shapes(nets, cfg)
+    plan = heads_plan(heads_dims(nets, cfg), spp, x.shape[0], _n_sm(x.device))
+    offs, n_slice, n_grads = _grad_offsets(snets, shapes.rgb_hidden, appr.shape[1])
+    args = _build_args(x, appr, win_b, win_c, nets, snets, ibeta, cfg, spp, plan, shapes, offs,
+                       n_slice, bwd)
     # snets and ibeta hold the memory that args points to
     return args, snets, offs, n_slice, n_grads, ibeta
 
 
-def _launch_fwd(lib, x, appr, win_b, win_c, nets, ibeta, cfg, spp, stream, save=False):
+def heads_layout(lib, args, bwd):
+    """The library's layout of a launch (lab4d_nerf_heads_layout): the
+    engine's shared memory per block and its blocks, dW's shared memory,
+    K2's scratch floats, sizeof(NhArgs); raises where the library refuses
+    the shapes."""
+    sizes = (ctypes.c_longlong * 5)()
+    _raise_on(lib, lib.lab4d_nerf_heads_layout(ctypes.addressof(args), int(bwd), sizes),
+              "nerf_heads_layout")
+    return list(sizes)
+
+
+def _launch_fwd(lib, x, appr, win_b, win_c, nets, ibeta, cfg, spp, stream, save=False, wpk=None):
     """Run K1; returns (density, rgb, vis, feat), and the saved layer
     outputs (act_layout) as a last element when save. The CUDA launches
-    made are left in `fused_nerf_heads.cuda_launches`."""
-    args, _snets, _, _, _, _ibeta = _prepare(x, appr, win_b, win_c, nets, ibeta, cfg, spp)
+    made are left in `fused_nerf_heads.cuda_launches`. wpk: scratch for the
+    split weights and rgb1's bias rows (img_total + pairs x rgb_hidden
+    floats), or None."""
+    args, _snets, _, _, _, _ibeta = _prepare(x, appr, win_b, win_c, nets, ibeta, cfg, spp, False)
     P = x.shape[0]
     outs = [torch.empty((P, c), device=x.device, dtype=x.dtype) for c in OUT_DIMS[:3]]
     outs.append(torch.empty((P, nets["feat"][-2].shape[0]), device=x.device, dtype=x.dtype))
     acts = torch.empty(P * args.act_total, device=x.device, dtype=x.dtype) if save else None
-    wpk = torch.empty(args.pk_total, device=x.device, dtype=x.dtype)
+    if wpk is None:
+        wpk = torch.empty(args.img_total + (P // spp) * args.rgb_hidden, device=x.device, dtype=x.dtype)
     n_launches = ctypes.c_int(0)
     err = lib.lab4d_nerf_heads_fwd(ctypes.addressof(args), x.data_ptr(), appr.data_ptr(),
                                    wpk.data_ptr(), *[o.data_ptr() for o in outs], _ptr(acts),
@@ -566,17 +838,18 @@ def _launch_fwd(lib, x, appr, win_b, win_c, nets, ibeta, cfg, spp, stream, save=
 
 def _launch_bwd(lib, x, g, appr, win_b, win_c, nets, ibeta, cfg, spp, acts, rgb, stream,
                 events=None):
-    """Run K2 (its sequence of launches) from K1's saved outputs acts and
-    rgb; returns (dx, dappr, dnets, dibeta, kinds): kinds lists each CUDA
-    launch's kind (csrc/nerf_heads.cu:lab4d_nerf_heads_bwd). events: CUDA
-    events (created, as torch.cuda.Event after one record) recorded before
-    the first launch and after each launch."""
+    """Run K2 (its launches) from K1's saved outputs acts and rgb; returns
+    (dx, dappr, dnets, dibeta, kinds): kinds lists each CUDA launch's kind
+    (csrc/nerf_heads.cu:lab4d_nerf_heads_bwd). events: CUDA events
+    (created, as torch.cuda.Event after one record) recorded before the
+    first launch and after each launch."""
     P = x.shape[0]
     feat_dim = nets["feat"][-2].shape[0]
     for gi, c in zip(g, OUT_DIMS[:3] + (feat_dim,)):
         if gi.shape != (P, c) or gi.dtype != x.dtype or gi.device != x.device or not gi.is_contiguous():
             raise ValueError(f"each cotangent must be a contiguous ({P}, {c}) float32 tensor")
-    args, snets, offs, n_slice, n_grads, _ibeta = _prepare(x, appr, win_b, win_c, nets, ibeta, cfg, spp)
+    args, snets, offs, n_slice, n_grads, _ibeta = _prepare(x, appr, win_b, win_c, nets, ibeta, cfg,
+                                                           spp, True)
     if acts.shape != (P * args.act_total,) or rgb.shape != (P, 3) or acts.device != x.device:
         raise ValueError(f"acts must hold {args.act_total} floats per point and rgb be ({P}, 3)")
     dev = x.device
@@ -585,7 +858,7 @@ def _launch_bwd(lib, x, g, appr, win_b, win_c, nets, ibeta, cfg, spp, acts, rgb,
     grads = torch.empty(n_grads, device=dev, dtype=x.dtype)
     scratch = torch.empty(lib.lab4d_nerf_heads_bwd_scratch(ctypes.addressof(args)), device=dev,
                           dtype=x.dtype)
-    n_ev = 64 if events is None else len(events)
+    n_ev = 8 if events is None else len(events)
     kinds = (ctypes.c_int * n_ev)()
     handles = None if events is None else (ctypes.c_void_p * n_ev)(*[e.cuda_event for e in events])
     n_launches = ctypes.c_int(0)

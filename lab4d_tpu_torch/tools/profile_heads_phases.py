@@ -8,36 +8,35 @@ Run from the root of a checkout. It compiles patched copies of
 csrc/nerf_heads.cu (one nvcc each, all at once) into
 build/lab4d_tpu_torch/heads_phases/ and times them in turns at the
 flagship step's shape (chip_smoke.py's _flagship_heads: 262,144 points,
-1024 per pair, heads D5 W128). K1's copies, as the TPU harness named them:
+1024 per pair, heads D5 W128). K1's copies of the wgmma engine:
 
 - full: the kernel as it is;
-- emb: without the final elementwise work (the density's Laplace CDF,
-  the sigmoid, the feature's L2 normalisation);
-- mm: as emb, and the embeddings without sin / cos (the angle itself):
-  the matmul chain;
-- mmpure: the same multiply-adds per point as 14 plain 128 x 128 layers
-  (no skips, no narrow layers, no embedding);
-- mmwide: as mm, with the narrow layers (rgb2, the visibility and
-  feature outputs) 128 wide;
-- mm-tf32: as mm, in plain 1xTF32 (one product per k-step instead of
-  three): the reduced-precision counterpart on this card, which prices
-  the 3xTF32 split. Timed only: it misses the kernels' tolerance;
-- no-wstage: the full kernel without its weight staging (the slabs keep
-  stale values): what streaming the weights from L2 costs.
+- no-math: without its products (the weight slabs' stream through the
+  ring, A's loads and splits, the epilogues and the stores);
+- mm-1x: one TF32 product per k8 step instead of three: the
+  reduced-precision counterpart on this card, which prices the 3xTF32
+  split. Timed only: it misses the kernels' tolerance;
+- no-wstage: without the TMA copies of the weight slabs (each slot's
+  barrier completes at once and the slabs keep stale values): what
+  streaming the weights from L2 costs.
 
-A copy with a phase off computes other outputs; only `full` is checked
-(against nerf_heads_reference, at chip_smoke.KERNEL_TOL) and the others
-are timed. K2 is a sequence of launches; one call with a CUDA event after
-each launch gives each kind of launch its share (the output cotangents,
-the embeddings, dW, dIn, the dx fold, the appearance pass, the reduction).
+Each copy runs as training does, saving its layer outputs for K2, and
+`no-save` is the full kernel without saving. A copy with a phase off
+computes other outputs; only `full` is checked (against
+nerf_heads_reference, at chip_smoke.KERNEL_TOL). K2 is 4 launches; one
+call with a CUDA event after each launch gives each its share (the weight
+split, the dIn engine, dW with the appearance pairs, the reduction), on
+the full kernel and on every copy: K1's (whose products and weight stream
+K2's dIn shares) and K2's own: dw-no-math (dW without its products),
+dw-no-a (without A's copies), din-no-masks (dIn without the ReLU masks'
+loads), din-no-gput (without storing G for dW).
 
---parent DIR: the root of a checkout whose K1 / K2 are the row-tiled fp32
-FMA design (nerf_heads.cu on mlp_tiles.cuh, as at commit 8c61d93). Its K1 anatomy copies (full, emb, mm,
-mmpure) and its K2 copies (full; no_rmw: without the workspace
-read-modify-write; no_wgrad: without the weight-gradient products) are
-built from DIR and timed too, and its K1 / K2 are timed in turns with
-this checkout's (parent, new, new, parent per round). Its wrapper,
-DIR/lab4d_tpu_torch/ops/field_kernel.py, is loaded under another name.
+--parent DIR: the root of a checkout of the mma.sync K1 / K2 of PR 4 / 5
+(e.g. `git archive 1683f23 | tar -x -C tmp/parent`). Its nerf_heads.cu is
+built from DIR with DIR's headers and its wrapper,
+DIR/lab4d_tpu_torch/ops/field_kernel.py, is loaded under another name;
+its K1 (saving, and without saving) and its K2 are timed in turns with
+this checkout's (parent, new, new, parent per round).
 
 Each round times every copy in turn (CUDA events around 5 back-to-back
 calls, after one warm-up call); the median over `--reps` rounds is
@@ -53,117 +52,44 @@ import os
 import subprocess
 import sys
 
-# The anatomy copies of the row-tiled fp32 FMA design: (file, anchor,
-# replacement) per copy; the files are DIR's nerf_heads.cu and mlp_tiles.cuh.
-_TM_EMB = [
-    ("nerf_heads.cu",
-     "      density[row0 + r] = (0.5f + 0.5f * nh_sign(s) * expm1f(-fabsf(s) * ib)) * ib;",
-     "      density[row0 + r] = s * ib;"),
-    ("nerf_heads.cu",
-     "    y[(size_t)(row0 + r) * NH_RGB + o] = nh_sigmoid(v + __ldg(b + o));",
-     "    y[(size_t)(row0 + r) * NH_RGB + o] = v + __ldg(b + o);"),
-    ("nerf_heads.cu",
-     "      const float denom = fmaxf(sqrtf(ss + 1e-12f), 1e-6f);\n"
-     "      for (int j = 0; j < a.feat_dim; ++j)\n        feat[",
-     "      const float denom = 1.f + 0.f * ss;\n"
-     "      for (int j = 0; j < a.feat_dim; ++j)\n        feat["),
-]
-_TM_MM = _TM_EMB + [
-    ("nerf_heads.cu", "      v = k < C + FC ? sinf(ang) : cosf(ang);", "      v = ang;"),
-]
-TM_K1 = {
+# The anatomy copies of K1 (csrc/nerf_heads.cu): (file, anchor, replacement)
+_PRODUCTS = ("      rw_mma<NW>(acc, al[j], dh, j);\n      rw_mma<NW>(acc, ah[j], dl, 1);\n"
+             "      rw_mma<NW>(acc, ah[j], dh, 1);")
+K1_COPIES = {
     "full": [],
-    "emb": _TM_EMB,
-    "mm": _TM_MM,
-    "mmpure": _TM_MM + [(
-        "nerf_heads.cu",
-        "    // base MLP -> feat (final ReLU) in F; density from the sdf head\n",
-        "    for (int l = 0; l < 14; ++l)\n"
-        "      tm_gemm<true>(hb.w1[1], 128, 128, KSegs{pp[(l + 1) & 1], 128, pp[(l + 1) & 1], 0, ts},\n"
-        "                    tr, as, a.stage_ld, TmEpiHidden{pp[l & 1], hb.b[1], ts});\n"
-        "    if (threadIdx.x < tr) vis[row0 + threadIdx.x] = pp[1][threadIdx.x];\n"
-        "    continue;\n",
-    )],
-}
-TM_K2 = {
-    "full": [],
-    "no_rmw": [
-        ("mlp_tiles.cuh",
-         "    if (!first) {\n#pragma unroll\n      for (int i = 0; i < 4; ++i)",
-         "    if (0) {\n#pragma unroll\n      for (int i = 0; i < 4; ++i)"),
-        ("mlp_tiles.cuh",
-         "        if (j < n_o && k < K) dw[(size_t)j * K + k] = acc[i][q];",
-         "        if (j < n_o && k < K && acc[i][q] == 12345.f) dw[(size_t)j * K + k] = acc[i][q];"),
-    ],
-    "no_wgrad": [
-        ("mlp_tiles.cuh",
-         "  const int n_jt = (n_o + 3) / 4, n_kb = (K + 127) / 128;",
-         "  if (n_o > 0) return;\n  const int n_jt = (n_o + 3) / 4, n_kb = (K + 127) / 128;"),
-    ],
-}
-
-# The anatomy copies of this checkout's K1 (csrc/nerf_heads.cu on
-# csrc/heads_mma.cuh).
-_MMA_EMB = [
-    ("nerf_heads.cu",
-     "    density[row0 + r] = (0.5f + 0.5f * nh_sign(s) * expm1f(-fabsf(s) * ib)) * ib;",
-     "    density[row0 + r] = s * ib;"),
-    ("nerf_heads.cu",
-     "    y[(size_t)(row0 + m) * NH_RGB + n] = nh_sigmoid(v + __ldg(b + n));",
-     "    y[(size_t)(row0 + m) * NH_RGB + n] = v + __ldg(b + n);"),
-    ("nerf_heads.cu",
-     "    const float denom = fmaxf(sqrtf(ss + 1e-12f), 1e-6f);\n"
-     "    for (int j = 0; j < a.feat_dim; ++j) feat[",
-     "    const float denom = 1.f + 0.f * ss;\n"
-     "    for (int j = 0; j < a.feat_dim; ++j) feat["),
-]
-_MMA_MM = _MMA_EMB + [
-    ("nerf_heads.cu", "  float v = k < C + FC ? sinf(ang) : cosf(ang);", "  float v = ang;"),
-]
-MMA_K1 = {
-    "full": [],
-    "emb": _MMA_EMB,
-    "mm": _MMA_MM,
-    "mmpure": _MMA_MM + [(
-        "nerf_heads.cu",
-        "  // base MLP -> feat (final ReLU) in F; density from the sdf head\n",
-        "  for (int l = 0; l < 14; ++l)\n"
-        "    nh_layer(NhActIn{pp[(l + 1) & 1], ldh, 128, pp[(l + 1) & 1], ldh, 128},\n"
-        "             nh_pk(wpk, hb, 1), 128, 128, wsl, NhEpiRelu{pp[l & 1], ldh, hb.b[1]});\n"
-        "  if (threadIdx.x < NH_TR) vis[row0 + threadIdx.x] = pp[1][threadIdx.x * ldh];\n"
-        "  return;\n",
-    )],
-    # the last layers of the heads and rgb2 128 wide, on the base head's
-    # 128 x 128 layer-1 weight
-    "mmwide": _MMA_MM + [
-        ("nerf_heads.cu",
-         "      nh_layer(in, nh_pk(wpk, h, l), h.out_dim[l], h.in_dim[l], wsl, epi_last);",
-         "      nh_layer(in, NhPk{wpk + a.head[0].pk_off[1], nh_kp(h.in_dim[l])}, 128, h.in_dim[l],\n"
-         "               wsl, epi_last);"),
-        ("nerf_heads.cu",
-         "    if (y != nullptr) y[(size_t)(row0 + m) * n_out + n] = o;",
-         "    if (y != nullptr && n < n_out) y[(size_t)(row0 + m) * n_out + n] = o;"),
-        ("nerf_heads.cu",
-         "           NhPk{wpk + a.pk_rgb2, nh_kp(a.rgb_hidden)}, NH_RGB, a.rgb_hidden, wsl,\n"
-         "           NhEpiSigmoidOut{rgb, a.b_rgb2, row0});",
-         "           NhPk{wpk + hb.pk_off[1], nh_kp(a.rgb_hidden)}, 128, a.rgb_hidden, wsl,\n"
-         "           NhEpiOut{rgb, pp[0], ldh, hb.b[1], row0, NH_RGB});"),
-    ],
-    "mm-tf32": _MMA_MM + [
-        ("heads_mma.cuh",
-         "  hm_mma0(t, al, bh0, bh1);\n  hm_mma(t, ah, bl0, bl1);\n  hm_mma(t, ah, bh0, bh1);\n",
-         "  hm_mma0(t, ah, bh0, bh1);\n"),
-    ],
-    # a diagnostic: the weight slabs are never loaded (stale shared memory)
+    "no-math": [("nerf_heads.cu", _PRODUCTS, "      if (0) {\n" + _PRODUCTS + "\n      }")],
+    "mm-1x": [("nerf_heads.cu", _PRODUCTS, "      rw_mma<NW>(acc, ah[j], dh, j);")],
     "no-wstage": [(
         "nerf_heads.cu",
-        "      hm_cp16(dst + half * NH_NMAX * NH_LDS + n * NH_LDS + q,",
-        "      if (0) hm_cp16(dst + half * NH_NMAX * NH_LDS + n * NH_LDS + q,",
+        "      rw_bulk_load(ring + i * NH_SLAB, src, bytes, full + i);",
+        "      asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\" ::\"r\"(rw_addr(full + i)));",
+    ), (
+        "nerf_heads.cu",
+        "    rw_bulk_load(ring + slot * NH_SLAB, src, bytes, full + slot);",
+        "    asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\" ::\"r\"(rw_addr(full + slot)));",
     )],
 }
+# K2's anatomy copies; K2 is also timed on K1's copies, whose products and
+# weight stream are those of K2's dIn too
+_DW_PRODUCTS = ("      rw_mma<NWO>(acc, al[j], dh, j);\n      rw_mma<NWO>(acc, ah[j], dl, 1);\n"
+                "      rw_mma<NWO>(acc, ah[j], dh, 1);")
+K2_COPIES = {
+    # dW without its products; without A's copies (the tiles keep stale values)
+    "dw-no-math": [("nerf_heads.cu", _DW_PRODUCTS, "      if (0) {\n" + _DW_PRODUCTS + "\n      }")],
+    "dw-no-a": [
+        ("nerf_heads.cu", "    for (int i = 0; i < S.n; ++i) bytes += NH_RS * 4u * S.ld[i];", ""),
+        ("nerf_heads.cu", "  if (t < S.n)\n    nh_bulk(", "  if (0)\n    nh_bulk("),
+    ],
+    # dIn without the ReLU masks' loads (every unit on); without storing G for dW
+    "din-no-masks": [("nerf_heads.cu",
+                      "      w[i] = valid && k < n ? __ldg(act + (size_t)(r0 + row) * n + k) : 0.f;",
+                      "      w[i] = valid && k < n ? 1.f : 0.f;")],
+    "din-no-gput": [("nerf_heads.cu",
+                     "  for (int e = threadIdx.x & 127; e < (NH_HALF / 4) * nwo; e += 128) {",
+                     "  for (int e = threadIdx.x & 127; e < 0; e += 128) {")],
+}
 # what each kind of K2 launch is (csrc/nerf_heads.cu:lab4d_nerf_heads_bwd)
-K2_KINDS = ("output cotangents", "embedding", "dW", "dIn", "dx fold", "appearance", "reduction",
-            "weight split")
+K2_KINDS = {7: "weight split", 3: "dIn engine", 2: "dW and appearance pairs", 6: "reduction"}
 
 
 def patched_sources(csrc, patches, main="nerf_heads.cu"):
@@ -217,14 +143,16 @@ def build_copies(csrc, copies, out_dir, main="nerf_heads.cu"):
 
 
 def anatomy_round(FK, libs, heads, stream, reps):
-    """K1's anatomy copies (libs, bound by FK.bind_signatures): `full`
-    against nerf_heads_reference, then {copy: median ms} over reps rounds;
-    returns (max abs error of full, times)."""
+    """K1's anatomy copies (libs, bound by FK.bind_signatures), each saving
+    its layer outputs, and `no-save` (full without saving): `full` against
+    nerf_heads_reference, then {copy: median ms} over reps rounds; returns
+    (max abs error of full, times)."""
     from lab4d_tpu_torch.tools.profile_k4b_phases import _time_rounds
 
     err = check_full(FK, libs["full"], heads, stream)
-    runs = {n: (lambda lib=lib: FK._launch_fwd(lib, *heads, stream, save=False))
+    runs = {n: (lambda lib=lib: FK._launch_fwd(lib, *heads, stream, save=True))
             for n, lib in libs.items()}
+    runs["no-save"] = lambda: FK._launch_fwd(libs["full"], *heads, stream, save=False)
     return err, _time_rounds(runs, reps)
 
 
@@ -246,7 +174,7 @@ def _print(tag, what, times, base="full"):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=3)
-    parser.add_argument("--parent", default=None, help="root of a checkout of the row-tiled K1 / K2")
+    parser.add_argument("--parent", default=None, help="root of a checkout of the mma.sync K1 / K2")
     args = parser.parse_args(argv)
 
     import torch
@@ -258,6 +186,7 @@ def main(argv=None):
     from pathlib import Path
 
     import chip_smoke
+    from lab4d_tpu_torch.ops import field_kernel as FK
     from lab4d_tpu_torch.ops import mlp_kernel as K
     from lab4d_tpu_torch.ops.build import BUILD_DIR, CSRC_DIR
     from lab4d_tpu_torch.tools.profile_k4b_phases import _time_rounds
@@ -266,36 +195,16 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
     heads, g = chip_smoke._flagship_heads(gen)
     x, P = heads[0], heads[0].shape[0]
-    n_sm, stream = K._n_sm(x.device), K._stream(x.device)
+    stream = K._stream(x.device)
     out_dir = BUILD_DIR / "heads_phases"
-
+    procs = start_copies(CSRC_DIR, {**K1_COPIES, **K2_COPIES}, str(out_dir / "new"))
     if args.parent:
-        pfk = load_parent_wrapper(args.parent)
-        pcsrc = Path(args.parent) / "lab4d_tpu_torch" / "csrc"
-        libs = build_copies(pcsrc, {**{f"k1-{n}": p for n, p in TM_K1.items()},
-                                    **{f"k2-{n}": p for n, p in TM_K2.items() if n != "full"}},
-                            str(out_dir / "parent"))
-        for lib in libs.values():
-            pfk.bind_signatures(lib)
-        libs_parent_full = libs["k1-full"]
-        want = pfk.nerf_heads_reference(*heads)
-        got = pfk._launch_fwd(libs["k1-full"], *heads, stream)
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        print(f"[parent] K1 full vs plain: max abs err {err:.3e} (tol {chip_smoke.KERNEL_TOL:g})")
-        if not err <= chip_smoke.KERNEL_TOL:
-            sys.exit("profile_heads_phases: the parent's K1 disagrees with its plain version")
-        k1 = {n: (lambda lib=libs[f"k1-{n}"]: pfk._launch_fwd(lib, *heads, stream)) for n in TM_K1}
-        _print("parent-k1", f"{P} points", _time_rounds(k1, args.reps))
-        k2 = {n: (lambda lib=libs[f"k1-full" if n == "full" else f"k2-{n}"]:
-                  pfk._launch_bwd(lib, x, g, *heads[1:], n_sm, stream)) for n in TM_K2}
-        _print("parent-k2", f"{P} points", _time_rounds(k2, args.reps))
-
-    from lab4d_tpu_torch.ops import field_kernel as FK
-
-    libs = build_copies(CSRC_DIR, MMA_K1, str(out_dir / "new"))
+        pprocs = start_copies(Path(args.parent) / "lab4d_tpu_torch" / "csrc", {"full": []},
+                              str(out_dir / "parent"))
+    libs = finish_copies(procs, str(out_dir / "new"))
     for lib in libs.values():
         FK.bind_signatures(lib)
-    err, times = anatomy_round(FK, libs, heads, stream, args.reps)
+    err, times = anatomy_round(FK, {n: libs[n] for n in K1_COPIES}, heads, stream, args.reps)
     print(f"[heads-anatomy] K1 full vs plain: max abs err {err:.3e} (tol {chip_smoke.KERNEL_TOL:g})")
     if not err <= chip_smoke.KERNEL_TOL:
         sys.exit("profile_heads_phases: K1 disagrees with its plain version")
@@ -303,20 +212,31 @@ def main(argv=None):
 
     lib = FK._kernel_lib()
     *outs, acts = FK._launch_fwd(lib, *heads, stream, save=True)
-    phases = k2_phases(FK, lib, heads, g, acts, outs[1], stream, args.reps)
-    print(f"[k2-phases] {phases.pop('launches')} CUDA launches per call")
-    for name, ms in phases.items():
-        print(f"[k2-phases] {name}: {ms:.3f} ms")
-    if args.parent:  # the row-tiled kernels and this checkout's in turns
-        runs = {
-            "K1 row-tiled": lambda: pfk._launch_fwd(libs_parent_full, *heads, stream),
-            "K1 (saving for K2)": lambda: FK._launch_fwd(lib, *heads, stream, save=True),
-            "K1 (no saving)": lambda: FK._launch_fwd(lib, *heads, stream, save=False),
-            "K2 row-tiled": lambda: pfk._launch_bwd(libs_parent_full, x, g, *heads[1:], n_sm, stream),
-            "K2": lambda: FK._launch_bwd(lib, x, g, *heads[1:], acts, outs[1], stream),
-        }
-        for name, ms in _time_rounds(runs, args.reps).items():
-            print(f"[turns] {name}: {ms:.3f} ms")
+    for name, clib in libs.items():  # K2 by launch on every copy (from the same saved outputs)
+        phases = k2_phases(FK, clib, heads, g, acts, outs[1], stream, args.reps)
+        n = phases.pop("launches")
+        print(f"[k2-phases] {name}: {n} CUDA launches; "
+              + ", ".join(f"{k} {ms:.3f} ms" for k, ms in phases.items()))
+    if args.parent:  # PR 4 / 5's mma.sync kernels and this checkout's in turns
+        pfk = load_parent_wrapper(args.parent)
+        plib = pfk.bind_signatures(finish_copies(pprocs, str(out_dir / "parent"))["full"])
+        pouts = pfk._launch_fwd(plib, *heads, stream, save=True)
+        want = FK.nerf_heads_reference(*heads)
+        perr = max(float((a - b).abs().max()) for a, b in zip(pouts[:4], want))
+        print(f"[parent] K1 vs plain: max abs err {perr:.3e} (tol {chip_smoke.KERNEL_TOL:g})")
+        if not perr <= chip_smoke.KERNEL_TOL:
+            sys.exit("profile_heads_phases: the parent's K1 disagrees with its plain version")
+        for what, old, new in (
+            ("K1 (saving for K2)", lambda: pfk._launch_fwd(plib, *heads, stream, save=True),
+             lambda: FK._launch_fwd(lib, *heads, stream, save=True)),
+            ("K1 (no saving)", lambda: pfk._launch_fwd(plib, *heads, stream, save=False),
+             lambda: FK._launch_fwd(lib, *heads, stream, save=False)),
+            ("K2", lambda: pfk._launch_bwd(plib, x, g, *heads[1:], pouts[4], pouts[1], stream),
+             lambda: FK._launch_bwd(lib, x, g, *heads[1:], acts, outs[1], stream)),
+        ):
+            t = _time_rounds({"parent a": old, "new a": new, "new b": new, "parent b": old}, args.reps)
+            print(f"[turns] {what}: parent {t['parent a']:.3f} / new {t['new a']:.3f} / "
+                  f"new {t['new b']:.3f} / parent {t['parent b']:.3f} ms")
     print(card)
 
 
@@ -337,14 +257,14 @@ def k2_phases(FK, lib, heads, g, acts, rgb, stream, reps):
     import torch
 
     x = heads[0]
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(64)]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
     for e in events:  # creates each event
         e.record()
     per = []
     for _ in range(reps + 1):
         kinds = FK._launch_bwd(lib, x, g, *heads[1:], acts, rgb, stream, events=events)[-1]
         torch.cuda.synchronize()
-        t = {k: 0.0 for k in K2_KINDS}
+        t = {k: 0.0 for k in K2_KINDS.values()}
         for i, kind in enumerate(kinds):
             t[K2_KINDS[kind]] += events[i].elapsed_time(events[i + 1])
         t["total"] = events[0].elapsed_time(events[len(kinds)])

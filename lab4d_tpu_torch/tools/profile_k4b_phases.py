@@ -55,9 +55,11 @@ the dense map and the post-warp):
 --parent DIR: the root of a checkout of an earlier commit. Its
 fused_pe_mlp.cu and fused_relu_mlp.cu are built from DIR, its wrapper
 DIR/lab4d_tpu_torch/ops/mlp_kernel.py loaded under another name, checked
-against its plain versions, and its K4f / K4b (with the row-tiled design
-of commit 450f66c in mind: at all four shapes of K4_SHAPES, the fourth the
-512 visibility-decay points of a step, which get the turns only) and K3f
+against its plain versions, and its K4f / K4b (at all four shapes of
+K4_SHAPES, the fourth the 512 visibility-decay points of a step, which get
+the turns only; a parent whose K4b takes K4f's saved outputs runs its
+saving K4f and that K4b, the row-tiled one of commit 450f66c its
+recomputing K4b) and K3f
 (saving) / K3b (from its own K3f's saved outputs) timed in turns with this
 checkout's: parent, new, new, parent in every round, at every K3 shape
 above, beside the plain versions. --k3_only: only the K3 parts.
@@ -80,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import os
 import sys
 
@@ -541,12 +544,22 @@ def main(argv=None):
             _anatomy(K, libs, fargs, g, acts, stream, args.reps, label)
         if pmk is None:
             continue
-        pwant = K.pe_mlp_backward_reference(x, g, win, weights, biases, freqs, skips)
-        pgot = pmk.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips)
+        # a parent whose K4b runs from K4f's saved outputs (PR 5 on) times
+        # its saving K4f and that K4b; the row-tiled one recomputes them
+        # (checked against the plain VJP from its own saved outputs, as K4b
+        # is: a recomputed forward differs at the ReLU ties)
+        kw = {}
+        if "saved" in inspect.signature(pmk.fused_pe_mlp_backward).parameters:
+            kw["saved"] = pmk.pe_mlp_forward_saved(*fargs)[1]
+            pwant = K.pe_mlp_backward_saved_reference(x, g, win, weights, biases, freqs, skips,
+                                                      kw["saved"])
+        else:
+            pwant = K.pe_mlp_backward_reference(x, g, win, weights, biases, freqs, skips)
+        pgot = pmk.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips, **kw)
         perr = max(float((pmk.fused_pe_mlp(*fargs) - want).abs().max()),
                    chip_smoke._bwd_errs(pgot, pwant)[1])
         torch.cuda.synchronize()
-        print(f"[parent] {label}: row-tiled K4f abs err / K4b rel err vs plain, worst {perr:.3e} "
+        print(f"[parent] {label}: the parent's K4f abs err / K4b rel err vs plain, worst {perr:.3e} "
               f"(tol {tol:g})")
         if not perr <= tol:
             sys.exit(f"profile_k4b_phases: the parent's K4f / K4b {label} disagree with plain")
@@ -555,11 +568,11 @@ def main(argv=None):
         new_f = lambda: K._launch_pe_fwd(libs["full"], *fargs, K._stream(x.device), True)  # noqa: E731
         new_b = lambda: K._launch_pe_bwd(libs["full"], x, g, win, weights, biases, freqs,  # noqa: E731
                                          skips, acts, K._stream(x.device))
-        old_f = lambda: pmk.fused_pe_mlp(*fargs)  # noqa: E731
-        old_b = lambda: pmk.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips)  # noqa: E731
-        turns = _time_rounds({"K4f row-tiled 1": old_f, "K4f 1": new_f, "K4f 2": new_f,
-                              "K4f row-tiled 2": old_f, "K4b row-tiled 1": old_b, "K4b 1": new_b,
-                              "K4b 2": new_b, "K4b row-tiled 2": old_b}, args.reps,
+        old_f = (lambda: pmk.pe_mlp_forward_saved(*fargs)) if kw else (lambda: pmk.fused_pe_mlp(*fargs))
+        old_b = lambda: pmk.fused_pe_mlp_backward(x, g, win, weights, biases, freqs, skips, **kw)  # noqa: E731
+        turns = _time_rounds({"K4f parent 1": old_f, "K4f 1": new_f, "K4f 2": new_f,
+                              "K4f parent 2": old_f, "K4b parent 1": old_b, "K4b 1": new_b,
+                              "K4b 2": new_b, "K4b parent 2": old_b}, args.reps,
                              chip_smoke.device_ms if small else None)
         print(f"[turns] {label}, ms (parent, new, new, parent): " + " ".join(
             f"{k}={v:.4f}" for k, v in turns.items()))

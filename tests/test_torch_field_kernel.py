@@ -25,6 +25,7 @@ each array's largest entry).
 """
 
 import contextlib
+import ctypes
 
 import numpy as np
 import pytest
@@ -262,30 +263,46 @@ def test_pack_field_nets_matches_jax(flagship_fields):
 
 
 def test_flagship_launch_plan(flagship_fields):
-    """K1 at the flagship step: 64-point tiles, one block per tile within the
-    227 KB a block may use; K2: 128 chunks of the points for its split-K
-    weight gradients; K1 saves 2,001 floats per point for K2."""
+    """K1 / K2 at the flagship step: tiles of 128 points (64 per warpgroup,
+    each within a pair), one persistent block per SM within the 227 KB a
+    block may use, 3 weight slabs in flight; K1 is 20 passes, K2's dIn 21
+    (d hc, then each head's layers, x columns before h); K2's dW 21 layers
+    in 23 blocks per chunk of rows, 46 chunks (about eight waves on 132
+    SMs); K1 saves 2,001 floats per point for K2."""
     _, _, pmodel = flagship_fields
     field = pmodel.fields.field_params["fg"]
-    nets = field.pack_field_nets(torch.tensor([1, 2]), None, None, 2)[0]
-    cfg = field.pack_field_nets(torch.tensor([1, 2]), None, None, 2)[1]
+    nets, cfg = field.pack_field_nets(torch.tensor([1, 2]), None, None, 2)[:2]
     dims = FK.heads_dims(nets, cfg)
-    assert dims == FK.HeadsDims(width=128, rgb_hidden=64, max_cx=75, g_width=128)
+    assert dims == FK.HeadsDims(width=128, rgb_hidden=64, max_cx=75, g_width=128, dw_blocks=23,
+                                row_align=64)
     plan = FK.heads_plan(dims, 1024, 262144)
-    assert (plan.tile_rows, plan.grid, plan.n_chunks) == (64, 4096, 128)
-    assert plan.smem_bytes == FK.heads_smem(dims) <= FK.SMEM_PER_SM
+    assert plan == FK.HeadsPlan(tile_rows=128, smem_bytes=228480, grid=132, stages=3, ldx=84, ldh=132,
+                                n_chunks=46, chunk_rows=5728)
+    assert plan.smem_bytes == FK.heads_smem(84, 132, 3) <= FK.SMEM_PER_SM < FK.heads_smem(84, 132, 4)
+    assert FK.heads_plan(dims, 64, 64 * 3).grid == 2  # a ragged half tile
     offs, per_point = FK.act_layout(nets)
     assert per_point == 768 + 384 + 64 + 129 + 656 == 2001
     assert offs[("color", 0)] == 768 and offs["rgb_h"] == 1152 and offs[("feat", 0)] == 1345
-    # K1's pre-split weights: hi and lo of every layer, k padded to 32
-    pk, pk_total = FK.pack_layout(nets, cfg)
-    shapes = [w.shape for n in FK.HEADS for w in nets[n][0::2]] + [(64, 128), (3, 64)]
-    assert pk_total == sum(2 * n * -(-k // 32) * 32 for n, k in shapes) == 487936
-    assert list(pk.values()) == sorted(pk.values()) and pk[("base", 0)] == 0
+    s = FK.heads_shapes(nets, cfg)
+    k1, img1 = FK.heads_passes(s, False)
+    k2, img2 = FK.heads_passes(s, True)
+    assert [FK.EPI[p.epi] for p in k1] == ["hid"] * 5 + ["base", "hid", "hid", "col", "rgb1", "rgb2",
+                                                         "hid", "hid", "vis"] + ["hid"] * 5 + ["feat"]
+    assert [p.nw for p in k1 if p.n < 128] == [64, 8, 64, 64, 8, 16]
+    assert [p.nxs for p in k1 if p.nxs] == [4, 4, 5, 4, 3, 3]  # round16 of 63, 63, 75, 63, 39, 39
+    assert [FK.EPI[p.epi] for p in k2].count("dx") == 6 and len(k2) == 21
+    assert [(p.head, p.layer) for p in k2 if p.first] == [(0, 5), (1, 2), (2, 2), (3, 5)]
+    assert (img1, img2) == (477184, 497664)  # 1.9 and 2.0 MB of split weights
+    dws, gstride, blocks = FK.heads_dw(s)
+    assert (len(dws), blocks, gstride) == (21, 23, 32 * (8 + 8 + 64 + 6 * 128 + 3 * 128 + 64 + 64 + 8
+                                                         + 5 * 128 + 16))
+    assert [FK.A_KINDS[d.kind] for d in dws[3:9]] == ["x", "h", "h", "h", "xh", "h"]
     with pytest.raises(ValueError, match="pairs"):
         FK.heads_plan(dims, 1024, 1000)
     with pytest.raises(ValueError, match="tiles"):
         FK.heads_plan(dims, 96, 96 * 4)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        FK.heads_plan(dims._replace(row_align=2), 1024, 262144)
 
 
 def test_wrappers_refuse_other_devices():
@@ -328,126 +345,421 @@ def flagship_case(seed=1, n_pairs=2, spp=1024):
     return x, appr, win_b, win_c, pn, cfg, spp, g
 
 
+def _cuda_case(case):
+    """(args on the card, cotangents) of a cuda test: jax_layout_case's odd
+    widths on 2 pairs of 64 points, on 3 pairs of 64 (the last tile half
+    empty), or the flagship widths on 2 pairs of 1024 samples."""
+    if case == "flagship":
+        x, appr, win_b, win_c, pn, cfg, spp, g = flagship_case()
+        args = (torch.tensor(x), torch.tensor(appr), torch.tensor(win_b), torch.tensor(win_c), pn,
+                torch.tensor([IBETA]), cfg, spp)
+        g = [torch.tensor(t) for t in g]
+    else:
+        args, g = _small_args(seed=2, n_pairs=3 if case == "odd-pairs-64" else 2, spp=64)
+    dev = "cuda"
+    args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args[:4]) + (
+        {k: [t.to(dev) for t in v] for k, v in args[4].items()}, args[5].to(dev)) + args[6:]
+    return args, [t.to(dev) for t in g]
+
+
+def _grads_within(got, want, tol=1e-4):
+    for a, b in zip(_grad_list(got), _grad_list(want)):
+        bound = tol * max(1.0, float(b.abs().max()))
+        assert float((a.reshape(b.shape) - b).abs().max()) <= bound
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("flagship", [False, True])
-def test_cuda_kernels_match_plain(flagship):
-    """K1 and K2 against their plain versions on the card (fp32 FMA vs
-    cuBLAS fp32, TF32 off): outputs atol 1e-4, gradients within 1e-4 of
-    each array's largest entry (and at least 1e-4)."""
+@pytest.mark.parametrize("case", ["small", "odd-pairs-64", "flagship"])
+def test_cuda_kernels_match_plain(case):
+    """K1 and K2 against their plain versions on the card (cuBLAS fp32,
+    TF32 off): outputs and every saved layer output atol 1e-4; K2's
+    gradients within 1e-4 of each array's largest entry (and at least
+    1e-4) of nerf_heads_backward_saved_reference on the same saved
+    outputs, and of autograd through the plain forward outside the rows
+    where a ReLU input lies on the other side of zero in the two forwards
+    (chip_smoke's gate: every such input within 10x K1's saved-output error
+    of zero); K1's split weights bitwise FK.pack_reference; K1 2 CUDA
+    launches, K2 4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    import chip_smoke
+
     torch.backends.cuda.matmul.allow_tf32 = False
-    x, appr, win_b, win_c, nets, g = jax_layout_case()
-    cfg, spp = cfg_of(), 64  # K1's tiles are 64 points, within one pair
-    pn = to_port(nets)
-    rng = np.random.default_rng(2)
-    x = (rng.standard_normal((M * spp, 3)) * 0.4).astype(np.float32)
-    g = [rng.standard_normal((M * spp, c)).astype(np.float32) for c in FK.OUT_DIMS]
-    if flagship:  # the flagship widths on 2 pairs of 1024 samples
-        x, appr, win_b, win_c, pn, cfg, spp, g = flagship_case()
-    dev = "cuda"
-    pn = {k: [t.to(dev) for t in v] for k, v in pn.items()}
-    args = (torch.tensor(x, device=dev), torch.tensor(appr, device=dev),
-            torch.tensor(win_b, device=dev), torch.tensor(win_c, device=dev), pn,
-            torch.tensor([IBETA], device=dev), cfg, spp)
-    tg = [torch.tensor(t, device=dev) for t in g]
+    args, tg = _cuda_case(case)
     n1, n2 = FK.fused_nerf_heads.launches, FK.fused_nerf_heads_backward.launches
     with pytest.raises(ValueError, match="saved"):  # K2 runs only from K1's saved outputs
         FK.fused_nerf_heads_backward(args[0], tg, *args[1:])
     got, acts = FK.nerf_heads_forward_saved(*args)
+    assert FK.fused_nerf_heads.cuda_launches == 2
     got_b = FK.fused_nerf_heads_backward(args[0], tg, *args[1:], saved=(acts, got[1]))
+    assert FK.fused_nerf_heads_backward.cuda_launches == 4
     want, want_acts = FK.nerf_heads_forward_saved_reference(*args)
-    want_b = FK.nerf_heads_backward_reference(args[0], tg, *args[1:])
     torch.cuda.synchronize()
     assert (FK.fused_nerf_heads.launches, FK.fused_nerf_heads_backward.launches) == (n1 + 1, n2 + 1)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
     torch.testing.assert_close(acts, want_acts, atol=1e-4, rtol=0)  # every saved layer output
-    flat = [got_b[0], got_b[1], got_b[3]] + FK.flatten_nets(got_b[2])[0]
-    flat_w = [want_b[0], want_b[1], want_b[3]] + FK.flatten_nets(want_b[2])[0]
-    for a, b in zip(flat, flat_w):
-        bound = 1e-4 * max(1.0, float(b.abs().max()))
-        assert float((a.reshape(b.shape) - b).abs().max()) <= bound
+    _grads_within(got_b, FK.nerf_heads_backward_saved_reference(args[0], tg, *args[1:], acts, got[1]))
+    tie_rows, n_ties, z_tie = chip_smoke._relu_ties(FK, args, acts)
+    assert z_tie <= 10 * float((acts - want_acts).abs().max()), (n_ties, z_tie)
+    keep = (~tie_rows).float()[:, None]
+    kept = [t * keep for t in tg]
+    _grads_within(FK.fused_nerf_heads_backward(args[0], kept, *args[1:], saved=(acts, got[1])),
+                  FK.nerf_heads_backward_reference(args[0], kept, *args[1:]))
+    x, appr, win_b, win_c, nets, ibeta, cfg, spp = args
+    img = FK.heads_passes(FK.heads_shapes(nets, cfg), False)[1]
+    wpk = torch.empty(img + (x.shape[0] // spp) * nets["rgb1"][0].shape[0], device="cuda")
+    FK._launch_fwd(FK._kernel_lib(), *args, FK._stream(x.device), wpk=wpk)
+    want_pk = FK.pack_reference({k: [t.cpu() for t in v] for k, v in nets.items()}, cfg,
+                                appr.shape[1], win_b.cpu(), win_c.cpu())
+    assert torch.equal(wpk[:img].cpu(), want_pk)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_repeat_bitwise():
+    """K1 and K2 twice on the same inputs at the flagship widths: every
+    output, saved layer output and gradient bitwise equal (no float
+    atomics; every sum across warps, blocks and chunks in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    args, tg = _cuda_case("flagship")
+    runs = []
+    for _ in range(2):
+        outs, acts = FK.nerf_heads_forward_saved(*args)
+        grads = FK.fused_nerf_heads_backward(args[0], tg, *args[1:], saved=(acts, outs[1]))
+        runs.append(list(outs) + [acts] + _grad_list(grads))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["odd-pairs-64", "flagship"])
+def test_cuda_heads_plan(case):
+    """The library's own layout (lab4d_nerf_heads_layout) against
+    heads_plan: the engine's shared memory per block and its blocks (one
+    per SM, at most one per tile), dW's shared memory, K2's scratch floats
+    (split weights, G image, workspace slices, per-half and per-pair sums),
+    the NhArgs size; a layout it does not take is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the sizes are the kernel library's")
+    args, _ = _cuda_case(case)
+    x, appr, win_b, win_c, nets, ibeta, cfg, spp = args
+    lib = FK._kernel_lib()
+    P = x.shape[0]
+    plan = FK.heads_plan(FK.heads_dims(nets, cfg), spp, P, FK._n_sm(x.device))
+    s = FK.heads_shapes(nets, cfg)
+    for bwd in (False, True):
+        a = FK._prepare(*args, bwd)[0]
+        smem, grid, dw_smem, scratch, size = FK.heads_layout(lib, a, bwd)
+        assert (smem, grid, dw_smem, size) == (plan.smem_bytes, plan.grid, FK.DW_SMEM,
+                                               ctypes.sizeof(FK._NhArgs))
+        assert max(smem, dw_smem) <= FK.SMEM_PER_SM and size + 96 <= 4096  # kernel parameters
+        if bwd:
+            _, gstride, blocks = FK.heads_dw(s)
+            n_slice = FK._grad_offsets(FK.split_nets(nets, cfg, appr.shape[1]), s.rgb_hidden,
+                                       appr.shape[1])[1]
+            ldl = -(-(3 + 6 * max(h.n_freqs for h in s.heads)) // 4) * 4
+            want = (FK.heads_passes(s, True)[1] + -(-P // 128) * 4 * gstride + plan.n_chunks * n_slice
+                    + (P // 64) * (s.rgb_hidden + 1) + (P // spp) * s.rgb_hidden + blocks + P * ldl)
+            assert scratch == want
+        a.stages = 4
+        with pytest.raises(RuntimeError):
+            FK.heads_layout(lib, a, bwd)
+
+
+# ------------------------------------------------------- the engine on the CPU
+
+
+def unpack_pass(pk, p):
+    """B (nsl * 16, nw) of a pass from its slabs in the packed weights,
+    each [k / 4][n / 8][n % 8][k % 4], hi then lo: hi + lo in fp64 (exact);
+    every hi is cut to TF32."""
+    f, half = 32 * p.nw, 16 * p.nw
+    out = []
+    for sl in range(p.nsl):
+        hl = [pk[p.img + sl * f + h * half: p.img + sl * f + (h + 1) * half]
+              .reshape(4, p.nw // 8, 8, 4).permute(0, 3, 1, 2).reshape(16, p.nw) for h in (0, 1)]
+        assert torch.equal(hl[0], FK._tf32_cut(hl[0]))
+        out.append(hl[0].double() + hl[1].double())
+    return torch.cat(out)
+
+
+def _ladder(x, cfg, n_freqs, cols):
+    """The shared Fourier ladder [x | sin, cos of frequency 0 | ...] of the
+    points x, zero-padded to cols columns."""
+    P = x.shape[0]
+    ang = x[:, None, :] * torch.tensor(cfg.freqs[:n_freqs], dtype=x.dtype)[:, None]
+    lad = torch.cat([x, torch.stack([ang.sin(), ang.cos()], 2).reshape(P, 6 * n_freqs)], 1)
+    return torch.nn.functional.pad(lad, (0, cols - lad.shape[1]))
+
+
+def emulate_k1(args, mm=torch.matmul):
+    """K1 as the engine computes it, on the CPU: FK.heads_passes in order
+    over the shared ladder, the H and F buffers (a pass writes its first n
+    columns; stale ones meet zero weights), each pass A . B with B unpacked
+    from FK.pack_reference, its epilogue. mm(a, b): the products. Returns
+    ((density, rgb, vis, feat), acts) as nerf_heads_forward_saved_reference."""
+    x, appr, win_b, win_c, nets, ibeta, cfg, spp = args
+    s = FK.heads_shapes(nets, cfg)
+    passes, _ = FK.heads_passes(s, False)
+    pk = FK.pack_reference(nets, cfg, appr.shape[1], win_b, win_c)
+    P, nf = x.shape[0], max(h.n_freqs for h in s.heads)
+    X = _ladder(x, cfg, nf, FK._r16(3 + 6 * nf))
+    H, Fb = torch.zeros(P, 128), torch.zeros(P, 128)
+    snets = FK.split_nets(nets, cfg, appr.shape[1])
+    abias = (snets["rgb1"][2] + appr @ snets["rgb1"][1].T).repeat_interleave(spp, 0)
+    offs, total = FK.act_layout(nets)
+    acts = torch.zeros(P * total)
+    ib = ibeta.reshape(())
+    out = {}
+    for p in passes:
+        B = unpack_pass(pk, p).float()
+        A = torch.cat([X[:, : 16 * p.nxs], (Fb if p.src else H)[:, : 16 * (p.nsl - p.nxs)]], 1)
+        epi, n = FK.EPI[p.epi], p.n
+        b = abias if epi == "rgb1" else (snets["rgb2"][1] if epi == "rgb2"
+                                         else nets[FK.HEADS[p.head]][2 * p.layer + 1])
+        z = mm(A, B)[:, :n] + b
+        if epi in ("hid", "base", "col", "rgb1"):
+            z = torch.relu(z)
+        if epi != "rgb2":
+            key = "rgb_h" if epi == "rgb1" else (FK.HEADS[p.head], p.layer)
+            acts[offs[key] * P: (offs[key] + n) * P] = z.reshape(-1)
+        if epi in ("hid", "rgb1"):
+            H = H.clone()
+            H[:, :n] = z
+        elif epi == "base":
+            Fb[:, :n] = z
+            sdf = z @ snets["sdf"][0].T + snets["sdf"][1]
+            out["density"] = (0.5 + 0.5 * torch.sign(sdf) * torch.expm1(-sdf.abs() * ib)) * ib
+        elif epi == "col":
+            Fb[:, :n] = Fb[:, :n] + z
+        elif epi == "rgb2":
+            out["rgb"] = torch.sigmoid(z)
+        elif epi == "vis":
+            out["vis"] = z
+        else:
+            out["feat"] = z / torch.clamp(torch.sqrt((z * z).sum(-1, keepdim=True) + 1e-12), min=1e-6)
+    return (out["density"], out["rgb"], out["vis"], out["feat"]), acts
+
+
+def emulate_k2(args, g, acts, rgb, mm=torch.matmul, mm_dw=torch.matmul):
+    """K2 as its launches compute it, on the CPU: the output cotangents,
+    FK.heads_passes(bwd) over W^T unpacked from FK.pack_reference (G in H
+    and F, dX of the shared ladder over every head), each layer's G for
+    dW, dx through the ladder's sin / cos, dW = G^T A of FK.heads_dw (the
+    embedding's columns in ladder order, then put back with their window),
+    the pairs' appearance gradients. Returns (dx, dappr, dnets, dibeta)
+    as nerf_heads_backward_saved_reference."""
+    x, appr, win_b, win_c, nets, ibeta, cfg, spp = args
+    s = FK.heads_shapes(nets, cfg)
+    passes, _ = FK.heads_passes(s, True)
+    dws, _, _ = FK.heads_dw(s)
+    pk = FK.pack_reference(nets, cfg, appr.shape[1], win_b, win_c, bwd=True)
+    snets = FK.split_nets(nets, cfg, appr.shape[1])
+    P, W, RH, ib = x.shape[0], s.width, s.rgb_hidden, ibeta.reshape(())
+    offs, _ = FK.act_layout(nets)
+    gd, grgb, gvis, gfeat = g
+
+    def saved(key, width):
+        return acts[offs[key] * P: (offs[key] + width) * P].view(P, width)
+
+    def last(hi):
+        return saved((FK.HEADS[hi], s.heads[hi].n_layers - 1), s.heads[hi].out_dims[-1])
+
+    feat, col, f16 = last(0), last(1), last(3)
+    sdf = feat @ snets["sdf"][0].T + snets["sdf"][1]
+    e = torch.exp(-sdf.abs() * ib)
+    gsd = gd * (-0.5 * ib * ib * e)
+    dib = (gd * (0.5 + 0.5 * torch.sign(sdf) * torch.expm1(-sdf.abs() * ib) - 0.5 * ib * sdf * e)).sum()
+    g_rgb = grgb * rgb * (1 - rgb)
+    g_rgbh = (g_rgb @ snets["rgb2"][0]) * (saved("rgb_h", RH) > 0)
+    nrm = torch.clamp(torch.sqrt((f16 * f16).sum(-1, keepdim=True) + 1e-12), min=1e-6)
+    g_f16 = (gfeat - f16 / nrm * (f16 / nrm * gfeat).sum(-1, keepdim=True)) / nrm
+    G = {0: gsd, 1: g_rgb, 2: g_rgbh}
+    nf = max(h.n_freqs for h in s.heads)
+    H, Fb, dX = torch.zeros(P, 128), torch.zeros(P, 128), torch.zeros(P, FK._r16(3 + 6 * nf))
+    H[:, :RH] = g_rgbh
+    for p in passes:
+        if p.first and p.head == 2:
+            H = H.clone()
+            H[:, :1] = gvis
+        if p.first and p.head == 3:
+            H = H.clone()
+            H[:, : s.feat_dim] = g_f16
+        src = Fb if p.src else H
+        if p.dw >= 0:
+            G[p.dw] = src[:, : dws[p.dw].N].clone()
+        z = mm(src[:, : 16 * p.nsl], unpack_pass(pk, p).float())[:, : p.n]
+        epi = FK.EPI[p.epi]
+        if epi == "dhc":
+            H, Fb = H.clone(), Fb.clone()
+            H[:, :W] = (z + gsd * snets["sdf"][0]) * (feat > 0)
+            Fb[:, :W] = z * (col > 0)
+        elif epi == "dx":
+            dX[:, : p.n] += z
+        else:
+            h = s.heads[p.head]
+            H = H.clone()
+            H[:, : p.n] = z * (saved((FK.HEADS[p.head], p.layer - 1), h.out_dims[p.layer - 1]) > 0)
+    ang = x[:, None, :] * torch.tensor(cfg.freqs[:nf])[:, None]
+    lad = dX[:, 3: 3 + 6 * nf].reshape(P, nf, 2, 3)
+    fr = torch.tensor(cfg.freqs[:nf])[:, None]
+    dx = dX[:, :3] + ((ang.cos() * lad[:, :, 0] - ang.sin() * lad[:, :, 1]) * fr).sum(1)
+    X = _ladder(x, cfg, nf, 3 + 6 * nf)
+    dn = {name: [None] * len(arrs) for name, arrs in nets.items()}
+    for i, d in enumerate(dws):
+        if d.head < 0:
+            A = {-1: feat, -2: saved("rgb_h", RH), -3: feat + col}[d.head]
+        else:
+            h, name = s.heads[d.head], FK.HEADS[d.head]
+            cx = h.c_x if h.has_x(d.layer) else 0
+            parts = [X[:, :cx]] + ([saved((name, d.layer - 1), h.out_dims[d.layer - 1])] if d.layer else [])
+            A = torch.cat(parts, 1)
+        dwt, db = mm_dw(A.T.contiguous(), G[i]), G[i].sum(0)
+        if d.head == -1:
+            dn["sdf"] = [dwt.T, db]
+        elif d.head == -2:
+            dn["rgb2"] = [dwt.T, db]
+        elif d.head == -3:
+            dw_hc = dwt.T
+        else:
+            w = torch.zeros(d.N, d.K)
+            if cx:
+                cols, freq = FK.ladder_order(h.n_freqs)
+                win = {"base": win_b, "color": win_c}.get(name)
+                scale = torch.ones(cx) if win is None else torch.cat(
+                    [torch.ones(3), win.repeat_interleave(6)])
+                w[:, cols] = dwt[:cx].T * scale
+            w[:, cx:] = dwt[cx:].T
+            dn[name][2 * d.layer], dn[name][2 * d.layer + 1] = w, db
+    gpair = g_rgbh.view(-1, spp, RH).sum(1)
+    dn["rgb1"] = [torch.cat([dw_hc, gpair.T @ appr], 1), gpair.sum(0)]
+    return dx, gpair @ snets["rgb1"][1], dn, dib.reshape(1)
+
+
+def _small_args(seed=0, n_pairs=2, spp=64):
+    """jax_layout_case's widths (odd embeddings, W 32, vis 16) on n_pairs
+    pairs of spp points, as fused_nerf_heads' arguments, and cotangents."""
+    x, appr, win_b, win_c, nets, _ = jax_layout_case(seed)
+    rng = np.random.default_rng(seed + 10)
+    x = (rng.standard_normal((n_pairs * spp, 3)) * 0.4).astype(np.float32)
+    appr = (rng.standard_normal((n_pairs, 8)) * 0.3).astype(np.float32)
+    g = [torch.tensor(rng.standard_normal((n_pairs * spp, c)).astype(np.float32)) for c in FK.OUT_DIMS]
+    args = (torch.tensor(x), torch.tensor(appr), torch.tensor(win_b), torch.tensor(win_c), to_port(nets),
+            torch.tensor([IBETA]), cfg_of(), spp)
+    return args, g
+
+
+def _grad_list(res):
+    dx, dappr, dn, dib = res
+    return [dx, dappr, dib.reshape(-1)] + [t.reshape(-1) for t in FK.flatten_nets(dn)[0]]
+
+
+@pytest.mark.parametrize("case", ["small", "flagship"])
+def test_engine_emulation_matches_plain(case):
+    """The engine's dataflow on the CPU (emulate_k1 / emulate_k2: the pass
+    and dW tables, the packed weights, the shared ladder, the buffers and
+    every epilogue) against the plain versions: K1's outputs and saved
+    layer outputs within 1e-5, K2's gradients within 1e-5 of each array's
+    largest entry (fp32, sums in another order). Small: jax_layout_case's
+    odd widths; flagship: D5 W128 on 256 points."""
+    if case == "small":
+        args, g = _small_args()
+    else:
+        x, appr, win_b, win_c, pn, cfg, spp, gn = flagship_case(n_pairs=2, spp=128)
+        args = (torch.tensor(x), torch.tensor(appr), torch.tensor(win_b), torch.tensor(win_c), pn,
+                torch.tensor([IBETA]), cfg, spp)
+        g = [torch.tensor(t) for t in gn]
+    outs, acts = emulate_k1(args)
+    want, want_acts = FK.nerf_heads_forward_saved_reference(*args)
+    for a, b in zip(outs, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    torch.testing.assert_close(acts, want_acts, atol=1e-5, rtol=0)
+    got = _grad_list(emulate_k2(args, g, want_acts, want[1]))
+    ref = _grad_list(FK.nerf_heads_backward_saved_reference(args[0], g, *args[1:], want_acts, want[1]))
+    assert len(got) == len(ref) == 45
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
+
+
+def test_pack_layout_holds_the_weights():
+    """FK.pack_reference, unpacked by hand from the documented slab layout
+    ([k / 4][n / 8][n % 8][k % 4], hi cut to TF32 then lo, per 16-deep
+    slab): K1's base skip layer is [W_x permuted to the shared ladder, times
+    the base window; zero to 16 rows | W_h] transposed, zero past its 128
+    outputs' wgmma; K2's passes of that layer are W_x (ladder order,
+    windowed) and W_h; rgb1 is W_hc^T, rgb2 W_rgb2^T; each pass's slabs
+    start where the previous pass's end."""
+    x, appr, win_b, win_c, pn, cfg, spp, _ = flagship_case(n_pairs=1, spp=64)
+    wb, wc = torch.tensor(win_b), torch.tensor(win_c)
+    s = FK.heads_shapes(pn, cfg)
+    cols, freq = FK.ladder_order(10)
+    assert cols[:9] == [0, 1, 2, 3, 4, 5, 33, 34, 35] and freq[3:9] == [0] * 6
+    scale = torch.cat([torch.ones(3), wb.repeat_interleave(6)]).double()
+    w4 = pn["base"][8].double()  # (128, 63 + 128): [x | h]
+    for bwd in (False, True):
+        passes, img = FK.heads_passes(s, bwd)
+        pk = FK.pack_reference(pn, cfg, 32, wb, wc, bwd)
+        assert pk.numel() == img and passes[0].img == 0
+        assert all(b.img == a.img + a.nsl * 32 * a.nw for a, b in zip(passes, passes[1:]))
+        for p in passes:
+            if (p.head, p.layer) != (0, 4) and FK.EPI[p.epi] not in ("rgb1", "rgb2"):
+                continue
+            B = unpack_pass(pk, p)
+            if FK.EPI[p.epi] == "rgb1":
+                assert torch.equal(B[:128, :64], pn["rgb1"][0][:, :128].T.double())
+            elif FK.EPI[p.epi] == "rgb2":
+                assert torch.equal(B[:64, :3], pn["rgb2"][0].T.double()) and not B[:, 3:].any()
+            elif FK.EPI[p.epi] == "dx":
+                torch.testing.assert_close(B[:128, :63], (w4[:, cols] * scale).float().double(),
+                                           rtol=0, atol=0)
+            elif FK.EPI[p.epi] == "dh":
+                assert torch.equal(B[:128, :128], w4[:, 63:])
+            else:
+                assert (p.nxs, p.nsl, p.nw) == (4, 12, 128)
+                torch.testing.assert_close(B[:63, :128], (w4[:, cols] * scale).float().double().T,
+                                           rtol=0, atol=0)
+                assert not B[63:64].any()
+                assert torch.equal(B[64:192, :128], w4[:, 63:].T)
 
 
 # ------------------------------------------------------- 3xTF32 error budget
 
 
-def _tf32(t):
-    """Round fp32 to TF32 (10 mantissa bits), to nearest with ties away from
-    zero, as cvt.rna.tf32.f32 does."""
-    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _mm_tf32(a, b, passes):
-    """a @ b from TF32 operands, fp32 sums: 3 passes hi.hi + hi.lo + lo.hi
-    (csrc/heads_mma.cuh), 1 pass hi.hi."""
-    ah, bh = _tf32(a), _tf32(b)
-    out = ah @ bh
-    if passes == 3:
-        out = out + (_tf32(a - ah) @ bh + ah @ _tf32(b - bh))
-    return out
-
-
-def _tf32_linear(passes):
-    """F.linear with every product (forward, dIn, dW) in TF32 arithmetic."""
-
-    class Linear(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, x, w, b=None):
-            ctx.save_for_backward(x, w)
-            ctx.has_b = b is not None
-            lead = x.shape[:-1]
-            y = _mm_tf32(x.reshape(-1, x.shape[-1]), w.T.contiguous(), passes).reshape(*lead, -1)
-            return y if b is None else y + b
-
-        @staticmethod
-        def backward(ctx, g):
-            x, w = ctx.saved_tensors
-            g2, x2 = g.reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1])
-            dx = _mm_tf32(g2, w, passes).reshape(x.shape)
-            dw = _mm_tf32(g2.T.contiguous(), x2, passes)
-            return dx, dw, (g2.sum(0) if ctx.has_b else None)
-
-    return lambda x, w, b=None: Linear.apply(x, w, b)
-
-
-def _heads_errors(args, tg, ref_f, ref_b):
-    """(forward max abs error, backward max rel error per array) against
-    the fp64 results ref_f / ref_b."""
-    f = FK.nerf_heads_reference(*args)
-    b = FK.nerf_heads_backward_reference(args[0], tg, *args[1:])
-    fwd = max(float((a.double() - r).abs().max()) for a, r in zip(f, ref_f))
-    got = [b[0], b[1], b[3].reshape(-1)] + FK.flatten_nets(b[2])[0]
-    want = [ref_b[0], ref_b[1], ref_b[3].reshape(-1)] + FK.flatten_nets(ref_b[2])[0]
-    bwd = max(float((a.double().reshape(r.shape) - r).abs().max()) / max(1.0, float(r.abs().max()))
-              for a, r in zip(got, want))
-    return fwd, bwd
-
-
-def test_3xtf32_error_budget(monkeypatch):
-    """The kernels' arithmetic, emulated on the CPU: every product of the
-    heads' forward and backward at the flagship widths (2,048 points) in
-    3xTF32 stays within chip_smoke.KERNEL_TOL (1e-4) of fp64: the forward's
+def test_3xtf32_error_budget():
+    """The engine's arithmetic, emulated on the CPU at the flagship widths
+    (512 points): every product of K1 and K2 in wgmma's order
+    (tests/test_torch_mlp_kernel.py:_mm_wgmma_3xtf32: per 16-deep weight
+    slab, and per 32-row G slab of dW, lo.hi + hi.lo + hi.hi accumulated in
+    the tensor core from zero, each step cut toward zero, then added in
+    fp32) stays within chip_smoke.KERNEL_TOL (1e-4) of fp64: the forward's
     max abs error, the backward's max error over each gradient array's
     largest entry. 1xTF32 is reported, not asserted."""
-    x, appr, win_b, win_c, pn, cfg, spp, g = flagship_case()
+    from tests.test_torch_mlp_kernel import _mm_wgmma_3xtf32, _tf32
+
+    x, appr, win_b, win_c, pn, cfg, spp, g = flagship_case(n_pairs=2, spp=256)
     args = (torch.tensor(x), torch.tensor(appr), torch.tensor(win_b), torch.tensor(win_c), pn,
             torch.tensor([10.0]), cfg, spp)
     tg = [torch.tensor(t) for t in g]
     a64 = tuple(a.double() if torch.is_tensor(a) else a for a in args[:4]) + (
         {k: [t.double() for t in v] for k, v in pn.items()}, args[5].double(), cfg, spp)
     ref_f = FK.nerf_heads_reference(*a64)
-    ref_b = FK.nerf_heads_backward_reference(a64[0], [t.double() for t in tg], *a64[1:])
+    ref_b = _grad_list(FK.nerf_heads_backward_reference(a64[0], [t.double() for t in tg], *a64[1:]))
     errs = {}
-    for passes in (3, 1):
-        with monkeypatch.context() as m:
-            m.setattr(torch.nn.functional, "linear", _tf32_linear(passes))
-            errs[passes] = _heads_errors(args, tg, ref_f, ref_b)
-    print(f"against fp64: 3xTF32 forward {errs[3][0]:.2e}, backward {errs[3][1]:.2e}; "
-          f"1xTF32 forward {errs[1][0]:.2e}, backward {errs[1][1]:.2e}")
-    assert errs[3][0] <= 1e-4 and errs[3][1] <= 1e-4, errs
-    assert errs[1][0] > errs[3][0]  # the emulation does round
+    for name, mm, mm_dw in (("3xTF32", _mm_wgmma_3xtf32(16), _mm_wgmma_3xtf32(32)),
+                            ("1xTF32", lambda a, b: _tf32(a.contiguous()) @ _tf32(b.contiguous()), None)):
+        outs, acts = emulate_k1(args, mm)
+        fwd = max(float((a.double() - r).abs().max()) for a, r in zip(outs, ref_f))
+        got = _grad_list(emulate_k2(args, tg, acts, outs[1], mm, mm_dw or mm))
+        bwd = max(float((a.double() - r).abs().max()) / max(1.0, float(r.abs().max()))
+                  for a, r in zip(got, ref_b))
+        errs[name] = (fwd, bwd)
+    print(f"against fp64: 3xTF32 forward {errs['3xTF32'][0]:.2e}, backward {errs['3xTF32'][1]:.2e}; "
+          f"1xTF32 forward {errs['1xTF32'][0]:.2e}, backward {errs['1xTF32'][1]:.2e}")
+    assert errs["3xTF32"][0] <= 1e-4 and errs["3xTF32"][1] <= 1e-4, errs
+    assert errs["1xTF32"][0] > errs["3xTF32"][0]  # the emulation does round
 
 
 # ------------------------------------------------------- the profiler's copies
@@ -457,7 +769,7 @@ def _anchor_cases():
     from lab4d_tpu_torch.tools import profile_heads_phases as PH
     from lab4d_tpu_torch.tools import profile_k4b_phases as PK
 
-    cases = [("heads", name, patches) for name, patches in PH.MMA_K1.items()]
+    cases = [("heads", name, patches) for name, patches in {**PH.K1_COPIES, **PH.K2_COPIES}.items()]
     cases += [("k4f", name, patches) for name, patches in PK.K4F_COPIES.items()]
     cases += [("k3", name, patches) for name, patches in PK.K3_COPIES.items()]
     return cases

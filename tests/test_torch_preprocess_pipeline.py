@@ -98,7 +98,9 @@ def test_port_runs_the_neural_backends(runs):
 
 def test_segmentation_masks(runs):
     """Every frame's mask equal; a pixel may differ only where the port's
-    probability lies within rounding (1e-5) of the 0.5 cut."""
+    probability lies within rounding (1e-5) of the 0.5 cut: every
+    differing pixel of a frame is checked, its probability taken at the
+    mask's resolution as the stage resizes it (nearest)."""
     masks = {w: sorted(glob.glob(f"{r}/processed/Annotations/Full-Resolution/{SEQ}/0*.npy"))
              for w, r in runs["roots"].items()}
     assert len(masks["jax"]) == len(masks["port"]) == N_FRAMES
@@ -113,7 +115,10 @@ def test_segmentation_masks(runs):
             f"{runs['roots']['port']}/processed/JPEGImages/Full-Resolution/{SEQ}/*.jpg"))]
         probs = list(segment_probs(frames, device="cpu"))
         for i in differ:
-            assert np.abs(probs[i] - 0.5).min() <= 1e-5, i
+            flip = np.load(masks["jax"][i]) != np.load(masks["port"][i])
+            h, w = flip.shape
+            prob = cv2.resize(probs[i], (w, h), interpolation=cv2.INTER_NEAREST)
+            assert np.abs(prob[flip] - 0.5).max() <= 1e-5, (i, int(flip.sum()))
 
 
 NAMES = list(_artifacts("r"))
