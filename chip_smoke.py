@@ -18,10 +18,13 @@ synchronise; any failure exits non-zero:
    rows (1, 2, 7; 1 row also with the L2 cache flushed) and training rows
    (32, 256, 512) and a ragged 70,001 rows (K3f + K3b also against
    autograd outside the ReLU ties); K4f / K4b (fused_pe_mlp
-   and its backward) at the bg field's base, colour and visibility MLPs
-   on 262,144 points and at the 512 visibility-decay points (K4f with and
-   without saving its hidden outputs, K4b from the saved ones; K4f + K4b
-   also against autograd outside the ReLU ties), K1 / K2
+   and its backward, the wgmma engine of csrc/wg_engine.cuh) at the bg
+   field's base, colour and visibility MLPs on 262,144 points, the base
+   MLP also at a ragged 262,143, at the 512 visibility-decay points and at
+   the category step's shapes (K4f with and without saving its hidden
+   outputs, K4b from the saved ones and a second K4b call bitwise equal;
+   K4f + K4b also against autograd outside the ReLU ties; each row's
+   engine and CUDA launches per call printed), K1 / K2
    (fused_nerf_heads and its backward) at the flagship fg field's step
    (262,144 points, 1024 per pair, 256 appearance rows; K1 as training
    runs it, saving its layer outputs, and K2 from those; K1 + K2 also
@@ -267,6 +270,8 @@ K4_SHAPES = [
     ("vis F10 D2 W64", 262144, 10, (64, 64, 1), (), False, False),
     ("vis-decay F10 D2 W64", 512, 10, (64, 64, 1), (), False, False),
 ]
+# the base MLP at a ragged point count: a partial tile and a partial dW slab
+K4_RAGGED = ("base F6 D5 W128, ragged", 262143, 6, (128,) * 6, (4,), True, True)
 # the category step's K4 calls: the fg base field at the mean instance code
 # on the gauss-skin term's 2,048 points, and the canonical feature field
 # (F6 D5 W128, 16 outputs, no window) at the step's 262,144 samples, which
@@ -278,6 +283,8 @@ K4_CATEGORY_SHAPES = [
 # the fg base field of export's canonical SDF grid: one marching-cubes chunk
 # of 64^3 points, instance code folded into the biases, no window, no saving
 K4_EXPORT = ("export fg base F10 D5 W128", 262144, 10, (128,) * 6, (4,), True, False)
+# what K4f / K4b run on (csrc/fused_pe_mlp.cu)
+K4_ENGINE = "wgmma 3xTF32, TMA-fed weights"
 
 
 def fail(msg):
@@ -462,7 +469,7 @@ def phase_kernel():
     for label, rows, C, widths, skips, final_act in K3_WARP_SHAPES:
         _k3_kernels(K, gen, label, rows, C, widths, report, skips, final_act)
 
-    for shape in K4_SHAPES + K4_CATEGORY_SHAPES:
+    for shape in K4_SHAPES + [K4_RAGGED] + K4_CATEGORY_SHAPES:
         _pe_kernels(K, gen, shape, report)
     _pe_forward_kernel(K, gen, K4_EXPORT, report)
     results.update(_heads_kernels(gen))
@@ -681,6 +688,11 @@ def _pe_kernels(K, gen, shape, report):
     abs_err, rel_err = _bwd_errs(got_b, want_b)
     if not rel_err <= KERNEL_TOL:
         fail(f"K4b {label} disagrees with its plain version: rel err {rel_err} > {KERNEL_TOL}")
+    again = K.fused_pe_mlp_backward(*bwd_args, saved=acts)
+    sync()
+    if not all(torch.equal(a, b) for a, b in zip([got_b[0], *got_b[1], *got_b[2]],
+                                                 [again[0], *again[1], *again[2]])):
+        fail(f"K4b {label}: a second call on the same inputs gives other bits")
     tie_rows, n_ties, z_tie = _pe_relu_ties(K, args, acts)
     _, rel_auto = _bwd_errs(got_b, K.pe_mlp_backward_reference(*bwd_args))
     g_kept = g * (~tie_rows).to(g.dtype)[:, None]
@@ -711,7 +723,8 @@ def _pe_kernels(K, gen, shape, report):
                "ms_no_save": device_ms(lambda: K.fused_pe_mlp(*args), inner),
                "bound_3xtf32_ms": bound_ms(3 * flops_f, nbytes_f, PEAK_TF32)[0],
                "cuda_launches_per_call": launches_f, "saved_floats_per_point": sum(widths[:-1]),
-               "tile_rows": _pe_tile_rows(K, rows, n_freqs, weights, skips), "main": main})
+               "tile_rows": _pe_tile_rows(K, rows, n_freqs, weights, skips), "main": main,
+               "engine": K4_ENGINE})
     # K4b's work: dIn and dW of every layer from x, g and K4f's saved
     # outputs, which it reads once; beside it, the VJP from x and g alone,
     # which also recomputes the hidden layers (the row-tiled design's work)
@@ -728,7 +741,8 @@ def _pe_kernels(K, gen, shape, report):
                "bound_vjp_from_x_3xtf32_ms": bound_ms(3 * flops_vjp, nbytes_vjp, PEAK_TF32)[0],
                "cuda_launches_per_call": launches_b, "relu_tie_pairs": n_ties,
                "relu_tie_rows": int(tie_rows.sum()), "max_rel_err_autograd_all_rows": rel_auto,
-               "max_rel_err_autograd_untied_rows": rel_kept, "main": main})
+               "max_rel_err_autograd_untied_rows": rel_kept, "main": main, "engine": K4_ENGINE,
+               "bitwise_repeatable": True})
 
 
 def _pe_forward_kernel(K, gen, shape, report):
@@ -761,7 +775,9 @@ def _pe_forward_kernel(K, gen, shape, report):
            lambda: K.pe_mlp_reference(*args), flops, nbytes, inner, extra={
                "bound_3xtf32_ms": bound_ms(3 * flops, nbytes, PEAK_TF32)[0],
                "cuda_launches_per_call": launches_f, "saved_floats_per_point": 0,
-               "macs_per_row": macs, "tile_rows": _pe_tile_rows(K, rows, n_freqs, weights, skips)})
+               "macs_per_row": macs, "tile_rows": _pe_tile_rows(K, rows, n_freqs, weights, skips),
+               "engine": K4_ENGINE})
+
 
 
 def _pe_tile_rows(K, rows, n_freqs, weights, skips):

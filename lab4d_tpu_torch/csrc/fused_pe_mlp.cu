@@ -1,515 +1,531 @@
 // K4f and K4b: the Fourier-embedding fused MLP, forward and backward,
-// hand-written for Hopper (sm_90a) on the 3xTF32 tensor-core products of
-// heads_mma.cuh.
+// hand-written for Hopper (sm_90a) on wgmma in 3xTF32 with weights fed by
+// the TMA unit: the tile engine of csrc/wg_engine.cuh, which K1 / K2
+// (csrc/nerf_heads.cu) run too, on csrc/wgmma.cuh's primitives.
 //
 // K4f replaces lab4d_tpu/ops/mlp_kernel.py:_pe_fwd (Pallas kernel
 // _pe_fwd_kernel); K4b replaces _pe_bwd_call (_pe_bwd_kernel). The field
-// MLPs of the training step (the bg field's base, colour and visibility
-// MLPs, the visibility-decay points, the fg feature field) run through
-// them. Semantics are the Pallas kernels': the input x (rows, C) is
-// Fourier-embedded as [x (C), sin (F x C), cos (F x C)] (fourier_embed's
-// block layout), each angle x * freq elementwise with precise sinf / cosf
-// (angles reach 2^9 |x| on the visibility field), sin / cos times an
-// optional per-frequency annealing window; then D+1 dense layers, ReLU
-// between them, the embedding re-read before each skip layer as [X, h]
-// (the weight's leading c_x columns take X: never concatenated), an
-// optional ReLU on the output. The final ReLU's mask on the incoming
-// gradient is applied by the caller, as the JAX VJP does; no gradient
-// reaches the window.
+// MLPs of the training steps (the bg field's base, colour and visibility
+// MLPs, the visibility-decay points, the category step's gauss-skin and
+// feature field) and export's SDF grid run through them. Semantics are
+// the Pallas kernels': the input x (rows, C) is Fourier-embedded as [x
+// (C), sin (F x C), cos (F x C)] (fourier_embed's block layout), each angle
+// x * freq elementwise with precise sinf / cosf (angles reach 2^9 |x|),
+// sin / cos times an optional per-frequency annealing window; then D+1
+// dense layers, ReLU between them, the embedding re-read before each skip
+// layer as [X, h] (the weight's leading c_x columns take X: never
+// concatenated), an optional ReLU on the output. The final ReLU's mask on
+// the incoming gradient is applied by the caller, as the JAX VJP does; no
+// gradient reaches the window.
 //
 // What bounds it on the card: the bg step calls it on 262,144 points; its
 // base MLP (F6, W128 x 6, skip 4) costs 91,904 multiply-adds per point,
 // 48.2 GFLOP forward: 0.72 ms on fp32 FMA (67 TFLOP/s), 0.29 ms in
 // 3xTF32 at the tensor cores' 495 TFLOP/s. The backward from saved layer
-// outputs costs twice that; its recompute-free bound is 0.58 ms in 3xTF32.
-// The saved outputs (640 floats per point, 671 MB) add 0.2 ms of writes
-// and the same of reads at 3.35 TB/s.
+// outputs costs twice that. The saved outputs (640 floats per point, 671
+// MB) add 0.2 ms of writes and the same of reads at 3.35 TB/s. The
+// earlier mma.sync engine ran at 2x (K4f) and 3x (K4b) the fp32 bound:
+// each warp's product chains ran one k-step at a time behind a block
+// barrier per slab, and K4b was 2 D + 6 launches (split-K dW per layer).
 //
 // What the design does about it:
-// - K4f is two launches: the weights split into tf32 hi / lo once per
-//   call (pm_pack_kernel, zero-padded to whole k-slabs of 32), then one
-//   fused kernel. A block of 16 warps works on tiles of 256 points (8
-//   warps on 128 where the buffers of 256 do not fit in shared memory);
-//   each warp owns 16 of them and every output column of a layer (up to
-//   16 n8 tiles, 64 accumulators a thread), so one split of an A fragment
-//   serves every n8 tile of the row, and a warp reads and writes only its
-//   own rows: the hidden layer is updated in place, with no block barrier
-//   between layers beyond the weight staging. The n8 tile count is a
-//   template parameter, so the independent product chains unroll without
-//   branches and interleave; the engine is bound by the latency of those
-//   chains, and 16 warps (at most 128 registers each) hide more of it
-//   than 8. The weights stream from L2 once per 256 points in
-//   double-buffered 16-deep k-slabs (16-byte cp.async, one barrier per
-//   slab); the grid is persistent (one block per SM), and the slabs form
-//   one stream across layers and tiles, so no layer waits for its first
-//   slab. Each k-step is three mma.sync.m16n8k8 products summed from zero
-//   and added to an fp32 register (hm_mma3). The embedding is built per
-//   tile in shared memory, one sincosf per angle. When autograd needs
-//   them, every hidden output is also written once to device memory with
-//   streaming stores (__stcs), layer by layer in the saved layout: layer
-//   l's block is a (rows, out_l) row-major array at act_off[l] * rows
-//   floats. The tail tile's rows are masked in the kernel; rows are
-//   arbitrary.
-// - K4b is a sequence of launches over those saved outputs, walking the
-//   layers in reverse, like K2 (nerf_heads.cu): the split of the weights'
-//   transposes, the embedding X of every point, then per layer
-//   - dW = G^T . A and db = sum G as a split-K product over up to 512
-//     chunks of points, each into its own workspace slice (hm_dw_kernel of
-//     heads_mma.cuh, which K2 shares: 64 x 64 tiles, the operands staged
-//     by 16-byte cp.async where a row allows);
-//   - dIn = G . W on K4f's engine (a warp owns 16 points' rows of G and
-//     every output column, W^T streams through the slabs), with the ReLU
-//     mask of the saved input as its epilogue and the X columns into dX;
-//   then the chain rule through sin / cos and the window to dx, and the
-//   chunks' slices summed in chunk order (hm_reduce_kernel). No forward is
-//   recomputed.
-//   2 D + 6 launches per call.
+// - One persistent block of two warpgroups per SM walks tiles of 128
+//   points; each warpgroup owns 64 rows and every column of a layer (one
+//   wgmma of m64nNk8, N = 8 .. 128 by the layer's width), so both read the
+//   same weight slab and meet only at the slab ring. A pass's products
+//   accumulate each 32-deep slab in the tensor core from zero (lo.hi +
+//   hi.lo + hi.hi per k8 step, A split in registers) and add the slab's
+//   sum to fp32 registers (tests/test_torch_mlp_kernel.py emulates this
+//   order). What the engine waits on is each warpgroup's chain of slabs
+//   (A's loads and split, the slot's barrier, the products' drain, the
+//   release, the fp32 sum), not the products: slabs of 32 halve that chain
+//   against K1's 16 (K4f base 0.84 -> 0.74 ms, K4b 2.38 -> 2.28 in turns).
+//   The ring's depth (3 to 8 slots) moved nothing, and a whole layer
+//   accumulated in the tensor core with two slabs in flight was slower
+//   (0.82 ms: ptxas serialises the wgmma for want of registers, C7512).
+// - The weights are split into tf32 hi / lo once per call (pm_pack_kernel)
+//   into the slabs of the passes, K padded to whole slabs there (the
+//   embedding's 39, 51 or 63 columns to 64), never in the caller's
+//   tensors; the slabs stream as one sequence across passes and tiles
+//   through a ring of 3 slots (2 where 3 do not fit) of 1D TMA bulk
+//   copies on mbarriers.
+// - K4f: the tile's x arrives by cp.async (all loads in flight at once:
+//   one load per embedding item kept the ladder latency-bound) and the
+//   embedding is built from it in shared memory; the biases are staged
+//   once per block. The hidden layers stay in shared memory, and only the
+//   output and, when autograd needs them, the hidden outputs go to device
+//   memory (streaming stores, pe_act_layout). A last layer of one output
+//   on h alone (the visibility MLP's) is its input layer's epilogue: each
+//   row's dot product summed across the accumulator's quad, as K1's sdf
+//   head. Two launches: the split, the engine.
+// - K4b's dIn: the same engine walks each tile from the last layer to the
+//   first over W^T's slabs (a skip layer's X columns into the tile's dX,
+//   then its h columns), g and x arriving by cp.async, the ReLU masks read
+//   from K4f's saved outputs (into L2 during the pass); each layer's G goes
+//   to device memory once, in the slabs dW reads. dX is carried through
+//   sin / cos and the window to dx in the tile's epilogue, one thread per
+//   (row, frequency), where the embedding also goes to a buffer
+//   for dW. dW = G^T A and db = sum G of every layer are one launch over
+//   chunks of rows (wg_engine.cuh's warp-specialised dW: A's rows by TMA,
+//   the producer's warpgroup handing its registers to the two that run the
+//   products), the chunks' slices summed in chunk order
+//   (hm_reduce_kernel). Four launches: the split of W^T, dIn, dW, the
+//   reduction.
+// Rows are arbitrary: the tail tile's missing rows are zero in the
+// embedding and G and never stored; dW copies only rows that exist.
 //
 // No float atomics: every sum across blocks runs in a fixed order, and the
 // result is the same from run to run.
 
-#include "heads_mma.cuh"
+#include <algorithm>
+
+#include "wg_engine.cuh"
 
 #define PM_MAX_LAYERS 16
 #define PM_MAX_FREQS 16
-#define PM_MAX_WARPS 16  // a K4f block: 16 warps on 256 points, or 8 on 128 where those do not fit
-#define PM_NMAX 128      // widest layer output and embedding
-#define PM_NT (PM_NMAX / 8)  // n8 tiles of the widest layer
-#define PM_KS 16         // k-slab depth of K4f's staged weights
-#define PM_LDS 20        // row stride of a staged weight slab (PM_KS + 4)
-#define PM_CHUNKS 512    // most chunks of K4b's split-K weight gradients
+#define PM_MAX_PASSES (2 * PM_MAX_LAYERS)  // K4b: a skip layer's X and h passes
+#define PM_CHUNKS 512  // most chunks of K4b's dW
+#define PM_KS 32  // k-depth of a weight slab: four k8 steps summed in the tensor core
+
+// What a pass's epilogue does (NhPass.epi): K4f's hidden layer (bias,
+// ReLU, into H, saved), the same with a last layer of one output folded in
+// (its dot product with the row, to the output), or the last layer (to the
+// output); K4b's X columns of a layer into dX, or its h columns, masked,
+// into the previous layer's G
+enum { PM_E_HID, PM_E_HID1, PM_E_OUT, PM_E_DX, PM_E_DH };
 
 struct PmArgs {
-  int n_layers, c_raw, n_freqs, c_x, rows, skip_mask, final_act;
-  int tr;       // K4f: points per tile, 16 per warp
-  int max_h;    // widest hidden output (0 with one layer)
-  int max_out;  // widest layer output
+  NhPass pass[PM_MAX_PASSES];  // K4f's or K4b's, as the launch takes them
+  NhDw dw[PM_MAX_LAYERS];      // dW's layers
+  int n_pass, n_dw, rows, n_tiles, n_chunks, pc, dw_blocks;
+  int n_layers, c_raw, n_freqs, c_x, skip_mask, final_act;
+  int fold;      // K4f: the last layer (one output, no embedding) is the epilogue of the one before
+  int stages;    // slots of the engine's ring
+  int ldx, ldh;  // row strides of the embedding (K4b: dX) and of H in shared memory
+  int ldl;       // row stride of K4b's embedding buffer (dW's X columns)
+  int gstride;   // floats of one 32-row group of K4b's G image
+  int img_total, n_params, act_total;
+  int rows_pad;  // the tiles' rows: K4b's buffers' rows
   int in_dim[PM_MAX_LAYERS];
   int out_dim[PM_MAX_LAYERS];
-  int pk_off[PM_MAX_LAYERS];   // the layer's pre-split weights in the packed buffer (K4f)
-  int pt_off[PM_MAX_LAYERS];   // and its transpose's (K4b)
   int act_off[PM_MAX_LAYERS];  // floats per point before the layer's saved block
   int off_w[PM_MAX_LAYERS];    // the layer's dW (out, in) in a gradient slice
   int off_b[PM_MAX_LAYERS];    // and its db, after every dW
-  int pk_total, pt_total, act_total, n_params;
-  int pc, n_chunks;  // K4b: chunks of pc points (a multiple of HM_KS) for dW / db
+  // hidden layer l's copy for dW's TMA rows (hp_off[l] floats per row of
+  // hpad before it, rows of round4(out_l)) where the saved block's rows
+  // cannot be copied in 16-byte units; -1 where they can
+  int hp_off[PM_MAX_LAYERS];
+  int hp_total;  // floats per row of hpad
   float freq[PM_MAX_FREQS];
   const float* window;  // (n_freqs,) or null
   const float* w[PM_MAX_LAYERS];  // (out_l, in_l), row-major
   const float* b[PM_MAX_LAYERS];  // (out_l,)
+  const float* hpad;              // K4b's dW: the padded copies
 };
 
-__host__ __device__ __forceinline__ int pm_kp(int K) { return (K + HM_KS - 1) / HM_KS * HM_KS; }
-
-__host__ __device__ __forceinline__ size_t pm_round4(size_t n) { return (n + 3) & ~(size_t)3; }
-
-// Item j < C (F + 1) of point p's embedding into its row: x[c] for
-// j < C, else the sin and cos of x[c] * freq[f] (c = (j - C) % C,
-// f = (j - C) / C), each times the window, at columns C + f C + c and
-// C + F C + f C + c; zeros instead when !valid
-__device__ __forceinline__ void pm_embed_item(const PmArgs& a, const float* __restrict__ x,
-                                              size_t p, int j, float* row, bool valid) {
-  const int C = a.c_raw;
-  if (j < C) {
-    row[j] = valid ? __ldg(x + p * C + j) : 0.f;
-    return;
-  }
-  const int c = (j - C) % C, f = (j - C) / C;
-  float sv = 0.f, cv = 0.f;
-  if (valid) {
-    sincosf(__ldg(x + p * C + c) * a.freq[f], &sv, &cv);
-    if (a.window != nullptr) {
-      const float w = __ldg(a.window + f);
-      sv *= w;
-      cv *= w;
-    }
-  }
-  row[C + f * C + c] = sv;
-  row[C + a.n_freqs * C + f * C + c] = cv;
+__host__ __device__ __forceinline__ bool pm_has_x(const PmArgs& a, int l) {
+  return l == 0 || ((a.skip_mask >> l) & 1);
 }
 
-// Every layer's weights, split into tf32 hi and lo, zero-padded to whole
-// k-slabs: layer l at pk_off[l], hi then lo, each (out_l, kp(in_l))
-// row-major; or, with transpose, W^T at pt_off[l], each (in_l,
-// kp(out_l)). blockIdx.y: the layer.
-__global__ void __launch_bounds__(HM_THREADS)
-pm_pack_kernel(const __grid_constant__ PmArgs a, float* __restrict__ wpk, int transpose) {
-  const int l = blockIdx.y, N = a.out_dim[l], K = a.in_dim[l];
-  const int R = transpose ? K : N, C = transpose ? N : K, kp = pm_kp(C);
-  const float* w = a.w[l];
-  float* hi = wpk + (transpose ? a.pt_off[l] : a.pk_off[l]);
-  float* lo = hi + (size_t)R * kp;
-  for (int e = blockIdx.x * HM_THREADS + threadIdx.x; e < R * kp; e += gridDim.x * HM_THREADS) {
-    const int r = e / kp, c = e - r * kp;
-    uint32_t h, l2;
-    hm_split(c < C ? __ldg(w + (transpose ? (size_t)c * K + r : (size_t)r * K + c)) : 0.f, h, l2);
-    hi[e] = __uint_as_float(h);
-    lo[e] = __uint_as_float(l2);
+__host__ __device__ __forceinline__ int pm_round4(int n) { return (n + 3) & ~3; }
+
+// Columns of a row of K4b's staged x: c_raw, none without frequencies
+__host__ __device__ __forceinline__ int pm_xr_cols(const PmArgs& a) {
+  return a.n_freqs > 0 ? a.c_raw : 0;
+}
+
+// The engine's weight stream (wg_engine.cuh) over K4f's or K4b's passes
+using PmFeed = NhFeed<PmArgs, PM_KS>;
+
+// The engine's shared memory: the ring's barriers and slots, then per
+// warpgroup the embedding (K4b: dX; NH_HALF x ldx) and H (NH_HALF x ldh),
+// then K4f's biases (layer l's at l NH_NMAX) and a folded last layer's
+// weights (NH_NMAX), then per warpgroup K4b's x for sin / cos (NH_HALF x
+// c_raw, none without frequencies)
+struct PmBufs {
+  float *ring, *xs, *hs, *bs, *w1, *xr;
+  uint64_t* full;
+  uint32_t* cnt;
+  __device__ __forceinline__ PmBufs(float* smem, const PmArgs& a) {
+    ring = nh_ring_init(smem, a.stages, full, cnt);
+    const int wg = threadIdx.x >> 7;
+    float* base = ring + a.stages * PmFeed::kSlot;
+    xs = base + wg * NH_HALF * a.ldx;
+    hs = base + NH_TR * a.ldx + wg * NH_HALF * a.ldh;
+    bs = base + NH_TR * (a.ldx + a.ldh);
+    w1 = bs + PM_MAX_LAYERS * NH_NMAX;
+    xr = w1 + NH_NMAX + wg * NH_HALF * pm_xr_cols(a);
+    for (int i = threadIdx.x; i < NH_TR * (a.ldx + a.ldh); i += NH_THREADS) base[i] = 0.f;
   }
+};
+
+// Every row the warpgroup's threads need of a row-major (rows, n) array
+// src from row r0 (nr of them exist; zeros after) into dst (row stride
+// ld) by cp.async, waited for: the loads are all in flight at once
+__device__ __forceinline__ void pm_rows_in(float* dst, int ld, const float* __restrict__ src, int n,
+                                           int r0, int nr) {
+  const int wt = threadIdx.x & 127;
+  if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int e = wt; e < NH_HALF * n4; e += 128) {
+      const int m = e / n4, c = 4 * (e - m * n4);
+      hm_cp16(dst + m * ld + c, src + (m < nr ? (size_t)(r0 + m) * n + c : 0), m < nr);
+    }
+  } else {
+    for (int e = wt; e < NH_HALF * n; e += 128) {
+      const int m = e / n, c = e - m * n;
+      hm_cp4(dst + m * ld + c, src + (m < nr ? (size_t)(r0 + m) * n + c : 0), m < nr);
+    }
+  }
+  hm_cp_commit();
+  hm_cp_wait();
 }
 
 // ------------------------------------------------------------------ K4f
 
-// A layer input of a warp's 16 points in shared memory: columns [0, k1) of
-// s1, then s2; zero at and past K
-struct PmIn {
-  const float* s1;
-  int ld1, k1;
-  const float* s2;
-  int ld2, K;
-  __device__ __forceinline__ float operator()(int m, int k) const {
-    return k < k1 ? s1[m * ld1 + k] : (k < K ? s2[m * ld2 + (k - k1)] : 0.f);
-  }
-};
-
-// One staged k-slab of a warp's layer product: c[j] += In[16 rows, k0 ..
-// k0 + PM_KS) . W^T for the n8 tiles j < NT (columns 8 j .. 8 j + 7), the
-// slab's hi and lo weights at bh and bh + PM_NMAX * PM_LDS. NT is a
-// compile-time count, so the NT independent product chains are unrolled
-// without branches and interleave; tiles past the layer's width read
-// unstaged slab rows and are never stored.
-template <int NT>
-__device__ __forceinline__ void pm_slab(float (&c)[PM_NT][4], const PmIn& in, int k0,
-                                        const float* bh) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* bl = bh + PM_NMAX * PM_LDS;
-#pragma unroll
-  for (int k8 = 0; k8 < PM_KS; k8 += 8) {
-    uint32_t ah[4], al[4];
-    hm_frag_a(in, k0 + k8, 0, ah, al);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int i = (8 * j + g) * PM_LDS + k8 + t;
-      hm_mma3(c[j], ah, al, __float_as_uint(bh[i]), __float_as_uint(bh[i + 4]),
-              __float_as_uint(bl[i]), __float_as_uint(bl[i + 4]));
+// The embedding of the warpgroup's 64 points from row r0 (nr of them
+// exist; zero x after): x into its first C columns, then [sin (F x C) |
+// cos (F x C)] from it, times the window. The caller syncs the warpgroup
+// after.
+__device__ __forceinline__ void pm_ladder(float* xs, int ldx, const float* __restrict__ x, int r0,
+                                          int nr, const PmArgs& a) {
+  const int C = a.c_raw, F = a.n_freqs;
+  pm_rows_in(xs, ldx, x, C, r0, nr);
+  nh_bar();
+  for (int e = threadIdx.x & 127; e < NH_HALF * F; e += 128) {  // a (row, frequency) each
+    const int m = e / F, f = e - m * F;
+    const float fr = a.freq[f], w = a.window != nullptr ? __ldg(a.window + f) : 1.f;
+    float* row = xs + m * ldx;
+    for (int c = 0; c < C; ++c) {
+      float s, co;
+      sincosf(row[c] * fr, &s, &co);
+      row[C + f * C + c] = s * w;
+      row[C + F * C + f * C + c] = co * w;
     }
   }
 }
 
-// The n8 tiles pm_slab computes for n output columns: a power of two
-__host__ __device__ __forceinline__ int pm_ntp(int n) {
-  const int nt = (n + 7) / 8;
-  return nt > 8 ? 16 : nt > 4 ? 8 : nt > 2 ? 4 : nt;
-}
-
-// pm_slab with NT = ntp (pm_ntp)
-__device__ __forceinline__ void pm_slab_n(int ntp, float (&c)[PM_NT][4], const PmIn& in, int k0,
-                                          const float* bh) {
-  switch (ntp) {
-    case 16: pm_slab<16>(c, in, k0, bh); break;
-    case 8: pm_slab<8>(c, in, k0, bh); break;
-    case 4: pm_slab<4>(c, in, k0, bh); break;
-    case 2: pm_slab<2>(c, in, k0, bh); break;
-    default: pm_slab<1>(c, in, k0, bh); break;
-  }
-}
-
-// o[0] = v0 and, if two, o[1] = v1: one 8-byte store where aligned;
-// streaming stores (__stcs) for the saved outputs, which K4b reads once
-__device__ __forceinline__ void pm_store2(float* o, float v0, float v1, bool two, bool stream) {
-  if (two && (reinterpret_cast<uintptr_t>(o) & 7) == 0) {
-    if (stream) __stcs(reinterpret_cast<float2*>(o), make_float2(v0, v1));
-    else *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-  } else if (stream) {
-    __stcs(o, v0);
-    if (two) __stcs(o + 1, v1);
-  } else {
-    o[0] = v0;
-    if (two) o[1] = v1;
-  }
-}
-
-// smem: X and the hidden layer of a tile of tr points (row-major, hm_ld
-// strides; warp w's rows 16 w .. 16 w + 15), two stages of hi / lo weight
-// slabs (PM_NMAX x PM_LDS each). A persistent grid: block b takes the
-// tiles b, b + gridDim.x, ... The weights stream through the two stages as
-// one sequence of k-slabs, layer after layer and tile after tile, so the
-// next layer's (or tile's) first slab loads during the current one's last.
-// acts: null, or the saved layout.
-__global__ void __launch_bounds__(32 * PM_MAX_WARPS, 1)
-pe_mlp_fwd_kernel(const __grid_constant__ PmArgs a, const float* __restrict__ x,
-                  const float* __restrict__ wpk, float* __restrict__ y, float* __restrict__ acts) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int ldx = hm_ld(a.c_x), ldh = hm_ld(a.max_h > 0 ? a.max_h : 1), tr = a.tr;
-  float* xs = smem + warp * 16 * ldx;
-  float* hs = smem + tr * ldx + warp * 16 * ldh;
-  float* wsl = smem + tr * (ldx + ldh);
-  const int n_tiles = (a.rows + tr - 1) / tr;
-  const int n_items = a.c_raw * (a.n_freqs + 1);  // embedding items per point
-  // the next slab to stage: tile, layer, slab
-  int st_tile = blockIdx.x, st_l = 0, st_s = 0;
-  auto stage_next = [&](int buf) {
-    if (st_tile >= n_tiles) return;
-    const int N = a.out_dim[st_l], kp = pm_kp(a.in_dim[st_l]);
-    const float* whi = wpk + a.pk_off[st_l];
-    const float* wlo = whi + (size_t)N * kp;
-    float* dst = wsl + buf * (2 * PM_NMAX * PM_LDS);
-    const int k0 = st_s * PM_KS;
-    for (int e = tid; e < N * (PM_KS / 4) * 2; e += blockDim.x) {
-      const int half = e >= N * (PM_KS / 4);
-      const int e2 = e - half * N * (PM_KS / 4), n = e2 / (PM_KS / 4), q = (e2 % (PM_KS / 4)) * 4;
-      hm_cp16(dst + half * PM_NMAX * PM_LDS + n * PM_LDS + q,
-              (half ? wlo : whi) + (size_t)n * kp + k0 + q);
-    }
-    hm_cp_commit();
-    if (++st_s == kp / PM_KS) {
-      st_s = 0;
-      if (++st_l == a.n_layers) {
-        st_l = 0;
-        st_tile += gridDim.x;
+// One K4f pass (a layer) on the warpgroup's rows r0 .. r0 + 64 (nr exist)
+// and its epilogue
+template <int NW>
+__device__ __forceinline__ void pm_fwd_pass(const PmArgs& a, const NhPass& ps, PmBufs& B, int r0,
+                                            int nr, float* __restrict__ y, float* __restrict__ acts,
+                                            int& it, PmFeed& feed) {
+  float sum[NW / 2];
+  nh_pass<NW>(sum, B.xs, a.ldx, B.hs, a.ldh, ps.nsl, ps.nxs, B.ring, B.full, B.cnt, a.stages, it,
+              feed);
+  const int N = ps.n;
+  const float* bias = B.bs + ps.layer * NH_NMAX;
+  if (ps.epi == PM_E_OUT) {
+    float* out = y + (size_t)r0 * N;
+    const bool relu = a.final_act != 0, vec = (N & 1) == 0;
+    rw_each<NW>(sum, [&](int m, int c, float v0, float v1) {
+      if (m >= nr || c >= N) return;
+      const bool two = c + 1 < N;
+      v0 += bias[c];
+      v1 = two ? v1 + bias[c + 1] : 0.f;
+      if (relu) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
       }
+      rw_st2(out + (size_t)m * N + c, v0, v1, two, vec, false);
+    });
+    return;
+  }
+  float* sv = acts != nullptr && nr > 0 ? acts + (size_t)a.act_off[ps.layer] * a.rows + (size_t)r0 * N
+                                        : nullptr;
+  const bool vec = (N & 1) == 0 && (reinterpret_cast<uintptr_t>(sv) & 7) == 0;
+  const bool fold = ps.epi == PM_E_HID1;
+  float pa = 0.f, pb = 0.f;  // the folded layer's dot products, rows mq and mq + 8
+  nh_bar();  // every thread of the warpgroup is done reading the pass's input
+  rw_each<NW>(sum, [&](int m, int c, float v0, float v1) {
+    if (c >= N) return;
+    const bool two = c + 1 < N;
+    v0 = fmaxf(v0 + bias[c], 0.f);
+    v1 = two ? fmaxf(v1 + bias[c + 1], 0.f) : 0.f;
+    rw_st2(B.hs + m * a.ldh + c, v0, v1, two, true, false);
+    if (sv != nullptr && m < nr) rw_st2(sv + (size_t)m * N + c, v0, v1, two, vec, true);
+    if (fold) {
+      const float p = fmaf(two ? B.w1[c + 1] : 0.f, v1, B.w1[c] * v0);
+      if (m & 8) pb += p;
+      else pa += p;
     }
-  };
-  int q = 0;  // slabs consumed; slab q sits in stage q & 1
-  stage_next(0);
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * tr + warp * 16;  // the warp's first point
-    const int nr = min(16, a.rows - row0);   // its points (<= 0: none)
-    for (int idx = lane; idx < 16 * n_items; idx += 32) {
-      const int r = idx / n_items;
-      pm_embed_item(a, x, (size_t)(row0 + r), idx - r * n_items, xs + r * ldx, r < nr);
+  });
+  if (fold) {
+    const int lane = threadIdx.x & 31, mq = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+    const float b1 = bias[NH_NMAX];  // the folded layer's
+    float sa = nh_quad_sum(pa) + b1, sb = nh_quad_sum(pb) + b1;
+    if (a.final_act) {
+      sa = fmaxf(sa, 0.f);
+      sb = fmaxf(sb, 0.f);
     }
-    __syncwarp();
-    for (int l = 0; l < a.n_layers; ++l) {
-      const int N = a.out_dim[l], K = a.in_dim[l], nt = (N + 7) / 8, ntp = pm_ntp(N);
-      const bool last = l == a.n_layers - 1;
-      const bool skip = l > 0 && ((a.skip_mask >> l) & 1);
-      const PmIn in = l == 0 ? PmIn{xs, ldx, a.c_x, xs, ldx, a.c_x}
-                    : skip   ? PmIn{xs, ldx, a.c_x, hs, ldh, K}
-                             : PmIn{hs, ldh, K, hs, ldh, K};
-      float c[PM_NT][4];
-#pragma unroll
-      for (int j = 0; j < PM_NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
-      const int n_slab = pm_kp(K) / PM_KS;
-      for (int s = 0; s < n_slab; ++s, ++q) {
-        hm_cp_wait();
-        __syncthreads();  // slab q is in; every warp is done with slab q - 1
-        stage_next((q + 1) & 1);
-        const float* bh = wsl + (q & 1) * (2 * PM_NMAX * PM_LDS);
-        if (nr > 0) pm_slab_n(ntp, c, in, s * PM_KS, bh);
+    if ((lane & 3) == 0 && mq < nr) y[r0 + mq] = sa;
+    if ((lane & 3) == 0 && mq + 8 < nr) y[r0 + mq + 8] = sb;
+  }
+  nh_bar();  // the layer is complete in shared memory
+}
+
+// K4f: one block per SM walks the tiles of NH_TR points and carries each
+// through every layer. pk: the packed weights (pm_pack_kernel over K4f's
+// passes); y (rows, out_last); acts: null, or every hidden output
+// (pe_act_layout).
+__global__ void __launch_bounds__(NH_THREADS, 1)
+pm_fwd_kernel(const __grid_constant__ PmArgs a, const float* __restrict__ x,
+              const float* __restrict__ pk, float* __restrict__ y, float* __restrict__ acts) {
+  extern __shared__ __align__(16) float pm_smem[];
+  PmBufs B(pm_smem, a);
+  for (int l = 0; l < a.n_layers; ++l)
+    for (int c = threadIdx.x; c < a.out_dim[l]; c += NH_THREADS)
+      B.bs[l * NH_NMAX + c] = __ldg(a.b[l] + c);
+  if (a.fold)
+    for (int c = threadIdx.x; c < a.in_dim[a.n_layers - 1]; c += NH_THREADS)
+      B.w1[c] = __ldg(a.w[a.n_layers - 1] + c);
+  __syncthreads();
+  PmFeed feed{&a, pk, (int)blockIdx.x, 0, 0};
+  nh_prime(feed, a.stages, B.ring, B.full);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const int r0 = tile * NH_TR + (threadIdx.x >> 7) * NH_HALF;
+    const int nr = max(0, min(NH_HALF, a.rows - r0));
+    nh_bar();  // the warpgroup is done with the previous tile's embedding
+    pm_ladder(B.xs, a.ldx, x, r0, nr, a);
+    nh_bar();
+    for (int p = 0; p < a.n_pass; ++p) {
+      const NhPass& ps = a.pass[p];
+      switch (ps.nw) {
+        case 128: pm_fwd_pass<128>(a, ps, B, r0, nr, y, acts, it, feed); break;
+        case 64: pm_fwd_pass<64>(a, ps, B, r0, nr, y, acts, it, feed); break;
+        case 32: pm_fwd_pass<32>(a, ps, B, r0, nr, y, acts, it, feed); break;
+        case 16: pm_fwd_pass<16>(a, ps, B, r0, nr, y, acts, it, feed); break;
+        default: pm_fwd_pass<8>(a, ps, B, r0, nr, y, acts, it, feed); break;
       }
-      __syncwarp();  // every lane's reads of the layer input are done: update it in place
-      if (nr <= 0) continue;
-      const float* bias = a.b[l];
-      float* out = last ? y : (acts != nullptr ? acts + (size_t)a.act_off[l] * a.rows : nullptr);
-#pragma unroll
-      for (int j = 0; j < PM_NT; ++j) {
-        if (j < nt) {
-          const int n = 8 * j + 2 * t;
-          const float b0 = n < N ? __ldg(bias + n) : 0.f;
-          const float b1 = n + 1 < N ? __ldg(bias + n + 1) : 0.f;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {  // rows g and g + 8
-            const int m = g + 8 * h;
-            float v0 = c[j][2 * h] + b0, v1 = c[j][2 * h + 1] + b1;
-            if (!last || a.final_act) {
-              v0 = fmaxf(v0, 0.f);
-              v1 = fmaxf(v1, 0.f);
-            }
-            if (!last) {
-              if (n < N) hs[m * ldh + n] = v0;
-              if (n + 1 < N) hs[m * ldh + n + 1] = v1;
-            }
-            if (out != nullptr && m < nr && n < N)
-              pm_store2(out + (size_t)(row0 + m) * N + n, v0, v1, n + 1 < N, !last);
-          }
-        }
-      }
-      __syncwarp();  // the layer output is in place before the next layer reads it
     }
   }
 }
 
 // ------------------------------------------------------------------ K4b
 
-// Where dIn = G . W goes: columns k < x_cols into dX (stored or added),
-// the rest, masked by the saved input hprev > 0, into gn (the gradient of
-// the previous layer's output)
-struct PmDinOut {
-  float* dX;
-  int ldx, x_cols, store;
-  float* gn;
-  const float* hprev;
+// One K4b pass on the warpgroup's rows and its epilogue: dIn's X columns
+// of the layer added into dX, or its h columns, masked by K4f's saved
+// h_{l-1} > 0, into H as the previous layer's G
+template <int NW>
+__device__ __forceinline__ void pm_bwd_pass(const PmArgs& a, const NhPass& ps, PmBufs& B, int r0,
+                                            int nr, const float* __restrict__ acts, int& it,
+                                            PmFeed& feed) {
+  const int N = ps.n;
+  const float* hprev =
+      ps.epi == PM_E_DH ? acts + (size_t)a.act_off[ps.layer - 1] * a.rows : nullptr;
+  if (hprev != nullptr && nr > 0) nh_prefetch_l2(hprev + (size_t)r0 * N, nr * N);  // the masks, into L2
+  float sum[NW / 2];
+  nh_pass<NW>(sum, B.xs, a.ldx, B.hs, a.ldh, ps.nsl, 0, B.ring, B.full, B.cnt, a.stages, it, feed);
+  if (ps.epi == PM_E_DX) {
+    const int ldx = a.ldx;
+    rw_each<NW>(sum, [&](int m, int c, float v0, float v1) {
+      if (c < N) B.xs[m * ldx + c] += v0;
+      if (c + 1 < N) B.xs[m * ldx + c + 1] += v1;
+    });
+    return;
+  }
+  const uint64_t on = nh_mask_bits<NW>(hprev, N, r0, nr);
+  const int ldh = a.ldh;
+  nh_bar();  // every thread of the warpgroup is done reading G
+  nh_each_bit<NW>(sum, N, [&](int m, int k, int bit, float v) {
+    B.hs[m * ldh + k] = (on >> bit) & 1 ? v : 0.f;
+  });
+  nh_bar();
+}
+
+struct PmGrad {
+  const float *x, *g, *acts;
+  float *dx, *gimg, *lad, *hpad;
 };
 
-// A warp's 16 rows of n floats, contiguous at src, to dst (rows ld
-// floats apart, ld a multiple of 4), zero past the first nr rows, by
-// cp.async (16-byte copies when n is a multiple of 4), waited for.
-__device__ __forceinline__ void pm_warp_rows(float* dst, int ld, const float* src, int n, int nr) {
-  const int lane = threadIdx.x & 31;
-  if ((n & 3) == 0) {
-    for (int i = lane * 4; i < 16 * n; i += 128) {
-      const int r = i / n;
-      hm_cp16(dst + r * ld + i - r * n, r < nr ? src + i : src, r < nr);
-    }
-  } else {
-    for (int i = lane; i < 16 * n; i += 32) {
-      const int r = i / n;
-      hm_cp4(dst + r * ld + i - r * n, r < nr ? src + i : src, r < nr);
-    }
-  }
-  hm_cp_commit();
-  hm_cp_wait();
-  __syncwarp();
-}
-
-// dIn = G . W on K4f's engine: tiles of tr points taken in turn by a
-// persistent block, a warp's 16 points at a time. The warp's rows of G (N
-// floats each) sit in shared memory; W streams as the pre-split rows of
-// W^T (pm_pack_kernel with transpose: (K, kp(N)) hi then lo) in 16-deep
-// k-slabs, across tiles and passes: the X columns [0, x_cols), then the h
-// columns [x_cols, K), each at most 128 wide, every output column of a row
-// from one split of its A fragment. After the last pass's products the
-// warp's G rows are done with, and their shared memory takes the side
-// data of the epilogue, read coalesced: the saved ReLU outputs hprev for
-// the h pass, or dX where the X pass adds to it. smem: tr x ld floats
-// (ld >= every row width), two stages of hi / lo slabs.
-__global__ void __launch_bounds__(32 * PM_MAX_WARPS, 1)
-pm_din_kernel(const float* __restrict__ g, int N, const float* __restrict__ wt, int K, int rows,
-              int tr, int ld, const PmDinOut o) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t = lane & 3;
-  const int kpn = pm_kp(N), kh = K - o.x_cols;
-  const int p0 = o.x_cols > 0 ? 0 : 1, p1 = kh > 0 ? 1 : 0;  // passes: 0 X, 1 h
-  float* gs = smem + warp * 16 * ld;
-  float* wsl = smem + tr * ld;
-  const int n_tiles = (rows + tr - 1) / tr;
-  const float* wlo = wt + (size_t)K * kpn;
-  int st_tile = blockIdx.x, st_p = p0, st_s = 0;  // the next slab to stage: tile, pass, slab
-  auto stage_next = [&](int buf) {
-    if (st_tile >= n_tiles) return;
-    const int c0 = st_p == 0 ? 0 : o.x_cols, np = st_p == 0 ? o.x_cols : kh, k0 = st_s * PM_KS;
-    float* dst = wsl + buf * (2 * PM_NMAX * PM_LDS);
-    for (int e = tid; e < np * (PM_KS / 4) * 2; e += blockDim.x) {
-      const int half = e >= np * (PM_KS / 4);
-      const int e2 = e - half * np * (PM_KS / 4), n = e2 / (PM_KS / 4), q = (e2 % (PM_KS / 4)) * 4;
-      hm_cp16(dst + half * PM_NMAX * PM_LDS + n * PM_LDS + q,
-              (half ? wlo : wt) + (size_t)(c0 + n) * kpn + k0 + q);
-    }
-    hm_cp_commit();
-    if (++st_s == kpn / PM_KS) {
-      st_s = 0;
-      if (++st_p > p1) {
-        st_p = p0;
-        st_tile += gridDim.x;
+// K4b's dIn: the engine over K4b's passes (the tile's output cotangent g
+// into H; each layer's G into its dW slabs before its passes), then dx
+// from dX through sin / cos and the window; the embedding into lad (ldl
+// floats a row) and the padded copies of hp_off's hidden layers into hpad
+// for dW.
+__global__ void __launch_bounds__(NH_THREADS, 1)
+pm_din_kernel(const __grid_constant__ PmArgs a, const float* __restrict__ pk, PmGrad g) {
+  extern __shared__ __align__(16) float pm_smem[];
+  PmBufs B(pm_smem, a);
+  __syncthreads();
+  PmFeed feed{&a, pk, (int)blockIdx.x, 0, 0};
+  nh_prime(feed, a.stages, B.ring, B.full);
+  int it = 0;
+  const int wt = threadIdx.x & 127, L = a.n_layers, NL = a.out_dim[L - 1];
+  const int C = a.c_raw, F = a.n_freqs, ldh = a.ldh, ldx = a.ldx;
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const int r0 = tile * NH_TR + (threadIdx.x >> 7) * NH_HALF;
+    const int nr = max(0, min(NH_HALF, a.rows - r0));
+    nh_bar();  // the warpgroup is done with the previous tile's buffers
+    for (int e = wt; e < NH_HALF * ldx; e += 128) B.xs[e] = 0.f;
+    if (F > 0) pm_rows_in(B.xr, C, g.x, C, r0, nr);  // for the epilogue's sin / cos
+    pm_rows_in(B.hs, ldh, g.g, NL, r0, nr);
+    nh_bar();
+    for (int p = 0; p < a.n_pass; ++p) {
+      const NhPass& ps = a.pass[p];
+      if (ps.dw >= 0 && nr > 0) nh_gput(B.hs, ldh, a.dw[ps.dw].N, a.dw[ps.dw], g.gimg, a.gstride, r0);
+      switch (ps.nw) {
+        case 128: pm_bwd_pass<128>(a, ps, B, r0, nr, g.acts, it, feed); break;
+        case 64: pm_bwd_pass<64>(a, ps, B, r0, nr, g.acts, it, feed); break;
+        case 32: pm_bwd_pass<32>(a, ps, B, r0, nr, g.acts, it, feed); break;
+        case 16: pm_bwd_pass<16>(a, ps, B, r0, nr, g.acts, it, feed); break;
+        default: pm_bwd_pass<8>(a, ps, B, r0, nr, g.acts, it, feed); break;
       }
     }
-  };
-  int q = 0;  // slabs consumed; slab q sits in stage q & 1
-  stage_next(0);
-  const PmIn in{gs, ld, N, gs, ld, N};
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * tr + warp * 16;  // the warp's first point
-    const int nr = min(16, rows - row0);     // its points (<= 0: none)
-    pm_warp_rows(gs, ld, g + (size_t)row0 * N, N, nr);
-    for (int pass = p0; pass <= p1; ++pass) {
-      const int np = pass == 0 ? o.x_cols : kh, nt = (np + 7) / 8, ntp = pm_ntp(np);
-      float c[PM_NT][4];
-#pragma unroll
-      for (int j = 0; j < PM_NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
-      for (int s = 0; s < kpn / PM_KS; ++s, ++q) {
-        hm_cp_wait();
-        __syncthreads();  // slab q is in; every warp is done with slab q - 1
-        stage_next((q + 1) & 1);
-        const float* bh = wsl + (q & 1) * (2 * PM_NMAX * PM_LDS);
-        if (nr > 0) pm_slab_n(ntp, c, in, s * PM_KS, bh);
-      }
-      if (nr <= 0) continue;
-      // the side data: hprev for the h pass, dX where the X pass adds; in
-      // shared memory when this is the last pass, else (an X pass before
-      // an h pass that adds, with more than one skip layer) from device memory
-      const bool add = pass == 0 && !o.store;
-      const bool staged = pass == p1 && (pass == 1 || add);
-      const float* side = pass == 1 ? o.hprev : o.dX;
-      const int ls = pass == 1 ? kh : o.ldx;
-      if (staged) {
-        __syncwarp();  // every lane is done with the warp's rows of G
-        pm_warp_rows(gs, ld, side + (size_t)row0 * ls, ls, nr);
-      }
-#pragma unroll
-      for (int j = 0; j < PM_NT; ++j) {
-        if (j < nt) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {  // rows gq and gq + 8, columns n and n + 1
-            const int m = gq + 8 * h, n = 8 * j + 2 * t;
-            if (m >= nr || n >= np) continue;
-            const size_t i = (size_t)(row0 + m) * ls + n;
-            float v0 = c[j][2 * h], v1 = c[j][2 * h + 1];
-            const bool two = n + 1 < np;
-            if (pass == 1 || add) {
-              const float s0 = staged ? gs[m * ld + n] : side[i];
-              const float s1 = !two ? 0.f : staged ? gs[m * ld + n + 1] : side[i + 1];
-              v0 = pass == 1 ? (s0 > 0.f ? v0 : 0.f) : s0 + v0;
-              v1 = pass == 1 ? (s1 > 0.f ? v1 : 0.f) : s1 + v1;
-            }
-            pm_store2((pass == 1 ? o.gn : o.dX) + i, v0, v1, two, false);
-          }
-        }
+    nh_bar();  // dX is complete
+    // each sin / cos pair's term of dx into its sin column of dX, and the
+    // embedding for dW; then dx = the x columns plus the terms, in order
+    for (int e = wt; e < nr * F; e += 128) {  // a (row, frequency) each
+      const int m = e / F, f = e - m * F;
+      const float fr = a.freq[f], win = a.window != nullptr ? __ldg(a.window + f) : 1.f;
+      float* d = B.xs + m * ldx;
+      float* lad = g.lad + (size_t)(r0 + m) * a.ldl;
+      for (int c = 0; c < C; ++c) {
+        float sv, cv;
+        sincosf(B.xr[m * C + c] * fr, &sv, &cv);
+        const float gs = d[C + f * C + c] * win, gc = d[C + F * C + f * C + c] * win;
+        d[C + f * C + c] = (cv * gs - sv * gc) * fr;
+        lad[C + f * C + c] = sv * win;
+        lad[C + F * C + f * C + c] = cv * win;
       }
     }
-    __syncwarp();  // every lane is done with the warp's shared memory
+    nh_bar();
+    for (int e = wt; e < nr * C; e += 128) {
+      const int m = e / C, c = e - m * C;
+      const float* d = B.xs + m * ldx;
+      float s = d[c];
+      for (int f = 0; f < F; ++f) s += d[C + f * C + c];
+      const float xv = F > 0 ? B.xr[m * C + c] : __ldg(g.x + (size_t)(r0 + m) * C + c);
+      g.lad[(size_t)(r0 + m) * a.ldl + c] = xv;
+      g.dx[(size_t)(r0 + m) * C + c] = s;
+    }
+    for (int l = 0; l + 1 < L; ++l) {
+      if (a.hp_off[l] < 0) continue;
+      const int w = a.out_dim[l], w4 = pm_round4(w);
+      const float* src = g.acts + (size_t)a.act_off[l] * a.rows;
+      float* dst = g.hpad + (size_t)a.hp_off[l] * a.rows_pad;
+      for (int e = wt; e < nr * w4; e += 128) {
+        const int m = e / w4, c = e - m * w4;
+        dst[(size_t)(r0 + m) * w4 + c] = c < w ? __ldg(src + (size_t)(r0 + m) * w + c) : 0.f;
+      }
+    }
   }
 }
 
-// X = the embedding of every point, row-major (rows, c_x)
+// dW's A sources of layer d (wg_engine.cuh): the embedding buffer and the
+// saved h_{l-1} (or its padded copy)
+__device__ __forceinline__ NhDwSrc nh_dw_src(const PmArgs& a, const NhDw& d, const float* acts,
+                                             const float* lad) {
+  const int l = d.layer, cx = pm_has_x(a, l) ? a.c_x : 0, kh = d.K - cx;
+  const float* hs = nullptr;
+  int ldh = kh;
+  if (l > 0) {
+    if (a.hp_off[l - 1] >= 0) {
+      hs = a.hpad + (size_t)a.hp_off[l - 1] * a.rows_pad;
+      ldh = pm_round4(kh);
+    } else {
+      hs = acts + (size_t)a.act_off[l - 1] * a.rows;
+    }
+  }
+  if (cx == 0) return NhDwSrc{{hs, nullptr}, {ldh, 0}, 1, 0};
+  return NhDwSrc{{lad, hs}, {a.ldl, ldh}, hs != nullptr ? 2 : 1, cx};
+}
+
+__device__ __forceinline__ long long nh_dw_dst(const PmArgs& a, const NhDw& d, int o, int i,
+                                               float& scale) {
+  scale = 1.f;
+  return a.off_w[d.layer] + (long long)o * d.K + i;
+}
+
+__device__ __forceinline__ int nh_dw_boff(const PmArgs& a, const NhDw& d) { return a.off_b[d.layer]; }
+
+// dW of every layer over the chunks (blockIdx.y; blockIdx.x the layer's
+// block, dw[].blk0), each into its slice of ws
+__global__ void __launch_bounds__(NH_DW_THREADS, 1)
+pm_dw_kernel(const __grid_constant__ PmArgs a, const float* __restrict__ lad,
+             const float* __restrict__ acts, const float* __restrict__ gimg, float* __restrict__ ws) {
+  extern __shared__ __align__(16) float pm_smem[];
+  const bool tail = a.rows % NH_RS != 0 && (int)blockIdx.y == a.n_chunks - 1;
+  const NhDwRing R = nh_dw_ring(pm_smem, tail);
+  int di = 0;
+  while (di + 1 < a.n_dw && (int)blockIdx.x >= a.dw[di + 1].blk0) ++di;
+  nh_dw_layer(a, di, lad, acts, gimg, ws + (size_t)blockIdx.y * a.n_params, R);
+}
+
+// ------------------------------------------------------------------ the pack
+
+// B(k, n) of pass ps: K4f's W_l[n][k] (k over [the embedding, padded to
+// 16 nxs | h]); K4b's W_l[k][n] (n over the X columns, or the h columns).
+// Zero past the ends.
+__device__ __forceinline__ float pm_pack_value(const PmArgs& a, const NhPass& ps, int k, int n) {
+  const int l = ps.layer, N = a.out_dim[l], K = a.in_dim[l];
+  const int cx = pm_has_x(a, l) ? a.c_x : 0, kh = K - cx;
+  const float* w = a.w[l];
+  if (ps.epi == PM_E_DX) return k < N && n < cx ? __ldg(w + (size_t)k * K + n) : 0.f;
+  if (ps.epi == PM_E_DH) return k < N && n < kh ? __ldg(w + (size_t)k * K + cx + n) : 0.f;
+  if (n >= N) return 0.f;
+  if (k < PM_KS * ps.nxs) return k < cx ? __ldg(w + (size_t)n * K + k) : 0.f;
+  const int j = k - PM_KS * ps.nxs;
+  return j < kh ? __ldg(w + (size_t)n * K + cx + j) : 0.f;
+}
+
+// Every pass's weights split into tf32 hi and lo (rw_split), in the slabs
+// the engine streams (pk, img_total floats)
 __global__ void __launch_bounds__(HM_THREADS)
-pm_embed_kernel(const __grid_constant__ PmArgs a, const float* __restrict__ x,
-                float* __restrict__ X) {
-  const int n_items = a.c_raw * (a.n_freqs + 1);
-  const size_t total = (size_t)a.rows * n_items;
-  for (size_t idx = (size_t)blockIdx.x * HM_THREADS + threadIdx.x; idx < total;
-       idx += (size_t)gridDim.x * HM_THREADS) {
-    const size_t p = idx / n_items;
-    pm_embed_item(a, x, p, (int)(idx - p * n_items), X + p * a.c_x, true);
-  }
-}
-
-// dx = the x columns of dX plus the chain rule through the sin / cos
-// columns and the window
-__global__ void __launch_bounds__(HM_THREADS)
-pm_fold_kernel(const __grid_constant__ PmArgs a, const float* __restrict__ x,
-               const float* __restrict__ dX, float* __restrict__ dx) {
-  const int C = a.c_raw, FC = a.n_freqs * C;
-  for (size_t idx = (size_t)blockIdx.x * HM_THREADS + threadIdx.x; idx < (size_t)a.rows * C;
-       idx += (size_t)gridDim.x * HM_THREADS) {
-    const size_t p = idx / C;
-    const int c = (int)(idx - p * C);
-    const float* d = dX + p * a.c_x;
-    float s = d[c];
-    const float xv = __ldg(x + idx);
-    for (int f = 0; f < a.n_freqs; ++f) {
-      float sv, cv;
-      sincosf(xv * a.freq[f], &sv, &cv);
-      const float win = a.window != nullptr ? __ldg(a.window + f) : 1.f;
-      const float gs = d[C + f * C + c] * win;
-      const float gc = d[C + FC + f * C + c] * win;
-      s += (cv * gs - sv * gc) * a.freq[f];
-    }
-    dx[idx] = s;
+pm_pack_kernel(const __grid_constant__ PmArgs a, float* __restrict__ pk) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < a.img_total; e += gridDim.x * blockDim.x) {
+    int p = 0;  // the last pass whose slabs start at or before e
+    while (p + 1 < a.n_pass && a.pass[p + 1].img <= e) ++p;
+    const NhPass& ps = a.pass[p];
+    int k, n;
+    bool lo;
+    nh_slab_at<PM_KS>(e - ps.img, ps.nw, k, n, lo);
+    uint32_t hv, lv;
+    rw_split(pm_pack_value(a, ps, k, n), hv, lv);
+    pk[e] = __uint_as_float(lo ? lv : hv);
   }
 }
 
 // ------------------------------------------------------------------ launch
 
-static size_t pm_fwd_smem(const PmArgs& a, int tr) {
-  return sizeof(float) * ((size_t)tr * (hm_ld(a.c_x) + hm_ld(a.max_h > 0 ? a.max_h : 1)) +
-                          4 * PM_NMAX * PM_LDS);
+static int pm_cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+static int pm_rks(int n) { return (n + PM_KS - 1) / PM_KS * PM_KS; }
+
+static int pm_wgmma_width(int n) {
+  return n <= 8 ? 8 : n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : 128;
 }
 
-// The layer table, the packed weights', saved outputs' and gradients'
-// layouts, and K4b's chunks. w / b may be null (sizes only).
-static int pm_fill_args(PmArgs& a, const void* const* w, const void* const* b,
-                        const int* in_dim, const int* out_dim, int n_layers, int c_raw,
-                        int n_freqs, const float* freqs, const float* window, int rows,
-                        int skip_mask, int final_act) {
+static size_t pm_engine_smem(const PmArgs& a) {
+  return sizeof(float) * (32 + (size_t)a.stages * PmFeed::kSlot +
+                          (size_t)NH_TR * (a.ldx + a.ldh + pm_xr_cols(a)) +
+                          (size_t)(PM_MAX_LAYERS + 1) * NH_NMAX);
+}
+
+static size_t pm_r4(size_t n) { return (n + 3) & ~(size_t)3; }
+
+// K4b's scratch, floats, each region a whole number of 16-byte units: the
+// split transposed weights (K4b's passes), the G image, the embedding
+// buffer, the padded hidden copies, the chunks' workspace slices
+static size_t pm_bwd_scratch(const PmArgs& a) {
+  const size_t R = a.rows_pad;
+  return pm_r4(a.img_total) + pm_r4(R / NH_RS * a.gstride) + pm_r4(R * a.ldl) +
+         pm_r4(R * a.hp_total) + pm_r4((size_t)a.n_chunks * a.n_params);
+}
+
+// The layer table, K4f's passes (or K4b's with bwd), dW's layers and
+// chunks for n_sm SMs, the strides and the saved outputs' and gradients'
+// layouts. w / b may be null (sizes only).
+static int pm_fill(PmArgs& a, const void* const* w, const void* const* b, const int* in_dim,
+                   const int* out_dim, int n_layers, int c_raw, int n_freqs, const float* freqs,
+                   const float* window, int rows, int skip_mask, int final_act, bool bwd, int n_sm) {
+  const int bad = (int)cudaErrorInvalidValue;
   if (n_layers < 1 || n_layers > PM_MAX_LAYERS || n_freqs < 0 || n_freqs > PM_MAX_FREQS ||
-      rows < 1 || c_raw < 1 || (skip_mask & 1))
-    return (int)cudaErrorInvalidValue;
+      rows < 1 || c_raw < 1 || (skip_mask & 1) || n_sm < 1)
+    return bad;
+  a = PmArgs{};
   a.n_layers = n_layers;
   a.c_raw = c_raw;
   a.n_freqs = n_freqs;
@@ -518,161 +534,193 @@ static int pm_fill_args(PmArgs& a, const void* const* w, const void* const* b,
   a.skip_mask = skip_mask;
   a.final_act = final_act;
   a.window = window;
-  if (a.c_x > PM_NMAX) return (int)cudaErrorInvalidValue;
+  if (a.c_x > NH_NMAX) return bad;
   for (int f = 0; f < PM_MAX_FREQS; ++f) a.freq[f] = f < n_freqs ? freqs[f] : 0.f;
-  int pk = 0, pt = 0, act = 0, nw = 0, max_h = 0, max_out = 0;
+  int act = 0, nw = 0, max_out = 0;
   for (int l = 0; l < n_layers; ++l) {
-    const bool has_x = l == 0 || ((skip_mask >> l) & 1);
-    const int want_in = (l == 0 ? 0 : out_dim[l - 1]) + (has_x ? a.c_x : 0);
-    if (in_dim[l] != want_in || out_dim[l] < 1 || out_dim[l] > PM_NMAX)
-      return (int)cudaErrorInvalidValue;
+    const int want_in = (l == 0 ? 0 : out_dim[l - 1]) + (pm_has_x(a, l) ? a.c_x : 0);
+    if (in_dim[l] != want_in || out_dim[l] < 1 || out_dim[l] > NH_NMAX) return bad;
     a.w[l] = w != nullptr ? static_cast<const float*>(w[l]) : nullptr;
     a.b[l] = b != nullptr ? static_cast<const float*>(b[l]) : nullptr;
     a.in_dim[l] = in_dim[l];
     a.out_dim[l] = out_dim[l];
-    a.pk_off[l] = pk;
-    pk += 2 * out_dim[l] * pm_kp(in_dim[l]);
-    a.pt_off[l] = pt;
-    pt += 2 * in_dim[l] * pm_kp(out_dim[l]);
     a.act_off[l] = act;
-    if (l < n_layers - 1) {
-      act += out_dim[l];
-      max_h = out_dim[l] > max_h ? out_dim[l] : max_h;
-    }
+    if (l < n_layers - 1) act += out_dim[l];
     a.off_w[l] = nw;
     nw += out_dim[l] * in_dim[l];
-    max_out = out_dim[l] > max_out ? out_dim[l] : max_out;
+    max_out = std::max(max_out, out_dim[l]);
   }
   for (int l = 0; l < n_layers; ++l) {
     a.off_b[l] = nw;
     nw += out_dim[l];
   }
-  a.max_h = max_h;
-  a.max_out = max_out;
-  a.pk_total = pk;
-  a.pt_total = pt;
   a.act_total = act;
   a.n_params = nw;
-  const int per = (rows + PM_CHUNKS - 1) / PM_CHUNKS;
-  a.pc = (per + HM_KS - 1) / HM_KS * HM_KS;
-  a.n_chunks = (rows + a.pc - 1) / a.pc;
-  a.tr = 16 * PM_MAX_WARPS;  // the tallest tile whose buffers fit
-  while (a.tr > 128 && pm_fwd_smem(a, a.tr) > 227 * 1024) a.tr /= 2;
-  return 0;
-}
-
-// K4b's scratch, floats: the pre-split weights' transposes, two gradient
-// buffers (rows x max_out), X and dX (rows x c_x), the chunks' workspace
-// slices; each region a whole number of 16-byte units
-static size_t pm_bwd_scratch(const PmArgs& a) {
-  const size_t P = a.rows;
-  return pm_round4(a.pt_total) + 2 * pm_round4(P * a.max_out) + 2 * pm_round4(P * a.c_x) +
-         pm_round4((size_t)a.n_chunks * a.n_params);
-}
-
-static int pm_set_smem(const void* kernel, size_t smem) {
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  a.n_tiles = pm_cdiv(rows, NH_TR);
+  a.rows_pad = a.n_tiles * NH_TR;
+  // the passes: K4f's layers in order; K4b's from the last layer to the
+  // first, a layer's X columns before its h columns, the first of them
+  // storing the layer's G for dW
+  int img = 0;
+  auto add = [&](int nsl, int n, int epi, int l, int nxs, int dw) {
+    if (a.n_pass == PM_MAX_PASSES) return false;
+    const int pw = pm_wgmma_width(n);
+    a.pass[a.n_pass++] = NhPass{img, (short)nsl, (short)n, (unsigned char)nxs, (unsigned char)pw,
+                                (signed char)epi, 0, (signed char)l, 0, (signed char)dw, 0};
+    img += nsl * 2 * PM_KS * pw;
+    return true;
+  };
+  if (!bwd) {
+    // a last layer of one output on h alone is its input layer's epilogue
+    a.fold = n_layers >= 2 && out_dim[n_layers - 1] == 1 && !pm_has_x(a, n_layers - 1);
+    for (int l = 0; l < n_layers - a.fold; ++l) {
+      const bool hx = pm_has_x(a, l);
+      const int nxs = hx ? pm_rks(a.c_x) / PM_KS : 0, kh = in_dim[l] - (hx ? a.c_x : 0);
+      const int epi = l == n_layers - 1 ? PM_E_OUT : a.fold && l == n_layers - 2 ? PM_E_HID1 : PM_E_HID;
+      if (!add(nxs + pm_cdiv(kh, PM_KS), out_dim[l], epi, l, nxs, -1)) return bad;
+    }
+  } else {
+    for (int l = n_layers - 1; l >= 0; --l) {
+      const bool hx = pm_has_x(a, l);
+      const int nsl = pm_cdiv(out_dim[l], PM_KS), kh = in_dim[l] - (hx ? a.c_x : 0);
+      int dw = l;
+      if (hx) {
+        if (!add(nsl, a.c_x, PM_E_DX, l, 0, dw)) return bad;
+        dw = -1;
+      }
+      if (l > 0 && !add(nsl, kh, PM_E_DH, l, 0, dw)) return bad;
+    }
   }
+  a.img_total = img;
+  // dW: every layer, G's slabs one after another in each 32-row group
+  int goff = 0, blk = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const int nwo = pm_wgmma_width(out_dim[l]);
+    const int kind = l == 0 ? NH_A_X : pm_has_x(a, l) ? NH_A_XH : NH_A_H;
+    a.dw[l] = NhDw{goff, blk, (short)in_dim[l], (short)out_dim[l], (short)nwo, (signed char)kind, 0,
+                   (signed char)l};
+    goff += 32 * nwo;
+    blk += pm_cdiv(in_dim[l], NH_DW_M);
+  }
+  a.n_dw = n_layers;
+  a.gstride = goff;
+  a.dw_blocks = blk;
+  // dW's A rows arrive by 16-byte TMA copies from the saved blocks: a
+  // hidden layer whose block or rows are not 16-byte aligned is copied
+  // padded by dIn
+  a.hp_total = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const bool pad = l + 1 < n_layers &&
+                     (out_dim[l] % 4 != 0 || (long long)a.act_off[l] * rows % 4 != 0);
+    a.hp_off[l] = pad ? a.hp_total : -1;
+    if (pad) a.hp_total += pm_round4(out_dim[l]);
+  }
+  a.ldx = hm_ld(pm_rks(a.c_x));
+  a.ldh = hm_ld(pm_rks(max_out));
+  a.ldl = pm_round4(a.c_x);
+  a.stages = 3;  // 3 to 8 slots of 16-deep slabs timed the same
+  if (pm_engine_smem(a) > NH_SMEM) a.stages = 2;
+  if (pm_engine_smem(a) > NH_SMEM) return bad;
+  // dW's chunks: whole G slabs, about eight waves of its blocks
+  const int n = std::max(1, std::min({pm_cdiv(rows, NH_RS), pm_cdiv(8LL * n_sm, blk), PM_CHUNKS}));
+  a.pc = pm_cdiv(pm_cdiv(rows, n), NH_RS) * NH_RS;
+  a.n_chunks = pm_cdiv(rows, a.pc);
   return 0;
 }
 
 extern "C" {
 
 // K4f / K4b's launch plan for an MLP of these widths on `rows` points, the
-// one the entry points below follow: sizes[0] floats of pre-split weights,
-// [1] saved floats per point, [2] floats of the gradients (every dW_l
-// (out_l, in_l), then every db_l), [3] K4b's chunks, [4] points per chunk,
-// [5] K4b's scratch floats, [6] K4f's shared memory per block (bytes), [7]
-// K4f's points per tile (256, or 128 where those do not fit), [8] its
-// tiles (one persistent block per SM takes them in turn), [9] K4b's CUDA
-// launches.
+// one the entry points below follow: sizes[0] floats of K4f's split
+// weights, [1] saved floats per point, [2] floats of the gradients (every
+// dW_l (out_l, in_l), then every db_l), [3] K4b's dW chunks, [4] points per
+// chunk, [5] K4b's scratch floats, [6] the engine's shared memory per block
+// (bytes), [7] points per tile, [8] tiles (one persistent block per SM
+// takes them in turn), [9] K4b's CUDA launches.
 int lab4d_pe_mlp_plan(const int* in_dim, const int* out_dim, int n_layers, int c_raw,
                       int n_freqs, int rows, int skip_mask, long long* sizes) {
-  PmArgs a;
+  PmArgs f, bw;
   float freqs[PM_MAX_FREQS] = {};
-  int err = pm_fill_args(a, nullptr, nullptr, in_dim, out_dim, n_layers, c_raw, n_freqs, freqs,
-                         nullptr, rows, skip_mask, 0);
+  const int n_sm = nh_sms();
+  int err = pm_fill(f, nullptr, nullptr, in_dim, out_dim, n_layers, c_raw, n_freqs, freqs, nullptr,
+                    rows, skip_mask, 0, false, n_sm);
+  if (!err)
+    err = pm_fill(bw, nullptr, nullptr, in_dim, out_dim, n_layers, c_raw, n_freqs, freqs, nullptr,
+                  rows, skip_mask, 0, true, n_sm);
   if (err) return err;
-  sizes[0] = a.pk_total;
-  sizes[1] = a.act_total;
-  sizes[2] = a.n_params;
-  sizes[3] = a.n_chunks;
-  sizes[4] = a.pc;
-  sizes[5] = (long long)pm_bwd_scratch(a);
-  sizes[6] = (long long)pm_fwd_smem(a, a.tr);
-  sizes[7] = a.tr;
-  sizes[8] = (rows + a.tr - 1) / a.tr;
-  sizes[9] = 2 * n_layers + 4;
+  sizes[0] = f.img_total;
+  sizes[1] = f.act_total;
+  sizes[2] = f.n_params;
+  sizes[3] = bw.n_chunks;
+  sizes[4] = bw.pc;
+  sizes[5] = (long long)pm_bwd_scratch(bw);
+  sizes[6] = (long long)pm_engine_smem(f);
+  sizes[7] = NH_TR;
+  sizes[8] = f.n_tiles;
+  sizes[9] = 4;
   return 0;
 }
 
 // K4f: y (rows, out_last) = MLP(embed(x)) for x (rows, c_raw); window:
 // (n_freqs,) device pointer or null; freqs: n_freqs host floats. wpk:
-// sizes[0] floats of scratch for the pre-split weights. acts: null, or
-// rows * sizes[1] floats for every hidden layer output (K4b's input). Two
-// launches: the weights' split, then the MLP. Returns the error, or 0;
+// sizes[0] floats of scratch for the split weights. acts: null, or rows *
+// sizes[1] floats for every hidden layer output (K4b's input). Two
+// launches: the split, then the engine. Returns the error, or 0;
 // *n_launches: the launches made.
 int lab4d_pe_mlp_fwd(const float* x, float* y, float* acts, float* wpk, const void* const* w,
                      const void* const* b, const int* in_dim, const int* out_dim, int n_layers,
                      int c_raw, int n_freqs, const float* freqs, const float* window, int rows,
                      int skip_mask, int final_act, int* n_launches, void* stream) {
+  const int n_sm = nh_sms();
+  if (n_sm < 1) return (int)cudaErrorInvalidDevice;
   PmArgs a;
-  int err = pm_fill_args(a, w, b, in_dim, out_dim, n_layers, c_raw, n_freqs, freqs, window, rows,
-                         skip_mask, final_act);
+  int err = pm_fill(a, w, b, in_dim, out_dim, n_layers, c_raw, n_freqs, freqs, window, rows,
+                    skip_mask, final_act, false, n_sm);
   if (err) return err;
-  const size_t smem = pm_fwd_smem(a, a.tr);
-  if ((err = pm_set_smem((const void*)pe_mlp_fwd_kernel, smem))) return err;
+  const size_t smem = pm_engine_smem(a);
+  if ((err = nh_set_smem((const void*)pm_fwd_kernel, smem))) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int dev = 0, n_sm = 0;
-  if ((err = (int)cudaGetDevice(&dev))) return err;
-  if ((err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev))) return err;
-  int n = 0;
-  pm_pack_kernel<<<dim3(8, n_layers), HM_THREADS, 0, st>>>(a, wpk, 0);
+  pm_pack_kernel<<<std::min(pm_cdiv(a.img_total, HM_THREADS), 1024), HM_THREADS, 0, st>>>(a, wpk);
   if ((err = (int)cudaGetLastError())) return err;
-  ++n;
-  const int n_tiles = (rows + a.tr - 1) / a.tr;
-  pe_mlp_fwd_kernel<<<n_tiles < n_sm ? n_tiles : n_sm, 2 * a.tr, smem, st>>>(a, x, wpk, y, acts);
+  pm_fwd_kernel<<<std::min(a.n_tiles, n_sm), NH_THREADS, smem, st>>>(a, x, wpk, y, acts);
   if ((err = (int)cudaGetLastError())) return err;
-  ++n;
-  if (n_launches != nullptr) *n_launches = n;
+  if (n_launches != nullptr) *n_launches = 2;
   return 0;
 }
 
 // K4b: dx (rows, c_raw) and grads (sizes[2] floats: every dW_l, then every
 // db_l) for the output gradient g (rows, out_last), already masked by the
-// final ReLU, from K4f's saved hidden outputs acts. scratch: sizes[5]
-// floats. events / kinds (may be null): a CUDA event recorded before the
-// first launch and after each launch, and each launch's kind (0 weight
-// split, 1 embedding, 2 dW, 3 dIn, 4 dx fold, 5 reduction), for as many
+// final ReLU, from K4f's saved hidden outputs acts (16-byte aligned).
+// scratch: sizes[5] floats. events / kinds (may be null): a CUDA event
+// recorded before the first launch and after each launch, and each
+// launch's kind (0 weight split, 1 dIn, 2 dW, 3 reduction), for as many
 // launches as n_events allows. Returns the error, or 0; *n_launches: the
-// launches made.
+// launches made (4).
 int lab4d_pe_mlp_bwd(const float* x, const float* g, const float* acts, float* dx, float* grads,
                      float* scratch, const void* const* w, const void* const* b,
                      const int* in_dim, const int* out_dim, int n_layers, int c_raw, int n_freqs,
                      const float* freqs, const float* window, int rows, int skip_mask,
                      void** events, int* kinds, int n_events, int* n_launches, void* stream) {
+  const int n_sm = nh_sms();
+  if (n_sm < 1) return (int)cudaErrorInvalidDevice;
+  if ((reinterpret_cast<uintptr_t>(acts) & 15) || (reinterpret_cast<uintptr_t>(scratch) & 15))
+    return (int)cudaErrorMisalignedAddress;
   PmArgs a;
-  int err = pm_fill_args(a, w, b, in_dim, out_dim, n_layers, c_raw, n_freqs, freqs, window, rows,
-                         skip_mask, 0);
+  int err = pm_fill(a, w, b, in_dim, out_dim, n_layers, c_raw, n_freqs, freqs, window, rows,
+                    skip_mask, 0, true, n_sm);
   if (err) return err;
-  // dIn: 256-point tiles, one persistent block per SM
-  const int din_tr = 16 * PM_MAX_WARPS, din_tiles = (rows + din_tr - 1) / din_tr;
-  const size_t din_smem = sizeof(float) * ((size_t)din_tr * hm_ld(PM_NMAX) + 4 * PM_NMAX * PM_LDS);
-  if ((err = pm_set_smem((const void*)pm_din_kernel, din_smem))) return err;
-  int dev = 0, n_sm = 0;
-  if ((err = (int)cudaGetDevice(&dev))) return err;
-  if ((err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev))) return err;
+  const size_t smem = pm_engine_smem(a);
+  if ((err = nh_set_smem((const void*)pm_din_kernel, smem)) ||
+      (err = nh_set_smem((const void*)pm_dw_kernel, NH_DW_SMEM)))
+    return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t P = rows;
-  float* wpt = scratch;
-  float* GA = wpt + pm_round4(a.pt_total);
-  float* GB = GA + pm_round4(P * a.max_out);
-  float* X = GB + pm_round4(P * a.max_out);
-  float* dX = X + pm_round4(P * a.c_x);
-  float* ws = dX + pm_round4(P * a.c_x);
+  const size_t R = a.rows_pad;
+  float* pk = scratch;  // the TMA unit's sources: 16-byte aligned
+  float* gimg = pk + pm_r4(a.img_total);
+  float* lad = gimg + pm_r4(R / NH_RS * a.gstride);
+  float* hpad = lad + pm_r4(R * a.ldl);
+  float* ws = hpad + pm_r4(R * a.hp_total);
+  a.hpad = hpad;
   int n = 0;
   if (events != nullptr && n_events > 0 &&
       (err = (int)cudaEventRecord(static_cast<cudaEvent_t>(events[0]), st)))
@@ -690,45 +738,16 @@ int lab4d_pe_mlp_bwd(const float* x, const float* g, const float* acts, float* d
     ++n;
     return 0;
   };
-  const int eb = (int)((P * a.c_x + HM_THREADS - 1) / HM_THREADS);
-  const int grid_e = eb < 132 * 16 ? eb : 132 * 16;
-
-  pm_pack_kernel<<<dim3(8, n_layers), HM_THREADS, 0, st>>>(a, wpt, 1);
+  pm_pack_kernel<<<std::min(pm_cdiv(a.img_total, HM_THREADS), 1024), HM_THREADS, 0, st>>>(a, pk);
   if ((err = done(0))) return err;
-  pm_embed_kernel<<<grid_e, HM_THREADS, 0, st>>>(a, x, X);
+  const PmGrad gr{x, g, acts, dx, gimg, lad, hpad};
+  pm_din_kernel<<<std::min(a.n_tiles, n_sm), NH_THREADS, smem, st>>>(a, pk, gr);
   if ((err = done(1))) return err;
-  const float* gc = g;
-  float* gbuf[2] = {GA, GB};
-  int cur = 0;
-  bool x_written = false;
-  for (int l = n_layers - 1; l >= 0; --l) {
-    const int N = a.out_dim[l], K = a.in_dim[l];
-    const bool has_x = l == 0 || ((skip_mask >> l) & 1);
-    const float* hprev = l > 0 ? acts + (size_t)a.act_off[l - 1] * P : nullptr;
-    const int kh = l > 0 ? a.out_dim[l - 1] : 0;
-    const HmSrc src = l == 0 ? HmSrc{X, a.c_x, a.c_x, X, a.c_x}
-                    : has_x  ? HmSrc{X, a.c_x, a.c_x, hprev, kh}
-                             : HmSrc{hprev, kh, kh, hprev, kh};
-    const int nkt = (K + 63) / 64;
-    hm_dw_kernel<<<dim3(((N + 63) / 64) * nkt, a.n_chunks), HM_THREADS, 0, st>>>(
-        gc, N, src, K, rows, a.pc, nkt, ws, a.n_params, K, a.off_w[l], a.off_w[l], a.off_b[l]);
-    if ((err = done(2))) return err;
-    const PmDinOut o{dX, a.c_x, has_x ? a.c_x : 0, x_written ? 0 : 1, gbuf[cur], hprev};
-    const int ld = hm_ld(max(N, max(K - o.x_cols, o.x_cols)));
-    pm_din_kernel<<<din_tiles < n_sm ? din_tiles : n_sm, 32 * PM_MAX_WARPS,
-                    sizeof(float) * ((size_t)din_tr * ld + 4 * PM_NMAX * PM_LDS), st>>>(
-        gc, N, wpt + a.pt_off[l], K, rows, din_tr, ld, o);
-    if ((err = done(3))) return err;
-    x_written = x_written || has_x;
-    gc = gbuf[cur];
-    cur ^= 1;
-  }
-  const int fb = (int)((P * c_raw + HM_THREADS - 1) / HM_THREADS);
-  pm_fold_kernel<<<fb < 132 * 16 ? fb : 132 * 16, HM_THREADS, 0, st>>>(a, x, dX, dx);
-  if ((err = done(4))) return err;
-  hm_reduce_kernel<<<(a.n_params + HM_THREADS - 1) / HM_THREADS, HM_THREADS, 0, st>>>(
-      ws, a.n_chunks, a.n_params, grads);
-  if ((err = done(5))) return err;
+  pm_dw_kernel<<<dim3(a.dw_blocks, a.n_chunks), NH_DW_THREADS, NH_DW_SMEM, st>>>(a, lad, acts, gimg, ws);
+  if ((err = done(2))) return err;
+  hm_reduce_kernel<<<pm_cdiv(a.n_params, HM_THREADS), HM_THREADS, 0, st>>>(ws, a.n_chunks,
+                                                                         a.n_params, grads);
+  if ((err = done(3))) return err;
   if (n_launches != nullptr) *n_launches = n;
   return 0;
 }

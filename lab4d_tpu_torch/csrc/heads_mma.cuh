@@ -1,12 +1,11 @@
 // Tensor-core tile products in 3xTF32 for Hopper (sm_90a) on mma.sync:
-// the engine of K4f and K4b (csrc/fused_pe_mlp.cu) and of K3's cluster
-// engine (csrc/fused_relu_mlp.cu), with the split-K weight gradients of
-// K4b and the ordered reduction of K3b's and K4b's workspace slices. (K1 /
-// K2, csrc/nerf_heads.cu, and K3's row engine run on wgmma, csrc/wgmma.cuh;
+// the engine of K3's cluster engine (csrc/fused_relu_mlp.cu), with its
+// split-K weight gradients (hm_dw_tile) and the ordered reduction of K3b's
+// and K4b's workspace slices (hm_reduce_kernel). (K1 / K2, K4f / K4b and
+// K3's row engine run on wgmma, csrc/wgmma.cuh and csrc/wg_engine.cuh;
 // they take only this file's staging helpers: hm_ld, hm_cp4, HmMK.)
 //
-// What bounds it: the bg field's MLPs are fp32 products (K4f at the base
-// MLP 0.72 ms on fp32 FMA, the H100's 67 TFLOP/s). The tensor cores run
+// What bounds it: the MLPs are fp32 products. The tensor cores run
 // TF32 at 495 TFLOP/s, but one TF32 product keeps 11 significant bits,
 // which misses the kernels' 1e-4 tolerance against the fp32 plain
 // versions. What the design does about it: each fp32 operand is split
@@ -126,25 +125,6 @@ __device__ __forceinline__ void hm_step(float (&c)[4][4], const AOp& A, int ka, 
   }
 }
 
-// The same with B already split: B(k, n) of bhi / blo at n * ldn + k * ldk
-// (a slab of pre-split weights)
-template <class AOp>
-__device__ __forceinline__ void hm_step_pk(float (&c)[4][4], const AOp& A, int ka,
-                                           const float* bhi, const float* blo, int ldn, int ldk,
-                                           int kb, int m0, int n0, int nv) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  uint32_t ah[4], al[4];
-  hm_frag_a(A, ka, m0, ah, al);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (j < nv) {
-      const int i = (n0 + 8 * j + g) * ldn + (kb + t) * ldk;
-      hm_mma3(c[j], ah, al, __float_as_uint(bhi[i]), __float_as_uint(bhi[i + 4 * ldk]),
-              __float_as_uint(blo[i]), __float_as_uint(blo[i + 4 * ldk]));
-    }
-  }
-}
-
 // epi(m, n, value) for every element of a unit's accumulators with n < n_max
 template <class Epi>
 __device__ __forceinline__ void hm_store(const float (&c)[4][4], int m0, int n0, int nv,
@@ -199,14 +179,6 @@ __device__ __forceinline__ void hm_cp_commit() { asm volatile("cp.async.commit_g
 
 __device__ __forceinline__ void hm_cp_wait() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-// Sum over a warp; every lane gets the same value (each butterfly step
-// adds the same two numbers on both lanes).
-__device__ __forceinline__ float hm_warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // ------------------------------------------- split-K weight gradients
@@ -309,14 +281,6 @@ __device__ __forceinline__ void hm_dw_tile(int tile, int chunk, const float* __r
       else out[off_w2 + (size_t)o * (K - kw) + (k - kw)] = v;
     });
   if (do_b && nb + tid < N) out[off_b + nb + tid] = db;
-}
-
-// hm_dw_tile over a grid: blockIdx.x the tile, blockIdx.y the chunk
-__global__ void __launch_bounds__(HM_THREADS)
-hm_dw_kernel(const float* __restrict__ g, int N, HmSrc src, int K, int rows, int pc, int n_ktiles,
-             float* __restrict__ ws, int n_slice, int kw, int off_w1, int off_w2, int off_b) {
-  hm_dw_tile(blockIdx.x, blockIdx.y, g, N, src, K, rows, pc, n_ktiles, ws, n_slice, kw, off_w1,
-             off_w2, off_b);
 }
 
 // out[e] = sum over the slices b (in order) of ws[b * n + e]: the same

@@ -1,6 +1,7 @@
 // K1 and K2: every per-point head of the FeatureNeRF field, forward and
 // backward, hand-written for Hopper (sm_90a) on wgmma in 3xTF32 with
-// weights fed by the TMA unit (the primitives of csrc/wgmma.cuh).
+// weights fed by the TMA unit (the tile engine of csrc/wg_engine.cuh, which
+// K4f / K4b share, on the primitives of csrc/wgmma.cuh).
 //
 // K1 replaces lab4d_tpu/ops/field_kernel.py:_run_fwd (Pallas kernel
 // _fwd_kernel / _forward_tile); K2 replaces _run_bwd (_bwd_kernel /
@@ -69,14 +70,16 @@
 // - K2's dW = G^T A for every layer is one launch over chunks of rows,
 //   each chunk into its workspace slice; the slices are summed in chunk
 //   order with the appearance gradients and d ibeta in the last launch. A
-//   block is warp specialised: its producer warp streams each 32-row slab
-//   by TMA into a ring (G's fp32 slab; A's whole saved rows, the embedding
-//   from the ladder buffer, hc as feat and colour, in 8 bulk copies of 4
-//   rows per operand: one copy per row was dW's bottleneck), splits G into
-//   hi / lo in the slot and releases it to the two warpgroups by an
-//   mbarrier. A slab's rows are permuted (nh_slab_row) so that the A^T
-//   fragment loads, from tiles padded per 4-row chunk, hit distinct banks.
-//   K1 is 2 CUDA launches, K2 4.
+//   block is warp specialised (wg_engine.cuh's nh_dw_block, which K4b
+//   runs too): a producer warp streams each 32-row slab by TMA into a ring
+//   (G's fp32 slab; A's whole saved rows, the embedding from the ladder
+//   buffer, hc as feat and colour, in 8 bulk copies of 4 rows per
+//   operand: one copy per row was dW's bottleneck), its warpgroup splits G
+//   into hi / lo in the slot and releases it to the two warpgroups that
+//   run the products, with the registers it handed them (setmaxnreg). A
+//   slab's rows are permuted (nh_slab_row) so that the A^T fragment
+//   loads, from tiles padded per 4-row chunk, hit distinct banks. K1 is 2
+//   CUDA launches, K2 4.
 
 // No float atomics on values: every sum across warps, blocks and chunks
 // runs in a fixed order, and the result is the same from run to run.
@@ -84,8 +87,7 @@
 
 #include <algorithm>
 
-#include "heads_mma.cuh"
-#include "wgmma.cuh"
+#include "wg_engine.cuh"
 
 #define NH_MAX_LAYERS 8
 #define NH_MAX_FREQS 16
@@ -93,21 +95,7 @@
 #define NH_MAX_DW 36       // dW's layers: every head layer, sdf, rgb2, rgb1
 #define NH_HEADS 4         // base, colour, visibility, feature
 #define NH_RGB 3
-#define NH_TR 128          // points per tile
-#define NH_HALF 64         // a warpgroup's rows of the tile
-#define NH_THREADS 256     // two warpgroups
-#define NH_WARPS (NH_THREADS / 32)
-#define NH_KS 16           // k-depth of a weight slab: two k8 steps
-#define NH_NMAX 128        // widest layer: one wgmma of a warpgroup
-#define NH_SLAB (32 * NH_NMAX)  // floats of a ring slot: the widest slab, hi and lo
-#define NH_RS 32           // rows of a G slab of dW: four k8 steps
-#define NH_DW_M 128        // dW inputs per block: 64 per warpgroup
-#define NH_DW_THREADS (NH_THREADS + 32)  // dW: two warpgroups and a producer warp
-#define NH_DW_STAGES 3     // dW's slabs in flight
-#define NH_DW_SLAB (64 * NH_NMAX)  // floats of the widest G slab, hi and lo
-#define NH_DW_A (8 * (4 * NH_NMAX + 8))  // floats of an A tile: 8 chunks of 4 rows, padded
-#define NH_DW_SLOT (NH_DW_SLAB + 2 * NH_DW_A)  // G's slab and A's tiles (x and h, or hc's two)
-#define NH_SMEM (227 * 1024)
+#define NH_SLAB (2 * NH_KS * NH_NMAX)  // floats of a ring slot: the widest slab, hi and lo
 
 // What a pass computes (NhPass.epi). K1: a hidden layer into H; the base
 // head's last layer into F, with the sdf and density; the colour head's
@@ -117,9 +105,6 @@
 // the previous layer's G.
 enum { NH_E_HID, NH_E_BASE, NH_E_COL, NH_E_RGB1, NH_E_RGB2, NH_E_VIS, NH_E_FEAT,
        NH_E_DHC, NH_E_DX, NH_E_DH };
-// dW's A operand (NhDw.kind): the embedding, [embedding | h_{l-1}], h_{l-1}
-// (or the saved input of sdf / rgb2), hc = feat + colour
-enum { NH_A_X, NH_A_XH, NH_A_H, NH_A_HC };
 
 // One ReLU MLP head in the split layout. off_*: offsets of its gradients in
 // a workspace slice; act_off: floats per point before layer l's saved
@@ -134,29 +119,6 @@ struct NhHead {
   const float* w1[NH_MAX_LAYERS];  // (out, c_x) on a layer with x (0 or skip), else (out, in)
   const float* w2[NH_MAX_LAYERS];  // the h columns of a skip layer, else null
   const float* b[NH_MAX_LAYERS];
-};
-
-// One pass of the engine: a wgmma of nw columns (n of them real) over nsl
-// slabs of the reduction. Its slabs lie at img in the packed weights, each
-// hi then lo, [k / 4][n / 8][n % 8][k % 4] (wgmma's K-major core matrices).
-struct NhPass {
-  int img;
-  short nsl, n;
-  unsigned char nxs;   // K1: the first nxs slabs read the tile's ladder, the rest the A buffer
-  unsigned char nw;    // 8, 16, 32, 64 or 128
-  signed char epi;     // NH_E_*
-  signed char head, layer;  // its layer (head -1: rgb1, rgb2, d hc)
-  signed char src;     // the A buffer: 0 H, 1 F
-  signed char dw;      // K2: the dW layer whose G the pass reads first, stored before it, or -1
-  signed char first;   // K2: the first pass of a head
-};
-
-// One layer of dW = G^T A, db = sum G
-struct NhDw {
-  int goff;   // floats before its G slab in each 32-row group of the G image
-  int blk0;   // its first dW block
-  short K, N, nwo;  // inputs, outputs, G slab columns (8 .. 128)
-  signed char kind, head, layer;  // NH_A_*; head -1 sdf, -2 rgb2, -3 rgb1's W_hc
 };
 
 struct NhArgs {
@@ -190,6 +152,9 @@ struct NhArgs {
   const float* ibeta;   // (1,) on the device
 };
 
+// The engine's weight stream (wg_engine.cuh) over K1's or K2's passes
+using NhHeadsFeed = NhFeed<NhArgs, NH_KS>;
+
 __device__ __forceinline__ float nh_sign(float s) { return s > 0.f ? 1.f : (s < 0.f ? -1.f : 0.f); }
 
 __device__ __forceinline__ float nh_sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
@@ -209,123 +174,6 @@ __device__ __forceinline__ int nh_orig(int nf, int p) {
 // Head h's annealing window at ladder position p
 __device__ __forceinline__ float nh_win(const NhHead& h, int p) {
   return p < 3 || h.window == nullptr ? 1.f : __ldg(h.window + (p - 3) / 6);
-}
-
-// The calling warpgroup's 128 threads (named barrier 1 or 2)
-__device__ __forceinline__ void nh_bar() {
-  asm volatile("bar.sync %0, 128;" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
-}
-
-// ------------------------------------------------------------------ the ring
-
-// The ring's barriers and slot counters (the first 32 floats of shared
-// memory), then the ring
-__device__ __forceinline__ float* nh_ring_init(float* smem, int stages, uint64_t*& full,
-                                               uint32_t*& cnt) {
-  full = reinterpret_cast<uint64_t*>(smem);
-  cnt = reinterpret_cast<uint32_t*>(full + stages);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      rw_mbar_init(full + s, 1);
-      cnt[s] = 0;
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  return smem + 32;
-}
-
-// The engine's weight slabs in the order it takes them: tile after tile
-// (blockIdx.x, then every gridDim.x-th), pass after pass, slab after slab.
-// next() gives the next slab's source and size and moves on.
-struct NhFeed {
-  const NhArgs* a;
-  const float* pk;
-  int tile, p, q;
-  __device__ __forceinline__ bool next(const float*& src, uint32_t& bytes) {
-    if (tile >= a->n_tiles) return false;
-    const NhPass& ps = a->pass[p];
-    const int f = 32 * ps.nw;
-    src = pk + ps.img + q * f;
-    bytes = 4 * f;
-    if (++q == ps.nsl) {
-      q = 0;
-      if (++p == a->n_pass) {
-        p = 0;
-        tile += gridDim.x;
-      }
-    }
-    return true;
-  }
-};
-
-// The first `stages` slabs of feed into the ring (thread 0), every thread
-// moving its copy of feed on by as many
-__device__ __forceinline__ void nh_prime(NhFeed& feed, int stages, float* ring, uint64_t* full) {
-  for (int i = 0; i < stages; ++i) {
-    const float* src;
-    uint32_t bytes;
-    if (feed.next(src, bytes) && threadIdx.x == 0)
-      rw_bulk_load(ring + i * NH_SLAB, src, bytes, full + i);
-  }
-}
-
-// The warp is done with the slab in `slot`: it counts itself out, and the
-// last of the block's warps refills the slot with feed's next slab,
-// `stages` on from the one it held. Every thread moves its copy of feed on.
-__device__ __forceinline__ void nh_release(NhFeed& feed, int slot, float* ring, uint64_t* full,
-                                           uint32_t* cnt) {
-  const float* src = nullptr;
-  uint32_t bytes = 0;
-  const bool more = feed.next(src, bytes);
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0 && atomicAdd(cnt + slot, 1u) % NH_WARPS == NH_WARPS - 1 && more)
-    rw_bulk_load(ring + slot * NH_SLAB, src, bytes, full + slot);
-}
-
-// One pass: sum (the warpgroup's 64 rows x NW columns) = A . B over nsl
-// slabs of 16: A's columns [16 s, 16 s + 16) from xs for s < nxs, from as
-// at column 16 (s - nxs) after (row-major, zero or finite past the
-// reduction, whose weights are zero); B the pass's slabs through the ring.
-// Per slab, each k8 step's three products (lo.hi, hi.lo, hi.hi) accumulate
-// in the tensor core from zero and the slab's sum is added to sum in fp32.
-template <int NW>
-__device__ __forceinline__ void nh_pass(float (&sum)[NW / 2], const float* xs, int ldx,
-                                        const float* as, int lda, int nsl, int nxs, float* ring,
-                                        uint64_t* full, uint32_t* cnt, int stages, int& it,
-                                        NhFeed& feed) {
-  const int mw = 16 * ((threadIdx.x >> 5) & 3);
-  float acc[NW / 2];
-#pragma unroll
-  for (int i = 0; i < NW / 2; ++i) sum[i] = acc[i] = 0.f;
-  for (int s = 0; s < nsl; ++s, ++it) {
-    const int slot = it % stages;
-    const float* sl = ring + slot * NH_SLAB;
-    const HmMK A = s < nxs ? HmMK{xs + NH_KS * s, ldx} : HmMK{as + NH_KS * (s - nxs), lda};
-    uint32_t ah[2][4], al[2][4];
-    rw_frag_a(A, 0, mw, ah[0], al[0]);
-    rw_frag_a(A, 8, mw, ah[1], al[1]);
-    rw_mbar_wait(full + slot, (it / stages) & 1);
-    rw_own(acc);
-    rw_wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float* bh = sl + 8 * NW * j;
-      const uint64_t dh = rw_desc(bh, 16 * NW, 128), dl = rw_desc(bh + 16 * NW, 16 * NW, 128);
-      rw_mma<NW>(acc, al[j], dh, j);
-      rw_mma<NW>(acc, ah[j], dl, 1);
-      rw_mma<NW>(acc, ah[j], dh, 1);
-    }
-    rw_commit();
-    rw_wait0();
-    rw_own(acc);
-    rw_own(ah[0]);
-    rw_own(ah[1]);
-    rw_own(al[0]);
-    rw_own(al[1]);
-    nh_release(feed, slot, ring, full, cnt);
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i) sum[i] += acc[i];
-  }
 }
 
 // The engine's shared memory: the ring's barriers and slots, then per
@@ -370,12 +218,6 @@ __device__ __forceinline__ void nh_ladder(float* xs, int ldx, const float* __res
   }
 }
 
-// Sum over the 4 threads of an accumulator quad (a row's columns)
-__device__ __forceinline__ float nh_quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 struct NhOut {
   const float* abias;  // (pairs, rgb_hidden) rgb1's bias row per pair
   float *density, *rgb, *vis, *feat, *acts;
@@ -384,7 +226,7 @@ struct NhOut {
 // One K1 pass on the warpgroup's rows r0 .. r0 + 64 and its epilogue
 template <int NW>
 __device__ __forceinline__ void nh_fwd_pass(const NhArgs& a, const NhPass& ps, NhBufs& B, int r0,
-                                            bool valid, const NhOut& o, int& it, NhFeed& feed) {
+                                            bool valid, const NhOut& o, int& it, NhHeadsFeed& feed) {
   float sum[NW / 2];
   nh_pass<NW>(sum, B.xs, a.ldx, ps.src ? B.fs : B.hs, a.ldh, ps.nsl, ps.nxs, B.ring, B.full, B.cnt,
               a.stages, it, feed);
@@ -485,7 +327,7 @@ nh_fwd_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ x,
   extern __shared__ __align__(16) float nh_smem[];
   NhBufs B(nh_smem, a);
   __syncthreads();
-  NhFeed feed{&a, pk, (int)blockIdx.x, 0, 0};
+  NhHeadsFeed feed{&a, pk, (int)blockIdx.x, 0, 0};
   nh_prime(feed, a.stages, B.ring, B.full);
   int it = 0;
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
@@ -514,33 +356,6 @@ struct NhGrad {
   float *dx, *gimg, *gpart, *dpart;
   float* lad;  // the rows' ladder (ldl floats a row), for dW's embedding columns
 };
-
-// The row of a 32-row group at position k of its dW slab: k = 8 j + 4 h +
-// t holds row 16 h + 4 t + j, so that the four rows a warp's A^T fragment
-// load reads at once (t = 0 .. 3) lie in four chunks of 4 rows (nh_dw_fill)
-__host__ __device__ __forceinline__ int nh_slab_row(int k) {
-  return 16 * ((k >> 2) & 1) + 4 * (k & 3) + (k >> 3);
-}
-
-// Rows r0 .. r0 + 64 of a layer's G (src: n columns, row stride ld) into
-// its dW slabs, in fp32 (dW's producer warp splits them): 32-row group
-// r / 32 at gimg + (r / 32) gstride + goff, [k / 4][c / 8][c % 8][k % 4],
-// k the row's position (nh_slab_row). A thread takes 4 positions of a
-// column at a time: one float4, a streaming store (G is read back by the
-// next launch, from device memory).
-__device__ __forceinline__ void nh_gput(const float* src, int ld, int n, const NhDw& d,
-                                        float* gimg, int gstride, int r0) {
-  const int nwo = d.nwo;
-  for (int e = threadIdx.x & 127; e < (NH_HALF / 4) * nwo; e += 128) {
-    const int k4 = e / nwo, c = e - k4 * nwo, grp = k4 >> 3, k0 = 4 * (k4 & 7);
-    float v[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) v[q] = c < n ? src[(NH_RS * grp + nh_slab_row(k0 + q)) * ld + c] : 0.f;
-    float* p = gimg + (size_t)(r0 / NH_RS + grp) * gstride + d.goff + (k4 & 7) * (4 * nwo) +
-               (c >> 3) * 32 + (c & 7) * 4;
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  }
-}
 
 // The tile's output cotangents, on the warpgroup's 64 rows: g_sdf (through
 // the density) in gsd and each row's d ibeta term, g_rgb (through the
@@ -641,60 +456,10 @@ __device__ __forceinline__ void nh_bwd_start(const NhArgs& a, int head, NhBufs& 
   nh_bar();
 }
 
-// Bit i of the result: whether the saved layer output (rows, n) at the
-// thread's accumulator element i (rw_each's order: element 4 j + 2 h + u
-// at row m + 8 h, column 8 j + c + u) is positive, for the warpgroup's
-// rows from r0; the loads issued 16 at a time, two parts in flight
-// (NW / 2 <= 64 elements)
-template <int NW>
-__device__ __forceinline__ uint64_t nh_mask_bits(const float* __restrict__ act, int n, int r0,
-                                                 bool valid) {
-  const int lane = threadIdx.x & 31, m = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
-  const int c = 2 * (lane & 3);
-  constexpr int B = NW / 2 < 16 ? NW / 2 : 16, P = NW / 2 / B;  // parts of B loads
-  float v[2][B];
-  auto load = [&](int p, float (&w)[B]) {
-#pragma unroll
-    for (int i = 0; i < B; ++i) {
-      const int e = p * B + i, k = 8 * (e >> 2) + c + (e & 1), row = m + 8 * ((e >> 1) & 1);
-      w[i] = valid && k < n ? __ldg(act + (size_t)(r0 + row) * n + k) : 0.f;
-    }
-  };
-  uint64_t bits = 0;
-  load(0, v[0]);
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    if (p + 1 < P) load(p + 1, v[(p + 1) & 1]);  // the next part in flight while this one is tested
-#pragma unroll
-    for (int i = 0; i < B; ++i) bits |= (uint64_t)(v[p & 1][i] > 0.f) << (p * B + i);
-  }
-  return bits;
-}
-
-// f(m, k, i, v) for each accumulator element i of the thread at row m,
-// column k < n
-template <int NW, class F>
-__device__ __forceinline__ void nh_each_bit(const float (&v)[NW / 2], int n, const F& f) {
-  const int lane = threadIdx.x & 31, m = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
-  const int c = 2 * (lane & 3);
-#pragma unroll
-  for (int i = 0; i < NW / 2; ++i) {
-    const int k = 8 * (i >> 2) + c + (i & 1);
-    if (k < n) f(m + 8 * ((i >> 1) & 1), k, i, v[i]);
-  }
-}
-
-// n floats from p on into L2, one 128-byte line per thread of the
-// warpgroup at a time
-__device__ __forceinline__ void nh_prefetch_l2(const float* p, int n) {
-  for (int i = 32 * (threadIdx.x & 127); i < n; i += 32 * 128)
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + i));
-}
-
 // One K2 pass on the warpgroup's rows and its epilogue
 template <int NW>
 __device__ __forceinline__ void nh_bwd_pass(const NhArgs& a, const NhPass& ps, NhBufs& B, int r0,
-                                            bool valid, const NhGrad& g, int& it, NhFeed& feed) {
+                                            bool valid, const NhGrad& g, int& it, NhHeadsFeed& feed) {
   const int N = ps.n, rows = a.rows, ldh = a.ldh, ldx = a.ldx;
   // the ReLU masks the epilogue reads: into L2 while the products run
   if (valid && ps.epi == NH_E_DH)
@@ -716,8 +481,8 @@ __device__ __forceinline__ void nh_bwd_pass(const NhArgs& a, const NhPass& ps, N
   }
   if (ps.epi == NH_E_DHC) {  // G of the base head's last layer (with the sdf's) into H, the colour's into F
     const NhHead &hb = a.head[0], &hc = a.head[1];
-    const uint64_t fon = nh_mask_bits<NW>(g.acts + (size_t)hb.act_off[hb.n_layers - 1] * rows, N, r0, valid);
-    const uint64_t con = nh_mask_bits<NW>(g.acts + (size_t)hc.act_off[hc.n_layers - 1] * rows, N, r0, valid);
+    const uint64_t fon = nh_mask_bits<NW>(g.acts + (size_t)hb.act_off[hb.n_layers - 1] * rows, N, r0, valid ? NH_HALF : 0);
+    const uint64_t con = nh_mask_bits<NW>(g.acts + (size_t)hc.act_off[hc.n_layers - 1] * rows, N, r0, valid ? NH_HALF : 0);
     nh_bar();
     nh_each_bit<NW>(sum, N, [&](int m, int k, int bit, float v) {
       B.hs[m * ldh + k] = (fon >> bit) & 1 ? v + B.gsd[m] * __ldg(a.w_sdf + k) : 0.f;
@@ -728,7 +493,7 @@ __device__ __forceinline__ void nh_bwd_pass(const NhArgs& a, const NhPass& ps, N
   }
   // NH_E_DH: the h columns, masked by K1's saved h_{l-1}, into H
   const NhHead& h = a.head[ps.head];
-  const uint64_t on = nh_mask_bits<NW>(g.acts + (size_t)h.act_off[ps.layer - 1] * rows, N, r0, valid);
+  const uint64_t on = nh_mask_bits<NW>(g.acts + (size_t)h.act_off[ps.layer - 1] * rows, N, r0, valid ? NH_HALF : 0);
   nh_bar();
   nh_each_bit<NW>(sum, N, [&](int m, int k, int bit, float v) {
     B.hs[m * ldh + k] = (on >> bit) & 1 ? v : 0.f;
@@ -746,7 +511,7 @@ nh_din_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ x,
   extern __shared__ __align__(16) float nh_smem[];
   NhBufs B(nh_smem, a);
   __syncthreads();
-  NhFeed feed{&a, pk, (int)blockIdx.x, 0, 0};
+  NhHeadsFeed feed{&a, pk, (int)blockIdx.x, 0, 0};
   nh_prime(feed, a.stages, B.ring, B.full);
   int it = 0;
   const int wt = threadIdx.x & 127;
@@ -788,19 +553,9 @@ nh_din_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ x,
   }
 }
 
-// dW layer d's A operand as it lands in a slot's tiles: whole rows of up
-// to two sources, each tile 8 chunks of 4 rows (rows 4 c .. 4 c + 3 of the
-// slab at chunk c, c (4 ld + 8) floats in: the padding puts the chunks
-// that a fragment load reads at once on other banks). Tile 0 holds the
-// embedding (the ladder buffer, which K2's dIn writes) where the layer
-// reads x, else the saved block of its h (hc: feat's, and the colour's in
-// tile 1); tile 1 the h of a layer that reads x and h.
-struct NhDwSrc {
-  const float* src[2];
-  int ld[2], n;  // the tiles' row strides; tiles
-  int cx;        // the layer's embedding columns (0: none)
-};
-
+// dW layer d's A sources (NhDwSrc): the ladder buffer, which K2's dIn
+// writes, where the layer reads x; the saved blocks of its h (hc: feat's
+// and the colour's)
 __device__ __forceinline__ NhDwSrc nh_dw_src(const NhArgs& a, const NhDw& d, const float* acts,
                                              const float* lad) {
   const int rows = a.rows;
@@ -815,35 +570,6 @@ __device__ __forceinline__ NhDwSrc nh_dw_src(const NhArgs& a, const NhDw& d, con
   const float* hs = d.layer > 0 ? acts + (size_t)h.act_off[d.layer - 1] * rows : nullptr;
   if (cx == 0) return NhDwSrc{{hs, nullptr}, {kh, 0}, 1, 0};
   return NhDwSrc{{lad, hs}, {a.ldl, kh}, hs != nullptr ? 2 : 1, cx};
-}
-
-// A bulk copy by the TMA unit that completes on bar (the caller has set
-// the barrier's expected bytes)
-__device__ __forceinline__ void nh_bulk(float* dst, const float* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(rw_addr(dst)),
-      "l"(src), "r"(bytes), "r"(rw_addr(bar))
-      : "memory");
-}
-
-// Slab rb .. rb + 32 of dW layer d into slot sl, by the calling warp: G's
-// fp32 slab (lane 0), and lane 8 t + c the chunk c of tile t, every copy
-// on the slot's barrier, whose expected bytes lane 0 sets first
-__device__ __forceinline__ void nh_dw_fill(const NhArgs& a, const NhDw& d, const NhDwSrc& S,
-                                           const float* gimg, float* sl, uint64_t* bar, int rb) {
-  const int lane = threadIdx.x & 31, t = lane >> 3, c = lane & 7;
-  if (lane == 0) {
-    uint32_t bytes = 128u * d.nwo;
-    for (int i = 0; i < S.n; ++i) bytes += NH_RS * 4u * S.ld[i];
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(rw_addr(bar)), "r"(bytes)
-                 : "memory");
-  }
-  __syncwarp();
-  if (lane == 0) nh_bulk(sl, gimg + (size_t)(rb / NH_RS) * a.gstride + d.goff, 128u * d.nwo, bar);
-  if (t < S.n)
-    nh_bulk(sl + NH_DW_SLAB + t * NH_DW_A + c * (4 * S.ld[t] + 8),
-            S.src[t] + (size_t)(rb + 4 * c) * S.ld[t], 16u * S.ld[t], bar);
 }
 
 // Where dW(o, i) goes in the chunk's workspace slice (the pack's
@@ -863,153 +589,11 @@ __device__ __forceinline__ long long nh_dw_dst(const NhArgs& a, const NhDw& d, i
   return h.off_w2[l] + (long long)o * (d.K - h.c_x) + (i - h.c_x);
 }
 
-// dW's ring: per slot, full (the TMA copies landed), ready (G split),
-// empty (every compute warp done with it)
-struct NhDwRing {
-  float* slots;
-  uint64_t *full, *ready, *empty;
-};
-
-// dW = G^T A and db = sum G of the layer d over the chunk blockIdx.y of pc
-// rows, as dW^T = A^T G: blockIdx.x is one of the layer's blocks of NH_DW_M
-// inputs x NWO outputs. Warp specialised: the producer warp (the block's
-// last) fills a ring of NH_DW_STAGES slots by TMA bulk copies (G's fp32
-// slab, its rows in nh_slab_row's order, and A's whole rows in chunks of 4:
-// nh_dw_src), splits each landed G slab into tf32 hi / lo in place, and
-// refills a slot once both warpgroups are done with it. The warpgroups
-// take A^T's fragments from the slot's tiles (in the same row order); each
-// slab's products accumulate in the tensor core and are added to fp32
-// registers. The block of the first inputs also sums G's columns for db
-// (hi + lo, in row order). Into ws, the chunk's slice.
-template <int NWO>
-__device__ __forceinline__ void nh_dw_block(const NhArgs& a, int di, const float* __restrict__ lad,
-                                            const float* __restrict__ acts,
-                                            const float* __restrict__ gimg, float* __restrict__ ws,
-                                            const NhDwRing& R) {
-  const NhDw& d = a.dw[di];
-  const int tid = threadIdx.x, mt = blockIdx.x - d.blk0, ib0 = NH_DW_M * mt;
-  const int r0 = blockIdx.y * a.pc, nsl = (min(a.pc, a.rows - r0) + NH_RS - 1) / NH_RS;
-  const int lane = tid & 31;
-  if (tid >= NH_THREADS) {  // the producer warp
-    const NhDwSrc S = nh_dw_src(a, d, acts, lad);
-    for (int s = 0; s < NH_DW_STAGES && s < nsl; ++s)
-      nh_dw_fill(a, d, S, gimg, R.slots + s * NH_DW_SLOT, R.full + s, r0 + NH_RS * s);
-    for (int s = 0; s < nsl; ++s) {
-      const int slot = s % NH_DW_STAGES;
-      rw_mbar_wait(R.full + slot, (s / NH_DW_STAGES) & 1);
-      float4* g = reinterpret_cast<float4*>(R.slots + slot * NH_DW_SLOT);
-      for (int e = lane; e < 8 * NWO; e += 32) {  // G into hi (in place) and lo
-        const float4 v = g[e];
-        uint32_t h[4], l[4];
-        rw_split(v.x, h[0], l[0]);
-        rw_split(v.y, h[1], l[1]);
-        rw_split(v.z, h[2], l[2]);
-        rw_split(v.w, h[3], l[3]);
-        g[e] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
-                           __uint_as_float(h[3]));
-        g[e + 8 * NWO] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
-                                     __uint_as_float(l[2]), __uint_as_float(l[3]));
-      }
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the split, to wgmma's reads
-      __syncwarp();
-      if (lane == 0)
-        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(rw_addr(R.ready + slot)) : "memory");
-      // slab s - 1's slot, once both warpgroups are done with it, takes slab s - 1 + stages
-      const int f = s - 1 + NH_DW_STAGES;
-      if (s >= 1 && f < nsl) {
-        const int fs = (s - 1) % NH_DW_STAGES;
-        rw_mbar_wait(R.empty + fs, ((s - 1) / NH_DW_STAGES) & 1);
-        nh_dw_fill(a, d, S, gimg, R.slots + fs * NH_DW_SLOT, R.full + fs, r0 + NH_RS * f);
-      }
-    }
-    return;
-  }
-  const int wg = tid >> 7, tq = lane & 3;
-  const int i0 = ib0 + 64 * wg + 16 * ((tid >> 5) & 3) + (lane >> 2);
-  const NhDwSrc S = nh_dw_src(a, d, acts, lad);
-  // each input's tile, column and row stride there; kind: 0 past the
-  // inputs, 1 the tile's value, 2 the sum of both tiles' (hc)
-  int tile[2], col[2], ld[2], kind[2];
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int i = i0 + 8 * u;
-    tile[u] = S.cx > 0 && i >= S.cx ? 1 : 0;
-    col[u] = i - (tile[u] ? S.cx : 0);
-    ld[u] = S.ld[tile[u]];
-    kind[u] = i >= d.K ? 0 : d.kind == NH_A_HC ? 2 : 1;
-  }
-  const bool do_b = mt == 0 && wg == 0 && tid < NWO;
-  float db = 0.f, sum[NWO / 2], acc[NWO / 2];
-#pragma unroll
-  for (int i = 0; i < NWO / 2; ++i) sum[i] = acc[i] = 0.f;
-  for (int s = 0; s < nsl; ++s) {
-    const int slot = s % NH_DW_STAGES;
-    const float* sl = R.slots + slot * NH_DW_SLOT;
-    rw_mbar_wait(R.ready + slot, (s / NH_DW_STAGES) & 1);
-    uint32_t ah[4][4], al[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {  // position 8 j + 4 (q >> 1) + tq: row 4 c + j, c = 4 (q >> 1) + tq
-        const int u = q & 1, c = 4 * (q >> 1) + tq;
-        const float* t = sl + NH_DW_SLAB + tile[u] * NH_DW_A + c * (4 * ld[u] + 8) + j * ld[u] + col[u];
-        rw_split(kind[u] == 0 ? 0.f : kind[u] == 2 ? t[0] + t[NH_DW_A] : t[0], ah[j][q], al[j][q]);
-      }
-    if (do_b) {
-      const float* hb = sl + (tid >> 3) * 32 + (tid & 7) * 4;
-#pragma unroll
-      for (int kc = 0; kc < NH_RS / 4; ++kc) {
-        const float4 h4 = *reinterpret_cast<const float4*>(hb + kc * 4 * NWO);
-        const float4 l4 = *reinterpret_cast<const float4*>(hb + kc * 4 * NWO + 32 * NWO);
-        db += h4.x + l4.x;
-        db += h4.y + l4.y;
-        db += h4.z + l4.z;
-        db += h4.w + l4.w;
-      }
-    }
-    rw_own(acc);
-    rw_wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float* bh = sl + 8 * NWO * j;
-      const uint64_t dh = rw_desc(bh, 16 * NWO, 128), dl = rw_desc(bh + 32 * NWO, 16 * NWO, 128);
-      rw_mma<NWO>(acc, al[j], dh, j);
-      rw_mma<NWO>(acc, ah[j], dl, 1);
-      rw_mma<NWO>(acc, ah[j], dh, 1);
-    }
-    rw_commit();
-    rw_wait0();
-    rw_own(acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      rw_own(ah[j]);
-      rw_own(al[j]);
-    }
-    __syncwarp();  // the warp is done with the slot
-    if (lane == 0)
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(rw_addr(R.empty + slot)) : "memory");
-#pragma unroll
-    for (int i = 0; i < NWO / 2; ++i) sum[i] += acc[i];
-  }
-  const int ib = ib0 + 64 * wg;
-  rw_each<NWO>(sum, [&](int m, int cl, float v0, float v1) {
-    const int i = ib + m;
-    if (i >= d.K) return;
-    float sc;
-    if (cl < d.N) {
-      const long long o = nh_dw_dst(a, d, cl, i, sc);
-      ws[o] = v0 * sc;
-    }
-    if (cl + 1 < d.N) {
-      const long long o = nh_dw_dst(a, d, cl + 1, i, sc);
-      ws[o] = v1 * sc;
-    }
-  });
-  if (do_b && tid < d.N) {
-    const int ob = d.head == -1 ? a.off_b_sdf : d.head == -2 ? a.off_b_rgb2
-                 : d.head == -3 ? -1 : a.head[d.head].off_b[d.layer];
-    if (ob >= 0) ws[ob + tid] = db;
-  }
+// Where db of dW layer d goes in a workspace slice, or -1 (rgb1's: from
+// the pairs' sums)
+__device__ __forceinline__ int nh_dw_boff(const NhArgs& a, const NhDw& d) {
+  return d.head == -1 ? a.off_b_sdf : d.head == -2 ? a.off_b_rgb2 : d.head == -3 ? -1
+                                                   : a.head[d.head].off_b[d.layer];
 }
 
 // The pairs' sums of d rgb_h (gpair: the halves' column sums in order),
@@ -1060,27 +644,10 @@ nh_dw_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ lad,
     nh_appr_pairs(a, o.gpart, o.dpart, o.gpair, o.dappr, o.dsum, nh_smem);
     return;
   }
-  uint64_t* bars = reinterpret_cast<uint64_t*>(nh_smem);
-  const NhDwRing R{nh_smem + 32, bars, bars + NH_DW_STAGES, bars + 2 * NH_DW_STAGES};
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < NH_DW_STAGES; ++i) {
-      rw_mbar_init(R.full + i, 1);
-      rw_mbar_init(R.ready + i, 1);
-      rw_mbar_init(R.empty + i, NH_WARPS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  const NhDwRing R = nh_dw_ring(nh_smem, false);
   int di = 0;
   while (di + 1 < a.n_dw && (int)blockIdx.x >= a.dw[di + 1].blk0) ++di;
-  __syncthreads();
-  float* ws = o.ws + (size_t)blockIdx.y * a.n_slice;
-  switch (a.dw[di].nwo) {
-    case 128: nh_dw_block<128>(a, di, lad, acts, gimg, ws, R); break;
-    case 64: nh_dw_block<64>(a, di, lad, acts, gimg, ws, R); break;
-    case 32: nh_dw_block<32>(a, di, lad, acts, gimg, ws, R); break;
-    case 16: nh_dw_block<16>(a, di, lad, acts, gimg, ws, R); break;
-    default: nh_dw_block<8>(a, di, lad, acts, gimg, ws, R); break;
-  }
+  nh_dw_layer(a, di, lad, acts, gimg, o.ws + (size_t)blockIdx.y * a.n_slice, R);
 }
 
 // grads: the chunks' workspace slices summed in chunk order (d ibeta: the
@@ -1167,10 +734,9 @@ nh_pack_kernel(const __grid_constant__ NhArgs a, const float* __restrict__ appr,
       else hi_p = mid - 1;
     }
     const NhPass& ps = a.pass[lo_p];
-    const int nw = ps.nw, f = 32 * nw, o = (int)(e - ps.img), sl = o / f, q = o - sl * f;
-    const bool lo = q >= 16 * nw;
-    const int q2 = lo ? q - 16 * nw : q, kc = q2 / (4 * nw), q3 = q2 - kc * 4 * nw;
-    const int n = (q3 >> 5) * 8 + ((q3 & 31) >> 2), k = NH_KS * sl + 4 * kc + (q3 & 3);
+    int k, n;
+    bool lo;
+    nh_slab_at<NH_KS>((int)(e - ps.img), ps.nw, k, n, lo);
     uint32_t hv, lv;
     rw_split(nh_pack_value(a, ps, k, n), hv, lv);
     pk[e] = __uint_as_float(lo ? lv : hv);
@@ -1183,10 +749,6 @@ static size_t nh_engine_smem(const NhArgs& a) {
   return sizeof(float) * (32 + (size_t)a.stages * NH_SLAB + (size_t)NH_TR * (a.ldx + 2 * a.ldh) +
                           2 * NH_TR);
 }
-
-static const size_t NH_DW_SMEM = sizeof(float) * (32 + (size_t)NH_DW_STAGES * NH_DW_SLOT);
-
-static bool nh_wgmma_width(int nw) { return nw == 8 || nw == 16 || nw == 32 || nw == 64 || nw == 128; }
 
 static int nh_round16(int n) { return (n + NH_KS - 1) / NH_KS * NH_KS; }
 
@@ -1255,23 +817,6 @@ static int nh_check(const NhArgs& a, bool bwd) {
     for (int l = 0; l + 1 < a.head[i].n_layers; ++l)
       if (a.head[i].out_dim[l] % 4 != 0) return bad;
   return goff == a.gstride && blk == a.dw_blocks ? 0 : bad;
-}
-
-static int nh_set_smem(const void* kernel, size_t smem) {
-  if (smem > NH_SMEM) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
-}
-
-static int nh_sms() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return n;
 }
 
 static int nh_pack(const NhArgs& a, const float* appr, float* pk, float* abias, cudaStream_t st) {

@@ -51,7 +51,7 @@ from lab4d_tpu_torch.nnutils.embedding import fourier_embed
 MAX_LAYERS = 16  # RM_MAX_LAYERS in csrc/fused_relu_mlp.cu, NH_ / PM_MAX_LAYERS in the others
 MAX_FREQS = 16  # PM_MAX_FREQS in csrc/fused_pe_mlp.cu
 SMEM_PER_SM = 227 * 1024  # bytes of shared memory a block may use on sm_90
-PE_MAX_WIDTH = 128  # PM_NMAX: widest layer output and embedding of K4f / K4b
+PE_MAX_WIDTH = 128  # NH_NMAX: widest layer output and embedding of K4f / K4b
 # K3f / K3b (csrc/fused_relu_mlp.cu): K3f's fp32 FMA tile of RM_FMA_ROWS
 # rows takes up to that many rows, else both run 3xTF32
 K3_FMA_ROWS = 8
@@ -299,7 +299,7 @@ def _relu_plan_of(c_in, in_dims, out_dims, rows, n_sm, engine):
 
 
 def check_pe_widths(c_x, out_dims):
-    """K4f / K4b hold every output column of a warp's rows (PM_NMAX): an
+    """K4f / K4b hold every output column of a warpgroup's rows (NH_NMAX): an
     embedding or a layer wider than PE_MAX_WIDTH columns raises."""
     if c_x > PE_MAX_WIDTH or max(out_dims) > PE_MAX_WIDTH:
         raise ValueError(f"K4f / K4b take embeddings and layers of at most {PE_MAX_WIDTH} "

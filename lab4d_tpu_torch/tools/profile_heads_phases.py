@@ -31,12 +31,14 @@ K2's dIn shares) and K2's own: dw-no-math (dW without its products),
 dw-no-a (without A's copies), din-no-masks (dIn without the ReLU masks'
 loads), din-no-gput (without storing G for dW).
 
---parent DIR: the root of a checkout of the mma.sync K1 / K2 of PR 4 / 5
-(e.g. `git archive 1683f23 | tar -x -C tmp/parent`). Its nerf_heads.cu is
-built from DIR with DIR's headers and its wrapper,
-DIR/lab4d_tpu_torch/ops/field_kernel.py, is loaded under another name;
-its K1 (saving, and without saving) and its K2 are timed in turns with
-this checkout's (parent, new, new, parent per round).
+--parent DIR: the root of a checkout of an earlier commit (e.g. `git
+archive HEAD~1 | tar -x -C tmp/parent`; the mma.sync K1 / K2 are
+1683f23). Its nerf_heads.cu is built from DIR with DIR's headers and
+its wrapper, DIR/lab4d_tpu_torch/ops/field_kernel.py, is loaded under
+another name; whether its K1 (outputs and saved layer outputs) and K2
+give bitwise the results of this checkout's is printed, and its K1
+(saving, and without saving) and its K2 are timed in turns with this
+checkout's (parent, new, new, parent per round).
 
 Each round times every copy in turn (CUDA events around 5 back-to-back
 calls, after one warm-up call); the median over `--reps` rounds is
@@ -52,20 +54,22 @@ import os
 import subprocess
 import sys
 
-# The anatomy copies of K1 (csrc/nerf_heads.cu): (file, anchor, replacement)
+# The anatomy copies of K1 (csrc/nerf_heads.cu): (file, anchor, replacement);
+# the pass and the weight ring are csrc/wg_engine.cuh's, which K4f / K4b
+# share
 _PRODUCTS = ("      rw_mma<NW>(acc, al[j], dh, j);\n      rw_mma<NW>(acc, ah[j], dl, 1);\n"
              "      rw_mma<NW>(acc, ah[j], dh, 1);")
 K1_COPIES = {
     "full": [],
-    "no-math": [("nerf_heads.cu", _PRODUCTS, "      if (0) {\n" + _PRODUCTS + "\n      }")],
-    "mm-1x": [("nerf_heads.cu", _PRODUCTS, "      rw_mma<NW>(acc, ah[j], dh, j);")],
+    "no-math": [("wg_engine.cuh", _PRODUCTS, "      if (0) {\n" + _PRODUCTS + "\n      }")],
+    "mm-1x": [("wg_engine.cuh", _PRODUCTS, "      rw_mma<NW>(acc, ah[j], dh, j);")],
     "no-wstage": [(
-        "nerf_heads.cu",
-        "      rw_bulk_load(ring + i * NH_SLAB, src, bytes, full + i);",
+        "wg_engine.cuh",
+        "      rw_bulk_load(ring + i * Feed::kSlot, src, bytes, full + i);",
         "      asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\" ::\"r\"(rw_addr(full + i)));",
     ), (
-        "nerf_heads.cu",
-        "    rw_bulk_load(ring + slot * NH_SLAB, src, bytes, full + slot);",
+        "wg_engine.cuh",
+        "    rw_bulk_load(ring + slot * Feed::kSlot, src, bytes, full + slot);",
         "    asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\" ::\"r\"(rw_addr(full + slot)));",
     )],
 }
@@ -75,16 +79,16 @@ _DW_PRODUCTS = ("      rw_mma<NWO>(acc, al[j], dh, j);\n      rw_mma<NWO>(acc, a
                 "      rw_mma<NWO>(acc, ah[j], dh, 1);")
 K2_COPIES = {
     # dW without its products; without A's copies (the tiles keep stale values)
-    "dw-no-math": [("nerf_heads.cu", _DW_PRODUCTS, "      if (0) {\n" + _DW_PRODUCTS + "\n      }")],
+    "dw-no-math": [("wg_engine.cuh", _DW_PRODUCTS, "      if (0) {\n" + _DW_PRODUCTS + "\n      }")],
     "dw-no-a": [
-        ("nerf_heads.cu", "    for (int i = 0; i < S.n; ++i) bytes += NH_RS * 4u * S.ld[i];", ""),
-        ("nerf_heads.cu", "  if (t < S.n)\n    nh_bulk(", "  if (0)\n    nh_bulk("),
+        ("wg_engine.cuh", "    for (int i = 0; i < S.n; ++i) bytes += slab_rows * 4u * S.ld[i];", ""),
+        ("wg_engine.cuh", "  if (t < S.n && nr > 0)\n    nh_bulk(", "  if (0)\n    nh_bulk("),
     ],
     # dIn without the ReLU masks' loads (every unit on); without storing G for dW
-    "din-no-masks": [("nerf_heads.cu",
-                      "      w[i] = valid && k < n ? __ldg(act + (size_t)(r0 + row) * n + k) : 0.f;",
-                      "      w[i] = valid && k < n ? 1.f : 0.f;")],
-    "din-no-gput": [("nerf_heads.cu",
+    "din-no-masks": [("wg_engine.cuh",
+                      "      w[i] = row < nr && k < n ? __ldg(act + (size_t)(r0 + row) * n + k) : 0.f;",
+                      "      w[i] = row < nr && k < n ? 1.f : 0.f;")],
+    "din-no-gput": [("wg_engine.cuh",
                      "  for (int e = threadIdx.x & 127; e < (NH_HALF / 4) * nwo; e += 128) {",
                      "  for (int e = threadIdx.x & 127; e < 0; e += 128) {")],
 }
@@ -174,7 +178,7 @@ def _print(tag, what, times, base="full"):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=3)
-    parser.add_argument("--parent", default=None, help="root of a checkout of the mma.sync K1 / K2")
+    parser.add_argument("--parent", default=None, help="root of a checkout of an earlier commit")
     args = parser.parse_args(argv)
 
     import torch
@@ -226,6 +230,10 @@ def main(argv=None):
         print(f"[parent] K1 vs plain: max abs err {perr:.3e} (tol {chip_smoke.KERNEL_TOL:g})")
         if not perr <= chip_smoke.KERNEL_TOL:
             sys.exit("profile_heads_phases: the parent's K1 disagrees with its plain version")
+        pgrad = pfk._launch_bwd(plib, x, g, *heads[1:], pouts[4], pouts[1], stream)
+        ngrad = FK._launch_bwd(lib, x, g, *heads[1:], acts, outs[1], stream)
+        print(f"[parent] bitwise equal to the parent: K1 {tensors_equal(pouts, (*outs, acts))}, "
+              f"K2 {tensors_equal(pgrad, ngrad)}")
         for what, old, new in (
             ("K1 (saving for K2)", lambda: pfk._launch_fwd(plib, *heads, stream, save=True),
              lambda: FK._launch_fwd(lib, *heads, stream, save=True)),
@@ -238,6 +246,24 @@ def main(argv=None):
             print(f"[turns] {what}: parent {t['parent a']:.3f} / new {t['new a']:.3f} / "
                   f"new {t['new b']:.3f} / parent {t['parent b']:.3f} ms")
     print(card)
+
+
+def tensors_equal(a, b):
+    """Whether every tensor of two nested sequences (other items skipped)
+    is bitwise equal to its counterpart."""
+    import torch
+
+    def flat(v):
+        if torch.is_tensor(v):
+            return [v]
+        if isinstance(v, (list, tuple)):
+            return [t for u in v for t in flat(u)]
+        if isinstance(v, dict):
+            return [t for k in sorted(v) for t in flat(v[k])]
+        return []
+
+    fa, fb = flat(a), flat(b)
+    return len(fa) == len(fb) and all(torch.equal(u, w) for u, w in zip(fa, fb))
 
 
 def check_full(FK, lib, heads, stream):

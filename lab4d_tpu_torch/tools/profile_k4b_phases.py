@@ -4,26 +4,34 @@ and K3b on the TimeMLPs and the warps' CondMLPs, on one CUDA device.
     python3 -m lab4d_tpu_torch.tools.profile_k4b_phases [--reps N] [--parent DIR] [--k3_only]
     python3 -m lab4d_tpu_torch.tools.profile_k4b_phases --k3_sweep [--reps N]
 
-Run from the root of a checkout. At the three 262,144-point shapes of
-chip_smoke.K4_SHAPES (the base, colour and visibility MLPs of a bg
-training step):
+Run from the root of a checkout. At the 262,144-point shapes of
+chip_smoke.K4_SHAPES, K4_CATEGORY_SHAPES and K4_RAGGED (the base, colour
+and visibility MLPs of a bg training step, the category step's feature
+field, the base MLP at 262,143 points):
 
-- K4f by anatomy copies: patched copies of csrc/fused_pe_mlp.cu (one nvcc
-  each, all at once, into build/lab4d_tpu_torch/k4_phases/), timed in
-  turns:
-  - full: the kernel as it is, saving its hidden outputs as training runs
-    it (checked against pe_mlp_forward_saved_reference);
-  - no-save: the same library, without saving;
-  - no-wstage: without the weight staging (the slabs keep stale values):
-    what streaming the weights from L2 costs;
-  - mm-only: without saving, and the embedding without sin / cos (the
-    angle itself): the layer chain;
-  - mm-tf32: as mm-only, in plain 1xTF32 (one product per k-step instead
-    of three), which prices the 3xTF32 split; timed only, it misses the
-    kernels' tolerance.
-- K4b by kind of launch: a CUDA event after each of its launches gives
-  each kind its share (the weights' split, the embedding, dW, dIn, the dx
-  fold, the reduction).
+- K4f by anatomy copies: patched copies of csrc/fused_pe_mlp.cu with the
+  tile engine of csrc/wg_engine.cuh (one nvcc each, all at once, into
+  build/lab4d_tpu_torch/k4_phases/), the copies of K1's profiler
+  (profile_heads_phases.K1_COPIES: the pass and the ring are the same)
+  and K4f's own, timed in turns, each saving its hidden outputs as
+  training runs it:
+  - full: the kernel as it is (checked against
+    pe_mlp_forward_saved_reference); no-save: the same library, without
+    saving;
+  - no-math: without the products (the weight slabs' stream through the
+    ring, A's loads and splits, the epilogues, the stores);
+  - mm-1x: one TF32 product per k8 step instead of three, which prices the
+    3xTF32 split; timed only, it misses the kernels' tolerance;
+  - no-wstage: without the TMA copies of the weight slabs (the slots keep
+    stale values): what streaming the weights from L2 costs;
+  - no-ladder: the embedding without sin / cos; no-epi: a hidden layer's
+    pass without its epilogue; bare: the ring alone (none of no-math,
+    no-wstage, no-ladder, no-epi's parts).
+- K4b by launch: a CUDA event after each of its 4 launches gives each its
+  share (the split of W^T, the dIn engine, dW, the reduction), on the
+  full kernel, on K4f's copies and on K4b's own: K2's (dw-no-math,
+  dw-no-a, din-no-masks, din-no-gput: profile_heads_phases) and
+  din-no-dx (dIn without dx and the embedding for dW).
 
 A copy with a phase off computes other outputs; only `full` is checked.
 
@@ -55,14 +63,15 @@ the dense map and the post-warp):
 --parent DIR: the root of a checkout of an earlier commit. Its
 fused_pe_mlp.cu and fused_relu_mlp.cu are built from DIR, its wrapper
 DIR/lab4d_tpu_torch/ops/mlp_kernel.py loaded under another name, checked
-against its plain versions, and its K4f / K4b (at all four shapes of
-K4_SHAPES, the fourth the 512 visibility-decay points of a step, which get
-the turns only; a parent whose K4b takes K4f's saved outputs runs its
-saving K4f and that K4b, the row-tiled one of commit 450f66c its
-recomputing K4b) and K3f
-(saving) / K3b (from its own K3f's saved outputs) timed in turns with this
-checkout's: parent, new, new, parent in every round, at every K3 shape
-above, beside the plain versions. --k3_only: only the K3 parts.
+against its plain versions, and its K4f / K4b (at every shape of
+chip_smoke.K4_SHAPES and K4_CATEGORY_SHAPES and the ragged K4_RAGGED; the
+512 and 2,048-point ones get the turns only; a parent whose K4b takes
+K4f's saved outputs runs its saving K4f and that K4b, the row-tiled one of
+commit 450f66c its recomputing K4b) and K3f (saving) / K3b (from its own
+K3f's saved outputs) timed in turns with this checkout's: parent, new,
+new, parent in every round, at every K3 shape above, beside the plain
+versions; whether K3f / K3b give bitwise the parent's results is printed.
+--k3_only: only the K3 parts; --k4_only: only the K4 parts.
 
 --k3_sweep: K3f and K3b on both engines in turns (cluster, rows, rows,
 cluster), and their plain versions, at 256 to 262,144 rows at the dense
@@ -86,27 +95,34 @@ import inspect
 import os
 import sys
 
-# K4f's anatomy copies: (file, anchor, replacement) per copy
-_MM_ONLY = [(
-    "fused_pe_mlp.cu",
-    "    sincosf(__ldg(x + p * C + c) * a.freq[f], &sv, &cv);",
-    "    sv = cv = __ldg(x + p * C + c) * a.freq[f];",
-)]
+from lab4d_tpu_torch.tools import profile_heads_phases as PH
+
+# K4f's anatomy copies, (file, anchor, replacement) per copy: K1's, whose
+# pass and weight ring (csrc/wg_engine.cuh) K4f runs, and its own
+_NO_LADDER = [("fused_pe_mlp.cu", "      sincosf(row[c] * fr, &s, &co);",
+               "      s = co = row[c] * fr;")]
+_NO_EPI = [("fused_pe_mlp.cu",
+            "  nh_bar();  // every thread of the warpgroup is done reading the pass's input\n"
+            "  rw_each<NW>(sum,",
+            "  nh_bar();  // every thread of the warpgroup is done reading the pass's input\n"
+            "  if (a.rows < 0) rw_each<NW>(sum,")]
 K4F_COPIES = {
-    "full": [],
-    "no-wstage": [(
-        "fused_pe_mlp.cu",
-        "      hm_cp16(dst + half * PM_NMAX * PM_LDS + n * PM_LDS + q,\n"
-        "              (half ? wlo : whi) + (size_t)n * kp + k0 + q);",
-        "      if (0) hm_cp16(dst + half * PM_NMAX * PM_LDS + n * PM_LDS + q,\n"
-        "              (half ? wlo : whi) + (size_t)n * kp + k0 + q);",
-    )],
-    "mm-only": _MM_ONLY,
-    "mm-tf32": _MM_ONLY + [(
-        "heads_mma.cuh",
-        "  hm_mma0(t, al, bh0, bh1);\n  hm_mma(t, ah, bl0, bl1);\n  hm_mma(t, ah, bh0, bh1);\n",
-        "  hm_mma0(t, ah, bh0, bh1);\n",
-    )],
+    **PH.K1_COPIES,
+    # the embedding without sin / cos (the angle itself)
+    "no-ladder": _NO_LADDER,
+    # a hidden layer's pass without its epilogue (bias, ReLU, the stores)
+    "no-epi": _NO_EPI,
+    # the ring alone: no products, no weight copies, no epilogues, no sin / cos
+    "bare": PH.K1_COPIES["no-math"] + PH.K1_COPIES["no-wstage"] + _NO_LADDER + _NO_EPI,
+}
+# K4b's: K2's (the same dW and the same dIn helpers), and dIn without its
+# epilogue's dx and embedding (din-no-dx); K4b is also timed on K4f's copies
+K4B_COPIES = {
+    **PH.K2_COPIES,
+    "din-no-dx": [("fused_pe_mlp.cu", "    for (int e = wt; e < nr * F; e += 128) {",
+                   "    for (int e = wt; e < 0; e += 128) {"),
+                  ("fused_pe_mlp.cu", "    for (int e = wt; e < nr * C; e += 128) {",
+                   "    for (int e = wt; e < 0; e += 128) {")],
 }
 # K3f / K3b's anatomy copies of csrc/fused_relu_mlp.cu
 K3_COPIES = {
@@ -224,10 +240,8 @@ _K3_ENGINE_COPIES = {
               "rw-no-gput", "rw-no-mask")),
 }
 
-# the copies timed without saving the hidden outputs
-_NO_SAVE = ("no-save", "mm-only", "mm-tf32")
 # what each kind of K4b launch is (csrc/fused_pe_mlp.cu:lab4d_pe_mlp_bwd)
-K4B_KINDS = ("weight split", "embedding", "dW", "dIn", "dx fold", "reduction")
+K4B_KINDS = ("weight split", "dIn", "dW", "reduction")
 
 
 def _time_rounds(runs, reps, graph_ms=None):
@@ -281,20 +295,20 @@ def k4b_phases(K, lib, args, g, acts, stream, reps):
 
 
 def _anatomy(K, libs, fargs, g, acts, stream, reps, label):
-    """Print K4f's anatomy copies' times and K4b's by kind of launch at
-    one shape."""
+    """Print K4f's anatomy copies' times and K4b's by kind of launch on
+    every copy at one shape."""
     runs = {"full": lambda: K._launch_pe_fwd(libs["full"], *fargs, stream, True)}
     runs["no-save"] = lambda: K._launch_pe_fwd(libs["full"], *fargs, stream, False)
     for name in K4F_COPIES:
         if name != "full":
-            runs[name] = (lambda lib=libs[name], save=name not in _NO_SAVE:
-                          K._launch_pe_fwd(lib, *fargs, stream, save))
+            runs[name] = lambda lib=libs[name]: K._launch_pe_fwd(lib, *fargs, stream, True)
     times = _time_rounds(runs, reps)
     for name, ms in times.items():
         print(f"[k4f] {label} {name}: {ms:.3f} ms (full - this: {times['full'] - ms:.3f} ms)")
-    phases = k4b_phases(K, K._kernel_lib("fused_pe_mlp"), fargs, g, acts, stream, reps)
-    print(f"[k4b] {label}: {phases.pop('launches')} CUDA launches per call; by kind, ms: "
-          + " ".join(f"{k}={v:.3f}" for k, v in phases.items()))
+    for name, lib in libs.items():
+        phases = k4b_phases(K, lib, fargs, g, acts, stream, reps)
+        print(f"[k4b] {label} {name}: {phases.pop('launches')} CUDA launches per call; by kind, ms: "
+              + " ".join(f"{k}={v:.3f}" for k, v in phases.items()))
 
 
 def load_parent_mlp_kernel(root, libs):
@@ -386,8 +400,10 @@ def k3_profile(chip_smoke, K, libs, pmk, reps):
         pwant_b = K.mlp_backward_saved_reference(x, g, ws, bs, skips, pacts)
         perr = max(float((old_f()[0] - want).abs().max()),
                    chip_smoke._bwd_errs(list(old_b()), list(pwant_b))[1])
+        same = PH.tensors_equal((old_f(), old_b()), (fwd["full"]()[:2], bwd["full"]()[:3]))
         torch.cuda.synchronize()
-        print(f"[parent] {label}: parent K3f abs err / K3b rel err vs plain, worst {perr:.3e}")
+        print(f"[parent] {label}: parent K3f abs err / K3b rel err vs plain, worst {perr:.3e}; "
+              f"K3f / K3b bitwise equal to the parent's: {same}")
         if not perr <= tol:
             sys.exit(f"profile_k4b_phases: the parent's K3f / K3b {label} disagree with plain")
         turns = _time_rounds({"K3f parent 1": old_f, "K3f 1": fwd["full"], "K3f 2": fwd["full"],
@@ -474,6 +490,7 @@ def main(argv=None):
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--parent", default=None, help="root of a checkout to time in turns")
     parser.add_argument("--k3_only", action="store_true", help="profile K3f / K3b only")
+    parser.add_argument("--k4_only", action="store_true", help="profile K4f / K4b only")
     parser.add_argument("--k3_sweep", action="store_true",
                         help="time K3's two engines across row counts (then stop)")
     args = parser.parse_args(argv)
@@ -489,7 +506,6 @@ def main(argv=None):
     import chip_smoke
     from lab4d_tpu_torch.ops import mlp_kernel as K
     from lab4d_tpu_torch.ops.build import BUILD_DIR, CSRC_DIR
-    from lab4d_tpu_torch.tools import profile_heads_phases as PH
 
     card = chip_smoke.phase_env()
     if args.k3_sweep:
@@ -499,22 +515,26 @@ def main(argv=None):
     out_dir = str(BUILD_DIR / "k4_phases")
     main_src = "fused_pe_mlp.cu"
     pdir = Path(args.parent) / "lab4d_tpu_torch" / "csrc" if args.parent else None
-    mains = ("fused_relu_mlp.cu",) + (() if args.k3_only else (main_src,))
-    procs = {"k3": PH.start_copies(CSRC_DIR, K3_COPIES, os.path.join(out_dir, "k3"),
-                                   "fused_relu_mlp.cu")}
+    mains = (() if args.k4_only else ("fused_relu_mlp.cu",)) + (() if args.k3_only else (main_src,))
+    procs = {}
+    if not args.k4_only:
+        procs["k3"] = PH.start_copies(CSRC_DIR, K3_COPIES, os.path.join(out_dir, "k3"),
+                                      "fused_relu_mlp.cu")
     if not args.k3_only:
-        procs["k4"] = PH.start_copies(CSRC_DIR, K4F_COPIES, os.path.join(out_dir, "new"), main_src)
+        procs["k4"] = PH.start_copies(CSRC_DIR, {**K4F_COPIES, **K4B_COPIES},
+                                      os.path.join(out_dir, "new"), main_src)
     pprocs = {m: PH.start_copies(pdir, {"parent": []}, os.path.join(out_dir, "parent", m), m)
               for m in mains} if pdir else {}
-    k3_libs = PH.finish_copies(procs["k3"], os.path.join(out_dir, "k3"), "fused_relu_mlp.cu")
-    for lib in k3_libs.values():
-        K.bind_signatures("fused_relu_mlp", lib)
     pmk = None
     if pdir:
         plibs = {m[:-3]: PH.finish_copies(pprocs[m], os.path.join(out_dir, "parent", m), m)["parent"]
                  for m in mains}
         pmk = load_parent_mlp_kernel(args.parent, plibs)
-    k3_profile(chip_smoke, K, k3_libs, pmk, args.reps)
+    if not args.k4_only:
+        k3_libs = PH.finish_copies(procs["k3"], os.path.join(out_dir, "k3"), "fused_relu_mlp.cu")
+        for lib in k3_libs.values():
+            K.bind_signatures("fused_relu_mlp", lib)
+        k3_profile(chip_smoke, K, k3_libs, pmk, args.reps)
     if args.k3_only:
         print(card)
         return
@@ -525,7 +545,7 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
     tol = chip_smoke.KERNEL_TOL
 
-    for shape in chip_smoke.K4_SHAPES:
+    for shape in chip_smoke.K4_SHAPES + chip_smoke.K4_CATEGORY_SHAPES + [chip_smoke.K4_RAGGED]:
         label, rows = shape[:2]
         small = rows < 4096
         if small and pmk is None:

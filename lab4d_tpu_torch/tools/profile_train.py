@@ -304,20 +304,28 @@ def _measure(args, card, trainer, batches, opts):
         print(f"[op] {e.key}: {ms / args.trace:.2f} ms/step device, "
               f"{100 * ms / device_ms:.1f}%, {e.count // args.trace} calls/step")
     # nh_* are K1 (nh_pack_kernel, nh_fwd_kernel) and K2 (nh_pack_kernel,
-    # nh_din_kernel, nh_dw_kernel, nh_reduce_kernel); hm_dw_kernel and
-    # hm_reduce_kernel (csrc/heads_mma.cuh) serve K4b, and K3b past 512
-    # rows; rm_* are K3f (rm_fwd_kernel) and K3b (rm_din_kernel,
-    # rm_dw_rows_kernel, rm_dw_kernel)
+    # nh_din_kernel, nh_dw_kernel, nh_reduce_kernel); pm_* are K4f
+    # (pm_pack_kernel, pm_fwd_kernel) and K4b (pm_pack_kernel,
+    # pm_din_kernel, pm_dw_kernel, and hm_reduce_kernel of
+    # csrc/heads_mma.cuh, which also sums K3b's chunks past 512 rows); rm_*
+    # are K3f (rm_fwd_kernel) and K3b (rm_din_kernel, rm_dw_rows_kernel,
+    # rm_dw_kernel)
     for name in ("nh_pack_kernel", "nh_fwd_kernel", "nh_din_kernel", "nh_dw_kernel", "nh_reduce_kernel",
                  "rm_fwd_kernel", "rm_din_kernel", "rm_dw_rows_kernel", "rm_dw_kernel",
-                 "pm_pack_kernel", "pe_mlp_fwd_kernel", "pm_embed_kernel", "pm_din_kernel",
-                 "pm_fold_kernel", "hm_dw_kernel", "hm_reduce_kernel"):
+                 "pm_pack_kernel", "pm_fwd_kernel", "pm_din_kernel", "pm_dw_kernel",
+                 "hm_reduce_kernel"):
         ks = [e.device_time for e in kernels if name in e.name]
         print(f"[kernel] {name}: {sum(ks) / 1e3 / args.trace:.2f} ms/step device, "
               f"{100 * sum(ks) / 1e3 / device_ms:.1f}%, {len(ks) // args.trace} calls/step")
     heads = sum(e.device_time for e in kernels if re.search(r"(^|[\s:])nh_\w*kernel", e.name))
     print(f"[kernel] K1 + K2 (nh_*): {heads / 1e3 / args.trace:.2f} ms/step device, "
           f"{100 * heads / 1e3 / device_ms:.1f}% of the step")
+    # (pe_mlp_fwd_kernel and hm_dw_kernel: the names of the mma.sync K4,
+    # for an older checkout in --turns)
+    k4 = sum(e.device_time for e in kernels
+             if re.search(r"(^|[\s:])(pm_\w*kernel|pe_mlp_fwd_kernel|hm_dw_kernel)", e.name))
+    print(f"[kernel] K4f + K4b (pm_*; K4b's chunk sum is in hm_reduce_kernel): "
+          f"{k4 / 1e3 / args.trace:.2f} ms/step device, {100 * k4 / 1e3 / device_ms:.1f}% of the step")
     k3 = sum(e.device_time for e in kernels if re.search(r"(^|[\s:])rm_\w*kernel", e.name))
     print(f"[kernel] K3f + K3b (rm_*; K3b's chunk sum past 1,024 rows is in hm_reduce_kernel): "
           f"{k3 / 1e3 / args.trace:.2f} ms/step device, "

@@ -771,6 +771,7 @@ def _anchor_cases():
 
     cases = [("heads", name, patches) for name, patches in {**PH.K1_COPIES, **PH.K2_COPIES}.items()]
     cases += [("k4f", name, patches) for name, patches in PK.K4F_COPIES.items()]
+    cases += [("k4b", name, patches) for name, patches in PK.K4B_COPIES.items()]
     cases += [("k3", name, patches) for name, patches in PK.K3_COPIES.items()]
     return cases
 
@@ -778,13 +779,14 @@ def _anchor_cases():
 @pytest.mark.parametrize("tool,copy,patches", _anchor_cases(), ids=lambda v: v if isinstance(v, str) else "")
 def test_profiler_anchors_found_once(tool, copy, patches):
     """Every anchor that profile_heads_phases (K1's anatomy copies) and
-    profile_k4b_phases (K4f's, K3f's and K3b's) replace occurs exactly once
+    profile_k4b_phases (K4f's, K4b's, K3f's and K3b's) replace occurs exactly once
     in the committed source it patches, so an edit that drops one fails
     here and not on the card."""
     from lab4d_tpu_torch.ops.build import CSRC_DIR
     from lab4d_tpu_torch.tools import profile_heads_phases as PH
 
-    main = {"heads": "nerf_heads.cu", "k4f": "fused_pe_mlp.cu", "k3": "fused_relu_mlp.cu"}[tool]
+    main = {"heads": "nerf_heads.cu", "k4f": "fused_pe_mlp.cu", "k4b": "fused_pe_mlp.cu",
+            "k3": "fused_relu_mlp.cu"}[tool]
     for fname, anchor, _ in patches:
         assert (CSRC_DIR / fname).read_text().count(anchor) == 1, (tool, copy, anchor[:60])
     texts = PH.patched_sources(CSRC_DIR, patches, main)

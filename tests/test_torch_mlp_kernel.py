@@ -651,8 +651,9 @@ def test_3xtf32_error_budget(field):
     entry. At the warps' dense map and post-warp (2,048 rows) the products
     follow the row engine's order instead (_mm_wgmma_3xtf32: in-core sums
     of 16-deep weight slabs and of 32-row G slabs for dW, cut toward zero,
-    then fp32). The ReLU masks are the fp64 run's, as a comparison outside
-    ReLU ties takes them."""
+    then fp32), and so do K4's (its wgmma engine: in-core sums of 32-deep
+    weight slabs; dW's 32-row G slabs as K3's). The ReLU masks are the fp64
+    run's, as a comparison outside ReLU ties takes them."""
     rng = np.random.default_rng(7)
     mm, mm_dw = _mm_3xtf32, None
     if field in K3_ROWS_WIDTHS:
@@ -666,6 +667,7 @@ def test_3xtf32_error_budget(field):
         n_freqs, widths, skips, final_act = K4_WIDTHS[field]
         rows, C = 1024, 3
         c_x = C * (2 * n_freqs + 1)
+        mm, mm_dw = _mm_wgmma_3xtf32(32), _mm_wgmma_3xtf32(32)
     weights, biases, prev = [], [], c_x
     for i, w in enumerate(widths):
         fan = prev + (c_x if i in skips else 0)
@@ -678,8 +680,14 @@ def test_3xtf32_error_budget(field):
     freqs = tuple(float(2.0**i) for i in range(n_freqs))
     ref = _kernel_dataflow(x.double(), g.double(), win.double(), [w.double() for w in weights],
                            [b.double() for b in biases], freqs, skips, final_act, torch.matmul)
-    got = _kernel_dataflow(x, g, win, weights, biases, freqs, skips, final_act, mm, mm_dw,
-                           masks=ref[4])
+    threads = torch.get_num_threads()
+    if field in K4_WIDTHS:  # many small products: one thread, beside other test processes
+        torch.set_num_threads(1)
+    try:
+        got = _kernel_dataflow(x, g, win, weights, biases, freqs, skips, final_act, mm, mm_dw,
+                               masks=ref[4])
+    finally:
+        torch.set_num_threads(threads)
     fwd = float((got[0].double() - ref[0]).abs().max())
     bwd = max(float((a.double() - r).abs().max()) / max(1.0, float(r.abs().max()))
               for a, r in zip([got[1]] + got[2] + got[3], [ref[1]] + ref[2] + ref[3]))
@@ -842,8 +850,8 @@ def test_k4_saved_layout(n_freqs, widths, skips, rows):
 
 
 def test_k4_plan_rejects_wide_layers():
-    """K4f / K4b take layers and embeddings of at most 128 columns (a warp
-    holds every output column of its rows); wider ones raise."""
+    """K4f / K4b take layers and embeddings of at most 128 columns (a
+    warpgroup holds every output column of its rows); wider ones raise."""
     with pytest.raises(ValueError, match="at most 128"):
         K.check_pe_widths(39, [256, 3])
     with pytest.raises(ValueError, match="at most 128"):
@@ -1137,8 +1145,13 @@ def test_cuda_k3_plan(rows, C_in, widths, skips, final_act):
     (70000, 8, (128,) * 3, (), True, True),  # colour field
     (70000, 10, (64, 64, 1), (), False, False),  # visibility field
     (512, 10, (64, 64, 1), (), False, False),  # visibility-decay points
+    (2048, 10, (128,) * 6, (4,), True, True),  # the category step's gauss-skin points
+    (262143, 6, (128,) * 6, (4,), True, True),  # base field, ragged: a partial tile and dW slab
     (3000, 6, (64, 64, 64, 64, 8), (2, 3), False, True),  # two skip layers: dX added to
-    (1000, 10, (128, 128, 8), (), True, True),  # K4f's 128-point tiles
+    (1000, 10, (128, 128, 8), (), True, True),  # a tail tile of 1,000 - 896 points
+    (77, 2, (30, 50, 3), (1,), False, True),  # widths that dW copies padded, 77 rows
+    (1, 1, (16, 4), (), True, False),  # one point
+    (300, 4, (48, 1), (), True, True),  # one output folded into the layer before, with its ReLU
 ])
 def test_cuda_k4_matches_plain(rows, n_freqs, widths, skips, final_act, window):
     """K4f against pe_mlp_forward_saved_reference (its output and its saved
@@ -1164,7 +1177,7 @@ def test_cuda_k4_matches_plain(rows, n_freqs, widths, skips, final_act, window):
     assert (K.fused_pe_mlp.launches, K.fused_pe_mlp_backward.launches) == (counts[0] + 1,
                                                                           counts[1] + 1)
     assert K.fused_pe_mlp.cuda_launches == 2
-    assert K.fused_pe_mlp_backward.cuda_launches == 2 * len(widths) + 4
+    assert K.fused_pe_mlp_backward.cuda_launches == 4
     _assert_close_rel(got[0], want[0])
     for a, b in zip(got[1] + got[2], want[1] + want[2]):
         _assert_close_rel(a, b)
@@ -1175,11 +1188,12 @@ def test_cuda_k4_matches_plain(rows, n_freqs, widths, skips, final_act, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,n_freqs,widths,skips", [
     (70000, 6, (128,) * 6, (4,)),  # base field, a ragged count
+    (262143, 6, (128,) * 6, (4,)),  # base field, a partial last dW slab
     (257, 10, (64, 64, 1), ()),  # visibility field, a tail tile
 ])
 def test_cuda_k4b_is_deterministic(rows, n_freqs, widths, skips):
-    """Two K4b calls on the same inputs give bitwise-equal gradients: its
-    split-K sums run in a fixed order, without float atomics."""
+    """Two K4b calls on the same inputs give bitwise-equal gradients: dW's
+    chunks are summed in chunk order, without float atomics."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     freqs = tuple(float(2.0**i) for i in range(n_freqs))
@@ -1197,29 +1211,39 @@ def test_cuda_k4b_is_deterministic(rows, n_freqs, widths, skips):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_freqs,widths,skips,rows,want", [
-    # (tile rows, tiles, chunks, points per chunk, K4b launches)
-    (*K4_PLAN_CASES[0], (256, 1024, 512, 512, 16)),
-    (*K4_PLAN_CASES[1], (256, 274, 438, 160, 16)),
-    (*K4_PLAN_CASES[2], (256, 2, 9, 32, 10)),
-    (10, (128, 8), (), 1024, (128, 8, 32, 32, 8)),  # a wide embedding: 128-point tiles
+    # (tile rows, tiles, dW blocks per chunk, K4b launches)
+    (*K4_PLAN_CASES[0], (128, 2048, 7, 4)),
+    (*K4_PLAN_CASES[1], (128, 547, 7, 4)),
+    (*K4_PLAN_CASES[2], (128, 3, 3, 4)),
+    (10, (128, 8), (), 1024, (128, 8, 2, 4)),
+    (6, (128,) * 6, (4,), 262143, (128, 2048, 7, 4)),  # ragged
 ])
 def test_cuda_k4_plan(n_freqs, widths, skips, rows, want):
     """K4f / K4b's launch plan, as csrc/fused_pe_mlp.cu makes it, fits the
-    card: K4f's tiles within sm_90's 227 KB of shared memory, K4b's chunks
-    (at most 512) whole 32-point slabs that cover the points, the saved
-    floats per point of pe_act_layout, the gradients' floats, K4b's scratch
-    at least its buffers, and 2 launches per layer plus 4 for K4b."""
+    card: the engine's 128-point tiles within sm_90's 227 KB of shared
+    memory; dW's chunks whole 32-point slabs that cover the points, about
+    eight waves of dW's blocks (128 inputs of a layer each) and at most
+    512; the saved floats per point of pe_act_layout, the gradients'
+    floats, K4b's scratch at least its buffers (the G image of every
+    layer, the embedding, the chunks' slices), and 4 launches for K4b."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the plan is the kernel library's")
     c_x = 3 * (2 * n_freqs + 1)
     in_dims = [c_x] + [w + (c_x if i + 1 in skips else 0) for i, w in enumerate(widths[:-1])]
     skip_mask = sum(1 << i for i in skips)
     plan = K.pe_mlp_plan(K._kernel_lib("fused_pe_mlp"), 3, n_freqs, in_dims, widths, rows, skip_mask)
-    assert (plan.tile_rows, plan.n_tiles, plan.n_chunks, plan.chunk_rows, plan.bwd_launches) == want
+    tile_rows, tiles, dw_blocks, launches = want
+    assert (plan.tile_rows, plan.n_tiles, plan.bwd_launches) == (tile_rows, tiles, launches)
+    assert dw_blocks == sum(-(-i // 128) for i in in_dims)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n = max(1, min(-(-rows // 32), -(-8 * n_sm // dw_blocks), 512))
+    assert plan.chunk_rows == -(-(-(-rows // n)) // 32) * 32
     assert plan.smem_bytes <= K.SMEM_PER_SM
     assert plan.chunk_rows % 32 == 0 and plan.n_chunks <= 512
     assert (plan.n_chunks - 1) * plan.chunk_rows < rows <= plan.n_chunks * plan.chunk_rows
     n_params = sum(o * (i + 1) for i, o in zip(in_dims, widths))
     assert plan.n_params == n_params and plan.act_floats == sum(widths[:-1])
-    w_t = sum(2 * i * -(-o // 32) * 32 for i, o in zip(in_dims, widths))
-    assert plan.scratch_floats >= w_t + 2 * rows * (max(widths) + c_x) + plan.n_chunks * n_params
+    wgmma_width = [next(n for n in (8, 16, 32, 64, 128) if n >= o) for o in widths]
+    rows_pad = tiles * tile_rows
+    assert plan.scratch_floats >= rows_pad * sum(wgmma_width) + rows_pad * -(-c_x // 4) * 4 + \
+        plan.n_chunks * n_params
