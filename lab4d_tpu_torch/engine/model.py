@@ -25,6 +25,7 @@ from lab4d_tpu_torch.nnutils.multifields import MultiFields
 from lab4d_tpu_torch.ops.renderer import render_pixel
 from lab4d_tpu_torch.parallel import dist
 from lab4d_tpu_torch.utils import jax_random as jr
+from lab4d_tpu_torch.utils import profile
 from lab4d_tpu_torch.utils.geom import K2inv, K2mat
 from lab4d_tpu_torch.utils.loss import nonzero_count, nonzero_mean
 
@@ -123,6 +124,7 @@ class DVRModel(nn.Module):
 
     # -------------------------------------------------------------- training
 
+    @profile.record_function("train.draws")
     def step_draws(self, batch, step: int, given=None):
         """The random draws of training step `step` on `batch` (this rank's
         block of the global batch inside sharded_batch()): the JAX

@@ -52,7 +52,7 @@ from lab4d_tpu_torch.nnutils.multifields import INIT_SCALE
 from lab4d_tpu_torch.nnutils.pose import camera_base_quat_init
 from lab4d_tpu_torch.parallel import dist
 from lab4d_tpu_torch.render import render_batch
-from lab4d_tpu_torch.utils import metrics
+from lab4d_tpu_torch.utils import metrics, profile
 from lab4d_tpu_torch.utils.geom import get_near_far
 from lab4d_tpu_torch.utils.quat import quaternion_translation_to_se3
 from lab4d_tpu_torch.utils.vis import img2color, make_image_grid
@@ -62,6 +62,9 @@ EXPLICIT_PARAM_NAMES = (
     "base_logfocal", "base_ppoint", "shift",
 )
 GRAD_NORM_MAX = 5.0
+# the round's spans and their labels in the per-round line
+ROUND_SPANS = (("round.eval", "eval"), ("round.geometry", "geo"), ("round.export", "export"),
+               ("round.train", "train"), ("round.checkpoint", "ckpt"))
 # per-video tables that a checkpoint of another video count seeds with the
 # mean of its rows (merge_params)
 PER_VIDEO_TABLES = dist.PER_VIDEO_PARAM_TOKENS
@@ -404,25 +407,27 @@ class Trainer:
         the global batch's terms) and the norm is that of the gradient
         summed over the ranks. The step's random draws derive from `step`
         (DVRModel.step_draws); `draws` replaces those it gives."""
-        with dist.sharded_batch():
+        with profile.span("train.forward"), dist.sharded_batch():
             loss_dict = self.model(batch, compute_sched(step), draws=draws, step=step)
-        total = sum(loss_dict[k] for k in sorted(loss_dict))
-        self.optimizer.zero_grad(set_to_none=True)
-        frozen = self.frozen_params
-        for p in frozen:
-            p.grad = None
-        total.backward()
-        for p in self.params + frozen:
-            if p.grad is None:  # untouched: a zero gradient, so weight decay still applies
-                p.grad = torch.zeros_like(p)
-        self.grad_bytes_reduced = dist.all_reduce_grads_(self.params + frozen)
-        gnorm = clip_with_norm(self.params + frozen)
-        lr = self.learning_rate(step - self.lr_step_offset)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr * group["lr_scale"]
-        self.optimizer.step()
-        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
-        loss_dict["total"] = total.detach()
+        with profile.span("train.backward"):
+            total = sum(loss_dict[k] for k in sorted(loss_dict))
+            self.optimizer.zero_grad(set_to_none=True)
+            frozen = self.frozen_params
+            for p in frozen:
+                p.grad = None
+            total.backward()
+        with profile.span("train.optimizer"):
+            for p in self.params + frozen:
+                if p.grad is None:  # untouched: a zero gradient, so weight decay still applies
+                    p.grad = torch.zeros_like(p)
+            self.grad_bytes_reduced = dist.all_reduce_grads_(self.params + frozen)
+            gnorm = clip_with_norm(self.params + frozen)
+            lr = self.learning_rate(step - self.lr_step_offset)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr * group["lr_scale"]
+            self.optimizer.step()
+            loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+            loss_dict["total"] = total.detach()
         return loss_dict, gnorm
 
     # ---------------------------------------------------------------- train
@@ -441,27 +446,34 @@ class Trainer:
             self.log.flush()
 
     def run_one_round(self, round_count):
-        times = {}
+        """The round's eval, geometry upkeep and export (rank 0), its
+        training steps and its checkpoint, each a span of the round's
+        record ("round.*"); prints their seconds. With --profile the steps
+        run under cuda_profile: <save_dir>/trace_round_<n>.json, one Chrome
+        trace per round of the host's spans and ops and the card's kernels."""
+        with profile.unit("round") as record:
+            if dist.is_main():
+                try:
+                    with profile.span("round.eval"):
+                        self.model_eval()
+                except Exception:  # a failed eval must not end the training run
+                    print("[warn] eval failed:\n" + traceback.format_exc(), flush=True)
+            with profile.span("round.geometry"):
+                self.update_geometry_aux()
+            if dist.is_main():
+                with profile.span("round.export"):
+                    self.export_geometry_aux("%s/%03d" % (self.save_dir, round_count))
+            with profile.span("round.train"), profile.cuda_profile(
+                    self.save_dir, f"round_{round_count:03d}",
+                    enabled=bool(self.opts.get("profile")) and dist.is_main()):
+                self.train_one_round(round_count)
+            self.current_round += 1
+            with profile.span("round.checkpoint"):
+                self.save_checkpoint(round_count=self.current_round)
+        print("  " + " ".join(f"{label}={record[name]:.1f}s" for name, label in ROUND_SPANS
+                              if name in record), flush=True)
 
-        def timed(name, fn):
-            t0 = time.time()
-            fn()
-            times[name] = time.time() - t0
-
-        if dist.is_main():
-            try:
-                timed("eval", self.model_eval)
-            except Exception:  # a failed eval must not end the training run
-                print("[warn] eval failed:\n" + traceback.format_exc(), flush=True)
-        timed("geo", self.update_geometry_aux)
-        if dist.is_main():
-            timed("export", lambda: self.export_geometry_aux(
-                "%s/%03d" % (self.save_dir, round_count)))
-        timed("train", lambda: self.train_one_round(round_count))
-        self.current_round += 1
-        timed("ckpt", lambda: self.save_checkpoint(round_count=self.current_round))
-        print("  " + " ".join(f"{k}={v:.1f}s" for k, v in times.items()), flush=True)
-
+    @profile.record_function("train.to_device")
     def batch_to_device(self, batch_np):
         """A host batch on the device; over ranks, this rank's block of the
         global batch."""
@@ -475,7 +487,10 @@ class Trainer:
         every 10 steps in one transfer (over ranks, the losses summed over
         the ranks in one collective); a spike triggers the rollback then.
         On the card each step's time is kept (CUDA events) in step_ms. Over
-        ranks the round ends with check_in_sync."""
+        ranks the round ends with check_in_sync. Each step is a "step"
+        record of its spans (utils/profile.py), from the start of its
+        batch's fetch to the next step's; the round's last closes after
+        the round-end readback."""
         geo = self.geo_for_batch()
         pending = []
         timing = self.device.type == "cuda"
@@ -497,25 +512,32 @@ class Trainer:
                     self.log.scalars(dict(sorted({**record, "grad_norm": gn}.items())), step)
             pending.clear()
 
-        for _ in range(self.opts["iters_per_round"]):
-            batch = self.batch_to_device(self.trainloader.next_batch())
-            batch["geo"] = geo
-            if timing:
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-            loss_dict, gnorm = self.train_step(batch, self.current_steps)
-            if timing:
-                end.record()
-                events.append((start, end))
-            pending.append((self.current_steps, gnorm, loss_dict))
-            if len(pending) >= 10:
+        try:
+            for _ in range(self.opts["iters_per_round"]):
+                profile.begin_unit("step")
+                batch = self.batch_to_device(self.trainloader.next_batch())
+                batch["geo"] = geo
+                if timing:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                loss_dict, gnorm = self.train_step(batch, self.current_steps)
+                if timing:
+                    end.record()
+                    events.append((start, end))
+                pending.append((self.current_steps, gnorm, loss_dict))
+                if len(pending) >= 10:
+                    with profile.span("train.readback"):
+                        drain()
+                self.current_steps += 1
+            with profile.span("train.readback"):
                 drain()
-            self.current_steps += 1
-        drain()
-        if timing:
-            torch.cuda.synchronize(self.device)
-            self.step_ms += [s.elapsed_time(e) for s, e in events]
-        self.check_in_sync()
+                if timing:
+                    torch.cuda.synchronize(self.device)
+                    self.step_ms += [s.elapsed_time(e) for s, e in events]
+                self.check_in_sync()
+        finally:
+            profile.end_unit("step")
 
     def close(self):
         """Stop the loader threads and close the metrics log."""

@@ -19,7 +19,6 @@ through `render` with its own batch.
 from __future__ import annotations
 
 import argparse
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -31,6 +30,7 @@ from lab4d_tpu_torch.engine.model import DVRModel
 from lab4d_tpu_torch.flagfile import (add_config_flags, add_flagfile_option, parse_opts,
                                       validate_opts)
 from lab4d_tpu_torch.utils import cam_traj as C
+from lab4d_tpu_torch.utils import profile
 from lab4d_tpu_torch.utils.geom import K2inv, K2mat, mat2K
 from lab4d_tpu_torch.utils.io import make_save_dir, save_rendered
 
@@ -204,7 +204,9 @@ def render_batch(model: DVRModel, batch, geo_state, chunk: Optional[int] = None,
     call (None: the eval mode's DEFAULT_CHUNK or TOPK_CHUNK); topk and
     channels: evaluate_rays'. Returns {channel: (frames, res, res, C)
     float32 numpy}; every non-mask channel is already mask-blended by
-    evaluate_rays."""
+    evaluate_rays. Each frame is a "frame" record (utils/profile.py) of its
+    spans: render.prepare, render.evaluate (its evaluate_rays calls) and
+    render.readback (the channels' concatenation and copy to the host)."""
     if chunk is None:
         chunk = TOPK_CHUNK if topk is not None else DEFAULT_CHUNK
     device = batch["hxy"].device
@@ -217,29 +219,35 @@ def render_batch(model: DVRModel, batch, geo_state, chunk: Optional[int] = None,
     }
     n_frames = len(batch["frameid_sub"])
     frames: Dict[str, list] = {}
-    start = time.time()
+    records = []
     with torch.no_grad():
         for i in range(n_frames):
-            sub = {
-                k: ({k2: v2[i : i + 1] for k2, v2 in v.items()} if isinstance(v, dict)
-                    else v[i : i + 1])
-                for k, v in batch.items()
-            }
-            sub["geo"] = geo
-            samples = model.prepare_eval_samples(sub)
-            hxy = sub["hxy"]
-            npix = hxy.shape[1]
-            outs: Dict[str, list] = {}
-            for s in range(0, npix, chunk):
-                samples_c = {c: {**samples[c], "hxy": hxy[:, s : s + chunk]} for c in samples}
-                for k, v in model.evaluate_rays(samples_c, topk=topk, channels=channels).items():
-                    if v.ndim >= 3:  # (1, rays, C) image channels
-                        outs.setdefault(k, []).append(v[0])
-            res = int(round(np.sqrt(npix)))
-            for k, v in outs.items():
-                img = torch.cat(v, dim=0).reshape(res, res, -1)
-                frames.setdefault(k, []).append(img.float().cpu().numpy())
-    print("rendering time: %.3f s (%d frames)" % (time.time() - start, n_frames))
+            with profile.unit("frame") as record:
+                sub = {
+                    k: ({k2: v2[i : i + 1] for k2, v2 in v.items()} if isinstance(v, dict)
+                        else v[i : i + 1])
+                    for k, v in batch.items()
+                }
+                sub["geo"] = geo
+                with profile.span("render.prepare"):
+                    samples = model.prepare_eval_samples(sub)
+                hxy = sub["hxy"]
+                npix = hxy.shape[1]
+                outs: Dict[str, list] = {}
+                for s in range(0, npix, chunk):
+                    samples_c = {c: {**samples[c], "hxy": hxy[:, s : s + chunk]} for c in samples}
+                    with profile.span("render.evaluate"):
+                        out = model.evaluate_rays(samples_c, topk=topk, channels=channels)
+                    for k, v in out.items():
+                        if v.ndim >= 3:  # (1, rays, C) image channels
+                            outs.setdefault(k, []).append(v[0])
+                res = int(round(np.sqrt(npix)))
+                with profile.span("render.readback"):
+                    for k, v in outs.items():
+                        img = torch.cat(v, dim=0).reshape(res, res, -1)
+                        frames.setdefault(k, []).append(img.float().cpu().numpy())
+            records.append(record)
+    print("rendering time: %.3f s (%d frames)" % (sum(sum(r.values()) for r in records), n_frames))
     return {k: np.stack(v) for k, v in frames.items()}
 
 

@@ -28,8 +28,9 @@ that checkpoint (a transfer, or the same model resumed). Then:
    prints, per op, the device time of the kernels it launched itself and
    their share of the summed kernel time, the kernels K1/K2/K3f/K3b/K4f/K4b
    by name (K1 and K2 by each of their kernels) and K3's share of the
-   step (its rm_* kernels), then that sum, the steps' wall time, the
-   device's idle share and the peak device memory of the steps.
+   step (its rm_* kernels), then that sum, the steps' wall time and the
+   peak device memory of the steps. The device's idle share is the
+   benchmark's (idle_share.train: the union of busy intervals).
 
 `--out` also writes the profiler's full table to FILE.
 
@@ -294,8 +295,8 @@ def _measure(args, card, trainer, batches, opts):
     what = opts["field_type"] + ("" if opts["field_type"] == "bg" else f" / {opts['fg_motion']}")
     if not opts["single_inst"]:
         what += f", {trainer.model.fields.field_params['fg'].num_inst} instance codes"
-    print(f"[trace] {what}, {args.trace} steps: device time {device_ms:.2f} ms of {traced:.2f} ms "
-          f"wall (traced), idle share {1 - device_ms / traced:.3f}")
+    print(f"[trace] {what}, {args.trace} steps: summed kernel time {device_ms:.2f} ms, "
+          f"{traced:.2f} ms wall (traced)")
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
     ops.sort(key=lambda e: -e.self_device_time_total)

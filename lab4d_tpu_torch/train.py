@@ -38,8 +38,14 @@ video. --load_path starts from a checkpoint of either package (transfer,
 or with --noreset_steps a resumed run). opts.log is written in the JAX
 package's format (flagfile.py), and `--flagfile` reads one; boolean flags
 take absl's `--noname` as well as `--no-name`. The flags are checked at
-startup as lab4d_tpu/config.py checks them (config_hier.validate), and
-`--profile` cuts a round to 10 iterations.
+startup as lab4d_tpu/config.py checks them (config_hier.validate).
+
+`--profile` cuts a round to 10 iterations and traces each round's steps
+with torch.profiler: `<logroot>/<seqname>-<logname>/trace_round_<n>.json`,
+a Chrome trace (chrome://tracing, Perfetto) in which the step's spans
+(train.to_device, train.forward, train.draws, train.backward,
+train.optimizer, train.readback; utils/profile.py) and the card's kernels
+share one clock.
 """
 
 from __future__ import annotations
@@ -116,7 +122,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--geo_init_steps", type=int, default=500,
                    help="SDF-distillation steps for geometry init")
     p.add_argument("--profile", action=argparse.BooleanOptionalAction, default=False,
-                   help="profile the training loop (10 iterations per round)")
+                   help="10 iterations per round, each round's steps traced to "
+                        "trace_round_<n>.json in the run's directory (Chrome trace of the "
+                        "spans, host ops and kernels)")
     p.add_argument("--database_root", default="database",
                    help="root of preprocessed dataset + configs")
     p.add_argument("--device", default="cuda",

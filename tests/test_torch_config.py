@@ -10,7 +10,8 @@ lab4d_tpu/config_hier.py's, and the CLIs that call it.
 - `python -m lab4d_tpu_torch.train --imgs_per_gpu 0 --device cpu` fails
   before it writes anything; render, export and reanimate refuse a bad
   warp before they read a checkpoint;
-- `--profile` cuts a round to 10 iterations, and the round's
+- `--profile` cuts a round to 10 iterations and writes one Chrome trace
+  per round, which holds the step's spans, and the round's
   metrics.jsonl step records are the JAX trainer's: the loss dict with
   "total" and "grad_norm", keys sorted, every 10th step.
 """
@@ -155,3 +156,12 @@ def test_metrics_step_records_are_jax_trainers(profile_run):
         assert list(r)[0] == "step"
     evals = [r for r in records if "eval/psnr" in r]
     assert [r["step"] for r in evals] == [0, 1]
+
+
+def test_profile_writes_a_trace_per_round(profile_run):
+    _, run_dir = profile_run
+    for n in range(2):
+        trace = json.loads((run_dir / f"trace_round_{n:03d}.json").read_text())
+        names = [e.get("name") for e in trace["traceEvents"]]
+        assert names.count("train.forward") == 10
+        assert {"train.backward", "train.optimizer", "train.draws"} <= set(names)

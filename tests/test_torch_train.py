@@ -367,3 +367,45 @@ def test_synthetic_scene_writer_matches_tests_synthetic(tmp_path):
             want = (tmp_path / "jax" / f).read_text().replace(str(tmp_path / "jax"), "<root>")
             got = (tmp_path / "port" / f).read_text().replace(str(tmp_path / "port"), "<root>")
             assert got == want, f
+
+
+TRAIN_SPANS = {"train.to_device", "train.forward", "train.draws", "train.backward",
+               "train.optimizer", "train.readback"}
+
+
+def test_each_step_leaves_one_record(cli_run, monkeypatch):
+    """A round of 12 steps on the CLI's trainer: 12 "step" records
+    (utils/profile.py), each with the step's spans; train.readback in the
+    10th (the drain) and the round's last (the round-end readback) alone."""
+    from lab4d_tpu_torch.utils import profile
+
+    trainer, _ = cli_run
+    monkeypatch.setattr(trainer, "log", T.NullLogger())  # the CLI closed its log
+    iters = trainer.opts["iters_per_round"]
+    trainer.opts["iters_per_round"] = 12
+    try:
+        trainer.train_one_round(trainer.current_round)
+    finally:
+        trainer.opts["iters_per_round"] = iters
+        trainer.trainloader.stop()
+    records = profile.records("step", 12)
+    assert len(records) == 12
+    for i, record in enumerate(records):
+        want = TRAIN_SPANS if i in (9, 11) else TRAIN_SPANS - {"train.readback"}
+        assert set(record) == want, i
+        assert all(v > 0 for v in record.values())
+        assert record["train.draws"] < record["train.forward"]  # nested in it
+
+
+def test_render_batch_leaves_a_record_per_frame(cli_run):
+    from lab4d_tpu_torch.utils import profile
+
+    trainer, _ = cli_run
+    before = len(profile.records("frame"))
+    rendered, _ = trainer.render_frames(trainer.eval_fid[:2])
+    assert rendered["rgb"].shape[0] == 2
+    records = profile.records("frame")
+    assert len(records) == min(before + 2, profile.RING)
+    for record in records[-2:]:
+        assert set(record) == {"render.prepare", "render.evaluate", "render.readback"}
+        assert all(v > 0 for v in record.values())

@@ -258,6 +258,8 @@ DELIBERATE = {
     # optax, jnp, flax and Pallas-layout plumbing whose results the port
     # computes by other means
     "ClipState", "interp_wt_jnp", "torch_linear_init", "fourier_embed_blocks",
+    # spans are placed by hand; nothing called them
+    "annotate", "record_class", "decorate_module",
 }
 # counterparts under other names (tested by the preprocessing tests)
 RENAMED = {"load_params": "load_model", "frame_features_net": "frames_features_net",
